@@ -3,217 +3,27 @@
 //
 // Replaces the decode regime of eetq_tpu/kernels/w8a16.py::
 // w8a16_matmul_kernel_call. Bound by the int8 weight bytes (2m FLOPs per
-// byte). One block owns a 32-column strip of the row-major [Kp, Np] weight
-// and loops over all of K itself: in each warp two lanes sit side by side
-// along N (16 columns each, one 16-byte load per row) and 16 lanes take 16
-// consecutive K rows, the 8 warps 128 rows per sweep. Loads come in
-// batches of four sweeps, software-pipelined: the next batch is in flight
-// while one is multiplied, and the first while y is staged in dynamic
-// shared memory (as [Kp][m]
-// bf16). The f32 partial sums are reduce-scattered over the 16 K lanes with
-// shuffles, summed over the warps in shared memory, and the per-channel
-// scale is applied once to the total.
-#include "common.cuh"
-
-namespace {
-
-using eetq::bf16;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kColsPerLane = 16;
-constexpr int kLanesN = 2;
-constexpr int kRowsPerWarp = 32 / kLanesN;
-constexpr int kBlockN = kLanesN * kColsPerLane;  // 32 columns per block
-constexpr int kSweep = kWarps * kRowsPerWarp;    // 128 K rows per sweep
-constexpr int kUnroll = 4;
-static_assert(kLanesN == 2, "the butterfly below reduces over lane bits 1..4");
-
-// Reduce-scatter step: lanes `offset` apart swap halves of v[0, 2H); the
-// upper lane keeps the sum of the upper halves, the lower lane the lower.
-template <int H>
-__device__ __forceinline__ void butterfly(float* v, int lane, int offset) {
-  const bool upper = lane & offset;
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    const float send = upper ? v[j] : v[j + H];
-    const float recv = __shfl_xor_sync(0xffffffffu, send, offset);
-    v[j] = (upper ? v[j + H] : v[j]) + recv;
-  }
-}
-
-template <int M>
-__global__ void __launch_bounds__(kThreads) w8a16_gemv_kernel(
-    const bf16* __restrict__ x, int k, const int8_t* __restrict__ w, int kp, int np,
-    const float* __restrict__ scales, const float* __restrict__ bias,
-    const float* __restrict__ gamma, float eps, bf16* __restrict__ out, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);  // [kp][M]
-  __shared__ float red[kWarps][M][kBlockN];
-  __shared__ float part[kWarps][M];
-  __shared__ float inv_rms[M];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nl = lane % kLanesN, kr = lane / kLanesN;
-  const int8_t* wcol = w + (size_t)blockIdx.x * kBlockN + nl * kColsPerLane;
-  // Rows k0, k0 + kSweep, ... of this lane; the first batch of weight
-  // loads is in flight while y is staged, and each later batch while the
-  // one before it is multiplied.
-  int k0 = warp * kRowsPerWarp + kr;
-  int4 cur[kUnroll], nxt[kUnroll];
-  auto load = [&](int4* dst, int base) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int kk = base + u * kSweep;
-      dst[u] = kk < kp ? __ldg(reinterpret_cast<const int4*>(wcol + (size_t)kk * np))
-                       : make_int4(0, 0, 0, 0);
-    }
-  };
-  load(cur, k0);
-
-  // Prologue: 1/rms of each row (k % 8 == 0: whole 16-byte vectors).
-  if (gamma != nullptr) {
-    float ss[M];
-#pragma unroll
-    for (int m = 0; m < M; ++m) ss[m] = 0.f;
-    for (int c = tid * 8; c < k; c += kThreads * 8) {
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        float f[8];
-        eetq::bf16x8_to_float(*reinterpret_cast<const int4*>(x + (size_t)m * k + c), f);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) ss[m] = fmaf(f[i], f[i], ss[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      ss[m] = eetq::warp_sum(ss[m]);
-      if (lane == 0) part[warp][m] = ss[m];
-    }
-    __syncthreads();
-    if (tid < M) {
-      float s = 0.f;
-      for (int i = 0; i < kWarps; ++i) s += part[i][tid];
-      inv_rms[tid] = rsqrtf(s / k + eps);
-    }
-    __syncthreads();
-  }
-  // Stage y as bf16 [kp][M]; rows k..kp are zero.
-  for (int c = tid * 8; c < kp; c += kThreads * 8) {
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (c < k) {
-        eetq::bf16x8_to_float(*reinterpret_cast<const int4*>(x + (size_t)m * k + c), f);
-        if (gamma != nullptr) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) f[i] = f[i] * inv_rms[m] * gamma[c + i];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ys[(c + i) * M + m] = __float2bfloat16(f[i]);
-    }
-  }
-  __syncthreads();
-
-  float acc[M][kColsPerLane];
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[m][j] = 0.f;
-
-  for (; k0 < kp; k0 += kSweep * kUnroll) {
-    load(nxt, k0 + kSweep * kUnroll);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int kk = k0 + u * kSweep;
-      if (kk < kp) {
-        float yv[M];
-#pragma unroll
-        for (int m = 0; m < M; ++m) yv[m] = __bfloat162float(ys[kk * M + m]);
-        float wf[kColsPerLane];
-        eetq::int8x4_to_float(static_cast<uint32_t>(cur[u].x), wf);
-        eetq::int8x4_to_float(static_cast<uint32_t>(cur[u].y), wf + 4);
-        eetq::int8x4_to_float(static_cast<uint32_t>(cur[u].z), wf + 8);
-        eetq::int8x4_to_float(static_cast<uint32_t>(cur[u].w), wf + 12);
-#pragma unroll
-        for (int m = 0; m < M; ++m)
-#pragma unroll
-          for (int j = 0; j < kColsPerLane; ++j) acc[m][j] = fmaf(yv[m], wf[j], acc[m][j]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
-  }
-
-  // Reduce over the 16 K lanes (lane bits 1..4): afterwards each lane holds
-  // the warp's sum for one of its 16 columns.
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    butterfly<8>(acc[m], lane, 2);
-    butterfly<4>(acc[m], lane, 4);
-    butterfly<2>(acc[m], lane, 8);
-    butterfly<1>(acc[m], lane, 16);
-  }
-  const int col = nl * kColsPerLane + ((lane >> 1) & 1) * 8 + ((lane >> 2) & 1) * 4 +
-                  ((lane >> 3) & 1) * 2 + ((lane >> 4) & 1);
-#pragma unroll
-  for (int m = 0; m < M; ++m) red[warp][m][col] = acc[m][0];
-  __syncthreads();
-  if (tid < M * kBlockN) {
-    const int m = tid / kBlockN, c = tid % kBlockN;
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) s += red[i][m][c];
-    const int nn = blockIdx.x * kBlockN + c;
-    if (nn < n) {
-      float r = s * scales[nn];
-      if (bias != nullptr) r += bias[nn];
-      out[(size_t)m * n + nn] = __float2bfloat16(r);
-    }
-  }
-}
-
-template <int M>
-cudaError_t launch(const bf16* x, int k, const int8_t* w, int kp, int np, const float* scales,
-                   const float* bias, const float* gamma, float eps, bf16* out, int n,
-                   cudaStream_t stream) {
-  const size_t smem = (size_t)M * kp * sizeof(bf16);
-  static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        w8a16_gemv_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    opted_in = smem;
-  }
-  w8a16_gemv_kernel<M><<<np / kBlockN, kThreads, smem, stream>>>(x, k, w, kp, np, scales, bias,
-                                                                   gamma, eps, out, n);
-  return cudaGetLastError();
-}
-
-}  // namespace
+// byte); the design (one block per 32-column strip looping over all of K,
+// software-pipelined 16-byte loads, a shuffle reduce-scatter) is the shared
+// GEMV of gemv.cuh, with its plain epilogue.
+#include "gemv.cuh"
 
 // x [m, k] bf16 contiguous (k % 8 == 0); w int8 [kp, np] (kp, np % 128 == 0);
 // scales f32 [n]; bias f32 [n] or null; gamma f32 [k] or null; out bf16 [m, n].
 extern "C" int eetq_w8a16_gemv(const void* x, int m, int k, const void* w, int kp, int np,
                                const void* scales, const void* bias, const void* gamma,
                                float eps, void* out, int n, void* stream) {
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* wb = static_cast<const int8_t*>(w);
-  const auto* sc = static_cast<const float*>(scales);
-  const auto* bi = static_cast<const float*>(bias);
-  const auto* ga = static_cast<const float*>(gamma);
-  auto* ob = static_cast<bf16*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (m) {
-    case 1: return launch<1>(xb, k, wb, kp, np, sc, bi, ga, eps, ob, n, st);
-    case 2: return launch<2>(xb, k, wb, kp, np, sc, bi, ga, eps, ob, n, st);
-    case 3: return launch<3>(xb, k, wb, kp, np, sc, bi, ga, eps, ob, n, st);
-    case 4: return launch<4>(xb, k, wb, kp, np, sc, bi, ga, eps, ob, n, st);
-    case 5: return launch<5>(xb, k, wb, kp, np, sc, bi, ga, eps, ob, n, st);
-    case 6: return launch<6>(xb, k, wb, kp, np, sc, bi, ga, eps, ob, n, st);
-    case 7: return launch<7>(xb, k, wb, kp, np, sc, bi, ga, eps, ob, n, st);
-    case 8: return launch<8>(xb, k, wb, kp, np, sc, bi, ga, eps, ob, n, st);
-    default: return cudaErrorInvalidValue;
-  }
+  eetq::gemv::Args a{};
+  a.x = static_cast<const eetq::bf16*>(x);
+  a.k = k;
+  a.w = static_cast<const int8_t*>(w);
+  a.kp = kp;
+  a.np = np;
+  a.scales = static_cast<const float*>(scales);
+  a.bias = static_cast<const float*>(bias);
+  a.gamma = static_cast<const float*>(gamma);
+  a.eps = eps;
+  a.out = static_cast<eetq::bf16*>(out);
+  a.n = n;
+  return eetq::gemv::launch_m<false>(m, a, static_cast<cudaStream_t>(stream));
 }

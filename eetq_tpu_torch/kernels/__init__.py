@@ -6,7 +6,9 @@ attribute counts kernel launches.
 """
 
 from eetq_tpu_torch.kernels.flash_attention import flash_attention
-from eetq_tpu_torch.kernels.flash_decode import flash_decode
+from eetq_tpu_torch.kernels.flash_decode import flash_decode, flash_decode_int8
+from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv
+from eetq_tpu_torch.kernels.w8a8 import w8a8_gemm
 from eetq_tpu_torch.kernels.w8a16 import w8a16_gemm, w8a16_gemv
 
 KERNELS = {
@@ -14,6 +16,9 @@ KERNELS = {
     "w8a16_gemm": w8a16_gemm,
     "flash_attention_fwd": flash_attention,
     "flash_decode": flash_decode,
+    "w8a8_gemm": w8a8_gemm,
+    "fused_mlp_gemv": fused_mlp_gemv,
+    "flash_decode_int8": flash_decode_int8,
 }
 
 

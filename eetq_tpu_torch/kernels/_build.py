@@ -24,13 +24,15 @@ from pathlib import Path
 
 import torch
 
+from eetq_tpu_torch.kernels.autotune import compile_defines
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libeetq_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v", *compile_defines(),
 )
 
 _P = ctypes.c_void_p
@@ -54,6 +56,18 @@ SIGNATURES = {
     # split_len, scale, stream
     "eetq_flash_decode": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # q, k, v, k_scale, v_scale, lengths, out, part_o, part_ml, b, hq, hkv,
+    # l, d, splits, split_len, scale, stream
+    "eetq_flash_decode_int8": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # xq, m, kp, w, np, sx, sw, bias, out, n, stream
+    "eetq_w8a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P),
+    # x, m, k, gamma, eps, gu, kp, i, gu_scales, d, np, d_scales, residual,
+    # h, out, n, act, stream
+    "eetq_fused_mlp_gemv": (
+        _P, _I, _I, _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
     ),
 }
 

@@ -1,10 +1,11 @@
 """Launch configuration of the Hopper kernels.
 
-Port of the part of `eetq_tpu/kernels/autotune.py` the generate path needs:
-the decode/prefill threshold and one fixed launch shape per regime. The
-tile shapes themselves are compile-time constants of the CUDA sources
-(`csrc/*.cu`); what is chosen per call lives here. The measured sweep and
-its persistent cache are not ported yet.
+Port of the part of `eetq_tpu/kernels/autotune.py` the ported paths need:
+the decode/prefill threshold and one fixed launch shape per regime. Most
+tile shapes are compile-time constants of the CUDA sources (`csrc/*.cu`);
+the W8A8 tile and the fused-MLP slice width are defined here and compiled
+in through `-D` flags (`kernels/_build.py`). What is chosen per call lives
+here too. The measured sweep and its persistent cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +17,14 @@ import torch
 # every m in 1..MAX_DECODE_M.
 MAX_DECODE_M = 8
 
+# W8A8 GEMM tile: output rows, output columns, K bytes per pipeline step
+# (`csrc/w8a8_gemm.cu`; its 256 threads' load mapping asserts this shape).
+W8A8_TILE = (128, 128, 64)
+
+# Fused MLP: intermediate columns per gate/up block, the GEMV's 32-column
+# strip (`csrc/gemv.cuh`), taken once over the gate and once over the up half.
+FUSED_MLP_SLICE = 32
+
 # Dynamic shared memory a block may use on Hopper (232,448 bytes); the GEMV
 # kernel holds all of x in it.
 MAX_SMEM_BYTES = 232_448
@@ -23,6 +32,13 @@ MAX_SMEM_BYTES = 232_448
 # Flash-decode: one key range ("split") per block. Enough splits that the
 # grid covers every SM at least twice, and no split shorter than this.
 DECODE_MIN_SPLIT_LEN = 64
+
+
+def compile_defines() -> tuple[str, ...]:
+    """The constants above as nvcc `-D` flags."""
+    bm, bn, bk = W8A8_TILE
+    return (f"-DEETQ_W8A8_BM={bm}", f"-DEETQ_W8A8_BN={bn}", f"-DEETQ_W8A8_BK={bk}",
+            f"-DEETQ_FUSED_MLP_SLICE={FUSED_MLP_SLICE}")
 
 
 def gemv_smem_bytes(m: int, kp: int) -> int:

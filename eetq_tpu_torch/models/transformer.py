@@ -4,29 +4,28 @@ Port of `eetq_tpu/models/transformer.py` for the dense MLP: parameters are
 `nn.Module`s, qkv and gate/up are fused linears split after the matmul
 (`transformer.py:127,193`), the embedding is cast to bf16 (:230), silu runs
 in f32 with its product cast to bf16 (:197), and logits come out in f32
-(:262). MoE, ALiBi, LoRA, tensor parallelism and the verify step raise
-NotImplementedError.
+(:262). `a8` routes the projections through the W8A8 path (prefill), and
+`fused_mlp` runs a decode-regime MLP block as the fused kernel (:172-189);
+`fused_mlp=None` reads EETQ_FUSED_MLP as the JAX package does. MoE, ALiBi,
+LoRA, tensor parallelism and the verify step raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from eetq_tpu_torch.kernels.mlp_fused import ACTIVATIONS
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.modules.attention import KVCache, attention, init_kv_cache
 from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear, linear_apply
+from eetq_tpu_torch.ops.mlp import can_fuse_mlp, fused_mlp as fused_mlp_op
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 from eetq_tpu_torch.ops.rope import make_cos_sin_cache, rope
 
 Linear = QuantLinear | DenseLinear
-
-_ACTIVATIONS = {
-    "silu": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
-    "relu": F.relu,
-}
 
 
 class LayerParams(nn.Module):
@@ -59,6 +58,10 @@ def _gamma(gamma: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return gamma + 1.0 if cfg.rmsnorm_unit_offset else gamma  # gemma stores gamma - 1
 
 
+def _fused_mlp_enabled() -> bool:
+    return os.environ.get("EETQ_FUSED_MLP", "0") == "1"
+
+
 def decoder_layer(
     p: LayerParams,
     cfg: ModelConfig,
@@ -68,31 +71,44 @@ def decoder_layer(
     cache: KVCache | None,
     offset,
     use_kernels: bool = True,
+    a8: bool = False,
+    fused_mlp: bool | None = None,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """One decoder layer on x [B, S, H]. The RMSNorms before qkv and gate/up
     are handed to the linear as a prenorm (fused into the GEMV kernel in the
-    decode regime)."""
+    decode regime). a8 routes every projection through W8A8; fused_mlp runs
+    the MLP block as one fused dispatch where `can_fuse_mlp` allows (never
+    under a8, as in the JAX package)."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     residual = x
     qkv = linear_apply(p.qkv, x, prenorm=(_gamma(p.input_norm, cfg), cfg.rms_eps),
-                       use_kernel=use_kernels)
+                       use_kernel=use_kernels, a8=a8)
     q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
     q = rope(q.reshape(b, s, hq, d), positions, cos_sin, interleaved=cfg.rope_interleaved)
     k = rope(k.reshape(b, s, hkv, d), positions, cos_sin, interleaved=cfg.rope_interleaved)
     v = v.reshape(b, s, hkv, d)
     attn, cache = attention(q, k, v, cache, offset, window=cfg.sliding_window,
                             use_kernels=use_kernels)
-    o = linear_apply(p.o_proj, attn.reshape(b, s, hq * d), use_kernel=use_kernels)
+    o = linear_apply(p.o_proj, attn.reshape(b, s, hq * d), use_kernel=use_kernels, a8=a8)
     x = residual + o
 
     residual = x
-    gateup = linear_apply(p.gateup, x, prenorm=(_gamma(p.post_norm, cfg), cfg.rms_eps),
-                          use_kernel=use_kernels)
+    gamma2 = _gamma(p.post_norm, cfg)
+    if fused_mlp is None:
+        fused_mlp = _fused_mlp_enabled()
+    if not a8 and fused_mlp and can_fuse_mlp(p.gateup, p.down, b * s):
+        # the kernel adds the residual, so its output is the layer's
+        out = fused_mlp_op(p.gateup, p.down, x, gamma2, cfg.rms_eps,
+                           activation=cfg.activation, residual=residual,
+                           use_kernel=use_kernels)
+        return out, cache
+    gateup = linear_apply(p.gateup, x, prenorm=(gamma2, cfg.rms_eps),
+                          use_kernel=use_kernels, a8=a8)
     gate, up = torch.chunk(gateup, 2, dim=-1)
-    h_mlp = (_ACTIVATIONS[cfg.activation](gate.float()) * up.float()).to(x.dtype)
-    down = linear_apply(p.down, h_mlp, use_kernel=use_kernels)
+    h_mlp = (ACTIVATIONS[cfg.activation](gate.float()) * up.float()).to(x.dtype)
+    down = linear_apply(p.down, h_mlp, use_kernel=use_kernels, a8=a8)
     return residual + down, cache
 
 
@@ -105,10 +121,16 @@ def forward_inner(
     offset,
     use_kernels: bool = True,
     last_only: bool = False,
+    a8: bool = False,
+    fused_mlp: bool | None = None,
+    last_pos: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, list[KVCache] | None]:
     """Logits [B, S, V] f32 (or [B, 1, V] with last_only, which runs the
-    lm_head on the last position only) and the caches, updated in place.
-    use_kernels=False runs every op's plain version."""
+    lm_head on the last position only, or with last_pos [B], each row's
+    own position of a right-padded prefill bucket) and the caches, updated
+    in place. use_kernels=False runs every op's plain version; a8 and
+    fused_mlp as in `decoder_layer`. The lm_head never takes a8 (as in the
+    JAX package)."""
     _check_supported(cfg)
     x = params.embed[tokens].to(torch.bfloat16)
     if cfg.embedding_multiplier is not None:
@@ -118,10 +140,12 @@ def forward_inner(
     for i, layer in enumerate(params.layers):
         cache_i = caches[i] if caches is not None else None
         x, _ = decoder_layer(layer, cfg, x, positions, cos_sin, cache_i, offset,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, a8=a8, fused_mlp=fused_mlp)
 
     if last_only:
         x = x[:, -1:, :]
+    elif last_pos is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), last_pos.to(x.device)][:, None]
     x = rmsnorm(x, _gamma(params.final_norm, cfg), eps=cfg.rms_eps)
     if params.lm_head is not None:
         logits = linear_apply(params.lm_head, x, use_kernel=use_kernels)
@@ -135,9 +159,14 @@ forward = forward_inner
 
 
 def init_caches(
-    cfg: ModelConfig, batch: int, max_len: int, device: torch.device | str | None = None
+    cfg: ModelConfig,
+    batch: int,
+    max_len: int,
+    device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> list[KVCache]:
+    """One zeroed cache per layer, bf16 or int8 (`dtype`)."""
     return [
-        init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim, device)
+        init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim, device, dtype)
         for _ in range(cfg.num_layers)
     ]

@@ -1,10 +1,16 @@
 """Attention with a preallocated KV cache, GQA and causal masking.
 
-Port of `eetq_tpu/modules/attention.py` for the dense bf16 cache. The cache
-layout is [batch, n_kv_heads, max_len, head_dim]. Prefill (S > 1, offset 0)
-runs the flash-attention kernel; decode (S = 1) runs the flash-decode kernel
-over each row's live prefix. The int8 cache, paged caches, chunked prefill
-and the multi-query verify step are not ported yet.
+Port of `eetq_tpu/modules/attention.py` for the dense cache, bf16 or int8.
+The cache layout is [batch, n_kv_heads, max_len, head_dim]; the int8 cache
+keeps f32 per-(row, head, position) scales [batch, n_kv_heads, max_len].
+Prefill (S > 1, offset 0) runs the flash-attention kernel over the new,
+unquantized K/V; decode (S = 1) runs the flash-decode kernel (its int8 mode
+for an int8 cache) over each row's live prefix. Paged caches, chunked
+prefill and the multi-query verify step are not ported yet.
+
+The prefill offset is the Python int 0. The JAX engine passes a traced
+`jnp.int32(0)` (`eetq_tpu/serve/engine.py:114`); the port's engine passes an
+int, so `attention` tells prefill from chunked prefill by the int alone.
 """
 
 from __future__ import annotations
@@ -18,7 +24,13 @@ from eetq_tpu_torch.kernels.flash_attention import (
     causal_mask,
     flash_attention,
 )
-from eetq_tpu_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+from eetq_tpu_torch.kernels.flash_decode import (
+    dequantize_kv,
+    flash_decode,
+    flash_decode_int8,
+    flash_decode_ref,
+)
+from eetq_tpu_torch.kernels.w8a8 import quantize_activations
 
 __all__ = [
     "KVCache", "attention", "attention_decode", "attention_decode_ref",
@@ -29,14 +41,22 @@ __all__ = [
 
 @dataclasses.dataclass
 class KVCache:
-    """Per-layer KV cache: k, v [batch, n_kv_heads, max_len, head_dim]."""
+    """Per-layer KV cache: k, v [batch, n_kv_heads, max_len, head_dim],
+    bf16; or int8 with f32 scales k_scale, v_scale [batch, n_kv_heads,
+    max_len]."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def init_kv_cache(
@@ -45,36 +65,60 @@ def init_kv_cache(
     n_kv_heads: int,
     head_dim: int,
     device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> KVCache:
-    """A zeroed bf16 cache (the int8 cache is not ported yet)."""
+    """A zeroed cache: bf16, or int8 with zeroed f32 scales."""
     # rounded to 128 like the JAX package (unused tail rows are masked by
     # the per-row length everywhere)
     max_len = -(-max_len // 128) * 128
     shape = (batch, n_kv_heads, max_len, head_dim)
+    if dtype == torch.int8:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:3], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:3], dtype=torch.float32, device=device),
+        )
     return KVCache(
-        k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        v=torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
 
 
 def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, offset) -> KVCache:
     """Write [B, S, Hkv, D] new keys/values at sequence position `offset`,
     IN PLACE (slice assignment where the JAX package returns a new cache
     from `dynamic_update_slice`). offset is an int (every row at the same
-    position) or a [B] tensor of per-row positions. Returns `cache`."""
+    position) or a [B] tensor of per-row positions. An int8 cache stores
+    the quantized values and their scales at the same positions. Returns
+    `cache`."""
     s = k_new.shape[1]
+    ks = vs = None
+    if cache.quantized:
+        # per-(head, token) int8 over D: the activation quantizer's arithmetic,
+        # as `_quantize_kv` (eetq_tpu/modules/attention.py:76-83) runs under jit
+        k_new, ks = quantize_activations(k_new)  # scales [B, S, Hkv]
+        v_new, vs = quantize_activations(v_new)
     if isinstance(offset, int):
         cache.k[:, :, offset:offset + s] = k_new.transpose(1, 2)
         cache.v[:, :, offset:offset + s] = v_new.transpose(1, 2)
+        if ks is not None:
+            cache.k_scale[:, :, offset:offset + s] = ks.transpose(1, 2)
+            cache.v_scale[:, :, offset:offset + s] = vs.transpose(1, 2)
         return cache
     b = k_new.shape[0]
     off = torch.as_tensor(offset, device=cache.k.device).reshape(-1).expand(b)
     pos = off[:, None] + torch.arange(s, device=off.device)  # [B, S]
     rows = torch.arange(b, device=off.device)[:, None]
     # advanced indices around a slice put their [B, S] dims first: the
-    # indexed view is [B, S, Hkv, D], the layout of k_new
+    # indexed view is [B, S, Hkv(, D)], the layout of k_new and its scales
     cache.k[rows, :, pos] = k_new.to(cache.k.dtype)
     cache.v[rows, :, pos] = v_new.to(cache.v.dtype)
+    if ks is not None:
+        cache.k_scale[rows, :, pos] = ks
+        cache.v_scale[rows, :, pos] = vs
     return cache
 
 
@@ -101,14 +145,21 @@ def attention_decode(q, cache: KVCache, length, window: int | None = None,
     K/V already written at length - 1): an int or a per-row [B] tensor."""
     scale = q.shape[-1] ** -0.5
     lengths = _lengths(length, q.shape[0], q.device)
-    if use_kernel:
-        return flash_decode(q, cache.k, cache.v, lengths, scale=scale, window=window)
-    return attention_decode_ref(q, cache, lengths, window, scale)
+    if not use_kernel:
+        return attention_decode_ref(q, cache, lengths, window, scale)
+    if cache.quantized:
+        return flash_decode_int8(q, cache.k, cache.v, cache.k_scale, cache.v_scale, lengths,
+                                 scale=scale, window=window)
+    return flash_decode(q, cache.k, cache.v, lengths, scale=scale, window=window)
 
 
 def attention_decode_ref(q, cache: KVCache, length, window, scale):
-    """Plain decode attention over the [B, H, L, D] cache."""
-    return flash_decode_ref(q, cache.k, cache.v, length, scale=scale, window=window)
+    """Plain decode attention over the [B, H, L, D] cache; an int8 cache is
+    dequantized in bf16 first (`eetq_tpu/modules/attention.py:271-273`)."""
+    k, v = cache.k, cache.v
+    if cache.quantized:
+        k, v = dequantize_kv(k, cache.k_scale), dequantize_kv(v, cache.v_scale)
+    return flash_decode_ref(q, k, v, length, scale=scale, window=window)
 
 
 def attention(
@@ -121,8 +172,9 @@ def attention(
     use_kernels: bool = True,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Write K/V to the cache at `offset`, then attend: prefill when S > 1
-    (offset 0), decode when S == 1. use_kernels=False runs the plain
-    versions. Returns (out [B, S, Hq, D], cache)."""
+    (offset the int 0; it attends over the unquantized new K/V, so only
+    the cache holds int8), decode when S == 1. use_kernels=False runs the
+    plain versions. Returns (out [B, S, Hq, D], cache)."""
     s = q.shape[1]
     if cache is not None:
         cache = update_cache(cache, k_new, v_new, offset)

@@ -2,8 +2,9 @@
 
 Port of `eetq_tpu/modules/linear.py`. Weights are stored [K, N]
 (in-features x out-features) as in the JAX package; int8 weights, scales
-and biases are buffers (the port serves and trains nothing). LoRA and the
-W8A8 path are not ported yet.
+and biases are buffers (the port serves and trains nothing). `a8=True`
+routes an int8 per-channel layer through the W8A8 path (prefill only).
+LoRA is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from torch import nn
 
 from eetq_tpu_torch.layout.tiling import PackedWeight, pack_weights
 from eetq_tpu_torch.ops.linear import w8a16_matmul
+from eetq_tpu_torch.ops.linear8 import w8a8_matmul
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 from eetq_tpu_torch.quant.quantizer import symmetric_quantize
 
@@ -33,8 +35,8 @@ class DenseLinear(nn.Module):
     def out_features(self) -> int:
         return self.weight.shape[1]
 
-    def forward(self, x, prenorm=None, use_kernel: bool = True):
-        return linear_apply(self, x, prenorm=prenorm, use_kernel=use_kernel)
+    def forward(self, x, prenorm=None, use_kernel: bool = True, a8: bool = False):
+        return linear_apply(self, x, prenorm=prenorm, use_kernel=use_kernel, a8=a8)
 
 
 class QuantLinear(nn.Module):
@@ -61,8 +63,8 @@ class QuantLinear(nn.Module):
     def out_features(self) -> int:
         return self.n
 
-    def forward(self, x, prenorm=None, use_kernel: bool = True):
-        return linear_apply(self, x, prenorm=prenorm, use_kernel=use_kernel)
+    def forward(self, x, prenorm=None, use_kernel: bool = True, a8: bool = False):
+        return linear_apply(self, x, prenorm=prenorm, use_kernel=use_kernel, a8=a8)
 
 
 def quantize_linear(weight: torch.Tensor, bias: torch.Tensor | None = None) -> QuantLinear:
@@ -76,10 +78,19 @@ def linear_apply(
     x: torch.Tensor,
     prenorm: tuple[torch.Tensor, float] | None = None,
     use_kernel: bool = True,
+    a8: bool = False,
 ) -> torch.Tensor:
     """Forward through a quantized or dense linear. prenorm=(gamma, eps)
     applies ``rmsnorm(x, gamma, eps)`` first, fused into the GEMV kernel's
-    prologue in the decode regime."""
+    prologue in the decode regime. a8=True takes the W8A8 path (per-token
+    int8 activations, `eetq_tpu/modules/linear.py:161-175`) for an int8
+    per-channel QuantLinear, after a plain RMSNorm; it is ignored for other
+    layers."""
+    if isinstance(layer, QuantLinear) and a8 and layer.scales.dim() == 1:
+        if prenorm is not None:
+            x = rmsnorm(x, prenorm[0], eps=prenorm[1])
+        return w8a8_matmul(x, layer.packed, layer.scales, bias=layer.bias,
+                           use_kernel=use_kernel)
     if isinstance(layer, QuantLinear):
         return w8a16_matmul(
             x, layer.packed, layer.scales, bias=layer.bias,
