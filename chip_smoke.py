@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths once on an NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths once on an NVIDIA GPU and check them.
 
 Run from the repository root, on a machine with one CUDA card (an H100):
 
@@ -8,9 +8,13 @@ Run from the repository root, on a machine with one CUDA card (an H100):
 1. Environment: torch/CUDA/nvcc versions, the card's name and power limit;
    builds the kernels of `eetq_tpu_torch/csrc/` with nvcc (one process per
    source, all at once).
-2. Kernels: each of the seven kernel entry points against its plain
-   PyTorch version on the card at llama2-7b shapes, with its error and its
-   time beside the plain time.
+2. Kernels: each of the nine kernel entry points against its plain
+   PyTorch version on the card at llama2-7b shapes (the MoE kernels at
+   Mixtral-8x7B's), with its error and its time beside the plain time.
+   Then `moe_apply` on one full-width Mixtral layer at 2, 8 and 2048
+   selections, kernels against the plain path on identical input (the
+   routing ids must agree), the kernel calls under
+   `torch.cuda.set_sync_debug_mode("error")`: any host sync fails.
 3. Model: llama2-7b at full width and depth (32 layers), random weights
    from a seeded `torch.Generator` on the card, W8A16 per-channel with an
    int8 lm_head, built once and driven three ways. Each path runs with the
@@ -27,6 +31,16 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      `EngineServer` on 127.0.0.1; about 12 HTTP requests of mixed prompt
      lengths and budgets from several threads; one admission's logits
      against the plain path; `w8a16_gemm` must not launch.
+   llama2-7b is freed before the next model is built.
+4. Mixtral-8x7B W8A16 at full width and depth (32 layers, 8 experts of
+   4096 x 14336, top-2), built one layer at a time (the bf16 model,
+   ~93 GB, never exists), int8 lm_head, driven two ways: generate (as in
+   3, the same requests) and the default Engine behind EngineServer (as in
+   3). The fused MLP must not launch on either. Top-2 routing is
+   discontinuous, so each check of the logits replays the kernel path's
+   routing in the plain path (a wrapper of `modules.moe.route` records
+   each call's weights and ids, then hands them back in order); how many
+   routings the plain path would pick otherwise is printed too.
 
 Prints one JSON line of per-kernel results, then as its last line
 `{"ok": true, "device": {...}}`. Any failed check, build or launch ends the
@@ -37,6 +51,8 @@ timings, nvcc's register report) also go to `DIR/chip_smoke.json`.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import http.client
 import json
 import os
@@ -48,6 +64,7 @@ import time
 
 SEED = 0
 MODEL = "llama2-7b"
+MIXTRAL = "mixtral-8x7b"
 REQUESTS = ((1, 1024, 50), (4, 128, 32))  # (batch, prompt tokens, new tokens)
 LLAMA_SHAPES = [  # (K, N) of qkv, o_proj, gate/up, down, lm_head
     (4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000),
@@ -55,6 +72,18 @@ LLAMA_SHAPES = [  # (K, N) of qkv, o_proj, gate/up, down, lm_head
 PRENORM_SHAPES = {(4096, 12288), (4096, 22016)}  # qkv and gate/up take the fused norm
 W8A8_SHAPES = LLAMA_SHAPES[:4]  # the prefill projections (the lm_head stays W8A16)
 W8A8_ROWS = (32, 1024)  # the engine's smallest prompt bucket, and a full one
+# Mixtral's expert banks, (K, N) of gate|up and down; 8 experts, top-2
+MIXTRAL_BANKS = ((4096, 28672), (14336, 4096))
+# Expert gather: (rows of x at gate|up and at down, ids) of a b=1 and a b=4
+# decode step; b=4's 8 selections hold a repeated id
+GATHER_CASES = ((1, 2, (5, 2)), (4, 8, (1, 6, 6, 3, 0, 2, 7, 6)))
+# Grouped GEMM: (bm, blocks, experts of the real blocks); padding blocks
+# follow, clamped to expert 7. A b=1 p=1024 prompt (2048 selections, bm
+# 128: 2048 // 128 + 8 = 24 blocks, 19 of them real) and the engine's
+# 8-slot decode (16 selections, bm 8: 10 blocks, 7 real, expert 5 idle).
+GROUPED_CASES = ((128, 24, (0, 0, 0, 1, 1, 2, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 6, 7, 7)),
+                 (8, 10, (0, 1, 2, 3, 4, 6, 7)))
+MOE_TOKENS = (1, 4, 1024)  # moe_apply on one layer: 2, 8 and 2048 selections
 # The server phase: prompt lengths and budgets drawn from a seeded generator
 SERVE_REQUESTS = 12
 SERVE_LENGTHS = (17, 100, 300, 700, 1024)
@@ -87,15 +116,32 @@ REPLACES = {
                        "eetq_tpu/kernels/mlp_fused.py:96"),
     "flash_decode_int8": ("cuda", "eetq_tpu_torch/csrc/flash_decode.cu",
                           "eetq_tpu/kernels/flash_decode.py:362"),
+    "w8a16_expert_gemv": ("cuda", "eetq_tpu_torch/csrc/w8a16_expert_gemv.cu",
+                          "eetq_tpu/kernels/w8a16.py:434"),
+    "w8a16_grouped_gemm": ("cuda", "eetq_tpu_torch/csrc/w8a16_grouped_gemm.cu",
+                           "eetq_tpu/kernels/w8a16.py:537"),
 }
-# The kernels each path must launch (and, for the server, must not).
+# The kernels each path must launch, and those it must not.
 PATH_KERNELS = {
     "generate": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode"),
     "bench_decode": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "fused_mlp_gemv",
                      "flash_decode_int8"),
     "server": ("w8a16_gemv", "flash_attention_fwd", "w8a8_gemm", "flash_decode_int8"),
+    "mixtral_generate": ("w8a16_expert_gemv", "w8a16_grouped_gemm", "w8a16_gemv", "w8a16_gemm",
+                         "flash_attention_fwd", "flash_decode"),
+    "mixtral_server": ("w8a16_grouped_gemm", "w8a8_gemm", "w8a16_gemv", "flash_attention_fwd",
+                       "flash_decode_int8"),
 }
-SERVER_IDLE = ("w8a16_gemm",)  # under a8 every prefill projection is W8A8
+MOE_KERNELS = ("w8a16_expert_gemv", "w8a16_grouped_gemm")
+PATH_IDLE = {
+    "generate": MOE_KERNELS,
+    "bench_decode": MOE_KERNELS,
+    # under a8 every prefill projection is W8A8
+    "server": ("w8a16_gemm",) + MOE_KERNELS,
+    # a MoE layer has no dense MLP to fuse
+    "mixtral_generate": ("fused_mlp_gemv",),
+    "mixtral_server": ("fused_mlp_gemv", "w8a16_gemm"),
+}
 
 
 class CheckFailed(Exception):
@@ -145,7 +191,8 @@ def compare(out, ref) -> tuple[float, float]:
 
 
 def kernel_phase(dev) -> dict:
-    """Each kernel against its plain version at llama2-7b shapes."""
+    """Each kernel against its plain version at llama2-7b shapes, the MoE
+    kernels at Mixtral's."""
     import torch
     import torch.nn.functional as F
 
@@ -158,7 +205,15 @@ def kernel_phase(dev) -> dict:
     )
     from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv, fused_mlp_ref
     from eetq_tpu_torch.kernels.w8a8 import quantize_activations, w8a8_gemm, w8a8_gemm_ref
-    from eetq_tpu_torch.kernels.w8a16 import w8a16_gemm, w8a16_gemv, w8a16_matmul_ref
+    from eetq_tpu_torch.kernels.w8a16 import (
+        expert_matmul_ref,
+        grouped_matmul_ref,
+        w8a16_expert_gemv,
+        w8a16_gemm,
+        w8a16_gemv,
+        w8a16_grouped_gemm,
+        w8a16_matmul_ref,
+    )
     from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -264,6 +319,34 @@ def kernel_phase(dev) -> dict:
                        lambda: flash_decode_int8(q, kc, vc, ks, vs, lengths),
                        lambda: flash_decode_int8_ref(q, kc, vc, ks, vs, lengths),
                        b == 1 and l == 1152 and hq == hkv)
+
+    # Mixtral's banks. The path's time: the gather of a b=1 decode step
+    # (gate|up and down) and the grouped GEMMs of a 1024-token prompt.
+    for j, (k, n) in enumerate(MIXTRAL_BANKS):
+        bank = torch.randint(-127, 128, (8, k, n), generator=gen, device=dev, dtype=torch.int8)
+        scales = torch.rand(8, n, generator=gen, device=dev) * 2e-3 + 1e-4
+        for *ms, ids in GATHER_CASES:
+            m = ms[j]
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            eids = torch.tensor(ids, dtype=torch.int32, device=dev)
+            rep = " repeated id" if len(set(ids)) < len(ids) else ""
+            record("w8a16_expert_gemv", f"n_sel={len(ids)} m={m} K={k} N={n}{rep}",
+                   w8a16_expert_gemv(x, bank, scales, eids, n),
+                   expert_matmul_ref(x, bank, scales, eids),
+                   lambda: w8a16_expert_gemv(x, bank, scales, eids, n),
+                   lambda: expert_matmul_ref(x, bank, scales, eids), len(ids) == 2)
+        for bm, nb, real in GROUPED_CASES:
+            be = real + (7,) * (nb - len(real))
+            x = torch.randn(nb * bm, k, generator=gen, device=dev).to(torch.bfloat16)
+            x[len(real) * bm:] = 0  # padding blocks hold zero rows
+            blocks = torch.tensor(be, dtype=torch.int32, device=dev)
+            record("w8a16_grouped_gemm",
+                   f"bm={bm} nb={nb} ({nb - len(real)} padding) K={k} N={n}",
+                   w8a16_grouped_gemm(x, bank, scales, blocks, n),
+                   grouped_matmul_ref(x, bank, scales, blocks, bm),
+                   lambda: w8a16_grouped_gemm(x, bank, scales, blocks, n),
+                   lambda: grouped_matmul_ref(x, bank, scales, blocks, bm), bm == 128)
+        del bank
     del flush
     torch.cuda.synchronize()
     bad = [f"{r['kernel']} {r['case']}" for r in rows if not r["ok"]]
@@ -271,9 +354,49 @@ def kernel_phase(dev) -> dict:
     return dict(rows=rows, summary=summary)
 
 
+@contextlib.contextmanager
+def routing(mode: str, log: list):
+    """Wrap `modules.moe.route`: "record" appends each call's (weights, ids)
+    to `log`; "replay" returns the entries of `log` in order instead of
+    routing, and checks at the end that every entry was used."""
+    from eetq_tpu_torch.modules import moe
+
+    route, replay = moe.route, iter(log)
+
+    def wrapped(router, x2, top_k):
+        if mode == "record":
+            log.append(route(router, x2, top_k))
+            return log[-1]
+        topw, topi = next(replay)
+        check(tuple(topi.shape) == (x2.shape[0], top_k), "replayed routing does not fit the call")
+        return topw, topi
+
+    moe.route = wrapped
+    try:
+        yield
+    finally:
+        moe.route = route
+    if mode == "replay":
+        check(next(replay, None) is None, "replay left routings unused")
+
+
+def routing_differences(fn, kernel_log: list) -> dict:
+    """Run fn() (the plain path) routing for itself; count the tokens of all
+    its route calls whose top-k set differs from the kernel path's."""
+    log = []
+    with routing("record", log):
+        fn()
+    check(len(log) == len(kernel_log), "the paths made different numbers of route calls")
+    diff = sum(int((a[1].sort(-1).values != b[1].sort(-1).values).any(-1).sum())
+               for a, b in zip(kernel_log, log))
+    total = sum(a[1].shape[0] for a in kernel_log)
+    return dict(differ=diff, routings=total)
+
+
 def counted(path: str, fn):
     """Run fn() with every launch counter at 0; return (its result, the
-    counts). Fails if a kernel of the path did not launch."""
+    counts). Fails if a kernel of the path did not launch, or if one it
+    must not run did."""
     import torch
 
     from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -285,7 +408,57 @@ def counted(path: str, fn):
     print(f"  launches on the {path} path: {counts}")
     idle = [k for k in PATH_KERNELS[path] if counts[k] == 0]
     check(not idle, f"kernels not launched on the {path} path: {idle}")
+    busy = [k for k in PATH_IDLE[path] if counts[k]]
+    check(not busy, f"kernels launched on the {path} path that must not be: {busy}")
     return out, counts
+
+
+def moe_layer_phase(dev) -> dict:
+    """`moe_apply` on one full-width Mixtral layer (random banks quantized
+    per channel), kernel regimes against the plain masked scan on the same
+    input, at 2, 8 and 2048 selections (gather, gather, grouped). Both sides
+    route on identical input, so their ids must agree. The kernel calls run
+    under torch.cuda.set_sync_debug_mode("error"): a host sync fails."""
+    import torch
+
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.modules.linear import DenseLinear
+    from eetq_tpu_torch.modules.moe import MoEMLP, moe_apply, quantize_moe
+
+    cfg = PRESETS[MIXTRAL]
+    h, inter, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def dense(*shape):
+        w = torch.randn(shape, generator=gen, device=dev) * shape[-2] ** -0.5
+        return DenseLinear(w.to(torch.bfloat16))
+
+    moe = quantize_moe(MoEMLP(dense(h, e), dense(e, h, 2 * inter), dense(e, inter, h)))
+    torch.cuda.empty_cache()
+    out = {}
+    for t in MOE_TOKENS:
+        x = torch.randn(1, t, h, generator=gen, device=dev).to(torch.bfloat16)
+        ys, logs = {}, {True: [], False: []}
+        for use in (True, False):
+            torch.cuda.synchronize()
+            with routing("record", logs[use]):
+                if use:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    ys[use] = moe_apply(moe, x, cfg.num_experts_per_tok, use_kernel=use)
+                except RuntimeError as err:
+                    raise CheckFailed(f"moe_apply at {t} tokens: {err}") from err
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        check(torch.equal(logs[True][0][1], logs[False][0][1]),
+              f"moe_apply at {t} tokens: the two paths routed differently")
+        err, ref_max = compare(ys[True], ys[False])
+        n_sel = t * cfg.num_experts_per_tok
+        print(f"  moe_apply {n_sel:5d} selections: err {err:.3e} (tol {TOL * ref_max:.3e}), "
+              f"same routing, no host sync")
+        check(err <= TOL * ref_max, f"moe_apply at {n_sel} selections differs from the plain path")
+        out[n_sel] = dict(max_abs_err=err, ref_absmax=ref_max, tol=TOL * ref_max)
+    return out
 
 
 def check_logits(name: str, got, ref, tol: float = MODEL_TOL) -> dict:
@@ -301,16 +474,16 @@ def check_logits(name: str, got, ref, tol: float = MODEL_TOL) -> dict:
     return dict(max_abs_err=err, rel_err=rel, tol=tol, argmax_equal=same)
 
 
-def generate_paths(params, cfg, dev, gen) -> dict:
-    """PR 1's generate path (bf16 KV, unfused MLP) and bench.py's decode
-    configuration (int8 KV, fused MLP), each checked against the plain path
-    and driven through the same requests, and timed side by side."""
+def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
+    """Each path of `configs` ({path: (KV dtype, fused MLP)}), e.g. the
+    generate path (bf16 KV, unfused MLP) and bench.py's decode
+    configuration (int8 KV, fused MLP), checked against the plain path and
+    driven through the same requests, and timed side by side."""
     import torch
 
     from eetq_tpu_torch.models.transformer import init_caches
     from eetq_tpu_torch.serve.generate import decode_loop, decode_step, generate, prefill
 
-    configs = {"generate": (torch.bfloat16, False), "bench_decode": (torch.int8, True)}
     prompts = [torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=dev)
                for b, p, _ in REQUESTS]
     (_, p1, n1), prompt1 = REQUESTS[0], prompts[0]
@@ -318,17 +491,27 @@ def generate_paths(params, cfg, dev, gen) -> dict:
     for path, (kv, fused) in configs.items():
         print(f"  -- {path}: {kv} KV, fused MLP {fused}")
         # kernel path against the plain path: prefill, then one decode step
-        logits, first = {}, {}
-        for use in (True, False):
+        # (the decode step takes the kernel path's token); the plain path
+        # replays the kernel path's routing
+        logits, first, routes = {}, {}, []
+
+        def check_run(use, kv=kv, fused=fused):
             caches = init_caches(cfg, 1, p1 + n1, device=dev, dtype=kv)
             lp, caches = prefill(params, cfg, prompt1, caches, use_kernels=use)
-            tok = torch.argmax(lp, -1)
+            tok = first.get(True, torch.argmax(lp, -1))
             ld, _ = decode_step(params, cfg, tok[:, None], p1, caches, use_kernels=use,
                                 fused_mlp=fused)
-            logits[use], first[use] = (lp, ld), tok
-            del caches
+            return (lp, ld), torch.argmax(lp, -1)
+
+        for use in (True, False):
+            with routing("record" if use else "replay", routes):
+                logits[use], first[use] = check_run(use)
         checks = {name: check_logits(f"{path} {name}", logits[True][i], logits[False][i])
                   for i, name in enumerate(("prefill", "decode"))}
+        if routes:
+            checks["routing"] = routing_differences(lambda: check_run(False), routes)
+            print(f"  {path}: {checks['routing']['differ']} of {checks['routing']['routings']} "
+                  "routings differ when the plain path routes for itself (not replayed)")
 
         def serve(kv=kv, fused=fused):
             outs, ms = [], []
@@ -400,7 +583,7 @@ def _post(port: int, body: dict):
     return json.loads(data)["tokens"]
 
 
-def server_path(params, cfg, dev, gen) -> dict:
+def server_path(params, cfg, dev, gen, path: str = "server") -> dict:
     """The engine with its accelerator defaults behind its HTTP server."""
     import torch
 
@@ -424,15 +607,24 @@ def server_path(params, cfg, dev, gen) -> dict:
     toks[0, :n] = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev)
     pos = torch.arange(bucket, device=dev)[None]
     last = torch.tensor([n - 1], device=dev)
-    logits = {}
-    for use in (True, False):
+    logits, routes = {}, []
+
+    def admit(use):
         with torch.inference_mode():
             scratch = init_caches(cfg, 1, bucket, dev, torch.int8)
             lg, _ = forward_inner(params, cfg, toks, pos, scratch, 0, use_kernels=use, a8=True,
                                   last_pos=last)
-        logits[use] = lg[:, -1]
-        del scratch
-    admission = check_logits("server admission (a8)", logits[True], logits[False], A8_MODEL_TOL)
+        return lg[:, -1]
+
+    for use in (True, False):  # the plain path replays the kernel path's routing
+        with routing("record" if use else "replay", routes):
+            logits[use] = admit(use)
+    admission = check_logits(f"{path} admission (a8)", logits[True], logits[False],
+                             A8_MODEL_TOL)
+    if routes:
+        admission["routing"] = routing_differences(lambda: admit(False), routes)
+        print(f"  {path} admission: {admission['routing']['differ']} of "
+              f"{admission['routing']['routings']} routings differ when not replayed")
 
     lengths = [SERVE_LENGTHS[i] for i in torch.randint(
         0, len(SERVE_LENGTHS), (SERVE_REQUESTS,), generator=gen, device=dev).tolist()]
@@ -471,13 +663,11 @@ def server_path(params, cfg, dev, gen) -> dict:
         return time.perf_counter() - t
 
     try:
-        wall_s, counts = counted("server", serve)
+        wall_s, counts = counted(path, serve)
     finally:
         srv.shutdown()
     check(not errors, f"HTTP requests failed: {errors}")
     check(len(results) == SERVE_REQUESTS, f"{len(results)} of {SERVE_REQUESTS} requests answered")
-    busy = [k for k in SERVER_IDLE if counts[k]]
-    check(not busy, f"kernels launched on the server path that must not be: {busy}")
     for i, body in enumerate(bodies):
         got = results[i]
         check(len(got) == body["max_new_tokens"],
@@ -485,10 +675,10 @@ def server_path(params, cfg, dev, gen) -> dict:
         check(all(0 <= t < cfg.vocab_size for t in got), f"request {i}: token out of range")
     tokens = sum(budgets)
     lat = [latency[i] for i in range(SERVE_REQUESTS)]
-    print(f"  server: {SERVE_REQUESTS} requests, prompts {lengths}, budgets {budgets}; "
+    print(f"  {path}: {SERVE_REQUESTS} requests, prompts {lengths}, budgets {budgets}; "
           f"{tokens} tokens in {wall_s:.2f} s = {tokens / wall_s:.2f} tok/s served "
           f"(warmup {warmup_s:.1f} s)")
-    print(f"  server latencies (ms): {['%.1f' % v for v in lat]}")
+    print(f"  {path} latencies (ms): {['%.1f' % v for v in lat]}")
     return dict(admission=admission, counts=counts, prompt_lengths=lengths, budgets=budgets,
                 tokens=tokens, wall_s=wall_s, served_tok_s=tokens / wall_s,
                 latency_ms=lat, warmup_s=warmup_s)
@@ -512,10 +702,43 @@ def model_phase(dev) -> dict:
     init_s = time.perf_counter() - t0
     weight_gb = sum(b.numel() * b.element_size() for b in params.buffers()) / 1e9
     print(f"  {MODEL} W8A16 built in {init_s:.1f} s, {weight_gb:.2f} GB on the card")
-    paths = generate_paths(params, cfg, dev, gen)
+    paths = generate_paths(params, cfg, dev, gen, {"generate": (torch.bfloat16, False),
+                                                   "bench_decode": (torch.int8, True)})
     paths["server"] = server_path(params, cfg, dev, gen)
     return dict(paths=paths, init_s=init_s, weight_gb=weight_gb,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def mixtral_phase(dev) -> dict:
+    """MIXTRAL at full width and depth, W8A16 built one layer at a time,
+    through generate and the server."""
+    import torch
+
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import random_quantized_params
+
+    cfg = PRESETS[MIXTRAL]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = random_quantized_params(cfg, gen, quantize_lm_head=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    weight_gb = sum(b.numel() * b.element_size() for b in params.buffers()) / 1e9
+    print(f"  {MIXTRAL} W8A16 built layer by layer in {build_s:.1f} s: {weight_gb:.2f} GB on "
+          f"the card, build peak {build_peak_gb:.2f} GB ({before_gb:.2f} GB held before)")
+    paths = generate_paths(params, cfg, dev, gen, {"mixtral_generate": (torch.bfloat16, False)})
+    paths["mixtral_server"] = server_path(params, cfg, dev, gen, "mixtral_server")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t = paths["mixtral_generate"]["timing"]
+    print(f"  {MIXTRAL}: weights {weight_gb:.2f} GB, built in {build_s:.1f} s, peak {peak_gb:.2f} "
+          f"GB; prefill {t['prefill_ms']:.2f} ms (b=1 p={REQUESTS[0][1]}), decode "
+          f"{t['decode_ms_per_step']:.3f} ms/step; served "
+          f"{paths['mixtral_server']['served_tok_s']:.2f} tok/s")
+    return dict(paths=paths, build_s=build_s, build_peak_gb=build_peak_gb, weight_gb=weight_gb,
+                peak_gb=peak_gb)
 
 
 def main() -> int:
@@ -543,8 +766,12 @@ def main() -> int:
     print(f"kernels built in {info['seconds']:.1f} s (cached: {info['cached']})")
     with torch.inference_mode():
         kern = kernel_phase(dev)
+        moe_layer = moe_layer_phase(dev)
     model = model_phase(dev)
-    paths = model["paths"]
+    gc.collect()  # llama2-7b goes before Mixtral is built
+    torch.cuda.empty_cache()
+    mixtral = mixtral_phase(dev)
+    paths = {**model["paths"], **mixtral["paths"]}
     kernels = [
         dict(name=name, route=REPLACES[name][0], source=REPLACES[name][1],
              replaces=REPLACES[name][2],
@@ -557,7 +784,8 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build_s=info["seconds"], nvcc_log=info["log"],
-                           kernels=kern["rows"], model=model), f, indent=1)
+                           kernels=kern["rows"], moe_layer=moe_layer, model=model,
+                           mixtral=mixtral), f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

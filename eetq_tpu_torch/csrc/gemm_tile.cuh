@@ -1,0 +1,188 @@
+// The W8A16 GEMM tile shared by w8a16_gemm.cu and w8a16_grouped_gemm.cu.
+//
+// out[m, n] = (x[m, :] . W[:, n]) * scale[n] + bias[n]. Bound by
+// tensor-core FLOPs at prefill sizes. Each 256-thread block computes a
+// 128 x 128 output tile: per 32-deep K step it stages the x tile (bf16) and
+// the int8 weight tile, converted to bf16 on the way into shared memory
+// (exact: |q| <= 128), and 8 warps each multiply a 64 x 32 sub-tile with
+// wmma bf16 fragments into f32 accumulators. The next K step's tiles are
+// loaded into registers while the current one is multiplied (two
+// shared-memory buffers, one barrier per step). The per-channel scale and
+// the bias are applied in the epilogue.
+//
+// Row blocks: blockIdx.y owns rows [y * bm, y * bm + bm) with bm <= 128
+// (bm = 128 for a plain GEMM). Rows of the 128-row tile past bm (or past m)
+// load as zero, are not multiplied where a whole 16-row fragment lies past
+// them, and are not written.
+//
+// Grouped (block_expert set): row block y multiplies by expert
+// block_expert[y] of a stacked bank, read from device memory; its weight
+// lies at w + e * w_stride and its scales at scales + e * s_stride.
+#pragma once
+
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace eetq {
+namespace gemm {
+
+using namespace nvcuda;
+
+constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
+constexpr int kALd = kBK + 8;  // padded smem rows (elements): fewer bank conflicts
+constexpr int kBLd = kBN + 8;
+constexpr int kWM = 64, kWN = 32;  // warp tile; warps form a 2 x 4 grid
+constexpr int kFM = kWM / 16, kFN = kWN / 16;
+static_assert((kBM / kWM) * (kBN / kWN) == kThreads / 32, "one warp tile per warp");
+
+struct Args {
+  const bf16* x;  // [m, k], k % 8 == 0
+  int m, k;
+  const int8_t* w;  // [kp, np] (or a bank of them), kp and np % 128 == 0
+  int kp, np;
+  const float* scales;  // [n] (or a bank of them)
+  const float* bias;    // [n] or null
+  bf16* out;            // [m, n]
+  int n;
+  int bm;                   // rows per row block, 1..kBM
+  const int* block_expert;  // [gridDim.y] expert ids, or null
+  long long w_stride;
+  int s_stride;
+};
+
+// Internal linkage: two sources include this file, and a __global__
+// function has a host-side stub symbol.
+namespace {
+
+__global__ void __launch_bounds__(kThreads) gemm_kernel(const Args a) {
+  __shared__ __align__(128) bf16 as[2][kBM * kALd];
+  __shared__ __align__(128) bf16 bs[2][kBK * kBLd];
+  __shared__ __align__(128) float cs[kThreads / 32][16 * 16];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / (kBN / kWN), wn = warp % (kBN / kWN);
+  const int m0 = blockIdx.y * a.bm, n0 = blockIdx.x * kBN;
+  const int rows = min(a.bm, a.m - m0);  // valid rows of this block
+  const int k = a.k, np = a.np;
+  const int8_t* w = a.w;
+  const float* scales = a.scales;
+  if (a.block_expert != nullptr) {
+    const int e = a.block_expert[blockIdx.y];
+    w += (size_t)e * a.w_stride;
+    scales += (size_t)e * a.s_stride;
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFM][kFN];
+#pragma unroll
+  for (int i = 0; i < kFM; ++i)
+#pragma unroll
+    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  // x tile: 128 rows x 4 vectors of 8 bf16 (2 per thread); W tile: 32 rows
+  // x 8 vectors of 16 int8 (1 per thread). x past row `rows` or column k is 0.
+  int4 a_reg[2], b_reg;
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * kThreads, row = idx >> 2, gk = k0 + (idx & 3) * 8;
+      a_reg[i] = (row < rows && gk < k)
+                     ? *reinterpret_cast<const int4*>(a.x + (size_t)(m0 + row) * k + gk)
+                     : make_int4(0, 0, 0, 0);
+    }
+    const int row = tid >> 3, col = n0 + (tid & 7) * 16;
+    b_reg = __ldg(reinterpret_cast<const int4*>(w + (size_t)(k0 + row) * np + col));
+  };
+  auto store_tile = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * kThreads;
+      *reinterpret_cast<int4*>(&as[buf][(idx >> 2) * kALd + (idx & 3) * 8]) = a_reg[i];
+    }
+    float f[16];
+    int8x4_to_float(static_cast<uint32_t>(b_reg.x), f);
+    int8x4_to_float(static_cast<uint32_t>(b_reg.y), f + 4);
+    int8x4_to_float(static_cast<uint32_t>(b_reg.z), f + 8);
+    int8x4_to_float(static_cast<uint32_t>(b_reg.w), f + 12);
+    uint4 lo, hi;
+    lo.x = pack_bf16x2(f[0], f[1]);
+    lo.y = pack_bf16x2(f[2], f[3]);
+    lo.z = pack_bf16x2(f[4], f[5]);
+    lo.w = pack_bf16x2(f[6], f[7]);
+    hi.x = pack_bf16x2(f[8], f[9]);
+    hi.y = pack_bf16x2(f[10], f[11]);
+    hi.z = pack_bf16x2(f[12], f[13]);
+    hi.w = pack_bf16x2(f[14], f[15]);
+    uint4* dst = reinterpret_cast<uint4*>(&bs[buf][(tid >> 3) * kBLd + (tid & 7) * 16]);
+    dst[0] = lo;
+    dst[1] = hi;
+  };
+
+  // 16-row fragments of this warp that hold a valid row (warp-uniform)
+  const int frags = min(kFM, max(0, (rows - wm * kWM + 15) / 16));
+  const int nk = a.kp / kBK;
+  load_tile(0);
+  store_tile(0);
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nk) load_tile((t + 1) * kBK);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[kFM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[kFN];
+#pragma unroll
+      for (int j = 0; j < kFN; ++j)
+        wmma::load_matrix_sync(bfr[j], &bs[buf][kk * kBLd + wn * kWN + j * 16], kBLd);
+#pragma unroll
+      for (int i = 0; i < kFM; ++i) {
+        if (i < frags) {
+          wmma::load_matrix_sync(af[i], &as[buf][(wm * kWM + i * 16) * kALd + kk], kALd);
+#pragma unroll
+          for (int j = 0; j < kFN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+        }
+      }
+    }
+    if (t + 1 < nk) store_tile(buf ^ 1);
+    __syncthreads();
+  }
+
+  // Epilogue: each warp stages one 16 x 16 fragment at a time; a lane owns
+  // 8 consecutive columns of one row.
+  float* c = cs[warp];
+  const int r = lane >> 1, c0 = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < kFM; ++i) {
+    if (i >= frags) break;
+#pragma unroll
+    for (int j = 0; j < kFN; ++j) {
+      wmma::store_matrix_sync(c, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int row = wm * kWM + i * 16 + r;
+      const int gn0 = n0 + wn * kWN + j * 16 + c0;
+      if (row < rows) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int gn = gn0 + e;
+          if (gn < a.n) {
+            float v = c[r * 16 + c0 + e] * scales[gn];
+            if (a.bias != nullptr) v += a.bias[gn];
+            a.out[(size_t)(m0 + row) * a.n + gn] = __float2bfloat16(v);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// One block per 128 output columns and per row block.
+cudaError_t launch(const Args& a, int row_blocks, cudaStream_t stream) {
+  if (a.bm < 1 || a.bm > kBM) return cudaErrorInvalidValue;
+  gemm_kernel<<<dim3(a.np / kBN, row_blocks), kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace gemm
+}  // namespace eetq

@@ -9,10 +9,17 @@
 // one 16-byte load per row) and 16 lanes take 16 consecutive K rows, the 8
 // warps 128 rows per sweep. Loads come in batches of four sweeps,
 // software-pipelined: the next batch is in flight while one is multiplied,
-// and the first while y is staged in dynamic shared memory (as [Kp][m]
-// bf16). The f32 partial sums are reduce-scattered over the 16 K lanes with
-// shuffles, summed over the warps in shared memory, and the per-channel
-// scale is applied once to the total.
+// and the first while y is staged in dynamic shared memory (as [rows][m]
+// bf16). Where all of y does not fit (m = 8 at K = 14336 needs 229,376
+// bytes besides the reduction buffers), it is staged in chunks of whole
+// load batches, each after the block has finished with the one before. The
+// f32 partial sums are reduce-scattered over the 16 K lanes with shuffles,
+// summed over the warps in shared memory, and the per-channel scale is
+// applied once to the total.
+//
+// Expert gather (expert_ids set): block (x, s) takes the weight and scales
+// of expert expert_ids[s] out of a stacked bank and writes output s. The
+// id is read from device memory, so the routing never leaves the card.
 //
 // Two modes:
 // - plain: out = s * scale (+ bias) (+ residual), summed in f32 and
@@ -58,6 +65,14 @@ struct Args {
   int n;
   int up;   // gate/up: column of the up half (= I)
   int act;  // gate/up: Act
+  // Expert gather (plain mode), or null: block (x, s) reads expert
+  // e = expert_ids[s] (0 <= e < the bank's size) at w + e * w_stride and
+  // scales + e * s_stride, and writes out + s * out_stride.
+  const int* expert_ids;
+  long long w_stride;
+  int s_stride;
+  long long out_stride;
+  int kc;  // rows of y staged at a time (set by launch)
 };
 
 // Reduce-scatter step: lanes `offset` apart swap halves of v[0, 2H); the
@@ -83,7 +98,7 @@ __device__ __forceinline__ float activate(float g, int act) {
 template <int M, bool kGateUp>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);  // [kp][M]
+  bf16* ys = reinterpret_cast<bf16*>(smem);  // [kc][M]
   __shared__ float red[kWarps][M][kBlockN];
   __shared__ float gate_sum[kGateUp ? M : 1][kBlockN];
   __shared__ float part[kWarps][M];
@@ -92,9 +107,18 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nl = lane % kLanesN, kr = lane / kLanesN;
   const int kp = a.kp, np = a.np, k = a.k;
+  const int8_t* w = a.w;
+  const float* scales = a.scales;
+  bf16* out = a.out;
+  if (a.expert_ids != nullptr) {
+    const int e = a.expert_ids[blockIdx.y];
+    w += (size_t)e * a.w_stride;
+    scales += (size_t)e * a.s_stride;
+    out += (size_t)blockIdx.y * a.out_stride;
+  }
   // first column of this lane's 16-column strip (the gate strip's, in
   // gate/up mode: the second pass moves it to the up strip)
-  const int8_t* wcol = a.w + blockIdx.x * kBlockN + nl * kColsPerLane;
+  const int8_t* wcol = w + blockIdx.x * kBlockN + nl * kColsPerLane;
   // Rows k0, k0 + kSweep, ... of this lane; the first batch of weight
   // loads is in flight while y is staged, and each later batch while the
   // one before it is multiplied.
@@ -137,23 +161,32 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
     }
     __syncthreads();
   }
-  // Stage y as bf16 [kp][M]; rows k..kp are zero.
-  for (int c = tid * 8; c < kp; c += kThreads * 8) {
+  // Stage rows [c0, c1) of y as bf16 [c1 - c0][M]; rows k..kp are zero.
+  auto stage = [&](int c0, int c1) {
+    for (int c = c0 + tid * 8; c < c1; c += kThreads * 8) {
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (c < k) {
-        bf16x8_to_float(*reinterpret_cast<const int4*>(a.x + (size_t)m * k + c), f);
-        if (a.gamma != nullptr) {
+      for (int m = 0; m < M; ++m) {
+        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (c < k) {
+          bf16x8_to_float(*reinterpret_cast<const int4*>(a.x + (size_t)m * k + c), f);
+          if (a.gamma != nullptr) {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) f[i] = f[i] * inv_rms[m] * a.gamma[c + i];
+            for (int i = 0; i < 8; ++i) f[i] = f[i] * inv_rms[m] * a.gamma[c + i];
+          }
         }
-      }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) ys[(c + i) * M + m] = __float2bfloat16(f[i]);
+        for (int i = 0; i < 8; ++i) ys[(c - c0 + i) * M + m] = __float2bfloat16(f[i]);
+      }
     }
+  };
+  // kc is a multiple of a load batch (kSweep * kUnroll rows) unless it is
+  // kp, so a batch never straddles two chunks.
+  const int kc = a.kc;
+  const bool chunked = kc < kp;
+  if (!chunked) {
+    stage(0, kp);
+    __syncthreads();
   }
-  __syncthreads();
 
   const int col = nl * kColsPerLane + ((lane >> 1) & 1) * 8 + ((lane >> 2) & 1) * 4 +
                   ((lane >> 3) & 1) * 2 + ((lane >> 4) & 1);
@@ -171,28 +204,37 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < kColsPerLane; ++j) acc[m][j] = 0.f;
 
-    for (; k0 < kp; k0 += kSweep * kUnroll) {
-      load(nxt, k0 + kSweep * kUnroll);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int kk = k0 + u * kSweep;
-        if (kk < kp) {
-          float yv[M];
-#pragma unroll
-          for (int m = 0; m < M; ++m) yv[m] = __bfloat162float(ys[kk * M + m]);
-          float wf[kColsPerLane];
-          int8x4_to_float(static_cast<uint32_t>(cur[u].x), wf);
-          int8x4_to_float(static_cast<uint32_t>(cur[u].y), wf + 4);
-          int8x4_to_float(static_cast<uint32_t>(cur[u].z), wf + 8);
-          int8x4_to_float(static_cast<uint32_t>(cur[u].w), wf + 12);
-#pragma unroll
-          for (int m = 0; m < M; ++m)
-#pragma unroll
-            for (int j = 0; j < kColsPerLane; ++j) acc[m][j] = fmaf(yv[m], wf[j], acc[m][j]);
-        }
+#pragma unroll 1
+    for (int c0 = 0; c0 < kp; c0 += kc) {
+      const int c1 = min(c0 + kc, kp);
+      if (chunked) {  // every warp is done with the previous chunk
+        __syncthreads();
+        stage(c0, c1);
+        __syncthreads();
       }
+      for (; k0 < c1; k0 += kSweep * kUnroll) {
+        load(nxt, k0 + kSweep * kUnroll);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+        for (int u = 0; u < kUnroll; ++u) {
+          const int kk = k0 + u * kSweep;
+          if (kk < kp) {
+            float yv[M];
+#pragma unroll
+            for (int m = 0; m < M; ++m) yv[m] = __bfloat162float(ys[(kk - c0) * M + m]);
+            float wf[kColsPerLane];
+            int8x4_to_float(static_cast<uint32_t>(cur[u].x), wf);
+            int8x4_to_float(static_cast<uint32_t>(cur[u].y), wf + 4);
+            int8x4_to_float(static_cast<uint32_t>(cur[u].z), wf + 8);
+            int8x4_to_float(static_cast<uint32_t>(cur[u].w), wf + 12);
+#pragma unroll
+            for (int m = 0; m < M; ++m)
+#pragma unroll
+              for (int j = 0; j < kColsPerLane; ++j) acc[m][j] = fmaf(yv[m], wf[j], acc[m][j]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+      }
     }
 
     // Reduce over the 16 K lanes (lane bits 1..4): afterwards each lane holds
@@ -226,9 +268,9 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < kWarps; ++i) u += red[i][m][c];
       const int ic = blockIdx.x * kBlockN + c;
-      const float g = gate_sum[m][c] * a.scales[ic];
-      u *= a.scales[a.up + ic];
-      a.out[(size_t)m * a.n + ic] = __float2bfloat16(activate(g, a.act) * u);
+      const float g = gate_sum[m][c] * scales[ic];
+      u *= scales[a.up + ic];
+      out[(size_t)m * a.n + ic] = __float2bfloat16(activate(g, a.act) * u);
     }
   } else if (tid < M * kBlockN) {
     const int m = tid / kBlockN, c = tid % kBlockN;
@@ -237,17 +279,38 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
     for (int i = 0; i < kWarps; ++i) s += red[i][m][c];
     const int nn = blockIdx.x * kBlockN + c;
     if (nn < a.n) {
-      float r = s * a.scales[nn];
+      float r = s * scales[nn];
       if (a.bias != nullptr) r += a.bias[nn];
       if (a.residual != nullptr) r += __bfloat162float(a.residual[(size_t)m * a.n + nn]);
-      a.out[(size_t)m * a.n + nn] = __float2bfloat16(r);
+      out[(size_t)m * a.n + nn] = __float2bfloat16(r);
     }
   }
 }
 
 template <int M, bool kGateUp>
-cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
-  const size_t smem = (size_t)M * a.kp * sizeof(bf16);
+cudaError_t launch(Args a, dim3 grid, cudaStream_t stream) {
+  // Dynamic shared memory a block may take besides the kernel's static
+  // buffers, asked of the device once.
+  static size_t budget = 0;
+  if (budget == 0) {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gemv_kernel<M, kGateUp>);
+    if (err != cudaSuccess) return err;
+    budget = (size_t)optin - attr.sharedSizeBytes;
+  }
+  // All of y if it fits, else the fewest chunks of whole load batches.
+  constexpr int kBatch = kSweep * kUnroll;
+  a.kc = a.kp;
+  for (int chunks = 2; (size_t)M * a.kc * sizeof(bf16) > budget; ++chunks) {
+    a.kc = (a.kp + chunks - 1) / chunks;
+    a.kc = (a.kc + kBatch - 1) / kBatch * kBatch;
+    if (a.kc <= kBatch && (size_t)M * a.kc * sizeof(bf16) > budget) return cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)M * a.kc * sizeof(bf16);
   static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -255,24 +318,25 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
-  gemv_kernel<M, kGateUp><<<blocks, kThreads, smem, stream>>>(a);
+  gemv_kernel<M, kGateUp><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Dispatch on the row count (1..8): one block per 32 columns of the packed
-// weight (plain) or of the intermediate dim (gate/up).
+// weight (plain) or of the intermediate dim (gate/up), times `sels` expert
+// selections (plain mode with expert_ids).
 template <bool kGateUp>
-cudaError_t launch_m(int m, const Args& a, cudaStream_t stream) {
-  const int blocks = (kGateUp ? a.up : a.np) / kBlockN;
+cudaError_t launch_m(int m, const Args& a, cudaStream_t stream, int sels = 1) {
+  const dim3 grid((kGateUp ? a.up : a.np) / kBlockN, sels);
   switch (m) {
-    case 1: return launch<1, kGateUp>(a, blocks, stream);
-    case 2: return launch<2, kGateUp>(a, blocks, stream);
-    case 3: return launch<3, kGateUp>(a, blocks, stream);
-    case 4: return launch<4, kGateUp>(a, blocks, stream);
-    case 5: return launch<5, kGateUp>(a, blocks, stream);
-    case 6: return launch<6, kGateUp>(a, blocks, stream);
-    case 7: return launch<7, kGateUp>(a, blocks, stream);
-    case 8: return launch<8, kGateUp>(a, blocks, stream);
+    case 1: return launch<1, kGateUp>(a, grid, stream);
+    case 2: return launch<2, kGateUp>(a, grid, stream);
+    case 3: return launch<3, kGateUp>(a, grid, stream);
+    case 4: return launch<4, kGateUp>(a, grid, stream);
+    case 5: return launch<5, kGateUp>(a, grid, stream);
+    case 6: return launch<6, kGateUp>(a, grid, stream);
+    case 7: return launch<7, kGateUp>(a, grid, stream);
+    case 8: return launch<8, kGateUp>(a, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }

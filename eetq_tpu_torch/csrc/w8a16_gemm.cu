@@ -1,153 +1,29 @@
 // W8A16 prefill GEMM: out[m, n] = (x[m, :] . W[:, n]) * scale[n] + bias[n].
 //
 // Replaces the prefill regime of eetq_tpu/kernels/w8a16.py::
-// w8a16_matmul_kernel_call. Bound by tensor-core FLOPs at prefill sizes.
-// Each 256-thread block computes a 128 x 128 output tile: per 32-deep K
-// step it stages the x tile (bf16) and the int8 weight tile, converted to
-// bf16 on the way into shared memory (exact: |q| <= 128), and 8 warps each
-// multiply a 64 x 32 sub-tile with wmma bf16 fragments into f32
-// accumulators. The next K step's tiles are loaded into registers while the
-// current one is multiplied (two shared-memory buffers, one barrier per
-// step). The per-channel scale and the bias are applied in the epilogue.
-#include <mma.h>
-
-#include "common.cuh"
-
-namespace {
-
-using eetq::bf16;
-using namespace nvcuda;
-
-constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
-constexpr int kALd = kBK + 8;  // padded smem rows (elements): fewer bank conflicts
-constexpr int kBLd = kBN + 8;
-constexpr int kWM = 64, kWN = 32;  // warp tile; warps form a 2 x 4 grid
-constexpr int kFM = kWM / 16, kFN = kWN / 16;
-static_assert((kBM / kWM) * (kBN / kWN) == kThreads / 32, "one warp tile per warp");
-
-__global__ void __launch_bounds__(kThreads) w8a16_gemm_kernel(
-    const bf16* __restrict__ x, int m, int k, const int8_t* __restrict__ w, int kp, int np,
-    const float* __restrict__ scales, const float* __restrict__ bias, bf16* __restrict__ out,
-    int n) {
-  __shared__ __align__(128) bf16 as[2][kBM * kALd];
-  __shared__ __align__(128) bf16 bs[2][kBK * kBLd];
-  __shared__ __align__(128) float cs[kThreads / 32][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / (kBN / kWN), wn = warp % (kBN / kWN);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFM][kFN];
-#pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // x tile: 128 rows x 4 vectors of 8 bf16 (2 per thread); W tile: 32 rows
-  // x 8 vectors of 16 int8 (1 per thread). x past row m or column k is 0.
-  int4 a_reg[2], b_reg;
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kThreads, row = idx >> 2, gk = k0 + (idx & 3) * 8;
-      const int gm = m0 + row;
-      a_reg[i] = (gm < m && gk < k)
-                     ? *reinterpret_cast<const int4*>(x + (size_t)gm * k + gk)
-                     : make_int4(0, 0, 0, 0);
-    }
-    const int row = tid >> 3, col = n0 + (tid & 7) * 16;
-    b_reg = __ldg(reinterpret_cast<const int4*>(w + (size_t)(k0 + row) * np + col));
-  };
-  auto store_tile = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kThreads;
-      *reinterpret_cast<int4*>(&as[buf][(idx >> 2) * kALd + (idx & 3) * 8]) = a_reg[i];
-    }
-    float f[16];
-    eetq::int8x4_to_float(static_cast<uint32_t>(b_reg.x), f);
-    eetq::int8x4_to_float(static_cast<uint32_t>(b_reg.y), f + 4);
-    eetq::int8x4_to_float(static_cast<uint32_t>(b_reg.z), f + 8);
-    eetq::int8x4_to_float(static_cast<uint32_t>(b_reg.w), f + 12);
-    uint4 lo, hi;
-    lo.x = eetq::pack_bf16x2(f[0], f[1]);
-    lo.y = eetq::pack_bf16x2(f[2], f[3]);
-    lo.z = eetq::pack_bf16x2(f[4], f[5]);
-    lo.w = eetq::pack_bf16x2(f[6], f[7]);
-    hi.x = eetq::pack_bf16x2(f[8], f[9]);
-    hi.y = eetq::pack_bf16x2(f[10], f[11]);
-    hi.z = eetq::pack_bf16x2(f[12], f[13]);
-    hi.w = eetq::pack_bf16x2(f[14], f[15]);
-    uint4* dst = reinterpret_cast<uint4*>(&bs[buf][(tid >> 3) * kBLd + (tid & 7) * 16]);
-    dst[0] = lo;
-    dst[1] = hi;
-  };
-
-  const int nk = kp / kBK;
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
-  for (int t = 0; t < nk; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nk) load_tile((t + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[kFM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[kFN];
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-        wmma::load_matrix_sync(af[i], &as[buf][(wm * kWM + i * 16) * kALd + kk], kALd);
-#pragma unroll
-      for (int j = 0; j < kFN; ++j)
-        wmma::load_matrix_sync(bfr[j], &bs[buf][kk * kBLd + wn * kWN + j * 16], kBLd);
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    if (t + 1 < nk) store_tile(buf ^ 1);
-    __syncthreads();
-  }
-
-  // Epilogue: each warp stages one 16 x 16 fragment at a time; a lane owns
-  // 8 consecutive columns of one row.
-  float* c = cs[warp];
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < kFM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) {
-      wmma::store_matrix_sync(c, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * kWM + i * 16 + r;
-      const int gn0 = n0 + wn * kWN + j * 16 + c0;
-      if (gm < m) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int gn = gn0 + e;
-          if (gn < n) {
-            float v = c[r * 16 + c0 + e] * scales[gn];
-            if (bias != nullptr) v += bias[gn];
-            out[(size_t)gm * n + gn] = __float2bfloat16(v);
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-}  // namespace
+// w8a16_matmul_kernel_call. Bound by tensor-core FLOPs at prefill sizes;
+// the design (128 x 128 tiles, int8 converted to bf16 in shared memory,
+// wmma bf16 with f32 accumulation, the scale in the epilogue) is the tile
+// of gemm_tile.cuh with 128-row blocks.
+#include "gemm_tile.cuh"
 
 // x [m, k] bf16 contiguous (k % 8 == 0); w int8 [kp, np] (kp, np % 128 == 0);
 // scales f32 [n]; bias f32 [n] or null; out bf16 [m, n].
 extern "C" int eetq_w8a16_gemm(const void* x, int m, int k, const void* w, int kp, int np,
                                const void* scales, const void* bias, void* out, int n,
                                void* stream) {
-  const dim3 grid(np / kBN, (m + kBM - 1) / kBM);
-  w8a16_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), m, k, static_cast<const int8_t*>(w), kp, np,
-      static_cast<const float*>(scales), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), n);
-  return cudaGetLastError();
+  eetq::gemm::Args a{};
+  a.x = static_cast<const eetq::bf16*>(x);
+  a.m = m;
+  a.k = k;
+  a.w = static_cast<const int8_t*>(w);
+  a.kp = kp;
+  a.np = np;
+  a.scales = static_cast<const float*>(scales);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<eetq::bf16*>(out);
+  a.n = n;
+  a.bm = eetq::gemm::kBM;
+  return eetq::gemm::launch(a, (m + eetq::gemm::kBM - 1) / eetq::gemm::kBM,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,12 @@ from eetq_tpu_torch.kernels.flash_attention import flash_attention
 from eetq_tpu_torch.kernels.flash_decode import flash_decode, flash_decode_int8
 from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv
 from eetq_tpu_torch.kernels.w8a8 import w8a8_gemm
-from eetq_tpu_torch.kernels.w8a16 import w8a16_gemm, w8a16_gemv
+from eetq_tpu_torch.kernels.w8a16 import (
+    w8a16_expert_gemv,
+    w8a16_gemm,
+    w8a16_gemv,
+    w8a16_grouped_gemm,
+)
 
 KERNELS = {
     "w8a16_gemv": w8a16_gemv,
@@ -19,6 +24,8 @@ KERNELS = {
     "w8a8_gemm": w8a8_gemm,
     "fused_mlp_gemv": fused_mlp_gemv,
     "flash_decode_int8": flash_decode_int8,
+    "w8a16_expert_gemv": w8a16_expert_gemv,
+    "w8a16_grouped_gemm": w8a16_grouped_gemm,
 }
 
 

@@ -46,6 +46,10 @@ SIGNATURES = {
     "eetq_w8a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _F, _P, _I, _P),
     # x, m, k, w, kp, np, scales, bias, out, n, stream
     "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
+    # x, m, k, bank, kp, np, scales, expert_ids, n_sel, out, n, stream
+    "eetq_w8a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I, _P),
+    # x, bm, nb, k, bank, kp, np, scales, block_expert, out, n, stream
+    "eetq_w8a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
     # q, k, v, out, b, sq, skv, hq, hkv, d, q strides (b, s, h),
     # k strides, v strides, scale, causal, stream
     "eetq_flash_attention_fwd": (

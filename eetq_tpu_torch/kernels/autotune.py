@@ -25,9 +25,10 @@ W8A8_TILE = (128, 128, 64)
 # strip (`csrc/gemv.cuh`), taken once over the gate and once over the up half.
 FUSED_MLP_SLICE = 32
 
-# Dynamic shared memory a block may use on Hopper (232,448 bytes); the GEMV
-# kernel holds all of x in it.
-MAX_SMEM_BYTES = 232_448
+# Token-grouped expert GEMM: rows per row block, a multiple of 8 between
+# these (`modules/moe.py::_grouped_bm`, `csrc/w8a16_grouped_gemm.cu`, whose
+# tile has 128 rows).
+GROUPED_BM_MIN, GROUPED_BM_MAX = 8, 128
 
 # Flash-decode: one key range ("split") per block. Enough splits that the
 # grid covers every SM at least twice, and no split shorter than this.
@@ -39,12 +40,6 @@ def compile_defines() -> tuple[str, ...]:
     bm, bn, bk = W8A8_TILE
     return (f"-DEETQ_W8A8_BM={bm}", f"-DEETQ_W8A8_BN={bn}", f"-DEETQ_W8A8_BK={bk}",
             f"-DEETQ_FUSED_MLP_SLICE={FUSED_MLP_SLICE}")
-
-
-def gemv_smem_bytes(m: int, kp: int) -> int:
-    """Shared memory of one GEMV block: x as [Kp, m] bf16 plus its f32
-    reduction buffers (1060 bytes per row of x, `csrc/w8a16_gemv.cu`)."""
-    return m * (2 * kp + 1060)
 
 
 def decode_splits(rows: int, max_len: int, device: torch.device) -> tuple[int, int]:

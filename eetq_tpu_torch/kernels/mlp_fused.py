@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.kernels.autotune import MAX_DECODE_M, MAX_SMEM_BYTES, gemv_smem_bytes
+from eetq_tpu_torch.kernels.autotune import MAX_DECODE_M
 from eetq_tpu_torch.layout.tiling import TILE
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
@@ -84,8 +84,6 @@ def fused_mlp_gemv(
         raise NotImplementedError("the CUDA kernels take K % 8 == 0 (16-byte x loads)")
     if not 1 <= m <= MAX_DECODE_M:
         raise ValueError(f"the fused MLP kernel takes 1..{MAX_DECODE_M} rows, got {m}")
-    if max(gemv_smem_bytes(m, kp), gemv_smem_bytes(m, ip)) > MAX_SMEM_BYTES:
-        raise NotImplementedError(f"x of {m} rows does not fit the GEMV kernel's shared memory")
     for name, t, size in (("gu_scales", gu_scales, ip2), ("d_scales", d_scales, n)):
         if (t.dtype != torch.float32 or t.shape != (size,) or not t.is_contiguous()
                 or t.device != x.device):

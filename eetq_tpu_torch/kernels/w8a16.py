@@ -19,6 +19,18 @@ Both replace `eetq_tpu/kernels/w8a16.py::w8a16_matmul_kernel_call`
   int8 weight tiles converted to bf16 in shared memory, `wmma` bf16
   fragments with f32 accumulation, the scale and bias in the epilogue.
 
+The two MoE kernels run the same designs over a stacked expert bank
+[E, Kp, Np] with per-channel scales [E, N], each block reading its expert
+id from device memory:
+
+- `w8a16_expert_gemv` (`csrc/w8a16_expert_gemv.cu`) replaces
+  `w8a16_expert_matmul_kernel_call` (`pallas_call` at w8a16.py:513): the
+  GEMV with one grid row per selection, out[s] = x @ dequant(bank[ids[s]]).
+- `w8a16_grouped_gemm` (`csrc/w8a16_grouped_gemm.cu`) replaces
+  `w8a16_grouped_matmul_kernel_call` (`pallas_call` at w8a16.py:611): the
+  GEMM tile with one grid row per bm-row block, each block times its own
+  expert.
+
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs the
 plain PyTorch version for CPU tensors. `launches` counts kernel launches.
 """
@@ -28,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.kernels.autotune import MAX_DECODE_M, MAX_SMEM_BYTES, gemv_smem_bytes
+from eetq_tpu_torch.kernels.autotune import GROUPED_BM_MAX, GROUPED_BM_MIN, MAX_DECODE_M
 from eetq_tpu_torch.layout.tiling import TILE
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
@@ -61,9 +73,39 @@ def w8a16_matmul_ref(
     return r.to(x.dtype)
 
 
+def expert_matmul_ref(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    expert_ids: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of the expert gather: [n_sel, m, N], selection s being
+    ``x @ dequant(qweight[expert_ids[s]])`` (`eetq_tpu/ops/moe.py::
+    expert_matmul_ref`). qweight the logical int8 bank [E, K, N]; scales
+    [E, N] or [E, G, N]. Reads the ids on the host: a test oracle."""
+    return torch.stack([w8a16_matmul_ref(x, qweight[e], scales[e])
+                        for e in expert_ids.tolist()])
+
+
+def grouped_matmul_ref(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    block_expert: torch.Tensor,
+    bm: int,
+) -> torch.Tensor:
+    """Plain version of the grouped GEMM: row block b of x [nb * bm, K] times
+    dequant(qweight[block_expert[b]]) -> [nb * bm, N] (`eetq_tpu/ops/moe.py::
+    grouped_matmul_ref`). Reads the ids on the host: a test oracle."""
+    return torch.cat([w8a16_matmul_ref(x[b * bm:(b + 1) * bm], qweight[e], scales[e])
+                      for b, e in enumerate(block_expert.tolist())])
+
+
 def _check_cuda(x, qdata, scales, n, bias):
+    """x [m, K] against a packed [Kp, Np] weight with scales [N], or a packed
+    bank [E, Kp, Np] with scales [E, N]."""
     m, k = x.shape
-    kp, np_ = qdata.shape
+    kp, np_ = qdata.shape[-2:]
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise TypeError(f"x must be contiguous bf16, got {x.dtype}")
     if qdata.dtype != torch.int8 or not qdata.is_contiguous() or qdata.device != x.device:
@@ -74,13 +116,22 @@ def _check_cuda(x, qdata, scales, n, bias):
         raise ValueError(f"weight {tuple(qdata.shape)} is not a packed [Kp, Np] for K={k}, N={n}")
     if k % 8:
         raise NotImplementedError("the CUDA kernels take K % 8 == 0 (16-byte x loads)")
-    if scales.dim() != 1:
+    if scales.dim() != qdata.dim() - 1:
         raise NotImplementedError("group-wise scales have no CUDA kernel yet")
-    if (scales.dtype != torch.float32 or scales.shape != (n,) or not scales.is_contiguous()
+    want = (*qdata.shape[:-2], n)
+    if (scales.dtype != torch.float32 or scales.shape != want or not scales.is_contiguous()
             or scales.device != x.device):
-        raise TypeError("scales must be contiguous f32 [N] on x's device")
+        raise TypeError(f"scales must be contiguous f32 {list(want)} on x's device")
     if bias is not None and (bias.shape != (n,) or bias.device != x.device):
         raise TypeError("bias must be [N] on x's device")
+
+
+def _check_ids(ids: torch.Tensor, x: torch.Tensor, what: str) -> None:
+    if (ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous()
+            or ids.device != x.device):
+        raise TypeError(f"{what} must be a contiguous int32 vector on x's device")
+    if not 1 <= ids.shape[0] <= 65535:  # one grid row each
+        raise ValueError(f"{what} holds {ids.shape[0]} ids, want 1..65535")
 
 
 def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
@@ -112,8 +163,6 @@ def w8a16_gemv(
     kp, np_ = qdata.shape
     if not 1 <= m <= MAX_DECODE_M:
         raise ValueError(f"the GEMV kernel takes 1..{MAX_DECODE_M} rows, got {m}")
-    if gemv_smem_bytes(m, kp) > MAX_SMEM_BYTES:
-        raise NotImplementedError(f"x of {m} x {kp} does not fit the GEMV kernel's shared memory")
     if gamma is not None and (gamma.shape != (k,) or gamma.device != x.device):
         raise TypeError("gamma must be [K] on x's device")
     bias, gamma = _f32(bias), _f32(gamma)
@@ -152,5 +201,81 @@ def w8a16_gemm(
     return out
 
 
+def w8a16_expert_gemv(
+    x: torch.Tensor,
+    qdata: torch.Tensor,
+    scales: torch.Tensor,
+    expert_ids: torch.Tensor,
+    n: int,
+) -> torch.Tensor:
+    """Expert gather for m <= 8 rows: out[s] = x @ dequant(bank[ids[s]]).
+
+    x [m, K] bf16; qdata the packed int8 bank [E, Kp, Np]; scales f32
+    [E, N]; expert_ids int32 [n_sel] on x's device, each in [0, E) (the
+    kernel reads them there and cannot check them). Returns [n_sel, m, N]
+    bf16.
+    """
+    k = x.shape[-1]
+    if not x.is_cuda:
+        return expert_matmul_ref(x, qdata[:, :k, :n], scales, expert_ids)
+    if qdata.dim() != 3:
+        raise ValueError(f"expert bank must be 3-D, got {tuple(qdata.shape)}")
+    _check_cuda(x, qdata, scales, n, None)
+    _check_ids(expert_ids, x, "expert_ids")
+    m = x.shape[0]
+    _, kp, np_ = qdata.shape
+    if not 1 <= m <= MAX_DECODE_M:
+        raise ValueError(f"the expert GEMV takes 1..{MAX_DECODE_M} rows, got {m}")
+    n_sel = expert_ids.shape[0]
+    out = torch.empty((n_sel, m, n), dtype=torch.bfloat16, device=x.device)
+    _build.launch(
+        "eetq_w8a16_expert_gemv", x.data_ptr(), m, k, qdata.data_ptr(), kp, np_,
+        scales.data_ptr(), expert_ids.data_ptr(), n_sel, out.data_ptr(), n,
+        _build.stream_of(x),
+    )
+    w8a16_expert_gemv.launches += 1
+    return out
+
+
+def w8a16_grouped_gemm(
+    x: torch.Tensor,
+    qdata: torch.Tensor,
+    scales: torch.Tensor,
+    block_expert: torch.Tensor,
+    n: int,
+) -> torch.Tensor:
+    """Token-grouped GEMM: row block b of x [nb * bm, K] (bm = rows / nb, a
+    multiple of 8 up to 128) times dequant(bank[block_expert[b]]).
+
+    qdata the packed int8 bank [E, Kp, Np]; scales f32 [E, N]; block_expert
+    int32 [nb] on x's device, each in [0, E), padding blocks included.
+    Returns [nb * bm, N] bf16.
+    """
+    k = x.shape[-1]
+    nb = block_expert.shape[0]
+    if x.shape[0] % nb:
+        raise ValueError(f"rows {x.shape[0]} must divide into {nb} blocks")
+    bm = x.shape[0] // nb
+    if not x.is_cuda:
+        return grouped_matmul_ref(x, qdata[:, :k, :n], scales, block_expert, bm)
+    if qdata.dim() != 3:
+        raise ValueError(f"expert bank must be 3-D, got {tuple(qdata.shape)}")
+    _check_cuda(x, qdata, scales, n, None)
+    _check_ids(block_expert, x, "block_expert")
+    if bm % 8 or not GROUPED_BM_MIN <= bm <= GROUPED_BM_MAX:
+        raise ValueError(f"row blocks of {bm} rows: the grouped GEMM takes "
+                         f"{GROUPED_BM_MIN}..{GROUPED_BM_MAX}, a multiple of 8")
+    _, kp, np_ = qdata.shape
+    out = torch.empty((nb * bm, n), dtype=torch.bfloat16, device=x.device)
+    _build.launch(
+        "eetq_w8a16_grouped_gemm", x.data_ptr(), bm, nb, k, qdata.data_ptr(), kp, np_,
+        scales.data_ptr(), block_expert.data_ptr(), out.data_ptr(), n, _build.stream_of(x),
+    )
+    w8a16_grouped_gemm.launches += 1
+    return out
+
+
 w8a16_gemv.launches = 0
 w8a16_gemm.launches = 0
+w8a16_expert_gemv.launches = 0
+w8a16_grouped_gemm.launches = 0

@@ -14,7 +14,9 @@ multiples of `TILE`:
 - padded rows and columns are zero, so products over the padded range are
   exact; the kernels write only the logical N output columns.
 
-Checkpoints and `models/convert.py` carry the unpacked [K, N] int8.
+An expert bank is a stacked [E, K, N] int8 weight, packed per expert to
+[E, Kp, Np] (the MoE kernels offset into it by e * Kp * Np). Checkpoints
+and `models/convert.py` carry the unpacked [K, N] or [E, K, N] int8.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ def padded(dim: int) -> int:
 
 @dataclasses.dataclass
 class PackedWeight:
-    """A kernel-ready int8 weight: data [Kp, Np] plus the logical K, N."""
+    """A kernel-ready int8 weight: data [Kp, Np] (or a bank [E, Kp, Np])
+    plus the logical K, N."""
 
     data: torch.Tensor
     k: int
@@ -50,16 +53,18 @@ class PackedWeight:
 
 
 def pack_weights(qweight: torch.Tensor) -> PackedWeight:
-    """Zero-pad an unpacked int8 [K, N] weight to the kernel layout."""
+    """Zero-pad an unpacked int8 [K, N] weight (or [E, K, N] bank, each
+    expert on its own) to the kernel layout."""
     if qweight.dtype != torch.int8:
         raise TypeError(f"pack_weights expects int8, got {qweight.dtype}")
-    if qweight.dim() != 2:
-        raise ValueError(f"weight must be 2-D, got {tuple(qweight.shape)}")
-    k, n = qweight.shape
+    if qweight.dim() not in (2, 3):
+        raise ValueError(f"weight must be 2-D or 3-D, got {tuple(qweight.shape)}")
+    k, n = qweight.shape[-2:]
     data = F.pad(qweight, (0, padded(n) - n, 0, padded(k) - k)).contiguous()
     return PackedWeight(data=data, k=k, n=n)
 
 
 def unpack_weights(packed: PackedWeight) -> torch.Tensor:
-    """Exact inverse of :func:`pack_weights`: the logical [K, N] int8."""
-    return packed.data[: packed.k, : packed.n]
+    """Exact inverse of :func:`pack_weights`: the logical [K, N] (or
+    [E, K, N]) int8."""
+    return packed.data[..., : packed.k, : packed.n]

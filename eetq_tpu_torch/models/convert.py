@@ -11,7 +11,10 @@ of numpy arrays that mirrors the JAX package's ModelParams:
 where a linear is ``{"qweight": int8 [K, N], "scales": [N], "bias": [N]?}``
 (quantized: the unpacked portable format `eetq_tpu/models/hf.py` writes,
 packed here by the port's own `pack_weights`) or ``{"weight": [K, N],
-"bias": [N]?}`` (dense). Float arrays of any float dtype (bf16 ones
+"bias": [N]?}`` (dense). A MoE layer has ``"moe": {"router": linear,
+"gateup": bank, "down": bank}`` in place of gateup and down, where a bank
+is a linear with a leading expert axis (``"qweight"`` int8 [E, K, N] and
+``"scales"`` [E, N], or ``"weight"`` [E, K, N]). Float arrays of any float dtype (bf16 ones
 included) are cast to bf16 for weights, biases and the embedding, and to
 f32 for norms and scales.
 """
@@ -24,6 +27,7 @@ import torch
 from eetq_tpu_torch.layout.tiling import pack_weights
 from eetq_tpu_torch.models.transformer import LayerParams, ModelParams
 from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear
+from eetq_tpu_torch.modules.moe import MoEMLP
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -41,19 +45,25 @@ def _linear(d: dict, device):
     return DenseLinear(_tensor(d["weight"], torch.bfloat16, device), bias)
 
 
+def _layer(lp: dict, device) -> LayerParams:
+    moe = lp.get("moe")
+    if moe is not None:
+        mlp = dict(moe=MoEMLP(*(_linear(moe[name], device) for name in ("router", "gateup",
+                                                                          "down"))))
+    else:
+        mlp = dict(gateup=_linear(lp["gateup"], device), down=_linear(lp["down"], device))
+    return LayerParams(
+        input_norm=_tensor(lp["input_norm"], torch.float32, device),
+        qkv=_linear(lp["qkv"], device),
+        o_proj=_linear(lp["o_proj"], device),
+        post_norm=_tensor(lp["post_norm"], torch.float32, device),
+        **mlp,
+    )
+
+
 def params_from_numpy(tree: dict, device: torch.device | str | None = None) -> ModelParams:
     """The port's ModelParams on `device` from the numpy tree above."""
-    layers = [
-        LayerParams(
-            input_norm=_tensor(lp["input_norm"], torch.float32, device),
-            qkv=_linear(lp["qkv"], device),
-            o_proj=_linear(lp["o_proj"], device),
-            post_norm=_tensor(lp["post_norm"], torch.float32, device),
-            gateup=_linear(lp["gateup"], device),
-            down=_linear(lp["down"], device),
-        )
-        for lp in tree["layers"]
-    ]
+    layers = [_layer(lp, device) for lp in tree["layers"]]
     lm_head = None if tree.get("lm_head") is None else _linear(tree["lm_head"], device)
     return ModelParams(
         _tensor(tree["embed"], torch.bfloat16, device), layers,

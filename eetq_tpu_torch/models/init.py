@@ -1,9 +1,13 @@
 """Random-weight model construction and its quantization to W8A16.
 
-Port of `eetq_tpu/models/init.py` for the dense MLP. Weights come from a
-`torch.Generator` on the given device, one layer at a time; the values
-differ from the JAX package's (another generator), so cross-package tests
-carry JAX's weights over with `models/convert.py` instead.
+Port of `eetq_tpu/models/init.py`, plus a layer-by-layer quantized
+constructor (the counterpart of `bench.py::build_params` and
+`scripts/bench_moe.py::build_moe_params`). Weights come from a `torch.Generator` on the given
+device, one layer at a time, in the JAX package's draw order (an MoE layer:
+router, gate|up bank, down bank, qkv, o_proj; a dense layer: qkv, o_proj,
+gate|up, down; then the embedding and the lm_head). The values differ from
+the JAX package's (another generator), so cross-package tests carry JAX's
+weights over with `models/convert.py` instead.
 """
 
 from __future__ import annotations
@@ -13,10 +17,11 @@ import torch
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.models.transformer import LayerParams, ModelParams
 from eetq_tpu_torch.modules.linear import DenseLinear, quantize_linear
+from eetq_tpu_torch.modules.moe import MoEMLP, quantize_moe
 
 
 def _normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32) * std
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32).mul_(std)
 
 
 def _dense(gen, k: int, n: int, with_bias: bool = False) -> DenseLinear:
@@ -25,48 +30,80 @@ def _dense(gen, k: int, n: int, with_bias: bool = False) -> DenseLinear:
     return DenseLinear(w, b)
 
 
-def random_dense_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
-    """Unquantized bf16 model with fused qkv / gateup linears, made on the
-    generator's device. Linear weights ~ N(0, 1/K), embedding ~ N(0, 0.02^2),
-    norms 1."""
+def _dense_experts(gen, e: int, k: int, n: int) -> DenseLinear:
+    return DenseLinear(_normal(gen, (e, k, n), k ** -0.5).to(torch.bfloat16))
+
+
+def _dense_layer(cfg: ModelConfig, gen: torch.Generator) -> LayerParams:
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    ones = torch.ones(h, dtype=torch.float32, device=gen.device)
     if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
-    h = cfg.hidden_size
+        e = cfg.num_experts
+        moe = MoEMLP(_dense(gen, h, e), _dense_experts(gen, e, h, 2 * i),
+                     _dense_experts(gen, e, i, h))
+        return LayerParams(ones, _dense(gen, h, cfg.qkv_out, with_bias=cfg.qkv_bias),
+                           _dense(gen, cfg.num_heads * cfg.head_dim, h), ones.clone(), moe=moe)
+    return LayerParams(
+        input_norm=ones,
+        qkv=_dense(gen, h, cfg.qkv_out, with_bias=cfg.qkv_bias),
+        o_proj=_dense(gen, cfg.num_heads * cfg.head_dim, h),
+        post_norm=ones.clone(),
+        gateup=_dense(gen, h, 2 * i),
+        down=_dense(gen, i, h),
+    )
 
-    def ones() -> torch.Tensor:
-        return torch.ones(h, dtype=torch.float32, device=generator.device)
 
-    layers = [
-        LayerParams(
-            input_norm=ones(),
-            qkv=_dense(generator, h, cfg.qkv_out, with_bias=cfg.qkv_bias),
-            o_proj=_dense(generator, cfg.num_heads * cfg.head_dim, h),
-            post_norm=ones(),
-            gateup=_dense(generator, h, 2 * cfg.intermediate_size),
-            down=_dense(generator, cfg.intermediate_size, h),
-        )
-        for _ in range(cfg.num_layers)
-    ]
-    embed = _normal(generator, (cfg.vocab_size, h), 0.02).to(torch.bfloat16)
-    lm_head = None if cfg.tie_word_embeddings else _dense(generator, h, cfg.vocab_size)
-    return ModelParams(embed, layers, ones(), lm_head)
+def _embed_and_head(cfg: ModelConfig, gen: torch.Generator):
+    embed = _normal(gen, (cfg.vocab_size, cfg.hidden_size), 0.02).to(torch.bfloat16)
+    lm_head = None if cfg.tie_word_embeddings else _dense(gen, cfg.hidden_size, cfg.vocab_size)
+    return embed, lm_head
+
+
+def random_dense_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
+    """Unquantized bf16 model with fused qkv / gateup linears (stacked expert
+    banks and a router on MoE layers), made on the generator's device. Linear
+    weights ~ N(0, 1/K), embedding ~ N(0, 0.02^2), norms 1."""
+    layers = [_dense_layer(cfg, generator) for _ in range(cfg.num_layers)]
+    embed, lm_head = _embed_and_head(cfg, generator)
+    final_norm = torch.ones(cfg.hidden_size, dtype=torch.float32, device=generator.device)
+    return ModelParams(embed, layers, final_norm, lm_head)
+
+
+def _q(lin: DenseLinear):
+    return quantize_linear(lin.weight, bias=lin.bias)
+
+
+def _quantize_layer(lp: LayerParams) -> LayerParams:
+    if lp.moe is not None:
+        return LayerParams(lp.input_norm, _q(lp.qkv), _q(lp.o_proj), lp.post_norm,
+                           moe=quantize_moe(lp.moe))
+    return LayerParams(lp.input_norm, _q(lp.qkv), _q(lp.o_proj), lp.post_norm,
+                       _q(lp.gateup), _q(lp.down))
 
 
 def quantize_params(params: ModelParams, quantize_lm_head: bool = False) -> ModelParams:
-    """Every dense decoder linear becomes a per-channel int8 QuantLinear, one
-    layer at a time; the lm_head too with quantize_lm_head=True (it stays
-    dense by default, as in the reference). Returns a new ModelParams that
-    shares the embedding and norms with `params`."""
-
-    def q(lin: DenseLinear):
-        return quantize_linear(lin.weight, bias=lin.bias)
-
-    layers = [
-        LayerParams(lp.input_norm, q(lp.qkv), q(lp.o_proj), lp.post_norm,
-                    q(lp.gateup), q(lp.down))
-        for lp in params.layers
-    ]
+    """Every dense decoder linear and expert bank becomes per-channel int8
+    (the routers stay bf16), one layer at a time; the lm_head too with
+    quantize_lm_head=True (it stays dense by default, as in the reference).
+    Returns a new ModelParams that shares the embedding and norms with
+    `params`."""
+    layers = [_quantize_layer(lp) for lp in params.layers]
     lm_head = params.lm_head
     if quantize_lm_head and isinstance(lm_head, DenseLinear):
-        lm_head = q(lm_head)
+        lm_head = _q(lm_head)
     return ModelParams(params.embed, layers, params.final_norm, lm_head)
+
+
+def random_quantized_params(cfg: ModelConfig, generator: torch.Generator,
+                            quantize_lm_head: bool = False) -> ModelParams:
+    """`quantize_params(random_dense_params(cfg, generator), quantize_lm_head)`
+    without the whole bf16 model: each layer is drawn in bf16, quantized at
+    once and dropped, so the peak is the quantized model plus one bf16
+    layer. Mixtral-8x7B is about 93 GB in bf16, more than an H100 holds, and
+    about 47 GB at W8A16. The draws are the same, so the result is equal."""
+    layers = [_quantize_layer(_dense_layer(cfg, generator)) for _ in range(cfg.num_layers)]
+    embed, lm_head = _embed_and_head(cfg, generator)
+    if quantize_lm_head and lm_head is not None:
+        lm_head = _q(lm_head)
+    final_norm = torch.ones(cfg.hidden_size, dtype=torch.float32, device=generator.device)
+    return ModelParams(embed, layers, final_norm, lm_head)

@@ -6,8 +6,10 @@ Port of `eetq_tpu/models/transformer.py` for the dense MLP: parameters are
 in f32 with its product cast to bf16 (:197), and logits come out in f32
 (:262). `a8` routes the projections through the W8A8 path (prefill), and
 `fused_mlp` runs a decode-regime MLP block as the fused kernel (:172-189);
-`fused_mlp=None` reads EETQ_FUSED_MLP as the JAX package does. MoE, ALiBi,
-LoRA, tensor parallelism and the verify step raise NotImplementedError.
+`fused_mlp=None` reads EETQ_FUSED_MLP as the JAX package does. A layer
+with `moe` set runs the routed MLP instead (:158-170), which takes neither
+`a8` nor `fused_mlp`, as in the JAX package. ALiBi, LoRA, tensor
+parallelism and the verify step raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from eetq_tpu_torch.kernels.mlp_fused import ACTIVATIONS
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.modules.attention import KVCache, attention, init_kv_cache
 from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear, linear_apply
+from eetq_tpu_torch.modules.moe import MoEMLP, moe_apply
 from eetq_tpu_torch.ops.mlp import can_fuse_mlp, fused_mlp as fused_mlp_op
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 from eetq_tpu_torch.ops.rope import make_cos_sin_cache, rope
@@ -29,12 +32,19 @@ Linear = QuantLinear | DenseLinear
 
 
 class LayerParams(nn.Module):
+    """One decoder layer: the dense MLP (gateup, down) or, on MoE layers,
+    `moe` with gateup and down None."""
+
     def __init__(self, input_norm: torch.Tensor, qkv: Linear, o_proj: Linear,
-                 post_norm: torch.Tensor, gateup: Linear, down: Linear):
+                 post_norm: torch.Tensor, gateup: Linear | None = None,
+                 down: Linear | None = None, moe: MoEMLP | None = None):
         super().__init__()
+        if (gateup is None, down is None) != (moe is not None,) * 2:
+            raise ValueError("a layer has either gateup and down, or moe")
         self.register_buffer("input_norm", input_norm)
         self.register_buffer("post_norm", post_norm)
         self.qkv, self.o_proj, self.gateup, self.down = qkv, o_proj, gateup, down
+        self.moe = moe
 
 
 class ModelParams(nn.Module):
@@ -48,8 +58,6 @@ class ModelParams(nn.Module):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     if cfg.alibi:
         raise NotImplementedError("ALiBi attention is not ported yet")
 
@@ -78,7 +86,8 @@ def decoder_layer(
     are handed to the linear as a prenorm (fused into the GEMV kernel in the
     decode regime). a8 routes every projection through W8A8; fused_mlp runs
     the MLP block as one fused dispatch where `can_fuse_mlp` allows (never
-    under a8, as in the JAX package)."""
+    under a8, as in the JAX package). A MoE layer's routed MLP takes
+    neither."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -96,6 +105,11 @@ def decoder_layer(
 
     residual = x
     gamma2 = _gamma(p.post_norm, cfg)
+    if p.moe is not None:
+        y = rmsnorm(x, gamma2, eps=cfg.rms_eps)
+        out = moe_apply(p.moe, y, cfg.num_experts_per_tok, activation=cfg.activation,
+                        use_kernel=use_kernels)
+        return residual + out, cache
     if fused_mlp is None:
         fused_mlp = _fused_mlp_enabled()
     if not a8 and fused_mlp and can_fuse_mlp(p.gateup, p.down, b * s):

@@ -1,0 +1,208 @@
+"""Mixture-of-Experts MLP over quantized expert banks (Mixtral-style).
+
+Port of `eetq_tpu/modules/moe.py` for one device. The experts live as one
+stacked bank per projection (gate|up [E, H, 2I] and down [E, I, H], each a
+3-D QuantLinear or DenseLinear); routing is a top-k softmax over a bf16
+router [H, E]. `moe_apply` has the JAX package's three regimes and
+thresholds:
+
+- **gather** (n_sel = tokens x top_k <= min(MAX_DECODE_M, E)): one
+  expert-gather GEMV per projection streams exactly the selected experts'
+  bytes;
+- **grouped** (n_sel > MAX_DECODE_M): the selections are sorted by expert
+  into bm-row blocks and each projection is one token-grouped GEMM, the
+  routed fraction of the FLOPs plus at most one partial block per expert;
+- **masked scan** otherwise, and for ``use_kernel=False`` (the plain path):
+  every expert over every token, weighted by its routing coefficient (0
+  where not picked).
+
+On CUDA the routing and grouping glue keeps static shapes and never reads
+a value back to the host (no `.item()`, `nonzero`, boolean indexing or
+`bincount`), so the ids never leave the card, as on the TPU. Expert
+parallelism and the JAX package's `EETQ_MOE_*` A/B knobs are not ported
+(the knobs raise NotImplementedError).
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+from torch import nn
+
+from eetq_tpu_torch.kernels.autotune import GROUPED_BM_MAX, GROUPED_BM_MIN, MAX_DECODE_M
+from eetq_tpu_torch.kernels.mlp_fused import ACTIVATIONS
+from eetq_tpu_torch.kernels.w8a16 import w8a16_matmul_ref
+from eetq_tpu_torch.layout.tiling import pack_weights, unpack_weights
+from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear
+from eetq_tpu_torch.ops.moe import w8a16_expert_matmul, w8a16_grouped_matmul
+from eetq_tpu_torch.quant.quantizer import symmetric_quantize
+
+_KNOBS = ("EETQ_MOE_NO_GATHER", "EETQ_MOE_NO_GROUPED", "EETQ_MOE_GROUPED_BM")
+
+
+class MoEMLP(nn.Module):
+    """Routed MLP block: router [H, E] + stacked expert gate|up and down.
+
+    gateup/down are QuantLinear (data [E, Kp, Np], scales [E, N]) or
+    DenseLinear (weight [E, K, N] bf16)."""
+
+    def __init__(self, router: DenseLinear, gateup: QuantLinear | DenseLinear,
+                 down: QuantLinear | DenseLinear):
+        super().__init__()
+        self.router, self.gateup, self.down = router, gateup, down
+
+    @property
+    def num_experts(self) -> int:
+        return self.router.weight.shape[-1]
+
+
+def _quantize_bank(lin: DenseLinear) -> QuantLinear:
+    """Per-channel int8 of a [E, K, N] bank, one expert at a time (the scales
+    are per expert and channel, so this equals quantizing the whole bank, and
+    the f32 temporaries stay one expert wide)."""
+    if lin.bias is not None:
+        raise NotImplementedError("expert biases are not supported")
+    parts = [symmetric_quantize(w) for w in lin.weight]
+    q = torch.stack([p[0] for p in parts])
+    s = torch.stack([p[1] for p in parts])
+    return QuantLinear(pack_weights(q), s)
+
+
+def quantize_moe(moe: MoEMLP) -> MoEMLP:
+    """Quantize a dense MoEMLP's expert banks to per-channel int8. The router
+    stays bf16: a [H, E] sliver whose logits decide the routing."""
+    return MoEMLP(moe.router, _quantize_bank(moe.gateup), _quantize_bank(moe.down))
+
+
+def route(router: DenseLinear, x2: torch.Tensor, top_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing, softmax over the selected logits (the Mixtral
+    convention). The logits are f32 sums of the exact bf16 products, as
+    `preferred_element_type=f32` gives in JAX. x2 [T, H] -> (weights [T, k]
+    f32, ids [T, k] int64)."""
+    logits = x2.float() @ router.weight.to(x2.dtype).float()
+    topv, topi = torch.topk(logits, top_k, dim=-1)
+    return torch.softmax(topv, dim=-1), topi
+
+
+def _gated(gu_out: torch.Tensor, activation: str, dtype: torch.dtype) -> torch.Tensor:
+    gate, up = torch.chunk(gu_out, 2, dim=-1)
+    return (ACTIVATIONS[activation](gate.float()) * up.float()).to(dtype)
+
+
+def _grouped_bm(n_sel: int, e: int) -> int:
+    """Rows per block of the grouped GEMM (`eetq_tpu/modules/moe.py:106`):
+    128 keeps the weight stream compute-bound; small prompts shrink it
+    toward the balanced per-expert count, a multiple of 8, so the padding
+    stays bounded (at most n_sel / bm + E blocks)."""
+    per = n_sel // max(e, 1)
+    return max(GROUPED_BM_MIN, min(GROUPED_BM_MAX, 8 * (per // 8) or 8))
+
+
+def _one_hot(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """[..., E] bool; a comparison, so nothing is read back to the host."""
+    return ids[..., None] == torch.arange(e, device=ids.device)
+
+
+def moe_grouped_combine(
+    moe: MoEMLP,
+    x2: torch.Tensor,  # [T, H]
+    topw: torch.Tensor,  # [T, k] f32
+    topi: torch.Tensor,  # [T, k]
+    activation: str,
+) -> torch.Tensor:
+    """Routed prefill (`eetq_tpu/modules/moe.py:122-208`): sort the (token,
+    expert) selections by expert, pack their rows into per-expert bm-row
+    blocks, run one grouped GEMM per projection, then un-sort and combine
+    with the routing weights. Static shapes: nb = n_sel // bm + E blocks,
+    the padding blocks past the last expert's clamped to a valid id.
+    Returns [T, H] f32."""
+    t, h = x2.shape
+    top_k = topi.shape[-1]
+    e = moe.num_experts
+    n_sel = t * top_k
+    bm = _grouped_bm(n_sel, e)
+    nb = n_sel // bm + e
+    dev = x2.device
+
+    eids = topi.reshape(-1)
+    order = torch.argsort(eids, stable=True)  # sorted selection -> selection
+    e_sorted = eids[order]
+    tok_sorted = order // top_k
+    counts = _one_hot(eids, e).sum(0)  # [E]
+    group_start = torch.cumsum(counts, 0) - counts
+    nb_e = (counts + bm - 1) // bm  # blocks per expert
+    cum_nb = torch.cumsum(nb_e, 0)
+    block_start = cum_nb - nb_e
+    block_expert = torch.searchsorted(
+        cum_nb, torch.arange(nb, device=dev), right=True).clamp_(max=e - 1).to(torch.int32)
+    pos = torch.arange(n_sel, device=dev) - group_start[e_sorted]
+    dest = block_start[e_sorted] * bm + pos  # row of each sorted selection
+
+    xg = x2.new_zeros((nb * bm, h)).index_copy_(0, dest, x2[tok_sorted])
+    gu = w8a16_grouped_matmul(xg, moe.gateup.packed, moe.gateup.scales, block_expert)
+    hidden = _gated(gu, activation, x2.dtype)
+    dn = w8a16_grouped_matmul(hidden, moe.down.packed, moe.down.scales, block_expert)
+    # un-sort, then the weighted sum over k in the original top-k order
+    contrib = torch.empty((n_sel, h), dtype=dn.dtype, device=dev).index_copy_(
+        0, order, dn[dest]).float()
+    return (contrib.reshape(t, top_k, h) * topw.reshape(t, top_k, 1).float()).sum(1)
+
+
+def moe_apply(
+    moe: MoEMLP,
+    x: torch.Tensor,
+    top_k: int,
+    activation: str = "silu",
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Routed MLP forward. x [B, S, H] (already normed) -> [B, S, H].
+    use_kernel=False runs the masked scan with the plain products (the
+    reference the kernel regimes are checked against)."""
+    set_knobs = [name for name in _KNOBS if os.environ.get(name)]
+    if set_knobs:
+        raise NotImplementedError(f"{set_knobs}: the MoE A/B knobs are not ported")
+    b, s, h = x.shape
+    t = b * s
+    x2 = x.reshape(t, h)
+    quantized = isinstance(moe.gateup, QuantLinear)
+    topw, topi = route(moe.router, x2, top_k)
+    e = moe.num_experts
+    n_sel = t * top_k
+
+    if quantized and use_kernel and n_sel > MAX_DECODE_M:
+        out2 = moe_grouped_combine(moe, x2, topw, topi, activation)
+        return out2.to(x.dtype).reshape(b, s, h)
+    if quantized and use_kernel and n_sel <= min(MAX_DECODE_M, e):
+        # one gather per projection over the selected experts only
+        eids = topi.reshape(-1).to(torch.int32)
+        sel = torch.arange(n_sel, device=x.device)
+        gu_sel = w8a16_expert_matmul(x2, moe.gateup.packed, moe.gateup.scales, eids)
+        hidden = _gated(gu_sel[sel, sel // top_k], activation, x2.dtype)  # [n_sel, I]
+        dn_sel = w8a16_expert_matmul(hidden, moe.down.packed, moe.down.scales, eids)
+        dn_rows = dn_sel[sel, sel].float()  # [n_sel, H]
+        out2 = (dn_rows.reshape(t, top_k, h) * topw[..., None]).sum(1)
+        return out2.to(x.dtype).reshape(b, s, h)
+
+    # Masked scan: coeff[t, e] is the routing weight if expert e was picked
+    # for token t, else 0. Exact for any T.
+    coeff = (_one_hot(topi, e) * topw[..., None]).sum(-2)  # [T, E] f32
+    if quantized and not use_kernel:
+        gu_w, dn_w = unpack_weights(moe.gateup.packed), unpack_weights(moe.down.packed)
+    acc = torch.zeros((t, h), dtype=torch.float32, device=x.device)
+    for ei in range(e):
+        if quantized and use_kernel:
+            ids = torch.full((1,), ei, dtype=torch.int32, device=x.device)
+            g_out = w8a16_expert_matmul(x2, moe.gateup.packed, moe.gateup.scales, ids)[0]
+            hidden = _gated(g_out, activation, x2.dtype)
+            d_out = w8a16_expert_matmul(hidden, moe.down.packed, moe.down.scales, ids)[0]
+        elif quantized:
+            g_out = w8a16_matmul_ref(x2, gu_w[ei], moe.gateup.scales[ei])
+            hidden = _gated(g_out, activation, x2.dtype)
+            d_out = w8a16_matmul_ref(hidden, dn_w[ei], moe.down.scales[ei])
+        else:
+            g_out = x2 @ moe.gateup.weight[ei].to(x2.dtype)
+            hidden = _gated(g_out, activation, x2.dtype)
+            d_out = hidden @ moe.down.weight[ei].to(hidden.dtype)
+        acc = acc + coeff[:, ei, None] * d_out.float()
+    return acc.to(x.dtype).reshape(b, s, h)

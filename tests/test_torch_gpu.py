@@ -3,7 +3,8 @@
 These need the card and nvcc; without a CUDA device each test skips. On
 the card (a machine without JAX, hence no conftest):
 python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
-(`chip_smoke.py` checks the same kernels at the llama2-7b shapes.)
+(`chip_smoke.py` checks the same kernels at the llama2-7b and Mixtral
+shapes.)
 """
 
 import pytest
@@ -19,8 +20,18 @@ from eetq_tpu_torch.kernels.flash_decode import (
 )
 from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv, fused_mlp_ref
 from eetq_tpu_torch.kernels.w8a8 import quantize_activations, w8a8_gemm, w8a8_gemm_ref
-from eetq_tpu_torch.kernels.w8a16 import w8a16_gemm, w8a16_gemv, w8a16_matmul_ref
+from eetq_tpu_torch.kernels.w8a16 import (
+    expert_matmul_ref,
+    grouped_matmul_ref,
+    w8a16_expert_gemv,
+    w8a16_gemm,
+    w8a16_gemv,
+    w8a16_grouped_gemm,
+    w8a16_matmul_ref,
+)
 from eetq_tpu_torch.layout.tiling import pack_weights
+from eetq_tpu_torch.modules import moe as moe_mod
+from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear
 from eetq_tpu_torch.ops.linear8 import w8a8_matmul
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
@@ -60,6 +71,68 @@ def test_w8a16_kernels(dev, m, norm):
         out = w8a16_gemm(y, packed.data, scales, n, bias)
     assert out.shape == (m, n)
     _close(out, ref)
+
+
+def test_w8a16_gemv_stages_x_in_chunks(dev):
+    """m = 8 at K = 14336 (Mixtral's down projection) does not fit shared
+    memory whole: the kernel stages x in chunks."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randint(-127, 128, (14336, 256), generator=g, device=dev, dtype=torch.int8)
+    scales = torch.rand(256, generator=g, device=dev) * 1e-3
+    x = torch.randn(8, 14336, generator=g, device=dev).to(torch.bfloat16)
+    _close(w8a16_gemv(x, q, scales, 256), w8a16_matmul_ref(x, q, scales))
+
+
+def _bank(g, dev, e, k, n):
+    q = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    return pack_weights(q), torch.rand(e, n, generator=g, device=dev) * 1e-3 + 1e-4
+
+
+@pytest.mark.parametrize("m,k,ids", [(1, 1000, [3, 0]), (4, 4096, [1, 1, 2, 0, 3, 2, 2, 0]),
+                                     (8, 14336, [0, 2, 2, 1, 3, 0, 1, 3])])
+def test_w8a16_expert_gemv(dev, m, k, ids):
+    g = torch.Generator(device=dev).manual_seed(m)
+    n = 300 if k == 1000 else 512
+    bank, scales = _bank(g, dev, 4, k, n)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    eids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    out = w8a16_expert_gemv(x, bank.data, scales, eids, n)
+    assert out.shape == (len(ids), m, n)
+    _close(out, expert_matmul_ref(x, bank.data[:, :k, :n], scales, eids))
+
+
+@pytest.mark.parametrize("bm,nb,k", [(8, 10, 1000), (128, 5, 4096), (40, 6, 1024)])
+def test_w8a16_grouped_gemm(dev, bm, nb, k):
+    g = torch.Generator(device=dev).manual_seed(bm)
+    n = 300
+    bank, scales = _bank(g, dev, 4, k, n)
+    be = torch.randint(0, 4, (nb,), generator=g, device=dev, dtype=torch.int32)
+    x = torch.randn(nb * bm, k, generator=g, device=dev).to(torch.bfloat16)
+    x[-bm:] = 0  # a padding block
+    out = w8a16_grouped_gemm(x, bank.data, scales, be, n)
+    assert out.shape == (nb * bm, n)
+    _close(out, grouped_matmul_ref(x, bank.data[:, :k, :n], scales, be, bm))
+    assert not out[-bm:].any()
+
+
+@pytest.mark.parametrize("tokens", [1, 4, 17])
+def test_moe_apply_on_the_card_makes_no_host_sync(dev, tokens):
+    """The gather (2 and 8 selections) and the grouped regime (34): ids and
+    blocks stay on the card, and the output agrees with the plain path."""
+    g = torch.Generator(device=dev).manual_seed(tokens)
+    h, inter, e = 256, 512, 8
+    gu, gs = _bank(g, dev, e, h, 2 * inter)
+    dn, ds = _bank(g, dev, e, inter, h)
+    router = DenseLinear((torch.randn(h, e, generator=g, device=dev) / 16).to(torch.bfloat16))
+    moe = moe_mod.MoEMLP(router, QuantLinear(gu, gs), QuantLinear(dn, ds))
+    x = torch.randn(1, tokens, h, generator=g, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe_mod.moe_apply(moe, x, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _close(out, moe_mod.moe_apply(moe, x, 2, use_kernel=False))
 
 
 @pytest.mark.parametrize("s,hq,hkv,d", [(1, 4, 4, 128), (77, 8, 2, 64), (300, 4, 1, 128)])
@@ -163,6 +236,18 @@ def test_unsupported_variants_raise(dev):
         fused_mlp_gemv(torch.zeros(9, 128, dtype=torch.bfloat16, device=dev),
                        torch.ones(128, device=dev), 1e-5, gu, torch.ones(256, device=dev),
                        w, torch.ones(128, device=dev), 128)
+    bank = torch.zeros(2, 128, 128, dtype=torch.int8, device=dev)
+    ids = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):  # group-wise expert banks
+        w8a16_expert_gemv(x, bank, torch.ones(2, 2, 128, device=dev), ids, 128)
+    with pytest.raises(TypeError):  # int64 ids
+        w8a16_expert_gemv(x, bank, torch.ones(2, 128, device=dev), ids.long(), 128)
+    with pytest.raises(ValueError):  # more rows than the decode regime
+        w8a16_expert_gemv(torch.zeros(9, 128, dtype=torch.bfloat16, device=dev), bank,
+                          torch.ones(2, 128, device=dev), ids, 128)
+    with pytest.raises(ValueError):  # row blocks of 4 rows
+        w8a16_grouped_gemm(torch.zeros(8, 128, dtype=torch.bfloat16, device=dev), bank,
+                           torch.ones(2, 128, device=dev), ids, 128)
 
 
 def test_every_kernel_counts_its_launches(dev):
@@ -173,6 +258,8 @@ def test_every_kernel_counts_its_launches(dev):
     test_flash_decode(dev, 8, 2, 128)
     test_w8a8_gemm_bit_identical(dev, 200, 11008, 4096)
     test_flash_decode_int8(dev, 3, 384, 16, 2, 64)
+    test_w8a16_expert_gemv(dev, 1, 1000, [3, 0])
+    test_w8a16_grouped_gemm(dev, 8, 10, 1000)
     after = {name: fn.launches for name, fn in KERNELS.items()}
     test_fused_mlp_gemv(dev, 1, "silu", (1000, 256, 300))  # two calls: with and without residual
     assert all(after[name] == before[name] + 1 for name in KERNELS if name != "fused_mlp_gemv")

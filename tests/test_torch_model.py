@@ -47,21 +47,24 @@ def _linear_to_numpy(lin) -> dict:
     return d
 
 
+def _layer_to_numpy(lp) -> dict:
+    d = {"input_norm": np.asarray(lp.input_norm), "post_norm": np.asarray(lp.post_norm),
+         "qkv": _linear_to_numpy(lp.qkv), "o_proj": _linear_to_numpy(lp.o_proj)}
+    if lp.moe is not None:
+        d["moe"] = {name: _linear_to_numpy(getattr(lp.moe, name))
+                    for name in ("router", "gateup", "down")}
+    else:
+        d.update(gateup=_linear_to_numpy(lp.gateup), down=_linear_to_numpy(lp.down))
+    return d
+
+
 def jax_params_to_numpy(params) -> dict:
     """JAX ModelParams -> the numpy tree `params_from_numpy` takes."""
     return {
         "embed": np.asarray(params.embed, np.float32),
         "final_norm": np.asarray(params.final_norm),
         "lm_head": None if params.lm_head is None else _linear_to_numpy(params.lm_head),
-        "layers": [
-            {
-                "input_norm": np.asarray(lp.input_norm),
-                "post_norm": np.asarray(lp.post_norm),
-                **{name: _linear_to_numpy(getattr(lp, name))
-                   for name in ("qkv", "o_proj", "gateup", "down")},
-            }
-            for lp in params.layers
-        ],
+        "layers": [_layer_to_numpy(lp) for lp in params.layers],
     }
 
 
@@ -160,8 +163,8 @@ def test_port_random_init_and_quantize():
     logits, _ = port_gen.prefill(q, CFG, torch.zeros(1, 4, dtype=torch.long),
                                  init_caches(CFG, 1, 8))
     assert logits.shape == (1, CFG.vocab_size) and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError):
-        random_dense_params(PRESETS["toy-moe"], gen)
+    moe = quantize_params(random_dense_params(PRESETS["toy-moe"], gen)).layers[0]
+    assert moe.gateup is None and moe.moe.gateup.qweight.dim() == 3
 
 
 def test_port_imports_no_jax():
