@@ -3,14 +3,21 @@
 
 Run from the repository root, on a machine with one CUDA card (an H100):
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--profile]
 
 1. Environment: torch/CUDA/nvcc versions, the card's name and power limit;
    builds the kernels of `eetq_tpu_torch/csrc/` with nvcc (one process per
    source, all at once).
-2. Kernels: each of the nine kernel entry points against its plain
+2. Kernels: each of the thirteen kernel entry points against its plain
    PyTorch version on the card at llama2-7b shapes (the MoE kernels at
-   Mixtral-8x7B's), with its error and its time beside the plain time.
+   Mixtral-8x7B's), with its error, its time beside the plain time, the
+   least time the card could take for the same bytes and operations (from
+   the shapes and the datasheet rates) and, for the two attention kernels,
+   the time of `F.scaled_dot_product_attention` on the same inputs (a
+   yardstick: the port never calls it). The int4 kernels run per-channel
+   and with 128-row scale groups, the W8A8 and per-channel W4A8 outputs
+   must equal their plain versions bit for bit, and one odd shape each
+   needs padding in K and N.
    Then `moe_apply` on one full-width Mixtral layer at 2, 8 and 2048
    selections, kernels against the plain path on identical input (the
    routing ids must agree), the kernel calls under
@@ -32,7 +39,19 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      lengths and budgets from several threads; one admission's logits
      against the plain path; `w8a16_gemm` must not launch.
    llama2-7b is freed before the next model is built.
-4. Mixtral-8x7B W8A16 at full width and depth (32 layers, 8 experts of
+4. llama2-7b again with int4 weights, at full width and depth, built one
+   layer at a time (`random_quantized_params`, 3.6-3.9 GB), two models:
+   - int4_generate: int4 with 128-row scale groups, the lm_head quantized
+     the same way; bf16 KV, unfused MLP; as `generate` in 3. Runs the int4
+     GEMV and GEMM; no int8 and no W8A8/W4A8 kernel may launch.
+   - int4_server: the same model in the default Engine behind EngineServer,
+     as `server` in 3: W4A8 (group-wise) at admission, the int4 GEMV at
+     decode; the int4 GEMM and W8A8 must not launch.
+   - int4_bench_decode (`EETQ_BENCH_BITS=4 python bench.py`'s model): int4
+     per-channel layers under an int8 lm_head; int8 KV,
+     `decode_loop(fused_mlp=True)`; as `bench decode` in 3. Runs the int4
+     fused MLP, the int4 GEMV (qkv, o) and the int8 GEMV (lm_head).
+5. Mixtral-8x7B W8A16 at full width and depth (32 layers, 8 experts of
    4096 x 14336, top-2), built one layer at a time (the bf16 model,
    ~93 GB, never exists), int8 lm_head, driven two ways: generate (as in
    3, the same requests) and the default Engine behind EngineServer (as in
@@ -41,6 +60,10 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    routing in the plain path (a wrapper of `modules.moe.route` records
    each call's weights and ids, then hands them back in order); how many
    routings the plain path would pick otherwise is printed too.
+
+With `--profile`, each llama2-7b path is also run under `torch.profiler`
+(one prefill, ten decode or engine steps): device-busy time, launches per
+step and the idle share go to the output and to `chip_smoke.json`.
 
 Prints one JSON line of per-kernel results, then as its last line
 `{"ok": true, "device": {...}}`. Any failed check, build or launch ends the
@@ -72,6 +95,12 @@ LLAMA_SHAPES = [  # (K, N) of qkv, o_proj, gate/up, down, lm_head
 PRENORM_SHAPES = {(4096, 12288), (4096, 22016)}  # qkv and gate/up take the fused norm
 W8A8_SHAPES = LLAMA_SHAPES[:4]  # the prefill projections (the lm_head stays W8A16)
 W8A8_ROWS = (32, 1024)  # the engine's smallest prompt bucket, and a full one
+INT4_GROUP = 128  # rows per scale group of the group-wise int4 cases and models
+# One odd shape per int4 kernel, where K and N need padding: (K, N, group size)
+INT4_ODD = ((1000, 300, None), (960, 300, 64))
+# The card's datasheet rates (H100 SXM, dense), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 # Mixtral's expert banks, (K, N) of gate|up and down; 8 experts, top-2
 MIXTRAL_BANKS = ((4096, 28672), (14336, 4096))
 # Expert gather: (rows of x at gate|up and at down, ids) of a b=1 and a b=4
@@ -120,6 +149,11 @@ REPLACES = {
                           "eetq_tpu/kernels/w8a16.py:434"),
     "w8a16_grouped_gemm": ("cuda", "eetq_tpu_torch/csrc/w8a16_grouped_gemm.cu",
                            "eetq_tpu/kernels/w8a16.py:537"),
+    "w4a16_gemv": ("cuda", "eetq_tpu_torch/csrc/w4a16_gemv.cu", "eetq_tpu/kernels/w8a16.py:239"),
+    "w4a16_gemm": ("cuda", "eetq_tpu_torch/csrc/w4a16_gemm.cu", "eetq_tpu/kernels/w8a16.py:239"),
+    "fused_mlp_gemv_i4": ("cuda", "eetq_tpu_torch/csrc/fused_mlp_i4.cu",
+                          "eetq_tpu/kernels/mlp_fused.py:241"),
+    "w4a8_gemm": ("cuda", "eetq_tpu_torch/csrc/w4a8_gemm.cu", "eetq_tpu/kernels/w8a8.py:277"),
 }
 # The kernels each path must launch, and those it must not.
 PATH_KERNELS = {
@@ -131,16 +165,27 @@ PATH_KERNELS = {
                          "flash_attention_fwd", "flash_decode"),
     "mixtral_server": ("w8a16_grouped_gemm", "w8a8_gemm", "w8a16_gemv", "flash_attention_fwd",
                        "flash_decode_int8"),
+    "int4_generate": ("w4a16_gemv", "w4a16_gemm", "flash_attention_fwd", "flash_decode"),
+    # int4 layers under an int8 lm_head: both GEMVs
+    "int4_bench_decode": ("fused_mlp_gemv_i4", "w4a16_gemv", "w8a16_gemv", "w4a16_gemm",
+                          "flash_attention_fwd", "flash_decode_int8"),
+    "int4_server": ("w4a8_gemm", "w4a16_gemv", "flash_attention_fwd", "flash_decode_int8"),
 }
 MOE_KERNELS = ("w8a16_expert_gemv", "w8a16_grouped_gemm")
+INT4_KERNELS = ("w4a16_gemv", "w4a16_gemm", "fused_mlp_gemv_i4", "w4a8_gemm")
+INT8_DENSE = ("w8a16_gemv", "w8a16_gemm", "fused_mlp_gemv", "w8a8_gemm")
 PATH_IDLE = {
-    "generate": MOE_KERNELS,
-    "bench_decode": MOE_KERNELS,
+    "generate": MOE_KERNELS + INT4_KERNELS,
+    "bench_decode": MOE_KERNELS + INT4_KERNELS,
     # under a8 every prefill projection is W8A8
-    "server": ("w8a16_gemm",) + MOE_KERNELS,
+    "server": ("w8a16_gemm",) + MOE_KERNELS + INT4_KERNELS,
     # a MoE layer has no dense MLP to fuse
-    "mixtral_generate": ("fused_mlp_gemv",),
-    "mixtral_server": ("fused_mlp_gemv", "w8a16_gemm"),
+    "mixtral_generate": ("fused_mlp_gemv",) + INT4_KERNELS,
+    "mixtral_server": ("fused_mlp_gemv", "w8a16_gemm") + INT4_KERNELS,
+    "int4_generate": INT8_DENSE + MOE_KERNELS + ("fused_mlp_gemv_i4", "w4a8_gemm"),
+    "int4_bench_decode": MOE_KERNELS + ("w8a16_gemm", "fused_mlp_gemv", "w8a8_gemm", "w4a8_gemm"),
+    # under a8 every prefill projection of an int4 model is W4A8
+    "int4_server": INT8_DENSE + MOE_KERNELS + ("w4a16_gemm", "fused_mlp_gemv_i4"),
 }
 
 
@@ -190,6 +235,14 @@ def compare(out, ref) -> tuple[float, float]:
     return err, ref.float().abs().max().item()
 
 
+def linear_cost(m: int, k: int, n: int, w_bytes: float, scale_rows: int = 1, x_bytes: int = 2,
+                extra: int = 0) -> tuple[float, float]:
+    """(bytes, operations) of one quantized linear: the weight at w_bytes a
+    value, scale_rows rows of f32 scales, x read and the bf16 output written
+    once, `extra` bytes of gamma, per-token scales and the like."""
+    return k * n * w_bytes + scale_rows * n * 4 + m * k * x_bytes + m * n * 2 + extra, 2.0 * m * k * n
+
+
 def kernel_phase(dev) -> dict:
     """Each kernel against its plain version at llama2-7b shapes, the MoE
     kernels at Mixtral's."""
@@ -203,105 +256,209 @@ def kernel_phase(dev) -> dict:
         flash_decode_int8_ref,
         flash_decode_ref,
     )
-    from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv, fused_mlp_ref
-    from eetq_tpu_torch.kernels.w8a8 import quantize_activations, w8a8_gemm, w8a8_gemm_ref
+    from eetq_tpu_torch.kernels.mlp_fused import (
+        fused_mlp_gemv,
+        fused_mlp_gemv_i4,
+        fused_mlp_ref,
+    )
+    from eetq_tpu_torch.kernels.w8a8 import (
+        quantize_activations,
+        w4a8_gemm,
+        w8a8_gemm,
+        w8a8_gemm_ref,
+    )
     from eetq_tpu_torch.kernels.w8a16 import (
         expert_matmul_ref,
         grouped_matmul_ref,
+        w4a16_gemm,
+        w4a16_gemv,
         w8a16_expert_gemv,
         w8a16_gemm,
         w8a16_gemv,
         w8a16_grouped_gemm,
         w8a16_matmul_ref,
     )
+    from eetq_tpu_torch.layout.tiling import pack_weights
     from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.ones(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB
     rows, summary = [], {}
 
-    def record(name, case, out, ref, fn, plain, path_shape):
+    def record(name, case, fn, plain, path_shape, cost, op_type="bf16", library=None,
+               equal=False):
+        """Run fn() (the kernel) and plain() on the same inputs, compare and
+        time both. cost = (bytes, operations) of the function at this case;
+        library() is one PyTorch call computing the same function, if any;
+        equal: the outputs must not differ in any element."""
+        out, ref = fn(), plain()
         err, ref_max = compare(out, ref)
         n_diff = int((out.float() != ref.float()).sum().item())
         ms, plain_ms = time_ms(fn, flush=flush), time_ms(plain, flush=flush)
-        ok = err <= TOL * ref_max
+        library_ms = None if library is None else time_ms(library, flush=flush)
+        bytes_ms = 1e3 * cost[0] / HBM_BYTES_PER_S
+        ops_ms = 1e3 * cost[1] / PEAK_OPS_PER_S[op_type]
+        ok = err <= TOL * ref_max and not (equal and n_diff)
         rows.append(dict(kernel=name, case=case, max_abs_err=err, ref_absmax=ref_max,
-                         tol=TOL * ref_max, n_diff=n_diff, numel=out.numel(), ok=ok, ms=ms,
-                         plain_ms=plain_ms))
-        print(f"  {name:20s} {case:40s} err {err:.3e} (tol {TOL * ref_max:.3e}, "
-              f"{n_diff}/{out.numel()} differ) {ms:8.4f} ms, plain {plain_ms:8.4f} ms "
-              f"{'ok' if ok else 'FAIL'}")
-        s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+                         tol=0.0 if equal else TOL * ref_max, n_diff=n_diff, numel=out.numel(),
+                         ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bytes=cost[0], ops=cost[1], bytes_ms=bytes_ms, ops_ms=ops_ms,
+                         bound_ms=max(bytes_ms, ops_ms), path_shape=bool(path_shape)))
+        lib = "" if library_ms is None else f", library {library_ms:8.4f} ms"
+        print(f"  {name:20s} {case:44s} err {err:.3e} (tol {rows[-1]['tol']:.3e}, "
+              f"{n_diff}/{out.numel()} differ) {ms:8.4f} ms, plain {plain_ms:8.4f} ms, "
+              f"bound {max(bytes_ms, ops_ms):7.4f} ms{lib} {'ok' if ok else 'FAIL'}")
+        s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes_ms=0.0,
+                                          ops_ms=0.0, bound_ms=0.0, library_ms=None))
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if path_shape:  # the main path's own shapes make the reported time
-            s["ms"] += ms
-            s["plain_ms"] += plain_ms
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms),
+                             ("ops_ms", ops_ms), ("bound_ms", max(bytes_ms, ops_ms))):
+                s[key] += val
+            if library_ms is not None:
+                s["library_ms"] = (s["library_ms"] or 0.0) + library_ms
+
+    def scales_for(k, n, group):
+        shape = (n,) if group is None else (k // group, n)
+        return torch.rand(shape, generator=gen, device=dev) * 2e-3 + 1e-4
+
+    def int4_linear_cases(k, n, group, gemv_ms, gemm_rows, a8_rows, path_group):
+        """The int4 GEMV, GEMM and W4A8 GEMM on one [k, n] weight."""
+        q = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        data = pack_weights(q, bits=4).data
+        kp = 2 * data.shape[0]
+        sc = scales_for(k, n, group)
+        srows = 1 if group is None else k // group
+        tag = f"K={k} N={n} {'per-channel' if group is None else f'g={group}'}"
+        on_path = group == path_group
+        gamma = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev)
+        for m in gemv_ms:
+            for norm in ((False, True) if (k, n) in PRENORM_SHAPES else (False,)):
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                g = gamma if norm else None
+                record("w4a16_gemv", f"m={m} {tag}{' prenorm' if norm else ''}",
+                       lambda: w4a16_gemv(x, data, sc, n, gamma=g, eps=1e-5),
+                       lambda: w8a16_matmul_ref(rmsnorm(x, gamma, 1e-5) if norm else x, q, sc),
+                       on_path and m == 1 and (k, n) in W8A8_SHAPES
+                       and norm == ((k, n) in PRENORM_SHAPES),
+                       linear_cost(m, k, n, 0.5, srows, extra=4 * k if norm else 0))
+        for m in gemm_rows:
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            record("w4a16_gemm", f"m={m} {tag}", lambda: w4a16_gemm(x, data, sc, n),
+                   lambda: w8a16_matmul_ref(x, q, sc), on_path and m == 1024,
+                   linear_cost(m, k, n, 0.5, srows))
+        for m in a8_rows:
+            xq, sx = quantize_activations(
+                torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16))
+            xq = F.pad(xq, (0, kp - k)).contiguous()
+            qp = F.pad(q, (0, 0, 0, kp - k))  # the logical values, zero past K
+            record("w4a8_gemm", f"m={m} {tag}",
+                   lambda: w4a8_gemm(xq, sx, data, sc, n, group_size=group),
+                   lambda: w8a8_gemm_ref(xq, sx, qp, sc, n, group_size=group),
+                   on_path and m == 1024,
+                   linear_cost(m, k, n, 0.5, srows, x_bytes=1, extra=4 * m), "int8",
+                   equal=group is None)
 
     for k, n in LLAMA_SHAPES:
         qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
-        scales = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
+        scales = scales_for(k, n, None)
         gamma = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev)
         for m in (1, 4, 8):
             for norm in ((False, True) if (k, n) in PRENORM_SHAPES else (False,)):
                 x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
                 g = gamma if norm else None
-                y = rmsnorm(x, gamma, 1e-5) if norm else x
                 record("w8a16_gemv", f"m={m} K={k} N={n}{' prenorm' if norm else ''}",
-                       w8a16_gemv(x, qw, scales, n, gamma=g, eps=1e-5),
-                       w8a16_matmul_ref(y, qw, scales),
                        lambda: w8a16_gemv(x, qw, scales, n, gamma=g, eps=1e-5),
                        lambda: w8a16_matmul_ref(rmsnorm(x, gamma, 1e-5) if norm else x, qw, scales),
-                       m == 1 and norm == ((k, n) in PRENORM_SHAPES))
+                       m == 1 and norm == ((k, n) in PRENORM_SHAPES),
+                       linear_cost(m, k, n, 1, extra=4 * k if norm else 0))
         x = torch.randn(1024, k, generator=gen, device=dev).to(torch.bfloat16)
-        record("w8a16_gemm", f"m=1024 K={k} N={n}", w8a16_gemm(x, qw, scales, n),
-               w8a16_matmul_ref(x, qw, scales),
-               lambda: w8a16_gemm(x, qw, scales, n), lambda: w8a16_matmul_ref(x, qw, scales), True)
+        record("w8a16_gemm", f"m=1024 K={k} N={n}", lambda: w8a16_gemm(x, qw, scales, n),
+               lambda: w8a16_matmul_ref(x, qw, scales), True, linear_cost(1024, k, n, 1))
+        if (k, n) == LLAMA_SHAPES[0]:  # int8 with group-wise scales: the same kernels' group mode
+            gs = scales_for(k, n, INT4_GROUP)
+            for m, kern in ((1, w8a16_gemv), (8, w8a16_gemv), (1024, w8a16_gemm)):
+                xg = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                record(kern.__name__, f"m={m} K={k} N={n} g={INT4_GROUP}",
+                       lambda: kern(xg, qw, gs, n), lambda: w8a16_matmul_ref(xg, qw, gs), False,
+                       linear_cost(m, k, n, 1, k // INT4_GROUP))
         if (k, n) in W8A8_SHAPES:
             for m in W8A8_ROWS:
                 xq, sx = quantize_activations(
                     torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16))
                 xq = xq.contiguous()
-                record("w8a8_gemm", f"m={m} K={k} N={n}", w8a8_gemm(xq, sx, qw, scales, n),
-                       w8a8_gemm_ref(xq, sx, qw, scales, n),
+                record("w8a8_gemm", f"m={m} K={k} N={n}",
                        lambda: w8a8_gemm(xq, sx, qw, scales, n),
-                       lambda: w8a8_gemm_ref(xq, sx, qw, scales, n), m == 1024)
+                       lambda: w8a8_gemm_ref(xq, sx, qw, scales, n), m == 1024,
+                       linear_cost(m, k, n, 1, x_bytes=1, extra=4 * m), "int8", equal=True)
         del qw
+        prefill = (k, n) in W8A8_SHAPES  # the lm_head sees the last token only
+        for group in (None, INT4_GROUP):
+            int4_linear_cases(k, n, group, (1, 8), (1024,) if prefill else (),
+                              W8A8_ROWS if prefill else (), INT4_GROUP)
+    for k, n, group in INT4_ODD:
+        int4_linear_cases(k, n, group, (3,), (200,), (37,), "none")
 
     # the MLP of one llama2-7b layer: gate|up [4096, 22016], down [11008, 4096]
     kh, inter = 4096, 11008
-    gu = torch.randint(-127, 128, (kh, 2 * inter), generator=gen, device=dev, dtype=torch.int8)
-    dn = torch.randint(-127, 128, (inter, kh), generator=gen, device=dev, dtype=torch.int8)
-    gu_s = torch.rand(2 * inter, generator=gen, device=dev) * 2e-3 + 1e-4
-    dn_s = torch.rand(kh, generator=gen, device=dev) * 2e-3 + 1e-4
     gamma = 1.0 + 0.1 * torch.randn(kh, generator=gen, device=dev)
-    for m in (1, 4, 8):
-        x = torch.randn(m, kh, generator=gen, device=dev).to(torch.bfloat16)
-        res = torch.randn(m, kh, generator=gen, device=dev).to(torch.bfloat16)
-        record("fused_mlp_gemv", f"m={m} K={kh} I={inter} N={kh} +residual",
-               fused_mlp_gemv(x, gamma, 1e-5, gu, gu_s, dn, dn_s, kh, res),
-               fused_mlp_ref(x, gamma, gu, gu_s, dn, dn_s, 1e-5, residual=res),
-               lambda: fused_mlp_gemv(x, gamma, 1e-5, gu, gu_s, dn, dn_s, kh, res),
-               lambda: fused_mlp_ref(x, gamma, gu, gu_s, dn, dn_s, 1e-5, residual=res), m == 1)
-    del gu, dn
+    for bits, kernel in ((8, fused_mlp_gemv), (4, fused_mlp_gemv_i4)):
+        lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+        for k, i, n, ms in ((kh, inter, kh, (1, 4, 8)),) + (((1000, 256, 300, (3,)),)
+                                                          if bits == 4 else ()):
+            gu = torch.randint(lo, hi, (k, 2 * i), generator=gen, device=dev, dtype=torch.int8)
+            dn = torch.randint(lo, hi, (i, n), generator=gen, device=dev, dtype=torch.int8)
+            gu_d, dn_d = pack_weights(gu, bits=bits).data, pack_weights(dn, bits=bits).data
+            gu_s, dn_s = scales_for(k, 2 * i, None), scales_for(i, n, None)
+            gam = gamma if k == kh else 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev)
+            for m in ms:
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                res = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+                cost = (bits / 8 * (k * 2 * i + i * n) + 4 * (2 * i + n + k)
+                        + 2 * m * (k + 2 * n), 2.0 * m * (k * 2 * i + i * n))
+                record(kernel.__name__, f"m={m} K={k} I={i} N={n} +residual",
+                       lambda: kernel(x, gam, 1e-5, gu_d, gu_s, dn_d, dn_s, n, res),
+                       lambda: fused_mlp_ref(x, gam, gu, gu_s, dn, dn_s, 1e-5, residual=res),
+                       m == 1 and k == kh, cost)
+            del gu, dn, gu_d, dn_d
+
+    def sdpa(q, k, v, mask=None):
+        """[B, S, H, D] in and out, as the kernels take them."""
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            is_causal=mask is None).transpose(1, 2)
 
     for hq, hkv in ((32, 32), (32, 8)):
         q = torch.randn(1, 1024, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
         kv = torch.randn(1, 1024, 2 * hkv, 128, generator=gen, device=dev).to(torch.bfloat16)
         k, v = kv[:, :, :hkv], kv[:, :, hkv:]  # strided views, as the model passes them
+        # causal: S (S + 1) / 2 scores per head, 2 D operations each, twice (q.k and p.v)
+        cost = (1024 * (2 * hq + 2 * hkv) * 128 * 2, 4.0 * hq * 128 * 1024 * 1025 / 2)
         record("flash_attention_fwd", f"B=1 S=1024 Hq={hq} Hkv={hkv} D=128",
-               flash_attention(q, k, v), flash_attention_ref(q, k, v),
-               lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v), hq == hkv)
+               lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v),
+               hq == hkv, cost, library=(lambda: sdpa(q, k, v)) if hq == hkv else None)
+
+    def decode_cost(lens, hq, hkv, kv_bytes, scale_bytes):
+        """Only the keys below each row's length are needed."""
+        keys = sum(lens)
+        return (keys * hkv * 2 * (128 * kv_bytes + scale_bytes) + len(lens) * (2 * hq * 128 * 2 + 4),
+                4.0 * hq * 128 * keys)
 
     for b in (1, 4):
         for hq, hkv in ((32, 32), (32, 8)):
             q = torch.randn(b, 1, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
             kc = torch.randn(b, hkv, 1152, 128, generator=gen, device=dev).to(torch.bfloat16)
             vc = torch.randn(b, hkv, 1152, 128, generator=gen, device=dev).to(torch.bfloat16)
-            lengths = torch.tensor([1074, 1, 640, 1152][:b], dtype=torch.int32, device=dev)
+            lens = [1074, 1, 640, 1152][:b]
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            # the same function as one masked attention call over the whole cache
+            mask = (torch.arange(1152, device=dev)[None] < lengths[:, None])[:, None, None]
             record("flash_decode", f"B={b} L=1152 Hq={hq} Hkv={hkv} D=128",
-                   flash_decode(q, kc, vc, lengths), flash_decode_ref(q, kc, vc, lengths),
                    lambda: flash_decode(q, kc, vc, lengths),
-                   lambda: flash_decode_ref(q, kc, vc, lengths), b == 1 and hq == hkv)
+                   lambda: flash_decode_ref(q, kc, vc, lengths), b == 1 and hq == hkv,
+                   decode_cost(lens, hq, hkv, 2, 0),
+                   library=(lambda: sdpa(q, kc.transpose(1, 2), vc.transpose(1, 2), mask))
+                   if hq == hkv else None)
 
     for b in (1, 8):
         for l in (1152, 2048):
@@ -314,14 +471,14 @@ def kernel_phase(dev) -> dict:
                 lens = [1074, 1, 640, l, 17, 1500 % l, 300, 1024][:b]
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
                 record("flash_decode_int8", f"B={b} L={l} Hq={hq} Hkv={hkv} D=128",
-                       flash_decode_int8(q, kc, vc, ks, vs, lengths),
-                       flash_decode_int8_ref(q, kc, vc, ks, vs, lengths),
                        lambda: flash_decode_int8(q, kc, vc, ks, vs, lengths),
                        lambda: flash_decode_int8_ref(q, kc, vc, ks, vs, lengths),
-                       b == 1 and l == 1152 and hq == hkv)
+                       b == 1 and l == 1152 and hq == hkv, decode_cost(lens, hq, hkv, 1, 4))
 
     # Mixtral's banks. The path's time: the gather of a b=1 decode step
-    # (gate|up and down) and the grouped GEMMs of a 1024-token prompt.
+    # (gate|up and down) and the grouped GEMMs of a 1024-token prompt. Only
+    # the experts that are picked are read, each once, and only the rows of
+    # real blocks are multiplied.
     for j, (k, n) in enumerate(MIXTRAL_BANKS):
         bank = torch.randint(-127, 128, (8, k, n), generator=gen, device=dev, dtype=torch.int8)
         scales = torch.rand(8, n, generator=gen, device=dev) * 2e-3 + 1e-4
@@ -330,27 +487,30 @@ def kernel_phase(dev) -> dict:
             x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
             eids = torch.tensor(ids, dtype=torch.int32, device=dev)
             rep = " repeated id" if len(set(ids)) < len(ids) else ""
+            cost = (len(set(ids)) * (k * n + 4 * n) + m * k * 2 + len(ids) * (m * n * 2 + 4),
+                    2.0 * m * k * n * len(ids))
             record("w8a16_expert_gemv", f"n_sel={len(ids)} m={m} K={k} N={n}{rep}",
-                   w8a16_expert_gemv(x, bank, scales, eids, n),
-                   expert_matmul_ref(x, bank, scales, eids),
                    lambda: w8a16_expert_gemv(x, bank, scales, eids, n),
-                   lambda: expert_matmul_ref(x, bank, scales, eids), len(ids) == 2)
+                   lambda: expert_matmul_ref(x, bank, scales, eids), len(ids) == 2, cost)
         for bm, nb, real in GROUPED_CASES:
             be = real + (7,) * (nb - len(real))
             x = torch.randn(nb * bm, k, generator=gen, device=dev).to(torch.bfloat16)
             x[len(real) * bm:] = 0  # padding blocks hold zero rows
             blocks = torch.tensor(be, dtype=torch.int32, device=dev)
+            real_rows = len(real) * bm
+            cost = (len(set(be)) * (k * n + 4 * n) + nb * bm * (k + n) * 2 + 4 * nb,
+                    2.0 * real_rows * k * n)
             record("w8a16_grouped_gemm",
                    f"bm={bm} nb={nb} ({nb - len(real)} padding) K={k} N={n}",
-                   w8a16_grouped_gemm(x, bank, scales, blocks, n),
-                   grouped_matmul_ref(x, bank, scales, blocks, bm),
                    lambda: w8a16_grouped_gemm(x, bank, scales, blocks, n),
-                   lambda: grouped_matmul_ref(x, bank, scales, blocks, bm), bm == 128)
+                   lambda: grouped_matmul_ref(x, bank, scales, blocks, bm), bm == 128, cost)
         del bank
     del flush
     torch.cuda.synchronize()
     bad = [f"{r['kernel']} {r['case']}" for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
+    for s in summary.values():
+        s["bound_by"] = "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
     return dict(rows=rows, summary=summary)
 
 
@@ -532,7 +692,7 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
             check(tuple(toks.shape) == (b, n), f"{path} returned {tuple(toks.shape)}, want {(b, n)}")
             check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "tokens out of range")
         check(int(outs[0][0, 0]) == int(first[True][0]), f"{path}: first token is not prefill's argmax")
-        if path == "generate":  # the entry point itself, once
+        if path in ("generate", "int4_generate"):  # the entry point itself, once
             g = generate(params, cfg, prompt1, 2)
             check(bool((g[:, 0] == outs[0][:, 0]).all()), "generate disagrees with prefill")
         out[path] = dict(checks=checks, counts=counts, generate_ms=gen_ms)
@@ -684,7 +844,89 @@ def server_path(params, cfg, dev, gen, path: str = "server") -> dict:
                 latency_ms=lat, warmup_s=warmup_s)
 
 
-def model_phase(dev) -> dict:
+PROFILE_STEPS = 10
+
+
+def _device_events(prof) -> tuple[float, int]:
+    """(device-busy ms, kernel launches) of a torch.profiler run: the sum and
+    the count of its kernel events (copies and memsets are busy time but no
+    launches of a kernel)."""
+    import torch
+
+    busy_us, launches = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_us += ev.time_range.elapsed_us()
+        launches += not ev.name.startswith(("Memcpy", "Memset"))
+    return busy_us / 1e3, launches
+
+
+def _profiled(fn, steps: int) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, launches = _device_events(prof)
+    check(busy_ms > 0, "the profiler saw no device time")
+    return dict(steps=steps, wall_ms_per_step=wall_ms / steps, busy_ms_per_step=busy_ms / steps,
+                launches_per_step=launches / steps, idle_share=1 - busy_ms / wall_ms)
+
+
+def profile_paths(params, cfg, dev, gen, configs: dict, engine_path: str | None) -> dict:
+    """`--profile`: each path's first request under torch.profiler: one
+    prefill, then PROFILE_STEPS decode steps; and PROFILE_STEPS steps of the
+    default engine with all 8 slots decoding. The profiler slows the host, so
+    the wall time and the idle share are those of a profiled run."""
+    import torch
+
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.engine import Engine
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    _, p1, n1 = REQUESTS[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, p1), generator=gen, device=dev)
+    out = {}
+    for path, (kv, fused) in configs.items():
+        state = {}
+
+        def run_prefill(kv=kv):
+            state["caches"] = init_caches(cfg, 1, p1 + n1, device=dev, dtype=kv)
+            lp, state["caches"] = prefill(params, cfg, prompt, state["caches"])
+            state["tok"] = torch.argmax(lp, -1)
+
+        run_prefill()  # warm
+        out[path] = dict(prefill=_profiled(run_prefill, 1))
+        decode_loop(params, cfg, state["tok"], p1, state["caches"], 3, fused_mlp=fused)  # warm
+        out[path]["decode"] = _profiled(
+            lambda: decode_loop(params, cfg, state["tok"], p1 + 2, state["caches"],
+                                PROFILE_STEPS + 1, fused_mlp=fused), PROFILE_STEPS)
+        del state
+    if engine_path:
+        eng = Engine(params, cfg, max_batch=8, max_len=2048)
+        for _ in range(8):
+            ids = torch.randint(0, cfg.vocab_size, (100,), generator=gen, device=dev).tolist()
+            eng.add_request(ids, max_new_tokens=PROFILE_STEPS + 16)
+        while eng.queue:  # admissions, and the first decode steps
+            eng.step()
+        eng.step()
+        out[engine_path] = dict(engine_step=_profiled(
+            lambda: [eng.step() for _ in range(PROFILE_STEPS)], PROFILE_STEPS))
+        del eng
+    for path, stages in out.items():
+        for stage, r in stages.items():
+            print(f"  profile {path} {stage}: device busy {r['busy_ms_per_step']:.3f} ms, "
+                  f"{r['launches_per_step']:.0f} launches, wall {r['wall_ms_per_step']:.2f} ms, "
+                  f"idle share {r['idle_share']:.3f} (per step, {r['steps']} profiled)")
+    return out
+
+
+def model_phase(dev, profile: bool = False) -> dict:
     """MODEL at full width and depth, W8A16, through the three paths."""
     import torch
 
@@ -702,11 +944,68 @@ def model_phase(dev) -> dict:
     init_s = time.perf_counter() - t0
     weight_gb = sum(b.numel() * b.element_size() for b in params.buffers()) / 1e9
     print(f"  {MODEL} W8A16 built in {init_s:.1f} s, {weight_gb:.2f} GB on the card")
-    paths = generate_paths(params, cfg, dev, gen, {"generate": (torch.bfloat16, False),
-                                                   "bench_decode": (torch.int8, True)})
+    configs = {"generate": (torch.bfloat16, False), "bench_decode": (torch.int8, True)}
+    paths = generate_paths(params, cfg, dev, gen, configs)
     paths["server"] = server_path(params, cfg, dev, gen)
-    return dict(paths=paths, init_s=init_s, weight_gb=weight_gb,
+    prof = profile_paths(params, cfg, dev, gen, configs, "server") if profile else None
+    return dict(paths=paths, init_s=init_s, weight_gb=weight_gb, profile=prof,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def int4_phase(dev, profile: bool = False) -> dict:
+    """MODEL at full width and depth with int4 weights, two models built
+    one layer at a time: group-wise (INT4_GROUP rows, the lm_head too)
+    through generate and the server, and `EETQ_BENCH_BITS=4 bench.py`'s
+    (per-channel layers under an int8 lm_head) through its decode
+    configuration."""
+    import torch
+
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import random_quantized_params
+    from eetq_tpu_torch.modules.linear import quantize_linear
+
+    cfg = PRESETS[MODEL]
+    out = dict(paths={}, models={}, profile={})
+
+    def built(name, make):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = make(gen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gb = sum(b.numel() * b.element_size() for b in params.buffers()) / 1e9
+        print(f"  {MODEL} {name} built layer by layer in {build_s:.1f} s, {gb:.2f} GB on the card")
+        out["models"][name] = dict(build_s=build_s, weight_gb=gb)
+        return params, gen
+
+    params, gen = built(f"W4A16 g={INT4_GROUP}", lambda g: random_quantized_params(
+        cfg, g, quantize_lm_head=True, bits=4, group_size=INT4_GROUP))
+    check(params.lm_head.bits == 4 and params.layers[0].down.scales.dim() == 2,
+          "the group-wise int4 model is not int4 group-wise throughout")
+    configs = {"int4_generate": (torch.bfloat16, False)}
+    out["paths"].update(generate_paths(params, cfg, dev, gen, configs))
+    out["paths"]["int4_server"] = server_path(params, cfg, dev, gen, "int4_server")
+    if profile:
+        out["profile"].update(profile_paths(params, cfg, dev, gen, configs, "int4_server"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def bench_model(g):
+        p = random_quantized_params(cfg, g, bits=4)  # the lm_head comes out dense
+        p.lm_head = quantize_linear(p.lm_head.weight)  # and is quantized at 8 bits
+        return p
+
+    params, gen = built("W4A16 per-channel, int8 lm_head", bench_model)
+    check(params.lm_head.bits == 8 and params.layers[0].down.bits == 4
+          and params.layers[0].down.scales.dim() == 1, "the bench model is not int4 under int8")
+    configs = {"int4_bench_decode": (torch.int8, True)}
+    out["paths"].update(generate_paths(params, cfg, dev, gen, configs))
+    if profile:
+        out["profile"].update(profile_paths(params, cfg, dev, gen, configs, None))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
 
 
 def mixtral_phase(dev) -> dict:
@@ -748,6 +1047,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="directory for chip_smoke.json (details)")
+    parser.add_argument("--profile", action="store_true",
+                        help="also run the llama2-7b paths under torch.profiler")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -757,6 +1058,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from eetq_tpu_torch.kernels import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     info = _build.build()
@@ -767,25 +1069,29 @@ def main() -> int:
     with torch.inference_mode():
         kern = kernel_phase(dev)
         moe_layer = moe_layer_phase(dev)
-    model = model_phase(dev)
-    gc.collect()  # llama2-7b goes before Mixtral is built
+    model = model_phase(dev, args.profile)
+    gc.collect()  # each model goes before the next is built
+    torch.cuda.empty_cache()
+    int4 = int4_phase(dev, args.profile)
+    gc.collect()
     torch.cuda.empty_cache()
     mixtral = mixtral_phase(dev)
-    paths = {**model["paths"], **mixtral["paths"]}
+    paths = {**model["paths"], **int4["paths"], **mixtral["paths"]}
     kernels = [
         dict(name=name, route=REPLACES[name][0], source=REPLACES[name][1],
              replaces=REPLACES[name][2],
              launches=sum(p["counts"][name] for p in paths.values()),
-             max_abs_err=kern["summary"][name]["max_abs_err"],
-             ms=kern["summary"][name]["ms"], plain_ms=kern["summary"][name]["plain_ms"])
+             **{key: kern["summary"][name][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for name in REPLACES
     ]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build_s=info["seconds"], nvcc_log=info["log"],
-                           kernels=kern["rows"], moe_layer=moe_layer, model=model,
-                           mixtral=mixtral), f, indent=1)
+                           kernels=kern["rows"], kernel_summary=kern["summary"],
+                           moe_layer=moe_layer, model=model, int4=int4, mixtral=mixtral,
+                           seconds=time.perf_counter() - t_start), f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,15 @@ __device__ __forceinline__ void int8x4_to_float(uint32_t w, float* f) {
   f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
 }
 
+// The low (kHigh false) or high nibbles of four bytes, each sign-extended to
+// an int8 in its byte: v | 0xF0 where the nibble's bit 3 is set (8 * 0x1E =
+// 0xF0, and no byte's product carries into the next).
+template <bool kHigh>
+__device__ __forceinline__ uint32_t nibbles_to_int8x4(uint32_t w) {
+  const uint32_t v = (kHigh ? w >> 4 : w) & 0x0F0F0F0Fu;
+  return v | ((v & 0x08080808u) * 0x1Eu);
+}
+
 // Eight bf16 in a 16-byte vector to floats.
 __device__ __forceinline__ void bf16x8_to_float(const int4& v, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);

@@ -1,11 +1,12 @@
-// The int8-weight decode GEMV shared by w8a16_gemv.cu and fused_mlp.cu.
+// The int8- and int4-weight decode GEMV shared by w8a16_gemv.cu,
+// w4a16_gemv.cu, w8a16_expert_gemv.cu, fused_mlp.cu and fused_mlp_i4.cu.
 //
 // out[m, c] = epilogue((y[m, :] . W[:, col(c)]) * scale[col(c)]) for
 // 1 <= m <= M <= 8 rows, where y = x, or rmsnorm(x, gamma) rounded to bf16.
 //
-// Bound by the int8 weight bytes (2m FLOPs per byte). One block owns a
-// 32-column strip of the row-major [Kp, Np] weight and loops over all of K
-// itself: in each warp two lanes sit side by side along N (16 columns each,
+// Bound by the weight bytes (2m FLOPs per int8 byte, 4m per int4 byte). One
+// block owns a 32-column strip of the row-major weight and loops over all of
+// K itself: in each warp two lanes sit side by side along N (16 columns each,
 // one 16-byte load per row) and 16 lanes take 16 consecutive K rows, the 8
 // warps 128 rows per sweep. Loads come in batches of four sweeps,
 // software-pipelined: the next batch is in flight while one is multiplied,
@@ -16,6 +17,20 @@
 // f32 partial sums are reduce-scattered over the 16 K lanes with shuffles,
 // summed over the warps in shared memory, and the per-channel scale is
 // applied once to the total.
+//
+// int4 (kBits = 4): a weight byte holds logical row 2r in its low nibble and
+// row 2r + 1 in its high one (layout/tiling.py), so the same 16-byte load
+// carries 32 weights of 16 columns and the lane multiplies them by the two
+// neighbouring rows of y. A nibble is sign-extended in place (no bias, no
+// 1/16): four low or four high nibbles of a word become four int8 with one
+// mask, one multiply and one or.
+//
+// Group-wise scales (kGroup, scales [G, n], group_size logical rows each):
+// the block stages its [G][32] strip of the scales in shared memory, and a
+// lane multiplies each weight row by its group's 16 scales before the dot
+// (16 multiplies a row whatever M is; a partial sum per group would cost M
+// x 16 more registers, which M = 8 does not have). Both nibbles of a byte
+// lie in one group, since group_size is even.
 //
 // Expert gather (expert_ids set): block (x, s) takes the weight and scales
 // of expert expert_ids[s] out of a stacked bank and writes output s. The
@@ -47,6 +62,8 @@ constexpr int kBlockN = kLanesN * kColsPerLane;  // 32 columns per block
 static_assert(EETQ_FUSED_MLP_SLICE == kBlockN, "a gate/up block owns one 32-column strip");
 constexpr int kSweep = kWarps * kRowsPerWarp;    // 128 K rows per sweep
 constexpr int kUnroll = 4;
+// both nibbles of an int4 byte lie in one scale group
+static_assert(EETQ_GROUP_GRANULE % 2 == 0, "a scale group holds whole int4 bytes");
 static_assert(kLanesN == 2, "the butterfly below reduces over lane bits 1..4");
 
 enum Act { kSilu = 0, kGelu = 1, kRelu = 2 };
@@ -54,9 +71,11 @@ enum Act { kSilu = 0, kGelu = 1, kRelu = 2 };
 struct Args {
   const bf16* x;  // [M, k], k % 8 == 0
   int k;
-  const int8_t* w;  // [kp, np]
+  const int8_t* w;  // [kp, np]; kp counts weight rows: Kp (int8) or Kp / 2 (int4)
   int kp, np;
-  const float* scales;  // [n] (plain) or [2I] (gate/up)
+  const float* scales;  // [n] (plain), [2I] (gate/up) or [groups, n] (group-wise)
+  int groups;           // group-wise: rows of scales
+  int group_size;       // group-wise: logical K rows per group
   const float* bias;    // [n] or null (plain only)
   const float* gamma;   // [k] or null: RMSNorm prologue
   float eps;
@@ -95,10 +114,16 @@ __device__ __forceinline__ float activate(float g, int act) {
   return fmaxf(g, 0.f);
 }
 
-template <int M, bool kGateUp>
+template <int M, bool kGateUp, int kBits, bool kGroup>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
+  static_assert(kBits == 8 || kBits == 4, "int8 or int4 weights");
+  static_assert(!(kGateUp && kGroup), "the fused MLP takes per-channel scales");
+  constexpr int kPack = kBits == 4 ? 2 : 1;  // logical K rows per weight row
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);  // [kc][M]
+  // group-wise: this block's [groups][kBlockN] strip of the scales, then y
+  float* gs = reinterpret_cast<float*>(smem);
+  bf16* ys = reinterpret_cast<bf16*>(  // [kc * kPack][M]
+      smem + (kGroup ? (size_t)a.groups * kBlockN * sizeof(float) : 0));
   __shared__ float red[kWarps][M][kBlockN];
   __shared__ float gate_sum[kGateUp ? M : 1][kBlockN];
   __shared__ float part[kWarps][M];
@@ -134,6 +159,14 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
   };
   load(cur, k0);
 
+  if constexpr (kGroup) {  // read after the barriers that follow the staging of y
+    const int cb = blockIdx.x * kBlockN;
+    for (int i = tid; i < a.groups * kBlockN; i += kThreads) {
+      const int c = cb + i % kBlockN;
+      gs[i] = c < a.n ? scales[(size_t)(i / kBlockN) * a.n + c] : 0.f;
+    }
+  }
+
   // Prologue: 1/rms of each row (k % 8 == 0: whole 16-byte vectors).
   if (a.gamma != nullptr) {
     float ss[M];
@@ -161,7 +194,8 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
     }
     __syncthreads();
   }
-  // Stage rows [c0, c1) of y as bf16 [c1 - c0][M]; rows k..kp are zero.
+  // Stage logical rows [c0, c1) of y as bf16 [c1 - c0][M]; rows from k on
+  // are zero.
   auto stage = [&](int c0, int c1) {
     for (int c = c0 + tid * 8; c < c1; c += kThreads * 8) {
 #pragma unroll
@@ -179,15 +213,19 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
       }
     }
   };
-  // kc is a multiple of a load batch (kSweep * kUnroll rows) unless it is
-  // kp, so a batch never straddles two chunks.
+  // kc (weight rows) is a multiple of a load batch (kSweep * kUnroll rows)
+  // unless it is kp, so a batch never straddles two chunks.
   const int kc = a.kc;
   const bool chunked = kc < kp;
   if (!chunked) {
-    stage(0, kp);
+    stage(0, kp * kPack);
     __syncthreads();
   }
 
+  // Group of logical row r: floor((r + 0.5) / group_size) in f32, exact for
+  // r < 2^21 (the half keeps the quotient off the integers), without an
+  // integer division per row.
+  const float inv_group = kGroup ? 1.f / a.group_size : 0.f;
   const int col = nl * kColsPerLane + ((lane >> 1) & 1) * 8 + ((lane >> 2) & 1) * 4 +
                   ((lane >> 3) & 1) * 2 + ((lane >> 4) & 1);
   constexpr int kPasses = kGateUp ? 2 : 1;
@@ -209,7 +247,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
       const int c1 = min(c0 + kc, kp);
       if (chunked) {  // every warp is done with the previous chunk
         __syncthreads();
-        stage(c0, c1);
+        stage(c0 * kPack, c1 * kPack);
         __syncthreads();
       }
       for (; k0 < c1; k0 += kSweep * kUnroll) {
@@ -218,18 +256,35 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
         for (int u = 0; u < kUnroll; ++u) {
           const int kk = k0 + u * kSweep;
           if (kk < kp) {
-            float yv[M];
+            const uint32_t wd[4] = {
+                static_cast<uint32_t>(cur[u].x), static_cast<uint32_t>(cur[u].y),
+                static_cast<uint32_t>(cur[u].z), static_cast<uint32_t>(cur[u].w)};
+            const float* sg = nullptr;
+            if constexpr (kGroup)  // rows past the last group are zero padding
+              sg = gs + nl * kColsPerLane +
+                   min(__float2int_rd((kk * kPack + 0.5f) * inv_group), a.groups - 1) * kBlockN;
 #pragma unroll
-            for (int m = 0; m < M; ++m) yv[m] = __bfloat162float(ys[(kk - c0) * M + m]);
-            float wf[kColsPerLane];
-            int8x4_to_float(static_cast<uint32_t>(cur[u].x), wf);
-            int8x4_to_float(static_cast<uint32_t>(cur[u].y), wf + 4);
-            int8x4_to_float(static_cast<uint32_t>(cur[u].z), wf + 8);
-            int8x4_to_float(static_cast<uint32_t>(cur[u].w), wf + 12);
+            for (int p = 0; p < kPack; ++p) {  // the logical row kk * kPack + p
+              float wf[kColsPerLane];
 #pragma unroll
-            for (int m = 0; m < M; ++m)
+              for (int i = 0; i < 4; ++i) {
+                const uint32_t b = kBits == 8 ? wd[i]
+                                   : p == 0   ? nibbles_to_int8x4<false>(wd[i])
+                                              : nibbles_to_int8x4<true>(wd[i]);
+                int8x4_to_float(b, wf + 4 * i);
+              }
+              if constexpr (kGroup) {
 #pragma unroll
-              for (int j = 0; j < kColsPerLane; ++j) acc[m][j] = fmaf(yv[m], wf[j], acc[m][j]);
+                for (int j = 0; j < kColsPerLane; ++j) wf[j] *= sg[j];
+              }
+              const bf16* yr = ys + ((size_t)(kk - c0) * kPack + p) * M;
+#pragma unroll
+              for (int m = 0; m < M; ++m) {
+                const float yv = __bfloat162float(yr[m]);
+#pragma unroll
+                for (int j = 0; j < kColsPerLane; ++j) acc[m][j] = fmaf(yv, wf[j], acc[m][j]);
+              }
+            }
           }
         }
 #pragma unroll
@@ -279,7 +334,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
     for (int i = 0; i < kWarps; ++i) s += red[i][m][c];
     const int nn = blockIdx.x * kBlockN + c;
     if (nn < a.n) {
-      float r = s * scales[nn];
+      float r = kGroup ? s : s * scales[nn];  // group-wise: scaled row by row
       if (a.bias != nullptr) r += a.bias[nn];
       if (a.residual != nullptr) r += __bfloat162float(a.residual[(size_t)m * a.n + nn]);
       out[(size_t)m * a.n + nn] = __float2bfloat16(r);
@@ -287,8 +342,9 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
   }
 }
 
-template <int M, bool kGateUp>
+template <int M, bool kGateUp, int kBits, bool kGroup>
 cudaError_t launch(Args a, dim3 grid, cudaStream_t stream) {
+  void (*kernel)(const Args) = gemv_kernel<M, kGateUp, kBits, kGroup>;
   // Dynamic shared memory a block may take besides the kernel's static
   // buffers, asked of the device once.
   static size_t budget = 0;
@@ -298,47 +354,76 @@ cudaError_t launch(Args a, dim3 grid, cudaStream_t stream) {
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gemv_kernel<M, kGateUp>);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
     budget = (size_t)optin - attr.sharedSizeBytes;
   }
-  // All of y if it fits, else the fewest chunks of whole load batches.
+  // The scale strip (group-wise), then all of y if it fits, else the fewest
+  // chunks of whole load batches.
   constexpr int kBatch = kSweep * kUnroll;
+  constexpr size_t kRowBytes = (size_t)M * (kBits == 4 ? 2 : 1) * sizeof(bf16);  // per weight row
+  const size_t fixed = kGroup ? (size_t)a.groups * kBlockN * sizeof(float) : 0;
+  if (kGroup && (a.groups < 1 || a.group_size % EETQ_GROUP_GRANULE || fixed >= budget))
+    return cudaErrorInvalidValue;
   a.kc = a.kp;
-  for (int chunks = 2; (size_t)M * a.kc * sizeof(bf16) > budget; ++chunks) {
+  for (int chunks = 2; fixed + kRowBytes * a.kc > budget; ++chunks) {
     a.kc = (a.kp + chunks - 1) / chunks;
     a.kc = (a.kc + kBatch - 1) / kBatch * kBatch;
-    if (a.kc <= kBatch && (size_t)M * a.kc * sizeof(bf16) > budget) return cudaErrorInvalidValue;
+    if (a.kc <= kBatch && fixed + kRowBytes * a.kc > budget) return cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)M * a.kc * sizeof(bf16);
+  const size_t smem = fixed + kRowBytes * a.kc;
   static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemv_kernel<M, kGateUp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
-  gemv_kernel<M, kGateUp><<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Dispatch on the row count (1..8): one block per 32 columns of the packed
 // weight (plain) or of the intermediate dim (gate/up), times `sels` expert
 // selections (plain mode with expert_ids).
-template <bool kGateUp>
+template <bool kGateUp, int kBits = 8, bool kGroup = false>
 cudaError_t launch_m(int m, const Args& a, cudaStream_t stream, int sels = 1) {
   const dim3 grid((kGateUp ? a.up : a.np) / kBlockN, sels);
   switch (m) {
-    case 1: return launch<1, kGateUp>(a, grid, stream);
-    case 2: return launch<2, kGateUp>(a, grid, stream);
-    case 3: return launch<3, kGateUp>(a, grid, stream);
-    case 4: return launch<4, kGateUp>(a, grid, stream);
-    case 5: return launch<5, kGateUp>(a, grid, stream);
-    case 6: return launch<6, kGateUp>(a, grid, stream);
-    case 7: return launch<7, kGateUp>(a, grid, stream);
-    case 8: return launch<8, kGateUp>(a, grid, stream);
+    case 1: return launch<1, kGateUp, kBits, kGroup>(a, grid, stream);
+    case 2: return launch<2, kGateUp, kBits, kGroup>(a, grid, stream);
+    case 3: return launch<3, kGateUp, kBits, kGroup>(a, grid, stream);
+    case 4: return launch<4, kGateUp, kBits, kGroup>(a, grid, stream);
+    case 5: return launch<5, kGateUp, kBits, kGroup>(a, grid, stream);
+    case 6: return launch<6, kGateUp, kBits, kGroup>(a, grid, stream);
+    case 7: return launch<7, kGateUp, kBits, kGroup>(a, grid, stream);
+    case 8: return launch<8, kGateUp, kBits, kGroup>(a, grid, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The dense GEMV's C entry points (w8a16_gemv.cu, w4a16_gemv.cu): `rows`
+// weight rows (Kp for int8, Kp / 2 for int4), group-wise when groups > 0.
+template <int kBits>
+int dense_entry(const void* x, int m, int k, const void* w, int rows, int np, const void* scales,
+                int groups, int group_size, const void* bias, const void* gamma, float eps,
+                void* out, int n, void* stream) {
+  Args a{};
+  a.x = static_cast<const bf16*>(x);
+  a.k = k;
+  a.w = static_cast<const int8_t*>(w);
+  a.kp = rows;
+  a.np = np;
+  a.scales = static_cast<const float*>(scales);
+  a.groups = groups;
+  a.group_size = group_size;
+  a.bias = static_cast<const float*>(bias);
+  a.gamma = static_cast<const float*>(gamma);
+  a.eps = eps;
+  a.out = static_cast<bf16*>(out);
+  a.n = n;
+  auto s = static_cast<cudaStream_t>(stream);
+  return groups > 0 ? launch_m<false, kBits, true>(m, a, s) : launch_m<false, kBits, false>(m, a, s);
 }
 
 }  // namespace gemv

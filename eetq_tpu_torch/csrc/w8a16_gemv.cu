@@ -1,5 +1,6 @@
-// W8A16 decode GEMV: out[m, n] = (y[m, :] . W[:, n]) * scale[n] + bias[n]
-// for 1 <= m <= 8 rows, where y = x, or rmsnorm(x, gamma) rounded to bf16.
+// W8A16 decode GEMV: out[m, n] = y[m, :] . dequant(W)[:, n] + bias[n] for
+// 1 <= m <= 8 rows, where y = x, or rmsnorm(x, gamma) rounded to bf16; int8
+// weights, per-channel scales [n] or group-wise scales [groups, n].
 //
 // Replaces the decode regime of eetq_tpu/kernels/w8a16.py::
 // w8a16_matmul_kernel_call. Bound by the int8 weight bytes (2m FLOPs per
@@ -9,21 +10,11 @@
 #include "gemv.cuh"
 
 // x [m, k] bf16 contiguous (k % 8 == 0); w int8 [kp, np] (kp, np % 128 == 0);
-// scales f32 [n]; bias f32 [n] or null; gamma f32 [k] or null; out bf16 [m, n].
+// scales f32 [n], or [groups, n] with groups > 0 and group_size rows each;
+// bias f32 [n] or null; gamma f32 [k] or null; out bf16 [m, n].
 extern "C" int eetq_w8a16_gemv(const void* x, int m, int k, const void* w, int kp, int np,
-                               const void* scales, const void* bias, const void* gamma,
-                               float eps, void* out, int n, void* stream) {
-  eetq::gemv::Args a{};
-  a.x = static_cast<const eetq::bf16*>(x);
-  a.k = k;
-  a.w = static_cast<const int8_t*>(w);
-  a.kp = kp;
-  a.np = np;
-  a.scales = static_cast<const float*>(scales);
-  a.bias = static_cast<const float*>(bias);
-  a.gamma = static_cast<const float*>(gamma);
-  a.eps = eps;
-  a.out = static_cast<eetq::bf16*>(out);
-  a.n = n;
-  return eetq::gemv::launch_m<false>(m, a, static_cast<cudaStream_t>(stream));
+                               const void* scales, int groups, int group_size, const void* bias,
+                               const void* gamma, float eps, void* out, int n, void* stream) {
+  return eetq::gemv::dense_entry<8>(x, m, k, w, kp, np, scales, groups, group_size, bias, gamma,
+                                    eps, out, n, stream);
 }

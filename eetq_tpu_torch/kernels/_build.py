@@ -2,7 +2,11 @@
 
 Every `csrc/*.cu` file is compiled by nvcc for `sm_90a` into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds). The library lands in `eetq_tpu_torch/_build/<hash>/`, keyed on a
+seconds): one small source per entry point of `SIGNATURES`, most of them a
+mode of a shared header (`gemv.cuh`: the int8 and int4 GEMVs, the expert
+gather and both fused MLPs; `gemm_tile.cuh`: the int8 and int4 GEMMs and
+the grouped expert GEMM; `a8_gemm.cuh`: W8A8 and W4A8), compiled in
+parallel. The library lands in `eetq_tpu_torch/_build/<hash>/`, keyed on a
 hash of the sources and flags, so it is rebuilt only when they change.
 
 Each C entry point launches on the stream it is given, allocates nothing,
@@ -42,10 +46,13 @@ _F = ctypes.c_float
 
 # argtypes of every C entry point; each returns a cudaError_t as int
 SIGNATURES = {
-    # x, m, k, w, kp, np, scales, bias, gamma, eps, out, n, stream
-    "eetq_w8a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _F, _P, _I, _P),
-    # x, m, k, w, kp, np, scales, bias, out, n, stream
-    "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
+    # x, m, k, w, weight rows, np, scales, groups, group_size, bias, gamma,
+    # eps, out, n, stream
+    "eetq_w8a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _P, _I, _P),
+    "eetq_w4a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _P, _I, _P),
+    # x, m, k, w, kp, np, scales, groups, group_size, bias, out, n, stream
+    "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
+    "eetq_w4a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
     # x, m, k, bank, kp, np, scales, expert_ids, n_sel, out, n, stream
     "eetq_w8a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I, _P),
     # x, bm, nb, k, bank, kp, np, scales, block_expert, out, n, stream
@@ -68,9 +75,14 @@ SIGNATURES = {
     ),
     # xq, m, kp, w, np, sx, sw, bias, out, n, stream
     "eetq_w8a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P),
+    # xq, m, kp, w, np, sx, sw, groups, group_size, bias, out, n, stream
+    "eetq_w4a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P),
     # x, m, k, gamma, eps, gu, kp, i, gu_scales, d, np, d_scales, residual,
     # h, out, n, act, stream
     "eetq_fused_mlp_gemv": (
+        _P, _I, _I, _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
+    ),
+    "eetq_fused_mlp_gemv_i4": (
         _P, _I, _I, _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
     ),
 }

@@ -3,8 +3,8 @@
 Port of the part of `eetq_tpu/kernels/autotune.py` the ported paths need:
 the decode/prefill threshold and one fixed launch shape per regime. Most
 tile shapes are compile-time constants of the CUDA sources (`csrc/*.cu`);
-the W8A8 tile and the fused-MLP slice width are defined here and compiled
-in through `-D` flags (`kernels/_build.py`). What is chosen per call lives
+the W8A8 tile, the fused-MLP slice width and the granule of a scale group
+are defined here and compiled in through `-D` flags (`kernels/_build.py`). What is chosen per call lives
 here too. The measured sweep and its persistent cache are not ported yet.
 """
 
@@ -25,6 +25,12 @@ W8A8_TILE = (128, 128, 64)
 # strip (`csrc/gemv.cuh`), taken once over the gate and once over the up half.
 FUSED_MLP_SLICE = 32
 
+# Group-wise scales [K/g, N]: g is a multiple of this. It is the K depth of
+# one step of the W8A16 / W4A16 GEMM tile and of one int8 MMA of the A8 tile,
+# so no step straddles two groups (`csrc/gemm_tile.cuh` and `csrc/a8_gemm.cuh`
+# assert it); g = 64 and 128, the usual int4 settings, pass.
+GROUP_GRANULE = 32
+
 # Token-grouped expert GEMM: rows per row block, a multiple of 8 between
 # these (`modules/moe.py::_grouped_bm`, `csrc/w8a16_grouped_gemm.cu`, whose
 # tile has 128 rows).
@@ -39,7 +45,20 @@ def compile_defines() -> tuple[str, ...]:
     """The constants above as nvcc `-D` flags."""
     bm, bn, bk = W8A8_TILE
     return (f"-DEETQ_W8A8_BM={bm}", f"-DEETQ_W8A8_BN={bn}", f"-DEETQ_W8A8_BK={bk}",
-            f"-DEETQ_FUSED_MLP_SLICE={FUSED_MLP_SLICE}")
+            f"-DEETQ_FUSED_MLP_SLICE={FUSED_MLP_SLICE}", f"-DEETQ_GROUP_GRANULE={GROUP_GRANULE}")
+
+
+def group_size_of(k: int, scales: torch.Tensor) -> int:
+    """The group size K / G of group-wise scales [..., G, N] for a weight of
+    logical K; it must be a whole multiple of GROUP_GRANULE."""
+    groups = scales.shape[-2]
+    if groups < 1 or k % groups:
+        raise ValueError(f"scale rows {groups} must divide K {k}")
+    g = k // groups
+    if g % GROUP_GRANULE:
+        raise ValueError(f"group size {g} is not a multiple of {GROUP_GRANULE} "
+                         "(a kernel's K step must not straddle two groups)")
+    return g
 
 
 def decode_splits(rows: int, max_len: int, device: torch.device) -> tuple[int, int]:

@@ -12,6 +12,15 @@ the gate strip and one over the up strip, activation in the epilogue, h
 rounded to bf16 where the TPU rounds it) and a down GEMV
 with the residual in its epilogue. Two launches instead of the unfused
 path's eight, every weight byte read once, no float atomics.
+
+`fused_mlp_gemv_i4` replaces `fused_mlp_gemv_i4_call` (`pallas_call` at
+mlp_fused.py:290) for int4 per-channel weights, with `csrc/fused_mlp_i4.cu`:
+the same two launches on the GEMV's int4 mode, 67.6 MB per llama2-7b layer.
+The TPU kernel computes four gate/up column blocks per step because it
+keeps h in fast memory and its split-half nibbles make the down product
+consume h at i and at I/2 + i; with h in device memory (L2) and neighbouring
+rows in a byte (`layout/tiling.py`) the down GEMV reads h in order and none
+of that is needed.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import torch.nn.functional as F
 
 from eetq_tpu_torch.kernels import _build
 from eetq_tpu_torch.kernels.autotune import MAX_DECODE_M
-from eetq_tpu_torch.layout.tiling import TILE
+from eetq_tpu_torch.layout.tiling import TILE, unpack_int4_rows
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
 ACTIVATIONS = {
@@ -48,29 +57,18 @@ def fused_mlp_ref(x, gamma, gu_int, gu_scales, d_int, d_scales, eps, activation=
     return out.to(x.dtype)
 
 
-def fused_mlp_gemv(
-    x: torch.Tensor,
-    gamma: torch.Tensor,
-    eps: float,
-    gu_data: torch.Tensor,
-    gu_scales: torch.Tensor,
-    d_data: torch.Tensor,
-    d_scales: torch.Tensor,
-    n: int,
-    residual: torch.Tensor | None = None,
-    activation: str = "silu",
-) -> torch.Tensor:
-    """x [m, K] bf16 (m <= 8); gamma [K]; gu_data the packed int8 [Kp, 2I]
-    fused gate|up weight with the up half at column I (I % 128 == 0);
-    gu_scales f32 [2I]; d_data the packed int8 [I, Np] down weight; d_scales
-    f32 [N]; residual [m, N]. Returns [m, N] bf16."""
+def _fused(counter, entry: str, bits: int, x, gamma, eps, gu_data, gu_scales, d_data, d_scales,
+           n, residual, activation):
     k = x.shape[-1]
-    ip = d_data.shape[0]
+    pack = 2 if bits == 4 else 1
+    ip = d_data.shape[0] * pack
     if not x.is_cuda:
+        if bits == 4:
+            gu_data, d_data = unpack_int4_rows(gu_data), unpack_int4_rows(d_data)
         return fused_mlp_ref(x, gamma, gu_data[:k], gu_scales, d_data[:, :n], d_scales, eps,
                              activation, residual)
     m = x.shape[0]
-    kp, ip2 = gu_data.shape
+    kp, ip2 = gu_data.shape[0] * pack, gu_data.shape[1]
     np_ = d_data.shape[1]
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise TypeError(f"x must be contiguous bf16, got {x.dtype}")
@@ -79,7 +77,7 @@ def fused_mlp_gemv(
             raise TypeError(f"{name} must be contiguous int8 on x's device")
     if ip2 != 2 * ip or ip % TILE or kp % TILE or np_ % TILE or k > kp or n > np_:
         raise ValueError(f"weights {tuple(gu_data.shape)}, {tuple(d_data.shape)} are not a "
-                         f"packed [Kp, 2I] gate|up and [I, Np] down for K={k}, N={n}")
+                         f"packed int{bits} [Kp, 2I] gate|up and [I, Np] down for K={k}, N={n}")
     if k % 8:
         raise NotImplementedError("the CUDA kernels take K % 8 == 0 (16-byte x loads)")
     if not 1 <= m <= MAX_DECODE_M:
@@ -104,13 +102,52 @@ def fused_mlp_gemv(
     h = torch.empty((m, ip), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     _build.launch(
-        "eetq_fused_mlp_gemv", x.data_ptr(), m, k, gamma.data_ptr(), eps,
+        entry, x.data_ptr(), m, k, gamma.data_ptr(), eps,
         gu_data.data_ptr(), kp, ip, gu_scales.data_ptr(), d_data.data_ptr(), np_,
         d_scales.data_ptr(), _build.ptr(residual), h.data_ptr(), out.data_ptr(), n,
         ACT_CODES[activation], _build.stream_of(x),
     )
-    fused_mlp_gemv.launches += 1
+    counter.launches += 1
     return out
 
 
+def fused_mlp_gemv(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    eps: float,
+    gu_data: torch.Tensor,
+    gu_scales: torch.Tensor,
+    d_data: torch.Tensor,
+    d_scales: torch.Tensor,
+    n: int,
+    residual: torch.Tensor | None = None,
+    activation: str = "silu",
+) -> torch.Tensor:
+    """x [m, K] bf16 (m <= 8); gamma [K]; gu_data the packed int8 [Kp, 2I]
+    fused gate|up weight with the up half at column I (I % 128 == 0);
+    gu_scales f32 [2I]; d_data the packed int8 [I, Np] down weight; d_scales
+    f32 [N]; residual [m, N]. Returns [m, N] bf16."""
+    return _fused(fused_mlp_gemv, "eetq_fused_mlp_gemv", 8, x, gamma, eps, gu_data, gu_scales,
+                  d_data, d_scales, n, residual, activation)
+
+
+def fused_mlp_gemv_i4(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    eps: float,
+    gu_data: torch.Tensor,
+    gu_scales: torch.Tensor,
+    d_data: torch.Tensor,
+    d_scales: torch.Tensor,
+    n: int,
+    residual: torch.Tensor | None = None,
+    activation: str = "silu",
+) -> torch.Tensor:
+    """:func:`fused_mlp_gemv` on int4 weights: gu_data the packed int4 pairs
+    [Kp/2, 2I], d_data [I/2, Np]."""
+    return _fused(fused_mlp_gemv_i4, "eetq_fused_mlp_gemv_i4", 4, x, gamma, eps, gu_data,
+                  gu_scales, d_data, d_scales, n, residual, activation)
+
+
 fused_mlp_gemv.launches = 0
+fused_mlp_gemv_i4.launches = 0

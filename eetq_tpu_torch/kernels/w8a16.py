@@ -1,7 +1,9 @@
-"""W8A16 dequant-matmul: the decode GEMV and the prefill GEMM kernels.
+"""W8A16 and W4A16 dequant-matmul: the decode GEMV and the prefill GEMM
+kernels, for int8 and for int4 weights.
 
-Both replace `eetq_tpu/kernels/w8a16.py::w8a16_matmul_kernel_call`
-(`pallas_call` at w8a16.py:355), one kernel per regime of that function:
+All four replace `eetq_tpu/kernels/w8a16.py::w8a16_matmul_kernel_call`
+(`pallas_call` at w8a16.py:355), one kernel per regime of that function and
+per bit width:
 
 - `w8a16_gemv` (m <= MAX_DECODE_M, `csrc/w8a16_gemv.cu`). Bound by weight
   bytes: a llama2-7b decode step streams about 6.7 GB of int8 weights
@@ -18,6 +20,20 @@ Both replace `eetq_tpu/kernels/w8a16.py::w8a16_matmul_kernel_call`
   HBM bandwidth), about 13.8 TFLOP for a llama2-7b prompt. 128 x 128 output tiles,
   int8 weight tiles converted to bf16 in shared memory, `wmma` bf16
   fragments with f32 accumulation, the scale and bias in the epilogue.
+- `w4a16_gemv` (`csrc/w4a16_gemv.cu`) and `w4a16_gemm`
+  (`csrc/w4a16_gemm.cu`): the same two designs on int4 weights packed two
+  neighbouring K rows to a byte (`layout/tiling.py`), half the bytes per
+  decode step (about 3.2 GB of layer weights for llama2-7b). A thread
+  sign-extends the nibbles of the bytes it loaded; the TPU kernel's biased
+  nibbles and its `-8 * rowsum(x)` correction (w8a16.py:186-209) work
+  around an instruction set that has no int8 shift, and are not carried
+  over.
+
+All four take per-channel scales [N] or group-wise scales [K/g, N] (g a
+multiple of `GROUP_GRANULE`). The GEMM applies each group's scale to that
+group's f32 partial sum, as the TPU kernel does (w8a16.py:103-126); the
+GEMV multiplies each weight row by its group's scales before the dot (an
+f32 rounding apart from the partial-sum order; see `csrc/gemv.cuh`).
 
 The two MoE kernels run the same designs over a stacked expert bank
 [E, Kp, Np] with per-channel scales [E, N], each block reading its expert
@@ -40,8 +56,13 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.kernels.autotune import GROUPED_BM_MAX, GROUPED_BM_MIN, MAX_DECODE_M
-from eetq_tpu_torch.layout.tiling import TILE
+from eetq_tpu_torch.kernels.autotune import (
+    GROUPED_BM_MAX,
+    GROUPED_BM_MIN,
+    MAX_DECODE_M,
+    group_size_of,
+)
+from eetq_tpu_torch.layout.tiling import TILE, unpack_int4_rows
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
 
@@ -101,11 +122,13 @@ def grouped_matmul_ref(
                       for b, e in enumerate(block_expert.tolist())])
 
 
-def _check_cuda(x, qdata, scales, n, bias):
-    """x [m, K] against a packed [Kp, Np] weight with scales [N], or a packed
-    bank [E, Kp, Np] with scales [E, N]."""
+def _check_cuda(x, qdata, scales, n, bias, bits: int = 8) -> tuple[int, int]:
+    """x [m, K] against a packed weight [Kp, Np] (int4: [Kp/2, Np]) with
+    scales [N] or [G, N], or a packed int8 bank [E, Kp, Np] with scales
+    [E, N]. Returns (G, group size), (0, 0) for per-channel scales."""
     m, k = x.shape
-    kp, np_ = qdata.shape[-2:]
+    rows, np_ = qdata.shape[-2:]
+    kp = rows * 2 if bits == 4 else rows
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise TypeError(f"x must be contiguous bf16, got {x.dtype}")
     if qdata.dtype != torch.int8 or not qdata.is_contiguous() or qdata.device != x.device:
@@ -113,17 +136,26 @@ def _check_cuda(x, qdata, scales, n, bias):
     if x.data_ptr() % 16 or qdata.data_ptr() % 16:
         raise ValueError("x and the weight must be 16-byte aligned")
     if kp % TILE or np_ % TILE or not (k <= kp and n <= np_):
-        raise ValueError(f"weight {tuple(qdata.shape)} is not a packed [Kp, Np] for K={k}, N={n}")
+        raise ValueError(f"weight {tuple(qdata.shape)} is not a packed int{bits} weight "
+                         f"for K={k}, N={n}")
     if k % 8:
         raise NotImplementedError("the CUDA kernels take K % 8 == 0 (16-byte x loads)")
-    if scales.dim() != qdata.dim() - 1:
-        raise NotImplementedError("group-wise scales have no CUDA kernel yet")
+    groups = group = 0
     want = (*qdata.shape[:-2], n)
+    if scales.dim() == qdata.dim():
+        if qdata.dim() == 3:
+            raise NotImplementedError(
+                "group-wise expert banks have no CUDA kernel yet (the MoE kernels take "
+                "int8 per-channel banks; int4 and group-wise banks come with the paged slice)")
+        group = group_size_of(k, scales)
+        groups = k // group
+        want = (groups, n)
     if (scales.dtype != torch.float32 or scales.shape != want or not scales.is_contiguous()
             or scales.device != x.device):
         raise TypeError(f"scales must be contiguous f32 {list(want)} on x's device")
     if bias is not None and (bias.shape != (n,) or bias.device != x.device):
         raise TypeError("bias must be [N] on x's device")
+    return groups, group
 
 
 def _check_ids(ids: torch.Tensor, x: torch.Tensor, what: str) -> None:
@@ -138,6 +170,51 @@ def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.float().contiguous()
 
 
+def _logical(qdata: torch.Tensor, bits: int, k: int, n: int) -> torch.Tensor:
+    """The logical [K, N] values of a packed weight (for the plain versions)."""
+    return (unpack_int4_rows(qdata) if bits == 4 else qdata)[:k, :n]
+
+
+def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps):
+    k = x.shape[-1]
+    if not x.is_cuda:
+        y = x if gamma is None else rmsnorm(x, gamma, eps)
+        return w8a16_matmul_ref(y, _logical(qdata, bits, k, n), scales, bias)
+    groups, group = _check_cuda(x, qdata, scales, n, bias, bits)
+    m = x.shape[0]
+    rows, np_ = qdata.shape
+    if not 1 <= m <= MAX_DECODE_M:
+        raise ValueError(f"the GEMV kernel takes 1..{MAX_DECODE_M} rows, got {m}")
+    if gamma is not None and (gamma.shape != (k,) or gamma.device != x.device):
+        raise TypeError("gamma must be [K] on x's device")
+    bias, gamma = _f32(bias), _f32(gamma)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    _build.launch(
+        entry, x.data_ptr(), m, k, qdata.data_ptr(), rows, np_, scales.data_ptr(), groups,
+        group, _build.ptr(bias), _build.ptr(gamma), eps, out.data_ptr(), n, _build.stream_of(x),
+    )
+    counter.launches += 1
+    return out
+
+
+def _gemm(counter, entry: str, bits: int, x, qdata, scales, n, bias):
+    k = x.shape[-1]
+    if not x.is_cuda:
+        return w8a16_matmul_ref(x, _logical(qdata, bits, k, n), scales, bias)
+    groups, group = _check_cuda(x, qdata, scales, n, bias, bits)
+    m = x.shape[0]
+    rows, np_ = qdata.shape
+    bias = _f32(bias)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    _build.launch(
+        entry, x.data_ptr(), m, k, qdata.data_ptr(), rows * 2 if bits == 4 else rows, np_,
+        scales.data_ptr(), groups, group, _build.ptr(bias), out.data_ptr(), n,
+        _build.stream_of(x),
+    )
+    counter.launches += 1
+    return out
+
+
 def w8a16_gemv(
     x: torch.Tensor,
     qdata: torch.Tensor,
@@ -149,31 +226,26 @@ def w8a16_gemv(
 ) -> torch.Tensor:
     """Decode regime: ``rmsnorm(x) @ dequant(W) + bias`` for m <= 8 rows.
 
-    x [m, K] bf16; qdata the packed int8 [Kp, Np]; scales f32 [N]; bias
-    [N]; gamma [K] fuses ``rmsnorm(x, gamma, eps)`` into the prologue (y in
-    f32, rounded to bf16 before the dot, as `w8a16.py:180-184`).
-    Returns [m, N] bf16.
+    x [m, K] bf16; qdata the packed int8 [Kp, Np]; scales f32 [N] or
+    [K/g, N]; bias [N]; gamma [K] fuses ``rmsnorm(x, gamma, eps)`` into the
+    prologue (y in f32, rounded to bf16 before the dot, as
+    `w8a16.py:180-184`). Returns [m, N] bf16.
     """
-    k = x.shape[-1]
-    if not x.is_cuda:
-        y = x if gamma is None else rmsnorm(x, gamma, eps)
-        return w8a16_matmul_ref(y, qdata[:k, :n], scales, bias)
-    _check_cuda(x, qdata, scales, n, bias)
-    m = x.shape[0]
-    kp, np_ = qdata.shape
-    if not 1 <= m <= MAX_DECODE_M:
-        raise ValueError(f"the GEMV kernel takes 1..{MAX_DECODE_M} rows, got {m}")
-    if gamma is not None and (gamma.shape != (k,) or gamma.device != x.device):
-        raise TypeError("gamma must be [K] on x's device")
-    bias, gamma = _f32(bias), _f32(gamma)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    _build.launch(
-        "eetq_w8a16_gemv", x.data_ptr(), m, k, qdata.data_ptr(), kp, np_,
-        scales.data_ptr(), _build.ptr(bias), _build.ptr(gamma), eps,
-        out.data_ptr(), n, _build.stream_of(x),
-    )
-    w8a16_gemv.launches += 1
-    return out
+    return _gemv(w8a16_gemv, "eetq_w8a16_gemv", 8, x, qdata, scales, n, bias, gamma, eps)
+
+
+def w4a16_gemv(
+    x: torch.Tensor,
+    qdata: torch.Tensor,
+    scales: torch.Tensor,
+    n: int,
+    bias: torch.Tensor | None = None,
+    gamma: torch.Tensor | None = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """:func:`w8a16_gemv` on int4 weights: qdata the packed int4 pairs
+    [Kp/2, Np]."""
+    return _gemv(w4a16_gemv, "eetq_w4a16_gemv", 4, x, qdata, scales, n, bias, gamma, eps)
 
 
 def w8a16_gemm(
@@ -184,21 +256,20 @@ def w8a16_gemm(
     bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Prefill regime: ``x @ dequant(W) + bias``. x [m, K] bf16; qdata the
-    packed int8 [Kp, Np]; scales f32 [N]. Returns [m, N] bf16."""
-    k = x.shape[-1]
-    if not x.is_cuda:
-        return w8a16_matmul_ref(x, qdata[:k, :n], scales, bias)
-    _check_cuda(x, qdata, scales, n, bias)
-    m = x.shape[0]
-    kp, np_ = qdata.shape
-    bias = _f32(bias)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    _build.launch(
-        "eetq_w8a16_gemm", x.data_ptr(), m, k, qdata.data_ptr(), kp, np_,
-        scales.data_ptr(), _build.ptr(bias), out.data_ptr(), n, _build.stream_of(x),
-    )
-    w8a16_gemm.launches += 1
-    return out
+    packed int8 [Kp, Np]; scales f32 [N] or [K/g, N]. Returns [m, N] bf16."""
+    return _gemm(w8a16_gemm, "eetq_w8a16_gemm", 8, x, qdata, scales, n, bias)
+
+
+def w4a16_gemm(
+    x: torch.Tensor,
+    qdata: torch.Tensor,
+    scales: torch.Tensor,
+    n: int,
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`w8a16_gemm` on int4 weights: qdata the packed int4 pairs
+    [Kp/2, Np]."""
+    return _gemm(w4a16_gemm, "eetq_w4a16_gemm", 4, x, qdata, scales, n, bias)
 
 
 def w8a16_expert_gemv(
@@ -277,5 +348,7 @@ def w8a16_grouped_gemm(
 
 w8a16_gemv.launches = 0
 w8a16_gemm.launches = 0
+w4a16_gemv.launches = 0
+w4a16_gemm.launches = 0
 w8a16_expert_gemv.launches = 0
 w8a16_grouped_gemm.launches = 0

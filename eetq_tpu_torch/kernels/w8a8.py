@@ -1,4 +1,5 @@
-"""W8A8 matmul: per-token int8 activations x int8 per-channel weights.
+"""W8A8 and W4A8 matmul: per-token int8 activations x int8 per-channel
+weights, or x int4 weights with per-channel or group-wise scales.
 
 `w8a8_gemm` replaces `eetq_tpu/kernels/w8a8.py::w8a8_matmul_kernel_call`
 (`pallas_call` at w8a8.py:125) with the CUDA kernel `csrc/w8a8_gemm.cu`.
@@ -8,6 +9,18 @@ m = 1024 llama2-7b prompt does about 13.8 TOP through it per forward. The
 kernel runs `mma.sync` m16n8k32 s8 x s8 -> s32 over 128 x 128 output tiles;
 the row-major [Kp, Np] weight is transposed byte-wise on its way into
 shared memory, since the B operand wants K contiguous (see the source).
+
+`w4a8_gemm` replaces `w4a8_matmul_kernel_call` (`pallas_call` at
+w8a8.py:325) with `csrc/w4a8_gemm.cu`, the same tile with the int4 bytes
+(two neighbouring K rows each, `layout/tiling.py`) sign-extended to int8
+operands on their way into shared memory; it is what gives an int4 model
+the engine's `a8_prefill`. The operands are the exact values in [-8, 7], so
+with per-channel scales the s32 sum and the epilogue are those of W8A8 and
+the output is bit-identical to the plain version; the TPU kernel's biased
+nibbles and x16 / 1/16 folding (w8a8.py:219-235) are not carried over. With
+group-wise scales [K/g, N] each group's s32 sum is converted to f32 and
+scaled by its row (w8a8.py:236-253), which differs from the plain version
+by the order of the f32 sum over groups.
 
 `quantize_activations` and the plain product are bit-identical to the JAX
 package's on the CPU: the activation quantizer scales as XLA compiles it
@@ -21,7 +34,8 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.layout.tiling import TILE
+from eetq_tpu_torch.kernels.autotune import group_size_of
+from eetq_tpu_torch.layout.tiling import TILE, unpack_int4_rows
 
 
 # 1/127 rounded to f32. JAX runs its quantizers under jit, where XLA folds
@@ -55,20 +69,82 @@ def w8a8_matmul_ref(
 ) -> torch.Tensor:
     """Plain version: quantize x per token, integer matmul, then
     ``acc * sx * sw + bias`` in f32 and one rounding to x.dtype
-    (`eetq_tpu/kernels/w8a8.py::w8a8_matmul_ref`, per-channel). x [m, K];
-    qweight the logical int8 [K, N]; w_scales [N]."""
+    (`eetq_tpu/kernels/w8a8.py::w8a8_matmul_ref`). x [m, K]; qweight the
+    logical int8 [K, N] (int4 values one per int8); w_scales [N], or [G, N]
+    group-wise: each group's integer sum is scaled by its row, the groups
+    summed in f32, then ``* sx``."""
     xq, sx = quantize_activations(x)
-    return w8a8_gemm_ref(xq, sx, qweight, w_scales, qweight.shape[1], bias, x.dtype)
+    group_size = None if w_scales.dim() == 1 else qweight.shape[0] // w_scales.shape[0]
+    return w8a8_gemm_ref(xq, sx, qweight, w_scales, qweight.shape[1], bias, x.dtype, group_size)
 
 
-def w8a8_gemm_ref(xq, x_scales, qdata, w_scales, n, bias=None,
-                  dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain version of :func:`w8a8_gemm` on its own operands: xq [m, K]
-    against qdata [K, >= n], the epilogue in f32, one rounding to dtype."""
-    r = int_matmul(xq, qdata[:, :n]) * x_scales[..., None] * w_scales.float()
+def w8a8_gemm_ref(xq, x_scales, qdata, w_scales, n, bias=None, dtype=torch.bfloat16,
+                  group_size: int | None = None) -> torch.Tensor:
+    """Plain version of :func:`w8a8_gemm` and :func:`w4a8_gemm` on their own
+    operands: xq [m, Kp] against the logical values qdata [Kp, >= n], the
+    epilogue in f32, one rounding to dtype. Group-wise scales [G, n] cover
+    the first G * group_size rows; the rows past them are zero padding."""
+    q = qdata[:, :n]
+    if w_scales.dim() == 1:
+        r = int_matmul(xq, q) * x_scales[..., None] * w_scales.float()
+    else:
+        gcount = w_scales.shape[0]
+        k = gcount * group_size
+        part = torch.einsum("mgk,gkn->mgn",
+                            xq[:, :k].reshape(-1, gcount, group_size).double(),
+                            q[:k].reshape(gcount, group_size, n).double()).float()
+        r = torch.einsum("mgn,gn->mn", part, w_scales.float()) * x_scales[..., None]
     if bias is not None:
         r = r + bias.float()
     return r.to(dtype)
+
+
+def _a8_gemm(counter, entry: str, bits: int, xq, x_scales, qdata, w_scales, n, bias, group_size):
+    if not xq.is_cuda:
+        logical = unpack_int4_rows(qdata) if bits == 4 else qdata
+        return w8a8_gemm_ref(xq, x_scales, logical, w_scales, n, bias, group_size=group_size)
+    m, kx = xq.shape
+    rows, np_ = qdata.shape
+    kp = rows * 2 if bits == 4 else rows
+    if xq.dtype != torch.int8 or not xq.is_contiguous():
+        raise TypeError(f"activations must be contiguous int8, got {xq.dtype}")
+    if qdata.dtype != torch.int8 or not qdata.is_contiguous() or qdata.device != xq.device:
+        raise TypeError("weight must be contiguous int8 on the activations' device")
+    if kp % TILE or np_ % TILE or kx != kp or n > np_:
+        raise ValueError(f"weight {tuple(qdata.shape)} / activations {tuple(xq.shape)} "
+                         f"are not a packed int{bits} weight and an [m, Kp] for N={n}")
+    if xq.data_ptr() % 16 or qdata.data_ptr() % 16:
+        raise ValueError("activations and the weight must be 16-byte aligned")
+    w_shape = (n,)
+    if w_scales.dim() != 1:
+        if bits == 8:
+            raise NotImplementedError(
+                "group-wise W8A8 has no kernel (it stays on the W8A16 path)")
+        groups = w_scales.shape[0]
+        if not group_size or groups * group_size > kp:
+            raise ValueError(f"{groups} groups of {group_size} rows do not fit Kp {kp}")
+        group_size_of(groups * group_size, w_scales)  # a whole multiple of the granule
+        w_shape = (groups, n)
+    else:
+        groups = group_size = 0
+    for name, t, shape in (("x_scales", x_scales, (m,)), ("w_scales", w_scales, w_shape)):
+        if (t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous()
+                or t.device != xq.device):
+            raise TypeError(f"{name} must be contiguous f32 {list(shape)} on the activations' "
+                            "device")
+    if bias is not None:
+        if bias.shape != (n,) or bias.device != xq.device:
+            raise TypeError("bias must be [N] on the activations' device")
+        bias = bias.float().contiguous()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
+    group_args = (groups, group_size) if bits == 4 else ()
+    _build.launch(
+        entry, xq.data_ptr(), m, kp, qdata.data_ptr(), np_, x_scales.data_ptr(),
+        w_scales.data_ptr(), *group_args, _build.ptr(bias), out.data_ptr(), n,
+        _build.stream_of(xq),
+    )
+    counter.launches += 1
+    return out
 
 
 def w8a8_gemm(
@@ -82,37 +158,25 @@ def w8a8_gemm(
     """xq [m, Kp] int8 (zero past the logical K); x_scales f32 [m]; qdata the
     packed int8 [Kp, Np]; w_scales f32 [N] per-channel; bias [N]. Returns
     ``bf16((f32(xq @ W) * sx) * sw + bias)`` [m, N]."""
-    if not xq.is_cuda:
-        return w8a8_gemm_ref(xq, x_scales, qdata, w_scales, n, bias)
-    m, kx = xq.shape
-    kp, np_ = qdata.shape
-    if xq.dtype != torch.int8 or not xq.is_contiguous():
-        raise TypeError(f"activations must be contiguous int8, got {xq.dtype}")
-    if qdata.dtype != torch.int8 or not qdata.is_contiguous() or qdata.device != xq.device:
-        raise TypeError("weight must be contiguous int8 on the activations' device")
-    if kp % TILE or np_ % TILE or kx != kp or n > np_:
-        raise ValueError(f"weight {tuple(qdata.shape)} / activations {tuple(xq.shape)} "
-                         f"are not a packed [Kp, Np] and an [m, Kp] for N={n}")
-    if xq.data_ptr() % 16 or qdata.data_ptr() % 16:
-        raise ValueError("activations and the weight must be 16-byte aligned")
-    if w_scales.dim() != 1:
-        raise NotImplementedError("group-wise W8A8 has no kernel (it stays on the W8A16 path)")
-    for name, t, size in (("x_scales", x_scales, m), ("w_scales", w_scales, n)):
-        if (t.dtype != torch.float32 or t.shape != (size,) or not t.is_contiguous()
-                or t.device != xq.device):
-            raise TypeError(f"{name} must be contiguous f32 [{size}] on the activations' device")
-    if bias is not None:
-        if bias.shape != (n,) or bias.device != xq.device:
-            raise TypeError("bias must be [N] on the activations' device")
-        bias = bias.float().contiguous()
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
-    _build.launch(
-        "eetq_w8a8_gemm", xq.data_ptr(), m, kp, qdata.data_ptr(), np_,
-        x_scales.data_ptr(), w_scales.data_ptr(), _build.ptr(bias), out.data_ptr(), n,
-        _build.stream_of(xq),
-    )
-    w8a8_gemm.launches += 1
-    return out
+    return _a8_gemm(w8a8_gemm, "eetq_w8a8_gemm", 8, xq, x_scales, qdata, w_scales, n, bias, None)
+
+
+def w4a8_gemm(
+    xq: torch.Tensor,
+    x_scales: torch.Tensor,
+    qdata: torch.Tensor,
+    w_scales: torch.Tensor,
+    n: int,
+    bias: torch.Tensor | None = None,
+    group_size: int | None = None,
+) -> torch.Tensor:
+    """:func:`w8a8_gemm` on int4 weights: qdata the packed int4 pairs
+    [Kp/2, Np]; w_scales f32 [N], or [G, N] with `group_size` logical rows a
+    group (G * group_size is the logical K), each group's s32 sum scaled by
+    its row and the groups summed in f32 before ``* sx``."""
+    return _a8_gemm(w4a8_gemm, "eetq_w4a8_gemm", 4, xq, x_scales, qdata, w_scales, n, bias,
+                    group_size)
 
 
 w8a8_gemm.launches = 0
+w4a8_gemm.launches = 0

@@ -8,9 +8,10 @@ of numpy arrays that mirrors the JAX package's ModelParams:
                  "qkv": linear, "o_proj": linear,
                  "gateup": linear, "down": linear}, ...]}
 
-where a linear is ``{"qweight": int8 [K, N], "scales": [N], "bias": [N]?}``
-(quantized: the unpacked portable format `eetq_tpu/models/hf.py` writes,
-packed here by the port's own `pack_weights`) or ``{"weight": [K, N],
+where a linear is ``{"qweight": int8 [K, N], "scales": [N] or [K/g, N],
+"bits": 8 or 4 (default 8), "bias": [N]?}`` (quantized: the unpacked
+portable format `eetq_tpu/models/hf.py` writes, int4 values held one per
+int8, packed here by the port's own `pack_weights`) or ``{"weight": [K, N],
 "bias": [N]?}`` (dense). A MoE layer has ``"moe": {"router": linear,
 "gateup": bank, "down": bank}`` in place of gateup and down, where a bank
 is a linear with a leading expert axis (``"qweight"`` int8 [E, K, N] and
@@ -41,7 +42,8 @@ def _linear(d: dict, device):
     bias = None if d.get("bias") is None else _tensor(d["bias"], torch.bfloat16, device)
     if "qweight" in d:
         q = _tensor(d["qweight"], torch.int8, device)
-        return QuantLinear(pack_weights(q), _tensor(d["scales"], torch.float32, device), bias)
+        return QuantLinear(pack_weights(q, bits=int(d.get("bits", 8))),
+                           _tensor(d["scales"], torch.float32, device), bias)
     return DenseLinear(_tensor(d["weight"], torch.bfloat16, device), bias)
 
 

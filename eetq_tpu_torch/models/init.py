@@ -1,4 +1,4 @@
-"""Random-weight model construction and its quantization to W8A16.
+"""Random-weight model construction and its quantization to W8A16 or W4A16.
 
 Port of `eetq_tpu/models/init.py`, plus a layer-by-layer quantized
 constructor (the counterpart of `bench.py::build_params` and
@@ -69,41 +69,49 @@ def random_dense_params(cfg: ModelConfig, generator: torch.Generator) -> ModelPa
     return ModelParams(embed, layers, final_norm, lm_head)
 
 
-def _q(lin: DenseLinear):
-    return quantize_linear(lin.weight, bias=lin.bias)
+def _q(lin: DenseLinear, bits: int, group_size: int | None):
+    return quantize_linear(lin.weight, bias=lin.bias, bits=bits, group_size=group_size)
 
 
-def _quantize_layer(lp: LayerParams) -> LayerParams:
+def _quantize_layer(lp: LayerParams, bits: int, group_size: int | None) -> LayerParams:
+    def q(lin):
+        return _q(lin, bits, group_size)
+
     if lp.moe is not None:
-        return LayerParams(lp.input_norm, _q(lp.qkv), _q(lp.o_proj), lp.post_norm,
-                           moe=quantize_moe(lp.moe))
-    return LayerParams(lp.input_norm, _q(lp.qkv), _q(lp.o_proj), lp.post_norm,
-                       _q(lp.gateup), _q(lp.down))
+        return LayerParams(lp.input_norm, q(lp.qkv), q(lp.o_proj), lp.post_norm,
+                           moe=quantize_moe(lp.moe, bits=bits, group_size=group_size))
+    return LayerParams(lp.input_norm, q(lp.qkv), q(lp.o_proj), lp.post_norm,
+                       q(lp.gateup), q(lp.down))
 
 
-def quantize_params(params: ModelParams, quantize_lm_head: bool = False) -> ModelParams:
-    """Every dense decoder linear and expert bank becomes per-channel int8
-    (the routers stay bf16), one layer at a time; the lm_head too with
-    quantize_lm_head=True (it stays dense by default, as in the reference).
-    Returns a new ModelParams that shares the embedding and norms with
-    `params`."""
-    layers = [_quantize_layer(lp) for lp in params.layers]
+def quantize_params(params: ModelParams, bits: int = 8, quantize_lm_head: bool = False,
+                    group_size: int | None = None) -> ModelParams:
+    """Every dense decoder linear and expert bank becomes symmetric int8 or
+    int4 (`bits`), per-channel or group-wise (`group_size`, the usual int4
+    setting), one layer at a time; the routers stay bf16. The lm_head is
+    quantized the same way with quantize_lm_head=True (it stays dense by
+    default, as in the reference). Returns a new ModelParams that shares the
+    embedding and norms with `params` (`eetq_tpu/models/init.py:95-136`)."""
+    layers = [_quantize_layer(lp, bits, group_size) for lp in params.layers]
     lm_head = params.lm_head
     if quantize_lm_head and isinstance(lm_head, DenseLinear):
-        lm_head = _q(lm_head)
+        lm_head = _q(lm_head, bits, group_size)
     return ModelParams(params.embed, layers, params.final_norm, lm_head)
 
 
 def random_quantized_params(cfg: ModelConfig, generator: torch.Generator,
-                            quantize_lm_head: bool = False) -> ModelParams:
-    """`quantize_params(random_dense_params(cfg, generator), quantize_lm_head)`
-    without the whole bf16 model: each layer is drawn in bf16, quantized at
-    once and dropped, so the peak is the quantized model plus one bf16
-    layer. Mixtral-8x7B is about 93 GB in bf16, more than an H100 holds, and
-    about 47 GB at W8A16. The draws are the same, so the result is equal."""
-    layers = [_quantize_layer(_dense_layer(cfg, generator)) for _ in range(cfg.num_layers)]
+                            quantize_lm_head: bool = False, bits: int = 8,
+                            group_size: int | None = None) -> ModelParams:
+    """`quantize_params(random_dense_params(cfg, generator), bits,
+    quantize_lm_head, group_size)` without the whole bf16 model: each layer
+    is drawn in bf16, quantized at once and dropped, so the peak is the
+    quantized model plus one bf16 layer. Mixtral-8x7B is about 93 GB in
+    bf16, more than an H100 holds, and about 47 GB at W8A16. The draws are
+    the same, so the result is equal."""
+    layers = [_quantize_layer(_dense_layer(cfg, generator), bits, group_size)
+              for _ in range(cfg.num_layers)]
     embed, lm_head = _embed_and_head(cfg, generator)
     if quantize_lm_head and lm_head is not None:
-        lm_head = _q(lm_head)
+        lm_head = _q(lm_head, bits, group_size)
     final_norm = torch.ones(cfg.hidden_size, dtype=torch.float32, device=generator.device)
     return ModelParams(embed, layers, final_norm, lm_head)

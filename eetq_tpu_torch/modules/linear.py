@@ -1,10 +1,11 @@
 """Quantized and dense linear layers as `nn.Module`s.
 
 Port of `eetq_tpu/modules/linear.py`. Weights are stored [K, N]
-(in-features x out-features) as in the JAX package; int8 weights, scales
-and biases are buffers (the port serves and trains nothing). `a8=True`
-routes an int8 per-channel layer through the W8A8 path (prefill only).
-LoRA is not ported yet.
+(in-features x out-features) as in the JAX package; packed int8 or int4
+weights, per-channel or group-wise scales and biases are buffers (the port
+serves and trains nothing). `a8=True` routes an int8 per-channel layer, or
+any int4 layer, through the W8A8 / W4A8 path (prefill only). LoRA is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -40,20 +41,22 @@ class DenseLinear(nn.Module):
 
 
 class QuantLinear(nn.Module):
-    """W8A16 linear: packed int8 qweight [Kp, Np], f32 per-channel scales [N]
-    and an optional bias [N]."""
+    """W8A16 or W4A16 linear: packed qweight (int8 [Kp, Np], or int4 pairs
+    [Kp/2, Np] with `bits` = 4), f32 scales [N] per-channel or [K/g, N]
+    group-wise, and an optional bias [N]. An expert bank has a leading
+    expert axis on qweight and scales."""
 
     def __init__(self, qweight: PackedWeight, scales: torch.Tensor,
                  bias: torch.Tensor | None = None):
         super().__init__()
-        self.k, self.n = qweight.k, qweight.n
+        self.k, self.n, self.bits = qweight.k, qweight.n, qweight.bits
         self.register_buffer("qweight", qweight.data)
         self.register_buffer("scales", scales)
         self.register_buffer("bias", bias)
 
     @property
     def packed(self) -> PackedWeight:
-        return PackedWeight(data=self.qweight, k=self.k, n=self.n)
+        return PackedWeight(data=self.qweight, k=self.k, n=self.n, bits=self.bits)
 
     @property
     def in_features(self) -> int:
@@ -67,10 +70,35 @@ class QuantLinear(nn.Module):
         return linear_apply(self, x, prenorm=prenorm, use_kernel=use_kernel, a8=a8)
 
 
-def quantize_linear(weight: torch.Tensor, bias: torch.Tensor | None = None) -> QuantLinear:
-    """QuantLinear from a float [K, N] weight: per-channel symmetric int8."""
-    q, s = symmetric_quantize(weight)
-    return QuantLinear(pack_weights(q), s, bias)
+def quantize_linear(
+    weight: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    bits: int = 8,
+    group_size: int | None = None,
+    external_scales: torch.Tensor | None = None,
+) -> QuantLinear:
+    """QuantLinear from a float [K, N] weight (`eetq_tpu/modules/linear.py:
+    77-105`): symmetric int8 (bits=8) or int4 (bits=4), per-channel scales or,
+    with group_size=g, group-wise scales [K/g, N]. An int8 `weight` is taken
+    as already quantized (int4 values one per int8) and packed with
+    `external_scales` without requantization."""
+    if weight.dtype == torch.int8:
+        if external_scales is None:
+            raise ValueError("int8 weight requires external_scales")
+        return QuantLinear(pack_weights(weight, bits=bits), external_scales, bias)
+    if external_scales is not None:
+        raise ValueError("external_scales only valid with int8 weight")
+    q, s = symmetric_quantize(weight, bits=bits, group_size=group_size)
+    return QuantLinear(pack_weights(q, bits=bits), s, bias)
+
+
+def init_only_linear(k: int, n: int, with_bias: bool = False,
+                     device: torch.device | str | None = None) -> QuantLinear:
+    """Empty int8 shell for checkpoint loading (`eetq_tpu/modules/linear.py:
+    108-116`)."""
+    q = torch.zeros((k, n), dtype=torch.int8, device=device)
+    bias = torch.zeros(n, dtype=torch.bfloat16, device=device) if with_bias else None
+    return QuantLinear(pack_weights(q), torch.zeros(n, dtype=torch.float32, device=device), bias)
 
 
 def linear_apply(
@@ -82,11 +110,11 @@ def linear_apply(
 ) -> torch.Tensor:
     """Forward through a quantized or dense linear. prenorm=(gamma, eps)
     applies ``rmsnorm(x, gamma, eps)`` first, fused into the GEMV kernel's
-    prologue in the decode regime. a8=True takes the W8A8 path (per-token
-    int8 activations, `eetq_tpu/modules/linear.py:161-175`) for an int8
-    per-channel QuantLinear, after a plain RMSNorm; it is ignored for other
-    layers."""
-    if isinstance(layer, QuantLinear) and a8 and layer.scales.dim() == 1:
+    prologue in the decode regime. a8=True takes the W8A8 / W4A8 path
+    (per-token int8 activations, `eetq_tpu/modules/linear.py:161-175`) for an
+    int8 per-channel QuantLinear or any int4 one, after a plain RMSNorm; it
+    is ignored for other layers."""
+    if isinstance(layer, QuantLinear) and a8 and (layer.bits == 4 or layer.scales.dim() == 1):
         if prenorm is not None:
             x = rmsnorm(x, prenorm[0], eps=prenorm[1])
         return w8a8_matmul(x, layer.packed, layer.scales, bias=layer.bias,

@@ -57,22 +57,25 @@ class MoEMLP(nn.Module):
         return self.router.weight.shape[-1]
 
 
-def _quantize_bank(lin: DenseLinear) -> QuantLinear:
-    """Per-channel int8 of a [E, K, N] bank, one expert at a time (the scales
-    are per expert and channel, so this equals quantizing the whole bank, and
-    the f32 temporaries stay one expert wide)."""
+def _quantize_bank(lin: DenseLinear, bits: int = 8, group_size: int | None = None) -> QuantLinear:
+    """A [E, K, N] bank quantized one expert at a time (the scales are per
+    expert, so this equals quantizing the whole bank, and the f32
+    temporaries stay one expert wide)."""
     if lin.bias is not None:
         raise NotImplementedError("expert biases are not supported")
-    parts = [symmetric_quantize(w) for w in lin.weight]
+    parts = [symmetric_quantize(w, bits=bits, group_size=group_size) for w in lin.weight]
     q = torch.stack([p[0] for p in parts])
     s = torch.stack([p[1] for p in parts])
-    return QuantLinear(pack_weights(q), s)
+    return QuantLinear(pack_weights(q, bits=bits), s)
 
 
-def quantize_moe(moe: MoEMLP) -> MoEMLP:
-    """Quantize a dense MoEMLP's expert banks to per-channel int8. The router
-    stays bf16: a [H, E] sliver whose logits decide the routing."""
-    return MoEMLP(moe.router, _quantize_bank(moe.gateup), _quantize_bank(moe.down))
+def quantize_moe(moe: MoEMLP, bits: int = 8, group_size: int | None = None) -> MoEMLP:
+    """Quantize a dense MoEMLP's expert banks (`eetq_tpu/modules/moe.py::
+    quantize_moe`): per-channel int8 by default; int4 and group-wise banks
+    run on the plain path only (the MoE kernels raise for them on CUDA). The
+    router stays bf16: a [H, E] sliver whose logits decide the routing."""
+    return MoEMLP(moe.router, _quantize_bank(moe.gateup, bits, group_size),
+                  _quantize_bank(moe.down, bits, group_size))
 
 
 def route(router: DenseLinear, x2: torch.Tensor, top_k: int) -> tuple[torch.Tensor, torch.Tensor]:

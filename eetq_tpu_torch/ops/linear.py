@@ -3,7 +3,11 @@
 Port of `eetq_tpu/ops/linear.py::w8a16_matmul` (`ops/linear.py:150-243`):
 flatten the leading dims to m x K, then m <= MAX_DECODE_M goes to the
 GEMV kernel (with the RMSNorm prologue fused) and larger m to the GEMM
-kernel (after a plain RMSNorm). The dequantizing backward is not ported.
+kernel (after a plain RMSNorm), the int8 or the int4 one by the weight's
+`bits`, with per-channel or group-wise scales. The JAX package fuses the
+norm for int8 per-channel only (`ops/linear.py:223-228`); the port's GEMV
+fuses it for every variant, which computes the same function. The
+dequantizing backward is not ported.
 """
 
 from __future__ import annotations
@@ -13,7 +17,13 @@ import math
 import torch
 
 from eetq_tpu_torch.kernels.autotune import MAX_DECODE_M
-from eetq_tpu_torch.kernels.w8a16 import w8a16_gemm, w8a16_gemv, w8a16_matmul_ref
+from eetq_tpu_torch.kernels.w8a16 import (
+    w4a16_gemm,
+    w4a16_gemv,
+    w8a16_gemm,
+    w8a16_gemv,
+    w8a16_matmul_ref,
+)
 from eetq_tpu_torch.layout.tiling import PackedWeight, unpack_weights
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
@@ -29,24 +39,28 @@ def w8a16_matmul(
 ) -> torch.Tensor:
     """``rmsnorm(x) @ dequant(qweight, scales) + bias`` in x.dtype.
 
-    x: [..., K]; qweight: PackedWeight; scales: [N] (or [K/g, N] on the
-    plain path); bias: optional [N]; prenorm_gamma: optional [K] RMSNorm
-    gain applied to x first. use_kernel=False runs the plain version on any
-    device (the reference the kernels are checked against).
+    x: [..., K]; qweight: PackedWeight (int8 or int4); scales: [N]
+    per-channel or [K/g, N] group-wise; bias: optional [N]; prenorm_gamma:
+    optional [K] RMSNorm gain applied to x first. use_kernel=False runs the
+    plain version on any device (the reference the kernels are checked
+    against).
     """
     k, n = qweight.k, qweight.n
     *lead, xk = x.shape
     if xk != k:
         raise ValueError(f"x feature dim {xk} != weight K {k}")
+    if scales.dim() == 2 and k % scales.shape[0]:
+        raise ValueError(f"scale rows {scales.shape[0]} must divide K {k}")
+    gemv, gemm = (w4a16_gemv, w4a16_gemm) if qweight.bits == 4 else (w8a16_gemv, w8a16_gemm)
     m = math.prod(lead)
     x2 = x.reshape(m, k).contiguous()
     if use_kernel and m <= MAX_DECODE_M:
-        out = w8a16_gemv(x2, qweight.data, scales, n, bias, prenorm_gamma, prenorm_eps)
+        out = gemv(x2, qweight.data, scales, n, bias, prenorm_gamma, prenorm_eps)
     else:
         if prenorm_gamma is not None:
             x2 = rmsnorm(x2, prenorm_gamma, eps=prenorm_eps)
         if use_kernel:
-            out = w8a16_gemm(x2, qweight.data, scales, n, bias)
+            out = gemm(x2, qweight.data, scales, n, bias)
         else:
             out = w8a16_matmul_ref(x2, unpack_weights(qweight), scales, bias)
     return out.reshape(*lead, n)

@@ -1,10 +1,11 @@
 """`w8a8_matmul`: the int8-activation matmul entry of the port.
 
-Port of `eetq_tpu/ops/linear8.py::w8a8_matmul` (`linear8.py:26-108`) for
-int8 per-channel weights: flatten the leading dims to m x K, quantize per
-token, zero-pad the quantized activations to the packed Kp, run the W8A8
-kernel, and keep the logical N columns. W4A8 is not ported: an int4 weight
-has no packed layout in the port yet, so it cannot reach this function.
+Port of `eetq_tpu/ops/linear8.py::w8a8_matmul` (`linear8.py:26-108`):
+flatten the leading dims to m x K, quantize per token, zero-pad the
+quantized activations to the packed Kp, run the W8A8 kernel (int8
+per-channel weights) or the W4A8 kernel (int4 weights, per-channel or
+group-wise scales), and keep the logical N columns. int8 group-wise stays
+on the W8A16 path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from eetq_tpu_torch.kernels.w8a8 import quantize_activations, w8a8_gemm, w8a8_matmul_ref
+from eetq_tpu_torch.kernels.w8a8 import (
+    quantize_activations,
+    w4a8_gemm,
+    w8a8_gemm,
+    w8a8_matmul_ref,
+)
 from eetq_tpu_torch.layout.tiling import PackedWeight, unpack_weights
 
 
@@ -27,10 +33,11 @@ def w8a8_matmul(
 ) -> torch.Tensor:
     """``(int8(x) @ W) * row_scale * col_scale + bias`` in x.dtype.
 
-    x: [..., K] float; qweight: PackedWeight (int8); scales: [N]
-    per-channel. use_kernel=False runs the plain version on any device.
+    x: [..., K] float; qweight: PackedWeight, int8 with scales [N], or int4
+    with scales [N] or [K/g, N]. use_kernel=False runs the plain version on
+    any device.
     """
-    if scales.dim() != 1:
+    if qweight.bits == 8 and scales.dim() != 1:
         raise ValueError(
             "a8 with int8 weights needs per-channel scales "
             "(group-wise int8 stays on the W8A16 path)"
@@ -39,6 +46,8 @@ def w8a8_matmul(
     *lead, xk = x.shape
     if xk != k:
         raise ValueError(f"x feature dim {xk} != weight K {k}")
+    if scales.dim() == 2 and k % scales.shape[0]:
+        raise ValueError(f"scale rows {scales.shape[0]} must divide K {k}")
     m = math.prod(lead)
     x2 = x.reshape(m, k)
     if not use_kernel:
@@ -46,5 +55,10 @@ def w8a8_matmul(
     else:
         xq, sx = quantize_activations(x2)
         xq = F.pad(xq, (0, qweight.kp - k)).contiguous()
-        out = w8a8_gemm(xq, sx, qweight.data, scales, n, bias).to(x.dtype)
+        if qweight.bits == 4:
+            group_size = None if scales.dim() == 1 else k // scales.shape[0]
+            out = w4a8_gemm(xq, sx, qweight.data, scales, n, bias, group_size)
+        else:
+            out = w8a8_gemm(xq, sx, qweight.data, scales, n, bias)
+        out = out.to(x.dtype)
     return out.reshape(*lead, n)

@@ -61,6 +61,37 @@ def symmetric_quantize(
     return q, scale.to(scale_dtype)
 
 
+def int4_pack(q: torch.Tensor) -> torch.Tensor:
+    """Pack int4 values (held in int8, range [-8, 7]) two per byte along N:
+    element 2j in the low nibble, 2j + 1 in the high nibble
+    (`eetq_tpu/quant/quantizer.py::int4_pack`, the reference checkpoints'
+    format; the kernels' own layout is `layout/tiling.py`'s). N must be even."""
+    if q.shape[-1] % 2:
+        raise ValueError("last axis must be even to int4-pack")
+    lo = q[..., 0::2] & 0x0F
+    hi = q[..., 1::2] << 4  # int8 wraps: the low four bits, moved up
+    return lo | hi
+
+
+def int4_unpack(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`int4_pack`: int8 values in [-8, 7]."""
+    lo = (packed << 4) >> 4  # arithmetic shifts on int8 sign-extend
+    hi = packed >> 4
+    return torch.stack((lo, hi), dim=-1).reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def quantize_and_pack(weight: torch.Tensor, bits: int = 8,
+                      scale_dtype: torch.dtype = torch.float32):
+    """Quantize per channel, then pack to the kernel layout: (PackedWeight,
+    scales). The JAX function of this name packs an int4 result as int8
+    (`eetq_tpu/quant/quantizer.py:139-140` calls `pack_weights(q)` without
+    the bit width); here the packing follows `bits`."""
+    from eetq_tpu_torch.layout.tiling import pack_weights
+
+    q, s = symmetric_quantize(weight, bits=bits, scale_dtype=scale_dtype)
+    return pack_weights(q, bits=bits), s
+
+
 def dequantize(qweight: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``w ≈ q * scale`` broadcast over K; returns float32.
 

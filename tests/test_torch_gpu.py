@@ -18,11 +18,18 @@ from eetq_tpu_torch.kernels.flash_decode import (
     flash_decode_int8_ref,
     flash_decode_ref,
 )
-from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv, fused_mlp_ref
-from eetq_tpu_torch.kernels.w8a8 import quantize_activations, w8a8_gemm, w8a8_gemm_ref
+from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv, fused_mlp_gemv_i4, fused_mlp_ref
+from eetq_tpu_torch.kernels.w8a8 import (
+    quantize_activations,
+    w4a8_gemm,
+    w8a8_gemm,
+    w8a8_gemm_ref,
+)
 from eetq_tpu_torch.kernels.w8a16 import (
     expert_matmul_ref,
     grouped_matmul_ref,
+    w4a16_gemm,
+    w4a16_gemv,
     w8a16_expert_gemv,
     w8a16_gemm,
     w8a16_gemv,
@@ -33,6 +40,7 @@ from eetq_tpu_torch.layout.tiling import pack_weights
 from eetq_tpu_torch.modules import moe as moe_mod
 from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear
 from eetq_tpu_torch.ops.linear8 import w8a8_matmul
+from eetq_tpu_torch.ops.moe import w8a16_expert_matmul
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
 pytestmark = pytest.mark.gpu
@@ -71,6 +79,94 @@ def test_w8a16_kernels(dev, m, norm):
         out = w8a16_gemm(y, packed.data, scales, n, bias)
     assert out.shape == (m, n)
     _close(out, ref)
+
+
+def _scales(g, dev, k, n, group):
+    shape = (n,) if group is None else (k // group, n)
+    return torch.rand(shape, generator=g, device=dev) * 1e-2 + 1e-4
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 200])
+@pytest.mark.parametrize("k,group", [(1000, None), (960, 64), (1024, 128), (4096, 32)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_group_wise_and_int4_kernels(dev, m, k, group, bits):
+    """The GEMV and the GEMM on int4 weights (per-channel and group-wise) and
+    on int8 weights with group-wise scales; K = 1000 and 960 need padding."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    n = 300
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    scales = _scales(g, dev, k, n, group)
+    bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    gemv, gemm = (w4a16_gemv, w4a16_gemm) if bits == 4 else (w8a16_gemv, w8a16_gemm)
+    if m <= 8:
+        out = gemv(x, data, scales, n, bias, gamma, 1e-5)
+        ref = w8a16_matmul_ref(rmsnorm(x, gamma, 1e-5), q, scales, bias)
+    else:
+        out = gemm(x, data, scales, n, bias)
+        ref = w8a16_matmul_ref(x, q, scales, bias)
+    assert out.shape == (m, n)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("group", [None, 128])
+def test_w4a16_gemv_stages_x_in_chunks(dev, group):
+    """m = 8 at K = 14336: x and, group-wise, the scale strip do not fit
+    shared memory whole."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randint(-8, 8, (14336, 256), generator=g, device=dev, dtype=torch.int8)
+    scales = _scales(g, dev, 14336, 256, group)
+    x = torch.randn(8, 14336, generator=g, device=dev).to(torch.bfloat16)
+    _close(w4a16_gemv(x, pack_weights(q, bits=4).data, scales, 256),
+           w8a16_matmul_ref(x, q, scales))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1000, 300), (37, 4096, 4096), (200, 11008, 4096),
+                                   (1024, 4096, 12288)])
+@pytest.mark.parametrize("group", [None, 32, 64, 128])
+def test_w4a8_gemm(dev, m, k, n, group):
+    """Per-channel: the integer sum is exact and the epilogue rounds as the
+    plain version does, so the output is bit-identical. Group-wise: the f32
+    sum over groups runs in another order."""
+    if group is not None:
+        k = k // group * group  # 1000 -> 992, 960, 896: still padded to 1024
+    g = torch.Generator(device=dev).manual_seed(m)
+    q = torch.randint(-8, 8, (k, n), generator=g, device=dev, dtype=torch.int8)
+    packed = pack_weights(q, bits=4)
+    scales = _scales(g, dev, k, n, group)
+    bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16) if m < 100 else None
+    xq, sx = quantize_activations(torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16))
+    xq = torch.nn.functional.pad(xq, (0, packed.kp - k)).contiguous()
+    out = w4a8_gemm(xq, sx, packed.data, scales, n, bias, group)
+    ref = w8a8_gemm_ref(xq, sx, torch.nn.functional.pad(q, (0, 0, 0, packed.kp - k)), scales, n,
+                        bias, group_size=group)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n)
+    if group is None:
+        assert torch.equal(out, ref)
+    else:
+        _close(out, ref)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("shape", [(1000, 256, 300), (4096, 11008, 4096)])
+def test_fused_mlp_gemv_i4(dev, m, act, shape):
+    k, i, n = shape  # K and N need not be tile multiples; I must be
+    g = torch.Generator(device=dev).manual_seed(m)
+    gu = torch.randint(-8, 8, (k, 2 * i), generator=g, device=dev, dtype=torch.int8)
+    dn = torch.randint(-8, 8, (i, n), generator=g, device=dev, dtype=torch.int8)
+    gu_d, dn_d = pack_weights(gu, bits=4).data, pack_weights(dn, bits=4).data
+    gu_s, dn_s = _scales(g, dev, k, 2 * i, None), _scales(g, dev, i, n, None)
+    gamma = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    for res in (None, torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)):
+        out = fused_mlp_gemv_i4(x, gamma, 1e-5, gu_d, gu_s, dn_d, dn_s, n, res, act)
+        assert out.shape == (m, n)
+        _close(out, fused_mlp_ref(x, gamma, gu, gu_s, dn, dn_s, 1e-5, act, res))
 
 
 def test_w8a16_gemv_stages_x_in_chunks(dev):
@@ -209,8 +305,14 @@ def test_flash_decode_int8(dev, b, l, hq, hkv, d):
 def test_unsupported_variants_raise(dev):
     x = torch.zeros(1, 128, dtype=torch.bfloat16, device=dev)
     w = torch.zeros(128, 128, dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError):  # group-wise scales
-        w8a16_gemv(x, w, torch.ones(2, 128, device=dev), 128)
+    with pytest.raises(ValueError):  # groups of 16 rows: not whole K steps
+        w8a16_gemv(x, w, torch.ones(8, 128, device=dev), 128)
+    w4 = torch.zeros(64, 128, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        w4a16_gemm(x, w4, torch.ones(8, 128, device=dev), 128)
+    with pytest.raises(ValueError):  # an int8 [128, 128] weight is not int4 data for K = 128
+        w4a16_gemv(torch.zeros(1, 256, dtype=torch.bfloat16, device=dev), w4,
+                   torch.ones(128, device=dev), 128)
     with pytest.raises(TypeError):  # f32 activations
         w8a16_gemv(x.float(), w, torch.ones(128, device=dev), 128)
     q = torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16, device=dev)
@@ -229,6 +331,11 @@ def test_unsupported_variants_raise(dev):
     xq = torch.zeros(1, 128, dtype=torch.int8, device=dev)
     with pytest.raises(NotImplementedError):  # group-wise W8A8
         w8a8_gemm(xq, torch.ones(1, device=dev), w, torch.ones(2, 128, device=dev), 128)
+    with pytest.raises(ValueError):  # group-wise W4A8 without its group size
+        w4a8_gemm(xq, torch.ones(1, device=dev), w4, torch.ones(2, 128, device=dev), 128)
+    with pytest.raises(ValueError):  # groups of 16 rows
+        w4a8_gemm(xq, torch.ones(1, device=dev), w4, torch.ones(8, 128, device=dev), 128,
+                  group_size=16)
     with pytest.raises(ValueError):  # group-wise int8 stays on the W8A16 path
         w8a8_matmul(x, pack_weights(w), torch.ones(2, 128, device=dev))
     gu = torch.zeros(128, 256, dtype=torch.int8, device=dev)
@@ -242,6 +349,10 @@ def test_unsupported_variants_raise(dev):
         w8a16_expert_gemv(x, bank, torch.ones(2, 2, 128, device=dev), ids, 128)
     with pytest.raises(TypeError):  # int64 ids
         w8a16_expert_gemv(x, bank, torch.ones(2, 128, device=dev), ids.long(), 128)
+    with pytest.raises(NotImplementedError):  # int4 expert banks
+        w8a16_expert_matmul(x, pack_weights(torch.zeros(2, 128, 128, dtype=torch.int8,
+                                                        device=dev), bits=4),
+                            torch.ones(2, 128, device=dev), ids)
     with pytest.raises(ValueError):  # more rows than the decode regime
         w8a16_expert_gemv(torch.zeros(9, 128, dtype=torch.bfloat16, device=dev), bank,
                           torch.ones(2, 128, device=dev), ids, 128)
@@ -260,7 +371,13 @@ def test_every_kernel_counts_its_launches(dev):
     test_flash_decode_int8(dev, 3, 384, 16, 2, 64)
     test_w8a16_expert_gemv(dev, 1, 1000, [3, 0])
     test_w8a16_grouped_gemm(dev, 8, 10, 1000)
+    test_group_wise_and_int4_kernels(dev, 1, 1000, None, 4)
+    test_group_wise_and_int4_kernels(dev, 9, 960, 64, 4)
+    test_w4a8_gemm(dev, 37, 4096, 4096, 64)
     after = {name: fn.launches for name, fn in KERNELS.items()}
-    test_fused_mlp_gemv(dev, 1, "silu", (1000, 256, 300))  # two calls: with and without residual
-    assert all(after[name] == before[name] + 1 for name in KERNELS if name != "fused_mlp_gemv")
-    assert KERNELS["fused_mlp_gemv"].launches == before["fused_mlp_gemv"] + 2
+    # two calls each: with and without residual
+    test_fused_mlp_gemv(dev, 1, "silu", (1000, 256, 300))
+    test_fused_mlp_gemv_i4(dev, 1, "silu", (1000, 256, 300))
+    fused = ("fused_mlp_gemv", "fused_mlp_gemv_i4")
+    assert all(after[name] == before[name] + 1 for name in KERNELS if name not in fused)
+    assert all(KERNELS[name].launches == before[name] + 2 for name in fused)

@@ -39,7 +39,8 @@ LOGIT_ATOL = 2e-2
 
 def _linear_to_numpy(lin) -> dict:
     if isinstance(lin, JaxQuantLinear):
-        d = {"qweight": np.asarray(jax_unpack(lin.qweight)), "scales": np.asarray(lin.scales)}
+        d = {"qweight": np.asarray(jax_unpack(lin.qweight)), "scales": np.asarray(lin.scales),
+             "bits": lin.qweight.bits}
     else:
         d = {"weight": np.asarray(lin.weight, np.float32)}
     if lin.bias is not None:
