@@ -3,12 +3,12 @@
 
 Run from the repository root, on a machine with one CUDA card (an H100):
 
-    python3 chip_smoke.py [--out DIR] [--profile]
+    python3 chip_smoke.py [--out DIR] [--profile] [--phases LIST]
 
 1. Environment: torch/CUDA/nvcc versions, the card's name and power limit;
    builds the kernels of `eetq_tpu_torch/csrc/` with nvcc (one process per
    source, all at once).
-2. Kernels: each of the thirteen kernel entry points against its plain
+2. Kernels: each of the seventeen kernel entry points against its plain
    PyTorch version on the card at llama2-7b shapes (the MoE kernels at
    Mixtral-8x7B's), with its error, its time beside the plain time, the
    least time the card could take for the same bytes and operations (from
@@ -17,14 +17,18 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    yardstick: the port never calls it). The int4 kernels run per-channel
    and with 128-row scale groups, the W8A8 and per-channel W4A8 outputs
    must equal their plain versions bit for bit, and one odd shape each
-   needs padding in K and N.
-   Then `moe_apply` on one full-width Mixtral layer at 2, 8 and 2048
-   selections, kernels against the plain path on identical input (the
-   routing ids must agree), the kernel calls under
+   needs padding in K and N. Paged decode (bf16 and int8 pools) runs 8
+   rows of lengths 1..1088 over 256-token blocks behind a permuted table
+   whose dead entries point out of the pool, and must also agree with the
+   dense kernel on the gathered cache. The two MoE kernels run int8 and
+   int4 banks, per-channel and with 128-row scale groups.
+   Then `moe_apply` on one full-width Mixtral layer (int8 per-channel, and
+   int4 g=128) at 2, 8 and 2048 selections, kernels against the plain path
+   on identical input (the routing ids must agree), the kernel calls under
    `torch.cuda.set_sync_debug_mode("error")`: any host sync fails.
 3. Model: llama2-7b at full width and depth (32 layers), random weights
    from a seeded `torch.Generator` on the card, W8A16 per-channel with an
-   int8 lm_head, built once and driven three ways. Each path runs with the
+   int8 lm_head, built once and driven four ways. Each path runs with the
    launch counters set to 0 just before it and read just after, and every
    kernel it runs must have launched.
    - generate: bf16 KV, unfused MLP, W8A16 prefill; prefill and one decode
@@ -38,6 +42,14 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      `EngineServer` on 127.0.0.1; about 12 HTTP requests of mixed prompt
      lengths and budgets from several threads; one admission's logits
      against the plain path; `w8a16_gemm` must not launch.
+   - paged_server: `Engine(..., paged_blocks=41)` (40 blocks of 256 tokens
+     and the trash block) behind the same server and requests. It must
+     resolve to W8A8 prefill and a bf16 pool; the paged flash-decode kernel
+     launches 32 times per decode step and the dense flash-decode entry
+     points not at all; the logits of one 8-slot engine step are held
+     against the plain path; every block is back on the free list at the
+     end; and the greedy requests' tokens equal those of an engine with a
+     dense bf16 cache.
    llama2-7b is freed before the next model is built.
 4. llama2-7b again with int4 weights, at full width and depth, built one
    layer at a time (`random_quantized_params`, 3.6-3.9 GB), two models:
@@ -60,10 +72,21 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    routing in the plain path (a wrapper of `modules.moe.route` records
    each call's weights and ids, then hands them back in order); how many
    routings the plain path would pick otherwise is printed too.
+6. Mixtral-8x7B again at W4A16 with 128-row scale groups throughout (expert
+   banks, attention linears, lm_head; 32 layers, built one layer at a
+   time): mixtral_int4_generate (the int4 grouped GEMM at prefill, the int4
+   expert gather at decode; the int8 bank kernels must not launch) and
+   mixtral_int4_paged_server (`Engine(..., paged_blocks=41,
+   kv_dtype=torch.int8)`: W4A8 attention linears at admission, the int4
+   grouped GEMM at admission and at every 8-slot step, the paged int8
+   flash-decode; the bf16 one must not launch), checked as in 5.
 
-With `--profile`, each llama2-7b path is also run under `torch.profiler`
-(one prefill, ten decode or engine steps): device-busy time, launches per
-step and the idle share go to the output and to `chip_smoke.json`.
+With `--profile`, each llama2-7b path, the paged engine and the int4
+Mixtral paths are also run under `torch.profiler` (one prefill, ten decode
+or engine steps): device-busy time, launches per step and the idle share
+go to the output and to `chip_smoke.json`. `--phases` runs a subset of
+`kernels,moe_layer,llama,int4,mixtral,mixtral_int4` (for debugging: a
+partial run checks what it runs and prints no result line).
 
 Prints one JSON line of per-kernel results, then as its last line
 `{"ok": true, "device": {...}}`. Any failed check, build or launch ends the
@@ -120,6 +143,15 @@ SERVE_BUDGETS = (16, 32, 64)
 SERVE_THREADS = 4
 SERVE_TIMEOUT_S = 600
 ADMISSION_PROMPT = 700  # the admission whose logits are checked: 700 tokens in the 1024 bucket
+# The paged engines: 8 slots x 5 blocks of 256 tokens (the longest request of
+# the server mix is 1024 + 64 tokens) and the trash block
+PAGED_BLOCKS, PAGED_BLOCK_SIZE = 41, 256
+# Paged decode in the kernel phase: a pool of more blocks than the engine's,
+# rows of very different lengths (one token, block edges, the longest request)
+PAGED_POOL_BLOCKS = 72  # a distinct block for every table entry (8 x 8)
+PAGED_LENGTHS = (1, 17, 130, 300, 555, 777, 1024, 1088)
+# The engine step whose decode logits are checked: prompts of these lengths
+STEP_PROMPTS = (17, 100, 300, 700, 1024, 33, 257, 512)
 # max |kernel - plain| <= TOL * max |plain|: four bf16 ulps of the largest
 # output. Sums run in another order and attention rounds p to bf16 before
 # p.v (as the TPU kernel does), both far inside this bound; a wrong tile,
@@ -154,6 +186,14 @@ REPLACES = {
     "fused_mlp_gemv_i4": ("cuda", "eetq_tpu_torch/csrc/fused_mlp_i4.cu",
                           "eetq_tpu/kernels/mlp_fused.py:241"),
     "w4a8_gemm": ("cuda", "eetq_tpu_torch/csrc/w4a8_gemm.cu", "eetq_tpu/kernels/w8a8.py:277"),
+    "paged_flash_decode": ("cuda", "eetq_tpu_torch/csrc/flash_decode.cu",
+                           "eetq_tpu/kernels/flash_decode.py:228"),
+    "paged_flash_decode_int8": ("cuda", "eetq_tpu_torch/csrc/flash_decode.cu",
+                                "eetq_tpu/kernels/flash_decode.py:228"),
+    "w4a16_expert_gemv": ("cuda", "eetq_tpu_torch/csrc/w4a16_expert_gemv.cu",
+                          "eetq_tpu/kernels/w8a16.py:434"),
+    "w4a16_grouped_gemm": ("cuda", "eetq_tpu_torch/csrc/w4a16_grouped_gemm.cu",
+                           "eetq_tpu/kernels/w8a16.py:537"),
 }
 # The kernels each path must launch, and those it must not.
 PATH_KERNELS = {
@@ -170,8 +210,17 @@ PATH_KERNELS = {
     "int4_bench_decode": ("fused_mlp_gemv_i4", "w4a16_gemv", "w8a16_gemv", "w4a16_gemm",
                           "flash_attention_fwd", "flash_decode_int8"),
     "int4_server": ("w4a8_gemm", "w4a16_gemv", "flash_attention_fwd", "flash_decode_int8"),
+    "paged_server": ("w8a16_gemv", "flash_attention_fwd", "w8a8_gemm", "paged_flash_decode"),
+    "mixtral_int4_generate": ("w4a16_expert_gemv", "w4a16_grouped_gemm", "w4a16_gemv",
+                              "w4a16_gemm", "flash_attention_fwd", "flash_decode"),
+    # the 8-slot step holds 16 selections: always the grouped GEMM
+    "mixtral_int4_paged_server": ("w4a16_grouped_gemm", "w4a8_gemm", "w4a16_gemv",
+                                  "flash_attention_fwd", "paged_flash_decode_int8"),
 }
 MOE_KERNELS = ("w8a16_expert_gemv", "w8a16_grouped_gemm")
+INT4_MOE_KERNELS = ("w4a16_expert_gemv", "w4a16_grouped_gemm")
+PAGED_KERNELS = ("paged_flash_decode", "paged_flash_decode_int8")
+DENSE_DECODE = ("flash_decode", "flash_decode_int8")
 INT4_KERNELS = ("w4a16_gemv", "w4a16_gemm", "fused_mlp_gemv_i4", "w4a8_gemm")
 INT8_DENSE = ("w8a16_gemv", "w8a16_gemm", "fused_mlp_gemv", "w8a8_gemm")
 PATH_IDLE = {
@@ -187,6 +236,20 @@ PATH_IDLE = {
     # under a8 every prefill projection of an int4 model is W4A8
     "int4_server": INT8_DENSE + MOE_KERNELS + ("w4a16_gemm", "fused_mlp_gemv_i4"),
 }
+# none of the paths above runs a paged cache or an int4 expert bank
+PATH_IDLE = {path: idle + PAGED_KERNELS + INT4_MOE_KERNELS for path, idle in PATH_IDLE.items()}
+PATH_IDLE.update({
+    # a paged engine never reaches the dense flash-decode entry points
+    "paged_server": DENSE_DECODE + ("paged_flash_decode_int8", "w8a16_gemm") + MOE_KERNELS
+    + INT4_KERNELS + INT4_MOE_KERNELS,
+    "mixtral_int4_generate": INT8_DENSE + MOE_KERNELS + PAGED_KERNELS
+    + ("fused_mlp_gemv_i4", "w4a8_gemm", "flash_decode_int8"),
+    "mixtral_int4_paged_server": INT8_DENSE + MOE_KERNELS + DENSE_DECODE
+    + ("paged_flash_decode", "w4a16_gemm", "fused_mlp_gemv_i4"),
+})
+
+
+PHASES = ("kernels", "moe_layer", "llama", "int4", "mixtral", "mixtral_int4")
 
 
 class CheckFailed(Exception):
@@ -255,6 +318,11 @@ def kernel_phase(dev) -> dict:
         flash_decode_int8,
         flash_decode_int8_ref,
         flash_decode_ref,
+        gather_pool,
+        paged_flash_decode,
+        paged_flash_decode_int8,
+        paged_flash_decode_int8_ref,
+        paged_flash_decode_ref,
     )
     from eetq_tpu_torch.kernels.mlp_fused import (
         fused_mlp_gemv,
@@ -270,8 +338,10 @@ def kernel_phase(dev) -> dict:
     from eetq_tpu_torch.kernels.w8a16 import (
         expert_matmul_ref,
         grouped_matmul_ref,
+        w4a16_expert_gemv,
         w4a16_gemm,
         w4a16_gemv,
+        w4a16_grouped_gemm,
         w8a16_expert_gemv,
         w8a16_gemm,
         w8a16_gemv,
@@ -286,11 +356,12 @@ def kernel_phase(dev) -> dict:
     rows, summary = [], {}
 
     def record(name, case, fn, plain, path_shape, cost, op_type="bf16", library=None,
-               equal=False):
+               equal=False, **extra):
         """Run fn() (the kernel) and plain() on the same inputs, compare and
         time both. cost = (bytes, operations) of the function at this case;
         library() is one PyTorch call computing the same function, if any;
-        equal: the outputs must not differ in any element."""
+        equal: the outputs must not differ in any element; extra: further
+        fields of the case's row."""
         out, ref = fn(), plain()
         err, ref_max = compare(out, ref)
         n_diff = int((out.float() != ref.float()).sum().item())
@@ -303,7 +374,7 @@ def kernel_phase(dev) -> dict:
                          tol=0.0 if equal else TOL * ref_max, n_diff=n_diff, numel=out.numel(),
                          ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bytes=cost[0], ops=cost[1], bytes_ms=bytes_ms, ops_ms=ops_ms,
-                         bound_ms=max(bytes_ms, ops_ms), path_shape=bool(path_shape)))
+                         bound_ms=max(bytes_ms, ops_ms), path_shape=bool(path_shape), **extra))
         lib = "" if library_ms is None else f", library {library_ms:8.4f} ms"
         print(f"  {name:20s} {case:44s} err {err:.3e} (tol {rows[-1]['tol']:.3e}, "
               f"{n_diff}/{out.numel()} differ) {ms:8.4f} ms, plain {plain_ms:8.4f} ms, "
@@ -317,6 +388,7 @@ def kernel_phase(dev) -> dict:
                 s[key] += val
             if library_ms is not None:
                 s["library_ms"] = (s["library_ms"] or 0.0) + library_ms
+        return out
 
     def scales_for(k, n, group):
         shape = (n,) if group is None else (k // group, n)
@@ -475,36 +547,119 @@ def kernel_phase(dev) -> dict:
                        lambda: flash_decode_int8_ref(q, kc, vc, ks, vs, lengths),
                        b == 1 and l == 1152 and hq == hkv, decode_cost(lens, hq, hkv, 1, 4))
 
-    # Mixtral's banks. The path's time: the gather of a b=1 decode step
-    # (gate|up and down) and the grouped GEMMs of a 1024-token prompt. Only
-    # the experts that are picked are read, each once, and only the rows of
-    # real blocks are multiplied.
-    for j, (k, n) in enumerate(MIXTRAL_BANKS):
-        bank = torch.randint(-127, 128, (8, k, n), generator=gen, device=dev, dtype=torch.int8)
-        scales = torch.rand(8, n, generator=gen, device=dev) * 2e-3 + 1e-4
-        for *ms, ids in GATHER_CASES:
-            m = ms[j]
-            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-            eids = torch.tensor(ids, dtype=torch.int32, device=dev)
-            rep = " repeated id" if len(set(ids)) < len(ids) else ""
-            cost = (len(set(ids)) * (k * n + 4 * n) + m * k * 2 + len(ids) * (m * n * 2 + 4),
-                    2.0 * m * k * n * len(ids))
-            record("w8a16_expert_gemv", f"n_sel={len(ids)} m={m} K={k} N={n}{rep}",
-                   lambda: w8a16_expert_gemv(x, bank, scales, eids, n),
-                   lambda: expert_matmul_ref(x, bank, scales, eids), len(ids) == 2, cost)
-        for bm, nb, real in GROUPED_CASES:
-            be = real + (7,) * (nb - len(real))
-            x = torch.randn(nb * bm, k, generator=gen, device=dev).to(torch.bfloat16)
-            x[len(real) * bm:] = 0  # padding blocks hold zero rows
-            blocks = torch.tensor(be, dtype=torch.int32, device=dev)
-            real_rows = len(real) * bm
-            cost = (len(set(be)) * (k * n + 4 * n) + nb * bm * (k + n) * 2 + 4 * nb,
-                    2.0 * real_rows * k * n)
-            record("w8a16_grouped_gemm",
-                   f"bm={bm} nb={nb} ({nb - len(real)} padding) K={k} N={n}",
-                   lambda: w8a16_grouped_gemm(x, bank, scales, blocks, n),
-                   lambda: grouped_matmul_ref(x, bank, scales, blocks, bm), bm == 128, cost)
-        del bank
+    # Paged decode at the engines' shapes: 8 rows of very different lengths
+    # over pools of 256-token blocks behind a permuted table. The kernel gets
+    # a table whose entries past each row's last live block are far out of
+    # the pool: it must never read them. Each case is also held against the
+    # dense kernel on the cache gathered through the table (the same keys in
+    # the same splits), and timed beside it.
+    bs, max_blocks, nblocks = PAGED_BLOCK_SIZE, 2048 // PAGED_BLOCK_SIZE, PAGED_POOL_BLOCKS
+    lens = list(PAGED_LENGTHS)
+    b = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for int8 in (False, True):
+        for hq, hkv in ((32, 32), (32, 8)):
+            table = torch.randperm(nblocks, generator=gen, device=dev)[:b * max_blocks].reshape(
+                b, max_blocks).to(torch.int32).contiguous()
+            live = torch.arange(max_blocks, device=dev)[None] * bs < lengths[:, None]
+            wild = torch.where(live, table, torch.full_like(table, 10 ** 6 + 12345))
+            q = torch.randn(b, 1, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
+            pools = [torch.randn(nblocks, hkv, bs, 128, generator=gen, device=dev)
+                     for _ in range(2)]
+            case = f"B={b} BS={bs} NB={nblocks} Hq={hq} Hkv={hkv} D=128 permuted table"
+            if int8:
+                (kp_, ksc), (vp_, vsc) = (quantize_activations(t) for t in pools)
+                dense = [gather_pool(t, table) for t in (kp_, vp_, ksc, vsc)]
+                dense_ms = time_ms(lambda: flash_decode_int8(q, *dense, lengths), flush=flush)
+                out = record(
+                    "paged_flash_decode_int8", case,
+                    lambda: paged_flash_decode_int8(q, kp_, vp_, ksc, vsc, wild, lengths),
+                    lambda: paged_flash_decode_int8_ref(q, kp_, vp_, ksc, vsc, table, lengths),
+                    hq != hkv, decode_cost(lens, hq, hkv, 1, 4), dense_ms=dense_ms)
+                twin = flash_decode_int8(q, *dense, lengths)
+            else:
+                kp_, vp_ = (t.to(torch.bfloat16) for t in pools)
+                dense = [gather_pool(t, table) for t in (kp_, vp_)]
+                dense_ms = time_ms(lambda: flash_decode(q, *dense, lengths), flush=flush)
+                out = record(
+                    "paged_flash_decode", case,
+                    lambda: paged_flash_decode(q, kp_, vp_, wild, lengths),
+                    lambda: paged_flash_decode_ref(q, kp_, vp_, table, lengths),
+                    hq == hkv, decode_cost(lens, hq, hkv, 2, 0), dense_ms=dense_ms)
+                twin = flash_decode(q, *dense, lengths)
+            err, ref_max = compare(out, twin)
+            rows[-1].update(dense_kernel_err=err)
+            print(f"  {'':20s} against the dense kernel on the gathered cache: err {err:.3e}, "
+                  f"dense kernel {dense_ms:.4f} ms")
+            check(err <= TOL * ref_max, f"paged decode differs from the dense kernel: {case}")
+            del pools, dense, kp_, vp_
+
+    # Mixtral's banks, int8 and int4, per-channel and with 128-row scale
+    # groups. The path's time: the gather of a b=1 decode step (gate|up and
+    # down) and the grouped GEMMs of a 1024-token prompt, per-channel for the
+    # int8 kernels (the W8A16 model) and group-wise for the int4 ones (the
+    # W4A16 g=128 model). Only the experts that are picked are read, each
+    # once, and only the rows of real blocks are multiplied.
+    for bits, group in ((8, None), (8, INT4_GROUP), (4, None), (4, INT4_GROUP)):
+        gemv, gemm = ((w8a16_expert_gemv, w8a16_grouped_gemm) if bits == 8
+                      else (w4a16_expert_gemv, w4a16_grouped_gemm))
+        on_path = group is None if bits == 8 else group == INT4_GROUP
+        lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+        tag = f"int{bits} {'per-channel' if group is None else f'g={group}'}"
+        for j, (k, n) in enumerate(MIXTRAL_BANKS):
+            bank = torch.randint(lo, hi, (8, k, n), generator=gen, device=dev, dtype=torch.int8)
+            data = pack_weights(bank, bits=bits).data
+            srows = 1 if group is None else k // group
+            scales = torch.rand((8, n) if group is None else (8, srows, n), generator=gen,
+                                device=dev) * 2e-3 + 1e-4
+            expert_bytes = k * n * bits / 8 + 4 * srows * n
+            for *ms, ids in GATHER_CASES:
+                m = ms[j]
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                eids = torch.tensor(ids, dtype=torch.int32, device=dev)
+                rep = " repeated id" if len(set(ids)) < len(ids) else ""
+                cost = (len(set(ids)) * expert_bytes + m * k * 2 + len(ids) * (m * n * 2 + 4),
+                        2.0 * m * k * n * len(ids))
+                record(gemv.__name__, f"{tag} n_sel={len(ids)} m={m} K={k} N={n}{rep}",
+                       lambda: gemv(x, data, scales, eids, n),
+                       lambda: expert_matmul_ref(x, bank, scales, eids),
+                       on_path and len(ids) == 2, cost)
+            for bm, nb, real in GROUPED_CASES:
+                be = real + (7,) * (nb - len(real))
+                x = torch.randn(nb * bm, k, generator=gen, device=dev).to(torch.bfloat16)
+                x[len(real) * bm:] = 0  # padding blocks hold zero rows
+                blocks = torch.tensor(be, dtype=torch.int32, device=dev)
+                real_rows = len(real) * bm
+                cost = (len(set(be)) * expert_bytes + nb * bm * (k + n) * 2 + 4 * nb,
+                        2.0 * real_rows * k * n)
+                record(gemm.__name__,
+                       f"{tag} bm={bm} nb={nb} ({nb - len(real)} padding) K={k} N={n}",
+                       lambda: gemm(x, data, scales, blocks, n),
+                       lambda: grouped_matmul_ref(x, bank, scales, blocks, bm),
+                       on_path and bm == 128, cost)
+            del bank, data
+    # the bank kernels off the tile: K and N that need padding, groups of 64
+    for bits, (k, n, group) in ((4, INT4_ODD[0]), (4, INT4_ODD[1]), (8, INT4_ODD[1])):
+        gemv, gemm = ((w8a16_expert_gemv, w8a16_grouped_gemm) if bits == 8
+                      else (w4a16_expert_gemv, w4a16_grouped_gemm))
+        lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+        bank = torch.randint(lo, hi, (3, k, n), generator=gen, device=dev, dtype=torch.int8)
+        data = pack_weights(bank, bits=bits).data
+        srows = 1 if group is None else k // group
+        scales = torch.rand((3, n) if group is None else (3, srows, n), generator=gen,
+                            device=dev) * 2e-3 + 1e-4
+        tag = f"int{bits} {'per-channel' if group is None else f'g={group}'} K={k} N={n}"
+        eids = torch.tensor((2, 0, 2), dtype=torch.int32, device=dev)
+        x = torch.randn(3, k, generator=gen, device=dev).to(torch.bfloat16)
+        cost = (2 * (k * n * bits / 8 + 4 * srows * n) + 3 * k * 2 + 3 * (3 * n * 2 + 4),
+                2.0 * 3 * k * n * 3)
+        record(gemv.__name__, f"{tag} n_sel=3 m=3", lambda: gemv(x, data, scales, eids, n),
+               lambda: expert_matmul_ref(x, bank, scales, eids), False, cost)
+        xg = torch.randn(3 * 40, k, generator=gen, device=dev).to(torch.bfloat16)
+        cost = (2 * (k * n * bits / 8 + 4 * srows * n) + 120 * (k + n) * 2 + 12,
+                2.0 * 120 * k * n)
+        record(gemm.__name__, f"{tag} bm=40 nb=3", lambda: gemm(xg, data, scales, eids, n),
+               lambda: grouped_matmul_ref(xg, bank, scales, eids, 40), False, cost)
     del flush
     torch.cuda.synchronize()
     bad = [f"{r['kernel']} {r['case']}" for r in rows if not r["ok"]]
@@ -574,16 +729,17 @@ def counted(path: str, fn):
 
 
 def moe_layer_phase(dev) -> dict:
-    """`moe_apply` on one full-width Mixtral layer (random banks quantized
-    per channel), kernel regimes against the plain masked scan on the same
-    input, at 2, 8 and 2048 selections (gather, gather, grouped). Both sides
-    route on identical input, so their ids must agree. The kernel calls run
-    under torch.cuda.set_sync_debug_mode("error"): a host sync fails."""
+    """`moe_apply` on one full-width Mixtral layer (random banks quantized to
+    int8 per channel, then to int4 with INT4_GROUP-row groups), kernel
+    regimes against the plain masked scan on the same input, at 2, 8 and 2048
+    selections (gather, gather, grouped). Both sides route on identical
+    input, so their ids must agree. The kernel calls run under
+    torch.cuda.set_sync_debug_mode("error"): a host sync fails."""
     import torch
 
     from eetq_tpu_torch.models.config import PRESETS
     from eetq_tpu_torch.modules.linear import DenseLinear
-    from eetq_tpu_torch.modules.moe import MoEMLP, moe_apply, quantize_moe
+    from eetq_tpu_torch.modules.moe import MoEMLP, quantize_moe
 
     cfg = PRESETS[MIXTRAL]
     h, inter, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
@@ -593,9 +749,22 @@ def moe_layer_phase(dev) -> dict:
         w = torch.randn(shape, generator=gen, device=dev) * shape[-2] ** -0.5
         return DenseLinear(w.to(torch.bfloat16))
 
-    moe = quantize_moe(MoEMLP(dense(h, e), dense(e, h, 2 * inter), dense(e, inter, h)))
-    torch.cuda.empty_cache()
+    bf16 = MoEMLP(dense(h, e), dense(e, h, 2 * inter), dense(e, inter, h))
     out = {}
+    for bits, group in ((8, None), (4, INT4_GROUP)):
+        moe = quantize_moe(bf16, bits=bits, group_size=group)
+        tag = f"int{bits} {'per-channel' if group is None else f'g={group}'}"
+        out[tag] = _moe_layer_cases(moe, cfg, gen, dev, tag)
+        del moe
+    return out
+
+
+def _moe_layer_cases(moe, cfg, gen, dev, tag: str) -> dict:
+    import torch
+
+    from eetq_tpu_torch.modules.moe import moe_apply
+
+    h, out = cfg.hidden_size, {}
     for t in MOE_TOKENS:
         x = torch.randn(1, t, h, generator=gen, device=dev).to(torch.bfloat16)
         ys, logs = {}, {True: [], False: []}
@@ -607,15 +776,15 @@ def moe_layer_phase(dev) -> dict:
                 try:
                     ys[use] = moe_apply(moe, x, cfg.num_experts_per_tok, use_kernel=use)
                 except RuntimeError as err:
-                    raise CheckFailed(f"moe_apply at {t} tokens: {err}") from err
+                    raise CheckFailed(f"moe_apply ({tag}) at {t} tokens: {err}") from err
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
         check(torch.equal(logs[True][0][1], logs[False][0][1]),
               f"moe_apply at {t} tokens: the two paths routed differently")
         err, ref_max = compare(ys[True], ys[False])
         n_sel = t * cfg.num_experts_per_tok
-        print(f"  moe_apply {n_sel:5d} selections: err {err:.3e} (tol {TOL * ref_max:.3e}), "
-              f"same routing, no host sync")
+        print(f"  moe_apply {tag} {n_sel:5d} selections: err {err:.3e} "
+              f"(tol {TOL * ref_max:.3e}), same routing, no host sync")
         check(err <= TOL * ref_max, f"moe_apply at {n_sel} selections differs from the plain path")
         out[n_sel] = dict(max_abs_err=err, ref_absmax=ref_max, tol=TOL * ref_max)
     return out
@@ -743,17 +912,66 @@ def _post(port: int, body: dict):
     return json.loads(data)["tokens"]
 
 
-def server_path(params, cfg, dev, gen, path: str = "server") -> dict:
-    """The engine with its accelerator defaults behind its HTTP server."""
+def engine_step_check(eng, cfg, dev, gen, path: str) -> dict:
+    """Fill the engine's slots with prompts of STEP_PROMPTS' lengths, then
+    run the forward of its next decode step twice on the same caches, with
+    the kernels and with the plain versions (the step's writes are the same
+    both times), and hold the logits of the busy slots against each other.
+    The requests are then run to their end."""
+    import numpy as np
+    import torch
+
+    from eetq_tpu_torch.models.transformer import forward_inner
+
+    for n in STEP_PROMPTS[:eng.max_batch]:
+        ids = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist()
+        eng.add_request(ids, max_new_tokens=24)
+    while eng.queue:  # one admission and one decode step each
+        eng.step()
+    active = [i for i, r in enumerate(eng.slot_req) if r is not None]
+    check(len(active) == eng.max_batch, f"{path}: {len(active)} slots busy before the step check")
+    if eng.paged:  # as Engine._decode does before its forward
+        for i in active:
+            eng._alloc_blocks(i, int(eng.lengths[i]) + 1)
+        eng._sync_tables()
+    lengths = torch.as_tensor(np.maximum(eng.lengths, 1), device=dev)
+    tokens = torch.as_tensor(eng.next_token[:, None], device=dev)
+    logits, routes = {}, []
+    for use in (True, False):  # the plain path replays the kernel path's routing
+        with routing("record" if use else "replay", routes), torch.inference_mode():
+            lg, _ = forward_inner(eng.params, cfg, tokens, lengths[:, None], eng.caches, lengths,
+                                  use_kernels=use)
+        logits[use] = lg[:, -1]
+    out = check_logits(f"{path} engine step ({len(active)} slots, lengths "
+                       f"{sorted(int(v) for v in eng.lengths)})", logits[True], logits[False])
+    eng.run()
+    return out
+
+
+def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | None = None,
+                dense_twin: bool = False) -> dict:
+    """The engine behind its HTTP server: with its accelerator defaults, or
+    with `engine_kw` (a paged pool). dense_twin: the greedy requests also go
+    through an engine with a dense bf16 cache, whose tokens must be equal."""
     import torch
 
     from eetq_tpu_torch.models.transformer import forward_inner, init_caches
     from eetq_tpu_torch.serve.api import EngineServer
     from eetq_tpu_torch.serve.engine import Engine
 
-    eng = Engine(params, cfg, max_batch=8, max_len=2048)
-    check(eng.a8_prefill and eng.kv_dtype == torch.int8,
-          f"engine defaults on CUDA: a8_prefill {eng.a8_prefill}, kv {eng.kv_dtype}")
+    engine_kw = dict(engine_kw or {})
+    paged = "paged_blocks" in engine_kw
+    held = torch.cuda.memory_allocated()
+    eng = Engine(params, cfg, max_batch=8, max_len=2048, **engine_kw)
+    cache_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    # the CUDA defaults: W8A8 prefill; an int8 dense cache, a bf16 pool
+    want_kv = engine_kw.get("kv_dtype", torch.bfloat16 if paged else torch.int8)
+    check(eng.a8_prefill and eng.kv_dtype == want_kv and eng.paged == paged,
+          f"{path} engine on CUDA: a8_prefill {eng.a8_prefill}, kv {eng.kv_dtype}, "
+          f"paged {eng.paged}")
+    shape = (f"a pool of {engine_kw['paged_blocks']} blocks of {eng.paged_bs}" if paged
+             else "dense 8 x 2048")
+    print(f"  {path}: KV cache of the engine {cache_gb:.2f} GB ({eng.kv_dtype}, {shape})")
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()
@@ -771,7 +989,7 @@ def server_path(params, cfg, dev, gen, path: str = "server") -> dict:
 
     def admit(use):
         with torch.inference_mode():
-            scratch = init_caches(cfg, 1, bucket, dev, torch.int8)
+            scratch = init_caches(cfg, 1, bucket, dev, eng.kv_dtype)
             lg, _ = forward_inner(params, cfg, toks, pos, scratch, 0, use_kernels=use, a8=True,
                                   last_pos=last)
         return lg[:, -1]
@@ -785,6 +1003,7 @@ def server_path(params, cfg, dev, gen, path: str = "server") -> dict:
         admission["routing"] = routing_differences(lambda: admit(False), routes)
         print(f"  {path} admission: {admission['routing']['differ']} of "
               f"{admission['routing']['routings']} routings differ when not replayed")
+    step = engine_step_check(eng, cfg, dev, gen, path) if paged else None
 
     lengths = [SERVE_LENGTHS[i] for i in torch.randint(
         0, len(SERVE_LENGTHS), (SERVE_REQUESTS,), generator=gen, device=dev).tolist()]
@@ -833,6 +1052,37 @@ def server_path(params, cfg, dev, gen, path: str = "server") -> dict:
         check(len(got) == body["max_new_tokens"],
               f"request {i}: {len(got)} tokens, want {body['max_new_tokens']}")
         check(all(0 <= t < cfg.vocab_size for t in got), f"request {i}: token out of range")
+    if paged:
+        kernel = "paged_flash_decode_int8" if eng.caches[0].quantized else "paged_flash_decode"
+        check(counts[kernel] % cfg.num_layers == 0,
+              f"{path}: {counts[kernel]} launches of {kernel} are not {cfg.num_layers} a step")
+        print(f"  {path}: {counts[kernel] // cfg.num_layers} decode steps, {cfg.num_layers} "
+              f"launches of {kernel} each")
+        check(sorted(eng._free_blocks) == list(range(1, engine_kw["paged_blocks"]))
+              and not any(eng._slot_blocks) and not eng._table_np.any(),
+              f"{path}: blocks still held after the run: {eng._slot_blocks}")
+    twin = None
+    if dense_twin:
+        # the same kernels apart from the address map, the same splits of the
+        # key range, rows that do not see each other: the same greedy tokens
+        greedy = [i for i, body in enumerate(bodies) if "temperature" not in body]
+        held = torch.cuda.memory_allocated()
+        de = Engine(params, cfg, max_batch=8, max_len=2048, kv_dtype=torch.bfloat16)
+        dense_gb = (torch.cuda.memory_allocated() - held) / 1e9
+        uids = {i: de.add_request(bodies[i]["prompt"], bodies[i]["max_new_tokens"])
+                for i in greedy}
+        de.run()
+        for i in greedy:
+            want = de.result(uids[i])
+            first = next((j for j, (a, b) in enumerate(zip(results[i], want)) if a != b), None)
+            if first is not None:
+                print(f"  {path} request {i} (prompt {lengths[i]}): token {first} is "
+                      f"{results[i][first]}, the dense engine's {want[first]}")
+            check(results[i] == want, f"{path}: request {i} differs from the dense bf16-KV engine")
+        twin = dict(requests=len(greedy), equal=True, cache_gb=dense_gb)
+        print(f"  {path}: {len(greedy)} greedy requests equal the tokens of the dense bf16-KV "
+              f"engine (its cache: {dense_gb:.2f} GB)")
+        del de
     tokens = sum(budgets)
     lat = [latency[i] for i in range(SERVE_REQUESTS)]
     print(f"  {path}: {SERVE_REQUESTS} requests, prompts {lengths}, budgets {budgets}; "
@@ -841,7 +1091,8 @@ def server_path(params, cfg, dev, gen, path: str = "server") -> dict:
     print(f"  {path} latencies (ms): {['%.1f' % v for v in lat]}")
     return dict(admission=admission, counts=counts, prompt_lengths=lengths, budgets=budgets,
                 tokens=tokens, wall_s=wall_s, served_tok_s=tokens / wall_s,
-                latency_ms=lat, warmup_s=warmup_s)
+                latency_ms=lat, warmup_s=warmup_s, cache_gb=cache_gb, engine_step=step,
+                dense_twin=twin)
 
 
 PROFILE_STEPS = 10
@@ -878,11 +1129,12 @@ def _profiled(fn, steps: int) -> dict:
                 launches_per_step=launches / steps, idle_share=1 - busy_ms / wall_ms)
 
 
-def profile_paths(params, cfg, dev, gen, configs: dict, engine_path: str | None) -> dict:
+def profile_paths(params, cfg, dev, gen, configs: dict, engines: dict) -> dict:
     """`--profile`: each path's first request under torch.profiler: one
-    prefill, then PROFILE_STEPS decode steps; and PROFILE_STEPS steps of the
-    default engine with all 8 slots decoding. The profiler slows the host, so
-    the wall time and the idle share are those of a profiled run."""
+    prefill, then PROFILE_STEPS decode steps; and PROFILE_STEPS steps of
+    each engine of `engines` ({path: Engine keywords}) with all 8 slots
+    decoding. The profiler slows the host, so the wall time and the idle
+    share are those of a profiled run."""
     import torch
 
     from eetq_tpu_torch.models.transformer import init_caches
@@ -907,8 +1159,8 @@ def profile_paths(params, cfg, dev, gen, configs: dict, engine_path: str | None)
             lambda: decode_loop(params, cfg, state["tok"], p1 + 2, state["caches"],
                                 PROFILE_STEPS + 1, fused_mlp=fused), PROFILE_STEPS)
         del state
-    if engine_path:
-        eng = Engine(params, cfg, max_batch=8, max_len=2048)
+    for engine_path, engine_kw in engines.items():
+        eng = Engine(params, cfg, max_batch=8, max_len=2048, **engine_kw)
         for _ in range(8):
             ids = torch.randint(0, cfg.vocab_size, (100,), generator=gen, device=dev).tolist()
             eng.add_request(ids, max_new_tokens=PROFILE_STEPS + 16)
@@ -947,7 +1199,11 @@ def model_phase(dev, profile: bool = False) -> dict:
     configs = {"generate": (torch.bfloat16, False), "bench_decode": (torch.int8, True)}
     paths = generate_paths(params, cfg, dev, gen, configs)
     paths["server"] = server_path(params, cfg, dev, gen)
-    prof = profile_paths(params, cfg, dev, gen, configs, "server") if profile else None
+    paged = dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE)
+    paths["paged_server"] = server_path(params, cfg, dev, gen, "paged_server", paged,
+                                        dense_twin=True)
+    prof = profile_paths(params, cfg, dev, gen, configs,
+                         {"server": {}, "paged_server": paged}) if profile else None
     return dict(paths=paths, init_s=init_s, weight_gb=weight_gb, profile=prof,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
@@ -987,7 +1243,7 @@ def int4_phase(dev, profile: bool = False) -> dict:
     out["paths"].update(generate_paths(params, cfg, dev, gen, configs))
     out["paths"]["int4_server"] = server_path(params, cfg, dev, gen, "int4_server")
     if profile:
-        out["profile"].update(profile_paths(params, cfg, dev, gen, configs, "int4_server"))
+        out["profile"].update(profile_paths(params, cfg, dev, gen, configs, {"int4_server": {}}))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1003,14 +1259,17 @@ def int4_phase(dev, profile: bool = False) -> dict:
     configs = {"int4_bench_decode": (torch.int8, True)}
     out["paths"].update(generate_paths(params, cfg, dev, gen, configs))
     if profile:
-        out["profile"].update(profile_paths(params, cfg, dev, gen, configs, None))
+        out["profile"].update(profile_paths(params, cfg, dev, gen, configs, {}))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
 
-def mixtral_phase(dev) -> dict:
-    """MIXTRAL at full width and depth, W8A16 built one layer at a time,
-    through generate and the server."""
+def mixtral_phase(dev, int4: bool = False, profile: bool = False) -> dict:
+    """MIXTRAL at full width and depth, built one layer at a time, through
+    generate and the server: W8A16 per-channel behind the default engine, or
+    (int4) W4A16 with INT4_GROUP-row scale groups throughout (the expert
+    banks, the attention linears and the lm_head) behind an engine with a
+    paged int8 pool."""
     import torch
 
     from eetq_tpu_torch.models.config import PRESETS
@@ -1021,23 +1280,44 @@ def mixtral_phase(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     before_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
-    params = random_quantized_params(cfg, gen, quantize_lm_head=True)
+    if int4:
+        name, gen_path, srv_path = f"W4A16 g={INT4_GROUP}", "mixtral_int4_generate", \
+            "mixtral_int4_paged_server"
+        params = random_quantized_params(cfg, gen, quantize_lm_head=True, bits=4,
+                                         group_size=INT4_GROUP)
+        bank = params.layers[0].moe.down
+        check(bank.bits == 4 and bank.scales.dim() == 3 and params.lm_head.bits == 4
+              and params.layers[-1].qkv.scales.dim() == 2,
+              "the int4 Mixtral is not int4 group-wise throughout")
+        engine_kw = dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE,
+                         kv_dtype=torch.int8)
+    else:
+        name, gen_path, srv_path = "W8A16", "mixtral_generate", "mixtral_server"
+        params = random_quantized_params(cfg, gen, quantize_lm_head=True)
+        engine_kw = {}
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     weight_gb = sum(b.numel() * b.element_size() for b in params.buffers()) / 1e9
-    print(f"  {MIXTRAL} W8A16 built layer by layer in {build_s:.1f} s: {weight_gb:.2f} GB on "
-          f"the card, build peak {build_peak_gb:.2f} GB ({before_gb:.2f} GB held before)")
-    paths = generate_paths(params, cfg, dev, gen, {"mixtral_generate": (torch.bfloat16, False)})
-    paths["mixtral_server"] = server_path(params, cfg, dev, gen, "mixtral_server")
+    scale_gb = sum(b.numel() * b.element_size() for b in params.buffers()
+                   if b.dtype == torch.float32) / 1e9
+    print(f"  {MIXTRAL} {name} built layer by layer in {build_s:.1f} s: {weight_gb:.2f} GB on "
+          f"the card ({scale_gb:.2f} GB of it f32 scales and norms), build peak "
+          f"{build_peak_gb:.2f} GB ({before_gb:.2f} GB held before)")
+    configs = {gen_path: (torch.bfloat16, False)}
+    paths = generate_paths(params, cfg, dev, gen, configs)
+    paths[srv_path] = server_path(params, cfg, dev, gen, srv_path, engine_kw)
+    prof = None
+    if profile and int4:
+        prof = profile_paths(params, cfg, dev, gen, configs, {srv_path: engine_kw})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    t = paths["mixtral_generate"]["timing"]
-    print(f"  {MIXTRAL}: weights {weight_gb:.2f} GB, built in {build_s:.1f} s, peak {peak_gb:.2f} "
-          f"GB; prefill {t['prefill_ms']:.2f} ms (b=1 p={REQUESTS[0][1]}), decode "
+    t = paths[gen_path]["timing"]
+    print(f"  {MIXTRAL} {name}: weights {weight_gb:.2f} GB, built in {build_s:.1f} s, peak "
+          f"{peak_gb:.2f} GB; prefill {t['prefill_ms']:.2f} ms (b=1 p={REQUESTS[0][1]}), decode "
           f"{t['decode_ms_per_step']:.3f} ms/step; served "
-          f"{paths['mixtral_server']['served_tok_s']:.2f} tok/s")
+          f"{paths[srv_path]['served_tok_s']:.2f} tok/s")
     return dict(paths=paths, build_s=build_s, build_peak_gb=build_peak_gb, weight_gb=weight_gb,
-                peak_gb=peak_gb)
+                scale_gb=scale_gb, peak_gb=peak_gb, profile=prof)
 
 
 def main() -> int:
@@ -1048,8 +1328,15 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="directory for chip_smoke.json (details)")
     parser.add_argument("--profile", action="store_true",
-                        help="also run the llama2-7b paths under torch.profiler")
+                        help="also run the llama2-7b paths, the paged engines and the int4 "
+                             "Mixtral paths under torch.profiler")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma-separated subset of {','.join(PHASES)} (a partial run "
+                             "checks what it runs and prints no result line)")
     args = parser.parse_args()
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        parser.error(f"--phases takes {PHASES}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1066,17 +1353,44 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {info['nvcc_version']}")
     print(card)
     print(f"kernels built in {info['seconds']:.1f} s (cached: {info['cached']})")
-    with torch.inference_mode():
-        kern = kernel_phase(dev)
-        moe_layer = moe_layer_phase(dev)
-    model = model_phase(dev, args.profile)
-    gc.collect()  # each model goes before the next is built
-    torch.cuda.empty_cache()
-    int4 = int4_phase(dev, args.profile)
-    gc.collect()
-    torch.cuda.empty_cache()
-    mixtral = mixtral_phase(dev)
-    paths = {**model["paths"], **int4["paths"], **mixtral["paths"]}
+    run = {
+        "kernels": lambda: kernel_phase(dev),
+        "moe_layer": lambda: moe_layer_phase(dev),
+        "llama": lambda: model_phase(dev, args.profile),
+        "int4": lambda: int4_phase(dev, args.profile),
+        "mixtral": lambda: mixtral_phase(dev),
+        "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
+    }
+    done = {}
+    for phase in PHASES:
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        if phase in ("kernels", "moe_layer"):
+            with torch.inference_mode():
+                done[phase] = run[phase]()
+        else:
+            done[phase] = run[phase]()
+        gc.collect()  # each model goes before the next is built
+        torch.cuda.empty_cache()
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(dict(card=card, build_s=info["seconds"], nvcc_log=info["log"],
+                           kernels=done.get("kernels", {}).get("rows"),
+                           kernel_summary=done.get("kernels", {}).get("summary"),
+                           moe_layer=done.get("moe_layer"), model=done.get("llama"),
+                           int4=done.get("int4"), mixtral=done.get("mixtral"),
+                           mixtral_int4=done.get("mixtral_int4"),
+                           seconds=time.perf_counter() - t_start), f, indent=1, default=str)
+    if len(done) < len(PHASES):
+        print(f"partial run ({','.join(done)}): every check of these phases passed")
+        return 0
+    paths = {}
+    for phase in ("llama", "int4", "mixtral", "mixtral_int4"):
+        paths.update(done[phase]["paths"])
+    kern = done["kernels"]
     kernels = [
         dict(name=name, route=REPLACES[name][0], source=REPLACES[name][1],
              replaces=REPLACES[name][2],
@@ -1085,13 +1399,6 @@ def main() -> int:
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for name in REPLACES
     ]
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(card=card, build_s=info["seconds"], nvcc_log=info["log"],
-                           kernels=kern["rows"], kernel_summary=kern["summary"],
-                           moe_layer=moe_layer, model=model, int4=int4, mixtral=mixtral,
-                           seconds=time.perf_counter() - t_start), f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

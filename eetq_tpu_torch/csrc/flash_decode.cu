@@ -1,9 +1,12 @@
 // Flash-decode: one query token per batch row against the dense KV cache
 // [B, Hkv, L, D], each row to its own length; the cache is bf16, or int8
-// with f32 per-(row, head, position) scales [B, Hkv, L].
+// with f32 per-(row, head, position) scales [B, Hkv, L]. In paged mode the
+// cache is a pool of blocks [NB, Hkv, BS, D] (scales [NB, Hkv, BS]) shared
+// by all rows, and a table [B, max_blocks] names the pool block of each
+// logical block of a row.
 //
-// Replaces eetq_tpu/kernels/flash_decode.py::flash_decode for S = 1, in its
-// bf16 and its int8 mode. Bound by the cache bytes, so each cached key and
+// Replaces eetq_tpu/kernels/flash_decode.py::flash_decode and
+// ::paged_flash_decode for S = 1, each in its bf16 and its int8 mode. Bound by the cache bytes, so each cached key and
 // value is read once: a block takes one kv head of one row and computes its
 // whole GQA group of q heads against it, over one split of the key range,
 // and stops at the row's length. Within the block every D/8 lanes hold one
@@ -12,6 +15,16 @@
 // each key slot keeps its own online softmax (max, sum, output) in f32
 // registers. The slots are merged in shared memory into one (max, sum,
 // output) per split, and a second kernel merges the splits and writes bf16.
+//
+// Paged mode (kPaged) is the same body with another address: key p of row b
+// lies at ((table[b][p / BS] * Hkv + hk) * BS + p % BS). A block step covers
+// kSlots (16 or 32) consecutive keys from a multiple of kSlots, and BS and
+// the split length are multiples of 32, so a step never straddles two pool
+// blocks: the block keeps (logical block, offset) of its position and moves
+// them along without a division, and each of the four loads in flight reads
+// its own table entry, and only for a key below the row's length: entries
+// past a row's last live block are arbitrary and are never read (the TPU
+// kernel clamps its index map instead, flash_decode.py:278-289).
 //
 // int8 mode: half the bytes of the bf16 cache. As in the TPU kernel
 // (flash_decode.py:15-20) no dequantised cache is formed: the key's scale
@@ -46,13 +59,17 @@ struct Kv8<true> {
   }
 };
 
-template <int G, int D, bool kInt8>
+// The key step of the widest instantiation (D = 64): BS and the split length
+// of a paged launch are multiples of it.
+constexpr int kMaxSlots = kWarps * (32 / (64 / 8));
+
+template <int G, int D, bool kInt8, bool kPaged>
 __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
     const bf16* __restrict__ q, const typename Kv8<kInt8>::Elem* __restrict__ kc,
     const typename Kv8<kInt8>::Elem* __restrict__ vc, const float* __restrict__ kscale,
-    const float* __restrict__ vscale, const int* __restrict__ lengths,
-    float* __restrict__ part_o, float* __restrict__ part_ml, int hq, int hkv, int l,
-    int splits, int split_len, float scale) {
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ lengths, float* __restrict__ part_o, float* __restrict__ part_ml,
+    int hq, int hkv, int l, int max_blocks, int bs, int splits, int split_len, float scale) {
   using KV = Kv8<kInt8>;
   constexpr int kLanesPerKey = D / 8;
   constexpr int kKeysPerWarp = 32 / kLanesPerKey;
@@ -66,9 +83,15 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
   const int dl = (lane % kLanesPerKey) * 8;
   const int len = min(lengths[b], l);
   const int start = split * split_len, end = min(len, start + split_len);
-  const size_t head = ((size_t)b * hkv + hk) * l;
-  const auto* kb = kc + head * D + dl;
-  const auto* vb = vc + head * D + dl;
+  // Dense: key j of this (row, head) is element head + j of the cache.
+  // Paged: key j of logical block lb at offset o is element
+  // (tbl[lb] * hkv + hk) * bs + o of the pool.
+  const size_t head = kPaged ? 0 : ((size_t)b * hkv + hk) * l;
+  const int* tbl = kPaged ? table + (size_t)b * max_blocks : nullptr;
+  int blk = kPaged ? start / bs : 0;  // of the step at `base`
+  int off = kPaged ? start - blk * bs : 0;
+  const auto* kb = kc + dl;
+  const auto* vb = vc + dl;
 
   float qr[G][8];
 #pragma unroll
@@ -97,12 +120,25 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
       kv[u] = vv[u] = typename KV::Vec{};
       ks[u] = vs[u] = 0.f;
       if (j < end) {
-        kv[u] = *reinterpret_cast<const typename KV::Vec*>(kb + (size_t)j * D);
-        vv[u] = *reinterpret_cast<const typename KV::Vec*>(vb + (size_t)j * D);
-        if constexpr (kInt8) {
-          ks[u] = kscale[head + j];
-          vs[u] = vscale[head + j];
+        size_t idx = head + j;
+        if constexpr (kPaged) {  // the step's block: at most one past blk
+          const int ou = off + u * kSlots;
+          const int wrap = ou >= bs;
+          idx = ((size_t)tbl[blk + wrap] * hkv + hk) * bs + (ou - wrap * bs) + slot;
         }
+        kv[u] = *reinterpret_cast<const typename KV::Vec*>(kb + idx * D);
+        vv[u] = *reinterpret_cast<const typename KV::Vec*>(vb + idx * D);
+        if constexpr (kInt8) {
+          ks[u] = kscale[idx];
+          vs[u] = vscale[idx];
+        }
+      }
+    }
+    if constexpr (kPaged) {
+      off += kSlots * kUnroll;
+      if (off >= bs) {
+        off -= bs;
+        ++blk;
       }
     }
 #pragma unroll
@@ -117,8 +153,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
 #pragma unroll
         for (int i = 0; i < 8; ++i) s = fmaf(qr[g][i], kf[i], s);
 #pragma unroll
-        for (int off = kLanesPerKey / 2; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
+        for (int sh = kLanesPerKey / 2; sh > 0; sh >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, sh);
         if constexpr (kInt8) s *= ks[u];
         if (valid) {
           const float mn = fmaxf(m[g], s);
@@ -187,23 +223,28 @@ __global__ void __launch_bounds__(kCombineThreads) flash_decode_combine_kernel(
   }
 }
 
-// Pointers and sizes of one launch; kscale/vscale are null for bf16.
+// Pointers and sizes of one launch; kscale/vscale are null for bf16. Paged:
+// table is set, the pool's blocks hold bs keys, and l = max_blocks * bs.
 struct Args {
   const void *q, *k, *v, *kscale, *vscale, *lengths;
   void *out, *part_o, *part_ml;
   int b, hq, hkv, l, splits, split_len;
   float scale;
+  const void* table = nullptr;
+  int max_blocks = 0, bs = 0;
 };
 
-template <int G, int D, bool kInt8>
+template <int G, int D, bool kInt8, bool kPaged>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using Elem = typename Kv8<kInt8>::Elem;
-  flash_decode_split_kernel<G, D, kInt8><<<dim3(a.splits, a.hkv, a.b), kThreads, 0, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const Elem*>(a.k),
-      static_cast<const Elem*>(a.v), static_cast<const float*>(a.kscale),
-      static_cast<const float*>(a.vscale), static_cast<const int*>(a.lengths),
-      static_cast<float*>(a.part_o), static_cast<float*>(a.part_ml), a.hq, a.hkv, a.l,
-      a.splits, a.split_len, a.scale);
+  flash_decode_split_kernel<G, D, kInt8, kPaged>
+      <<<dim3(a.splits, a.hkv, a.b), kThreads, 0, stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const Elem*>(a.k),
+          static_cast<const Elem*>(a.v), static_cast<const float*>(a.kscale),
+          static_cast<const float*>(a.vscale), static_cast<const int*>(a.table),
+          static_cast<const int*>(a.lengths), static_cast<float*>(a.part_o),
+          static_cast<float*>(a.part_ml), a.hq, a.hkv, a.l, a.max_blocks, a.bs, a.splits,
+          a.split_len, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_combine_kernel<G, D><<<dim3(a.hkv, a.b), kCombineThreads, 0, stream>>>(
@@ -212,23 +253,36 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, bool kInt8>
+template <int D, bool kInt8, bool kPaged>
 cudaError_t launch_g(const Args& a, cudaStream_t s) {
   switch (a.hq / a.hkv) {
-    case 1: return launch<1, D, kInt8>(a, s);
-    case 2: return launch<2, D, kInt8>(a, s);
-    case 4: return launch<4, D, kInt8>(a, s);
-    case 8: return launch<8, D, kInt8>(a, s);
+    case 1: return launch<1, D, kInt8, kPaged>(a, s);
+    case 2: return launch<2, D, kInt8, kPaged>(a, s);
+    case 4: return launch<4, D, kInt8, kPaged>(a, s);
+    case 8: return launch<8, D, kInt8, kPaged>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kInt8>
+template <bool kInt8, bool kPaged = false>
 cudaError_t launch_dg(int d, const Args& a, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_g<64, kInt8>(a, s);
-  if (d == 128) return launch_g<128, kInt8>(a, s);
+  if (d == 64) return launch_g<64, kInt8, kPaged>(a, s);
+  if (d == 128) return launch_g<128, kInt8, kPaged>(a, s);
   return cudaErrorInvalidValue;
+}
+
+// A paged launch: no key step may straddle two pool blocks or two splits.
+template <bool kInt8>
+cudaError_t launch_paged(int d, Args a, const void* table, int max_blocks, int bs,
+                         void* stream) {
+  if (bs < kMaxSlots * kUnroll || bs % kMaxSlots || a.split_len % kMaxSlots || max_blocks < 1)
+    return cudaErrorInvalidValue;
+  a.table = table;
+  a.max_blocks = max_blocks;
+  a.bs = bs;
+  a.l = max_blocks * bs;
+  return launch_dg<kInt8, true>(d, a, stream);
 }
 
 }  // namespace
@@ -256,4 +310,32 @@ extern "C" int eetq_flash_decode_int8(const void* q, const void* k, const void* 
   const Args a{q, k, v, k_scale, v_scale, lengths, out, part_o, part_ml,
                b, hq, hkv, l, splits, split_len, scale};
   return launch_dg<true>(d, a, stream);
+}
+
+// The paged cache: k/v pools bf16 [nb, hkv, bs, d] contiguous (bs % 32 == 0,
+// bs >= 128); table int32 [b, max_blocks], entry (r, i) the pool block of
+// keys [i * bs, (i + 1) * bs) of row r, read only for blocks that hold a key
+// below lengths[r]; lengths int32 [b], at most max_blocks * bs; scratch as
+// eetq_flash_decode; split_len % 32 == 0.
+extern "C" int eetq_paged_flash_decode(const void* q, const void* k, const void* v,
+                                       const void* table, const void* lengths, void* out,
+                                       void* part_o, void* part_ml, int b, int hq, int hkv,
+                                       int max_blocks, int bs, int d, int splits, int split_len,
+                                       float scale, void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, lengths, out, part_o, part_ml,
+               b, hq, hkv, 0, splits, split_len, scale};
+  return launch_paged<false>(d, a, table, max_blocks, bs, stream);
+}
+
+// The int8 paged cache: pools int8 [nb, hkv, bs, d] with f32 scale pools
+// k_scale/v_scale [nb, hkv, bs]; everything else as eetq_paged_flash_decode.
+extern "C" int eetq_paged_flash_decode_int8(const void* q, const void* k, const void* v,
+                                            const void* k_scale, const void* v_scale,
+                                            const void* table, const void* lengths, void* out,
+                                            void* part_o, void* part_ml, int b, int hq, int hkv,
+                                            int max_blocks, int bs, int d, int splits,
+                                            int split_len, float scale, void* stream) {
+  const Args a{q, k, v, k_scale, v_scale, lengths, out, part_o, part_ml,
+               b, hq, hkv, 0, splits, split_len, scale};
+  return launch_paged<true>(d, a, table, max_blocks, bs, stream);
 }

@@ -1,5 +1,5 @@
-// The W8A16 / W4A16 GEMM tile shared by w8a16_gemm.cu, w4a16_gemm.cu and
-// w8a16_grouped_gemm.cu.
+// The W8A16 / W4A16 GEMM tile shared by w8a16_gemm.cu, w4a16_gemm.cu,
+// w8a16_grouped_gemm.cu and w4a16_grouped_gemm.cu.
 //
 // out[m, n] = (x[m, :] . W[:, n]) * scale[n] + bias[n]. Bound by
 // tensor-core FLOPs at prefill sizes. Each 256-thread block computes a
@@ -32,7 +32,8 @@
 //
 // Grouped (block_expert set): row block y multiplies by expert
 // block_expert[y] of a stacked bank, read from device memory; its weight
-// lies at w + e * w_stride and its scales at scales + e * s_stride.
+// lies at w + e * w_stride and its scales at scales + e * s_stride. The bank
+// is int8 or int4, its scales per-channel [E, n] or group-wise [E, G, n].
 #pragma once
 
 #include <mma.h>
@@ -289,6 +290,33 @@ int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, cons
   const int row_blocks = (m + kBM - 1) / kBM;
   auto s = static_cast<cudaStream_t>(stream);
   return groups > 0 ? launch<kBits, true>(a, row_blocks, s) : launch<kBits, false>(a, row_blocks, s);
+}
+
+// The grouped GEMM's C entry points (w8a16_grouped_gemm.cu,
+// w4a16_grouped_gemm.cu): nb row blocks of bm rows over a bank of logical
+// padded depth kp, scales [e, n], or [e, groups, n] when groups > 0.
+template <int kBits>
+int bank_entry(const void* x, int bm, int nb, int k, const void* w, int kp, int np,
+               const void* scales, int groups, int group_size, const void* block_expert,
+               void* out, int n, void* stream) {
+  Args a{};
+  a.x = static_cast<const bf16*>(x);
+  a.m = nb * bm;
+  a.k = k;
+  a.w = static_cast<const int8_t*>(w);
+  a.kp = kp;
+  a.np = np;
+  a.scales = static_cast<const float*>(scales);
+  a.groups = groups;
+  a.group_size = group_size;
+  a.out = static_cast<bf16*>(out);
+  a.n = n;
+  a.bm = bm;
+  a.block_expert = static_cast<const int*>(block_expert);
+  a.w_stride = (long long)(kBits == 4 ? kp / 2 : kp) * np;
+  a.s_stride = (groups > 0 ? groups : 1) * n;
+  auto s = static_cast<cudaStream_t>(stream);
+  return groups > 0 ? launch<kBits, true>(a, nb, s) : launch<kBits, false>(a, nb, s);
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // The int8- and int4-weight decode GEMV shared by w8a16_gemv.cu,
-// w4a16_gemv.cu, w8a16_expert_gemv.cu, fused_mlp.cu and fused_mlp_i4.cu.
+// w4a16_gemv.cu, w8a16_expert_gemv.cu, w4a16_expert_gemv.cu, fused_mlp.cu
+// and fused_mlp_i4.cu.
 //
 // out[m, c] = epilogue((y[m, :] . W[:, col(c)]) * scale[col(c)]) for
 // 1 <= m <= M <= 8 rows, where y = x, or rmsnorm(x, gamma) rounded to bf16.
@@ -34,7 +35,9 @@
 //
 // Expert gather (expert_ids set): block (x, s) takes the weight and scales
 // of expert expert_ids[s] out of a stacked bank and writes output s. The
-// id is read from device memory, so the routing never leaves the card.
+// id is read from device memory, so the routing never leaves the card. The
+// bank is int8 or int4, its scales per-channel [E, n] or group-wise
+// [E, G, n]: the gather only moves the two base pointers.
 //
 // Two modes:
 // - plain: out = s * scale (+ bias) (+ residual), summed in f32 and
@@ -346,8 +349,9 @@ template <int M, bool kGateUp, int kBits, bool kGroup>
 cudaError_t launch(Args a, dim3 grid, cudaStream_t stream) {
   void (*kernel)(const Args) = gemv_kernel<M, kGateUp, kBits, kGroup>;
   // Dynamic shared memory a block may take besides the kernel's static
-  // buffers, asked of the device once.
-  static size_t budget = 0;
+  // buffers, asked of the device once; and how much of it a launch may use
+  // so far (48 KB of static and dynamic together without an opt-in).
+  static size_t budget = 0, opted_in = 0;
   if (budget == 0) {
     int dev = 0, optin = 0;
     cudaFuncAttributes attr;
@@ -357,6 +361,7 @@ cudaError_t launch(Args a, dim3 grid, cudaStream_t stream) {
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
     budget = (size_t)optin - attr.sharedSizeBytes;
+    opted_in = 48 * 1024 > attr.sharedSizeBytes ? 48 * 1024 - attr.sharedSizeBytes : 0;
   }
   // The scale strip (group-wise), then all of y if it fits, else the fewest
   // chunks of whole load batches.
@@ -372,7 +377,6 @@ cudaError_t launch(Args a, dim3 grid, cudaStream_t stream) {
     if (a.kc <= kBatch && fixed + kRowBytes * a.kc > budget) return cudaErrorInvalidValue;
   }
   const size_t smem = fixed + kRowBytes * a.kc;
-  static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -424,6 +428,33 @@ int dense_entry(const void* x, int m, int k, const void* w, int rows, int np, co
   a.n = n;
   auto s = static_cast<cudaStream_t>(stream);
   return groups > 0 ? launch_m<false, kBits, true>(m, a, s) : launch_m<false, kBits, false>(m, a, s);
+}
+
+// The expert gather's C entry points (w8a16_expert_gemv.cu,
+// w4a16_expert_gemv.cu): a bank of `rows` weight rows per expert (Kp for
+// int8, Kp / 2 for int4), scales [e, n], or [e, groups, n] when groups > 0.
+template <int kBits>
+int bank_entry(const void* x, int m, int k, const void* w, int rows, int np, const void* scales,
+               int groups, int group_size, const void* expert_ids, int sels, void* out, int n,
+               void* stream) {
+  Args a{};
+  a.x = static_cast<const bf16*>(x);
+  a.k = k;
+  a.w = static_cast<const int8_t*>(w);
+  a.kp = rows;
+  a.np = np;
+  a.scales = static_cast<const float*>(scales);
+  a.groups = groups;
+  a.group_size = group_size;
+  a.out = static_cast<bf16*>(out);
+  a.n = n;
+  a.expert_ids = static_cast<const int*>(expert_ids);
+  a.w_stride = (long long)rows * np;
+  a.s_stride = (groups > 0 ? groups : 1) * n;
+  a.out_stride = (long long)m * n;
+  auto s = static_cast<cudaStream_t>(stream);
+  return groups > 0 ? launch_m<false, kBits, true>(m, a, s, sels)
+                    : launch_m<false, kBits, false>(m, a, s, sels);
 }
 
 }  // namespace gemv

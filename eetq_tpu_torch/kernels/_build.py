@@ -4,8 +4,8 @@ Every `csrc/*.cu` file is compiled by nvcc for `sm_90a` into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds): one small source per entry point of `SIGNATURES`, most of them a
 mode of a shared header (`gemv.cuh`: the int8 and int4 GEMVs, the expert
-gather and both fused MLPs; `gemm_tile.cuh`: the int8 and int4 GEMMs and
-the grouped expert GEMM; `a8_gemm.cuh`: W8A8 and W4A8), compiled in
+gathers and both fused MLPs; `gemm_tile.cuh`: the int8 and int4 GEMMs and
+the grouped expert GEMMs; `a8_gemm.cuh`: W8A8 and W4A8), compiled in
 parallel. The library lands in `eetq_tpu_torch/_build/<hash>/`, keyed on a
 hash of the sources and flags, so it is rebuilt only when they change.
 
@@ -53,10 +53,14 @@ SIGNATURES = {
     # x, m, k, w, kp, np, scales, groups, group_size, bias, out, n, stream
     "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
     "eetq_w4a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
-    # x, m, k, bank, kp, np, scales, expert_ids, n_sel, out, n, stream
-    "eetq_w8a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I, _P),
-    # x, bm, nb, k, bank, kp, np, scales, block_expert, out, n, stream
-    "eetq_w8a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
+    # x, m, k, bank, weight rows, np, scales, groups, group_size, expert_ids,
+    # n_sel, out, n, stream
+    "eetq_w8a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P),
+    "eetq_w4a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P),
+    # x, bm, nb, k, bank, kp, np, scales, groups, group_size, block_expert,
+    # out, n, stream
+    "eetq_w8a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
+    "eetq_w4a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
     # q, k, v, out, b, sq, skv, hq, hkv, d, q strides (b, s, h),
     # k strides, v strides, scale, causal, stream
     "eetq_flash_attention_fwd": (
@@ -72,6 +76,17 @@ SIGNATURES = {
     # l, d, splits, split_len, scale, stream
     "eetq_flash_decode_int8": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # q, k pool, v pool, table, lengths, out, part_o, part_ml, b, hq, hkv,
+    # max_blocks, block size, d, splits, split_len, scale, stream
+    "eetq_paged_flash_decode": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # q, k pool, v pool, k_scale, v_scale, table, lengths, out, part_o,
+    # part_ml, b, hq, hkv, max_blocks, block size, d, splits, split_len,
+    # scale, stream
+    "eetq_paged_flash_decode_int8": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # xq, m, kp, w, np, sx, sw, bias, out, n, stream
     "eetq_w8a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P),

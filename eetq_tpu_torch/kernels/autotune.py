@@ -40,6 +40,12 @@ GROUPED_BM_MIN, GROUPED_BM_MAX = 8, 128
 # grid covers every SM at least twice, and no split shorter than this.
 DECODE_MIN_SPLIT_LEN = 64
 
+# Paged flash-decode: a block walks its keys in steps of 16 (D = 128) or 32
+# (D = 64) from a multiple of the step; the pool's block size and the split
+# length are multiples of this, so no step straddles two pool blocks or two
+# splits (`csrc/flash_decode.cu::kMaxSlots` checks both).
+PAGED_KEY_STEP = 32
+
 
 def compile_defines() -> tuple[str, ...]:
     """The constants above as nvcc `-D` flags."""
@@ -61,10 +67,12 @@ def group_size_of(k: int, scales: torch.Tensor) -> int:
     return g
 
 
-def decode_splits(rows: int, max_len: int, device: torch.device) -> tuple[int, int]:
+def decode_splits(rows: int, max_len: int, device: torch.device,
+                  step: int = 1) -> tuple[int, int]:
     """(number of splits, keys per split) for a flash-decode launch over
-    `rows` = batch x kv heads blocks and a cache of `max_len` slots."""
+    `rows` = batch x kv heads blocks and a cache of `max_len` slots; the
+    keys per split a multiple of `step`."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     ns = max(1, min(-(-2 * sms // rows), -(-max_len // DECODE_MIN_SPLIT_LEN)))
-    chunk = -(-max_len // ns)
+    chunk = -(-max_len // (ns * step)) * step
     return -(-max_len // chunk), chunk

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels import _build
+from eetq_tpu_torch.utils.device import resolve
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIMS = (64, 128)
@@ -34,7 +35,9 @@ def causal_mask(
 ) -> torch.Tensor:
     """[1, 1, s, kv_len] bool causal mask (True = attend), optionally
     sliding-window. With kv_len > s the last query aligns with the last key
-    (query row i sits at position i + kv_len - s)."""
+    (query row i sits at position i + kv_len - s). On the card unless
+    `device` says otherwise."""
+    device = resolve(device)
     l = kv_len if kv_len is not None else s
     i = torch.arange(s, device=device)[:, None] + (l - s)
     j = torch.arange(l, device=device)[None, :]

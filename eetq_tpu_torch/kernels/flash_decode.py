@@ -1,4 +1,5 @@
-"""Flash-decode: one query token per row over the dense [B, Hkv, L, D] cache.
+"""Flash-decode: one query token per row over the dense [B, Hkv, L, D] cache,
+or over a paged cache (block pools and a block table).
 
 `flash_decode` and `flash_decode_int8` replace `eetq_tpu/kernels/
 flash_decode.py::flash_decode` (`pallas_call` at flash_decode.py:512) for
@@ -12,6 +13,16 @@ index-map clamp, flash_decode.py:459-474), and every block computes the whole GQ
 key is read once. To cover the 132 SMs at batch 1 the cache is split along
 L across blocks ("splits"); each block keeps an online softmax in f32 and
 writes (max, sum, partial output), and a second kernel combines the splits.
+
+`paged_flash_decode` and `paged_flash_decode_int8` replace `eetq_tpu/kernels/
+flash_decode.py::paged_flash_decode` (`pallas_call` at flash_decode.py:329)
+for S = 1: the same computation over pools [NB, Hkv, BS, D] shared by all
+rows, logical block i of row b being pool block table[b, i]. As on the TPU
+it is the dense kernel with another address map (a template mode of
+`csrc/flash_decode.cu`): a block translates each step of keys through the
+table, only for keys below the row's length, so only the blocks a row owns
+are read, wherever they lie in the pool. The bound is the same as the dense
+kernel's: the bytes of each row's live prefix.
 """
 
 from __future__ import annotations
@@ -19,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.kernels.autotune import decode_splits
+from eetq_tpu_torch.kernels.autotune import PAGED_KEY_STEP, decode_splits
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
@@ -45,7 +56,9 @@ def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None):
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
-def _check(q, k_cache, v_cache, lengths, window, cache_dtype):
+def _check(q, k_cache, v_cache, lengths, window, cache_dtype, batch_axis: bool = True):
+    """k/v cache [B, Hkv, L, D], or with batch_axis=False pools
+    [NB, Hkv, BS, D] shared by all rows."""
     b, s, hq, d = q.shape
     hkv = k_cache.shape[1]
     if s != 1:
@@ -57,7 +70,8 @@ def _check(q, k_cache, v_cache, lengths, window, cache_dtype):
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != cache_dtype or not t.is_contiguous() or t.device != q.device:
             raise TypeError(f"{name} must be contiguous {cache_dtype} on q's device")
-    if k_cache.shape != v_cache.shape or k_cache.shape[0] != b or k_cache.shape[-1] != d:
+    if (k_cache.dim() != 4 or k_cache.shape != v_cache.shape
+            or (batch_axis and k_cache.shape[0] != b) or k_cache.shape[-1] != d):
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
     if (lengths.dtype != torch.int32 or lengths.shape != (b,) or not lengths.is_contiguous()
             or lengths.device != q.device):
@@ -69,11 +83,12 @@ def _check(q, k_cache, v_cache, lengths, window, cache_dtype):
         raise NotImplementedError(f"head_dim {d}, group {hq}/{hkv}: the kernel takes {HEAD_DIMS}, {GROUPS}")
 
 
-def _scratch(q, hkv, l):
-    """(splits, split_len, part_o, part_ml, out) of one launch."""
+def _scratch(q, hkv, l, step: int = 1):
+    """(splits, split_len, part_o, part_ml, out) of one launch; split_len a
+    multiple of `step`."""
     b, _, hq, d = q.shape
     group = hq // hkv
-    splits, split_len = decode_splits(b * hkv, l, q.device)
+    splits, split_len = decode_splits(b * hkv, l, q.device, step)
     part_o = torch.empty(b * hkv * splits * group * d, dtype=torch.float32, device=q.device)
     part_ml = torch.empty(b * hkv * splits * group * 2, dtype=torch.float32, device=q.device)
     out = torch.empty((b, 1, hq, d), dtype=torch.bfloat16, device=q.device)
@@ -158,5 +173,116 @@ def flash_decode_int8(
     return out
 
 
+def gather_pool(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The dense view of a paged leaf: pool [NB, Hkv, BS(, D)] gathered
+    through table [B, nb] -> [B, Hkv, nb * BS(, D)]."""
+    blocks = pool[table.long()]  # [B, nb, Hkv, BS, ...]
+    moved = blocks.transpose(1, 2)  # [B, Hkv, nb, BS, ...]
+    return moved.reshape(moved.shape[0], moved.shape[1], -1, *moved.shape[4:])
+
+
+def paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale=None, window=None):
+    """Plain version of :func:`paged_flash_decode`: gather the logical dense
+    cache through the table, then :func:`flash_decode_ref`. Table entries
+    past a row's length must still be valid pool indices here (the kernel
+    never reads them)."""
+    return flash_decode_ref(q, gather_pool(k_pool, table), gather_pool(v_pool, table), lengths,
+                            scale, window)
+
+
+def paged_flash_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                                scale=None, window=None):
+    """Plain version of :func:`paged_flash_decode_int8`: gather, then
+    :func:`flash_decode_int8_ref`."""
+    return flash_decode_int8_ref(
+        q, gather_pool(k_pool, table), gather_pool(v_pool, table),
+        gather_pool(k_scale, table), gather_pool(v_scale, table), lengths, scale, window)
+
+
+def _check_paged(q, k_pool, v_pool, table, lengths, window, cache_dtype):
+    """The dense checks (the pools have no batch axis), then the table."""
+    b = q.shape[0]
+    bs = k_pool.shape[2]
+    _check(q, k_pool, v_pool, lengths, window, cache_dtype, batch_axis=False)
+    if (table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != b
+            or not table.is_contiguous() or table.device != q.device):
+        raise TypeError("table must be contiguous int32 [B, max_blocks] on q's device")
+    if bs % PAGED_KEY_STEP or bs < 128:
+        raise ValueError(f"block size {bs} must be a multiple of {PAGED_KEY_STEP}, at least 128 "
+                         "(a step of keys must not straddle two pool blocks)")
+
+
+def paged_flash_decode(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    table: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """q [B, 1, Hq, D] bf16; k/v pools [NB, Hkv, BS, D] bf16; table
+    [B, max_blocks] int32, entry (b, i) the pool block of keys [i * BS,
+    (i + 1) * BS) of row b (read only for blocks below the row's length, each
+    in [0, NB): the kernel cannot check them); lengths [B] int32 (1 <= length
+    <= max_blocks * BS). Returns [B, 1, Hq, D] bf16."""
+    b, s, hq, d = q.shape
+    hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    if not q.is_cuda:
+        return paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale, window)
+    _check_paged(q, k_pool, v_pool, table, lengths, window, torch.bfloat16)
+    max_blocks = table.shape[1]
+    splits, split_len, part_o, part_ml, out = _scratch(q, hkv, max_blocks * bs, PAGED_KEY_STEP)
+    _build.launch(
+        "eetq_paged_flash_decode", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(),
+        part_ml.data_ptr(), b, hq, hkv, max_blocks, bs, d, splits, split_len, scale,
+        _build.stream_of(q),
+    )
+    paged_flash_decode.launches += 1
+    return out
+
+
+def paged_flash_decode_int8(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    table: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """:func:`paged_flash_decode` over int8 pools [NB, Hkv, BS, D] with f32
+    scale pools k_scale/v_scale [NB, Hkv, BS]."""
+    b, s, hq, d = q.shape
+    hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    if not q.is_cuda:
+        return paged_flash_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                                           scale, window)
+    _check_paged(q, k_pool, v_pool, table, lengths, window, torch.int8)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (t.dtype != torch.float32 or t.shape != k_pool.shape[:3] or not t.is_contiguous()
+                or t.device != q.device):
+            raise TypeError(f"{name} must be contiguous f32 [NB, Hkv, BS] on q's device")
+    max_blocks = table.shape[1]
+    splits, split_len, part_o, part_ml, out = _scratch(q, hkv, max_blocks * bs, PAGED_KEY_STEP)
+    _build.launch(
+        "eetq_paged_flash_decode_int8", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, hq, hkv, max_blocks, bs, d,
+        splits, split_len, scale, _build.stream_of(q),
+    )
+    paged_flash_decode_int8.launches += 1
+    return out
+
+
 flash_decode.launches = 0
 flash_decode_int8.launches = 0
+paged_flash_decode.launches = 0
+paged_flash_decode_int8.launches = 0

@@ -35,14 +35,17 @@ group's f32 partial sum, as the TPU kernel does (w8a16.py:103-126); the
 GEMV multiplies each weight row by its group's scales before the dot (an
 f32 rounding apart from the partial-sum order; see `csrc/gemv.cuh`).
 
-The two MoE kernels run the same designs over a stacked expert bank
-[E, Kp, Np] with per-channel scales [E, N], each block reading its expert
-id from device memory:
+The MoE kernels run the same designs over a stacked expert bank, int8
+[E, Kp, Np] or int4 [E, Kp/2, Np], with per-channel scales [E, N] or
+group-wise scales [E, K/g, N], each block reading its expert id from device
+memory:
 
-- `w8a16_expert_gemv` (`csrc/w8a16_expert_gemv.cu`) replaces
-  `w8a16_expert_matmul_kernel_call` (`pallas_call` at w8a16.py:513): the
-  GEMV with one grid row per selection, out[s] = x @ dequant(bank[ids[s]]).
-- `w8a16_grouped_gemm` (`csrc/w8a16_grouped_gemm.cu`) replaces
+- `w8a16_expert_gemv` and `w4a16_expert_gemv` (`csrc/w8a16_expert_gemv.cu`,
+  `csrc/w4a16_expert_gemv.cu`) replace `w8a16_expert_matmul_kernel_call`
+  (`pallas_call` at w8a16.py:513): the GEMV with one grid row per
+  selection, out[s] = x @ dequant(bank[ids[s]]).
+- `w8a16_grouped_gemm` and `w4a16_grouped_gemm`
+  (`csrc/w8a16_grouped_gemm.cu`, `csrc/w4a16_grouped_gemm.cu`) replace
   `w8a16_grouped_matmul_kernel_call` (`pallas_call` at w8a16.py:611): the
   GEMM tile with one grid row per bm-row block, each block times its own
   expert.
@@ -124,8 +127,9 @@ def grouped_matmul_ref(
 
 def _check_cuda(x, qdata, scales, n, bias, bits: int = 8) -> tuple[int, int]:
     """x [m, K] against a packed weight [Kp, Np] (int4: [Kp/2, Np]) with
-    scales [N] or [G, N], or a packed int8 bank [E, Kp, Np] with scales
-    [E, N]. Returns (G, group size), (0, 0) for per-channel scales."""
+    scales [N] or [G, N], or a packed bank [E, Kp, Np] (int4: [E, Kp/2, Np])
+    with scales [E, N] or [E, G, N]. Returns (G, group size), (0, 0) for
+    per-channel scales."""
     m, k = x.shape
     rows, np_ = qdata.shape[-2:]
     kp = rows * 2 if bits == 4 else rows
@@ -143,13 +147,9 @@ def _check_cuda(x, qdata, scales, n, bias, bits: int = 8) -> tuple[int, int]:
     groups = group = 0
     want = (*qdata.shape[:-2], n)
     if scales.dim() == qdata.dim():
-        if qdata.dim() == 3:
-            raise NotImplementedError(
-                "group-wise expert banks have no CUDA kernel yet (the MoE kernels take "
-                "int8 per-channel banks; int4 and group-wise banks come with the paged slice)")
         group = group_size_of(k, scales)
         groups = k // group
-        want = (groups, n)
+        want = (*qdata.shape[:-2], groups, n)
     if (scales.dtype != torch.float32 or scales.shape != want or not scales.is_contiguous()
             or scales.device != x.device):
         raise TypeError(f"scales must be contiguous f32 {list(want)} on x's device")
@@ -171,8 +171,9 @@ def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
 
 
 def _logical(qdata: torch.Tensor, bits: int, k: int, n: int) -> torch.Tensor:
-    """The logical [K, N] values of a packed weight (for the plain versions)."""
-    return (unpack_int4_rows(qdata) if bits == 4 else qdata)[:k, :n]
+    """The logical [K, N] values of a packed weight, or [E, K, N] of a bank
+    (for the plain versions)."""
+    return (unpack_int4_rows(qdata) if bits == 4 else qdata)[..., :k, :n]
 
 
 def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps):
@@ -272,6 +273,54 @@ def w4a16_gemm(
     return _gemm(w4a16_gemm, "eetq_w4a16_gemm", 4, x, qdata, scales, n, bias)
 
 
+def _expert_gemv(counter, entry: str, bits: int, x, qdata, scales, expert_ids, n):
+    k = x.shape[-1]
+    if not x.is_cuda:
+        return expert_matmul_ref(x, _logical(qdata, bits, k, n), scales, expert_ids)
+    if qdata.dim() != 3:
+        raise ValueError(f"expert bank must be 3-D, got {tuple(qdata.shape)}")
+    groups, group = _check_cuda(x, qdata, scales, n, None, bits)
+    _check_ids(expert_ids, x, "expert_ids")
+    m = x.shape[0]
+    _, rows, np_ = qdata.shape
+    if not 1 <= m <= MAX_DECODE_M:
+        raise ValueError(f"the expert GEMV takes 1..{MAX_DECODE_M} rows, got {m}")
+    n_sel = expert_ids.shape[0]
+    out = torch.empty((n_sel, m, n), dtype=torch.bfloat16, device=x.device)
+    _build.launch(
+        entry, x.data_ptr(), m, k, qdata.data_ptr(), rows, np_, scales.data_ptr(), groups,
+        group, expert_ids.data_ptr(), n_sel, out.data_ptr(), n, _build.stream_of(x),
+    )
+    counter.launches += 1
+    return out
+
+
+def _grouped_gemm(counter, entry: str, bits: int, x, qdata, scales, block_expert, n):
+    k = x.shape[-1]
+    nb = block_expert.shape[0]
+    if x.shape[0] % nb:
+        raise ValueError(f"rows {x.shape[0]} must divide into {nb} blocks")
+    bm = x.shape[0] // nb
+    if not x.is_cuda:
+        return grouped_matmul_ref(x, _logical(qdata, bits, k, n), scales, block_expert, bm)
+    if qdata.dim() != 3:
+        raise ValueError(f"expert bank must be 3-D, got {tuple(qdata.shape)}")
+    groups, group = _check_cuda(x, qdata, scales, n, None, bits)
+    _check_ids(block_expert, x, "block_expert")
+    if bm % 8 or not GROUPED_BM_MIN <= bm <= GROUPED_BM_MAX:
+        raise ValueError(f"row blocks of {bm} rows: the grouped GEMM takes "
+                         f"{GROUPED_BM_MIN}..{GROUPED_BM_MAX}, a multiple of 8")
+    _, rows, np_ = qdata.shape
+    out = torch.empty((nb * bm, n), dtype=torch.bfloat16, device=x.device)
+    _build.launch(
+        entry, x.data_ptr(), bm, nb, k, qdata.data_ptr(), rows * 2 if bits == 4 else rows, np_,
+        scales.data_ptr(), groups, group, block_expert.data_ptr(), out.data_ptr(), n,
+        _build.stream_of(x),
+    )
+    counter.launches += 1
+    return out
+
+
 def w8a16_expert_gemv(
     x: torch.Tensor,
     qdata: torch.Tensor,
@@ -282,30 +331,25 @@ def w8a16_expert_gemv(
     """Expert gather for m <= 8 rows: out[s] = x @ dequant(bank[ids[s]]).
 
     x [m, K] bf16; qdata the packed int8 bank [E, Kp, Np]; scales f32
-    [E, N]; expert_ids int32 [n_sel] on x's device, each in [0, E) (the
-    kernel reads them there and cannot check them). Returns [n_sel, m, N]
-    bf16.
+    [E, N] or [E, K/g, N]; expert_ids int32 [n_sel] on x's device, each in
+    [0, E) (the kernel reads them there and cannot check them). Returns
+    [n_sel, m, N] bf16.
     """
-    k = x.shape[-1]
-    if not x.is_cuda:
-        return expert_matmul_ref(x, qdata[:, :k, :n], scales, expert_ids)
-    if qdata.dim() != 3:
-        raise ValueError(f"expert bank must be 3-D, got {tuple(qdata.shape)}")
-    _check_cuda(x, qdata, scales, n, None)
-    _check_ids(expert_ids, x, "expert_ids")
-    m = x.shape[0]
-    _, kp, np_ = qdata.shape
-    if not 1 <= m <= MAX_DECODE_M:
-        raise ValueError(f"the expert GEMV takes 1..{MAX_DECODE_M} rows, got {m}")
-    n_sel = expert_ids.shape[0]
-    out = torch.empty((n_sel, m, n), dtype=torch.bfloat16, device=x.device)
-    _build.launch(
-        "eetq_w8a16_expert_gemv", x.data_ptr(), m, k, qdata.data_ptr(), kp, np_,
-        scales.data_ptr(), expert_ids.data_ptr(), n_sel, out.data_ptr(), n,
-        _build.stream_of(x),
-    )
-    w8a16_expert_gemv.launches += 1
-    return out
+    return _expert_gemv(w8a16_expert_gemv, "eetq_w8a16_expert_gemv", 8, x, qdata, scales,
+                        expert_ids, n)
+
+
+def w4a16_expert_gemv(
+    x: torch.Tensor,
+    qdata: torch.Tensor,
+    scales: torch.Tensor,
+    expert_ids: torch.Tensor,
+    n: int,
+) -> torch.Tensor:
+    """:func:`w8a16_expert_gemv` on an int4 bank: qdata the packed int4 pairs
+    [E, Kp/2, Np]."""
+    return _expert_gemv(w4a16_expert_gemv, "eetq_w4a16_expert_gemv", 4, x, qdata, scales,
+                        expert_ids, n)
 
 
 def w8a16_grouped_gemm(
@@ -318,32 +362,25 @@ def w8a16_grouped_gemm(
     """Token-grouped GEMM: row block b of x [nb * bm, K] (bm = rows / nb, a
     multiple of 8 up to 128) times dequant(bank[block_expert[b]]).
 
-    qdata the packed int8 bank [E, Kp, Np]; scales f32 [E, N]; block_expert
-    int32 [nb] on x's device, each in [0, E), padding blocks included.
-    Returns [nb * bm, N] bf16.
+    qdata the packed int8 bank [E, Kp, Np]; scales f32 [E, N] or
+    [E, K/g, N]; block_expert int32 [nb] on x's device, each in [0, E),
+    padding blocks included. Returns [nb * bm, N] bf16.
     """
-    k = x.shape[-1]
-    nb = block_expert.shape[0]
-    if x.shape[0] % nb:
-        raise ValueError(f"rows {x.shape[0]} must divide into {nb} blocks")
-    bm = x.shape[0] // nb
-    if not x.is_cuda:
-        return grouped_matmul_ref(x, qdata[:, :k, :n], scales, block_expert, bm)
-    if qdata.dim() != 3:
-        raise ValueError(f"expert bank must be 3-D, got {tuple(qdata.shape)}")
-    _check_cuda(x, qdata, scales, n, None)
-    _check_ids(block_expert, x, "block_expert")
-    if bm % 8 or not GROUPED_BM_MIN <= bm <= GROUPED_BM_MAX:
-        raise ValueError(f"row blocks of {bm} rows: the grouped GEMM takes "
-                         f"{GROUPED_BM_MIN}..{GROUPED_BM_MAX}, a multiple of 8")
-    _, kp, np_ = qdata.shape
-    out = torch.empty((nb * bm, n), dtype=torch.bfloat16, device=x.device)
-    _build.launch(
-        "eetq_w8a16_grouped_gemm", x.data_ptr(), bm, nb, k, qdata.data_ptr(), kp, np_,
-        scales.data_ptr(), block_expert.data_ptr(), out.data_ptr(), n, _build.stream_of(x),
-    )
-    w8a16_grouped_gemm.launches += 1
-    return out
+    return _grouped_gemm(w8a16_grouped_gemm, "eetq_w8a16_grouped_gemm", 8, x, qdata, scales,
+                         block_expert, n)
+
+
+def w4a16_grouped_gemm(
+    x: torch.Tensor,
+    qdata: torch.Tensor,
+    scales: torch.Tensor,
+    block_expert: torch.Tensor,
+    n: int,
+) -> torch.Tensor:
+    """:func:`w8a16_grouped_gemm` on an int4 bank: qdata the packed int4
+    pairs [E, Kp/2, Np]."""
+    return _grouped_gemm(w4a16_grouped_gemm, "eetq_w4a16_grouped_gemm", 4, x, qdata, scales,
+                         block_expert, n)
 
 
 w8a16_gemv.launches = 0
@@ -352,3 +389,5 @@ w4a16_gemv.launches = 0
 w4a16_gemm.launches = 0
 w8a16_expert_gemv.launches = 0
 w8a16_grouped_gemm.launches = 0
+w4a16_expert_gemv.launches = 0
+w4a16_grouped_gemm.launches = 0

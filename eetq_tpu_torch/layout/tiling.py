@@ -38,7 +38,7 @@ kernels give them the last group's scales.
 
 An expert bank is a stacked [E, K, N] weight, packed per expert to
 [E, Kp, Np] (int4: [E, Kp/2, Np]); the MoE kernels offset into it by whole
-experts and take int8 banks only.
+experts.
 """
 
 from __future__ import annotations

@@ -14,8 +14,9 @@ portable format `eetq_tpu/models/hf.py` writes, int4 values held one per
 int8, packed here by the port's own `pack_weights`) or ``{"weight": [K, N],
 "bias": [N]?}`` (dense). A MoE layer has ``"moe": {"router": linear,
 "gateup": bank, "down": bank}`` in place of gateup and down, where a bank
-is a linear with a leading expert axis (``"qweight"`` int8 [E, K, N] and
-``"scales"`` [E, N], or ``"weight"`` [E, K, N]). Float arrays of any float dtype (bf16 ones
+is a linear with a leading expert axis (``"qweight"`` int8 [E, K, N], int4
+values one per int8 under ``"bits": 4``, and ``"scales"`` [E, N] or
+[E, K/g, N]; or ``"weight"`` [E, K, N]). Float arrays of any float dtype (bf16 ones
 included) are cast to bf16 for weights, biases and the embedding, and to
 f32 for norms and scales.
 """
@@ -29,6 +30,7 @@ from eetq_tpu_torch.layout.tiling import pack_weights
 from eetq_tpu_torch.models.transformer import LayerParams, ModelParams
 from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear
 from eetq_tpu_torch.modules.moe import MoEMLP
+from eetq_tpu_torch.utils.device import resolve
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -64,7 +66,9 @@ def _layer(lp: dict, device) -> LayerParams:
 
 
 def params_from_numpy(tree: dict, device: torch.device | str | None = None) -> ModelParams:
-    """The port's ModelParams on `device` from the numpy tree above."""
+    """The port's ModelParams from the numpy tree above, on the card unless
+    `device` says otherwise."""
+    device = resolve(device)
     layers = [_layer(lp, device) for lp in tree["layers"]]
     lm_head = None if tree.get("lm_head") is None else _linear(tree["lm_head"], device)
     return ModelParams(

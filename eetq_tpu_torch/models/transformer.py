@@ -131,7 +131,7 @@ def forward_inner(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, S] int
     positions: torch.Tensor,  # [B, S] int
-    caches: list[KVCache] | None,
+    caches: list | None,  # of KVCache, or of PagedKVCache (decode only)
     offset,
     use_kernels: bool = True,
     last_only: bool = False,
@@ -179,7 +179,8 @@ def init_caches(
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.bfloat16,
 ) -> list[KVCache]:
-    """One zeroed cache per layer, bf16 or int8 (`dtype`)."""
+    """One zeroed cache per layer, bf16 or int8 (`dtype`), on the card unless
+    `device` says otherwise."""
     return [
         init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim, device, dtype)
         for _ in range(cfg.num_layers)

@@ -5,8 +5,10 @@ The cache layout is [batch, n_kv_heads, max_len, head_dim]; the int8 cache
 keeps f32 per-(row, head, position) scales [batch, n_kv_heads, max_len].
 Prefill (S > 1, offset 0) runs the flash-attention kernel over the new,
 unquantized K/V; decode (S = 1) runs the flash-decode kernel (its int8 mode
-for an int8 cache) over each row's live prefix. Paged caches, chunked
-prefill and the multi-query verify step are not ported yet.
+for an int8 cache) over each row's live prefix. A paged cache
+(`modules/paged.py`) serves decode only: one scattered write through the
+block table, then the paged flash-decode kernel. Chunked prefill and the
+multi-query verify step are not ported yet.
 
 The prefill offset is the Python int 0. The JAX engine passes a traced
 `jnp.int32(0)` (`eetq_tpu/serve/engine.py:114`); the port's engine passes an
@@ -16,6 +18,7 @@ int, so `attention` tells prefill from chunked prefill by the int alone.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import torch
 
@@ -31,6 +34,10 @@ from eetq_tpu_torch.kernels.flash_decode import (
     flash_decode_ref,
 )
 from eetq_tpu_torch.kernels.w8a8 import quantize_activations
+from eetq_tpu_torch.utils.device import resolve
+
+if TYPE_CHECKING:  # modules.paged imports this module
+    from eetq_tpu_torch.modules.paged import PagedKVCache
 
 __all__ = [
     "KVCache", "attention", "attention_decode", "attention_decode_ref",
@@ -67,7 +74,9 @@ def init_kv_cache(
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.bfloat16,
 ) -> KVCache:
-    """A zeroed cache: bf16, or int8 with zeroed f32 scales."""
+    """A zeroed cache: bf16, or int8 with zeroed f32 scales; on the card
+    unless `device` says otherwise."""
+    device = resolve(device)
     # rounded to 128 like the JAX package (unused tail rows are masked by
     # the per-row length everywhere)
     max_len = -(-max_len // 128) * 128
@@ -83,8 +92,6 @@ def init_kv_cache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
     )
-
-
 
 
 def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, offset) -> KVCache:
@@ -166,16 +173,29 @@ def attention(
     q: torch.Tensor,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    cache: KVCache | None,
+    cache: KVCache | PagedKVCache | None,
     offset,
     window: int | None = None,
     use_kernels: bool = True,
-) -> tuple[torch.Tensor, KVCache | None]:
+) -> tuple[torch.Tensor, KVCache | PagedKVCache | None]:
     """Write K/V to the cache at `offset`, then attend: prefill when S > 1
     (offset the int 0; it attends over the unquantized new K/V, so only
-    the cache holds int8), decode when S == 1. use_kernels=False runs the
-    plain versions. Returns (out [B, S, Hq, D], cache)."""
+    the cache holds int8), decode when S == 1. cache is a KVCache, None, or
+    a PagedKVCache (decode only: prefill runs on a dense scratch and is
+    handed off with `paged_insert_rows`). use_kernels=False runs the plain
+    versions. Returns (out [B, S, Hq, D], cache)."""
+    from eetq_tpu_torch.modules import paged  # at call time: it imports this module
+
     s = q.shape[1]
+    if isinstance(cache, paged.PagedKVCache):
+        if s != 1:
+            raise NotImplementedError(
+                "paged caches serve decode; prefill runs on the dense scratch and hands off "
+                "(the multi-token verify step over a paged cache is not ported yet)")
+        paged.paged_write(cache, k_new, v_new, offset)
+        out = paged.paged_attention_decode(q, cache, offset + 1, window=window,
+                                           use_kernel=use_kernels)
+        return out, cache
     if cache is not None:
         cache = update_cache(cache, k_new, v_new, offset)
     if s == 1:

@@ -18,6 +18,7 @@ from eetq_tpu_torch.ops.linear import w8a16_matmul
 from eetq_tpu_torch.ops.linear8 import w8a8_matmul
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 from eetq_tpu_torch.quant.quantizer import symmetric_quantize
+from eetq_tpu_torch.utils.device import resolve
 
 
 class DenseLinear(nn.Module):
@@ -95,7 +96,8 @@ def quantize_linear(
 def init_only_linear(k: int, n: int, with_bias: bool = False,
                      device: torch.device | str | None = None) -> QuantLinear:
     """Empty int8 shell for checkpoint loading (`eetq_tpu/modules/linear.py:
-    108-116`)."""
+    108-116`), on the card unless `device` says otherwise."""
+    device = resolve(device)
     q = torch.zeros((k, n), dtype=torch.int8, device=device)
     bias = torch.zeros(n, dtype=torch.bfloat16, device=device) if with_bias else None
     return QuantLinear(pack_weights(q), torch.zeros(n, dtype=torch.float32, device=device), bias)

@@ -44,8 +44,9 @@ _KNOBS = ("EETQ_MOE_NO_GATHER", "EETQ_MOE_NO_GROUPED", "EETQ_MOE_GROUPED_BM")
 class MoEMLP(nn.Module):
     """Routed MLP block: router [H, E] + stacked expert gate|up and down.
 
-    gateup/down are QuantLinear (data [E, Kp, Np], scales [E, N]) or
-    DenseLinear (weight [E, K, N] bf16)."""
+    gateup/down are QuantLinear (data [E, Kp, Np] or int4 pairs
+    [E, Kp/2, Np], scales [E, N] or [E, K/g, N]) or DenseLinear (weight
+    [E, K, N] bf16)."""
 
     def __init__(self, router: DenseLinear, gateup: QuantLinear | DenseLinear,
                  down: QuantLinear | DenseLinear):
@@ -71,9 +72,9 @@ def _quantize_bank(lin: DenseLinear, bits: int = 8, group_size: int | None = Non
 
 def quantize_moe(moe: MoEMLP, bits: int = 8, group_size: int | None = None) -> MoEMLP:
     """Quantize a dense MoEMLP's expert banks (`eetq_tpu/modules/moe.py::
-    quantize_moe`): per-channel int8 by default; int4 and group-wise banks
-    run on the plain path only (the MoE kernels raise for them on CUDA). The
-    router stays bf16: a [H, E] sliver whose logits decide the routing."""
+    quantize_moe`): per-channel int8 by default, or int4 and group-wise
+    scales (`bits`, `group_size`). The router stays bf16: a [H, E] sliver
+    whose logits decide the routing."""
     return MoEMLP(moe.router, _quantize_bank(moe.gateup, bits, group_size),
                   _quantize_bank(moe.down, bits, group_size))
 

@@ -1,14 +1,11 @@
 """Quantized matmuls against a stacked expert bank: the gather (decode) and
 the token-grouped GEMM (prefill).
 
-Port of `eetq_tpu/ops/moe.py` for int8 per-channel banks. The bank is a
-3-D PackedWeight (data [E, Kp, Np]); the kernels take x unpadded (K % 8 ==
-0) and write only the logical N columns, so nothing is padded here. The
-expert ids stay on the device. int4 banks and group-wise scales [E, G, N]
-run on the plain path only (CPU tensors, or `moe_apply(use_kernel=False)`):
-on a CUDA tensor these wrappers raise NotImplementedError, since the two
-MoE kernels take int8 per-channel banks; their int4 and group-wise modes
-are to come with the paged-KV slice.
+Port of `eetq_tpu/ops/moe.py`. The bank is a 3-D PackedWeight (data
+[E, Kp, Np], or int4 pairs [E, Kp/2, Np]) with per-channel scales [E, N] or
+group-wise scales [E, K/g, N]; the kernels take x unpadded (K % 8 == 0) and
+write only the logical N columns, so nothing is padded here. The expert ids
+stay on the device.
 """
 
 from __future__ import annotations
@@ -16,12 +13,12 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels.w8a16 import (
-    expert_matmul_ref,
-    grouped_matmul_ref,
+    w4a16_expert_gemv,
+    w4a16_grouped_gemm,
     w8a16_expert_gemv,
     w8a16_grouped_gemm,
 )
-from eetq_tpu_torch.layout.tiling import PackedWeight, unpack_weights
+from eetq_tpu_torch.layout.tiling import PackedWeight
 
 
 def _check_bank(x: torch.Tensor, qweight: PackedWeight, scales: torch.Tensor) -> None:
@@ -34,10 +31,6 @@ def _check_bank(x: torch.Tensor, qweight: PackedWeight, scales: torch.Tensor) ->
             raise ValueError(f"scale rows {scales.shape[1]} must divide K {qweight.k}")
     elif scales.dim() != 2:
         raise ValueError(f"scales must be [E, N] or [E, G, N], got {tuple(scales.shape)}")
-    if qweight.bits != 8 and x.is_cuda:
-        raise NotImplementedError(
-            "int4 expert banks have no CUDA kernel yet (the MoE kernels take int8 "
-            "per-channel banks; int4 and group-wise banks come with the paged-KV slice)")
 
 
 def w8a16_expert_matmul(
@@ -50,14 +43,13 @@ def w8a16_expert_matmul(
 
     x [m, K] (every selection sees all m rows; at decode m is the token
     batch and the caller picks its own row out of each selection); qweight
-    a 3-D PackedWeight; scales [E, N] (or [E, G, N] on the plain path);
+    a 3-D PackedWeight, int8 or int4; scales [E, N] or [E, G, N];
     expert_ids [n_sel] int32 (ids may repeat). The kernel takes m <= 8.
     Returns [n_sel, m, N] in x.dtype.
     """
     _check_bank(x, qweight, scales)
-    if qweight.bits != 8:  # CPU only: the plain version on the logical values
-        return expert_matmul_ref(x, unpack_weights(qweight), scales, expert_ids)
-    return w8a16_expert_gemv(x.contiguous(), qweight.data, scales, expert_ids, qweight.n)
+    kernel = w4a16_expert_gemv if qweight.bits == 4 else w8a16_expert_gemv
+    return kernel(x.contiguous(), qweight.data, scales, expert_ids, qweight.n)
 
 
 def w8a16_grouped_matmul(
@@ -74,8 +66,5 @@ def w8a16_grouped_matmul(
     [M, N] in x.dtype.
     """
     _check_bank(x, qweight, scales)
-    if qweight.bits != 8:  # CPU only: the plain version on the logical values
-        nb = block_expert.shape[0]
-        return grouped_matmul_ref(x, unpack_weights(qweight), scales, block_expert,
-                                  x.shape[0] // nb)
-    return w8a16_grouped_gemm(x.contiguous(), qweight.data, scales, block_expert, qweight.n)
+    kernel = w4a16_grouped_gemm if qweight.bits == 4 else w8a16_grouped_gemm
+    return kernel(x.contiguous(), qweight.data, scales, block_expert, qweight.n)

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from eetq_tpu_torch.utils.device import resolve
+
 
 def make_cos_sin_cache(
     max_position: int,
@@ -16,7 +18,9 @@ def make_cos_sin_cache(
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
 ) -> torch.Tensor:
-    """[max_position, rot_dim] cache, first half cos, second half sin."""
+    """[max_position, rot_dim] cache, first half cos, second half sin; on the
+    card unless `device` says otherwise."""
+    device = resolve(device)
     inv_freq = 1.0 / (
         base ** (torch.arange(0, rot_dim, 2, dtype=torch.float32, device=device) / rot_dim)
     )

@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine (slot-based), dense and single-device.
+"""Continuous-batching serving engine (slot-based), single-device, over a
+dense or a paged KV cache.
 
 Port of `eetq_tpu/serve/engine.py::Engine` with its local backend.
 Requests arrive at any time; each scheduler step admits queued requests
@@ -15,14 +16,26 @@ engine defaults to W8A8 prefill and, for max_len >= 512, an int8 KV cache
 (engine.py:686-696, where JAX asks for a TPU); on the CPU both default
 off, and a caller may pass either.
 
+With `paged_blocks=N` the decode caches are a shared pool of N blocks of
+`paged_block_size` tokens per layer (`modules/paged.py`): slots borrow
+blocks as their sequences grow and return them when they retire, so device
+memory follows the live tokens, not max_batch x max_len. Block 0 is a trash
+block that is never granted: the table rows of idle slots point at it, and
+their lock-step writes land there. The allocator runs on the host
+(`_alloc_blocks`, `_release_blocks`); the one device table shared by all
+layers is refreshed by a single copy when it changed (`_sync_tables`).
+Prefill still runs on the dense scratch and is handed off block by block. A
+paged engine keeps a bf16 pool unless the caller passes `kv_dtype`
+(engine.py:690-696).
+
 Outputs are reproducible run to run (the sampler draws from a
 `torch.Generator` seeded from `seed`), and on the CPU greedy outputs equal
 `prefill` followed by `decode_loop` with the same options (the property
 engine.py:21-22 states for JAX).
 
 Later work, which raises NotImplementedError here: decode windows > 1 and
-their chaining, `prefill_chunk`, paged KV, `spec_ngram`, banked LoRA and a
-sharded model.
+their chaining, `prefill_chunk`, `spec_ngram`, banked LoRA and a sharded
+model.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import torch
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.models.transformer import ModelParams, forward_inner, init_caches
 from eetq_tpu_torch.modules.linear import QuantLinear
+from eetq_tpu_torch.modules.paged import init_paged_kv_cache, paged_insert_rows
 from eetq_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -112,6 +126,7 @@ class Engine:
         prefill_rows: int | None = None,
         prefill_chunk: int | None = None,
         paged_blocks: int | None = None,
+        paged_block_size: int = 256,
         topk_cap: int = 64,
         spec_ngram: int | None = None,
     ):
@@ -121,8 +136,6 @@ class Engine:
             raise NotImplementedError("decode windows > 1 (and their chaining) are not ported yet")
         if spec_ngram is not None:
             raise NotImplementedError("n-gram speculative decoding is not ported yet")
-        if paged_blocks is not None:
-            raise NotImplementedError("the paged KV cache is not ported yet")
         if prefill_chunk is not None:
             raise NotImplementedError("chunked prefill is not ported yet")
         self.device = params.embed.device
@@ -133,7 +146,8 @@ class Engine:
         if a8_prefill is None:
             a8_prefill = on_cuda and quantized
         if kv_dtype is None:
-            kv_dtype = torch.int8 if on_cuda and quantized and max_len >= 512 else torch.bfloat16
+            kv_dtype = (torch.int8 if on_cuda and quantized and paged_blocks is None
+                        and max_len >= 512 else torch.bfloat16)
         self.a8_prefill = bool(a8_prefill)
         self.prefill_rows = 1 if prefill_rows is None else max(1, min(prefill_rows, max_batch))
         if max_batch % self.prefill_rows:
@@ -146,7 +160,32 @@ class Engine:
         self.buckets = tuple(sorted(b for b in prompt_buckets if b <= self.max_len)) or (
             self.max_len,)
         self.kv_dtype = kv_dtype
-        self.caches = init_caches(cfg, max_batch, self.max_len, self.device, kv_dtype)
+        self.paged = paged_blocks is not None
+        if self.paged:
+            bs = paged_block_size
+            if paged_blocks < 2:
+                raise ValueError("paged_blocks must be >= 2")
+            if bs > -(-self.max_len // 128) * 128:
+                raise ValueError(f"paged_block_size {bs} exceeds the (rounded) max_len")
+            self.paged_bs = bs
+            self._max_seq_blocks = -(-self.max_len // bs)
+            # the host's copy of the block table, and the one device table
+            # every layer's cache holds
+            self._table_np = np.zeros((max_batch, self._max_seq_blocks), np.int32)
+            self._table = torch.zeros((max_batch, self._max_seq_blocks), dtype=torch.int32,
+                                      device=self.device)
+            self._table_dirty = False
+            self.caches = [
+                init_paged_kv_cache(paged_blocks, bs, cfg.num_kv_heads, cfg.head_dim, max_batch,
+                                    self._max_seq_blocks, kv_dtype, self.device, self._table)
+                for _ in range(cfg.num_layers)
+            ]
+            # block 0 is the trash block, never granted; the list is popped
+            # from its end, so blocks go out in ascending order
+            self._free_blocks = list(range(paged_blocks - 1, 0, -1))
+            self._slot_blocks: list[list[int]] = [[] for _ in range(max_batch)]
+        else:
+            self.caches = init_caches(cfg, max_batch, self.max_len, self.device, kv_dtype)
         self._scratch = None  # reused prefill scratch caches
         self._scratch_len = 0
         self.topk_cap = int(topk_cap)
@@ -158,8 +197,9 @@ class Engine:
         self.slot_req: list[Request | None] = [None] * max_batch
         self.lengths = np.zeros((max_batch,), np.int64)
         self.next_token = np.zeros((max_batch,), np.int64)
-        log.debug("engine: max_batch %d, max_len %d, kv %s, a8 prefill %s, device %s",
-                  max_batch, self.max_len, kv_dtype, self.a8_prefill, self.device)
+        log.debug("engine: max_batch %d, max_len %d, kv %s, a8 prefill %s, paged blocks %s, "
+                  "device %s", max_batch, self.max_len, kv_dtype, self.a8_prefill, paged_blocks,
+                  self.device)
 
     # ---- client API ----
 
@@ -279,12 +319,42 @@ class Engine:
                                     self.kv_dtype)
         self._scratch_len = size
 
+    # ---- the paged cache's block allocator (host side) ----
+
+    def _alloc_blocks(self, slot: int, upto_tokens: int) -> None:
+        """Grow the slot's block list to cover `upto_tokens` positions."""
+        need = min(-(-upto_tokens // self.paged_bs), self._max_seq_blocks)
+        blocks = self._slot_blocks[slot]
+        while len(blocks) < need:
+            if not self._free_blocks:
+                raise RuntimeError("paged KV pool exhausted — raise paged_blocks, lower "
+                                   "max_batch, or shorten max_new_tokens")
+            b = self._free_blocks.pop()
+            self._table_np[slot, len(blocks)] = b
+            blocks.append(b)
+            self._table_dirty = True
+
+    def _release_blocks(self, slot: int) -> None:
+        self._free_blocks.extend(reversed(self._slot_blocks[slot]))
+        self._slot_blocks[slot] = []
+        self._table_np[slot, :] = 0  # point the row at the trash block
+        self._table_dirty = True
+
+    def _sync_tables(self) -> None:
+        """Bring the device table up to date: one copy for all layers."""
+        if self.paged and self._table_dirty:
+            self._table.copy_(torch.from_numpy(self._table_np))
+            self._table_dirty = False
+
     @torch.inference_mode()
     def _prefill_group(self, assignments: list[tuple[int, int, Request]]) -> None:
         """Prefill up to prefill_rows requests in one forward over the
         scratch rows, insert each real row's first `upto` positions (k, v
         and, for an int8 cache, their scales) into its slot, and sample the
-        first tokens. assignments: (scratch_row, slot, request)."""
+        first tokens. assignments: (scratch_row, slot, request). A paged
+        engine grants each request's blocks and syncs the table first, then
+        scatters every scratch row, cut into blocks, into the pool (rows pad
+        their block list with the trash block)."""
         rows = self.prefill_rows
         bucket = max(self._bucket_for(len(r.prompt)) for _, _, r in assignments)
         toks = np.zeros((rows, bucket), np.int64)
@@ -300,6 +370,10 @@ class Engine:
                 topks[row] = req.top_k
         self._ensure_scratch(bucket)
         upto = min(bucket, self.max_len)
+        if self.paged:  # before the forward: an exhausted pool admits nothing
+            for _, slot, req in assignments:
+                self._alloc_blocks(slot, len(req.prompt))
+            self._sync_tables()
         dev = self.device
         tokens = torch.as_tensor(toks, device=dev)
         positions = torch.arange(bucket, device=dev).expand(rows, bucket)
@@ -309,13 +383,23 @@ class Engine:
         )
         first = _sample_rows(logits[:, -1, :], temps, topks,
                              self.topk_cap if temps.any() else 0, self._generator)
-        src = torch.as_tensor([row for row, _, _ in assignments], device=dev)
-        dst = torch.as_tensor([slot for _, slot, _ in assignments], device=dev)
-        for big, small in zip(self.caches, self._scratch):
-            for name in ("k", "v", "k_scale", "v_scale"):
-                b, s = getattr(big, name), getattr(small, name)
-                if b is not None:
-                    b[dst, :, :upto] = s[src, :, :upto]
+        if self.paged:
+            nb = min(-(-upto // self.paged_bs), self._max_seq_blocks)
+            blocks_np = np.zeros((rows, nb), np.int64)
+            for row, slot, req in assignments:
+                bl = self._slot_blocks[slot][:nb]
+                blocks_np[row, :len(bl)] = bl
+            blocks = torch.as_tensor(blocks_np, device=dev)
+            for pool, small in zip(self.caches, self._scratch):
+                paged_insert_rows(pool, small, blocks)
+        else:
+            src = torch.as_tensor([row for row, _, _ in assignments], device=dev)
+            dst = torch.as_tensor([slot for _, slot, _ in assignments], device=dev)
+            for big, small in zip(self.caches, self._scratch):
+                for name in ("k", "v", "k_scale", "v_scale"):
+                    b, s = getattr(big, name), getattr(small, name)
+                    if b is not None:
+                        b[dst, :, :upto] = s[src, :, :upto]
         first_np = first.cpu().numpy()  # the admission's one host fetch
         for row, slot, req in assignments:
             self.slot_req[slot] = req
@@ -335,12 +419,20 @@ class Engine:
             req.done = True
             self.slot_req[slot] = None
             self.lengths[slot] = 0
+            if self.paged:
+                self._release_blocks(slot)
 
     @torch.inference_mode()
     def _decode(self, active: list[int]) -> np.ndarray:
         """One lock-step decode over all slots: each slot's current token at
         position lengths (inactive slots at 1, never committed). Returns the
-        sampled tokens [max_batch]."""
+        sampled tokens [max_batch]. A paged engine first grants every active
+        slot the block its new token falls in and points retired slots' table
+        rows at the trash block."""
+        if self.paged:
+            for i in active:
+                self._alloc_blocks(i, int(self.lengths[i]) + 1)
+            self._sync_tables()
         dev = self.device
         lengths = torch.as_tensor(np.maximum(self.lengths, 1), device=dev)
         tokens = torch.as_tensor(self.next_token[:, None], device=dev)

@@ -79,7 +79,7 @@ def test_attention_decode_matches_jax_ref():
     out_j = jax_attn.attention_decode_ref(
         q_j, jax_attn.KVCache(k=k_j, v=v_j), jnp.asarray(lengths), None, D ** -0.5
     )
-    cache = init_kv_cache(B, l, HKV, D)
+    cache = init_kv_cache(B, l, HKV, D, device="cpu")
     cache.k.copy_(k_t)
     cache.v.copy_(v_t)
     out_t = attention_decode(q_t, cache, torch.from_numpy(lengths))
@@ -93,7 +93,7 @@ def test_attention_decode_matches_jax_ref():
 
 
 def test_init_kv_cache_rounds_to_128():
-    cache = init_kv_cache(3, 130, HKV, D)
+    cache = init_kv_cache(3, 130, HKV, D, device="cpu")
     assert cache.k.shape == (3, HKV, 256, D) and cache.max_len == 256
     assert cache.k.dtype == torch.bfloat16 and not cache.k.any()
 
@@ -107,7 +107,7 @@ def test_update_cache_matches_jax(offset):
     off = 3 if offset == 3 else np.array([0, 9], np.int32)
     cache_j = jax_attn.update_cache(jax_attn.init_kv_cache(B, 16, HKV, D), k_j, v_j,
                                     jnp.asarray(off))
-    cache_t = init_kv_cache(B, 16, HKV, D)
+    cache_t = init_kv_cache(B, 16, HKV, D, device="cpu")
     same = update_cache(cache_t, k_t, v_t, off if offset == 3 else torch.from_numpy(off))
     assert same is cache_t  # in place
     np.testing.assert_array_equal(cache_t.k.float().numpy(), _np(cache_j.k))
@@ -122,7 +122,7 @@ def test_attention_prefill_then_decode_matches_jax():
     xs = [rng.standard_normal((B, s + 1, h, D)).astype(np.float32) for h in (HQ, HKV, HKV)]
     (q_j, q_t), (k_j, k_t), (v_j, v_t) = (_both(x) for x in xs)
     cache_j = jax_attn.init_kv_cache(B, s + 1, HKV, D)
-    cache_t = init_kv_cache(B, s + 1, HKV, D)
+    cache_t = init_kv_cache(B, s + 1, HKV, D, device="cpu")
     outs_j, outs_t = [], []
     for sl, off in ((slice(0, s), 0), (slice(s, s + 1), s)):
         o_j, cache_j = jax_attn.attention(q_j[:, sl], k_j[:, sl], v_j[:, sl], cache_j, off)

@@ -36,7 +36,7 @@ def models():
     jp = jax_quantize_params(
         jax_random_dense_params(JAX_PRESETS["toy"], jax.random.PRNGKey(0)), quantize_lm_head=True
     )
-    return jp, params_from_numpy(jax_params_to_numpy(jp))
+    return jp, params_from_numpy(jax_params_to_numpy(jp), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +46,7 @@ def params(models):
 
 def _ref_greedy(params, prompt, n, cfg=CFG, kv=torch.int8):
     """prefill(a8=True) + decode_loop over a cache of the engine's dtype."""
-    caches = init_caches(cfg, 1, len(prompt) + n, dtype=kv)
+    caches = init_caches(cfg, 1, len(prompt) + n, dtype=kv, device="cpu")
     logits, caches = prefill(params, cfg, torch.tensor([prompt]), caches, a8=True)
     return decode_loop(params, cfg, torch.argmax(logits, -1), len(prompt), caches, n)[0].tolist()
 
@@ -147,8 +147,7 @@ def test_overflow_and_unported_options_rejected(params):
         eng.add_request([1, 2], 4, temperature=0.7, top_k=eng.topk_cap + 1)
     with pytest.raises(NotImplementedError):
         eng.add_request([1, 2], 4, lora_id=1)
-    for kw in (dict(decode_window=4), dict(spec_ngram=3), dict(paged_blocks=4),
-               dict(prefill_chunk=8)):
+    for kw in (dict(decode_window=4), dict(spec_ngram=3), dict(prefill_chunk=8)):
         with pytest.raises(NotImplementedError):
             Engine(params, CFG, max_batch=2, max_len=64, **kw)
     with pytest.raises(NotImplementedError):  # a sharded model (no cfg)

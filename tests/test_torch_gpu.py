@@ -17,6 +17,11 @@ from eetq_tpu_torch.kernels.flash_decode import (
     flash_decode_int8,
     flash_decode_int8_ref,
     flash_decode_ref,
+    gather_pool,
+    paged_flash_decode,
+    paged_flash_decode_int8,
+    paged_flash_decode_int8_ref,
+    paged_flash_decode_ref,
 )
 from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv, fused_mlp_gemv_i4, fused_mlp_ref
 from eetq_tpu_torch.kernels.w8a8 import (
@@ -28,8 +33,10 @@ from eetq_tpu_torch.kernels.w8a8 import (
 from eetq_tpu_torch.kernels.w8a16 import (
     expert_matmul_ref,
     grouped_matmul_ref,
+    w4a16_expert_gemv,
     w4a16_gemm,
     w4a16_gemv,
+    w4a16_grouped_gemm,
     w8a16_expert_gemv,
     w8a16_gemm,
     w8a16_gemv,
@@ -86,7 +93,7 @@ def _scales(g, dev, k, n, group):
     return torch.rand(shape, generator=g, device=dev) * 1e-2 + 1e-4
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 9, 200])
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 9, 200])  # m = 4 at K = 4096, g = 32: 48 KB of x and scales
 @pytest.mark.parametrize("k,group", [(1000, None), (960, 64), (1024, 128), (4096, 32)])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_group_wise_and_int4_kernels(dev, m, k, group, bits):
@@ -209,6 +216,132 @@ def test_w8a16_grouped_gemm(dev, bm, nb, k):
     assert out.shape == (nb * bm, n)
     _close(out, grouped_matmul_ref(x, bank.data[:, :k, :n], scales, be, bm))
     assert not out[-bm:].any()
+
+
+def _bank_modes(g, dev, e, k, n, bits, group):
+    """A random bank in one of the MoE kernels' modes: (logical int8
+    [E, K, N], packed data, scales [E, N] or [E, K/g, N])."""
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    shape = (e, n) if group is None else (e, k // group, n)
+    return q, pack_weights(q, bits=bits).data, torch.rand(shape, generator=g,
+                                                          device=dev) * 1e-2 + 1e-4
+
+
+BANK_MODES = [(4, 1000, None), (4, 960, 64), (4, 4096, 128), (8, 960, 64), (8, 4096, 32)]
+
+
+@pytest.mark.parametrize("bits,k,group", BANK_MODES)
+@pytest.mark.parametrize("m,ids", [(1, [3, 0]), (4, [1, 1, 2, 0, 3, 2, 2, 0]), (8, [2, 2, 1])])
+def test_expert_gemv_int4_and_group_wise_banks(dev, bits, k, group, m, ids):
+    """K = 1000 and 960 need padding, N = 300 too; ids repeat."""
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    n = 300
+    q, data, scales = _bank_modes(g, dev, 4, k, n, bits, group)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    eids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    kernel = w4a16_expert_gemv if bits == 4 else w8a16_expert_gemv
+    out = kernel(x, data, scales, eids, n)
+    assert out.shape == (len(ids), m, n)
+    _close(out, expert_matmul_ref(x, q, scales, eids))
+
+
+def test_expert_gemv_int4_stages_x_in_chunks(dev):
+    """m = 8 at K = 14336 (Mixtral's down projection) with 128-row groups."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, data, scales = _bank_modes(g, dev, 3, 14336, 256, 4, 128)
+    x = torch.randn(8, 14336, generator=g, device=dev).to(torch.bfloat16)
+    eids = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    _close(w4a16_expert_gemv(x, data, scales, eids, 256), expert_matmul_ref(x, q, scales, eids))
+
+
+@pytest.mark.parametrize("bits,k,group", BANK_MODES)
+@pytest.mark.parametrize("bm,nb", [(8, 10), (128, 5), (40, 6)])
+def test_grouped_gemm_int4_and_group_wise_banks(dev, bits, k, group, bm, nb):
+    g = torch.Generator(device=dev).manual_seed(bm + k)
+    n = 300
+    q, data, scales = _bank_modes(g, dev, 4, k, n, bits, group)
+    be = torch.randint(0, 4, (nb,), generator=g, device=dev, dtype=torch.int32)
+    x = torch.randn(nb * bm, k, generator=g, device=dev).to(torch.bfloat16)
+    x[-bm:] = 0  # a padding block
+    kernel = w4a16_grouped_gemm if bits == 4 else w8a16_grouped_gemm
+    out = kernel(x, data, scales, be, n)
+    assert out.shape == (nb * bm, n)
+    _close(out, grouped_matmul_ref(x, q, scales, be, bm))
+    assert not out[-bm:].any()
+
+
+@pytest.mark.parametrize("tokens", [1, 4, 17])
+def test_moe_apply_int4_groups_on_the_card(dev, tokens):
+    """The three regimes over int4 banks with 64-row groups, no host sync."""
+    g = torch.Generator(device=dev).manual_seed(tokens)
+    h, inter, e = 256, 512, 8
+    dense = moe_mod.MoEMLP(
+        DenseLinear((torch.randn(h, e, generator=g, device=dev) / 16).to(torch.bfloat16)),
+        DenseLinear((torch.randn(e, h, 2 * inter, generator=g, device=dev) / 16).to(
+            torch.bfloat16)),
+        DenseLinear((torch.randn(e, inter, h, generator=g, device=dev) / 22).to(torch.bfloat16)))
+    moe = moe_mod.quantize_moe(dense, bits=4, group_size=64)
+    x = torch.randn(1, tokens, h, generator=g, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe_mod.moe_apply(moe, x, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _close(out, moe_mod.moe_apply(moe, x, 2, use_kernel=False))
+
+
+def _paged_case(g, dev, b, hq, hkv, d, bs, max_blocks, nblocks, int8):
+    """Random pools behind a random table, rows of odd lengths (one token, a
+    block edge, mid-block, the whole table), and the table the kernel gets:
+    entries past each row's last live block point far out of the pool."""
+    table = torch.randperm(nblocks, generator=g, device=dev)[:b * max_blocks].reshape(
+        b, max_blocks).to(torch.int32).contiguous()
+    top = max_blocks * bs
+    lengths = torch.tensor([1, bs, top, bs + 1, top - 77, 17, 2 * bs - 1, 333 % top][:b],
+                           dtype=torch.int32, device=dev)
+    live = torch.arange(max_blocks, device=dev)[None] * bs < lengths[:, None]
+    wild = torch.where(live, table, torch.full_like(table, 2 ** 30))
+    q = torch.randn(b, 1, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    pools = [torch.randn(nblocks, hkv, bs, d, generator=g, device=dev) for _ in range(2)]
+    if int8:
+        (k, ks), (v, vs) = (quantize_activations(t) for t in pools)
+        return q, (k, v, ks, vs), table, wild, lengths
+    return q, tuple(t.to(torch.bfloat16) for t in pools), table, wild, lengths
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("b,hq,hkv,d,bs,max_blocks", [
+    (8, 32, 32, 128, 256, 8), (8, 32, 8, 128, 256, 8), (3, 8, 8, 64, 128, 3),
+    (5, 16, 4, 64, 384, 2), (2, 8, 1, 128, 128, 5), (1, 4, 2, 128, 128, 1)])
+def test_paged_flash_decode(dev, b, hq, hkv, d, bs, max_blocks, int8):
+    """Against the plain version, and against the dense kernel on the cache
+    gathered through the table; groups 1, 2, 4 and 8, D 64 and 128."""
+    g = torch.Generator(device=dev).manual_seed(b + hq)
+    q, pools, table, wild, lengths = _paged_case(g, dev, b, hq, hkv, d, bs, max_blocks,
+                                                 b * max_blocks + 7, int8)
+    kernel, ref, dense = ((paged_flash_decode_int8, paged_flash_decode_int8_ref,
+                           flash_decode_int8) if int8
+                          else (paged_flash_decode, paged_flash_decode_ref, flash_decode))
+    out = kernel(q, *pools, wild, lengths)
+    assert out.shape == (b, 1, hq, d)
+    _close(out, ref(q, *pools, table, lengths))
+    _close(out, dense(q, *(gather_pool(t, table) for t in pools), lengths))
+
+
+def test_paged_flash_decode_idle_rows_in_the_trash_block(dev):
+    """Every row of length 1 in block 0 of a zeroed pool, as the idle slots
+    of an engine: finite output (zeros), for bf16 and int8 pools."""
+    q = torch.randn(4, 1, 8, 128, device=dev).to(torch.bfloat16)
+    table = torch.zeros(4, 8, dtype=torch.int32, device=dev)
+    lengths = torch.ones(4, dtype=torch.int32, device=dev)
+    pool = torch.zeros(3, 8, 256, 128, dtype=torch.bfloat16, device=dev)
+    out = paged_flash_decode(q, pool, pool, table, lengths)
+    i8, sc = pool.to(torch.int8), torch.zeros(3, 8, 256, device=dev)
+    out8 = paged_flash_decode_int8(q, i8, i8, sc, sc, table, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and not out.any() and not out8.any()
 
 
 @pytest.mark.parametrize("tokens", [1, 4, 17])
@@ -345,14 +478,32 @@ def test_unsupported_variants_raise(dev):
                        w, torch.ones(128, device=dev), 128)
     bank = torch.zeros(2, 128, 128, dtype=torch.int8, device=dev)
     ids = torch.zeros(2, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):  # group-wise expert banks
-        w8a16_expert_gemv(x, bank, torch.ones(2, 2, 128, device=dev), ids, 128)
+    with pytest.raises(ValueError):  # expert banks with groups of 16 rows
+        w8a16_expert_gemv(x, bank, torch.ones(2, 8, 128, device=dev), ids, 128)
+    with pytest.raises(TypeError):  # group-wise scales of another expert count
+        w8a16_expert_gemv(x, bank, torch.ones(3, 2, 128, device=dev), ids, 128)
     with pytest.raises(TypeError):  # int64 ids
         w8a16_expert_gemv(x, bank, torch.ones(2, 128, device=dev), ids.long(), 128)
-    with pytest.raises(NotImplementedError):  # int4 expert banks
-        w8a16_expert_matmul(x, pack_weights(torch.zeros(2, 128, 128, dtype=torch.int8,
-                                                        device=dev), bits=4),
-                            torch.ones(2, 128, device=dev), ids)
+    bank4 = pack_weights(torch.zeros(2, 128, 128, dtype=torch.int8, device=dev), bits=4)
+    assert w8a16_expert_matmul(x, bank4, torch.ones(2, 128, device=dev), ids).shape == (2, 1, 128)
+    with pytest.raises(ValueError):  # int4 data handed to the int8 bank kernel: K 128 > 64 rows
+        w8a16_expert_gemv(x, bank4.data, torch.ones(2, 128, device=dev), ids, 128)
+    pool = torch.zeros(4, 2, 128, 128, dtype=torch.bfloat16, device=dev)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):  # multi-query decode over a paged cache
+        paged_flash_decode(q, pool, pool, table, lengths)
+    with pytest.raises(NotImplementedError):  # sliding window over a paged cache
+        paged_flash_decode(q[:, :1], pool, pool, table, lengths, window=64)
+    with pytest.raises(TypeError):  # an int64 table
+        paged_flash_decode(q[:, :1], pool, pool, table.long(), lengths)
+    with pytest.raises(TypeError):  # a table of another batch
+        paged_flash_decode(q[:, :1], pool, pool, table.repeat(2, 1), lengths)
+    with pytest.raises(ValueError):  # blocks of 64 keys
+        paged_flash_decode(q[:, :1], pool[:, :, :64].contiguous(), pool[:, :, :64].contiguous(),
+                           table, lengths)
+    with pytest.raises(TypeError):  # a bf16 pool handed to the int8 kernel
+        paged_flash_decode_int8(q[:, :1], pool, pool, torch.ones(4, 2, 128, device=dev),
+                                torch.ones(4, 2, 128, device=dev), table, lengths)
     with pytest.raises(ValueError):  # more rows than the decode regime
         w8a16_expert_gemv(torch.zeros(9, 128, dtype=torch.bfloat16, device=dev), bank,
                           torch.ones(2, 128, device=dev), ids, 128)
@@ -374,10 +525,20 @@ def test_every_kernel_counts_its_launches(dev):
     test_group_wise_and_int4_kernels(dev, 1, 1000, None, 4)
     test_group_wise_and_int4_kernels(dev, 9, 960, 64, 4)
     test_w4a8_gemm(dev, 37, 4096, 4096, 64)
+    test_expert_gemv_int4_and_group_wise_banks(dev, 4, 1000, None, 1, [3, 0])
+    test_grouped_gemm_int4_and_group_wise_banks(dev, 4, 960, 64, 8, 10)
     after = {name: fn.launches for name, fn in KERNELS.items()}
     # two calls each: with and without residual
     test_fused_mlp_gemv(dev, 1, "silu", (1000, 256, 300))
     test_fused_mlp_gemv_i4(dev, 1, "silu", (1000, 256, 300))
     fused = ("fused_mlp_gemv", "fused_mlp_gemv_i4")
-    assert all(after[name] == before[name] + 1 for name in KERNELS if name not in fused)
+    paged = ("paged_flash_decode", "paged_flash_decode_int8")
+    assert all(after[name] == before[name] + 1 for name in KERNELS if name not in fused + paged)
     assert all(KERNELS[name].launches == before[name] + 2 for name in fused)
+    # the paged kernel, and the dense kernel on the gathered cache beside it
+    for int8, dense in ((False, "flash_decode"), (True, "flash_decode_int8")):
+        counts = {name: fn.launches for name, fn in KERNELS.items()}
+        test_paged_flash_decode(dev, 3, 8, 8, 64, 128, 3, int8)
+        assert KERNELS[paged[int8]].launches == counts[paged[int8]] + 1
+        assert KERNELS[dense].launches == counts[dense] + 1
+        assert KERNELS[paged[not int8]].launches == counts[paged[not int8]]

@@ -138,7 +138,7 @@ def test_quantize_and_pack_and_init_only(rng):
         q, s2 = symmetric_quantize(w, bits=bits)
         assert isinstance(packed, PackedWeight) and packed.bits == bits
         assert torch.equal(unpack_weights(packed), q) and torch.equal(s, s2)
-    shell = init_only_linear(100, 60, with_bias=True)
+    shell = init_only_linear(100, 60, with_bias=True, device="cpu")
     assert shell.bits == 8 and shell.qweight.shape == (128, 128) and shell.bias.shape == (60,)
     assert shell.scales.dtype == torch.float32 and not shell.qweight.any()
 

@@ -62,10 +62,10 @@ def _assert_caches_equal(ct, cj):
 
 
 def test_init_int8_cache():
-    c = init_kv_cache(B, 100, HKV, D, dtype=torch.int8)
+    c = init_kv_cache(B, 100, HKV, D, dtype=torch.int8, device="cpu")
     assert c.quantized and c.k.dtype == torch.int8 and c.k.shape == (B, HKV, L, D)
     assert c.k_scale.shape == (B, HKV, L) and c.k_scale.dtype == torch.float32
-    assert not init_kv_cache(B, 100, HKV, D).quantized
+    assert not init_kv_cache(B, 100, HKV, D, device="cpu").quantized
 
 
 @pytest.mark.parametrize("s", [1, 7])
@@ -73,7 +73,7 @@ def test_update_cache_int_and_row_offsets(s):
     rng = np.random.default_rng(s)
     update = jax.jit(jax_attn.update_cache)
     cj = jax_attn.init_kv_cache(B, L, HKV, D, dtype=jnp.int8)
-    ct = init_kv_cache(B, L, HKV, D, dtype=torch.int8)
+    ct = init_kv_cache(B, L, HKV, D, dtype=torch.int8, device="cpu")
     # int offset (every row at one position), then per-row offsets
     for offset in (5, np.array([20, 61], np.int32)):
         kj, kt = _both(rng.standard_normal((B, s, HKV, D)).astype(np.float32))
@@ -95,7 +95,7 @@ def test_decode_over_int8_cache_matches_jax(length):
     k0j, k0t = _both(rng.standard_normal((B, s, HKV, D)).astype(np.float32))
     v0j, v0t = _both(rng.standard_normal((B, s, HKV, D)).astype(np.float32))
     cj = jax_attn.init_kv_cache(B, L, HKV, D, dtype=jnp.int8)
-    ct = init_kv_cache(B, L, HKV, D, dtype=torch.int8)
+    ct = init_kv_cache(B, L, HKV, D, dtype=torch.int8, device="cpu")
     pj, cj = jax.jit(jax_attn.attention, static_argnames=("use_flash",))(
         q0j, k0j, v0j, cj, 0, use_flash=False)
     pt, ct = attention(q0t, k0t, v0t, ct, 0, use_kernels=False)
@@ -107,7 +107,7 @@ def test_decode_over_int8_cache_matches_jax(length):
     v1j, v1t = _both(rng.standard_normal((B, 1, HKV, D)).astype(np.float32))
     oj, cj = jax.jit(jax_attn.attention)(q1j, k1j, v1j, cj, jnp.asarray([s, s], jnp.int32))
     for use in (True, False):
-        c = init_kv_cache(B, L, HKV, D, dtype=torch.int8)
+        c = init_kv_cache(B, L, HKV, D, dtype=torch.int8, device="cpu")
         attention(q0t, k0t, v0t, c, 0, use_kernels=use)
         ot, c = attention(q1t, k1t, v1t, c, torch.tensor([s, s]), use_kernels=use)
         np.testing.assert_allclose(_np(ot), _np(oj), rtol=2**-7, atol=2**-8)

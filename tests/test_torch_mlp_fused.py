@@ -146,12 +146,12 @@ def test_decoder_layer_fused_switch(monkeypatch):
     real = port_transformer.fused_mlp_op
     monkeypatch.setattr(port_transformer, "fused_mlp_op",
                         lambda *a, **kw: calls.append(a[2].shape) or real(*a, **kw))
-    cos_sin = make_cos_sin_cache(cfg.max_position, cfg.rot_dim)
+    cos_sin = make_cos_sin_cache(cfg.max_position, cfg.rot_dim, device="cpu")
     x = torch.randn(2, 1, 128, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
     pos = torch.zeros(2, 1, dtype=torch.long)
 
     def cache():
-        return init_kv_cache(2, 64, cfg.num_kv_heads, cfg.head_dim)
+        return init_kv_cache(2, 64, cfg.num_kv_heads, cfg.head_dim, device="cpu")
 
     unfused, _ = port_transformer.decoder_layer(layer, cfg, x, pos, cos_sin, cache(), 0,
                                                 fused_mlp=False)

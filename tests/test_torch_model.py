@@ -74,7 +74,7 @@ def models():
     jp = jax_quantize_params(
         jax_random_dense_params(JAX_PRESETS["toy"], jax.random.PRNGKey(0)), quantize_lm_head=True
     )
-    return jp, params_from_numpy(jax_params_to_numpy(jp))
+    return jp, params_from_numpy(jax_params_to_numpy(jp), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +108,7 @@ def test_prefill_and_teacher_forced_decode_logits_match_jax(models, prompt):
     logits_j, caches_j = jax_gen.prefill(jp, JAX_PRESETS["toy"], jnp.asarray(prompt),
                                          jax_init_caches(JAX_PRESETS["toy"], B, S + STEPS))
     logits_t, caches_t = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
-                                          init_caches(CFG, B, S + STEPS))
+                                          init_caches(CFG, B, S + STEPS, device="cpu"))
     np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), rtol=0, atol=LOGIT_ATOL)
     token = jnp.argmax(logits_j, axis=-1).astype(jnp.int32)
     for i in range(STEPS):
@@ -162,7 +162,7 @@ def test_port_random_init_and_quantize():
     assert q.layers[0].qkv.out_features == CFG.qkv_out
     assert quantize_params(dense).lm_head is dense.lm_head  # stays dense by default
     logits, _ = port_gen.prefill(q, CFG, torch.zeros(1, 4, dtype=torch.long),
-                                 init_caches(CFG, 1, 8))
+                                 init_caches(CFG, 1, 8, device="cpu"))
     assert logits.shape == (1, CFG.vocab_size) and torch.isfinite(logits).all()
     moe = quantize_params(random_dense_params(PRESETS["toy-moe"], gen)).layers[0]
     assert moe.gateup is None and moe.moe.gateup.qweight.dim() == 3

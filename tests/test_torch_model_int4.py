@@ -65,7 +65,7 @@ def models():
     out = {}
     for g in GROUPS:
         jp = jax_quantize_params(dense, bits=4, quantize_lm_head=True, group_size=g)
-        out[g] = jp, params_from_numpy(jax_params_to_numpy(jp))
+        out[g] = jp, params_from_numpy(jax_params_to_numpy(jp), device="cpu")
     return out
 
 
@@ -95,7 +95,7 @@ def test_w4a16_prefill_and_decode_logits_match_jax(models, prompt, group):
     logits_j, caches_j = jax_gen.prefill(jp, JCFG, jnp.asarray(prompt),
                                          jax_init_caches(JCFG, B, S + STEPS))
     logits_t, caches_t = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
-                                          init_caches(CFG, B, S + STEPS))
+                                          init_caches(CFG, B, S + STEPS, device="cpu"))
     np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), rtol=0, atol=W4A16_ATOL)
     token = jnp.argmax(logits_j, axis=-1).astype(jnp.int32)
     for i in range(STEPS):
@@ -114,10 +114,12 @@ def test_w4a8_prefill_logits_match_jax(models, prompt, group):
     jp, tp = models[group]
     lj, _ = jax_gen.prefill(jp, JCFG, jnp.asarray(prompt), jax_init_caches(JCFG, B, S + 1),
                             a8=True)
-    lt, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(), init_caches(CFG, B, S + 1),
+    lt, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
+                             init_caches(CFG, B, S + 1, device="cpu"),
                              a8=True)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=A8_ATOL)
-    lw, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(), init_caches(CFG, B, S + 1))
+    lw, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
+                             init_caches(CFG, B, S + 1, device="cpu"))
     assert not torch.equal(lt, lw)  # int8 activations are another answer than W4A16's
 
 
@@ -129,7 +131,7 @@ def test_int8_kv_fused_int4_mlp_decode_logits_match_jax(models, prompt):
     jp, tp = models[None]
     assert can_fuse_mlp(tp.layers[0].gateup, tp.layers[0].down, B)
     caches_j = jax_init_caches(JCFG, B, S + STEPS, dtype=jnp.int8)
-    caches_t = init_caches(CFG, B, S + STEPS, dtype=torch.int8)
+    caches_t = init_caches(CFG, B, S + STEPS, dtype=torch.int8, device="cpu")
     logits_j, caches_j = jax_gen.prefill(jp, JCFG, jnp.asarray(prompt), caches_j)
     logits_t, caches_t = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(), caches_t)
     np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), rtol=0, atol=W4A16_ATOL)
@@ -158,7 +160,7 @@ def test_int4_greedy_generate_runs_and_agrees_with_jax_logits(models, prompt, gr
     toks_t = port_gen.generate(tp, CFG, torch.from_numpy(prompt).long(), STEPS)
     assert toks_t.shape == (B, STEPS)
     lt, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
-                             init_caches(CFG, B, S + STEPS))
+                             init_caches(CFG, B, S + STEPS, device="cpu"))
     assert torch.equal(toks_t[:, 0], torch.argmax(lt, -1))
     lj, _ = jax_gen.prefill(jp, JCFG, jnp.asarray(prompt), jax_init_caches(JCFG, B, S + STEPS))
     top2 = np.sort(np.asarray(lj), axis=-1)[:, -2:]
@@ -176,7 +178,7 @@ def test_engine_w4a8_prefill_matches_its_own_prefill_and_decode(models, group):
     uids = [eng.add_request(p, n) for p, n in zip(prompts, budgets)]
     eng.run()
     for uid, p, n in zip(uids, prompts, budgets):
-        caches = init_caches(CFG, 1, len(p) + n, dtype=torch.int8)
+        caches = init_caches(CFG, 1, len(p) + n, dtype=torch.int8, device="cpu")
         logits, caches = port_gen.prefill(tp, CFG, torch.tensor([p]), caches, a8=True)
         want = port_gen.decode_loop(tp, CFG, torch.argmax(logits, -1), len(p), caches, n)
         assert eng.result(uid) == want[0].tolist(), (p, n)
@@ -226,7 +228,7 @@ def test_port_int4_random_init_and_quantize(group):
     for a, b in zip(q.buffers(), lazy.buffers()):
         assert torch.equal(a, b)
     logits, _ = port_gen.prefill(q, CFG, torch.zeros(1, 4, dtype=torch.long),
-                                 init_caches(CFG, 1, 8))
+                                 init_caches(CFG, 1, 8, device="cpu"))
     assert logits.shape == (1, CFG.vocab_size) and torch.isfinite(logits).all()
     # bench.py's int4 model: int4 layers, an int8 lm_head
     mixed = quantize_params(dense, bits=4)
@@ -244,8 +246,8 @@ def test_int4_moe_banks_run_on_the_plain_path():
     assert bank.bits == 4 and bank.qweight.dim() == 3 and bank.scales.dim() == 3
     for s in (1, 9):  # the gather and the grouped regime
         logits, _ = port_gen.prefill(q, cfg, torch.zeros(1, s, dtype=torch.long),
-                                     init_caches(cfg, 1, 16))
+                                     init_caches(cfg, 1, 16, device="cpu"))
         ref, _ = port_gen.prefill(q, cfg, torch.zeros(1, s, dtype=torch.long),
-                                  init_caches(cfg, 1, 16), use_kernels=False)
+                                  init_caches(cfg, 1, 16, device="cpu"), use_kernels=False)
         assert torch.isfinite(logits).all()
         np.testing.assert_allclose(logits.numpy(), ref.numpy(), rtol=0, atol=W4A16_ATOL)

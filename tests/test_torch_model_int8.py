@@ -62,7 +62,7 @@ def models():
     jp = jax_quantize_params(
         jax_random_dense_params(JCFG, jax.random.PRNGKey(0)), quantize_lm_head=True
     )
-    return jp, params_from_numpy(jax_params_to_numpy(jp))
+    return jp, params_from_numpy(jax_params_to_numpy(jp), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -75,12 +75,14 @@ def test_a8_prefill_logits_match_jax(models, prompt):
     tokens, caches = jnp.asarray(prompt), jax_init_caches(JCFG, B, S + 1)
     lj, _ = jax_gen.prefill(jp, JCFG, tokens, caches, a8=True)
     lx, _ = _exact(jax_gen.prefill, jp, JCFG, tokens, caches, a8=True)(jp, tokens, caches)
-    lt, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(), init_caches(CFG, B, S + 1),
+    lt, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
+                             init_caches(CFG, B, S + 1, device="cpu"),
                              a8=True)
     np.testing.assert_array_equal(lt.numpy(), np.asarray(lx))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=A8_LOGIT_ATOL)
     # and it is another answer than W8A16's
-    lw, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(), init_caches(CFG, B, S + 1))
+    lw, _ = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
+                             init_caches(CFG, B, S + 1, device="cpu"))
     assert not torch.equal(lt, lw)
 
 
@@ -89,7 +91,7 @@ def test_int8_kv_fused_mlp_decode_logits_match_jax(models, prompt, exact):
     jp, tp = models
     tokens = jnp.asarray(prompt)
     caches_j = jax_init_caches(JCFG, B, S + STEPS, dtype=jnp.int8)
-    caches_t = init_caches(CFG, B, S + STEPS, dtype=torch.int8)
+    caches_t = init_caches(CFG, B, S + STEPS, dtype=torch.int8, device="cpu")
     if exact:
         logits_j, caches_j = _exact(jax_gen.prefill, jp, JCFG, tokens, caches_j)(
             jp, tokens, caches_j)
@@ -129,7 +131,7 @@ def test_bench_decode_greedy_tokens_match_jax(models, prompt):
     first = jnp.argmax(lj, axis=-1).astype(jnp.int32)
     toks_j, _ = jax_gen.decode_loop(jp, JCFG, first, jnp.int32(S), cj, STEPS, fused_mlp=True)
     lt, ct = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
-                              init_caches(CFG, B, S + STEPS, dtype=torch.int8))
+                              init_caches(CFG, B, S + STEPS, dtype=torch.int8, device="cpu"))
     toks_t = port_gen.decode_loop(tp, CFG, torch.argmax(lt, -1), S, ct, STEPS, fused_mlp=True)
     np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
     # generate(kv_dtype=int8) is the same path with the env's MLP choice

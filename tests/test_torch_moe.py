@@ -216,7 +216,7 @@ def test_pack_bank_pads_each_expert():
 def models():
     jp = jax_quantize_params(jax_random_dense_params(JCFG, jax.random.PRNGKey(0)),
                              quantize_lm_head=True)
-    return jp, params_from_numpy(jax_params_to_numpy(jp))
+    return jp, params_from_numpy(jax_params_to_numpy(jp), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -272,7 +272,7 @@ def test_prefill_and_teacher_forced_decode_logits_match_jax(models, prompt, exac
         lambda *a: jax_gen.prefill(a[0], JCFG, *a[1:]))
     logits_j, caches_j = prefill_j(jp, tokens, caches_j)
     logits_t, caches_t = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
-                                          init_caches(CFG, B, S + STEPS))
+                                          init_caches(CFG, B, S + STEPS, device="cpu"))
     np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), rtol=0, atol=atol)
     token = jnp.argmax(logits_j, axis=-1).astype(jnp.int32)
     step = None
@@ -304,7 +304,7 @@ def test_fused_mlp_decode_is_a_noop_on_moe_layers(models, prompt):
     p = torch.from_numpy(prompt).long()
     out = {}
     for fused in (False, True):
-        caches = init_caches(CFG, B, S + STEPS)
+        caches = init_caches(CFG, B, S + STEPS, device="cpu")
         logits, caches = port_gen.prefill(tp, CFG, p, caches)
         out[fused] = port_gen.decode_loop(tp, CFG, torch.argmax(logits, -1), S, caches, STEPS,
                                           fused_mlp=fused)
