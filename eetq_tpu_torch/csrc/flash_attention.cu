@@ -1,63 +1,114 @@
-// Flash-attention-2 forward: causal (or full) attention with GQA.
+// Flash-attention-2 forward for Hopper: causal (or full) attention with GQA.
 //
-// Replaces eetq_tpu/kernels/flash_attention.py::_flash_forward. One block of
-// 4 warps per (64-row q tile, q head, batch row); each warp owns 16 query
-// rows. The block loops over 64-key tiles up to the diagonal (tiles above it
-// are never visited): K is staged row-major and V transposed in shared
-// memory, S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, f32
-// accumulate), and the online softmax keeps its row max and sum in f32
-// registers. q is pre-scaled and rounded to bf16 as the TPU kernel does; p
-// is rounded to bf16 for the P V product. q/k/v are read in [B, S, H, D]
-// through strides (D contiguous); kv head = q head / group.
-#include "common.cuh"
+// Replaces eetq_tpu/kernels/flash_attention.py::_flash_forward. Bound by
+// tensor-core operations at prefill sizes (S x S x D products per head; q,
+// k and v are read once per q tile and stay in L2).
+//
+// Design. One block per (q head, q tile, batch row). A q tile is 64 rows per
+// warpgroup: two warpgroups (128 rows, 256 threads), or one where the grid
+// would otherwise leave SMs empty (short prompts). The block loops over
+// 64-key tiles up to the diagonal (tiles above it are never visited, with
+// delta = skv - sq for a query block appended to a cache) and a warpgroup
+// stops at its own diagonal.
+//   - K and V tiles travel through a ring of three stages in dynamic shared
+//     memory, filled by cp.async 16-byte copies two tiles ahead of the
+//     multiply, with a hand-written 128-byte swizzle (hopper.cuh). cp.async
+//     and not TMA: q, k and v are strided views of one fused qkv tensor and
+//     their shapes change with every prompt bucket, so a tensor map would
+//     have to be encoded on the host for each of the 32 calls of a prefill;
+//     cp.async takes the strides as they are and zero-fills keys past skv.
+//   - S = Q K^T: wgmma m64n64k16, Q as the register A operand (loaded once
+//     from global memory, scaled and rounded to bf16 as the TPU kernel does;
+//     with n = 64 an A operand in shared memory would take half of the
+//     shared-memory bandwidth the instruction has), K K-major from shared
+//     memory, f32 accumulators in registers.
+//   - the online softmax runs on the accumulator registers (exp2, row max
+//     and sum in f32; a row lives in the four lanes of a quad);
+//   - O += P V: wgmma m64nDk16 with P, rounded to bf16, as the register A
+//     operand (the accumulator layout of S is the A layout per 16 keys) and V
+//     read MN-major through the descriptor's transpose bit from the same
+//     swizzled rows K uses: V is never transposed or copied.
+//   - the output goes through shared memory and leaves in 16-byte stores.
+// Blocks of the longest causal rows are scheduled first (blockIdx.y
+// reversed), all heads of a q tile side by side. kv head = q head / group.
+// Masking uses -0.7 * f32max and a row whose sum is 0 divides by 1
+// (flash_attention.py:24-25, :131).
+#include "hopper.cuh"
 
 namespace {
 
 using eetq::bf16;
+using namespace eetq::hopper;
 
-constexpr int kWarps = 4, kThreads = kWarps * 32;
-constexpr int kBlockQ = kWarps * 16, kBlockKV = 64;
+constexpr int kKV = 64;     // keys per tile
+constexpr int kStages = 3;  // K/V tiles in the ring
 
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <int D>
+constexpr int smem_bytes() {
+  return kStages * 2 * kKV * D * 2 + 1024;  // + room to align the ring to 1024
 }
 
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A 16x16: reg0 (g, 2t..2t+1), reg1 (g+8, 2t..), reg2 (g, 2t+8..), reg3 (g+8, 2t+8..)
-//   B 16x8:  reg0 (k 2t..2t+1, n g), reg1 (k 2t+8.., n g)
-//   C 16x8:  c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
+// Accumulator layout of wgmma m64nN (g = lane / 4, t = lane % 4, warp w of
+// the warpgroup): d[4j], d[4j+1] = (row 16w + g, columns 8j + 2t, +1);
+// d[4j+2], d[4j+3] = (row 16w + g + 8, the same columns). The A operand of a
+// k16 step in registers: a0 (g, k 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+// a3 (g+8, 2t+8..).
+template <int D, int kWG>
+__global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, int sq, int skv, int hq, int hkv, int64_t q_sb, int64_t q_ss,
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, float scale, int causal) {
-  constexpr int kSteps = D / 16;      // k-steps of q.k over head_dim
-  constexpr int kDTiles = D / 8;      // n-tiles of the output over head_dim
-  constexpr int kKvTiles = kBlockKV / 8;
-  constexpr int kKLd = D + 8;         // padded rows: conflict-free fragment reads
-  constexpr int kVLd = kBlockKV + 8;
-  constexpr int kVecs = kBlockKV * D / 8;
-  __shared__ __align__(16) bf16 ks[kBlockKV * kKLd];
-  __shared__ __align__(16) bf16 vt[D * kVLd];
+  constexpr int kThreads = 128 * kWG, kBlockQ = 64 * kWG;
+  constexpr int kTile = kKV * D * 2;   // bytes of one K or V tile
+  constexpr int kBlock = kKV * 128;    // bytes of one 64-column block of it
+  constexpr int kChunks = D / 8;       // 16-byte chunks per row
+  constexpr int kOutLd = D + 8;        // padded rows of the output staging
+  static_assert(kBlockQ * kOutLd * 2 <= kStages * 2 * kTile, "output staging fits the ring");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (smem_addr(smem_raw) + 1023u) & ~1023u;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (hq / hkv);
+  const int h = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
   const int q0 = qt * kBlockQ, delta = skv - sq;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const int wrow0 = q0 + wg * 64;            // first row of this warpgroup
+  const int row0 = wrow0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
   const bf16* qb = q + b * q_sb + h * q_sh;
   const bf16* kb = k + b * k_sb + hk * k_sh;
   const bf16* vb = v + b * v_sb + hk * v_sh;
 
-  uint32_t qf[kSteps][4];
+  // keys the block needs, and the tiles this warpgroup multiplies
+  const int last_row = min(q0 + kBlockQ, sq) - 1;
+  const int kv_end = causal ? min(skv, last_row + delta + 1) : skv;
+  const int n_tiles = max(0, (kv_end + kKV - 1) / kKV);
+  const int wg_last = min(wrow0 + 64, sq) - 1;
+  const int wg_end = causal ? min(skv, wg_last + delta + 1) : skv;
+  const int wg_tiles = max(0, (wg_end + kKV - 1) / kKV);
+
+  auto load_tile = [&](int it) {
+    const int kv0 = it * kKV;
+    const uint32_t kdst = ring + (it % kStages) * 2 * kTile, vdst = kdst + kTile;
+    for (int idx = tid; idx < kKV * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      const uint32_t off = (c >> 3) * kBlock + swizzle128(r, c & 7);
+      const bool ok = kv0 + r < skv;  // rows past skv are zero
+      const int64_t row = ok ? kv0 + r : 0;
+      cp_async16(kdst + off, kb + row * k_ss + c * 8, ok ? 16 : 0);
+      cp_async16(vdst + off, vb + row * v_ss + c * 8, ok ? 16 : 0);
+    }
+  };
+  // two tiles in flight before the first multiply; one commit per tile,
+  // empty past the end, so the group count stays uniform
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
+  for (int s = 0; s < D / 16; ++s) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -74,68 +125,48 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
     }
   }
 
-  float o[kDTiles][4];
+  float o[D / 2];
 #pragma unroll
-  for (int j = 0; j < kDTiles; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_run[2] = {eetq::kMaskValue, eetq::kMaskValue};
   float l_run[2] = {0.f, 0.f};  // per-thread partial sums; the quad adds them at the end
 
-  const int last_row = min(q0 + kBlockQ, sq) - 1;
-  const int kv_end = causal ? min(skv, last_row + delta + 1) : skv;
-  const int n_tiles = (kv_end + kBlockKV - 1) / kBlockKV;
   for (int it = 0; it < n_tiles; ++it) {
-    const int kv0 = it * kBlockKV;
-    __syncthreads();  // the previous tile's reads are done
-    for (int idx = tid; idx < kVecs; idx += kThreads) {
-      const int r = idx / (D / 8), c = idx % (D / 8);
-      int4 val = make_int4(0, 0, 0, 0);
-      if (kv0 + r < skv) val = *reinterpret_cast<const int4*>(kb + (kv0 + r) * k_ss + c * 8);
-      *reinterpret_cast<int4*>(&ks[r * kKLd + c * 8]) = val;
-    }
-    // V transposed; rows vary fastest across threads so the 2-byte stores
-    // of a warp land in distinct banks. Rows past skv are zero.
-    for (int idx = tid; idx < kVecs; idx += kThreads) {
-      const int r = idx % kBlockKV, c = idx / kBlockKV;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (kv0 + r < skv) val = *reinterpret_cast<const int4*>(vb + (kv0 + r) * v_ss + c * 8);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt[(c * 8 + i) * kVLd + r] = e[i];
-    }
-    __syncthreads();
+    const int kv0 = it * kKV;
+    cp_async_wait<1>();   // this thread's copies of tile `it` have landed
+    fence_proxy_async();  // and wgmma may read them
+    __syncthreads();      // everyone's have; tile it - 1 has been multiplied
+    if (it + 2 < n_tiles) load_tile(it + 2);  // into the stage of tile it - 1
+    cp_async_commit();
+    if (it >= wg_tiles) continue;  // above this warpgroup's diagonal
 
-    float s[kKvTiles][4];
+    const uint32_t ks = ring + (it % kStages) * 2 * kTile, vs = ks + kTile;
+    float s[kKV / 2];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKvTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-#pragma unroll
-      for (int j = 0; j < kKvTiles; ++j) {
-        const bf16* kp = &ks[(j * 8 + g) * kKLd + st * 16 + 2 * t];
-        const uint32_t bfrag[2] = {*reinterpret_cast<const uint32_t*>(kp),
-                                   *reinterpret_cast<const uint32_t*>(kp + 8)};
-        mma_16816(s[j], qf[st], bfrag);
-      }
+    for (int st = 0; st < D / 16; ++st) {
+      const uint32_t addr = ks + (st >> 2) * kBlock + (st & 3) * 32;
+      wgmma_rs_n64<0>(s, qf[st], smem_desc(addr, 16, 1024), st > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(s);
 
     // mask keys past skv and, causally, past each row's position
-    if (kv0 + kBlockKV > skv || (causal && kv0 + kBlockKV - 1 > q0 + delta)) {
+    if (kv0 + kKV > skv || (causal && kv0 + kKV - 1 > wrow0 + delta)) {
 #pragma unroll
-      for (int j = 0; j < kKvTiles; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kv0 + j * 8 + 2 * t + (e & 1);
-          const int pos = row0 + 8 * (e >> 1) + delta;
-          if (key >= skv || (causal && key > pos)) s[j][e] = eetq::kMaskValue;
-        }
+      for (int i = 0; i < kKV / 2; ++i) {
+        const int key = kv0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        const int pos = row0 + 8 * ((i >> 1) & 1) + delta;
+        if (key >= skv || (causal && key > pos)) s[i] = eetq::kMaskValue;
       }
     }
 
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int j = 0; j < kKvTiles; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    for (int j = 0; j < kKV / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
     float alpha[2];
 #pragma unroll
@@ -146,13 +177,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
       m_run[r] = mx[r];
     }
 
-    uint32_t pf[kKvTiles / 2][4];  // P as A fragments, one per 16-key step
+    uint32_t pf[kKV / 16][4];  // P as A operands, one per 16-key step
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < kKvTiles; ++j) {
+    for (int j = 0; j < kKV / 8; ++j) {
       float p[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[e] = exp2f((s[j][e] - mx[e >> 1]) * eetq::kLog2e);
+      for (int e = 0; e < 4; ++e) p[e] = exp2f((s[4 * j + e] - mx[e >> 1]) * eetq::kLog2e);
       rs[0] += p[0] + p[1];
       rs[1] += p[2] + p[3];
       pf[j / 2][(j & 1) * 2 + 0] = eetq::pack_bf16x2(p[0], p[1]);
@@ -161,57 +192,85 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
 #pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    fence_registers(o);
+    wgmma_fence();
 #pragma unroll
-    for (int st = 0; st < kKvTiles / 2; ++st) {
-#pragma unroll
-      for (int j = 0; j < kDTiles; ++j) {
-        const bf16* vp = &vt[(j * 8 + g) * kVLd + st * 16 + 2 * t];
-        const uint32_t bfrag[2] = {*reinterpret_cast<const uint32_t*>(vp),
-                                   *reinterpret_cast<const uint32_t*>(vp + 8)};
-        mma_16816(o[j], pf[st], bfrag);
+    for (int st = 0; st < kKV / 16; ++st) {
+      // V is [key][d]: d contiguous (MN-major), 16 keys a step, the second
+      // 64-column block of d one tile block further
+      const uint64_t desc = smem_desc(vs + st * 2048, kBlock, 1024);
+      if constexpr (D == 128) {
+        wgmma_rs_n128<1>(o, pf[st], desc, 1);
+      } else {
+        wgmma_rs_n64<1>(o, pf[st], desc, 1);
       }
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(o);
   }
 
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the output in it
+  bf16* stage = reinterpret_cast<bf16*>(smem_raw + (ring - smem_addr(smem_raw)));
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = l == 0.f ? 1.f : 1.f / l;
-    const int row = row0 + 8 * r;
-    if (row < sq) {
-      bf16* op = out + (((int64_t)b * sq + row) * hq + h) * D;
+    bf16* sp = stage + (wg * 64 + warp * 16 + g + 8 * r) * kOutLd + 2 * t;
 #pragma unroll
-      for (int j = 0; j < kDTiles; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(op + j * 8 + 2 * t) =
-            __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(sp + j * 8) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kBlockQ * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks, row = q0 + r;
+    if (row < sq)
+      *reinterpret_cast<int4*>(out + (((int64_t)b * sq + row) * hq + h) * D + c * 8) =
+          *reinterpret_cast<const int4*>(stage + r * kOutLd + c * 8);
   }
 }
 
-template <int D>
+template <int D, int kWG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
                    int skv, int hq, int hkv, const int64_t* st, float scale, int causal,
                    cudaStream_t stream) {
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, hq, b);
-  flash_attention_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+  auto kernel = flash_attention_fwd_kernel<D, kWG>;
+  static bool opted_in = false;  // above 48 KB of dynamic shared memory
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid(hq, (sq + 64 * kWG - 1) / (64 * kWG), b);
+  kernel<<<grid, 128 * kWG, smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), sq, skv, hq, hkv, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], scale, causal);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, int b, int sq,
+                     int skv, int hq, int hkv, const int64_t* st, float scale, int causal,
+                     cudaStream_t stream) {
+  // 128-row tiles where they still give every SM of the card a block
+  const long long wide = (long long)((sq + 127) / 128) * hq * b;
+  if (wide >= 132) return launch<D, 2>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, stream);
+  return launch<D, 1>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, stream);
+}
+
 }  // namespace
 
 // q [b, sq, hq, d], k/v [b, skv, hkv, d] bf16 with element strides (batch,
-// seq, head) and unit stride in d; out [b, sq, hq, d] contiguous bf16.
+// seq, head) and unit stride in d, rows 16-byte aligned; out [b, sq, hq, d]
+// contiguous bf16; sq, skv >= 1.
 extern "C" int eetq_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                         int b, int sq, int skv, int hq, int hkv, int d,
                                         long long q_sb, long long q_ss, long long q_sh,
@@ -220,7 +279,8 @@ extern "C" int eetq_flash_attention_fwd(const void* q, const void* k, const void
                                         float scale, int causal, void* stream) {
   const int64_t st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   auto s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, s);
-  if (d == 128) return launch<128>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, s);
+  if (sq < 1 || skv < 1 || (sq + 63) / 64 > 65535 || b > 65535) return cudaErrorInvalidValue;
+  if (d == 64) return launch_d<64>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, s);
+  if (d == 128) return launch_d<128>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, s);
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
-// The W8A16 / W4A16 GEMM tile shared by w8a16_gemm.cu, w4a16_gemm.cu,
-// w8a16_grouped_gemm.cu and w4a16_grouped_gemm.cu.
+// The W8A16 / W4A16 GEMM tile shared by w8a16_grouped_gemm.cu,
+// w4a16_grouped_gemm.cu and, for group-wise scales, w8a16_gemm.cu and
+// w4a16_gemm.cu (their per-channel mode runs wgmma_gemm.cuh).
 //
 // out[m, n] = (x[m, :] . W[:, n]) * scale[n] + bias[n]. Bound by
 // tensor-core FLOPs at prefill sizes. Each 256-thread block computes a
@@ -268,8 +269,9 @@ cudaError_t launch(const Args& a, int row_blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The dense GEMM's C entry points (w8a16_gemm.cu, w4a16_gemm.cu): 128-row
-// blocks, group-wise when groups > 0.
+// The dense GEMM's C entry points (w8a16_gemm.cu, w4a16_gemm.cu) with
+// group-wise scales (groups > 0; per-channel scales run wgmma_gemm.cuh):
+// 128-row blocks.
 template <int kBits>
 int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, const void* scales,
                 int groups, int group_size, const void* bias, void* out, int n, void* stream) {
@@ -289,7 +291,7 @@ int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, cons
   a.bm = kBM;
   const int row_blocks = (m + kBM - 1) / kBM;
   auto s = static_cast<cudaStream_t>(stream);
-  return groups > 0 ? launch<kBits, true>(a, row_blocks, s) : launch<kBits, false>(a, row_blocks, s);
+  return launch<kBits, true>(a, row_blocks, s);
 }
 
 // The grouped GEMM's C entry points (w8a16_grouped_gemm.cu,

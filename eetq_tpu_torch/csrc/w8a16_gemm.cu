@@ -2,12 +2,15 @@
 // int8 weights, per-channel scales [n] or group-wise scales [groups, n].
 //
 // Replaces the prefill regime of eetq_tpu/kernels/w8a16.py::
-// w8a16_matmul_kernel_call. Bound by tensor-core FLOPs at prefill sizes;
-// the design (128 x 128 tiles, int8 converted to bf16 in shared memory,
-// wmma bf16 with f32 accumulation, the per-channel scale in the epilogue or
-// each group's scale on that group's f32 partial sum) is the tile of
-// gemm_tile.cuh with 128-row blocks.
+// w8a16_matmul_kernel_call. Bound by tensor-core operations at prefill
+// sizes. Per-channel scales (the W8A16 models) run the Hopper tile of
+// wgmma_gemm.cuh: 256 x 128 tiles, cp.async into rings of shared memory, the
+// int8 tile widened to bf16 once per block by two producer warpgroups, wgmma
+// m64n128k16 in two consumer warpgroups, scale and bias on the accumulators.
+// Group-wise scales run the group mode of gemm_tile.cuh (each group's scale
+// on that group's f32 partial sum).
 #include "gemm_tile.cuh"
+#include "wgmma_gemm.cuh"
 
 // x [m, k] bf16 contiguous (k % 8 == 0); w int8 [kp, np] (kp, np % 128 == 0);
 // scales f32 [n], or [groups, n] with groups > 0 and group_size rows each (a
@@ -15,6 +18,8 @@
 extern "C" int eetq_w8a16_gemm(const void* x, int m, int k, const void* w, int kp, int np,
                                const void* scales, int groups, int group_size, const void* bias,
                                void* out, int n, void* stream) {
+  if (groups == 0)
+    return eetq::wgmma_gemm::dense_entry<8>(x, m, k, w, kp, np, scales, bias, out, n, stream);
   return eetq::gemm::dense_entry<8>(x, m, k, w, kp, np, scales, groups, group_size, bias, out, n,
                                     stream);
 }

@@ -6,11 +6,15 @@ kernel `csrc/flash_attention.cu`. At llama2-7b prefill (S = 1024, 32 heads,
 D = 128) it is bound by tensor-core FLOPs, 4*S*S*D*H/2 = 8.6 GFLOP per layer
 with causal skipping, while its bytes are small (q, k, v, 25 MB per layer,
 read once per q-tile). The design keeps the S x S scores out of device memory: one block
-per (batch, q head, 64-row q tile) loops over 64-key tiles with an online
-softmax in f32 registers (`mma.sync` bf16 -> f32 for q.k and p.v), skips
-tiles above the diagonal, maps q head h to kv head h // group with no K/V
-copy, and reads q/k/v in the module's [B, S, H, D] layout through strides
-(the TPU version padded and transposed to [B, H, S, D] for its tiling).
+per (batch, q head, q tile of 128 rows: two warpgroups, or 64 rows where
+the grid would not fill the card) loops over 64-key tiles that `cp.async`
+brings into a three-stage ring of swizzled shared memory, with `wgmma` for
+q.k (q in registers) and for p.v (p in registers, v read transposed through
+the instruction's descriptor: no copy of v) and an online softmax in f32
+registers; it skips tiles above the diagonal, maps q head h to kv head
+h // group with no K/V copy, and reads q/k/v in the module's [B, S, H, D]
+layout through strides (the TPU version padded and transposed to
+[B, H, S, D] for its tiling).
 
 Masking uses -0.7 * f32max, not -inf, and rows whose sum is 0 divide by 1,
 as the TPU kernel does (flash_attention.py:24-25, :131).
@@ -97,7 +101,7 @@ def _check_qkv(q, k, v):
             raise ValueError(f"{name} must be [B, S, H, D] with unit stride in D")
         if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name} rows must be 16-byte aligned")
-    if k.shape != v.shape or hq % k.shape[2]:
+    if k.shape != v.shape or hq % k.shape[2] or sq < 1 or k.shape[1] < 1:
         raise ValueError(f"bad GQA shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")

@@ -17,9 +17,14 @@ per bit width:
 - `w8a16_gemm` (m > MAX_DECODE_M, `csrc/w8a16_gemm.cu`). Bound by tensor-core
   FLOPs at prefill sizes: m = 1024 does 2*m FLOPs per weight byte, far above
   the ~295 FLOP/byte balance point of the card (datasheet bf16 peak over
-  HBM bandwidth), about 13.8 TFLOP for a llama2-7b prompt. 128 x 128 output tiles,
-  int8 weight tiles converted to bf16 in shared memory, `wmma` bf16
-  fragments with f32 accumulation, the scale and bias in the epilogue.
+  HBM bandwidth), about 13.8 TFLOP for a llama2-7b prompt. With per-channel
+  scales it runs the Hopper tile of `csrc/wgmma_gemm.cuh`: 256 x 128 output
+  tiles, x and the packed weights copied by `cp.async` into rings of
+  swizzled shared memory, each weight tile widened to bf16 once per block by
+  two producer warpgroups, `wgmma` m64n128k16 with f32 accumulators in two
+  consumer warpgroups, the scale and bias on the accumulators. With
+  group-wise scales it runs the `wmma` tile of `csrc/gemm_tile.cuh`, which
+  the grouped expert GEMMs also use.
 - `w4a16_gemv` (`csrc/w4a16_gemv.cu`) and `w4a16_gemm`
   (`csrc/w4a16_gemm.cu`): the same two designs on int4 weights packed two
   neighbouring K rows to a byte (`layout/tiling.py`), half the bytes per

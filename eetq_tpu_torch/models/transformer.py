@@ -26,7 +26,7 @@ from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear, linear_apply
 from eetq_tpu_torch.modules.moe import MoEMLP, moe_apply
 from eetq_tpu_torch.ops.mlp import can_fuse_mlp, fused_mlp as fused_mlp_op
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
-from eetq_tpu_torch.ops.rope import make_cos_sin_cache, rope
+from eetq_tpu_torch.ops.rope import cos_sin_cache, rope
 
 Linear = QuantLinear | DenseLinear
 
@@ -149,8 +149,7 @@ def forward_inner(
     x = params.embed[tokens].to(torch.bfloat16)
     if cfg.embedding_multiplier is not None:
         x = (x.float() * cfg.embedding_multiplier).to(x.dtype)
-    cos_sin = make_cos_sin_cache(cfg.max_position, cfg.rot_dim, base=cfg.rope_theta,
-                                 device=x.device)
+    cos_sin = cos_sin_cache(cfg.max_position, cfg.rot_dim, base=cfg.rope_theta, device=x.device)
     for i, layer in enumerate(params.layers):
         cache_i = caches[i] if caches is not None else None
         x, _ = decoder_layer(layer, cfg, x, positions, cos_sin, cache_i, offset,

@@ -6,6 +6,8 @@ concat([cos, sin]) and the rotation runs in f32. Plain torch elementwise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from eetq_tpu_torch.utils.device import resolve
@@ -27,6 +29,24 @@ def make_cos_sin_cache(
     t = torch.arange(max_position, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)  # [max_pos, rot_dim/2]
     return torch.cat([torch.cos(freqs), torch.sin(freqs)], dim=-1).to(dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _shared_cos_sin_cache(max_position: int, rot_dim: int, base: float,
+                          device: torch.device) -> torch.Tensor:
+    return make_cos_sin_cache(max_position, rot_dim, base=base, device=device)
+
+
+def cos_sin_cache(
+    max_position: int,
+    rot_dim: int,
+    base: float = 10000.0,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """The f32 table of :func:`make_cos_sin_cache`, built once per
+    (max_position, rot_dim, base, device) and shared by every forward that
+    asks for it: read it, never write to it."""
+    return _shared_cos_sin_cache(max_position, rot_dim, float(base), resolve(device))
 
 
 def rope(

@@ -69,10 +69,11 @@ def decode_loop(
     generator: torch.Generator | None = None,
     eos_token_id: int | None = None,
     fused_mlp: bool | None = None,
-) -> torch.Tensor:
-    """Tokens [B, num_steps], first_token included. Rows that produced
-    eos_token_id keep emitting it. fused_mlp as in `decoder_layer` (None
-    reads EETQ_FUSED_MLP)."""
+) -> tuple[torch.Tensor, list]:
+    """(tokens [B, num_steps], first_token included; the caches after the
+    last step), as `eetq_tpu/serve/generate.py::decode_loop`. Rows that
+    produced eos_token_id keep emitting it. fused_mlp as in `decoder_layer`
+    (None reads EETQ_FUSED_MLP)."""
     token = first_token
     finished = first_token == eos_token_id if eos_token_id is not None else None
     out = [token]
@@ -84,7 +85,7 @@ def decode_loop(
             token = torch.where(finished, eos_token_id, token)
             finished = finished | (token == eos_token_id)
         out.append(token)
-    return torch.stack(out, dim=1)
+    return torch.stack(out, dim=1), caches
 
 
 def generate(
@@ -106,6 +107,7 @@ def generate(
     caches = init_caches(cfg, b, s + max_new_tokens, device=prompt.device, dtype=kv_dtype)
     logits, caches = prefill(params, cfg, prompt, caches)
     token = _sample(logits, temperature, top_k, generator)
-    return decode_loop(params, cfg, token, s, caches, max_new_tokens,
-                       temperature=temperature, top_k=top_k, generator=generator,
-                       eos_token_id=eos_token_id)
+    tokens, _ = decode_loop(params, cfg, token, s, caches, max_new_tokens,
+                            temperature=temperature, top_k=top_k, generator=generator,
+                            eos_token_id=eos_token_id)
+    return tokens

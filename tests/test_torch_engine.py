@@ -48,7 +48,7 @@ def _ref_greedy(params, prompt, n, cfg=CFG, kv=torch.int8):
     """prefill(a8=True) + decode_loop over a cache of the engine's dtype."""
     caches = init_caches(cfg, 1, len(prompt) + n, dtype=kv, device="cpu")
     logits, caches = prefill(params, cfg, torch.tensor([prompt]), caches, a8=True)
-    return decode_loop(params, cfg, torch.argmax(logits, -1), len(prompt), caches, n)[0].tolist()
+    return decode_loop(params, cfg, torch.argmax(logits, -1), len(prompt), caches, n)[0][0].tolist()
 
 
 def test_single_request_matches_prefill_and_decode_loop(params):

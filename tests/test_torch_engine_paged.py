@@ -56,7 +56,7 @@ def _prompts(seed: int, n: int, lo: int = 2, hi: int = 20) -> list[list[int]]:
 def _ref_greedy(params, prompt, n, kv=torch.bfloat16, a8=False):
     caches = init_caches(CFG, 1, len(prompt) + n, device="cpu", dtype=kv)
     logits, caches = prefill(params, CFG, torch.tensor([prompt]), caches, a8=a8)
-    return decode_loop(params, CFG, torch.argmax(logits, -1), len(prompt), caches, n)[0].tolist()
+    return decode_loop(params, CFG, torch.argmax(logits, -1), len(prompt), caches, n)[0][0].tolist()
 
 
 def _whole(eng: Engine, blocks: int) -> bool:

@@ -373,6 +373,49 @@ def test_flash_attention(dev, s, hq, hkv, d):
     _close(flash_attention(q, k, v), flash_attention_ref(q, k, v))
 
 
+# (batch, sq, skv, q heads, kv heads, head_dim, causal): ragged lengths in
+# one- and two-warpgroup tiles, GQA, a query block appended to a cache
+# (delta = skv - sq = 256), a batch of short prompts, full attention
+FLASH_EDGES = [
+    (1, 77, 77, 32, 8, 128, True), (1, 1000, 1000, 32, 8, 128, True),
+    (1, 1000, 1000, 32, 32, 64, True), (2, 77, 77, 8, 2, 64, True),
+    (1, 128, 384, 32, 8, 128, True), (1, 200, 456, 8, 8, 64, True),
+    (4, 128, 128, 32, 32, 128, True), (1, 1024, 1024, 32, 32, 128, True),
+    (2, 130, 130, 4, 4, 128, False), (1, 300, 77, 8, 1, 128, False),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", FLASH_EDGES)
+def test_flash_attention_edges(dev, b, sq, skv, hq, hkv, d, causal):
+    g = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn(b, skv, 2 * hkv, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v = kv[:, :, :hkv], kv[:, :, hkv:]  # strided views of one tensor
+    out = flash_attention(q, k, v, causal=causal)
+    assert out.shape == q.shape and out.is_contiguous()
+    _close(out, flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("m", [9, 64, 65, 200, 512, 700, 1024])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11008, 4096), (1000, 300), (4096, 32000),
+                                 (264, 1096)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dense_gemm_per_channel_edges(dev, m, k, n, bits):
+    """The per-channel GEMM tile: row counts off the 64- and 128-row tiles, K
+    that needs padding (1000 pads to 1024, 264 to 384), N off
+    the 128-column tile and off the 16-byte row alignment (300), with bias."""
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    scales = _scales(g, dev, k, n, None)
+    bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    out = (w4a16_gemm if bits == 4 else w8a16_gemm)(x, data, scales, n, bias)
+    assert out.shape == (m, n)
+    _close(out, w8a16_matmul_ref(x, q, scales, bias))
+
+
 @pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 2, 64)])
 def test_flash_decode(dev, hq, hkv, d):
     g = torch.Generator(device=dev).manual_seed(hq)

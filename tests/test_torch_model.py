@@ -19,12 +19,14 @@ from eetq_tpu.models import PRESETS as JAX_PRESETS
 from eetq_tpu.models import init_caches as jax_init_caches
 from eetq_tpu.models import quantize_params as jax_quantize_params
 from eetq_tpu.models import random_dense_params as jax_random_dense_params
+from eetq_tpu.ops.rope import make_cos_sin_cache as jax_make_cos_sin_cache
 from eetq_tpu.modules.linear import QuantLinear as JaxQuantLinear
 from eetq_tpu_torch.models.config import PRESETS
 from eetq_tpu_torch.models.convert import params_from_numpy
 from eetq_tpu_torch.models.init import quantize_params, random_dense_params
 from eetq_tpu_torch.models.transformer import init_caches
 from eetq_tpu_torch.modules.linear import QuantLinear
+from eetq_tpu_torch.ops import rope as port_rope
 
 jax_gen = importlib.import_module("eetq_tpu.serve.generate")
 port_gen = importlib.import_module("eetq_tpu_torch.serve.generate")
@@ -128,6 +130,68 @@ def test_greedy_generate_matches_jax(models, prompt):
     toks_t = port_gen.generate(tp, CFG, torch.from_numpy(prompt).long(), STEPS)
     assert toks_t.shape == (B, STEPS)
     np.testing.assert_array_equal(toks_t.numpy(), toks_j)
+
+
+def test_decode_loop_returns_tokens_and_caches_equal_to_jax(models, prompt):
+    """decode_loop returns (tokens, caches) as the JAX package's does. The
+    greedy tokens are equal (the prompt's logit gaps, see `prompt`), so both
+    caches hold the keys and values of the same S + STEPS - 1 positions: bf16
+    values of magnitude below 8 here, rounded at the same places and summed
+    in other orders, agree within two bf16 ulps of 4..8 (2^-5 each), and the
+    slot past the last written position is still zero in both."""
+    jp, tp = models
+    jcfg = JAX_PRESETS["toy"]
+    logits_j, caches_j = jax_gen.prefill(jp, jcfg, jnp.asarray(prompt),
+                                         jax_init_caches(jcfg, B, S + STEPS))
+    first_j = jnp.argmax(logits_j, axis=-1).astype(jnp.int32)
+    toks_j, caches_j = jax_gen.decode_loop(jp, jcfg, first_j, jnp.int32(S), caches_j, STEPS)
+    logits_t, caches_t = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
+                                          init_caches(CFG, B, S + STEPS, device="cpu"))
+    out = port_gen.decode_loop(tp, CFG, torch.argmax(logits_t, -1), S, caches_t, STEPS)
+    assert isinstance(out, tuple) and len(out) == 2
+    toks_t, caches_out = out
+    assert toks_t.shape == (B, STEPS)
+    np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
+    assert len(caches_out) == CFG.num_layers == len(caches_j)
+    for layer, (ct, cj) in enumerate(zip(caches_out, caches_j)):
+        assert ct is caches_t[layer]  # updated in place
+        for name in ("k", "v"):
+            got = getattr(ct, name).float().numpy()
+            want = np.asarray(getattr(cj, name), np.float32)
+            assert got.shape == want.shape
+            assert np.abs(want[:, :, :S + STEPS - 1]).max() > 0
+            np.testing.assert_allclose(got, want, rtol=0, atol=2 ** -4,
+                                       err_msg=f"layer {layer} {name}")
+            assert not got[:, :, S + STEPS - 1:].any() and not want[:, :, S + STEPS - 1:].any()
+
+
+@pytest.mark.parametrize("max_position,rot_dim,base", [(64, 32, 10000.0), (48, 16, 500000.0)])
+def test_cos_sin_cache_equals_jax_and_is_built_once_per_key(max_position, rot_dim, base):
+    """The shared rope table holds the values of eetq_tpu/ops/rope.py's (f32
+    cos and sin of the same f32 angles: 1e-6 covers the two libraries'
+    implementations of cos, sin and pow) and is built once per
+    (max_position, rot_dim, base, device)."""
+    port_rope._shared_cos_sin_cache.cache_clear()
+    a = port_rope.cos_sin_cache(max_position, rot_dim, base=base, device="cpu")
+    want = np.asarray(jax_make_cos_sin_cache(max_position, rot_dim, base=base))
+    assert a.shape == want.shape and a.dtype == torch.float32
+    np.testing.assert_allclose(a.numpy(), want, rtol=0, atol=1e-6)
+    assert torch.equal(a, port_rope.make_cos_sin_cache(max_position, rot_dim, base=base,
+                                                       device="cpu"))
+    assert port_rope.cos_sin_cache(max_position, rot_dim, base=base, device="cpu") is a
+    assert port_rope.cos_sin_cache(max_position, rot_dim, base, torch.device("cpu")) is a
+    info = port_rope._shared_cos_sin_cache.cache_info()
+    assert (info.misses, info.hits) == (1, 2)
+    assert port_rope.cos_sin_cache(max_position, rot_dim * 2, base=base, device="cpu") is not a
+
+
+def test_forward_builds_the_cos_sin_cache_once(models, prompt):
+    _, tp = models
+    port_rope._shared_cos_sin_cache.cache_clear()
+    p = torch.from_numpy(prompt).long()
+    port_gen.generate(tp, CFG, p, 4)
+    port_gen.generate(tp, CFG, p, 4)
+    assert port_rope._shared_cos_sin_cache.cache_info().misses == 1
 
 
 def test_generate_eos_and_sampling(models, prompt):

@@ -180,7 +180,7 @@ def test_engine_w4a8_prefill_matches_its_own_prefill_and_decode(models, group):
     for uid, p, n in zip(uids, prompts, budgets):
         caches = init_caches(CFG, 1, len(p) + n, dtype=torch.int8, device="cpu")
         logits, caches = port_gen.prefill(tp, CFG, torch.tensor([p]), caches, a8=True)
-        want = port_gen.decode_loop(tp, CFG, torch.argmax(logits, -1), len(p), caches, n)
+        want, _ = port_gen.decode_loop(tp, CFG, torch.argmax(logits, -1), len(p), caches, n)
         assert eng.result(uid) == want[0].tolist(), (p, n)
 
 

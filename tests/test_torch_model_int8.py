@@ -132,7 +132,7 @@ def test_bench_decode_greedy_tokens_match_jax(models, prompt):
     toks_j, _ = jax_gen.decode_loop(jp, JCFG, first, jnp.int32(S), cj, STEPS, fused_mlp=True)
     lt, ct = port_gen.prefill(tp, CFG, torch.from_numpy(prompt).long(),
                               init_caches(CFG, B, S + STEPS, dtype=torch.int8, device="cpu"))
-    toks_t = port_gen.decode_loop(tp, CFG, torch.argmax(lt, -1), S, ct, STEPS, fused_mlp=True)
+    toks_t, _ = port_gen.decode_loop(tp, CFG, torch.argmax(lt, -1), S, ct, STEPS, fused_mlp=True)
     np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
     # generate(kv_dtype=int8) is the same path with the env's MLP choice
     gen = port_gen.generate(tp, CFG, torch.from_numpy(prompt).long(), STEPS, kv_dtype=torch.int8)

@@ -306,8 +306,8 @@ def test_fused_mlp_decode_is_a_noop_on_moe_layers(models, prompt):
     for fused in (False, True):
         caches = init_caches(CFG, B, S + STEPS, device="cpu")
         logits, caches = port_gen.prefill(tp, CFG, p, caches)
-        out[fused] = port_gen.decode_loop(tp, CFG, torch.argmax(logits, -1), S, caches, STEPS,
-                                          fused_mlp=fused)
+        out[fused], _ = port_gen.decode_loop(tp, CFG, torch.argmax(logits, -1), S, caches, STEPS,
+                                             fused_mlp=fused)
     assert torch.equal(out[False], out[True])
 
 
