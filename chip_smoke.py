@@ -28,7 +28,10 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    rows of lengths 1..1088 over 256-token blocks behind a permuted table
    whose dead entries point out of the pool, and must also agree with the
    dense kernel on the gathered cache. The two MoE kernels run int8 and
-   int4 banks, per-channel and with 128-row scale groups.
+   int4 banks, per-channel and with 128-row scale groups; the grouped GEMM
+   at bm = 128 (a prompt: the wide tile), bm = 8 (an 8-slot engine step: the
+   skinny tile), 16 and 64, with the padding blocks skipped by their count,
+   and its summary keeps the prompt and the engine-step regimes apart.
    Then `moe_apply` on one full-width Mixtral layer (int8 per-channel, and
    int4 g=128) at 2, 8 and 2048 selections, kernels against the plain path
    on identical input (the routing ids must agree), the kernel calls under
@@ -88,8 +91,8 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    grouped GEMM at admission and at every 8-slot step, the paged int8
    flash-decode; the bf16 one must not launch), checked as in 5.
 
-With `--profile`, each llama2-7b path, the paged engine and the int4
-Mixtral paths are also run under `torch.profiler` (one prefill, ten decode
+With `--profile`, each llama2-7b path, the paged engine and the Mixtral
+paths are also run under `torch.profiler` (one prefill, ten decode
 or engine steps): device-busy time, launches per step and the idle share
 go to the output and to `chip_smoke.json`. `--phases` runs a subset of
 `kernels,moe_layer,llama,int4,mixtral,mixtral_int4` (for debugging: a
@@ -151,12 +154,17 @@ MIXTRAL_BANKS = ((4096, 28672), (14336, 4096))
 # Expert gather: (rows of x at gate|up and at down, ids) of a b=1 and a b=4
 # decode step; b=4's 8 selections hold a repeated id
 GATHER_CASES = ((1, 2, (5, 2)), (4, 8, (1, 6, 6, 3, 0, 2, 7, 6)))
-# Grouped GEMM: (bm, blocks, experts of the real blocks); padding blocks
-# follow, clamped to expert 7. A b=1 p=1024 prompt (2048 selections, bm
-# 128: 2048 // 128 + 8 = 24 blocks, 19 of them real) and the engine's
-# 8-slot decode (16 selections, bm 8: 10 blocks, 7 real, expert 5 idle).
-GROUPED_CASES = ((128, 24, (0, 0, 0, 1, 1, 2, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 6, 7, 7)),
-                 (8, 10, (0, 1, 2, 3, 4, 6, 7)))
+# Grouped GEMM: (bm, blocks, experts of the real blocks, the main path's
+# regime or None); padding blocks follow, clamped to expert 7, and are
+# skipped by the count of real blocks. A b=1 p=1024 prompt (2048 selections,
+# bm 128: 2048 // 128 + 8 = 24 blocks, 19 of them real: the wide tile), the
+# engine's 8-slot decode step (16 selections, bm 8: 10 blocks, 7 real,
+# expert 5 idle: the skinny tile), and one case on each side of the
+# crossover (128 selections at bm 16, 512 at bm 64).
+GROUPED_CASES = ((128, 24, (0, 0, 0, 1, 1, 2, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 6, 7, 7), "prefill"),
+                 (8, 10, (0, 1, 2, 3, 4, 6, 7), "engine step"),
+                 (16, 16, (0, 0, 1, 2, 2, 3, 4, 5, 5, 6, 7), None),
+                 (64, 16, (0, 0, 1, 1, 2, 3, 3, 4, 5, 5, 6, 7, 7), None))
 MOE_TOKENS = (1, 4, 1024)  # moe_apply on one layer: 2, 8 and 2048 selections
 # The server phase: prompt lengths and budgets drawn from a seeded generator
 SERVE_REQUESTS = 12
@@ -408,12 +416,13 @@ def kernel_phase(dev) -> dict:
     rows, summary = [], {}
 
     def record(name, case, fn, plain, path_shape, cost, op_type="bf16", library=None,
-               equal=False, **extra):
+               equal=False, regime=None, **extra):
         """Run fn() (the kernel) and plain() on the same inputs, compare and
         time both. cost = (bytes, operations) of the function at this case;
         library() is one PyTorch call computing the same function, if any;
-        equal: the outputs must not differ in any element; extra: further
-        fields of the case's row."""
+        equal: the outputs must not differ in any element; regime: a path
+        shape's regime, summed apart in the kernel's summary too; extra:
+        further fields of the case's row."""
         out, ref = fn(), plain()
         err, ref_max = compare(out, ref)
         n_diff = int((out.float() != ref.float()).sum().item())
@@ -424,8 +433,8 @@ def kernel_phase(dev) -> dict:
         bytes_ms = 1e3 * cost[0] / HBM_BYTES_PER_S
         ops_ms = 1e3 * cost[1] / PEAK_OPS_PER_S[op_type]
         ok = err <= TOL * ref_max and not (equal and n_diff)
-        rows.append(dict(kernel=name, case=case, max_abs_err=err, ref_absmax=ref_max,
-                         tol=0.0 if equal else TOL * ref_max, n_diff=n_diff, numel=out.numel(),
+        rows.append(dict(kernel=name, case=case, regime=regime, max_abs_err=err,
+                         ref_absmax=ref_max, tol=0.0 if equal else TOL * ref_max, n_diff=n_diff, numel=out.numel(),
                          ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          many_ms=many_ms, library_many_ms=library_many_ms,
                          bytes=cost[0], ops=cost[1], bytes_ms=bytes_ms, ops_ms=ops_ms,
@@ -441,10 +450,15 @@ def kernel_phase(dev) -> dict:
                                           many_ms=0.0, library_many_ms=None))
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if path_shape:  # the main path's own shapes make the reported time
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms),
-                             ("ops_ms", ops_ms), ("bound_ms", max(bytes_ms, ops_ms)),
-                             ("many_ms", many_ms)):
-                s[key] += val
+            parts = [s]
+            if regime is not None:
+                parts.append(s.setdefault("regimes", {}).setdefault(regime, dict(
+                    ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0, many_ms=0.0)))
+            for part in parts:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms),
+                                 ("ops_ms", ops_ms), ("bound_ms", max(bytes_ms, ops_ms)),
+                                 ("many_ms", many_ms)):
+                    part[key] += val
             if library_ms is not None:
                 s["library_ms"] = (s["library_ms"] or 0.0) + library_ms
                 s["library_many_ms"] = (s["library_many_ms"] or 0.0) + library_many_ms
@@ -675,10 +689,11 @@ def kernel_phase(dev) -> dict:
 
     # Mixtral's banks, int8 and int4, per-channel and with 128-row scale
     # groups. The path's time: the gather of a b=1 decode step (gate|up and
-    # down) and the grouped GEMMs of a 1024-token prompt, per-channel for the
-    # int8 kernels (the W8A16 model) and group-wise for the int4 ones (the
-    # W4A16 g=128 model). Only the experts that are picked are read, each
-    # once, and only the rows of real blocks are multiplied.
+    # down), and the grouped GEMMs of a 1024-token prompt and of an 8-slot
+    # engine step, per-channel for the int8 kernels (the W8A16 model) and
+    # group-wise for the int4 ones (the W4A16 g=128 model). Only the experts
+    # that are picked are read, each once, and only the rows of real blocks
+    # are read and multiplied.
     for bits, group in ((8, None), (8, INT4_GROUP), (4, None), (4, INT4_GROUP)):
         gemv, gemm = ((w8a16_expert_gemv, w8a16_grouped_gemm) if bits == 8
                       else (w4a16_expert_gemv, w4a16_grouped_gemm))
@@ -703,19 +718,20 @@ def kernel_phase(dev) -> dict:
                        lambda: gemv(x, data, scales, eids, n),
                        lambda: expert_matmul_ref(x, bank, scales, eids),
                        on_path and len(ids) == 2, cost)
-            for bm, nb, real in GROUPED_CASES:
+            for bm, nb, real, regime in GROUPED_CASES:
                 be = real + (7,) * (nb - len(real))
                 x = torch.randn(nb * bm, k, generator=gen, device=dev).to(torch.bfloat16)
                 x[len(real) * bm:] = 0  # padding blocks hold zero rows
                 blocks = torch.tensor(be, dtype=torch.int32, device=dev)
+                count = torch.tensor([len(real)], dtype=torch.int32, device=dev)
                 real_rows = len(real) * bm
-                cost = (len(set(be)) * expert_bytes + nb * bm * (k + n) * 2 + 4 * nb,
-                        2.0 * real_rows * k * n)
+                cost = (len(set(real)) * expert_bytes + real_rows * k * 2 + nb * bm * n * 2
+                        + 4 * (nb + 1), 2.0 * real_rows * k * n)
                 record(gemm.__name__,
                        f"{tag} bm={bm} nb={nb} ({nb - len(real)} padding) K={k} N={n}",
-                       lambda: gemm(x, data, scales, blocks, n),
+                       lambda: gemm(x, data, scales, blocks, n, count),
                        lambda: grouped_matmul_ref(x, bank, scales, blocks, bm),
-                       on_path and bm == 128, cost)
+                       on_path and regime is not None, cost, regime=regime)
             del bank, data
     # the bank kernels off the tile: K and N that need padding, groups of 64
     for bits, (k, n, group) in ((4, INT4_ODD[0]), (4, INT4_ODD[1]), (8, INT4_ODD[1])):
@@ -743,8 +759,12 @@ def kernel_phase(dev) -> dict:
     torch.cuda.synchronize()
     bad = [f"{r['kernel']} {r['case']}" for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
-    for s in summary.values():
+    for name, s in summary.items():
         s["bound_by"] = "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
+        for regime, r in s.get("regimes", {}).items():
+            r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+            print(f"  {name:20s} {regime}: {r['ms']:.4f} ms (back to back {r['many_ms']:.4f}), "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
     return dict(rows=rows, summary=summary)
 
 
@@ -1386,9 +1406,7 @@ def mixtral_phase(dev, int4: bool = False, profile: bool = False) -> dict:
     configs = {gen_path: (torch.bfloat16, False)}
     paths = generate_paths(params, cfg, dev, gen, configs)
     paths[srv_path] = server_path(params, cfg, dev, gen, srv_path, engine_kw)
-    prof = None
-    if profile and int4:
-        prof = profile_paths(params, cfg, dev, gen, configs, {srv_path: engine_kw})
+    prof = profile_paths(params, cfg, dev, gen, configs, {srv_path: engine_kw}) if profile else None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t = paths[gen_path]["timing"]
     print(f"  {MIXTRAL} {name}: weights {weight_gb:.2f} GB, built in {build_s:.1f} s, peak "
@@ -1407,7 +1425,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="directory for chip_smoke.json (details)")
     parser.add_argument("--profile", action="store_true",
-                        help="also run the llama2-7b paths, the paged engines and the int4 "
+                        help="also run the llama2-7b paths, the paged engines and the "
                              "Mixtral paths under torch.profiler")
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"comma-separated subset of {','.join(PHASES)} (a partial run "
@@ -1437,7 +1455,7 @@ def main() -> int:
         "moe_layer": lambda: moe_layer_phase(dev),
         "llama": lambda: model_phase(dev, args.profile),
         "int4": lambda: int4_phase(dev, args.profile),
-        "mixtral": lambda: mixtral_phase(dev),
+        "mixtral": lambda: mixtral_phase(dev, profile=args.profile),
         "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
     }
     done = {}

@@ -1,16 +1,18 @@
-// The W8A16 / W4A16 GEMM tile shared by w8a16_grouped_gemm.cu,
-// w4a16_grouped_gemm.cu and, for group-wise scales, w8a16_gemm.cu and
-// w4a16_gemm.cu (their per-channel mode runs wgmma_gemm.cuh).
+// The W8A16 / W4A16 GEMM tile of the dense GEMM with group-wise scales
+// (w8a16_gemm.cu and w4a16_gemm.cu with groups > 0). Per-channel scales run
+// wgmma_gemm.cuh, the grouped expert GEMMs wgmma_grouped.cuh; this wmma tile
+// is left to the dense group-wise mode until it moves onto the latter.
 //
-// out[m, n] = (x[m, :] . W[:, n]) * scale[n] + bias[n]. Bound by
-// tensor-core FLOPs at prefill sizes. Each 256-thread block computes a
+// out[m, n] = sum over groups of (x[m, group] . W[group, n]) * scale[g, n]
+// + bias[n]. Bound by tensor-core FLOPs at prefill sizes. Each 256-thread
+// block computes a
 // 128 x 128 output tile: per 32-deep K step it stages the x tile (bf16) and
 // the int8 weight tile, converted to bf16 on the way into shared memory
 // (exact: |q| <= 128), and 8 warps each multiply a 64 x 32 sub-tile with
 // wmma bf16 fragments into f32 accumulators. The next K step's tiles are
 // loaded into registers while the current one is multiplied (two
-// shared-memory buffers, one barrier per step). The per-channel scale and
-// the bias are applied in the epilogue.
+// shared-memory buffers, one barrier per step). The bias is applied in the
+// epilogue.
 //
 // int4 (kBits = 4): a weight byte holds logical row 2r in its low nibble and
 // row 2r + 1 in its high one (layout/tiling.py), so a 32-deep K step reads
@@ -18,23 +20,16 @@
 // the two logical rows, nibbles sign-extended in place, into the same bf16
 // tile; the x tile is the contiguous one of int8.
 //
-// Group-wise scales (kGroup, scales [G, n], group_size a multiple of the
-// 32-deep K step): the steps of one group accumulate into a second set of
+// Group-wise scales (scales [G, n], group_size a multiple of the 32-deep K
+// step): the steps of one group accumulate into a second set of
 // fragments, and at the group's last step acc += part * scale, element by
 // element, the group's scale row having been loaded as an accumulator
 // fragment from a 16 x 16 tile of 16 equal rows (fragments of one type share
 // their element layout), so each group's scale multiplies its f32 partial
 // sum as the TPU kernel's does (w8a16.py::_dot_scaled).
 //
-// Row blocks: blockIdx.y owns rows [y * bm, y * bm + bm) with bm <= 128
-// (bm = 128 for a plain GEMM). Rows of the 128-row tile past bm (or past m)
-// load as zero, are not multiplied where a whole 16-row fragment lies past
-// them, and are not written.
-//
-// Grouped (block_expert set): row block y multiplies by expert
-// block_expert[y] of a stacked bank, read from device memory; its weight
-// lies at w + e * w_stride and its scales at scales + e * s_stride. The bank
-// is int8 or int4, its scales per-channel [E, n] or group-wise [E, G, n].
+// Rows of a 128-row tile past m load as zero, are not multiplied where a
+// whole 16-row fragment lies past them, and are not written.
 #pragma once
 
 #include <mma.h>
@@ -58,25 +53,21 @@ static_assert((kBM / kWM) * (kBN / kWN) == kThreads / 32, "one warp tile per war
 struct Args {
   const bf16* x;  // [m, k], k % 8 == 0
   int m, k;
-  const int8_t* w;  // [kp, np] (int4: [kp / 2, np]) or a bank of them; kp, np % 128 == 0
+  const int8_t* w;  // [kp, np] (int4: [kp / 2, np]); kp, np % 128 == 0
   int kp, np;           // kp: logical padded K
-  const float* scales;  // [n] (or a bank of them), or [groups, n] (group-wise)
-  int groups;           // group-wise: rows of scales
-  int group_size;       // group-wise: logical K rows per group, % kBK == 0
+  const float* scales;  // [groups, n]
+  int groups;           // rows of scales
+  int group_size;       // logical K rows per group, % kBK == 0
   const float* bias;    // [n] or null
   bf16* out;            // [m, n]
   int n;
-  int bm;                   // rows per row block, 1..kBM
-  const int* block_expert;  // [gridDim.y] expert ids, or null
-  long long w_stride;
-  int s_stride;
 };
 
 // Internal linkage: two sources include this file, and a __global__
 // function has a host-side stub symbol.
 namespace {
 
-template <int kBits, bool kGroup>
+template <int kBits>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(const Args a) {
   static_assert(kBits == 8 || kBits == 4, "int8 or int4 weights");
   __shared__ __align__(128) bf16 as[2][kBM * kALd];
@@ -85,26 +76,21 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Args a) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / (kBN / kWN), wn = warp % (kBN / kWN);
-  const int m0 = blockIdx.y * a.bm, n0 = blockIdx.x * kBN;
-  const int rows = min(a.bm, a.m - m0);  // valid rows of this block
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int rows = min(kBM, a.m - m0);  // valid rows of this block
   const int k = a.k, np = a.np;
   const int8_t* w = a.w;
   const float* scales = a.scales;
-  if (a.block_expert != nullptr) {
-    const int e = a.block_expert[blockIdx.y];
-    w += (size_t)e * a.w_stride;
-    scales += (size_t)e * a.s_stride;
-  }
 
   using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
   AccFrag acc[kFM][kFN];
-  AccFrag part[kFM][kFN];  // group-wise: the open group's sum
+  AccFrag part[kFM][kFN];  // the open group's sum
 #pragma unroll
   for (int i = 0; i < kFM; ++i)
 #pragma unroll
     for (int j = 0; j < kFN; ++j) {
       wmma::fill_fragment(acc[i][j], 0.f);
-      if constexpr (kGroup) wmma::fill_fragment(part[i][j], 0.f);
+      wmma::fill_fragment(part[i][j], 0.f);
     }
 
   // x tile: 128 rows x 4 vectors of 8 bf16 (2 per thread); W tile: 32 rows
@@ -175,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Args a) {
   // a lane's 8 consecutive columns of one row of the warp's 16 x 16 scratch
   float* c = cs[warp];
   const int r = lane >> 1, c0 = (lane & 1) * 8;
-  // Group-wise: close group gi. acc += part * scales[gi, columns].
+  // Close group gi: acc += part * scales[gi, columns].
   auto fold = [&](int gi) {
     const float* srow = scales + (size_t)gi * a.n;
 #pragma unroll
@@ -216,17 +202,13 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Args a) {
         if (i < frags) {
           wmma::load_matrix_sync(af[i], &as[buf][(wm * kWM + i * 16) * kALd + kk], kALd);
 #pragma unroll
-          for (int j = 0; j < kFN; ++j) {
-            AccFrag& sum = kGroup ? part[i][j] : acc[i][j];
-            wmma::mma_sync(sum, af[i], bfr[j], sum);
-          }
+          for (int j = 0; j < kFN; ++j) wmma::mma_sync(part[i][j], af[i], bfr[j], part[i][j]);
         }
       }
     }
-    if constexpr (kGroup) {  // rows past the last group are zero padding
-      if ((t + 1) * kBK % a.group_size == 0 || t + 1 == nk)
-        fold(min(t * kBK / a.group_size, a.groups - 1));
-    }
+    // rows past the last group are zero padding
+    if ((t + 1) * kBK % a.group_size == 0 || t + 1 == nk)
+      fold(min(t * kBK / a.group_size, a.groups - 1));
     if (t + 1 < nk) store_tile(buf ^ 1);
     __syncthreads();
   }
@@ -248,7 +230,6 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Args a) {
           const int gn = gn0 + e;
           if (gn < a.n) {
             float v = c[r * 16 + c0 + e];
-            if constexpr (!kGroup) v *= scales[gn];
             if (a.bias != nullptr) v += a.bias[gn];
             a.out[(size_t)(m0 + row) * a.n + gn] = __float2bfloat16(v);
           }
@@ -259,22 +240,14 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Args a) {
   }
 }
 
-// One block per 128 output columns and per row block.
-template <int kBits = 8, bool kGroup = false>
-cudaError_t launch(const Args& a, int row_blocks, cudaStream_t stream) {
-  if (a.bm < 1 || a.bm > kBM) return cudaErrorInvalidValue;
-  if (kGroup && (a.groups < 1 || a.group_size < EETQ_GROUP_GRANULE || a.group_size % EETQ_GROUP_GRANULE))
-    return cudaErrorInvalidValue;
-  gemm_kernel<kBits, kGroup><<<dim3(a.np / kBN, row_blocks), kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // The dense GEMM's C entry points (w8a16_gemm.cu, w4a16_gemm.cu) with
 // group-wise scales (groups > 0; per-channel scales run wgmma_gemm.cuh):
-// 128-row blocks.
+// one block per 128 output columns and per 128 rows.
 template <int kBits>
 int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, const void* scales,
                 int groups, int group_size, const void* bias, void* out, int n, void* stream) {
+  if (groups < 1 || group_size < EETQ_GROUP_GRANULE || group_size % EETQ_GROUP_GRANULE)
+    return cudaErrorInvalidValue;
   Args a{};
   a.x = static_cast<const bf16*>(x);
   a.m = m;
@@ -288,37 +261,9 @@ int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, cons
   a.bias = static_cast<const float*>(bias);
   a.out = static_cast<bf16*>(out);
   a.n = n;
-  a.bm = kBM;
-  const int row_blocks = (m + kBM - 1) / kBM;
-  auto s = static_cast<cudaStream_t>(stream);
-  return launch<kBits, true>(a, row_blocks, s);
-}
-
-// The grouped GEMM's C entry points (w8a16_grouped_gemm.cu,
-// w4a16_grouped_gemm.cu): nb row blocks of bm rows over a bank of logical
-// padded depth kp, scales [e, n], or [e, groups, n] when groups > 0.
-template <int kBits>
-int bank_entry(const void* x, int bm, int nb, int k, const void* w, int kp, int np,
-               const void* scales, int groups, int group_size, const void* block_expert,
-               void* out, int n, void* stream) {
-  Args a{};
-  a.x = static_cast<const bf16*>(x);
-  a.m = nb * bm;
-  a.k = k;
-  a.w = static_cast<const int8_t*>(w);
-  a.kp = kp;
-  a.np = np;
-  a.scales = static_cast<const float*>(scales);
-  a.groups = groups;
-  a.group_size = group_size;
-  a.out = static_cast<bf16*>(out);
-  a.n = n;
-  a.bm = bm;
-  a.block_expert = static_cast<const int*>(block_expert);
-  a.w_stride = (long long)(kBits == 4 ? kp / 2 : kp) * np;
-  a.s_stride = (groups > 0 ? groups : 1) * n;
-  auto s = static_cast<cudaStream_t>(stream);
-  return groups > 0 ? launch<kBits, true>(a, nb, s) : launch<kBits, false>(a, nb, s);
+  gemm_kernel<kBits><<<dim3(np / kBN, (m + kBM - 1) / kBM), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace

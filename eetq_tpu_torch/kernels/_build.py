@@ -5,10 +5,10 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds): one small source per entry point of `SIGNATURES`, most of them a
 mode of a shared header (`gemv.cuh`: the int8 and int4 GEMVs, the expert
 gathers and both fused MLPs; `wgmma_gemm.cuh`: the int8 and int4 GEMMs with
-per-channel scales; `gemm_tile.cuh`: the same GEMMs with group-wise scales
-and the grouped expert GEMMs; `a8_gemm.cuh`: W8A8 and W4A8; `hopper.cuh`:
-the `cp.async`, `mbarrier` and `wgmma` wrappers of `wgmma_gemm.cuh` and
-`flash_attention.cu`), compiled in parallel. The library lands in `eetq_tpu_torch/_build/<hash>/`, keyed on a
+per-channel scales; `gemm_tile.cuh`: the same GEMMs with group-wise scales;
+`wgmma_grouped.cuh`: the int8 and int4 grouped expert GEMMs; `a8_gemm.cuh`:
+W8A8 and W4A8; `hopper.cuh`: the `cp.async`, `mbarrier` and `wgmma`
+wrappers of the `wgmma` kernels and `flash_attention.cu`), compiled in parallel. The library lands in `eetq_tpu_torch/_build/<hash>/`, keyed on a
 hash of the sources and flags, so it is rebuilt only when they change.
 
 Each C entry point launches on the stream it is given, allocates nothing,
@@ -60,9 +60,9 @@ SIGNATURES = {
     "eetq_w8a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P),
     "eetq_w4a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P),
     # x, bm, nb, k, bank, kp, np, scales, groups, group_size, block_expert,
-    # out, n, stream
-    "eetq_w8a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
-    "eetq_w4a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
+    # out, n, real_blocks, stream
+    "eetq_w8a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P),
+    "eetq_w4a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P),
     # q, k, v, out, b, sq, skv, hq, hkv, d, q strides (b, s, h),
     # k strides, v strides, scale, causal, stream
     "eetq_flash_attention_fwd": (

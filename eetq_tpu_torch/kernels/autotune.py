@@ -28,13 +28,19 @@ FUSED_MLP_SLICE = 32
 # Group-wise scales [K/g, N]: g is a multiple of this. It is the K depth of
 # one step of the W8A16 / W4A16 GEMM tile and of one int8 MMA of the A8 tile,
 # so no step straddles two groups (`csrc/gemm_tile.cuh` and `csrc/a8_gemm.cuh`
-# assert it); g = 64 and 128, the usual int4 settings, pass.
+# assert it; the grouped GEMM folds a group after a 32-deep half of its
+# 64-deep step); g = 64 and 128, the usual int4 settings, pass.
 GROUP_GRANULE = 32
 
 # Token-grouped expert GEMM: rows per row block, a multiple of 8 between
-# these (`modules/moe.py::_grouped_bm`, `csrc/w8a16_grouped_gemm.cu`, whose
+# these (`modules/moe.py::_grouped_bm`, `csrc/wgmma_grouped.cuh`, whose wide
 # tile has 128 rows).
 GROUPED_BM_MIN, GROUPED_BM_MAX = 8, 128
+# Row blocks of at most this many rows run the grouped GEMM's skinny tile
+# (out^T = W^T x^T, the block as wgmma's N: 8, 16 or 32), larger ones the
+# 128-row tile (0: always the wide tile). Measured on Mixtral-8x7B's banks
+# (`PERF.md` §6, `scripts/torch_server_ab.py --grouped-sweep`).
+GROUPED_SKINNY_BM = 32
 
 # Flash-decode: one key range ("split") per block. Enough splits that the
 # grid covers every SM at least twice, and no split shorter than this.
@@ -51,7 +57,8 @@ def compile_defines() -> tuple[str, ...]:
     """The constants above as nvcc `-D` flags."""
     bm, bn, bk = W8A8_TILE
     return (f"-DEETQ_W8A8_BM={bm}", f"-DEETQ_W8A8_BN={bn}", f"-DEETQ_W8A8_BK={bk}",
-            f"-DEETQ_FUSED_MLP_SLICE={FUSED_MLP_SLICE}", f"-DEETQ_GROUP_GRANULE={GROUP_GRANULE}")
+            f"-DEETQ_FUSED_MLP_SLICE={FUSED_MLP_SLICE}", f"-DEETQ_GROUP_GRANULE={GROUP_GRANULE}",
+            f"-DEETQ_GROUPED_SKINNY_BM={GROUPED_SKINNY_BM}")
 
 
 def group_size_of(k: int, scales: torch.Tensor) -> int:

@@ -23,8 +23,7 @@ per bit width:
   swizzled shared memory, each weight tile widened to bf16 once per block by
   two producer warpgroups, `wgmma` m64n128k16 with f32 accumulators in two
   consumer warpgroups, the scale and bias on the accumulators. With
-  group-wise scales it runs the `wmma` tile of `csrc/gemm_tile.cuh`, which
-  the grouped expert GEMMs also use.
+  group-wise scales it runs the `wmma` tile of `csrc/gemm_tile.cuh`.
 - `w4a16_gemv` (`csrc/w4a16_gemv.cu`) and `w4a16_gemm`
   (`csrc/w4a16_gemm.cu`): the same two designs on int4 weights packed two
   neighbouring K rows to a byte (`layout/tiling.py`), half the bytes per
@@ -51,9 +50,13 @@ memory:
   selection, out[s] = x @ dequant(bank[ids[s]]).
 - `w8a16_grouped_gemm` and `w4a16_grouped_gemm`
   (`csrc/w8a16_grouped_gemm.cu`, `csrc/w4a16_grouped_gemm.cu`) replace
-  `w8a16_grouped_matmul_kernel_call` (`pallas_call` at w8a16.py:611): the
-  GEMM tile with one grid row per bm-row block, each block times its own
-  expert.
+  `w8a16_grouped_matmul_kernel_call` (`pallas_call` at w8a16.py:611): one
+  block per bm-row block and column strip, each times its own expert, in two
+  designs of `csrc/wgmma_grouped.cuh` picked by bm: a 128-row `wgmma` tile
+  for prompts (operation-bound) and, up to `GROUPED_SKINNY_BM` rows, a
+  skinny tile computing outᵀ = Wᵀ xᵀ with the row block as `wgmma`'s N for
+  the engine's decode step (bound by the weight bytes). Blocks at or past
+  `real_blocks` (a device count) are padding and write zeros unread.
 
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs the
 plain PyTorch version for CPU tensors. `launches` counts kernel launches.
@@ -300,18 +303,26 @@ def _expert_gemv(counter, entry: str, bits: int, x, qdata, scales, expert_ids, n
     return out
 
 
-def _grouped_gemm(counter, entry: str, bits: int, x, qdata, scales, block_expert, n):
+def _grouped_gemm(counter, entry: str, bits: int, x, qdata, scales, block_expert, n,
+                  real_blocks):
     k = x.shape[-1]
     nb = block_expert.shape[0]
     if x.shape[0] % nb:
         raise ValueError(f"rows {x.shape[0]} must divide into {nb} blocks")
     bm = x.shape[0] // nb
     if not x.is_cuda:
-        return grouped_matmul_ref(x, _logical(qdata, bits, k, n), scales, block_expert, bm)
+        out = grouped_matmul_ref(x, _logical(qdata, bits, k, n), scales, block_expert, bm)
+        if real_blocks is None:
+            return out
+        padding = torch.arange(nb * bm, device=x.device) // bm >= real_blocks.reshape(())
+        return out.masked_fill(padding[:, None], 0)
     if qdata.dim() != 3:
         raise ValueError(f"expert bank must be 3-D, got {tuple(qdata.shape)}")
     groups, group = _check_cuda(x, qdata, scales, n, None, bits)
     _check_ids(block_expert, x, "block_expert")
+    if real_blocks is not None and (real_blocks.dtype != torch.int32 or real_blocks.shape != (1,)
+                                    or real_blocks.device != x.device):
+        raise TypeError("real_blocks must be an int32 [1] on x's device")
     if bm % 8 or not GROUPED_BM_MIN <= bm <= GROUPED_BM_MAX:
         raise ValueError(f"row blocks of {bm} rows: the grouped GEMM takes "
                          f"{GROUPED_BM_MIN}..{GROUPED_BM_MAX}, a multiple of 8")
@@ -320,7 +331,7 @@ def _grouped_gemm(counter, entry: str, bits: int, x, qdata, scales, block_expert
     _build.launch(
         entry, x.data_ptr(), bm, nb, k, qdata.data_ptr(), rows * 2 if bits == 4 else rows, np_,
         scales.data_ptr(), groups, group, block_expert.data_ptr(), out.data_ptr(), n,
-        _build.stream_of(x),
+        _build.ptr(real_blocks), _build.stream_of(x),
     )
     counter.launches += 1
     return out
@@ -363,16 +374,19 @@ def w8a16_grouped_gemm(
     scales: torch.Tensor,
     block_expert: torch.Tensor,
     n: int,
+    real_blocks: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Token-grouped GEMM: row block b of x [nb * bm, K] (bm = rows / nb, a
     multiple of 8 up to 128) times dequant(bank[block_expert[b]]).
 
     qdata the packed int8 bank [E, Kp, Np]; scales f32 [E, N] or
     [E, K/g, N]; block_expert int32 [nb] on x's device, each in [0, E),
-    padding blocks included. Returns [nb * bm, N] bf16.
+    padding blocks included; real_blocks int32 [1] on x's device: the rows
+    of blocks at or past it come out zero, as zero rows of x give (the
+    kernel skips those blocks). Returns [nb * bm, N] bf16.
     """
     return _grouped_gemm(w8a16_grouped_gemm, "eetq_w8a16_grouped_gemm", 8, x, qdata, scales,
-                         block_expert, n)
+                         block_expert, n, real_blocks)
 
 
 def w4a16_grouped_gemm(
@@ -381,11 +395,12 @@ def w4a16_grouped_gemm(
     scales: torch.Tensor,
     block_expert: torch.Tensor,
     n: int,
+    real_blocks: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """:func:`w8a16_grouped_gemm` on an int4 bank: qdata the packed int4
     pairs [E, Kp/2, Np]."""
     return _grouped_gemm(w4a16_grouped_gemm, "eetq_w4a16_grouped_gemm", 4, x, qdata, scales,
-                         block_expert, n)
+                         block_expert, n, real_blocks)
 
 
 w8a16_gemv.launches = 0

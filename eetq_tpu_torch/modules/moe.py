@@ -108,31 +108,20 @@ def _one_hot(ids: torch.Tensor, e: int) -> torch.Tensor:
     return ids[..., None] == torch.arange(e, device=ids.device)
 
 
-def moe_grouped_combine(
-    moe: MoEMLP,
-    x2: torch.Tensor,  # [T, H]
-    topw: torch.Tensor,  # [T, k] f32
-    topi: torch.Tensor,  # [T, k]
-    activation: str,
-) -> torch.Tensor:
-    """Routed prefill (`eetq_tpu/modules/moe.py:122-208`): sort the (token,
-    expert) selections by expert, pack their rows into per-expert bm-row
-    blocks, run one grouped GEMM per projection, then un-sort and combine
-    with the routing weights. Static shapes: nb = n_sel // bm + E blocks,
-    the padding blocks past the last expert's clamped to a valid id.
-    Returns [T, H] f32."""
-    t, h = x2.shape
-    top_k = topi.shape[-1]
-    e = moe.num_experts
-    n_sel = t * top_k
-    bm = _grouped_bm(n_sel, e)
+def group_selections(topi: torch.Tensor, e: int, bm: int):
+    """Sort the (token, expert) selections of topi [T, k] by expert into
+    bm-row blocks (`eetq_tpu/modules/moe.py:122-160`). Static shapes: nb =
+    n_sel // bm + E blocks, an expert's blocks contiguous, the padding blocks
+    after the last real one clamped to a valid id. Returns (order: sorted
+    selection -> selection, dest: the row of each sorted selection,
+    block_expert int32 [nb], real_blocks int32 [1]: the number of blocks
+    that hold a selection), all on topi's device."""
+    n_sel = topi.numel()
     nb = n_sel // bm + e
-    dev = x2.device
-
+    dev = topi.device
     eids = topi.reshape(-1)
-    order = torch.argsort(eids, stable=True)  # sorted selection -> selection
+    order = torch.argsort(eids, stable=True)
     e_sorted = eids[order]
-    tok_sorted = order // top_k
     counts = _one_hot(eids, e).sum(0)  # [E]
     group_start = torch.cumsum(counts, 0) - counts
     nb_e = (counts + bm - 1) // bm  # blocks per expert
@@ -141,14 +130,38 @@ def moe_grouped_combine(
     block_expert = torch.searchsorted(
         cum_nb, torch.arange(nb, device=dev), right=True).clamp_(max=e - 1).to(torch.int32)
     pos = torch.arange(n_sel, device=dev) - group_start[e_sorted]
-    dest = block_start[e_sorted] * bm + pos  # row of each sorted selection
+    dest = block_start[e_sorted] * bm + pos
+    return order, dest, block_expert, cum_nb[-1:].to(torch.int32)
 
-    xg = x2.new_zeros((nb * bm, h)).index_copy_(0, dest, x2[tok_sorted])
-    gu = w8a16_grouped_matmul(xg, moe.gateup.packed, moe.gateup.scales, block_expert)
+
+def moe_grouped_combine(
+    moe: MoEMLP,
+    x2: torch.Tensor,  # [T, H]
+    topw: torch.Tensor,  # [T, k] f32
+    topi: torch.Tensor,  # [T, k]
+    activation: str,
+) -> torch.Tensor:
+    """Routed prefill (`eetq_tpu/modules/moe.py:122-208`): sort the (token,
+    expert) selections by expert into bm-row blocks (`group_selections`),
+    run one grouped GEMM per projection, then un-sort and combine with the
+    routing weights. The GEMMs get the number of real blocks on the device
+    and skip the padding blocks. Returns [T, H] f32."""
+    t, h = x2.shape
+    top_k = topi.shape[-1]
+    e = moe.num_experts
+    n_sel = t * top_k
+    bm = _grouped_bm(n_sel, e)
+    nb = n_sel // bm + e
+    order, dest, block_expert, real_blocks = group_selections(topi, e, bm)
+
+    xg = x2.new_zeros((nb * bm, h)).index_copy_(0, dest, x2[order // top_k])
+    gu = w8a16_grouped_matmul(xg, moe.gateup.packed, moe.gateup.scales, block_expert,
+                              real_blocks)
     hidden = _gated(gu, activation, x2.dtype)
-    dn = w8a16_grouped_matmul(hidden, moe.down.packed, moe.down.scales, block_expert)
+    dn = w8a16_grouped_matmul(hidden, moe.down.packed, moe.down.scales, block_expert,
+                              real_blocks)
     # un-sort, then the weighted sum over k in the original top-k order
-    contrib = torch.empty((n_sel, h), dtype=dn.dtype, device=dev).index_copy_(
+    contrib = torch.empty((n_sel, h), dtype=dn.dtype, device=x2.device).index_copy_(
         0, order, dn[dest]).float()
     return (contrib.reshape(t, top_k, h) * topw.reshape(t, top_k, 1).float()).sum(1)
 

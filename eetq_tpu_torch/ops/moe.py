@@ -57,14 +57,16 @@ def w8a16_grouped_matmul(
     qweight: PackedWeight,
     scales: torch.Tensor,
     block_expert: torch.Tensor,
+    real_blocks: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Token-grouped expert GEMM over a stacked bank (routed MoE prefill).
 
     x [M, K] with M = nb * bm, rows pre-sorted so every bm-row block
     belongs to one expert (padding blocks hold zero rows, dropped by the
-    caller); block_expert [nb] int32, a valid id for every block. Returns
-    [M, N] in x.dtype.
+    caller); block_expert [nb] int32, a valid id for every block;
+    real_blocks int32 [1] on the device, the number of blocks before the
+    padding (the kernel skips the rest), or None. Returns [M, N] in x.dtype.
     """
     _check_bank(x, qweight, scales)
     kernel = w4a16_grouped_gemm if qweight.bits == 4 else w8a16_grouped_gemm
-    return kernel(x.contiguous(), qweight.data, scales, block_expert, qweight.n)
+    return kernel(x.contiguous(), qweight.data, scales, block_expert, qweight.n, real_blocks)

@@ -271,6 +271,64 @@ def test_grouped_gemm_int4_and_group_wise_banks(dev, bits, k, group, bm, nb):
     assert not out[-bm:].any()
 
 
+def _grouped_case(g, dev, bits, k, n, group, bm, experts):
+    """x [len(experts) * bm, k] and a bank of 4 experts in one mode: (x,
+    logical bank, packed data, scales, block ids)."""
+    q, data, scales = _bank_modes(g, dev, 4, k, n, bits, group)
+    x = torch.randn(len(experts) * bm, k, generator=g, device=dev).to(torch.bfloat16)
+    return x, q, data, scales, torch.tensor(experts, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("bm", [8, 16, 40, 64, 128])
+@pytest.mark.parametrize("group", [None, 32, 96, 128], ids=["per-channel", "g32", "g96", "g128"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_grouped_gemm_designs(dev, bits, group, bm):
+    """Both designs of csrc/wgmma_grouped.cuh (the skinny tile up to
+    GROUPED_SKINNY_BM rows, the 128-row tile above) in every scale mode:
+    K = 1152 holds 36, 12 and 9 groups of 32, 96 and 128 rows (g = 32 and 96
+    close groups in the middle of a 64-deep K step), N = 320 ends inside a
+    column strip; ids repeat, and the last block is padding behind the
+    count of real blocks."""
+    g = torch.Generator(device=dev).manual_seed(bits * 1000 + bm + (group or 0))
+    x, q, data, scales, be = _grouped_case(g, dev, bits, 1152, 320, group, bm, [2, 0, 0, 3, 1, 1])
+    x[-bm:] = 0
+    kernel = w4a16_grouped_gemm if bits == 4 else w8a16_grouped_gemm
+    count = torch.tensor([5], dtype=torch.int32, device=dev)
+    out = kernel(x, data, scales, be, 320, count)
+    _close(out, grouped_matmul_ref(x, q, scales, be, bm))
+    assert not out[-bm:].any()
+
+
+@pytest.mark.parametrize("bm", [8, 16, 128])
+@pytest.mark.parametrize("bits,k,n,group", [(8, 1000, 300, None), (4, 1000, 300, None),
+                                            (4, 960, 300, 64), (8, 4096, 4096, 128)])
+def test_grouped_gemm_one_block_and_odd_shapes(dev, bits, k, n, group, bm):
+    """nb = 1, and K, N that need padding (odd N: rows of out are not
+    16-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(k + bm)
+    x, q, data, scales, be = _grouped_case(g, dev, bits, k, n, group, bm, [3])
+    kernel = w4a16_grouped_gemm if bits == 4 else w8a16_grouped_gemm
+    _close(kernel(x, data, scales, be, n), grouped_matmul_ref(x, q, scales, be, bm))
+
+
+@pytest.mark.parametrize("bm", [8, 128])
+@pytest.mark.parametrize("bits,group", [(8, None), (4, 128)])
+def test_grouped_gemm_skips_padding_blocks(dev, bits, group, bm):
+    """Blocks at or past the count come out zero however their rows of x
+    look, without reading the bank; the real blocks are the same, bit for
+    bit, as without the count, which computes every block."""
+    g = torch.Generator(device=dev).manual_seed(bm + bits)
+    x, q, data, scales, be = _grouped_case(g, dev, bits, 1024, 512, group, bm, [1, 2, 2, 3, 3, 3])
+    kernel = w4a16_grouped_gemm if bits == 4 else w8a16_grouped_gemm
+    count = torch.tensor([3], dtype=torch.int32, device=dev)
+    skipped, full = kernel(x, data, scales, be, 512, count), kernel(x, data, scales, be, 512)
+    torch.cuda.synchronize()
+    assert not skipped[3 * bm:].any()
+    assert torch.equal(skipped[:3 * bm], full[:3 * bm])
+    _close(full, grouped_matmul_ref(x, q, scales, be, bm))
+    assert full[3 * bm:].any()
+
+
 @pytest.mark.parametrize("tokens", [1, 4, 17])
 def test_moe_apply_int4_groups_on_the_card(dev, tokens):
     """The three regimes over int4 banks with 64-row groups, no host sync."""
@@ -553,6 +611,9 @@ def test_unsupported_variants_raise(dev):
     with pytest.raises(ValueError):  # row blocks of 4 rows
         w8a16_grouped_gemm(torch.zeros(8, 128, dtype=torch.bfloat16, device=dev), bank,
                            torch.ones(2, 128, device=dev), ids, 128)
+    with pytest.raises(TypeError):  # an int64 count of real blocks
+        w8a16_grouped_gemm(torch.zeros(16, 128, dtype=torch.bfloat16, device=dev), bank,
+                           torch.ones(2, 128, device=dev), ids, 128, ids[:1].long())
 
 
 def test_every_kernel_counts_its_launches(dev):

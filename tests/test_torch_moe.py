@@ -186,6 +186,66 @@ def test_grouped_with_empty_experts_matches_plain(moe_pair):
     _block_close(got, want.float().numpy())
 
 
+def _routing(case: str) -> tuple[torch.Tensor, int]:
+    """Seeded top-k ids [T, k] and the expert count E."""
+    rng = np.random.default_rng(len(case))
+    if case == "one expert takes all":
+        return torch.full((40, 1), 2), 4
+    e, t = (8, 8) if case == "engine step" else (8, 300)
+    pool = np.array([0, 3, 5]) if case == "empty experts" else np.arange(e)
+    ids = np.stack([rng.choice(pool, 2, replace=False) for _ in range(t)])
+    return torch.from_numpy(ids), e
+
+
+@pytest.mark.parametrize("case", ["seeded", "empty experts", "one expert takes all",
+                                  "engine step"])
+def test_group_selections_counts_the_real_blocks(case):
+    """The count of real blocks that moe_grouped_combine hands the grouped
+    GEMMs (which skip the blocks past it on the card) is the number of
+    blocks holding a selection: those blocks come first, each holds rows of
+    the expert it names, and every selection has a row of its own. The
+    engine's 8-slot step is 16 selections at E = 8."""
+    topi, e = _routing(case)
+    n_sel = topi.numel()
+    bm = port_moe._grouped_bm(n_sel, e)
+    order, dest, block_expert, real = port_moe.group_selections(topi, e, bm)
+    assert real.dtype == torch.int32 and real.shape == (1,)
+    assert block_expert.shape == (n_sel // bm + e,)
+    used = torch.unique(dest // bm).tolist()
+    counts = np.bincount(topi.reshape(-1).numpy(), minlength=e)
+    assert int(real) == len(used) == sum(-(-c // bm) for c in counts)
+    assert used == list(range(int(real)))
+    assert len(set(dest.tolist())) == n_sel
+    assert torch.equal(block_expert[dest // bm].long(), topi.reshape(-1)[order])
+
+
+def test_grouped_matmul_count_zeroes_the_padding_blocks():
+    """With the count of real blocks, rows of the blocks past it come out
+    zero (what their zero rows of x give on the main path) even where x is
+    not zero there; the real rows do not change."""
+    rng = np.random.default_rng(3)
+    q, s = _bank(rng, 4, 192, 256)
+    be = torch.tensor([0, 2, 2, 1, 3, 3], dtype=torch.int32)
+    x = torch.from_numpy(rng.standard_normal((6 * 8, 192)).astype(np.float32)).to(torch.bfloat16)
+    bank = pack_weights(_t(q))
+    full = w8a16_grouped_matmul(x, bank, _t(s), be)
+    counted = w8a16_grouped_matmul(x, bank, _t(s), be, torch.tensor([4], dtype=torch.int32))
+    assert full[32:].any() and not counted[32:].any()
+    assert torch.equal(counted[:32], full[:32])
+
+
+@pytest.mark.parametrize("shape", [(1, 8), (2, 512)])  # 16 and 2048 selections
+def test_moe_apply_matches_jax_at_engine_and_prompt_sizes(moe_pair, shape):
+    """The grouped regime at the engine step's 16 selections (bm 8) and a
+    prompt's 2048 (bm 128), the real-block count passed, against JAX."""
+    jm, tm = moe_pair
+    rng = np.random.default_rng(shape[1])
+    x_j, x_t = _bf16(rng.standard_normal((*shape, H)).astype(np.float32))
+    out_j = jax_moe.moe_apply(jm, x_j, 2, interpret=True)
+    out_t = port_moe.moe_apply(tm, x_t, 2)
+    _block_close(out_t, out_j)
+
+
 def test_grouped_blocks_are_static():
     assert port_moe._grouped_bm(2048, 8) == 128  # a Mixtral prompt of 1024 tokens
     assert port_moe._grouped_bm(16, 8) == 8  # the engine's 8-slot decode
