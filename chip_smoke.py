@@ -7,7 +7,10 @@ Run from the repository root, on a machine with one CUDA card (an H100):
 
 1. Environment: torch/CUDA/nvcc versions, the card's name and power limit;
    builds the kernels of `eetq_tpu_torch/csrc/` with nvcc (one process per
-   source, all at once).
+   source, all at once). It reads ptxas's `-Xptxas=-v` report and lists the
+   kernels whose `wgmma`s ptxas serialized (warning C7520); the run fails if
+   any of them is behind `w8a16_gemm`, `w4a16_gemm`, `w8a8_gemm` or
+   `w4a8_gemm`.
 2. Kernels: each of the seventeen kernel entry points against its plain
    PyTorch version on the card at llama2-7b shapes (the MoE kernels at
    Mixtral-8x7B's), with its error, its time beside the plain time, the
@@ -195,6 +198,10 @@ MODEL_TOL = 5e-2
 # difference from attention can come out of the next projection as a whole
 # step. The kernel and plain W8A8 products themselves are bit-identical.
 A8_MODEL_TOL = 2 * MODEL_TOL
+# The sources behind w8a16_gemm, w4a16_gemm, w8a8_gemm and w4a8_gemm: a C7520
+# warning of ptxas for any of them fails the run (the grouped GEMM's
+# per-slice group modes are known to draw it and are listed only).
+UNSERIALIZED_SOURCES = ("w8a16_gemm.cu", "w4a16_gemm.cu", "w8a8_gemm.cu", "w4a8_gemm.cu")
 REPLACES = {
     "w8a16_gemv": ("cuda", "eetq_tpu_torch/csrc/w8a16_gemv.cu", "eetq_tpu/kernels/w8a16.py:239"),
     "w8a16_gemm": ("cuda", "eetq_tpu_torch/csrc/w8a16_gemm.cu", "eetq_tpu/kernels/w8a16.py:239"),
@@ -289,6 +296,23 @@ class CheckFailed(Exception):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
+
+
+def serialized_wgmma(log: str) -> dict:
+    """{source: [function, ...]} of ptxas's C7520 warnings in the build log
+    (`_build.py` compiles each source with `-Xptxas=-v` under a "== name"
+    line): kernels whose `wgmma`s ptxas serialized because it found one, or a
+    read of its accumulators, on a path it could not prove uniform."""
+    import re
+
+    found, source = {}, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif "C7520" in line:
+            name = re.search(r"function '([^']+)'", line)
+            found.setdefault(source, []).append(name.group(1) if name else line.strip())
+    return found
 
 
 def card_line() -> str:
@@ -1450,6 +1474,14 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {info['nvcc_version']}")
     print(card)
     print(f"kernels built in {info['seconds']:.1f} s (cached: {info['cached']})")
+    serialized = serialized_wgmma(info["log"])
+    for source, names in sorted(serialized.items()):
+        print(f"ptxas C7520 (wgmma serialized) in {source}: {len(names)} kernel(s): "
+              + ", ".join(sorted(set(names))))
+    bad = sorted(set(serialized) & set(UNSERIALIZED_SOURCES))
+    if bad:
+        print(f"chip_smoke: C7520 in {bad}: their wgmma must not be serialized", file=sys.stderr)
+        return 1
     run = {
         "kernels": lambda: kernel_phase(dev),
         "moe_layer": lambda: moe_layer_phase(dev),
@@ -1475,6 +1507,7 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build_s=info["seconds"], nvcc_log=info["log"],
+                           serialized_wgmma=serialized,
                            kernels=done.get("kernels", {}).get("rows"),
                            kernel_summary=done.get("kernels", {}).get("summary"),
                            moe_layer=done.get("moe_layer"), model=done.get("llama"),

@@ -1,274 +1,434 @@
-// The int8-activation GEMM tile shared by w8a8_gemm.cu and w4a8_gemm.cu:
-// out[m, n] = bf16((f32(xq[m, :] . W[:, n]) * sx[m]) * sw[n] + bias[n])
-// with per-token int8 activations xq, int8 or int4 weights W and an exact
-// int32 accumulator.
+// The int8-activation GEMM for Hopper shared by w8a8_gemm.cu and
+// w4a8_gemm.cu: out[m, n] = bf16((f32(xq[m, :] . W[:, n]) * sx[m]) * sw[n]
+// + bias[n]) with per-token int8 activations xq, int8 or int4 weights W and
+// an exact s32 accumulator; or, group-wise (int4, sw [groups, n]),
+// out[m, n] = bf16((sum over groups of f32(the group's s32 sum) * sw[g, n])
+// * sx[m] + bias[n]).
 //
 // Replaces eetq_tpu/kernels/w8a8.py::w8a8_matmul_kernel_call (int8) and
-// ::w4a8_matmul_kernel_call (int4). Bound by
-// tensor-core operations at prefill sizes (m = 1024 does 2m operations per
-// weight byte); Hopper's int8 tensor-core rate is twice its bf16 rate, which
-// is what the path is for. Each 256-thread block computes a 128 x 128 output
-// tile; per 64-deep K step it stages the xq tile and the weight tile in
-// shared memory, and 8 warps (2 x 4) each multiply a 64 x 32 sub-tile with
-// `mma.sync.m16n8k32` s8 x s8 -> s32 (16 MMAs per 32-deep slice). The next
-// step's tiles are loaded into registers while the current one is
-// multiplied (two shared-memory buffers, one barrier per step).
+// ::w4a8_matmul_kernel_call (int4). Bound by tensor-core operations at
+// prefill sizes (m = 1024 does 2m operations per weight byte, int4 4m);
+// Hopper's int8 rate is twice its bf16 rate, which is what the path is for.
 //
-// The B operand of the MMA (".col") wants four consecutive K values of one
-// column in a register, but the packed weight is row-major [Kp, Np] with N
-// contiguous, and `ldmatrix.trans` exists only for 16-bit elements. So each
-// thread loads a 4 (K) x 8 (N) byte block (four 8-byte loads, coalesced
-// along N), transposes it with byte permutes, and stores eight 4-byte words
-// into a [BN][BK] (K-contiguous) tile; an XOR swizzle of the word index
-// keeps both these stores (2-way) and the fragment reads (conflict-free)
-// off each other's banks. A fragments are read from a row-major tile whose
-// rows are padded to 80 bytes. Fragment layouts follow the PTX ISA's
-// m16n8k32 .s8 figures: A reg r holds row g (+8 for r odd), K bytes
-// 4t..4t+3 (+16 for r >= 2); B reg r holds column g, K bytes 4t..4t+3
-// (+16 for r = 1); C regs 0,1 row g, columns 2t, 2t+1, regs 2,3 row g+8
-// (g = lane / 4, t = lane % 4).
+// Design: wgmma_gemm.cuh's pipeline on the int8 wgmma
+// (m64nNk32.s32.s8.s8). A block of four warpgroups (512 threads) computes a
+// 256 x 128 output tile (128 x 128 where m <= 128; group-wise 256 x 64, as
+// wgmma_gemm.cuh's) in K steps of 128 bytes through three rings in
+// dynamic shared memory: x tiles (four slots), transposed weight tiles
+// (three) and packed weight tiles (three).
+//   - For 8-bit types wgmma takes both operands K-major from shared memory:
+//     the descriptor's transpose bit exists only for 16-bit types. xq [m, kp]
+//     is K-major as stored, so the producers (warpgroups 2 and 3) copy it by
+//     cp.async straight into the 128-byte swizzle (hopper.cuh): one K step
+//     is one swizzled row of 128 bytes. W [kp, np] is N-contiguous, so the
+//     producers copy each packed tile by cp.async into a staging ring and,
+//     two steps later, transpose it byte-wise once for the whole block into
+//     the swizzled K-major [n][k] layout: a thread takes 16 K rows x 4
+//     columns (16 4-byte loads), four 4 x 4 byte transposes (eight byte
+//     permutes each) and four 16-byte stores, one per column. The staging
+//     ring is itself XOR-swizzled by 16-row band, so that the eight threads
+//     of one column group, one per band, load from eight distinct chunks,
+//     and each store of eight threads covers the eight chunks of one row.
+//     int4: a byte holds K rows 2r (low nibble) and 2r + 1 (high;
+//     layout/tiling.py); the nibbles are sign-extended to int8 in the same
+//     pass (a band is eight byte rows). The transpose is this kernel's
+//     counterpart of wgmma_gemm.cuh's widening, and what the tile's height
+//     amortizes; no transposed copy of the weights is kept in the model (it
+//     would double the bytes that decode reads).
+//   - The consumers (warpgroups 0 and 1, 128 or 64 rows each) run per K
+//     step four k32 slices of one or two wgmma m64n128k32 (both operands
+//     K-major), exact s32 accumulators in registers, one group in flight,
+//     and hand the slots back through mbarriers. No wgmma, and no read of
+//     its registers, sits under a branch (ptxas would serialize them all:
+//     warning C7520): rows past m are zero and multiplied.
+//   - setmaxnreg: producers 88 registers, consumers 168, as wgmma_gemm.cuh.
 //
-// The epilogue rounds in the order of the TPU kernel (w8a8.py:72-84) with
-// explicitly rounded operations, so no multiply-add is contracted: the
-// integer sum is exact, and the output is bit-identical to a plain version
-// that also sums exactly.
+// Group-wise scales (sw [groups, n], group_size a multiple of 32): each
+// consumer's two 64-row halves keep their open group's s32 sum in registers
+// beside the f32 accumulators (its first slice overwrites it: scale-d = 0);
+// when a group is complete its sum is converted to f32 (exact: at most
+// group_size * 127 * 8), multiplied by the group's scale row and added to
+// the accumulators, group after group. The halves' folds alternate with
+// each other's products in flight (hopper.cuh::staggered_groups), as in
+// wgmma_gemm.cuh's group mode, on its 256 x 64 tile. A group of whole K
+// steps (128) is a unit of one step; 64 and other multiples of 32 take
+// units of a half or a quarter step, each in a kernel of its own.
 //
-// int4 (kBits = 4): a weight byte holds logical row 2r in its low nibble and
-// row 2r + 1 in its high one (layout/tiling.py). A thread's 4 (K) x 8 (N)
-// block is then two 8-byte loads of weight rows 2kg and 2kg + 1, whose low
-// and high nibbles, sign-extended in place to int8, are the four logical
-// rows the int8 path loads; the transpose and the MMAs are the same. The
-// operands are the exact values in [-8, 7], so the s32 sum needs none of the
-// TPU kernel's x16 and 1/16.
-//
-// Group-wise scales (kGroup, sw [groups, n], group_size a multiple of the
-// 32-deep MMA slice): at a group's last slice its s32 partial sum is
-// converted to f32 (exact: at most group_size * 127 * 8), multiplied by the
-// group's scale row and added to an f32 accumulator; the epilogue is then
-// accf * sx + bias (w8a8.py:236-265).
+// The epilogue rounds in the order of the TPU kernel (w8a8.py:72-84,
+// :256-265) with explicitly rounded operations, so no multiply-add is
+// contracted: the integer sum is exact, and the per-channel output is
+// bit-identical to a plain version that also sums exactly.
 #pragma once
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace eetq {
 namespace a8 {
+
+using namespace eetq::hopper;
+
+// the per-channel tile comes from kernels/autotune.py::W8A8_TILE (nvcc -D
+// flags): rows, columns, K bytes per step
+static_assert(EETQ_W8A8_BM == 256 && EETQ_W8A8_BN == 128 && EETQ_W8A8_BK == 128,
+              "two consumer warpgroups of 128 rows, m64n128k32, one swizzled row a step");
+constexpr int kBK = EETQ_W8A8_BK, kSlices = kBK / 32;
+constexpr int kXSlots = 4, kWSlots = 3, kRawSlots = 3;
+constexpr int kLookahead = 2;  // K steps between a weight tile's copy and its transpose
+static_assert(kRawSlots > kLookahead, "a packed tile outlives its lookahead");
+constexpr int kConsumers = 256, kProducers = 256, kThreads = kConsumers + kProducers;
+constexpr int kBarriers = 2 * kXSlots + kWSlots;
+// a scale group is whole 32-deep wgmma slices (kernels/autotune.py::GROUP_GRANULE)
+static_assert(EETQ_GROUP_GRANULE % 32 == 0, "a wgmma slice must not straddle two scale groups");
+
+template <int kHalves, int kBN, bool kGroup>
+struct Tile {
+  static constexpr int kBM = 128 * kHalves;
+  static constexpr int kXBytes = kBM * kBK;    // x tile, int8
+  static constexpr int kWBytes = kBN * kBK;    // transposed weight tile, [n][k]
+  static constexpr int kRawBytes = kBK * kBN;  // packed weight tile as copied (int4 uses half)
+  static constexpr int kScaleBytes = kGroup ? kSlices * kBN * 4 : 0;  // a row per slice
+  static constexpr int kWOff = kXSlots * kXBytes;
+  static constexpr int kRawOff = kWOff + kWSlots * kWBytes;
+  static constexpr int kScaleOff = kRawOff + kRawSlots * kRawBytes;
+  static constexpr int kBarOff = kScaleOff + kXSlots * kScaleBytes;
+  static constexpr int kSmemBytes = kBarOff + kBarriers * 8 + 1024;
+  static constexpr int kOutLd = kBN + 8;  // padded rows of the output staging
+  static_assert(kBM * kOutLd * 2 <= kRawOff, "output staging fits the rings");
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+};
+
+struct Args {
+  const int8_t* xq;  // [m, kp]
+  int m, kp;         // kp: the logical padded K
+  const int8_t* w;   // [kp, np] (int4: [kp / 2, np]); kp, np % 128 == 0
+  int np;
+  const float* sx;  // [m]
+  const float* sw;  // [n], or [groups, n]
+  int groups, group_size;
+  const float* bias;  // [n] or null
+  bf16* out;          // [m, n]
+  int n;
+};
+
+__device__ __forceinline__ uint32_t load4(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void store16(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                        uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+// Byte offset of 16-byte chunk q of packed row r in the staging ring: the
+// tile's chunks in order, 128-byte lines of them, chunk position XOR the
+// row's 16-deep K band.
+template <int kChunksPerRow, int kBandRows>
+__device__ __forceinline__ uint32_t staged(int r, int q) {
+  const int l = r * kChunksPerRow + q;
+  return static_cast<uint32_t>(((l >> 3) << 7) | (((l & 7) ^ ((r / kBandRows) & 7)) << 4));
+}
+
+// Internal linkage: two sources include this file.
 namespace {
 
-// the tile comes from kernels/autotune.py::W8A8_TILE (nvcc -D flags)
-constexpr int kBM = EETQ_W8A8_BM, kBN = EETQ_W8A8_BN, kBK = EETQ_W8A8_BK, kThreads = 256;
-static_assert(kBM == 128 && kBN == 128 && kBK == 64,
-              "the load mapping below covers a 128 x 64 A tile and a 64 x 128 B tile");
-// a scale group is whole 32-deep MMA slices (kernels/autotune.py::GROUP_GRANULE)
-static_assert(EETQ_GROUP_GRANULE % 32 == 0, "an MMA must not straddle two scale groups");
-constexpr int kALd = kBK + 16;  // bytes per A row in shared memory: 20 words
-constexpr int kBWords = kBK / 4;  // 16 words per B column
-constexpr int kWM = 64, kWN = 32;  // warp tile; warps form a 2 x 4 grid
-constexpr int kFM = kWM / 16, kFN = kWN / 8;
-static_assert((kBM / kWM) * (kBN / kWN) == kThreads / 32, "one warp tile per warp");
-
-// Word index of (column n, K word kw) in the B tile.
-__device__ __forceinline__ int b_word(int n, int kw) {
-  const int sw = ((((n >> 1) ^ (n >> 3)) & 3) << 2) | (((n >> 5) & 1) << 1);
-  return n * kBWords + (kw ^ sw);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// kp: the logical padded K (the width of xq); the weight has kp rows of
-// int8 or kp / 2 of int4 pairs.
-template <int kBits, bool kGroup>
-__global__ void __launch_bounds__(kThreads) a8_gemm_kernel(
-    const int8_t* __restrict__ xq, int m, int kp, const int8_t* __restrict__ w, int np,
-    const float* __restrict__ sx, const float* __restrict__ sw, int groups, int group_size,
-    const float* __restrict__ bias, bf16* __restrict__ out, int n) {
+// kUnits: 0 for per-channel scales; else group-wise, groups closing after
+// units of kSlices / kUnits slices (1: whole steps; 2: halves; 4: quarters).
+template <int kBits, int kHalves, int kBN, int kUnits>
+__global__ void __launch_bounds__(kThreads, 1) a8_gemm_kernel(const Args a) {
   static_assert(kBits == 8 || kBits == 4, "int8 or int4 weights");
-  __shared__ __align__(16) uint32_t as[2][kBM * kALd / 4];
-  __shared__ __align__(16) uint32_t bs[2][kBN * kBWords];
+  static_assert(kUnits == 0 || kUnits == 1 || kUnits == 2 || kUnits == 4,
+                "a unit is a step, a half or a quarter of one");
+  using T = Tile<kHalves, kBN, kUnits != 0>;
+  constexpr int kBM = T::kBM;
+  constexpr int kChunksPerRow = kBN / 16;
+  constexpr int kRawRows = kBits == 8 ? kBK : kBK / 2;  // byte rows of a packed tile
+  constexpr int kBandRows = kRawRows / 8;               // ... per 16-deep K band
+  constexpr int kRawChunks = kRawRows * kChunksPerRow;
+  constexpr int kBlocks = 8 * (kBN / 4);  // transpose work: 8 bands x 4-column groups
+  static_assert(kBlocks <= kProducers, "one 16 x 4 block a producer thread");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const generic = smem_raw + (base - smem_addr(smem_raw));
+  auto xs = [&](int step) { return base + (step % kXSlots) * T::kXBytes; };
+  auto ws = [&](int step) { return base + T::kWOff + (step % kWSlots) * T::kWBytes; };
+  auto raw = [&](int step) { return base + T::kRawOff + (step % kRawSlots) * T::kRawBytes; };
+  auto sc = [&](int step) { return base + T::kScaleOff + (step % kXSlots) * T::kScaleBytes; };
+  auto full = [&](int step) { return base + T::kBarOff + (step % kXSlots) * 8; };
+  auto x_free = [&](int step) { return base + T::kBarOff + (kXSlots + step % kXSlots) * 8; };
+  auto w_free = [&](int step) { return base + T::kBarOff + (2 * kXSlots + step % kWSlots) * 8; };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / (kBN / kWN), wn = warp % (kBN / kWN);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  int acc[kFM][kFN][4];
-#pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-  float accf[kFM][kFN][4];  // group-wise: the sum of the closed groups
-  if constexpr (kGroup) {
-#pragma unroll
-    for (int i = 0; i < kFM; ++i)
-#pragma unroll
-      for (int j = 0; j < kFN; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) accf[i][j][r] = 0.f;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int nk = a.kp / kBK;
+  if (tid == 0) {
+    for (int i = 0; i < kXSlots; ++i) {
+      mbar_init(full(i), kProducers / 32);
+      mbar_init(x_free(i), kConsumers / 32);
+    }
+    for (int i = 0; i < kWSlots; ++i) mbar_init(w_free(i), kConsumers / 32);
+    mbar_init_fence();
   }
-  // Group-wise: close group gi. accf += f32(acc) * sw[gi, column]; acc = 0.
-  auto fold = [&](int gi) {
-    const float* srow = sw + (size_t)gi * n;
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producers: copy, transpose, hand over ----
+    setmaxnreg_dec<88>();
+    const int p = tid - kConsumers;
+    const int rows = min(kBM, a.m - m0);
+    const int band = p & 7, cols = p >> 3;  // this thread's transpose block: 16 K x 4 columns
+    for (int it = 0; it < nk + kLookahead; ++it) {
+      const int j = it - kLookahead;  // transpose step j, then copy step it
+      if (j >= 0) {
+        mbar_wait(w_free(j), ((j / kWSlots) & 1) ^ 1);
+        cp_async_wait<kLookahead - 1>();  // this thread's copies of step j have landed
+        named_barrier(2, kProducers);     // ... and every producer's
+        if (p < kBlocks) {
+          uint32_t r8[16];  // K rows 16 band + i, columns 4 cols .. + 3
 #pragma unroll
-    for (int j = 0; j < kFN; ++j) {
+          for (int i = 0; i < kBandRows; ++i) {
+            const int r = band * kBandRows + i;
+            const uint32_t v =
+                load4(raw(j) + staged<kChunksPerRow, kBandRows>(r, cols >> 2) + (cols & 3) * 4);
+            if constexpr (kBits == 8) {
+              r8[i] = v;
+            } else {
+              r8[2 * i] = nibbles_to_int8x4<false>(v);
+              r8[2 * i + 1] = nibbles_to_int8x4<true>(v);
+            }
+          }
+          uint32_t col[4][4];  // column c, K bytes 4q .. 4q + 3 (the smallest K lowest)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int gn = n0 + wn * kWN + j * 8 + 2 * t + e;
-        const float s = gn < n ? srow[gn] : 0.f;
+          for (int q = 0; q < 4; ++q) {
+            const uint32_t t0 = __byte_perm(r8[4 * q], r8[4 * q + 1], 0x5140);
+            const uint32_t t1 = __byte_perm(r8[4 * q], r8[4 * q + 1], 0x7362);
+            const uint32_t t2 = __byte_perm(r8[4 * q + 2], r8[4 * q + 3], 0x5140);
+            const uint32_t t3 = __byte_perm(r8[4 * q + 2], r8[4 * q + 3], 0x7362);
+            col[0][q] = __byte_perm(t0, t2, 0x5410);
+            col[1][q] = __byte_perm(t0, t2, 0x7632);
+            col[2][q] = __byte_perm(t1, t3, 0x5410);
+            col[3][q] = __byte_perm(t1, t3, 0x7632);
+          }
 #pragma unroll
-        for (int i = 0; i < kFM; ++i) {
+          for (int c = 0; c < 4; ++c)
+            store16(ws(j) + swizzle128(4 * cols + c, band), col[c][0], col[c][1], col[c][2],
+                    col[c][3]);
+        }
+        fence_proxy_async();  // the x copies and the stores above, for wgmma
+        __syncwarp();
+        if ((tid & 31) == 0) mbar_arrive(full(j));
+      }
+      if (it < nk) {
+        const int k0 = it * kBK;
+        mbar_wait(x_free(it), ((it / kXSlots) & 1) ^ 1);
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            accf[i][j][2 * hr + e] =
-                fmaf(__int2float_rn(acc[i][j][2 * hr + e]), s, accf[i][j][2 * hr + e]);
-            acc[i][j][2 * hr + e] = 0;
+        for (int i = 0; i < kBM * 8 / kProducers; ++i) {  // x: kBM rows x 8 chunks of 16 bytes
+          const int idx = p + i * kProducers, row = idx >> 3, c = idx & 7;
+          const bool ok = row < rows;  // rows past m are zero
+          const int8_t* src = ok ? a.xq + (size_t)(m0 + row) * a.kp + k0 + c * 16 : a.xq;
+          cp_async16(xs(it) + swizzle128(row, c), src, ok ? 16 : 0);
+        }
+        const int k0_rows = kBits == 8 ? k0 : k0 / 2;
+#pragma unroll
+        for (int i = 0; i < (kRawChunks + kProducers - 1) / kProducers; ++i) {  // W, packed
+          const int idx = p + i * kProducers, row = idx / kChunksPerRow, c = idx % kChunksPerRow;
+          if (idx >= kRawChunks) break;
+          cp_async16(raw(it) + staged<kChunksPerRow, kBandRows>(row, c),
+                     a.w + (size_t)(k0_rows + row) * a.np + n0 + c * 16, 16);
+        }
+        if constexpr (kUnits != 0) {  // the scale row of each 32-deep slice of the step
+          for (int idx = p; idx < kSlices * kBN; idx += kProducers) {
+            const int h = idx / kBN, gn = n0 + idx % kBN;
+            const int gi = min((k0 + 32 * h) / a.group_size, a.groups - 1);
+            const bool ok = gn < a.n;
+            cp_async4(sc(it) + idx * 4, ok ? a.sw + (size_t)gi * a.n + gn : a.sw, ok ? 4 : 0);
           }
         }
       }
+      cp_async_commit();  // one group per step, empty past the end
+    }
+    return;
+  }
+
+  // ---- consumers: 64 kHalves rows x kBN columns each ----
+  setmaxnreg_inc<168>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // half h: element 4j + e at row 64 (kHalves wg + h) + 16 warp + g (+ 8 for
+  // e >= 2), column 8j + 2t + (e & 1)
+  constexpr int kAcc = kBN / 2;
+  constexpr bool kGroup = kUnits != 0;
+  int acc[kGroup ? 1 : kHalves][kGroup ? 1 : kAcc];     // per-channel: the exact sum
+  int part[kGroup ? kHalves : 1][kGroup ? kAcc : 1];    // group-wise: the open group's
+  float accf[kGroup ? kHalves : 1][kGroup ? kAcc : 1];  // ... and the closed groups' scaled sum
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      if constexpr (kGroup) accf[h][i] = 0.f;
+      else acc[h][i] = 0;
+    }
+  }
+  auto mma = [&](int(&d)[kAcc], int kt, int h, int s, int scale_d) {
+    const uint64_t da = smem_desc(xs(kt) + (64 * (kHalves * wg + h)) * 128 + s * 32, 16, 1024);
+    const uint64_t db = smem_desc(ws(kt) + s * 32, 16, 1024);
+    if constexpr (kBN == 128) wgmma_s8_n128(d, da, db, scale_d);
+    else wgmma_s8_n64(d, da, db, scale_d);
+  };
+  auto release = [&](int kt) {  // step kt - 1 has been multiplied
+    if (kt > 0 && lane == 0) {
+      mbar_arrive(x_free(kt - 1));
+      mbar_arrive(w_free(kt - 1));
     }
   };
-
-  // A tile: 128 rows x 4 vectors of 16 bytes (2 per thread), rows past m
-  // are 0. B tile: thread (kg, ng) takes rows 4kg..4kg+3, columns
-  // 8ng..8ng+7; lanes run along N so each row's loads are coalesced.
-  const int ng = lane & 15, kg = (lane >> 4) + 2 * warp;
-  int4 a_reg[2];
-  uint2 b_reg[4];
-  auto load_tile = [&](int k0) {
+  if constexpr (!kGroup) {
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(full(kt), (kt / kXSlots) & 1);
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kThreads, row = idx >> 2, gm = m0 + row;
-      a_reg[i] = gm < m ? *reinterpret_cast<const int4*>(xq + (size_t)gm * kp + k0 + (idx & 3) * 16)
-                        : make_int4(0, 0, 0, 0);
+      for (int s = 0; s < kSlices; ++s)
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h) mma(acc[h], kt, h, s, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      release(kt);
     }
-    if constexpr (kBits == 8) {
+    wgmma_wait<0>();
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        b_reg[r] = __ldg(reinterpret_cast<const uint2*>(
-            w + (size_t)(k0 + 4 * kg + r) * np + n0 + 8 * ng));
-    } else {  // weight rows 2kg, 2kg + 1 of this step: logical rows 4kg..4kg+3
+    for (int h = 0; h < kHalves; ++h) fence_registers(acc[h]);
+  } else {
+    static_assert(kHalves == 2, "the group folds of the two halves alternate");
+    constexpr int kUnitSlices = kSlices / kUnits;
+    auto issue = [&](auto half, int u, int first) {
+      constexpr int h = decltype(half)::value;
+      const int kt = u / kUnits, s0 = (u % kUnits) * kUnitSlices;
+      if (h == 0 && s0 == 0) mbar_wait(full(kt), (kt / kXSlots) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kUnitSlices; ++s) mma(part[h], kt, h, s0 + s, !first || s != 0);
+      wgmma_commit();
+    };
+    // accf += f32(part) * the scale row of unit u's last slice
+    auto fold = [&](auto half, int u) {
+      constexpr int h = decltype(half)::value;
+      fence_registers(part[h]);
+      const int row = (u % kUnits + 1) * kUnitSlices - 1;
+      const float* sr =
+          reinterpret_cast<const float*>(generic + (sc(u / kUnits) - base)) + row * kBN;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const float2 s2 = *reinterpret_cast<const float2*>(sr + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          accf[h][4 * j + e] =
+              fmaf(__int2float_rn(part[h][4 * j + e]), (e & 1) ? s2.y : s2.x, accf[h][4 * j + e]);
+      }
+    };
+    auto after = [&](int u) {
+      if (u % kUnits == 0) release(u / kUnits);
+    };
+    staggered_groups(nk * kUnits, a.group_size / (32 * kUnitSlices), issue, fold, after);
+  }
+
+  // epilogue: (f32(acc) * sx) * sw, or accf * sx; then + bias; one rounding
+  const int r0 = 64 * kHalves * wg + warp * 16 + g;
+  auto result = [&](int h, int i) {
+    const int row = m0 + r0 + 64 * h + ((i & 2) ? 8 : 0), gn = n0 + 8 * (i / 4) + 2 * t + (i & 1);
+    const float rs = row < a.m ? a.sx[row] : 0.f;
+    float r;
+    if constexpr (kGroup) {
+      r = __fmul_rn(accf[h][i], rs);
+    } else {
+      r = __fmul_rn(__fmul_rn(__int2float_rn(acc[h][i]), rs), gn < a.n ? a.sw[gn] : 0.f);
+    }
+    if (a.bias != nullptr && gn < a.n) r = __fadd_rn(r, a.bias[gn]);
+    return r;
+  };
+  if (a.n % 8) {  // rows of out are not 16-byte aligned
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) {
+        const int row = m0 + r0 + 64 * h + ((i & 2) ? 8 : 0), gn = n0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (row < a.m && gn < a.n) a.out[(size_t)row * a.n + gn] = __float2bfloat16_rn(result(h, i));
+      }
+    }
+    return;
+  }
+  named_barrier(1, kConsumers);  // both warpgroups have read their last slots
+  bf16* stage = reinterpret_cast<bf16*>(generic);
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        b_reg[r] = __ldg(reinterpret_cast<const uint2*>(
-            w + (size_t)(k0 / 2 + 2 * kg + r) * np + n0 + 8 * ng));
+        *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 64 * h + 8 * r) * T::kOutLd + j * 8 +
+                                           2 * t) =
+            __floats2bfloat162_rn(result(h, 4 * j + 2 * r), result(h, 4 * j + 2 * r + 1));
     }
-  };
-  auto store_tile = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kThreads;
-      *reinterpret_cast<int4*>(&as[buf][(idx >> 2) * (kALd / 4) + (idx & 3) * 4]) = a_reg[i];
-    }
-    if constexpr (kBits == 4) {
-      const uint2 p0 = b_reg[0], p1 = b_reg[1];
-      b_reg[0] = make_uint2(nibbles_to_int8x4<false>(p0.x), nibbles_to_int8x4<false>(p0.y));
-      b_reg[1] = make_uint2(nibbles_to_int8x4<true>(p0.x), nibbles_to_int8x4<true>(p0.y));
-      b_reg[2] = make_uint2(nibbles_to_int8x4<false>(p1.x), nibbles_to_int8x4<false>(p1.y));
-      b_reg[3] = make_uint2(nibbles_to_int8x4<true>(p1.x), nibbles_to_int8x4<true>(p1.y));
-    }
-    // 4 x 4 byte transposes: word j of the output holds column j's bytes of
-    // rows 0..3 (row 0 in the low byte: the smallest K first)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t r0 = h ? b_reg[0].y : b_reg[0].x, r1 = h ? b_reg[1].y : b_reg[1].x;
-      const uint32_t r2 = h ? b_reg[2].y : b_reg[2].x, r3 = h ? b_reg[3].y : b_reg[3].x;
-      const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r0, r1, 0x7362);
-      const uint32_t t2 = __byte_perm(r2, r3, 0x5140), t3 = __byte_perm(r2, r3, 0x7362);
-      const int nb = 8 * ng + 4 * h;
-      bs[buf][b_word(nb + 0, kg)] = __byte_perm(t0, t2, 0x5410);
-      bs[buf][b_word(nb + 1, kg)] = __byte_perm(t0, t2, 0x7632);
-      bs[buf][b_word(nb + 2, kg)] = __byte_perm(t1, t3, 0x5410);
-      bs[buf][b_word(nb + 3, kg)] = __byte_perm(t1, t3, 0x7632);
-    }
-  };
-
-  const int nk = kp / kBK;
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
-  for (int s = 0; s < nk; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < nk) load_tile((s + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 4; kk += 8) {  // 32-byte slices, in words
-      uint32_t af[kFM][4], bf[kFN][2];
-#pragma unroll
-      for (int i = 0; i < kFM; ++i) {
-        const uint32_t* p = &as[buf][(wm * kWM + i * 16 + g) * (kALd / 4) + kk + t];
-        af[i][0] = p[0];
-        af[i][1] = p[8 * (kALd / 4)];
-        af[i][2] = p[4];
-        af[i][3] = p[8 * (kALd / 4) + 4];
-      }
-#pragma unroll
-      for (int j = 0; j < kFN; ++j) {
-        const int nc = wn * kWN + j * 8 + g;
-        bf[j][0] = bs[buf][b_word(nc, kk + t)];
-        bf[j][1] = bs[buf][b_word(nc, kk + 4 + t)];
-      }
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFN; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-      if constexpr (kGroup) {  // rows past the last group are zero padding
-        const int kend = s * kBK + 4 * kk + 32;
-        if (kend % group_size == 0 || kend == kp) fold(min((kend - 1) / group_size, groups - 1));
-      }
-    }
-    if (s + 1 < nk) store_tile(buf ^ 1);
-    __syncthreads();
   }
-
-  // Epilogue: r = f32(acc) * sx[row], then * sw[col] (group-wise: the
-  // scaled f32 sum * sx[row]), then + bias[col], then one rounding to bf16.
-#pragma unroll
-  for (int i = 0; i < kFM; ++i) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int gm = m0 + wm * kWM + i * 16 + g + 8 * hr;
-      if (gm >= m) continue;
-      const float rs = sx[gm];
-#pragma unroll
-      for (int j = 0; j < kFN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int gn = n0 + wn * kWN + j * 8 + 2 * t + e;
-          if (gn < n) {
-            float r;
-            if constexpr (kGroup) {
-              r = __fmul_rn(accf[i][j][2 * hr + e], rs);
-            } else {
-              r = __fmul_rn(__int2float_rn(acc[i][j][2 * hr + e]), rs);
-              r = __fmul_rn(r, sw[gn]);
-            }
-            if (bias != nullptr) r = __fadd_rn(r, bias[gn]);
-            out[(size_t)gm * n + gn] = __float2bfloat16_rn(r);
-          }
-        }
-      }
-    }
+  named_barrier(1, kConsumers);
+  for (int idx = tid; idx < kBM * (kBN / 8); idx += kConsumers) {
+    const int r = idx / (kBN / 8), c = idx % (kBN / 8);
+    if (m0 + r < a.m && n0 + c * 8 < a.n)
+      *reinterpret_cast<int4*>(a.out + (size_t)(m0 + r) * a.n + n0 + c * 8) =
+          *reinterpret_cast<const int4*>(stage + r * T::kOutLd + c * 8);
   }
 }
 
-// One block per 128 x 128 output tile; group-wise when groups > 0.
+// One block per kBM rows (fastest) and per kBN output columns.
+template <int kBits, int kHalves, int kBN, int kUnits>
+cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
+  using T = Tile<kHalves, kBN, kUnits != 0>;
+  auto kernel = a8_gemm_kernel<kBits, kHalves, kBN, kUnits>;
+  static bool opted_in = false;  // above 48 KB of dynamic shared memory
+  if (!opted_in) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const int strips = a.np / kBN;
+  if (a.m < 1 || strips < 1 || strips > 65535 || a.np % kBN || a.kp % kBK)
+    return cudaErrorInvalidValue;
+  kernel<<<dim3((a.m + T::kBM - 1) / T::kBM, strips), kThreads, T::kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The design for the call: per-channel on the W8A8_TILE (128 rows where
+// m <= 128), group-wise (int4 only) on 256 x 64, with the fold unit the
+// largest of a step, a half and a quarter that divides the group.
 template <int kBits>
 cudaError_t launch(const void* xq, int m, int kp, const void* w, int np, const void* sx,
                    const void* sw, int groups, int group_size, const void* bias, void* out, int n,
                    void* stream) {
-  if (groups > 0 && (group_size < EETQ_GROUP_GRANULE || group_size % EETQ_GROUP_GRANULE)) return cudaErrorInvalidValue;
-  const dim3 grid(np / kBN, (m + kBM - 1) / kBM);
-  auto* kernel = groups > 0 ? a8_gemm_kernel<kBits, true> : a8_gemm_kernel<kBits, false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), m, kp, static_cast<const int8_t*>(w), np,
-      static_cast<const float*>(sx), static_cast<const float*>(sw), groups, group_size,
-      static_cast<const float*>(bias), static_cast<bf16*>(out), n);
-  return cudaGetLastError();
+  Args a{};
+  a.xq = static_cast<const int8_t*>(xq);
+  a.m = m;
+  a.kp = kp;
+  a.w = static_cast<const int8_t*>(w);
+  a.np = np;
+  a.sx = static_cast<const float*>(sx);
+  a.sw = static_cast<const float*>(sw);
+  a.groups = groups;
+  a.group_size = group_size;
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<bf16*>(out);
+  a.n = n;
+  auto s = static_cast<cudaStream_t>(stream);
+  constexpr int kBN = EETQ_W8A8_BN;
+  if (groups == 0)
+    return m <= 128 ? launch_tile<kBits, 1, kBN, 0>(a, s) : launch_tile<kBits, 2, kBN, 0>(a, s);
+  if constexpr (kBits == 4) {
+    if (group_size < EETQ_GROUP_GRANULE || group_size % EETQ_GROUP_GRANULE)
+      return cudaErrorInvalidValue;
+    if (group_size % kBK == 0) return launch_tile<kBits, 2, 64, 1>(a, s);
+    if (group_size % (kBK / 2) == 0) return launch_tile<kBits, 2, 64, 2>(a, s);
+    return launch_tile<kBits, 2, 64, 4>(a, s);
+  }
+  return cudaErrorInvalidValue;  // group-wise W8A8 has no kernel
 }
 
 }  // namespace

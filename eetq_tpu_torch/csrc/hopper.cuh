@@ -1,18 +1,19 @@
 // Hopper (sm_90a) building blocks shared by flash_attention.cu,
-// wgmma_gemm.cuh and wgmma_grouped.cuh: asynchronous copies into shared
-// memory (cp.async), mbarriers, the shared-memory matrix descriptor of wgmma
-// and the wgmma.mma_async forms the kernels use.
+// wgmma_gemm.cuh, wgmma_grouped.cuh and a8_gemm.cuh: asynchronous copies
+// into shared memory (cp.async), mbarriers, the shared-memory matrix
+// descriptor of wgmma and the wgmma.mma_async forms the kernels use (bf16
+// into f32, and s8 into exact s32).
 //
-// Shared-memory operand layout (both kernels use only this one): a tile of
-// rows x 64 bf16 (128 bytes a row, rows packed), its base aligned to 1024
+// Shared-memory operand layout (every kernel uses only this one): a tile of
+// rows x 128 bytes (64 bf16 or 128 int8, rows packed), its base aligned to 1024
 // bytes, the 16-byte chunk c of row r stored at chunk c ^ (r & 7): the
-// 128-byte swizzle. Wider tiles are several such 64-column blocks side by
+// 128-byte swizzle. Wider tiles are several such 128-byte blocks side by
 // side. The same bytes serve
-//   - a K-major operand (the row is an M or N index, the 64 columns are K):
-//     a k16 step starts 32 bytes further along the row; SBO = 1024 bytes
-//     steps over 8 rows; LBO is not used;
-//   - an MN-major operand (the row is a K index, the columns are M or N;
-//     the instruction's transpose bit): a k16 step starts 16 rows (2048
+//   - a K-major operand (the row is an M or N index, the 128 bytes are K):
+//     a k16 (bf16) or k32 (int8) step starts 32 bytes further along the
+//     row; SBO = 1024 bytes steps over 8 rows; LBO is not used;
+//   - an MN-major operand, bf16 only (the row is a K index, the columns are
+//     M or N; the instruction's transpose bit): a k16 step starts 16 rows (2048
 //     bytes) further; SBO = 1024 bytes steps over 8 K rows; LBO is the
 //     distance between two 64-column blocks.
 #pragma once
@@ -121,6 +122,11 @@ template <int kN>
 __device__ __forceinline__ void fence_registers(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int kN>
+__device__ __forceinline__ void fence_registers(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // D[64 x 64] (+)= A[64 x 16] (registers) * B[16 x 64] (shared memory).
@@ -272,6 +278,150 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, ui
       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], both from shared memory.
+// kTransA / kTransB: 0 = K-major, 1 = MN-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// D[64 x 64] (+)= A[64 x 32] * B[32 x 64], int8 operands, exact s32
+// accumulators; both operands K-major from shared memory (the only layout
+// wgmma takes for 8-bit types).
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+      "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+      "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+      "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 32] * B[32 x 128], int8 operands, exact s32
+// accumulators; both operands K-major from shared memory (the only layout
+// wgmma takes for 8-bit types).
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+      "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+      "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+      "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+      "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+      "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+      "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+      "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The consumer loop of a group-wise GEMM tile whose warpgroup holds two
+// 64-row halves, each with its own open-group sum (part[0], part[1]) beside
+// the accumulators: the two halves' products are committed apart, and when
+// a group closes, half 0's sum is folded while half 1's last products are in
+// flight, and half 1's while half 0's first products of the next group are.
+// The tensor cores never drain at a group's end, and no wgmma and no fold
+// sits under a branch (the group count comes from loops; ptxas serializes
+// every wgmma of a kernel with one on a path it cannot prove uniform:
+// warning C7520). nu units of K in groups of gu units; h is Half<0> or
+// Half<1>;
+//   issue(h, u, first): wait for u's data if it starts a K step, wgmma fence,
+//     the unit's slices of half h (first: the group's first, scale-d = 0),
+//     commit;
+//   fold(h, u): fence half h's sum and add it times the scale row of unit u
+//     (the group's last) to the accumulators;
+//   after(u): at most the products of half 1 of unit u are pending: hand
+//     back what u's K step no longer needs.
+template <int kH>
+struct Half {  // a half's index as a type: register arrays are indexed at compile time
+  static constexpr int value = kH;
+};
+template <class Issue, class Fold, class After>
+__device__ __forceinline__ void staggered_groups(int nu, int gu, Issue issue, Fold fold,
+                                                 After after) {
+  // one group from u0 to u1, its half-0 first unit already issued; ends
+  // with half 0 folded and half 1's last unit pending
+  auto group = [&](int u0, int u1) {
+    issue(Half<1>{}, u0, 1);
+    wgmma_wait<1>();
+    after(u0);
+    for (int u = u0 + 1; u < u1; ++u) {
+      issue(Half<0>{}, u, 0);
+      issue(Half<1>{}, u, 0);
+      wgmma_wait<1>();
+      after(u);
+    }
+    fold(Half<0>{}, u1 - 1);
+  };
+  issue(Half<0>{}, 0, 1);
+  int u0 = 0;
+  for (; u0 + gu < nu; u0 += gu) {  // every group but the last
+    group(u0, u0 + gu);
+    issue(Half<0>{}, u0 + gu, 1);  // the next group's first unit, half 0
+    wgmma_wait<1>();
+    fold(Half<1>{}, u0 + gu - 1);
+  }
+  group(u0, nu);
+  wgmma_wait<0>();
+  fold(Half<1>{}, nu - 1);
 }
 
 }  // namespace hopper

@@ -4,13 +4,11 @@
 // Replaces the prefill regime of eetq_tpu/kernels/w8a16.py::
 // w8a16_matmul_kernel_call for int4 weights. Bound by tensor-core operations
 // at prefill sizes (m = 1024 does 4m operations per weight byte). The nibbles
-// are sign-extended and widened to bf16 on the way into shared memory (the
-// TPU kernel's biased nibbles and its -8 * rowsum(x) correction are not
-// needed). Per-channel scales run the Hopper tile of wgmma_gemm.cuh in its
-// int4 mode (the same ring and wgmma as int8; only the producer's conversion
-// differs); group-wise scales run the group mode of gemm_tile.cuh (wmma,
-// each group's scale on that group's f32 partial sum).
-#include "gemm_tile.cuh"
+// are widened to exact bf16 on the way into shared memory (the TPU kernel's
+// biased nibbles and its -8 * rowsum(x) correction are not needed). Runs the
+// Hopper tile of wgmma_gemm.cuh in its int4 mode (the same rings and wgmma
+// as int8; only the producers' conversion differs), per-channel or with each
+// group's scale on that group's f32 partial sum.
 #include "wgmma_gemm.cuh"
 
 // x [m, k] bf16 contiguous (k % 8 == 0); w int4 pairs [kp / 2, np] (kp the
@@ -20,8 +18,6 @@
 extern "C" int eetq_w4a16_gemm(const void* x, int m, int k, const void* w, int kp, int np,
                                const void* scales, int groups, int group_size, const void* bias,
                                void* out, int n, void* stream) {
-  if (groups == 0)
-    return eetq::wgmma_gemm::dense_entry<4>(x, m, k, w, kp, np, scales, bias, out, n, stream);
-  return eetq::gemm::dense_entry<4>(x, m, k, w, kp, np, scales, groups, group_size, bias, out, n,
-                                    stream);
+  return eetq::wgmma_gemm::dense_entry<4>(x, m, k, w, kp, np, scales, groups, group_size, bias,
+                                          out, n, stream);
 }

@@ -7,10 +7,10 @@
 //
 // Replaces eetq_tpu/kernels/w8a8.py::w4a8_matmul_kernel_call. Bound by
 // tensor-core operations at prefill sizes (m = 1024 does 4m operations per
-// weight byte). The design is the tile of a8_gemm.cuh in its int4 mode: the
-// nibbles are sign-extended in place to int8 operands for `mma.sync.m16n8k32`
-// s8 x s8 -> s32, so the TPU kernel's biased nibbles, its -8 * rowsum(x)
-// correction and its x16 / 1/16 folding are not needed.
+// weight byte). The design is a8_gemm.cuh in its int4 mode: the nibbles are
+// sign-extended to int8 operands of the int8 wgmma in the pass that
+// transposes the weight tile, so the TPU kernel's biased nibbles, its
+// -8 * rowsum(x) correction and its x16 / 1/16 folding are not needed.
 #include "a8_gemm.cuh"
 
 // xq [m, kp] int8 contiguous (zero past the logical K; kp the logical padded

@@ -3,13 +3,11 @@
 //
 // Replaces the prefill regime of eetq_tpu/kernels/w8a16.py::
 // w8a16_matmul_kernel_call. Bound by tensor-core operations at prefill
-// sizes. Per-channel scales (the W8A16 models) run the Hopper tile of
-// wgmma_gemm.cuh: 256 x 128 tiles, cp.async into rings of shared memory, the
-// int8 tile widened to bf16 once per block by two producer warpgroups, wgmma
-// m64n128k16 in two consumer warpgroups, scale and bias on the accumulators.
-// Group-wise scales run the group mode of gemm_tile.cuh (each group's scale
-// on that group's f32 partial sum).
-#include "gemm_tile.cuh"
+// sizes. Runs the Hopper tile of wgmma_gemm.cuh: cp.async into rings of
+// shared memory, the int8 tile widened to bf16 once per block by two
+// producer warpgroups, wgmma in two consumer warpgroups; per-channel scales
+// and bias on the accumulators, or each group's scale on that group's f32
+// partial sum (a second register set, on a tile of half the columns).
 #include "wgmma_gemm.cuh"
 
 // x [m, k] bf16 contiguous (k % 8 == 0); w int8 [kp, np] (kp, np % 128 == 0);
@@ -18,8 +16,6 @@
 extern "C" int eetq_w8a16_gemm(const void* x, int m, int k, const void* w, int kp, int np,
                                const void* scales, int groups, int group_size, const void* bias,
                                void* out, int n, void* stream) {
-  if (groups == 0)
-    return eetq::wgmma_gemm::dense_entry<8>(x, m, k, w, kp, np, scales, bias, out, n, stream);
-  return eetq::gemm::dense_entry<8>(x, m, k, w, kp, np, scales, groups, group_size, bias, out, n,
-                                    stream);
+  return eetq::wgmma_gemm::dense_entry<8>(x, m, k, w, kp, np, scales, groups, group_size, bias,
+                                          out, n, stream);
 }

@@ -3,10 +3,10 @@
 // exact int32 accumulator.
 //
 // Replaces eetq_tpu/kernels/w8a8.py::w8a8_matmul_kernel_call. Bound by
-// tensor-core operations at prefill sizes; the design (128 x 128 tiles,
-// `mma.sync.m16n8k32` s8 x s8 -> s32, the weight transposed byte-wise on its
-// way into shared memory, an epilogue that is bit-identical to the plain
-// version) is the tile of a8_gemm.cuh in its int8 mode.
+// tensor-core operations at prefill sizes; the design (256 x 128 tiles on
+// the int8 wgmma m64n128k32, the weight transposed byte-wise into a K-major
+// shared tile once per block, an epilogue that is bit-identical to the plain
+// version) is a8_gemm.cuh in its int8 mode.
 #include "a8_gemm.cuh"
 
 // xq [m, kp] int8 contiguous (zero past the logical K); w int8 [kp, np]

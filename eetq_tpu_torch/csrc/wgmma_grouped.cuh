@@ -68,6 +68,7 @@ namespace eetq {
 namespace wgmma_grouped {
 
 using namespace eetq::hopper;
+using wgmma_gemm::int4x16_to_bf16;
 using wgmma_gemm::int8x16_to_bf16;
 using wgmma_gemm::load16;
 using wgmma_gemm::store_pair;
@@ -139,32 +140,6 @@ __device__ __forceinline__ void skinny_mma(float (&d)[kN / 2], uint64_t da, uint
   if constexpr (kN == 8) wgmma_ss_n8<1, 0>(d, da, db, scale_d);
   else if constexpr (kN == 16) wgmma_ss_n16<1, 0>(d, da, db, scale_d);
   else wgmma_ss_n32<1, 0>(d, da, db, scale_d);
-}
-
-// Sixteen bytes of int4 pairs (byte i: K rows 2r and 2r + 1 of column i)
-// to the two bf16 rows, eight columns per vector. With u the nibble and
-// n = u - 16 [u > 7] its value, 0x4300 | (u ^ 8) reads as the bf16 128 + n + 8
-// and 136 is subtracted: a byte permute, a shift, two lop3 and two packed
-// subtractions per two columns of both rows.
-__device__ __forceinline__ void int4x16_to_bf16(const int4& raw, uint4& lo0, uint4& hi0,
-                                                uint4& lo1, uint4& hi1) {
-  const uint32_t w[4] = {static_cast<uint32_t>(raw.x), static_cast<uint32_t>(raw.y),
-                         static_cast<uint32_t>(raw.z), static_cast<uint32_t>(raw.w)};
-  uint32_t even[8], odd[8];
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t t = __byte_perm(w[i / 2], 0u, (i & 1) ? 0x4342 : 0x4140);
-    const uint32_t a = (t & 0x000F000Fu) ^ 0x43084308u, b = ((t >> 4) & 0x000F000Fu) ^ 0x43084308u;
-    const __nv_bfloat162 ra = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a), bias);
-    const __nv_bfloat162 rb = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b), bias);
-    even[i] = *reinterpret_cast<const uint32_t*>(&ra);
-    odd[i] = *reinterpret_cast<const uint32_t*>(&rb);
-  }
-  lo0 = make_uint4(even[0], even[1], even[2], even[3]);
-  hi0 = make_uint4(even[4], even[5], even[6], even[7]);
-  lo1 = make_uint4(odd[0], odd[1], odd[2], odd[3]);
-  hi1 = make_uint4(odd[4], odd[5], odd[6], odd[7]);
 }
 
 // Internal linkage: two sources include this file.

@@ -4,11 +4,11 @@ Every `csrc/*.cu` file is compiled by nvcc for `sm_90a` into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds): one small source per entry point of `SIGNATURES`, most of them a
 mode of a shared header (`gemv.cuh`: the int8 and int4 GEMVs, the expert
-gathers and both fused MLPs; `wgmma_gemm.cuh`: the int8 and int4 GEMMs with
-per-channel scales; `gemm_tile.cuh`: the same GEMMs with group-wise scales;
-`wgmma_grouped.cuh`: the int8 and int4 grouped expert GEMMs; `a8_gemm.cuh`:
-W8A8 and W4A8; `hopper.cuh`: the `cp.async`, `mbarrier` and `wgmma`
-wrappers of the `wgmma` kernels and `flash_attention.cu`), compiled in parallel. The library lands in `eetq_tpu_torch/_build/<hash>/`, keyed on a
+gathers and both fused MLPs; `wgmma_gemm.cuh`: the int8 and int4 GEMMs,
+per-channel and group-wise; `wgmma_grouped.cuh`: the int8 and int4 grouped
+expert GEMMs; `a8_gemm.cuh`: W8A8 and W4A8 on the int8 `wgmma`;
+`hopper.cuh`: the `cp.async`, `mbarrier` and `wgmma` wrappers of the
+`wgmma` kernels and `flash_attention.cu`), compiled in parallel. The library lands in `eetq_tpu_torch/_build/<hash>/`, keyed on a
 hash of the sources and flags, so it is rebuilt only when they change.
 
 Each C entry point launches on the stream it is given, allocates nothing,

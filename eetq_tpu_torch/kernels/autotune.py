@@ -17,19 +17,21 @@ import torch
 # every m in 1..MAX_DECODE_M.
 MAX_DECODE_M = 8
 
-# W8A8 GEMM tile: output rows, output columns, K bytes per pipeline step
-# (`csrc/w8a8_gemm.cu`; its 256 threads' load mapping asserts this shape).
-W8A8_TILE = (128, 128, 64)
+# W8A8 / W4A8 GEMM tile with per-channel scales: output rows, output columns,
+# K bytes per pipeline step (`csrc/a8_gemm.cuh` asserts it: two consumer
+# warpgroups of 128 rows on wgmma m64n128k32, one 128-byte swizzled row of K
+# a step; a 128-row tile where m <= 128).
+W8A8_TILE = (256, 128, 128)
 
 # Fused MLP: intermediate columns per gate/up block, the GEMV's 32-column
 # strip (`csrc/gemv.cuh`), taken once over the gate and once over the up half.
 FUSED_MLP_SLICE = 32
 
-# Group-wise scales [K/g, N]: g is a multiple of this. It is the K depth of
-# one step of the W8A16 / W4A16 GEMM tile and of one int8 MMA of the A8 tile,
-# so no step straddles two groups (`csrc/gemm_tile.cuh` and `csrc/a8_gemm.cuh`
-# assert it; the grouped GEMM folds a group after a 32-deep half of its
-# 64-deep step); g = 64 and 128, the usual int4 settings, pass.
+# Group-wise scales [K/g, N]: g is a multiple of this. It is the depth of two
+# bf16 wgmma slices and of one int8 one, so no slice straddles two groups
+# (`csrc/wgmma_gemm.cuh`, `csrc/wgmma_grouped.cuh` and `csrc/a8_gemm.cuh`
+# fold a group after the slice that closes it); g = 64 and 128, the usual
+# int4 settings, pass.
 GROUP_GRANULE = 32
 
 # Token-grouped expert GEMM: rows per row block, a multiple of 8 between

@@ -19,11 +19,13 @@ per bit width:
   the ~295 FLOP/byte balance point of the card (datasheet bf16 peak over
   HBM bandwidth), about 13.8 TFLOP for a llama2-7b prompt. With per-channel
   scales it runs the Hopper tile of `csrc/wgmma_gemm.cuh`: 256 x 128 output
-  tiles, x and the packed weights copied by `cp.async` into rings of
-  swizzled shared memory, each weight tile widened to bf16 once per block by
-  two producer warpgroups, `wgmma` m64n128k16 with f32 accumulators in two
-  consumer warpgroups, the scale and bias on the accumulators. With
-  group-wise scales it runs the `wmma` tile of `csrc/gemm_tile.cuh`.
+  tiles (128 x 128 where m <= 128), x and the packed weights copied by
+  `cp.async` into rings of swizzled shared memory, each weight tile widened
+  to bf16 once per block by two producer warpgroups, `wgmma` m64n128k16
+  with f32 accumulators in two consumer warpgroups, the scale and bias on
+  the accumulators. With group-wise scales the same pipeline keeps the open
+  group's sum in a second register set and adds it times the group's scale
+  row to the accumulators when the group closes, on a 256 x 64 tile.
 - `w4a16_gemv` (`csrc/w4a16_gemv.cu`) and `w4a16_gemm`
   (`csrc/w4a16_gemm.cu`): the same two designs on int4 weights packed two
   neighbouring K rows to a byte (`layout/tiling.py`), half the bytes per

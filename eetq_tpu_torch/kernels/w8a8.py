@@ -6,21 +6,23 @@ weights, or x int4 weights with per-channel or group-wise scales.
 It is the prefill regime's path (the engine's `a8_prefill`): bound by
 tensor-core operations, and Hopper's int8 rate is twice its bf16 rate. An
 m = 1024 llama2-7b prompt does about 13.8 TOP through it per forward. The
-kernel runs `mma.sync` m16n8k32 s8 x s8 -> s32 over 128 x 128 output tiles;
-the row-major [Kp, Np] weight is transposed byte-wise on its way into
-shared memory, since the B operand wants K contiguous (see the source).
+kernel runs the int8 `wgmma` (m64n128k32 s8 x s8 -> s32) over 256 x 128
+output tiles (128 x 128 where m <= 128) fed by a `cp.async` ring; `wgmma`
+takes 8-bit operands only K-major, so producer warpgroups transpose each
+row-major [Kp, Np] weight tile byte-wise into shared memory once per block
+(see `csrc/a8_gemm.cuh`).
 
 `w4a8_gemm` replaces `w4a8_matmul_kernel_call` (`pallas_call` at
 w8a8.py:325) with `csrc/w4a8_gemm.cu`, the same tile with the int4 bytes
 (two neighbouring K rows each, `layout/tiling.py`) sign-extended to int8
-operands on their way into shared memory; it is what gives an int4 model
+operands in the pass that transposes them; it is what gives an int4 model
 the engine's `a8_prefill`. The operands are the exact values in [-8, 7], so
 with per-channel scales the s32 sum and the epilogue are those of W8A8 and
 the output is bit-identical to the plain version; the TPU kernel's biased
 nibbles and x16 / 1/16 folding (w8a8.py:219-235) are not carried over. With
 group-wise scales [K/g, N] each group's s32 sum is converted to f32 and
-scaled by its row (w8a8.py:236-253), which differs from the plain version
-by the order of the f32 sum over groups.
+scaled by its row (w8a8.py:236-253), the groups added in order; the plain
+version's f32 sum over groups may run in another order.
 
 `quantize_activations` and the plain product are bit-identical to the JAX
 package's on the CPU: the activation quantizer scales as XLA compiles it

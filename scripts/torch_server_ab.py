@@ -6,7 +6,7 @@ grouped GEMM's two designs, or the two Mixtral models' decode.
 Run from the repository root, on a machine with an H100:
 
     python3 scripts/torch_server_ab.py [--rounds N]
-    python3 scripts/torch_server_ab.py --kernels-of DIR [--rounds N]
+    python3 scripts/torch_server_ab.py --kernels-of DIR [--rounds N] [--kernels-only]
     python3 scripts/torch_server_ab.py --grouped-sweep [--rounds N]
     python3 scripts/torch_server_ab.py --mixtral-decode [--rounds N]
 
@@ -29,15 +29,22 @@ and loaded beside this tree's, with DIR's own argument types
 argument, the count of real blocks before the stream, it is dropped for
 DIR). Timed in the order DIR, here, here, DIR per round (one event pair per
 launch after an L2 flush, and many launches back to back:
-`chip_smoke.time_ms` and `time_many_ms`): `eetq_flash_attention_fwd` and
-`eetq_w8a16_gemm` at llama2-7b's prefill shapes, and the grouped GEMMs
+`chip_smoke.time_ms` and `time_many_ms`): `eetq_flash_attention_fwd`; the
+dense GEMMs at llama2-7b's four prefill shapes, summed over them
+(`AB_DENSE`: `eetq_w8a16_gemm` per-channel at m=1024 and m=9 and g=128,
+`eetq_w4a16_gemm` g=128, `eetq_w8a8_gemm` and `eetq_w4a8_gemm` per-channel
+and g=128 at m=1024 and at a short admission's m=128); and the grouped GEMMs
 (`eetq_w8a16_grouped_gemm` per-channel, `eetq_w4a16_grouped_gemm` g=128) on
 Mixtral-8x7B's banks at bm=128 nb=24 (a 1024-token prompt) and bm=8 nb=10
 (an 8-slot engine step), this tree also without the count of real blocks
 (every padding block computed, as DIR does). Then, with this tree's Python
-through either library: llama2-7b W8A16's and both Mixtral-8x7B models'
-b=1, 1024-token prefill, and the W4A16 g=128 Mixtral's paged int8 engine:
-ms per 8-slot decode step and served tok/s (`chip_smoke.server_path`).
+through either library: the b=1, 1024-token prefill of llama2-7b W8A16 and
+W4A16 g=128 (`int4_generate`'s model) and of both Mixtral-8x7B models; one
+admission of a 1024-token prompt through each llama2-7b model's default
+`Engine` (W8A8, W4A8 g=128: an engine step that admits it and asks for one
+token); and the W4A16 g=128 Mixtral's paged int8 engine: ms per 8-slot
+decode step and served tok/s (`chip_smoke.server_path`). `--kernels-only`
+stops after the kernel cases.
 
 `--grouped-sweep` times the grouped GEMM's skinny tile against its
 128-row tile on Mixtral's banks at bm in {8, 16, 32} (and the 128-row tile
@@ -66,8 +73,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 
-AB_ENTRIES = ("eetq_flash_attention_fwd", "eetq_w8a16_gemm", "eetq_w8a16_grouped_gemm",
+AB_ENTRIES = ("eetq_flash_attention_fwd", "eetq_w8a16_gemm", "eetq_w4a16_gemm",
+              "eetq_w8a8_gemm", "eetq_w4a8_gemm", "eetq_w8a16_grouped_gemm",
               "eetq_w4a16_grouped_gemm")
+# dense GEMM cases of the A/B at llama2-7b's four prefill shapes, each summed
+# over them: (kernel, bits, group, rows); m=9 leaves most of a row block
+# dead, m=128 is a short admission
+AB_DENSE = [("w8a16_gemm", 8, None, 1024), ("w8a16_gemm", 8, None, 9),
+            ("w8a16_gemm", 8, cs.INT4_GROUP, 1024), ("w4a16_gemm", 4, cs.INT4_GROUP, 1024),
+            ("w8a8_gemm", 8, None, 1024), ("w8a8_gemm", 8, None, 128),
+            ("w4a8_gemm", 4, None, 1024), ("w4a8_gemm", 4, None, 128),
+            ("w4a8_gemm", 4, cs.INT4_GROUP, 1024), ("w4a8_gemm", 4, cs.INT4_GROUP, 128)]
 ORDER = ("other", "here", "here", "other")
 # grouped GEMM cases of the A/B: (bits, group, bm, nb, experts of the real blocks)
 AB_GROUPED = [(bits, group, bm, nb, real)
@@ -201,8 +217,48 @@ def _grouped_cases(gen, dev, specs, count_for) -> dict:
     return cases
 
 
-def _sum_pairs(res: dict) -> None:
-    """Print gate|up + down per (kernel, mode, bm) of grouped results."""
+def _dense_cases(gen, dev, specs) -> tuple[dict, dict]:
+    """({case: make(tree) -> callable}, {case: bound ms}) of the dense GEMMs
+    on llama2-7b's four prefill shapes per spec (kernel, bits, group, rows):
+    the W8A16/W4A16 GEMMs on bf16 x, W8A8/W4A8 on per-token int8 x; the
+    bound as `chip_smoke.py` computes it."""
+    import torch
+
+    from eetq_tpu_torch.kernels import w8a8, w8a16
+    from eetq_tpu_torch.layout.tiling import pack_weights
+
+    cases, bounds = {}, {}
+    for name, bits, group, m in specs:
+        gemm = getattr(w8a8 if "a8" in name else w8a16, name)
+        a8 = "a8" in name
+        tag = f"int{bits} {'per-channel' if group is None else f'g={group}'} m={m}"
+        for k, n in cs.W8A8_SHAPES:
+            lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+            q = torch.randint(lo, hi, (k, n), generator=gen, device=dev, dtype=torch.int8)
+            data = pack_weights(q, bits=bits).data
+            shape = (n,) if group is None else (k // group, n)
+            sc = torch.rand(shape, generator=gen, device=dev) * 2e-3 + 1e-4
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            if "a8" in name:
+                xq, sx = w8a8.quantize_activations(x)
+                kw = {} if bits == 8 else {"group_size": group}
+                call = (lambda gemm=gemm, xq=xq, sx=sx, data=data, sc=sc, n=n, kw=kw:
+                        gemm(xq, sx, data, sc, n, **kw))
+            else:
+                call = lambda gemm=gemm, x=x, data=data, sc=sc, n=n: gemm(x, data, sc, n)
+            case = f"{name} {tag} K={k} N={n}"
+            cases[case] = lambda tree, call=call: call
+            size, ops = cs.linear_cost(m, k, n, bits / 8, 1 if group is None else k // group,
+                                       x_bytes=1 if a8 else 2, extra=4 * m if a8 else 0)
+            bounds[case] = 1e3 * max(size / cs.HBM_BYTES_PER_S,
+                                     ops / cs.PEAK_OPS_PER_S["int8" if a8 else "bf16"])
+    return cases, bounds
+
+
+def _sum_pairs(res: dict, what: str = "gate|up + down", bounds: dict | None = None) -> None:
+    """Print the sum over shapes ("K=..." in the case name) per kernel and
+    mode: gate|up + down of grouped results, the four layer shapes of dense
+    ones (with the sum of their bounds, where given)."""
     sums = {}
     for case, per in res.items():
         key = case.split(" K=")[0]
@@ -211,8 +267,10 @@ def _sum_pairs(res: dict) -> None:
             a[0] += ms
             a[1] += b2b
     for key, per in sums.items():
-        print(f"{key}, gate|up + down: " + "; ".join(
-            f"{t} {ms:.4f} ms (back to back {b2b:.4f})" for t, (ms, b2b) in per.items()))
+        bound = "" if bounds is None else "; bound {:.4f} ms".format(
+            sum(b for case, b in bounds.items() if case.split(" K=")[0] == key))
+        print(f"{key}, {what}: " + "; ".join(
+            f"{t} {ms:.4f} ms (back to back {b2b:.4f})" for t, (ms, b2b) in per.items()) + bound)
 
 
 def _prefill_ms(params, cfg, dev, prompt, n_new):
@@ -252,21 +310,62 @@ def _engine_step_ms(params, cfg, dev, gen, engine_kw, steps: int = 10) -> float:
     return ms
 
 
+def _admission_ms(eng, cfg, dev, gen, prompt_len: int) -> float:
+    """ms of one engine step that admits a single prompt of prompt_len
+    tokens asking for one token: the prefill forward and the first token,
+    no decode step."""
+    import torch
+
+    ids = torch.randint(0, cfg.vocab_size, (prompt_len,), generator=gen, device=dev).tolist()
+    eng.add_request(ids, max_new_tokens=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _profile_admission(eng, cfg, dev, gen, prompt_len: int, tree: str, top: int = 8) -> None:
+    """One admission (as `_admission_ms`) under torch.profiler: wall ms,
+    device-busy ms, kernel launches, idle share and the kernels that take
+    the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = torch.randint(0, cfg.vocab_size, (prompt_len,), generator=gen, device=dev).tolist()
+    eng.add_request(ids, max_new_tokens=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, launches = cs._device_events(prof)
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per[ev.name] = per.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    print(f"    {tree}, profiled: wall {wall:.2f} ms, device busy {busy:.2f} ms, {launches} launches, "
+          f"idle share {1 - busy / wall:.3f}; most device time: " + "; ".join(
+              f"{name[:60]} {ms:.2f}" for name, ms in sorted(per.items(), key=lambda kv: -kv[1])[:top]),
+          flush=True)
+
+
 def _report(label: str, runs: dict, unit: str = "ms") -> None:
     for t, vals in runs.items():
         print(f"{label}, {t}: median {statistics.median(vals):.2f} {unit}, runs "
               f"{['%.2f' % v for v in vals]}", flush=True)
 
 
-def kernels_ab(other_dir: str, rounds: int) -> int:
+def kernels_ab(other_dir: str, rounds: int, models: bool = True) -> int:
     """This tree's kernels and prefill against those of the checkout in
-    `other_dir`, in turns."""
+    `other_dir`, in turns; models=False times the kernel cases only."""
     import torch
 
     from eetq_tpu_torch.kernels import _build
     from eetq_tpu_torch.kernels.flash_attention import flash_attention
-    from eetq_tpu_torch.kernels.w8a16 import w8a16_gemm
     from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.serve.engine import Engine
     from eetq_tpu_torch.models.init import (
         quantize_params,
         random_dense_params,
@@ -288,15 +387,13 @@ def kernels_ab(other_dir: str, rounds: int) -> int:
     kv = torch.randn(b, skv, 2 * hkv, d, generator=gen, device=dev).to(torch.bfloat16)
     cases[f"flash_attention_fwd B={b} S={sq} H={hq} D={d}"] = (
         lambda tree: lambda: flash_attention(q, kv[:, :, :hkv], kv[:, :, hkv:]))
-    for k, n in cs.LLAMA_SHAPES:
-        qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
-        sc = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
-        x = torch.randn(1024, k, generator=gen, device=dev).to(torch.bfloat16)
-        cases[f"w8a16_gemm m=1024 K={k} N={n}"] = (
-            lambda tree, x=x, qw=qw, sc=sc, n=n: lambda: w8a16_gemm(x, qw, sc, n))
     with torch.inference_mode():
         _time_cases(cases, trees, ORDER, rounds, flush)
         cases.clear()
+        for spec in AB_DENSE:  # one spec's weights on the card at a time
+            dense, bounds = _dense_cases(gen, dev, [spec])
+            _sum_pairs(_time_cases(dense, trees, ORDER, rounds, flush), "four shapes", bounds)
+            del dense
         # the grouped GEMMs, this tree also without the count of real blocks
         trees3 = dict(trees, here_all_blocks=_build.launch)
         res = _time_cases(_grouped_cases(gen, dev, AB_GROUPED, lambda t: t == "here"), trees3,
@@ -305,6 +402,8 @@ def kernels_ab(other_dir: str, rounds: int) -> int:
     del cases, flush, q, kv
     gc.collect()
     torch.cuda.empty_cache()
+    if not models:
+        return 0
 
     _, p1, n1 = cs.REQUESTS[0]
 
@@ -314,6 +413,9 @@ def kernels_ab(other_dir: str, rounds: int) -> int:
     for name, make in (
             (f"{cs.MODEL} W8A16", lambda: quantize_params(
                 random_dense_params(PRESETS[cs.MODEL], seeded()), quantize_lm_head=True)),
+            (f"{cs.MODEL} W4A16 g={cs.INT4_GROUP}", lambda: random_quantized_params(
+                PRESETS[cs.MODEL], seeded(), quantize_lm_head=True, bits=4,
+                group_size=cs.INT4_GROUP)),
             (f"{cs.MIXTRAL} W8A16", lambda: random_quantized_params(
                 PRESETS[cs.MIXTRAL], seeded(), quantize_lm_head=True)),
             (f"{cs.MIXTRAL} W4A16 g={cs.INT4_GROUP}", lambda: random_quantized_params(
@@ -328,7 +430,16 @@ def kernels_ab(other_dir: str, rounds: int) -> int:
         _prefill_ms(params, cfg, dev, prompt, n1)  # warm
         _report(f"{name} prefill b=1 p={p1}", _in_turns(
             trees, ORDER, rounds, lambda t: _prefill_ms(params, cfg, dev, prompt, n1)))
-        if "W4A16" in name:
+        if name.startswith(cs.MODEL):  # the default engine: W8A8 / W4A8 at admission
+            eng = Engine(params, cfg, max_batch=8, max_len=2048)
+            _admission_ms(eng, cfg, dev, gen, p1)  # warm
+            _report(f"{name} engine admission of one {p1}-token prompt "
+                    f"({'W8A8' if 'W8A16' in name else 'W4A8'})", _in_turns(
+                        trees, ORDER, rounds, lambda t: _admission_ms(eng, cfg, dev, gen, p1)))
+            _in_turns(trees, ("other", "here"), 1, lambda t: _profile_admission(
+                eng, cfg, dev, gen, p1, t))
+            del eng
+        elif "W4A16" in name:
             kw = dict(paged_blocks=cs.PAGED_BLOCKS, paged_block_size=cs.PAGED_BLOCK_SIZE,
                       kv_dtype=torch.int8)
             _report(f"{name} paged int8 engine, ms per 8-slot decode step", _in_turns(
@@ -436,6 +547,8 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--kernels-of", metavar="DIR",
                         help="compare this tree's kernels with the checkout in DIR")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="with --kernels-of: the kernel cases only, no model")
     parser.add_argument("--grouped-sweep", action="store_true",
                         help="time the grouped GEMM's skinny tile against its wide one over bm")
     parser.add_argument("--mixtral-decode", action="store_true",
@@ -445,7 +558,7 @@ def main() -> int:
         print("torch_server_ab: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     if args.kernels_of:
-        return kernels_ab(args.kernels_of, args.rounds)
+        return kernels_ab(args.kernels_of, args.rounds, not args.kernels_only)
     if args.grouped_sweep:
         return grouped_sweep(args.rounds)
     if args.mixtral_decode:

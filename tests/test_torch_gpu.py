@@ -132,8 +132,9 @@ def test_w4a16_gemv_stages_x_in_chunks(dev, group):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 1000, 300), (37, 4096, 4096), (200, 11008, 4096),
-                                   (1024, 4096, 12288)])
-@pytest.mark.parametrize("group", [None, 32, 64, 128])
+                                   (1024, 4096, 12288), (37, 1000, 300), (200, 1000, 300),
+                                   (1024, 1000, 300)])
+@pytest.mark.parametrize("group", [None, 32, 64, 96, 128])
 def test_w4a8_gemm(dev, m, k, n, group):
     """Per-channel: the integer sum is exact and the epilogue rounds as the
     plain version does, so the output is bit-identical. Group-wise: the f32
@@ -474,6 +475,27 @@ def test_dense_gemm_per_channel_edges(dev, m, k, n, bits):
     _close(out, w8a16_matmul_ref(x, q, scales, bias))
 
 
+@pytest.mark.parametrize("m", [9, 37, 200, 1024])
+@pytest.mark.parametrize("group", [32, 64, 96, 128])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dense_gemm_group_wise(dev, m, group, bits):
+    """The group-wise GEMM tile: every fold unit (g = 64, 128: whole K steps;
+    32, 96: halves), K off the 128-deep padding (1000 rounded down to whole
+    groups), N off the column strip and the 16-byte row alignment, with bias,
+    m from one ragged row block to four."""
+    g = torch.Generator(device=dev).manual_seed(m + group)
+    k, n = 1000 // group * group, 300
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    scales = _scales(g, dev, k, n, group)
+    bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    out = (w4a16_gemm if bits == 4 else w8a16_gemm)(x, data, scales, n, bias)
+    assert out.shape == (m, n)
+    _close(out, w8a16_matmul_ref(x, q, scales, bias))
+
+
 @pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 2, 64)])
 def test_flash_decode(dev, hq, hkv, d):
     g = torch.Generator(device=dev).manual_seed(hq)
@@ -484,8 +506,25 @@ def test_flash_decode(dev, hq, hkv, d):
     _close(flash_decode(q, kc, vc, lengths), flash_decode_ref(q, kc, vc, lengths))
 
 
+@pytest.mark.parametrize("k,group", [(8320, 4160), (16384, 8192)])
+def test_w4a8_gemm_large_groups(dev, k, group):
+    """Groups of thousands of rows: one s32 sum a group, converted to f32
+    at the fold (4160: units of half a K step; 8192: whole steps)."""
+    g = torch.Generator(device=dev).manual_seed(group)
+    m, n = 37, 300
+    q = torch.randint(-8, 8, (k, n), generator=g, device=dev, dtype=torch.int8)
+    packed = pack_weights(q, bits=4)
+    scales = _scales(g, dev, k, n, group)
+    xq, sx = quantize_activations(torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16))
+    xq = torch.nn.functional.pad(xq, (0, packed.kp - k)).contiguous()
+    out = w4a8_gemm(xq, sx, packed.data, scales, n, None, group)
+    _close(out, w8a8_gemm_ref(xq, sx, torch.nn.functional.pad(q, (0, 0, 0, packed.kp - k)),
+                              scales, n, group_size=group))
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 1000, 300), (37, 4096, 4096), (200, 11008, 4096),
-                                   (1024, 4096, 12288)])
+                                   (1024, 4096, 12288), (37, 1000, 300), (129, 1000, 300),
+                                   (200, 1000, 300), (1024, 1000, 300)])
 def test_w8a8_gemm_bit_identical(dev, m, k, n):
     """The integer sum is exact and the epilogue rounds as the plain version
     does, so the kernel's output is bit-identical to it."""
