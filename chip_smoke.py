@@ -10,7 +10,9 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    source, all at once). It reads ptxas's `-Xptxas=-v` report and lists the
    kernels whose `wgmma`s ptxas serialized (warning C7520); the run fails if
    any of them is behind `w8a16_gemm`, `w4a16_gemm`, `w8a8_gemm` or
-   `w4a8_gemm`.
+   `w4a8_gemm`. It counts the tensor-core MMAs (`HMMA.16816`) of every
+   decode GEMV kernel in the library's SASS (`cuobjdump -sass`) and fails if
+   one has none.
 2. Kernels: each of the seventeen kernel entry points against its plain
    PyTorch version on the card at llama2-7b shapes (the MoE kernels at
    Mixtral-8x7B's), with its error, its time beside the plain time, the
@@ -24,7 +26,14 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    attention also runs GQA 32/8, ragged lengths (77, 1000), D = 64, a query
    block appended to a cache (delta 256) and a batch of four short prompts;
    the per-channel int8 GEMM also runs m = 9, 200 and 512 and an odd (K, N)
-   with bias. The int4 kernels run per-channel
+   with bias. The decode GEMVs' summaries keep two regimes apart, m = 1 (b=1
+   decode) and m = 8 (an 8-slot engine step); the int8 per-channel GEMV and
+   GEMM rows are also timed against `torch._weight_int8pack_mm`, the int4
+   g=128 rows against `torch._weight_int4pack_mm` (the yardsticks' packed
+   weights made outside the timed call; where the card's PyTorch has no CUDA
+   kernel for one, the exception is printed and `library_ms` is null). Every
+   GEMV, expert-gather and fused-MLP case runs twice and must give bit-equal
+   outputs. The int4 kernels run per-channel
    and with 128-row scale groups, the W8A8 and per-channel W4A8 outputs
    must equal their plain versions bit for bit, and one odd shape each
    needs padding in K and N. Paged decode (bf16 and int8 pools) runs 8
@@ -45,8 +54,10 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    launch counters set to 0 just before it and read just after, and every
    kernel it runs must have launched.
    - generate: bf16 KV, unfused MLP, W8A16 prefill; prefill and one decode
-     step against the plain path, then batch 1 x 1024-token prompt x 50
-     greedy tokens and batch 4 x 128 x 32.
+     step against the plain path (the decode step must make as many GEMV
+     launches as before the tensor-core GEMV: 4 a layer + the lm_head, 129),
+     then batch 1 x 1024-token prompt x 50 greedy tokens and batch 4 x 128 x
+     32.
    - bench decode (`bench.py`'s configuration): prefill into an int8 KV
      cache, then `decode_loop(fused_mlp=True)`; the same checks and
      requests, and prefill/decode times beside the generate path's.
@@ -132,6 +143,9 @@ PRENORM_SHAPES = {(4096, 12288), (4096, 22016)}  # qkv and gate/up take the fuse
 W8A8_SHAPES = LLAMA_SHAPES[:4]  # the prefill projections (the lm_head stays W8A16)
 W8A8_ROWS = (32, 1024)  # the engine's smallest prompt bucket, and a full one
 INT4_GROUP = 128  # rows per scale group of the group-wise int4 cases and models
+# The decode GEMV's two regimes on the main paths, summed apart: b=1 decode
+# (generate, bench decode) and an 8-slot engine step (the servers)
+GEMV_REGIMES = {1: "decode m=1", 8: "engine step m=8"}
 # One odd shape per int4 kernel, where K and N need padding: (K, N, group size)
 INT4_ODD = ((1000, 300, None), (960, 300, 64))
 # The per-channel int8 GEMM off its 128 x 128 x 64 tile: rows (one past the
@@ -254,6 +268,10 @@ PATH_KERNELS = {
     "mixtral_int4_paged_server": ("w4a16_grouped_gemm", "w4a8_gemm", "w4a16_gemv",
                                   "flash_attention_fwd", "paged_flash_decode_int8"),
 }
+# The entry points of the decode GEMV (`csrc/gemv.cuh`): two launches of each
+# must give bit-equal outputs (its K split sums partials in a fixed order)
+GEMV_FAMILY = ("w8a16_gemv", "w4a16_gemv", "w8a16_expert_gemv", "w4a16_expert_gemv",
+               "fused_mlp_gemv", "fused_mlp_gemv_i4")
 MOE_KERNELS = ("w8a16_expert_gemv", "w8a16_grouped_gemm")
 INT4_MOE_KERNELS = ("w4a16_expert_gemv", "w4a16_grouped_gemm")
 PAGED_KERNELS = ("paged_flash_decode", "paged_flash_decode_int8")
@@ -312,6 +330,29 @@ def serialized_wgmma(log: str) -> dict:
         elif "C7520" in line:
             name = re.search(r"function '([^']+)'", line)
             found.setdefault(source, []).append(name.group(1) if name else line.strip())
+    return found
+
+
+def gemv_tensor_core_mmas(lib_path: str) -> dict:
+    """{GEMV kernel: m16n8k16 tensor-core MMAs} in the built library's SASS
+    (`cuobjdump -sass`, beside nvcc): the decode GEMV's product must run on
+    the tensor cores (`mma.sync` bf16 compiles to HMMA.16816.F32.BF16)."""
+    import re
+
+    from eetq_tpu_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        name = re.search(r"Function : (\S+)", line)
+        if name:
+            fn = name.group(1) if "gemv_kernel" in name.group(1) else None
+            if fn:
+                found[fn] = 0
+        elif fn and re.search(r"\bHMMA\.16816\b", line):
+            found[fn] += 1
     return found
 
 
@@ -390,6 +431,49 @@ def linear_cost(m: int, k: int, n: int, w_bytes: float, scale_rows: int = 1, x_b
     return k * n * w_bytes + scale_rows * n * 4 + m * k * x_bytes + m * n * 2 + extra, 2.0 * m * k * n
 
 
+LIBRARY = {}  # yardstick calls the card's PyTorch build failed: {call: the reason}
+
+
+def weight_pack_call(x, q, scales, bits: int, group, ref):
+    """One PyTorch call computing x @ dequant(q) on the card (q the logical
+    [K, N] values), timed beside a kernel as its yardstick and never called
+    by the port: torch._weight_int8pack_mm for int8 per-channel weights (the
+    [N, K] copy of q made here), torch._weight_int4pack_mm for int4 weights
+    with scale groups (packed here from q + 8, even K in the high nibble, by
+    torch._convert_weight_to_int4pack; zero points 0). None where nothing
+    computes the function, or where the build has no CUDA kernel for the call
+    or the call does not reproduce `ref` (printed once, with the reason)."""
+    import torch
+
+    if bits == 8 and group is None:
+        name = "torch._weight_int8pack_mm"
+    elif bits == 4 and group is not None:
+        name = "torch._weight_int4pack_mm"
+    else:
+        return None
+    name += " (m <= 8)" if x.shape[0] <= 8 else " (m > 8)"
+    if LIBRARY.get(name):  # failed before
+        return None
+    try:
+        if bits == 8:
+            w, s = q.t().contiguous(), scales.to(x.dtype)
+            fn = lambda: torch._weight_int8pack_mm(x, w, s)  # noqa: E731
+        else:
+            u = q.t().to(torch.int32) + 8  # [N, K]
+            w = torch._convert_weight_to_int4pack(
+                ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous(), 8)
+            sz = torch.stack([scales, torch.zeros_like(scales)], -1).to(x.dtype).contiguous()
+            fn = lambda: torch._weight_int4pack_mm(x, w, group, sz)  # noqa: E731
+        err = (fn().float() - ref.float()).abs().max().item()
+        if err > TOL * ref.float().abs().max().item():
+            raise RuntimeError(f"differs from the plain version by {err:.3e}")
+    except Exception as exc:  # the yardstick is optional: the run goes on without it
+        LIBRARY[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+        print(f"  {name} is not timed on this card: {LIBRARY[name]}")
+        return None
+    return fn
+
+
 def kernel_phase(dev) -> dict:
     """Each kernel against its plain version at llama2-7b shapes, the MoE
     kernels at Mixtral's."""
@@ -450,14 +534,16 @@ def kernel_phase(dev) -> dict:
         out, ref = fn(), plain()
         err, ref_max = compare(out, ref)
         n_diff = int((out.float() != ref.float()).sum().item())
+        repeat_equal = bool(torch.equal(out, fn())) if name in GEMV_FAMILY else None
         ms, plain_ms = time_ms(fn, flush=flush), time_ms(plain, flush=flush)
         library_ms = None if library is None else time_ms(library, flush=flush)
         many_ms = time_many_ms(fn, ms, flush)
         library_many_ms = None if library is None else time_many_ms(library, library_ms, flush)
         bytes_ms = 1e3 * cost[0] / HBM_BYTES_PER_S
         ops_ms = 1e3 * cost[1] / PEAK_OPS_PER_S[op_type]
-        ok = err <= TOL * ref_max and not (equal and n_diff)
+        ok = err <= TOL * ref_max and not (equal and n_diff) and repeat_equal is not False
         rows.append(dict(kernel=name, case=case, regime=regime, max_abs_err=err,
+                         repeat_equal=repeat_equal,
                          ref_absmax=ref_max, tol=0.0 if equal else TOL * ref_max, n_diff=n_diff, numel=out.numel(),
                          ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          many_ms=many_ms, library_many_ms=library_many_ms,
@@ -465,8 +551,10 @@ def kernel_phase(dev) -> dict:
                          bound_ms=max(bytes_ms, ops_ms), path_shape=bool(path_shape), **extra))
         lib = "" if library_ms is None else (f", library {library_ms:8.4f} ms "
                                              f"(back to back {library_many_ms:.4f})")
+        rep = "" if repeat_equal is None else (", repeat bit-equal" if repeat_equal
+                                               else ", REPEAT DIFFERS")
         print(f"  {name:20s} {case:44s} err {err:.3e} (tol {rows[-1]['tol']:.3e}, "
-              f"{n_diff}/{out.numel()} differ) {ms:8.4f} ms (back to back {many_ms:.4f}), "
+              f"{n_diff}/{out.numel()} differ{rep}) {ms:8.4f} ms (back to back {many_ms:.4f}), "
               f"plain {plain_ms:8.4f} ms, bound {max(bytes_ms, ops_ms):7.4f} ms{lib} "
               f"{'ok' if ok else 'FAIL'}")
         s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes_ms=0.0,
@@ -477,15 +565,16 @@ def kernel_phase(dev) -> dict:
             parts = [s]
             if regime is not None:
                 parts.append(s.setdefault("regimes", {}).setdefault(regime, dict(
-                    ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0, many_ms=0.0)))
+                    ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0, many_ms=0.0,
+                    library_ms=None, library_many_ms=None)))
             for part in parts:
                 for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms),
                                  ("ops_ms", ops_ms), ("bound_ms", max(bytes_ms, ops_ms)),
                                  ("many_ms", many_ms)):
                     part[key] += val
-            if library_ms is not None:
-                s["library_ms"] = (s["library_ms"] or 0.0) + library_ms
-                s["library_many_ms"] = (s["library_many_ms"] or 0.0) + library_many_ms
+                if library_ms is not None:
+                    part["library_ms"] = (part["library_ms"] or 0.0) + library_ms
+                    part["library_many_ms"] = (part["library_many_ms"] or 0.0) + library_many_ms
         return out
 
     def scales_for(k, n, group):
@@ -506,17 +595,23 @@ def kernel_phase(dev) -> dict:
             for norm in ((False, True) if (k, n) in PRENORM_SHAPES else (False,)):
                 x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
                 g = gamma if norm else None
+                y = rmsnorm(x, gamma, 1e-5) if norm else x
+                ref = w8a16_matmul_ref(y, q, sc)
                 record("w4a16_gemv", f"m={m} {tag}{' prenorm' if norm else ''}",
                        lambda: w4a16_gemv(x, data, sc, n, gamma=g, eps=1e-5),
                        lambda: w8a16_matmul_ref(rmsnorm(x, gamma, 1e-5) if norm else x, q, sc),
-                       on_path and m == 1 and (k, n) in W8A8_SHAPES
+                       on_path and m in GEMV_REGIMES and (k, n) in W8A8_SHAPES
                        and norm == ((k, n) in PRENORM_SHAPES),
-                       linear_cost(m, k, n, 0.5, srows, extra=4 * k if norm else 0))
+                       linear_cost(m, k, n, 0.5, srows, extra=4 * k if norm else 0),
+                       library=weight_pack_call(y, q, sc, 4, group, ref) if on_path else None,
+                       regime=GEMV_REGIMES.get(m))
         for m in gemm_rows:
             x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            ref = w8a16_matmul_ref(x, q, sc)
             record("w4a16_gemm", f"m={m} {tag}", lambda: w4a16_gemm(x, data, sc, n),
                    lambda: w8a16_matmul_ref(x, q, sc), on_path and m == 1024,
-                   linear_cost(m, k, n, 0.5, srows))
+                   linear_cost(m, k, n, 0.5, srows),
+                   library=weight_pack_call(x, q, sc, 4, group, ref) if on_path else None)
         for m in a8_rows:
             xq, sx = quantize_activations(
                 torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16))
@@ -533,23 +628,28 @@ def kernel_phase(dev) -> dict:
         qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
         scales = scales_for(k, n, None)
         gamma = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev)
-        for m in (1, 4, 8):
+        for m in (1, 2, 4, 8):
             for norm in ((False, True) if (k, n) in PRENORM_SHAPES else (False,)):
                 x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
                 g = gamma if norm else None
+                y = rmsnorm(x, gamma, 1e-5) if norm else x
+                ref = w8a16_matmul_ref(y, qw, scales)
                 record("w8a16_gemv", f"m={m} K={k} N={n}{' prenorm' if norm else ''}",
                        lambda: w8a16_gemv(x, qw, scales, n, gamma=g, eps=1e-5),
                        lambda: w8a16_matmul_ref(rmsnorm(x, gamma, 1e-5) if norm else x, qw, scales),
-                       m == 1 and norm == ((k, n) in PRENORM_SHAPES),
-                       linear_cost(m, k, n, 1, extra=4 * k if norm else 0))
+                       m in GEMV_REGIMES and norm == ((k, n) in PRENORM_SHAPES),
+                       linear_cost(m, k, n, 1, extra=4 * k if norm else 0),
+                       library=weight_pack_call(y, qw, scales, 8, None, ref),
+                       regime=GEMV_REGIMES.get(m))
         # prefill runs the four layer shapes at m = 1024 (the path's time); the
         # lm_head sees the last token only, and m = 9, 200 and 512 are edges
         # of the tile (one row past the GEMV, ragged row blocks)
         for m in GEMM_ROWS if (k, n) in GEMM_EDGE_SHAPES else (1024,):
             x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            ref = w8a16_matmul_ref(x, qw, scales)
             record("w8a16_gemm", f"m={m} K={k} N={n}", lambda: w8a16_gemm(x, qw, scales, n),
                    lambda: w8a16_matmul_ref(x, qw, scales), m == 1024 and (k, n) in W8A8_SHAPES,
-                   linear_cost(m, k, n, 1))
+                   linear_cost(m, k, n, 1), library=weight_pack_call(x, qw, scales, 8, None, ref))
         if (k, n) == LLAMA_SHAPES[0]:  # int8 with group-wise scales: the same kernels' group mode
             gs = scales_for(k, n, INT4_GROUP)
             for m, kern in ((1, w8a16_gemv), (8, w8a16_gemv), (1024, w8a16_gemm)):
@@ -787,8 +887,11 @@ def kernel_phase(dev) -> dict:
         s["bound_by"] = "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
         for regime, r in s.get("regimes", {}).items():
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+            lib = "" if r["library_ms"] is None else (
+                f", library {r['library_ms']:.4f} ms (back to back {r['library_many_ms']:.4f})")
             print(f"  {name:20s} {regime}: {r['ms']:.4f} ms (back to back {r['many_ms']:.4f}), "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
+                  f"{lib}")
     return dict(rows=rows, summary=summary)
 
 
@@ -933,7 +1036,9 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
     driven through the same requests, and timed side by side."""
     import torch
 
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
     from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.modules.linear import QuantLinear
     from eetq_tpu_torch.serve.generate import decode_loop, decode_step, generate, prefill
 
     prompts = [torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=dev)
@@ -945,14 +1050,17 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
         # kernel path against the plain path: prefill, then one decode step
         # (the decode step takes the kernel path's token); the plain path
         # replays the kernel path's routing
-        logits, first, routes = {}, {}, []
+        logits, first, routes, step_counts = {}, {}, [], {}
 
         def check_run(use, kv=kv, fused=fused):
             caches = init_caches(cfg, 1, p1 + n1, device=dev, dtype=kv)
             lp, caches = prefill(params, cfg, prompt1, caches, use_kernels=use)
             tok = first.get(True, torch.argmax(lp, -1))
+            reset_launch_counts()
             ld, _ = decode_step(params, cfg, tok[:, None], p1, caches, use_kernels=use,
                                 fused_mlp=fused)
+            if use:
+                step_counts.update(launch_counts())
             return (lp, ld), torch.argmax(lp, -1)
 
         for use in (True, False):
@@ -960,6 +1068,15 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
                 logits[use], first[use] = check_run(use)
         checks = {name: check_logits(f"{path} {name}", logits[True][i], logits[False][i])
                   for i, name in enumerate(("prefill", "decode"))}
+        # GEMV launches of one b=1 decode step, as before the tensor-core GEMV:
+        # qkv and o per layer, the MLP's two projections (the fused MLP or a MoE
+        # layer's expert gathers: one wrapper call each), and the lm_head
+        gemv_step = sum(step_counts[k] for k in GEMV_FAMILY)
+        want = (cfg.num_layers * (2 + (1 if fused and not cfg.num_experts else 2))
+                + isinstance(params.lm_head, QuantLinear))
+        print(f"  {path}: {gemv_step} GEMV launches in one decode step (want {want})")
+        check(gemv_step == want, f"{path}: {gemv_step} GEMV launches a decode step, want {want}")
+        checks["gemv_launches_per_step"] = gemv_step
         if routes:
             checks["routing"] = routing_differences(lambda: check_run(False), routes)
             print(f"  {path}: {checks['routing']['differ']} of {checks['routing']['routings']} "
@@ -1482,6 +1599,12 @@ def main() -> int:
     if bad:
         print(f"chip_smoke: C7520 in {bad}: their wgmma must not be serialized", file=sys.stderr)
         return 1
+    mmas = gemv_tensor_core_mmas(info["path"])
+    print(f"decode GEMV kernels: {len(mmas)} instances, HMMA.16816 instructions in each: "
+          f"{sorted(set(mmas.values()))}")
+    if not mmas or not all(mmas.values()):
+        print("chip_smoke: a decode GEMV kernel without tensor-core MMAs", file=sys.stderr)
+        return 1
     run = {
         "kernels": lambda: kernel_phase(dev),
         "moe_layer": lambda: moe_layer_phase(dev),
@@ -1507,7 +1630,7 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build_s=info["seconds"], nvcc_log=info["log"],
-                           serialized_wgmma=serialized,
+                           serialized_wgmma=serialized, gemv_hmma=mmas,
                            kernels=done.get("kernels", {}).get("rows"),
                            kernel_summary=done.get("kernels", {}).get("summary"),
                            moe_layer=done.get("moe_layer"), model=done.get("llama"),

@@ -49,16 +49,20 @@ _F = ctypes.c_float
 # argtypes of every C entry point; each returns a cudaError_t as int
 SIGNATURES = {
     # x, m, k, w, weight rows, np, scales, groups, group_size, bias, gamma,
-    # eps, out, n, stream
-    "eetq_w8a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _P, _I, _P),
-    "eetq_w4a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _P, _I, _P),
+    # eps, out, n, partials, counters, splits, stream
+    "eetq_w8a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _P, _I, _P, _P, _I, _P),
+    "eetq_w4a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _P, _I, _P, _P, _I, _P),
     # x, m, k, w, kp, np, scales, groups, group_size, bias, out, n, stream
     "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
     "eetq_w4a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
     # x, m, k, bank, weight rows, np, scales, groups, group_size, expert_ids,
-    # n_sel, out, n, stream
-    "eetq_w8a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P),
-    "eetq_w4a16_expert_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P),
+    # n_sel, out, n, partials, counters, splits, stream
+    "eetq_w8a16_expert_gemv": (
+        _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P,
+    ),
+    "eetq_w4a16_expert_gemv": (
+        _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P,
+    ),
     # x, bm, nb, k, bank, kp, np, scales, groups, group_size, block_expert,
     # out, n, real_blocks, stream
     "eetq_w8a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P),
@@ -95,12 +99,12 @@ SIGNATURES = {
     # xq, m, kp, w, np, sx, sw, groups, group_size, bias, out, n, stream
     "eetq_w4a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P),
     # x, m, k, gamma, eps, gu, kp, i, gu_scales, d, np, d_scales, residual,
-    # h, out, n, act, stream
+    # h, out, n, act, partials, counters, gate/up splits, down splits, stream
     "eetq_fused_mlp_gemv": (
-        _P, _I, _I, _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
+        _P, _I, _I, _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P,
     ),
     "eetq_fused_mlp_gemv_i4": (
-        _P, _I, _I, _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
+        _P, _I, _I, _P, _F, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P,
     ),
 }
 
@@ -205,3 +209,23 @@ def launch(name: str, *args) -> None:
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+# The decode GEMV's K-split scratch per device: f32 partials and int32
+# counters. The counters are zeroed once here and each launch leaves them at
+# zero; both only grow. Launches on one stream use them in turn.
+_GEMV_SCRATCH: dict = {}
+
+
+def gemv_scratch(device: torch.device, floats: int, counters: int) -> tuple[int | None, int | None]:
+    """(partials, counters) pointers with room for `floats` f32 partials and
+    `counters` int32 counters on `device` (None where none are needed)."""
+    if not floats:
+        return None, None
+    part, ctr = _GEMV_SCRATCH.get(device, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 18), dtype=torch.float32, device=device)
+    if ctr is None or ctr.numel() < counters:
+        ctr = torch.zeros(max(counters, 1 << 12), dtype=torch.int32, device=device)
+    _GEMV_SCRATCH[device] = part, ctr
+    return part.data_ptr(), ctr.data_ptr()

@@ -10,11 +10,13 @@ here too. The measured sweep and its persistent cache are not ported yet.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # Rows at or below this go to the GEMV kernel, above it to the GEMM kernel
-# (`eetq_tpu/kernels/autotune.py:42`). The GEMV kernel is instantiated for
-# every m in 1..MAX_DECODE_M.
+# (`eetq_tpu/kernels/autotune.py:42`). The GEMV kernel's tensor-core product
+# takes the rows of x as the MMA's N = 8, so one body serves every m here.
 MAX_DECODE_M = 8
 
 # W8A8 / W4A8 GEMM tile with per-channel scales: output rows, output columns,
@@ -23,9 +25,27 @@ MAX_DECODE_M = 8
 # a step; a 128-row tile where m <= 128).
 W8A8_TILE = (256, 128, 128)
 
-# Fused MLP: intermediate columns per gate/up block, the GEMV's 32-column
-# strip (`csrc/gemv.cuh`), taken once over the gate and once over the up half.
-FUSED_MLP_SLICE = 32
+# Decode GEMV (`csrc/gemv.cuh`): a block of 8 warps takes 128 weight
+# columns and its K range in steps of 16 weight rows (each warp a step in
+# turn). K is split across blocks where the column strips alone leave the
+# card short of blocks (`gemv_splits`).
+GEMV_BLOCK_N = 128
+GEMV_STEP_ROWS = 16
+GEMV_WARPS = 8
+# Blocks an SM holds (the kernel's `__launch_bounds__` minimum): the split
+# fills this many blocks per SM and no more, since a block left over for a
+# second wave runs with the card's bandwidth mostly idle.
+GEMV_BLOCKS_PER_SM = 2
+# No K range shorter than two steps a warp.
+GEMV_MIN_SPLIT_STEPS = 2 * GEMV_WARPS
+# Shared memory a block may take for its staged x and scale rows, so that
+# two blocks share an SM (227 KB).
+GEMV_SMEM_BYTES = 96 * 1024
+
+# Fused MLP: intermediate columns per gate/up block: the GEMV block's 128
+# weight columns are 64 of the gate half and the matching 64 of the up half,
+# taken in one K loop (`csrc/gemv.cuh`).
+FUSED_MLP_SLICE = GEMV_BLOCK_N // 2
 
 # Group-wise scales [K/g, N]: g is a multiple of this. It is the depth of two
 # bf16 wgmma slices and of one int8 one, so no slice straddles two groups
@@ -60,7 +80,46 @@ def compile_defines() -> tuple[str, ...]:
     bm, bn, bk = W8A8_TILE
     return (f"-DEETQ_W8A8_BM={bm}", f"-DEETQ_W8A8_BN={bn}", f"-DEETQ_W8A8_BK={bk}",
             f"-DEETQ_FUSED_MLP_SLICE={FUSED_MLP_SLICE}", f"-DEETQ_GROUP_GRANULE={GROUP_GRANULE}",
-            f"-DEETQ_GROUPED_SKINNY_BM={GROUPED_SKINNY_BM}")
+            f"-DEETQ_GROUPED_SKINNY_BM={GROUPED_SKINNY_BM}",
+            f"-DEETQ_GEMV_BLOCK_N={GEMV_BLOCK_N}", f"-DEETQ_GEMV_STEP_ROWS={GEMV_STEP_ROWS}")
+
+
+@functools.lru_cache(maxsize=4096)  # called once per GEMV launch, on the host's decode path
+def gemv_splits(rows: int, strips: int, sels: int, bits: int, m: int, group_size: int,
+                sms: int) -> int:
+    """K ranges of one decode GEMV launch over `rows` weight rows (Kp, or
+    Kp / 2 for int4), `strips` column strips of GEMV_BLOCK_N and `sels`
+    expert selections, for m rows of x and scale groups of `group_size`
+    logical rows (0: per-channel), on a card of `sms` SMs.
+
+    As many ranges as fill GEMV_BLOCKS_PER_SM blocks on every SM (never a
+    second wave), none shorter than GEMV_MIN_SPLIT_STEPS steps; but at least
+    as many as keep a block's staged x (2m bytes a logical row) and scale
+    rows (512 / group_size bytes a logical row) within GEMV_SMEM_BYTES."""
+    steps = rows // GEMV_STEP_ROWS
+    if (steps < 1 or rows % GEMV_STEP_ROWS or strips < 1 or sels < 1
+            or not 1 <= m <= MAX_DECODE_M):
+        raise ValueError(f"no GEMV over {rows} rows, {strips} strips, {sels} selections, m={m}")
+    k = rows * (2 if bits == 4 else 1)
+    per_row = 2 * m + (4 * GEMV_BLOCK_N / group_size if group_size else 0)
+    need = -(-int(k * per_row) // GEMV_SMEM_BYTES)
+    fill = GEMV_BLOCKS_PER_SM * sms // (strips * sels)
+    return min(steps, max(need, min(fill, steps // GEMV_MIN_SPLIT_STEPS), 1))
+
+
+def gemv_scratch_size(splits: int, strips: int, sels: int) -> tuple[int, int]:
+    """(f32 partials, int32 counters) of one GEMV launch's K split: a
+    [MAX_DECODE_M, GEMV_BLOCK_N] partial per block, a counter per strip and
+    selection; none without a split."""
+    if splits == 1:
+        return 0, 0
+    return sels * splits * strips * MAX_DECODE_M * GEMV_BLOCK_N, sels * strips
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SMs of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def group_size_of(k: int, scales: torch.Tensor) -> int:

@@ -7,11 +7,12 @@ per-channel weights, with the CUDA kernels of `csrc/fused_mlp.cu`. Bound by
 weight bytes: 135 MB of int8 per llama2-7b layer at 2m FLOPs per byte. The
 TPU kernel carries an [m, N] f32 accumulator across a sequential walk over
 the intermediate dim; GPU blocks run in parallel, so the kernel splits at
-h: a gate/up GEMV (one block per 32 intermediate columns, one pass over
-the gate strip and one over the up strip, activation in the epilogue, h
-rounded to bf16 where the TPU rounds it) and a down GEMV
-with the residual in its epilogue. Two launches instead of the unfused
-path's eight, every weight byte read once, no float atomics.
+h: a gate/up launch of the tensor-core GEMV of `csrc/gemv.cuh` (one block
+per 64 intermediate columns, the gate and the up columns in one K loop,
+activation in the epilogue, h rounded to bf16 where the TPU rounds it) and
+a down launch with the residual in its epilogue, each with its own K split
+(`autotune.gemv_splits`). Two launches instead of the unfused path's
+eight, every weight byte read once, no float atomics.
 
 `fused_mlp_gemv_i4` replaces `fused_mlp_gemv_i4_call` (`pallas_call` at
 mlp_fused.py:290) for int4 per-channel weights, with `csrc/fused_mlp_i4.cu`:
@@ -29,7 +30,14 @@ import torch
 import torch.nn.functional as F
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.kernels.autotune import MAX_DECODE_M
+from eetq_tpu_torch.kernels.autotune import (
+    FUSED_MLP_SLICE,
+    GEMV_BLOCK_N,
+    MAX_DECODE_M,
+    gemv_scratch_size,
+    gemv_splits,
+    sm_count,
+)
 from eetq_tpu_torch.layout.tiling import TILE, unpack_int4_rows
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 
@@ -91,6 +99,8 @@ def _fused(counter, entry: str, bits: int, x, gamma, eps, gu_data, gu_scales, d_
     if gamma.shape != (k,) or gamma.device != x.device:
         raise TypeError("gamma must be [K] on x's device")
     gamma = gamma.float().contiguous()
+    if gamma.data_ptr() % 16:  # copied 16 bytes at a time
+        gamma = gamma.clone()
     if residual is not None:
         if residual.shape != (m, n) or residual.device != x.device:
             raise TypeError("residual must be [m, N] on x's device")
@@ -101,11 +111,17 @@ def _fused(counter, entry: str, bits: int, x, gamma, eps, gu_data, gu_scales, d_
         raise ValueError("x and the weights must be 16-byte aligned")
     h = torch.empty((m, ip), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    sms = sm_count(x.device.index)
+    plans = [(gemv_splits(rows, strips, 1, bits, m, 0, sms), strips) for rows, strips in (
+        (kp // pack, ip // FUSED_MLP_SLICE), (ip // pack, np_ // GEMV_BLOCK_N))]
+    sizes = [gemv_scratch_size(splits, strips, 1) for splits, strips in plans]
+    partials, counters = _build.gemv_scratch(x.device, *map(max, zip(*sizes)))
     _build.launch(
         entry, x.data_ptr(), m, k, gamma.data_ptr(), eps,
         gu_data.data_ptr(), kp, ip, gu_scales.data_ptr(), d_data.data_ptr(), np_,
         d_scales.data_ptr(), _build.ptr(residual), h.data_ptr(), out.data_ptr(), n,
-        ACT_CODES[activation], _build.stream_of(x),
+        ACT_CODES[activation], partials, counters, plans[0][0], plans[1][0],
+        _build.stream_of(x),
     )
     counter.launches += 1
     return out

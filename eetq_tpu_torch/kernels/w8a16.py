@@ -7,13 +7,16 @@ per bit width:
 
 - `w8a16_gemv` (m <= MAX_DECODE_M, `csrc/w8a16_gemv.cu`). Bound by weight
   bytes: a llama2-7b decode step streams about 6.7 GB of int8 weights
-  through it and does 2 FLOPs per byte per row of x. One block owns a
-  32-column strip of W and loops over all of K itself (the TPU carried the
-  accumulator across grid steps instead); lanes walk N with 16-byte loads
-  so each row segment is read once, coalesced. x (RMSNorm'd in the
-  prologue when a gamma is given) sits in dynamic shared memory; the f32
-  partial sums of the K-split are reduced by a shuffle butterfly and a
-  small shared-memory pass, and the per-channel scale is applied once.
+  through it and does 2 FLOPs per byte per row of x. The product
+  outᵀ = Wᵀ xᵀ runs on the tensor cores (`mma.sync` m16n8k16, the rows of
+  x as the MMA's N = 8, so each weight is widened once whatever m), its A
+  operand built in registers from coalesced 16-byte weight loads. A block
+  takes 128 columns and its warps take 16-row K steps in turns, each
+  loading its next step as it multiplies one; where the column strips leave SMs
+  idle, K is split across blocks (`autotune.gemv_splits`) and the strip's
+  last block sums the f32 partials in split order, in the same launch
+  (the scratch: `_build.gemv_scratch`). x (RMSNorm'd in the prologue when
+  a gamma is given) is staged in shared memory per block.
 - `w8a16_gemm` (m > MAX_DECODE_M, `csrc/w8a16_gemm.cu`). Bound by tensor-core
   FLOPs at prefill sizes: m = 1024 does 2*m FLOPs per weight byte, far above
   the ~295 FLOP/byte balance point of the card (datasheet bf16 peak over
@@ -29,8 +32,8 @@ per bit width:
 - `w4a16_gemv` (`csrc/w4a16_gemv.cu`) and `w4a16_gemm`
   (`csrc/w4a16_gemm.cu`): the same two designs on int4 weights packed two
   neighbouring K rows to a byte (`layout/tiling.py`), half the bytes per
-  decode step (about 3.2 GB of layer weights for llama2-7b). A thread
-  sign-extends the nibbles of the bytes it loaded; the TPU kernel's biased
+  decode step (about 3.2 GB of layer weights for llama2-7b). A byte's two
+  nibbles are the two K-neighbours one MMA register holds; the TPU kernel's biased
   nibbles and its `-8 * rowsum(x)` correction (w8a16.py:186-209) work
   around an instruction set that has no int8 shift, and are not carried
   over.
@@ -38,8 +41,8 @@ per bit width:
 All four take per-channel scales [N] or group-wise scales [K/g, N] (g a
 multiple of `GROUP_GRANULE`). The GEMM applies each group's scale to that
 group's f32 partial sum, as the TPU kernel does (w8a16.py:103-126); the
-GEMV multiplies each weight row by its group's scales before the dot (an
-f32 rounding apart from the partial-sum order; see `csrc/gemv.cuh`).
+GEMV folds each K step's f32 partial times its group's scales (the same
+sum in another order; see `csrc/gemv.cuh`).
 
 The MoE kernels run the same designs over a stacked expert bank, int8
 [E, Kp, Np] or int4 [E, Kp/2, Np], with per-channel scales [E, N] or
@@ -48,7 +51,7 @@ memory:
 
 - `w8a16_expert_gemv` and `w4a16_expert_gemv` (`csrc/w8a16_expert_gemv.cu`,
   `csrc/w4a16_expert_gemv.cu`) replace `w8a16_expert_matmul_kernel_call`
-  (`pallas_call` at w8a16.py:513): the GEMV with one grid row per
+  (`pallas_call` at w8a16.py:513): the GEMV with one grid layer per
   selection, out[s] = x @ dequant(bank[ids[s]]).
 - `w8a16_grouped_gemm` and `w4a16_grouped_gemm`
   (`csrc/w8a16_grouped_gemm.cu`, `csrc/w4a16_grouped_gemm.cu`) replace
@@ -70,10 +73,14 @@ import torch
 
 from eetq_tpu_torch.kernels import _build
 from eetq_tpu_torch.kernels.autotune import (
+    GEMV_BLOCK_N,
     GROUPED_BM_MAX,
     GROUPED_BM_MIN,
     MAX_DECODE_M,
+    gemv_scratch_size,
+    gemv_splits,
     group_size_of,
+    sm_count,
 )
 from eetq_tpu_torch.layout.tiling import TILE, unpack_int4_rows
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
@@ -186,6 +193,12 @@ def _logical(qdata: torch.Tensor, bits: int, k: int, n: int) -> torch.Tensor:
     return (unpack_int4_rows(qdata) if bits == 4 else qdata)[..., :k, :n]
 
 
+def _gemv_plan(x, rows: int, strips: int, sels: int, bits: int, m: int, group: int):
+    """(K splits, partials pointer, counters pointer) of one GEMV launch."""
+    splits = gemv_splits(rows, strips, sels, bits, m, group, sm_count(x.device.index))
+    return (splits, *_build.gemv_scratch(x.device, *gemv_scratch_size(splits, strips, sels)))
+
+
 def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps):
     k = x.shape[-1]
     if not x.is_cuda:
@@ -199,10 +212,14 @@ def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps)
     if gamma is not None and (gamma.shape != (k,) or gamma.device != x.device):
         raise TypeError("gamma must be [K] on x's device")
     bias, gamma = _f32(bias), _f32(gamma)
+    if gamma is not None and gamma.data_ptr() % 16:  # copied 16 bytes at a time
+        gamma = gamma.clone()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    splits, partials, counters = _gemv_plan(x, rows, np_ // GEMV_BLOCK_N, 1, bits, m, group)
     _build.launch(
         entry, x.data_ptr(), m, k, qdata.data_ptr(), rows, np_, scales.data_ptr(), groups,
-        group, _build.ptr(bias), _build.ptr(gamma), eps, out.data_ptr(), n, _build.stream_of(x),
+        group, _build.ptr(bias), _build.ptr(gamma), eps, out.data_ptr(), n, partials, counters,
+        splits, _build.stream_of(x),
     )
     counter.launches += 1
     return out
@@ -297,9 +314,11 @@ def _expert_gemv(counter, entry: str, bits: int, x, qdata, scales, expert_ids, n
         raise ValueError(f"the expert GEMV takes 1..{MAX_DECODE_M} rows, got {m}")
     n_sel = expert_ids.shape[0]
     out = torch.empty((n_sel, m, n), dtype=torch.bfloat16, device=x.device)
+    splits, partials, counters = _gemv_plan(x, rows, np_ // GEMV_BLOCK_N, n_sel, bits, m, group)
     _build.launch(
         entry, x.data_ptr(), m, k, qdata.data_ptr(), rows, np_, scales.data_ptr(), groups,
-        group, expert_ids.data_ptr(), n_sel, out.data_ptr(), n, _build.stream_of(x),
+        group, expert_ids.data_ptr(), n_sel, out.data_ptr(), n, partials, counters, splits,
+        _build.stream_of(x),
     )
     counter.launches += 1
     return out

@@ -10,7 +10,7 @@ the packed bytes are each package's own.
 zero-padded so K and N are multiples of `TILE`:
 
 - the GEMM kernels read 128-column groups of 32 K rows (W8A16) or 64
-  (W8A8), and the GEMV kernel walks K in sweeps of 128 rows over 32-column
+  (W8A8), and the GEMV kernel walks K in steps of 16 rows over 128-column
   strips, so a padding of 128 keeps every kernel tile full and every 16-byte
   load in bounds without masking. (The TPU layout pads to 256 for its Mosaic
   blocks; the real llama dims are multiples of both.)

@@ -37,14 +37,27 @@ and g=128 at m=1024 and at a short admission's m=128); and the grouped GEMMs
 (`eetq_w8a16_grouped_gemm` per-channel, `eetq_w4a16_grouped_gemm` g=128) on
 Mixtral-8x7B's banks at bm=128 nb=24 (a 1024-token prompt) and bm=8 nb=10
 (an 8-slot engine step), this tree also without the count of real blocks
-(every padding block computed, as DIR does). Then, with this tree's Python
+(every padding block computed, as DIR does); and the decode GEMV's six entry
+points (`AB_GEMV`: `eetq_w8a16_gemv` per-channel and `eetq_w4a16_gemv` g=128
+and per-channel at m = 1, 2, 4, 8, each summed over llama2-7b's four layer
+shapes with the RMSNorm prologue on qkv and gate/up, the int8 lm_head apart;
+`AB_FUSED`: both fused MLPs at m = 1 and 8; `AB_GATHER`: both expert
+gathers at Mixtral's b=1 step), each beside its byte bound, and this tree's
+m=8 GEMV against the grouped GEMM's skinny `wgmma` tile called as a bank of
+one expert (design (b)). Then, with this tree's Python
 through either library: the b=1, 1024-token prefill of llama2-7b W8A16 and
 W4A16 g=128 (`int4_generate`'s model) and of both Mixtral-8x7B models; one
 admission of a 1024-token prompt through each llama2-7b model's default
 `Engine` (W8A8, W4A8 g=128: an engine step that admits it and asks for one
-token); and the W4A16 g=128 Mixtral's paged int8 engine: ms per 8-slot
-decode step and served tok/s (`chip_smoke.server_path`). `--kernels-only`
-stops after the kernel cases.
+token); the W4A16 g=128 Mixtral's paged int8 engine: ms per 8-slot
+decode step and served tok/s (`chip_smoke.server_path`); and through the
+GEMV of either tree, bench decode (llama2-7b W8A16, and W4A16 per-channel
+under an int8 lm_head) in ms per step and one 8-slot step of the default
+llama2-7b W8A16 engine (wall ms in turns; device busy from one profiled run
+per tree). `--kernels-only` stops after the kernel cases; `--gemv-only`
+runs the GEMV's cases and readings alone. DIR may be a copy of this tree
+with one constant changed: the kernels of `csrc/gemv.cuh` have internal
+linkage, so each library keeps its own state.
 
 `--grouped-sweep` times the grouped GEMM's skinny tile against its
 128-row tile on Mixtral's banks at bm in {8, 16, 32} (and the 128-row tile
@@ -75,7 +88,20 @@ import chip_smoke as cs  # noqa: E402
 
 AB_ENTRIES = ("eetq_flash_attention_fwd", "eetq_w8a16_gemm", "eetq_w4a16_gemm",
               "eetq_w8a8_gemm", "eetq_w4a8_gemm", "eetq_w8a16_grouped_gemm",
-              "eetq_w4a16_grouped_gemm")
+              "eetq_w4a16_grouped_gemm", "eetq_w8a16_gemv", "eetq_w4a16_gemv",
+              "eetq_w8a16_expert_gemv", "eetq_w4a16_expert_gemv", "eetq_fused_mlp_gemv",
+              "eetq_fused_mlp_gemv_i4")
+# decode GEMV cases of the A/B: (kernel, bits, group, rows), each summed over
+# llama2-7b's four layer shapes with the RMSNorm prologue where the path takes
+# it (qkv, gate/up); the int8 lm_head is summed apart
+AB_GEMV = ([("w8a16_gemv", 8, None, m) for m in (1, 2, 4, 8)]
+           + [("w4a16_gemv", 4, group, m) for group in (cs.INT4_GROUP, None) for m in (1, 2, 4, 8)])
+# the fused MLP of one llama2-7b layer (K 4096, I 11008, N 4096, + residual):
+# (bits, rows)
+AB_FUSED = [(8, 1), (8, 8), (4, 1), (4, 8)]
+# the expert gather of a Mixtral-8x7B b=1 decode step (gate|up m=1 and down
+# m=2, two selections): (bits, group)
+AB_GATHER = [(8, None), (4, cs.INT4_GROUP)]
 # dense GEMM cases of the A/B at llama2-7b's four prefill shapes, each summed
 # over them: (kernel, bits, group, rows); m=9 leaves most of a row block
 # dead, m=128 is a short admission
@@ -117,8 +143,9 @@ def _launcher(lib, arity: dict, entries, what: str):
     def launch(name, *args):
         if name not in entries:
             return launch_here(name, *args)
-        if len(args) == arity[name] + 1:  # this tree's count of real blocks: not taken there
-            args = args[:-2] + args[-1:]
+        if len(args) > arity[name]:  # this tree's arguments before the stream that DIR does
+            # not take (the grouped GEMM's count of real blocks, the GEMV's K split)
+            args = args[:arity[name] - 1] + args[-1:]
         rc = getattr(lib, name)(*args)
         if rc != 0:
             raise RuntimeError(f"{name} of {what} failed: CUDA error {rc}")
@@ -255,10 +282,134 @@ def _dense_cases(gen, dev, specs) -> tuple[dict, dict]:
     return cases, bounds
 
 
+def _bytes_ms(size: float) -> float:
+    return 1e3 * size / cs.HBM_BYTES_PER_S
+
+
+def _gemv_cases(gen, dev, specs, prenorm: bool = True, label: str = "") -> tuple[dict, dict]:
+    """({case: make(tree) -> callable}, {case: byte bound ms}) of the decode
+    GEMVs per spec (kernel, bits, group, rows) on llama2-7b's four layer
+    shapes (the RMSNorm prologue on qkv and gate/up where `prenorm`) and, for
+    int8, the lm_head."""
+    import torch
+
+    from eetq_tpu_torch.kernels import w8a16
+    from eetq_tpu_torch.layout.tiling import pack_weights
+
+    cases, bounds = {}, {}
+    for name, bits, group, m in specs:
+        gemv = getattr(w8a16, name)
+        tag = f"int{bits} {'per-channel' if group is None else f'g={group}'} m={m}"
+        for k, n in cs.LLAMA_SHAPES if bits == 8 else cs.W8A8_SHAPES:
+            lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+            q = torch.randint(lo, hi, (k, n), generator=gen, device=dev, dtype=torch.int8)
+            data = pack_weights(q, bits=bits).data
+            shape = (n,) if group is None else (k // group, n)
+            sc = torch.rand(shape, generator=gen, device=dev) * 2e-3 + 1e-4
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            norm = prenorm and (k, n) in cs.PRENORM_SHAPES
+            gamma = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev) if norm else None
+            head = " lm_head" if (k, n) not in cs.W8A8_SHAPES else ""
+            case = f"{label}{name}{head} {tag} K={k} N={n}{' prenorm' if norm else ''}"
+            cases[case] = (lambda tree, gemv=gemv, x=x, data=data, sc=sc, n=n, gamma=gamma:
+                           lambda: gemv(x, data, sc, n, gamma=gamma, eps=1e-5))
+            bounds[case] = _bytes_ms(cs.linear_cost(
+                m, k, n, bits / 8, 1 if group is None else k // group,
+                extra=4 * k if norm else 0)[0])
+    return cases, bounds
+
+
+def _skinny_cases(gen, dev) -> tuple[dict, dict]:
+    """Design (b) of the m=8 GEMV: the grouped GEMM's skinny `wgmma` tile
+    (`csrc/wgmma_grouped.cuh`, bm = 8) called as a bank of one expert with one
+    row block, on llama2-7b's four layer shapes without the prologue, int8
+    per-channel and int4 g=128."""
+    import torch
+
+    from eetq_tpu_torch.kernels.w8a16 import w4a16_grouped_gemm, w8a16_grouped_gemm
+    from eetq_tpu_torch.layout.tiling import pack_weights
+
+    cases, bounds = {}, {}
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    count = torch.ones(1, dtype=torch.int32, device=dev)
+    for bits, group in ((8, None), (4, cs.INT4_GROUP)):
+        gemm = w8a16_grouped_gemm if bits == 8 else w4a16_grouped_gemm
+        tag = f"int{bits} {'per-channel' if group is None else f'g={group}'} m=8"
+        for k, n in cs.W8A8_SHAPES:
+            lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+            q = torch.randint(lo, hi, (1, k, n), generator=gen, device=dev, dtype=torch.int8)
+            data = pack_weights(q, bits=bits).data
+            shape = (1, n) if group is None else (1, k // group, n)
+            sc = torch.rand(shape, generator=gen, device=dev) * 2e-3 + 1e-4
+            x = torch.randn(8, k, generator=gen, device=dev).to(torch.bfloat16)
+            case = f"design (b) skinny wgmma tile {tag} K={k} N={n}"
+            cases[case] = (lambda tree, gemm=gemm, x=x, data=data, sc=sc, n=n:
+                           lambda: gemm(x, data, sc, one, n, count))
+            bounds[case] = _bytes_ms(cs.linear_cost(
+                8, k, n, bits / 8, 1 if group is None else k // group)[0])
+    return cases, bounds
+
+
+def _fused_cases(gen, dev, specs) -> tuple[dict, dict]:
+    """The fused MLP of one llama2-7b layer per spec (bits, rows)."""
+    import torch
+
+    from eetq_tpu_torch.kernels.mlp_fused import fused_mlp_gemv, fused_mlp_gemv_i4
+    from eetq_tpu_torch.layout.tiling import pack_weights
+
+    cases, bounds = {}, {}
+    k, i, n = 4096, 11008, 4096
+    for bits, m in specs:
+        kernel = fused_mlp_gemv if bits == 8 else fused_mlp_gemv_i4
+        lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+        gu = pack_weights(torch.randint(lo, hi, (k, 2 * i), generator=gen, device=dev,
+                                        dtype=torch.int8), bits=bits).data
+        dn = pack_weights(torch.randint(lo, hi, (i, n), generator=gen, device=dev,
+                                        dtype=torch.int8), bits=bits).data
+        gu_s = torch.rand(2 * i, generator=gen, device=dev) * 2e-3 + 1e-4
+        dn_s = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
+        gamma = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev)
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        res = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+        case = f"{kernel.__name__} int{bits} m={m} K={k} I={i} N={n} +residual"
+        cases[case] = (lambda tree, kernel=kernel, x=x, gamma=gamma, gu=gu, gu_s=gu_s, dn=dn,
+                       dn_s=dn_s, res=res: lambda: kernel(x, gamma, 1e-5, gu, gu_s, dn, dn_s, n,
+                                                          res))
+        bounds[case] = _bytes_ms(bits / 8 * (k * 2 * i + i * n) + 4 * (2 * i + n + k)
+                                 + 2 * m * (k + 2 * n))
+    return cases, bounds
+
+
+def _gather_cases(gen, dev, specs) -> tuple[dict, dict]:
+    """The expert gather of a Mixtral-8x7B b=1 decode step per spec (bits,
+    group): gate|up (m=1) and down (m=2) of two selections."""
+    import torch
+
+    from eetq_tpu_torch.kernels.w8a16 import w4a16_expert_gemv, w8a16_expert_gemv
+
+    cases, bounds = {}, {}
+    (m_gu, m_dn, ids), _ = cs.GATHER_CASES
+    eids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    for bits, group in specs:
+        gemv = w8a16_expert_gemv if bits == 8 else w4a16_expert_gemv
+        tag = f"int{bits} {'per-channel' if group is None else f'g={group}'} n_sel={len(ids)}"
+        for (k, n), m in zip(cs.MIXTRAL_BANKS, (m_gu, m_dn)):
+            data, sc = _bank(gen, dev, bits, group, k, n)
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            case = f"{gemv.__name__} {tag} K={k} N={n} m={m}"
+            cases[case] = (lambda tree, gemv=gemv, x=x, data=data, sc=sc, n=n:
+                           lambda: gemv(x, data, sc, eids, n))
+            srows = 1 if group is None else k // group
+            bounds[case] = _bytes_ms(len(set(ids)) * (k * n * bits / 8 + 4 * srows * n)
+                                     + m * k * 2 + len(ids) * (m * n * 2 + 4))
+    return cases, bounds
+
+
 def _sum_pairs(res: dict, what: str = "gate|up + down", bounds: dict | None = None) -> None:
     """Print the sum over shapes ("K=..." in the case name) per kernel and
     mode: gate|up + down of grouped results, the four layer shapes of dense
-    ones (with the sum of their bounds, where given)."""
+    ones (with the sum of their bounds and the back-to-back share of it,
+    where given)."""
     sums = {}
     for case, per in res.items():
         key = case.split(" K=")[0]
@@ -267,10 +418,13 @@ def _sum_pairs(res: dict, what: str = "gate|up + down", bounds: dict | None = No
             a[0] += ms
             a[1] += b2b
     for key, per in sums.items():
-        bound = "" if bounds is None else "; bound {:.4f} ms".format(
-            sum(b for case, b in bounds.items() if case.split(" K=")[0] == key))
+        bound = None if bounds is None else sum(
+            b for case, b in bounds.items() if case.split(" K=")[0] == key)
         print(f"{key}, {what}: " + "; ".join(
-            f"{t} {ms:.4f} ms (back to back {b2b:.4f})" for t, (ms, b2b) in per.items()) + bound)
+            f"{t} {ms:.4f} ms (back to back {b2b:.4f}"
+            + ("" if bound is None else f", {100 * bound / b2b:.0f}% of the bound") + ")"
+            for t, (ms, b2b) in per.items())
+            + ("" if bound is None else f"; bound {bound:.4f} ms (bytes)"), flush=True)
 
 
 def _prefill_ms(params, cfg, dev, prompt, n_new):
@@ -357,9 +511,125 @@ def _report(label: str, runs: dict, unit: str = "ms") -> None:
               f"{['%.2f' % v for v in vals]}", flush=True)
 
 
-def kernels_ab(other_dir: str, rounds: int, models: bool = True) -> int:
+def _gemv_kernel_ab(gen, dev, trees, rounds: int, flush) -> None:
+    """The decode GEMV's entry points in turns, each case summed over its
+    shapes beside its byte bound; then this tree's m=8 GEMV without the
+    prologue against design (b), the skinny `wgmma` tile, in turns."""
+    from eetq_tpu_torch.kernels import _build
+
+    for spec in AB_GEMV:
+        cases, bounds = _gemv_cases(gen, dev, [spec])
+        _sum_pairs(_time_cases(cases, trees, ORDER, rounds, flush), "four shapes", bounds)
+    for make, specs in ((_fused_cases, AB_FUSED), (_gather_cases, AB_GATHER)):
+        for spec in specs:
+            cases, bounds = make(gen, dev, [spec])
+            _sum_pairs(_time_cases(cases, trees, ORDER, rounds, flush), "one call", bounds)
+    a, a_bounds = _gemv_cases(gen, dev, [("w8a16_gemv", 8, None, 8),
+                                         ("w4a16_gemv", 4, cs.INT4_GROUP, 8)],
+                              prenorm=False, label="design (a) mma.sync GEMV ")
+    a = {case: make for case, make in a.items() if " lm_head" not in case}
+    b, b_bounds = _skinny_cases(gen, dev)
+    cases = {}
+    for (ca, ma), (cb, mb) in zip(a.items(), b.items()):  # the same shapes in turns
+        cases[ca], cases[cb] = ma, mb
+    here = {"here": _build.launch}
+    _sum_pairs(_time_cases(cases, here, ("here", "here"), rounds, flush), "four shapes",
+               {**a_bounds, **b_bounds})
+
+
+def _decode_ms(params, cfg, dev, prompt, n_new: int, kv, fused: bool) -> float:
+    """ms per b=1 decode step after a prefill of `prompt` (`decode_loop`)."""
+    import torch
+
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    p = prompt.shape[1]
+    caches = init_caches(cfg, 1, p + n_new, device=dev, dtype=kv)
+    lp, caches = prefill(params, cfg, prompt, caches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_loop(params, cfg, torch.argmax(lp, -1), p, caches, n_new, fused_mlp=fused)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / (n_new - 1)
+
+
+def _profile_engine_step(params, cfg, dev, gen, tree: str, steps: int = 10) -> None:
+    """Ten decode steps of the default engine with its 8 slots busy, under
+    torch.profiler: wall and device-busy ms a step, launches, idle share."""
+    import torch
+
+    from eetq_tpu_torch.serve.engine import Engine
+
+    eng = Engine(params, cfg, max_batch=8, max_len=2048)
+    for _ in range(8):
+        ids = torch.randint(0, cfg.vocab_size, (100,), generator=gen, device=dev).tolist()
+        eng.add_request(ids, max_new_tokens=steps + 16)
+    while eng.queue:
+        eng.step()
+    eng.step()
+
+    def run():
+        for _ in range(steps):
+            eng.step()
+
+    r = cs._profiled(run, steps)
+    eng.run()
+    print(f"    {tree}, profiled engine step: wall {r['wall_ms_per_step']:.2f} ms, device busy "
+          f"{r['busy_ms_per_step']:.3f} ms, {r['launches_per_step']:.0f} launches, idle share "
+          f"{r['idle_share']:.3f}", flush=True)
+
+
+def _gemv_models_ab(dev, gen, trees, rounds: int) -> None:
+    """End to end through either tree's GEMV: bench.py's decode (llama2-7b
+    W8A16, int8 KV, fused MLP, b=1 after a 1024-token prompt), the same at
+    W4A16 per-channel under an int8 lm_head (EETQ_BENCH_BITS=4), and one
+    8-slot step of the default engine (llama2-7b W8A16), wall ms in turns and
+    device busy from one profiled run per tree."""
+    import torch
+
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import (
+        quantize_params,
+        random_dense_params,
+        random_quantized_params,
+    )
+    from eetq_tpu_torch.modules.linear import quantize_linear
+
+    cfg = PRESETS[cs.MODEL]
+    _, p1, n1 = cs.REQUESTS[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, p1), generator=gen, device=dev)
+
+    def int4_bench(g):
+        params = random_quantized_params(cfg, g, bits=4)
+        params.lm_head = quantize_linear(params.lm_head.weight)
+        return params
+
+    for name, make in (
+            (f"{cs.MODEL} W8A16", lambda g: quantize_params(random_dense_params(cfg, g),
+                                                             quantize_lm_head=True)),
+            (f"{cs.MODEL} W4A16 per-channel, int8 lm_head", int4_bench)):
+        params = make(torch.Generator(device=dev).manual_seed(cs.SEED))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _decode_ms(params, cfg, dev, prompt, n1, torch.int8, True)  # warm
+        _report(f"{name} bench decode b=1 p={p1} (int8 KV, fused MLP), ms per step", _in_turns(
+            trees, ORDER, rounds,
+            lambda t: _decode_ms(params, cfg, dev, prompt, n1, torch.int8, True)))
+        if "W8A16" in name:
+            _report(f"{name} default engine, ms per 8-slot decode step", _in_turns(
+                trees, ORDER, rounds, lambda t: _engine_step_ms(params, cfg, dev, gen, {})))
+            _in_turns(trees, ("other", "here"), 1,
+                      lambda t: _profile_engine_step(params, cfg, dev, gen, t))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def kernels_ab(other_dir: str, rounds: int, models: bool = True, gemv_only: bool = False) -> int:
     """This tree's kernels and prefill against those of the checkout in
-    `other_dir`, in turns; models=False times the kernel cases only."""
+    `other_dir`, in turns; models=False times the kernel cases only;
+    gemv_only: the decode GEMV's cases and end-to-end readings alone."""
     import torch
 
     from eetq_tpu_torch.kernels import _build
@@ -388,21 +658,28 @@ def kernels_ab(other_dir: str, rounds: int, models: bool = True) -> int:
     cases[f"flash_attention_fwd B={b} S={sq} H={hq} D={d}"] = (
         lambda tree: lambda: flash_attention(q, kv[:, :, :hkv], kv[:, :, hkv:]))
     with torch.inference_mode():
-        _time_cases(cases, trees, ORDER, rounds, flush)
-        cases.clear()
-        for spec in AB_DENSE:  # one spec's weights on the card at a time
-            dense, bounds = _dense_cases(gen, dev, [spec])
-            _sum_pairs(_time_cases(dense, trees, ORDER, rounds, flush), "four shapes", bounds)
-            del dense
-        # the grouped GEMMs, this tree also without the count of real blocks
-        trees3 = dict(trees, here_all_blocks=_build.launch)
-        res = _time_cases(_grouped_cases(gen, dev, AB_GROUPED, lambda t: t == "here"), trees3,
-                          ORDER + ("here_all_blocks", "here_all_blocks"), rounds, flush)
-        _sum_pairs(res)
+        if not gemv_only:
+            _time_cases(cases, trees, ORDER, rounds, flush)
+            cases.clear()
+            for spec in AB_DENSE:  # one spec's weights on the card at a time
+                dense, bounds = _dense_cases(gen, dev, [spec])
+                _sum_pairs(_time_cases(dense, trees, ORDER, rounds, flush), "four shapes",
+                           bounds)
+                del dense
+            # the grouped GEMMs, this tree also without the count of real blocks
+            trees3 = dict(trees, here_all_blocks=_build.launch)
+            res = _time_cases(_grouped_cases(gen, dev, AB_GROUPED, lambda t: t == "here"),
+                              trees3, ORDER + ("here_all_blocks", "here_all_blocks"), rounds,
+                              flush)
+            _sum_pairs(res)
+        _gemv_kernel_ab(gen, dev, trees, rounds, flush)
     del cases, flush, q, kv
     gc.collect()
     torch.cuda.empty_cache()
     if not models:
+        return 0
+    _gemv_models_ab(dev, gen, trees, rounds)
+    if gemv_only:
         return 0
 
     _, p1, n1 = cs.REQUESTS[0]
@@ -549,6 +826,9 @@ def main() -> int:
                         help="compare this tree's kernels with the checkout in DIR")
     parser.add_argument("--kernels-only", action="store_true",
                         help="with --kernels-of: the kernel cases only, no model")
+    parser.add_argument("--gemv-only", action="store_true",
+                        help="with --kernels-of: the decode GEMV's cases and decode and engine "
+                             "step readings only")
     parser.add_argument("--grouped-sweep", action="store_true",
                         help="time the grouped GEMM's skinny tile against its wide one over bm")
     parser.add_argument("--mixtral-decode", action="store_true",
@@ -558,7 +838,7 @@ def main() -> int:
         print("torch_server_ab: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     if args.kernels_of:
-        return kernels_ab(args.kernels_of, args.rounds, not args.kernels_only)
+        return kernels_ab(args.kernels_of, args.rounds, not args.kernels_only, args.gemv_only)
     if args.grouped_sweep:
         return grouped_sweep(args.rounds)
     if args.mixtral_decode:

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from eetq_tpu_torch.kernels import KERNELS
+from eetq_tpu_torch.kernels.autotune import GEMV_BLOCK_N, gemv_splits, sm_count
 from eetq_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from eetq_tpu_torch.kernels.flash_decode import (
     flash_decode,
@@ -67,6 +68,62 @@ def _close(out, ref):
     assert err <= 2**-6 * ref.float().abs().max().item(), err
 
 
+def _twice(fn):
+    """fn() twice: the two outputs must be bit-equal (the GEMV sums the
+    partials of its K split in a fixed order, with no float atomics)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    return first
+
+
+GEMV_GROUPS = [None, 32, 64, 96, 128]
+
+
+@pytest.mark.parametrize("norm", [False, True], ids=["x", "prenorm"])
+@pytest.mark.parametrize("group", GEMV_GROUPS, ids=["per-channel", "g32", "g64", "g96", "g128"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_gemv_modes(dev, m, bits, group, norm):
+    """Every row count of the tensor-core GEMV, int8 and int4, per-channel and
+    group-wise, with and without the RMSNorm prologue, on an odd (K, N) with
+    bias: K = 1000 (per-channel) or 1152 (a whole number of every group size)
+    is padded to 1024 or 1152 rows, N = 300 to 384 columns."""
+    g = torch.Generator(device=dev).manual_seed(100 * m + bits)
+    k, n = (1000 if group is None else 1152), 300
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    scales = _scales(g, dev, k, n, group)
+    bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    gemv = w4a16_gemv if bits == 4 else w8a16_gemv
+    out = _twice(lambda: gemv(x, data, scales, n, bias, gamma if norm else None, 1e-5))
+    assert out.shape == (m, n)
+    _close(out, w8a16_matmul_ref(rmsnorm(x, gamma, 1e-5) if norm else x, q, scales, bias))
+
+
+@pytest.mark.parametrize("k", [4096, 11008, 14336])
+@pytest.mark.parametrize("group", [None, 128], ids=["per-channel", "g128"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 8])
+def test_gemv_split_shapes(dev, m, bits, group, k):
+    """N = 4096 (o_proj, llama's and Mixtral's down): 32 column strips, so K
+    is split across blocks and the strip's last block sums the partials."""
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    n = 4096
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    assert gemv_splits(data.shape[0], n // GEMV_BLOCK_N, 1, bits, m, group or 0,
+                       sm_count(dev.index)) > 1
+    scales = _scales(g, dev, k, n, group)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    gemv = w4a16_gemv if bits == 4 else w8a16_gemv
+    _close(_twice(lambda: gemv(x, data, scales, n)), w8a16_matmul_ref(x, q, scales))
+
+
 @pytest.mark.parametrize("m", [1, 3, 8, 9, 200])
 @pytest.mark.parametrize("norm", [False, True])
 def test_w8a16_kernels(dev, m, norm):
@@ -121,8 +178,8 @@ def test_group_wise_and_int4_kernels(dev, m, k, group, bits):
 
 @pytest.mark.parametrize("group", [None, 128])
 def test_w4a16_gemv_stages_x_in_chunks(dev, group):
-    """m = 8 at K = 14336: x and, group-wise, the scale strip do not fit
-    shared memory whole."""
+    """m = 8 at K = 14336: x and, group-wise, the scale rows do not fit
+    shared memory whole; the K split stages them in parts."""
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randint(-8, 8, (14336, 256), generator=g, device=dev, dtype=torch.int8)
     scales = _scales(g, dev, 14336, 256, group)
@@ -159,7 +216,7 @@ def test_w4a8_gemm(dev, m, k, n, group):
         _close(out, ref)
 
 
-@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("m", [1, 3, 4, 8])
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
 @pytest.mark.parametrize("shape", [(1000, 256, 300), (4096, 11008, 4096)])
 def test_fused_mlp_gemv_i4(dev, m, act, shape):
@@ -179,7 +236,7 @@ def test_fused_mlp_gemv_i4(dev, m, act, shape):
 
 def test_w8a16_gemv_stages_x_in_chunks(dev):
     """m = 8 at K = 14336 (Mixtral's down projection) does not fit shared
-    memory whole: the kernel stages x in chunks."""
+    memory whole: the K split stages x in parts."""
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randint(-127, 128, (14336, 256), generator=g, device=dev, dtype=torch.int8)
     scales = torch.rand(256, generator=g, device=dev) * 1e-3
@@ -541,7 +598,7 @@ def test_w8a8_gemm_bit_identical(dev, m, k, n):
     assert torch.equal(out, w8a8_gemm_ref(xq, sx, packed.data, scales, n, bias))
 
 
-@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("m", [1, 3, 4, 8])
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
 @pytest.mark.parametrize("shape", [(1000, 256, 300), (4096, 11008, 4096)])
 def test_fused_mlp_gemv(dev, m, act, shape):
@@ -685,3 +742,40 @@ def test_every_kernel_counts_its_launches(dev):
         assert KERNELS[paged[int8]].launches == counts[paged[int8]] + 1
         assert KERNELS[dense].launches == counts[dense] + 1
         assert KERNELS[paged[not int8]].launches == counts[paged[not int8]]
+
+
+@pytest.mark.parametrize("shape", [(1000, 256, 300), (4096, 11008, 4096)])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_fused_mlp_repeats_bit_equal(dev, m, bits, act, shape):
+    """Both fused MLPs, with the residual, twice: bit-equal, and within the
+    tolerance of the plain version (the down launch's K split at N = 4096)."""
+    k, i, n = shape
+    g = torch.Generator(device=dev).manual_seed(10 * m + bits)
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    gu = torch.randint(lo, hi, (k, 2 * i), generator=g, device=dev, dtype=torch.int8)
+    dn = torch.randint(lo, hi, (i, n), generator=g, device=dev, dtype=torch.int8)
+    gu_d, dn_d = pack_weights(gu, bits=bits).data, pack_weights(dn, bits=bits).data
+    gu_s, dn_s = _scales(g, dev, k, 2 * i, None), _scales(g, dev, i, n, None)
+    gamma = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    res = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+    kernel = fused_mlp_gemv_i4 if bits == 4 else fused_mlp_gemv
+    out = _twice(lambda: kernel(x, gamma, 1e-5, gu_d, gu_s, dn_d, dn_s, n, res, act))
+    _close(out, fused_mlp_ref(x, gamma, gu, gu_s, dn, dn_s, 1e-5, act, res))
+
+
+@pytest.mark.parametrize("bits,k,group", BANK_MODES + [(8, 14336, None), (4, 14336, 128)])
+@pytest.mark.parametrize("m,ids", [(1, [3, 3]), (4, [1, 1, 2, 0, 3, 2, 2, 0]), (8, [2, 2, 1])])
+def test_expert_gemv_repeats_bit_equal(dev, bits, k, group, m, ids):
+    """The expert gathers with repeated ids, twice: bit-equal, and within the
+    tolerance of the plain version (K = 14336 at N = 512: a K split)."""
+    g = torch.Generator(device=dev).manual_seed(m + k + bits)
+    n = 300 if k < 4096 else 512
+    q, data, scales = _bank_modes(g, dev, 4, k, n, bits, group)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    eids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    kernel = w4a16_expert_gemv if bits == 4 else w8a16_expert_gemv
+    out = _twice(lambda: kernel(x, data, scales, eids, n))
+    _close(out, expert_matmul_ref(x, q, scales, eids))
