@@ -32,13 +32,15 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    g=128 rows against `torch._weight_int4pack_mm` (the yardsticks' packed
    weights made outside the timed call; where the card's PyTorch has no CUDA
    kernel for one, the exception is printed and `library_ms` is null). Every
-   GEMV, expert-gather and fused-MLP case runs twice and must give bit-equal
-   outputs. The int4 kernels run per-channel
+   GEMV, expert-gather, fused-MLP and flash-decode case runs twice and must
+   give bit-equal outputs. The int8 flash-decode's summary keeps two regimes
+   apart, B=1 over 1152 keys (b=1 decode) and B=8 over 2048 (an 8-slot
+   engine step). The int4 kernels run per-channel
    and with 128-row scale groups, the W8A8 and per-channel W4A8 outputs
    must equal their plain versions bit for bit, and one odd shape each
    needs padding in K and N. Paged decode (bf16 and int8 pools) runs 8
    rows of lengths 1..1088 over 256-token blocks behind a permuted table
-   whose dead entries point out of the pool, and must also agree with the
+   whose dead entries point out of the pool, and must be bit-equal to the
    dense kernel on the gathered cache. The two MoE kernels run int8 and
    int4 banks, per-channel and with 128-row scale groups; the grouped GEMM
    at bm = 128 (a prompt: the wide tile), bm = 8 (an 8-slot engine step: the
@@ -107,10 +109,11 @@ Run from the repository root, on a machine with one CUDA card (an H100):
 
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, ten decode
-or engine steps): device-busy time, launches per step and the idle share
-go to the output and to `chip_smoke.json`. `--phases` runs a subset of
-`kernels,moe_layer,llama,int4,mixtral,mixtral_int4` (for debugging: a
-partial run checks what it runs and prints no result line).
+or engine steps): device-busy time, launches per step (and those of the
+flash-decode, which must be one a layer on every decode and engine step)
+and the idle share go to the output and to `chip_smoke.json`. `--phases`
+runs a subset of `kernels,moe_layer,llama,int4,mixtral,mixtral_int4` (for
+debugging: a partial run checks what it runs and prints no result line).
 
 Prints one JSON line of per-kernel results, then as its last line
 `{"ok": true, "device": {...}}`. Any failed check, build or launch ends the
@@ -190,6 +193,10 @@ SERVE_BUDGETS = (16, 32, 64)
 SERVE_THREADS = 4
 SERVE_TIMEOUT_S = 600
 ADMISSION_PROMPT = 700  # the admission whose logits are checked: 700 tokens in the 1024 bucket
+# The int8 flash-decode's two regimes on the main paths, summed apart, by
+# (batch, cache length): b=1 decode after a 1024-token prompt (bench decode)
+# and the default engine's 8-slot step over its 2048-key cache (the server)
+DECODE_REGIMES = {(1, 1152): "decode b=1", (8, 2048): "engine step B=8"}
 # The paged engines: 8 slots x 5 blocks of 256 tokens (the longest request of
 # the server mix is 1024 + 64 tokens) and the trash block
 PAGED_BLOCKS, PAGED_BLOCK_SIZE = 41, 256
@@ -268,10 +275,15 @@ PATH_KERNELS = {
     "mixtral_int4_paged_server": ("w4a16_grouped_gemm", "w4a8_gemm", "w4a16_gemv",
                                   "flash_attention_fwd", "paged_flash_decode_int8"),
 }
-# The entry points of the decode GEMV (`csrc/gemv.cuh`): two launches of each
-# must give bit-equal outputs (its K split sums partials in a fixed order)
+# The entry points of the decode GEMV (`csrc/gemv.cuh`)
 GEMV_FAMILY = ("w8a16_gemv", "w4a16_gemv", "w8a16_expert_gemv", "w4a16_expert_gemv",
                "fused_mlp_gemv", "fused_mlp_gemv_i4")
+# ... and of the flash-decode (`csrc/flash_decode.cu`): two launches of each
+# must give bit-equal outputs (both sum their blocks' partials in a fixed
+# order, with no float atomics)
+DECODE_FAMILY = ("flash_decode", "flash_decode_int8", "paged_flash_decode",
+                 "paged_flash_decode_int8")
+REPEAT_EQUAL = GEMV_FAMILY + DECODE_FAMILY
 MOE_KERNELS = ("w8a16_expert_gemv", "w8a16_grouped_gemm")
 INT4_MOE_KERNELS = ("w4a16_expert_gemv", "w4a16_grouped_gemm")
 PAGED_KERNELS = ("paged_flash_decode", "paged_flash_decode_int8")
@@ -423,6 +435,16 @@ def compare(out, ref) -> tuple[float, float]:
     return err, ref.float().abs().max().item()
 
 
+def decode_cost(lens, hq: int, hkv: int, kv_bytes: int, scale_bytes: int,
+                d: int = 128) -> tuple[float, float]:
+    """(bytes, operations) of one flash-decode call with rows of `lens` keys:
+    only the keys below each row's length are needed (K and V at kv_bytes a
+    value and scale_bytes a key), q read and the output written once."""
+    keys = sum(lens)
+    return (keys * hkv * 2 * (d * kv_bytes + scale_bytes) + len(lens) * (2 * hq * d * 2 + 4),
+            4.0 * hq * d * keys)
+
+
 def linear_cost(m: int, k: int, n: int, w_bytes: float, scale_rows: int = 1, x_bytes: int = 2,
                 extra: int = 0) -> tuple[float, float]:
     """(bytes, operations) of one quantized linear: the weight at w_bytes a
@@ -534,7 +556,7 @@ def kernel_phase(dev) -> dict:
         out, ref = fn(), plain()
         err, ref_max = compare(out, ref)
         n_diff = int((out.float() != ref.float()).sum().item())
-        repeat_equal = bool(torch.equal(out, fn())) if name in GEMV_FAMILY else None
+        repeat_equal = bool(torch.equal(out, fn())) if name in REPEAT_EQUAL else None
         ms, plain_ms = time_ms(fn, flush=flush), time_ms(plain, flush=flush)
         library_ms = None if library is None else time_ms(library, flush=flush)
         many_ms = time_many_ms(fn, ms, flush)
@@ -727,12 +749,6 @@ def kernel_phase(dev) -> dict:
                lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v),
                main, cost, library=(lambda: sdpa(q, k, v)) if hq == hkv and sq == skv else None)
 
-    def decode_cost(lens, hq, hkv, kv_bytes, scale_bytes):
-        """Only the keys below each row's length are needed."""
-        keys = sum(lens)
-        return (keys * hkv * 2 * (128 * kv_bytes + scale_bytes) + len(lens) * (2 * hq * 128 * 2 + 4),
-                4.0 * hq * 128 * keys)
-
     for b in (1, 4):
         for hq, hkv in ((32, 32), (32, 8)):
             q = torch.randn(b, 1, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
@@ -759,17 +775,19 @@ def kernel_phase(dev) -> dict:
                     torch.randn(b, hkv, l, 128, generator=gen, device=dev))
                 lens = [1074, 1, 640, l, 17, 1500 % l, 300, 1024][:b]
                 lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                regime = DECODE_REGIMES.get((b, l)) if hq == hkv else None
                 record("flash_decode_int8", f"B={b} L={l} Hq={hq} Hkv={hkv} D=128",
                        lambda: flash_decode_int8(q, kc, vc, ks, vs, lengths),
                        lambda: flash_decode_int8_ref(q, kc, vc, ks, vs, lengths),
-                       b == 1 and l == 1152 and hq == hkv, decode_cost(lens, hq, hkv, 1, 4))
+                       regime is not None, decode_cost(lens, hq, hkv, 1, 4), regime=regime)
 
     # Paged decode at the engines' shapes: 8 rows of very different lengths
     # over pools of 256-token blocks behind a permuted table. The kernel gets
     # a table whose entries past each row's last live block are far out of
     # the pool: it must never read them. Each case is also held against the
     # dense kernel on the cache gathered through the table (the same keys in
-    # the same splits), and timed beside it.
+    # the same chunks and tiles, merged in the same order: bit-equal), and
+    # timed beside it.
     bs, max_blocks, nblocks = PAGED_BLOCK_SIZE, 2048 // PAGED_BLOCK_SIZE, PAGED_POOL_BLOCKS
     lens = list(PAGED_LENGTHS)
     b = len(lens)
@@ -804,11 +822,13 @@ def kernel_phase(dev) -> dict:
                     lambda: paged_flash_decode_ref(q, kp_, vp_, table, lengths),
                     hq == hkv, decode_cost(lens, hq, hkv, 2, 0), dense_ms=dense_ms)
                 twin = flash_decode(q, *dense, lengths)
-            err, ref_max = compare(out, twin)
-            rows[-1].update(dense_kernel_err=err)
-            print(f"  {'':20s} against the dense kernel on the gathered cache: err {err:.3e}, "
+            err, _ = compare(out, twin)
+            equal = bool(torch.equal(out, twin))
+            rows[-1].update(dense_kernel_err=err, dense_kernel_equal=equal)
+            print(f"  {'':20s} against the dense kernel on the gathered cache: "
+                  f"{'bit-equal' if equal else 'DIFFERS'} (err {err:.3e}), "
                   f"dense kernel {dense_ms:.4f} ms")
-            check(err <= TOL * ref_max, f"paged decode differs from the dense kernel: {case}")
+            check(equal, f"paged decode differs from the dense kernel: {case}")
             del pools, dense, kp_, vp_
 
     # Mixtral's banks, int8 and int4, per-channel and with 128-row scale
@@ -1303,7 +1323,7 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
               f"{path}: blocks still held after the run: {eng._slot_blocks}")
     twin = None
     if dense_twin:
-        # the same kernels apart from the address map, the same splits of the
+        # the same kernels apart from the address map, the same chunks of the
         # key range, rows that do not see each other: the same greedy tokens
         greedy = [i for i, body in enumerate(bodies) if "temperature" not in body]
         held = torch.cuda.memory_allocated()
@@ -1338,35 +1358,46 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
 PROFILE_STEPS = 10
 
 
-def _device_events(prof) -> tuple[float, int]:
-    """(device-busy ms, kernel launches) of a torch.profiler run: the sum and
-    the count of its kernel events (copies and memsets are busy time but no
-    launches of a kernel)."""
+def _device_events(prof) -> tuple[float, int, int]:
+    """(device-busy ms, kernel launches, flash-decode launches) of a
+    torch.profiler run: the sum and the count of its kernel events (copies
+    and memsets are busy time but no launches of a kernel), and the count of
+    those of `csrc/flash_decode.cu`."""
     import torch
 
-    busy_us, launches = 0.0, 0
+    busy_us, launches, decode = 0.0, 0, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         busy_us += ev.time_range.elapsed_us()
         launches += not ev.name.startswith(("Memcpy", "Memset"))
-    return busy_us / 1e3, launches
+        decode += "flash_decode" in ev.name
+    return busy_us / 1e3, launches, decode
 
 
 def _profiled(fn, steps: int) -> dict:
+    """fn() under torch.profiler, per step; `decode_calls_per_step` counts
+    the flash-decode wrappers' calls (their launch counters, exact), and
+    `decode_launches_per_step` its kernel events (the profiler may drop a few
+    events of a run, and never adds one)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+
     torch.cuda.synchronize()
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms, launches = _device_events(prof)
+    calls = sum(launch_counts()[k] for k in DECODE_FAMILY)
+    busy_ms, launches, decode = _device_events(prof)
     check(busy_ms > 0, "the profiler saw no device time")
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps, busy_ms_per_step=busy_ms / steps,
-                launches_per_step=launches / steps, idle_share=1 - busy_ms / wall_ms)
+                launches_per_step=launches / steps, decode_launches_per_step=decode / steps,
+                decode_calls_per_step=calls / steps, idle_share=1 - busy_ms / wall_ms)
 
 
 def profile_paths(params, cfg, dev, gen, configs: dict, engines: dict) -> dict:
@@ -1413,8 +1444,20 @@ def profile_paths(params, cfg, dev, gen, configs: dict, engines: dict) -> dict:
     for path, stages in out.items():
         for stage, r in stages.items():
             print(f"  profile {path} {stage}: device busy {r['busy_ms_per_step']:.3f} ms, "
-                  f"{r['launches_per_step']:.0f} launches, wall {r['wall_ms_per_step']:.2f} ms, "
-                  f"idle share {r['idle_share']:.3f} (per step, {r['steps']} profiled)")
+                  f"{r['launches_per_step']:.0f} launches ({r['decode_launches_per_step']:.0f} "
+                  f"of the flash-decode), wall {r['wall_ms_per_step']:.2f} ms, idle share "
+                  f"{r['idle_share']:.3f} (per step, {r['steps']} profiled)")
+            # a decode step attends once a layer (the wrappers' counters), in
+            # one launch a call (the profiler's flash-decode kernel events are
+            # no more than the calls; it may drop an event, never add one)
+            want = 0 if stage == "prefill" else cfg.num_layers
+            seen = r["decode_launches_per_step"]
+            check(r["decode_calls_per_step"] == want,
+                  f"profile {path} {stage}: {r['decode_calls_per_step']} flash-decode calls "
+                  f"a step, want {want} (one a layer)")
+            check(seen <= want and (seen > 0) == (want > 0),
+                  f"profile {path} {stage}: {seen} flash-decode launches a step for {want} "
+                  "calls (one launch a call)")
     return out
 
 

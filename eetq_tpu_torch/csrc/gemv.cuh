@@ -153,31 +153,6 @@ __device__ __forceinline__ int4 load_stream(const int8_t* p) {
   return v;
 }
 
-// d += A B on the tensor cores (A 16 x 16 and B 16 x 8 bf16, d f32).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// Byte `i` of two int8 words (lo: the even K row, hi: the odd one) to an
-// exact bf16 pair: under the high byte 0x43 the low seven bits of b read as
-// 128 + (b & 127), and the sign bit alone as 128 (b >= 0) or 256 (b < 0).
-template <int i>
-__device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi) {
-  const uint32_t t = __byte_perm(lo, hi, i | (i << 4) | ((i + 4) << 8) | ((i + 4) << 12));
-  return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u, (t & 0x00800080u) | 0x43004300u);
-}
-
 // Byte `i` of a word of int4 pairs (w, and w >> 4 as `w4`) to an exact bf16
 // pair (low nibble: the even K row). With u the nibble and n = u - 16 [u > 7]
 // its value, 0x4300 | (u ^ 8) reads as 128 + n + 8.

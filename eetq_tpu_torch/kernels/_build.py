@@ -73,26 +73,23 @@ SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P,
     ),
-    # q, k, v, lengths, out, part_o, part_ml, b, hq, hkv, l, d, splits,
-    # split_len, scale, stream
-    "eetq_flash_decode": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-    ),
-    # q, k, v, k_scale, v_scale, lengths, out, part_o, part_ml, b, hq, hkv,
-    # l, d, splits, split_len, scale, stream
-    "eetq_flash_decode_int8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-    ),
-    # q, k pool, v pool, table, lengths, out, part_o, part_ml, b, hq, hkv,
-    # max_blocks, block size, d, splits, split_len, scale, stream
-    "eetq_paged_flash_decode": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-    ),
-    # q, k pool, v pool, k_scale, v_scale, table, lengths, out, part_o,
-    # part_ml, b, hq, hkv, max_blocks, block size, d, splits, split_len,
+    # q, k, v, lengths, out, partials, counters, b, hq, hkv, l, d, chunk,
     # scale, stream
+    "eetq_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, k_scale, v_scale, lengths, out, partials, counters, b, hq,
+    # hkv, l, d, chunk, scale, stream
+    "eetq_flash_decode_int8": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # q, k pool, v pool, table, lengths, out, partials, counters, b, hq,
+    # hkv, max_blocks, block size, d, chunk, scale, stream
+    "eetq_paged_flash_decode": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # q, k pool, v pool, k_scale, v_scale, table, lengths, out, partials,
+    # counters, b, hq, hkv, max_blocks, block size, d, chunk, scale, stream
     "eetq_paged_flash_decode_int8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # xq, m, kp, w, np, sx, sw, bias, out, n, stream
     "eetq_w8a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P),
@@ -211,21 +208,25 @@ def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-# The decode GEMV's K-split scratch per device: f32 partials and int32
-# counters. The counters are zeroed once here and each launch leaves them at
-# zero; both only grow. Launches on one stream use them in turn.
-_GEMV_SCRATCH: dict = {}
+# Scratch of the kernels that split a reduction across blocks (the decode
+# GEMV's K split, the flash-decode's chunks), per user and device: f32
+# partials and int32 counters. The counters are zeroed once here and each
+# launch leaves them at zero; both only grow. Launches on one stream use
+# them in turn.
+_SCRATCH: dict = {}
 
 
-def gemv_scratch(device: torch.device, floats: int, counters: int) -> tuple[int | None, int | None]:
-    """(partials, counters) pointers with room for `floats` f32 partials and
-    `counters` int32 counters on `device` (None where none are needed)."""
+def scratch(user: str, device: torch.device, floats: int,
+            counters: int) -> tuple[int | None, int | None]:
+    """(partials, counters) pointers of `user`'s scratch with room for
+    `floats` f32 partials and `counters` int32 counters on `device` (None
+    where none are needed)."""
     if not floats:
         return None, None
-    part, ctr = _GEMV_SCRATCH.get(device, (None, None))
+    part, ctr = _SCRATCH.get((user, device), (None, None))
     if part is None or part.numel() < floats:
         part = torch.empty(max(floats, 1 << 18), dtype=torch.float32, device=device)
     if ctr is None or ctr.numel() < counters:
         ctr = torch.zeros(max(counters, 1 << 12), dtype=torch.int32, device=device)
-    _GEMV_SCRATCH[device] = part, ctr
+    _SCRATCH[(user, device)] = part, ctr
     return part.data_ptr(), ctr.data_ptr()

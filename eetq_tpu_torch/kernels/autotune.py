@@ -11,6 +11,7 @@ here too. The measured sweep and its persistent cache are not ported yet.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -64,15 +65,20 @@ GROUPED_BM_MIN, GROUPED_BM_MAX = 8, 128
 # (`PERF.md` §6, `scripts/torch_server_ab.py --grouped-sweep`).
 GROUPED_SKINNY_BM = 32
 
-# Flash-decode: one key range ("split") per block. Enough splits that the
-# grid covers every SM at least twice, and no split shorter than this.
-DECODE_MIN_SPLIT_LEN = 64
-
-# Paged flash-decode: a block walks its keys in steps of 16 (D = 128) or 32
-# (D = 64) from a multiple of the step; the pool's block size and the split
-# length are multiples of this, so no step straddles two pool blocks or two
-# splits (`csrc/flash_decode.cu::kMaxSlots` checks both).
-PAGED_KEY_STEP = 32
+# Flash-decode (`csrc/flash_decode.cu`): block (c, head, row) takes chunk c
+# of a row's keys, keys [c * chunk, (c + 1) * chunk), in tiles of
+# DECODE_TILE keys staged through shared memory. The tile divides 128, and
+# pool blocks are multiples of 128 keys, so a tile never straddles two of
+# them. The chunk is DECODE_CHUNK keys, longer (by whole tiles, up to
+# DECODE_MAX_CHUNK) where the cache would need more than DECODE_MAX_CHUNKS
+# chunks a row (the last block of a row keeps a weight and a sum of every
+# chunk in shared memory). Measured on an H100 by `scripts/torch_server_ab.py
+# --decode-sweep` (`PERF.md` §6): shorter chunks where the grid leaves SMs
+# idle were no faster at b=1 and up to 42% slower at b=4.
+DECODE_TILE = 64
+DECODE_CHUNK = 256
+DECODE_MAX_CHUNK = 1024
+DECODE_MAX_CHUNKS = 480
 
 
 def compile_defines() -> tuple[str, ...]:
@@ -81,7 +87,9 @@ def compile_defines() -> tuple[str, ...]:
     return (f"-DEETQ_W8A8_BM={bm}", f"-DEETQ_W8A8_BN={bn}", f"-DEETQ_W8A8_BK={bk}",
             f"-DEETQ_FUSED_MLP_SLICE={FUSED_MLP_SLICE}", f"-DEETQ_GROUP_GRANULE={GROUP_GRANULE}",
             f"-DEETQ_GROUPED_SKINNY_BM={GROUPED_SKINNY_BM}",
-            f"-DEETQ_GEMV_BLOCK_N={GEMV_BLOCK_N}", f"-DEETQ_GEMV_STEP_ROWS={GEMV_STEP_ROWS}")
+            f"-DEETQ_GEMV_BLOCK_N={GEMV_BLOCK_N}", f"-DEETQ_GEMV_STEP_ROWS={GEMV_STEP_ROWS}",
+            f"-DEETQ_DECODE_TILE={DECODE_TILE}", f"-DEETQ_DECODE_MAX_CHUNK={DECODE_MAX_CHUNK}",
+            f"-DEETQ_DECODE_MAX_CHUNKS={DECODE_MAX_CHUNKS}")
 
 
 @functools.lru_cache(maxsize=4096)  # called once per GEMV launch, on the host's decode path
@@ -135,12 +143,30 @@ def group_size_of(k: int, scales: torch.Tensor) -> int:
     return g
 
 
-def decode_splits(rows: int, max_len: int, device: torch.device,
-                  step: int = 1) -> tuple[int, int]:
-    """(number of splits, keys per split) for a flash-decode launch over
-    `rows` = batch x kv heads blocks and a cache of `max_len` slots; the
-    keys per split a multiple of `step`."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ns = max(1, min(-(-2 * sms // rows), -(-max_len // DECODE_MIN_SPLIT_LEN)))
-    chunk = -(-max_len // (ns * step)) * step
-    return -(-max_len // chunk), chunk
+class DecodePlan(NamedTuple):
+    """The launch of one flash-decode call: grid (chunks, Hkv, B)."""
+
+    chunk: int  # keys of a chunk: chunk c covers keys [c * chunk, (c + 1) * chunk)
+    chunks: int  # chunks of the cache's capacity
+    floats: int  # f32 scratch: [B, Hkv, chunks, G, D] outputs, [B, Hkv, chunks, G, 2] (max, sum)
+    counters: int  # int32 scratch: one ticket counter per (row, kv head)
+
+
+@functools.lru_cache(maxsize=4096)  # called once per flash-decode launch, on the host's decode path
+def decode_plan(b: int, hkv: int, group: int, max_len: int, d: int) -> DecodePlan:
+    """The plan of a flash-decode launch over B rows, Hkv kv heads of
+    `group` q heads each and head dim d, on a cache of `max_len` keys a row
+    (dense L, or max_blocks * BS). The lengths play no part: the chunks of a
+    cache are the same at any length."""
+    if min(b, hkv, group, max_len, d) < 1:
+        raise ValueError(f"no flash-decode over B={b} Hkv={hkv} G={group} L={max_len} D={d}")
+    if max_len > DECODE_MAX_CHUNK * DECODE_MAX_CHUNKS:
+        raise ValueError(f"a cache of {max_len} keys a row is more than the flash-decode's "
+                         f"{DECODE_MAX_CHUNKS} chunks of {DECODE_MAX_CHUNK}")
+    chunk = DECODE_CHUNK
+    while -(-max_len // chunk) > DECODE_MAX_CHUNKS:
+        chunk += DECODE_TILE
+    chunks = -(-max_len // chunk)
+    if chunks == 1:
+        return DecodePlan(chunk, 1, 0, 0)
+    return DecodePlan(chunk, chunks, b * hkv * chunks * group * (d + 2), b * hkv)

@@ -4,25 +4,32 @@ or over a paged cache (block pools and a block table).
 `flash_decode` and `flash_decode_int8` replace `eetq_tpu/kernels/
 flash_decode.py::flash_decode` (`pallas_call` at flash_decode.py:512) for
 S = 1, over a bf16 cache and over an int8 cache with f32 [B, Hkv, L]
-scales, with the CUDA kernels of `csrc/flash_decode.cu`. They are bound by
+scales, with the CUDA kernel of `csrc/flash_decode.cu`. They are bound by
 KV-cache bytes: a bf16 step reads 2 * length * D * 2 bytes per kv head
 (16.8 MB per llama2-7b layer at length 1024) and does about 2 FLOPs per
 byte, far below the card's balance point. The design reads only each
-row's live prefix: blocks loop to the row's length (this replaces the TPU
-index-map clamp, flash_decode.py:459-474), and every block computes the whole GQA group of its kv head, so each cached
-key is read once. To cover the 132 SMs at batch 1 the cache is split along
-L across blocks ("splits"); each block keeps an online softmax in f32 and
-writes (max, sum, partial output), and a second kernel combines the splits.
+row's live keys, once, for the whole GQA group of a kv head. The key range
+of a row is cut into chunks at fixed multiples
+(`kernels/autotune.py::decode_plan`, a function of the shapes alone); a
+block takes one chunk of one (row, kv head), returns at once where the
+chunk lies past the row's length (this replaces the TPU
+index-map clamp, flash_decode.py:459-474), stages its keys through shared
+memory in tiles and keeps an online softmax in f32. The last block of a
+row's live chunks merges their states in chunk order, in the same launch:
+one launch per call, the same output from launch to launch, and the
+lengths never read on the host.
 
 `paged_flash_decode` and `paged_flash_decode_int8` replace `eetq_tpu/kernels/
 flash_decode.py::paged_flash_decode` (`pallas_call` at flash_decode.py:329)
 for S = 1: the same computation over pools [NB, Hkv, BS, D] shared by all
 rows, logical block i of row b being pool block table[b, i]. As on the TPU
 it is the dense kernel with another address map (a template mode of
-`csrc/flash_decode.cu`): a block translates each step of keys through the
-table, only for keys below the row's length, so only the blocks a row owns
-are read, wherever they lie in the pool. The bound is the same as the dense
-kernel's: the bytes of each row's live prefix.
+`csrc/flash_decode.cu`): each tile of keys is translated through the table,
+and only pool blocks holding keys below the row's length are read, wherever
+they lie in the pool. Dense and paged run the same plan in
+the same order: on a cache gathered through the table their outputs are
+bit-equal. The bound is the same as the dense kernel's: the bytes of each
+row's live keys.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.kernels.autotune import PAGED_KEY_STEP, decode_splits
+from eetq_tpu_torch.kernels.autotune import decode_plan
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
@@ -83,16 +90,14 @@ def _check(q, k_cache, v_cache, lengths, window, cache_dtype, batch_axis: bool =
         raise NotImplementedError(f"head_dim {d}, group {hq}/{hkv}: the kernel takes {HEAD_DIMS}, {GROUPS}")
 
 
-def _scratch(q, hkv, l, step: int = 1):
-    """(splits, split_len, part_o, part_ml, out) of one launch; split_len a
-    multiple of `step`."""
+def _launch_args(q, hkv, max_len):
+    """(out, partials, counters, chunk) of one launch over a cache of
+    `max_len` keys a row."""
     b, _, hq, d = q.shape
-    group = hq // hkv
-    splits, split_len = decode_splits(b * hkv, l, q.device, step)
-    part_o = torch.empty(b * hkv * splits * group * d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(b * hkv * splits * group * 2, dtype=torch.float32, device=q.device)
+    plan = decode_plan(b, hkv, hq // hkv, max_len, d)
+    partials, counters = _build.scratch("decode", q.device, plan.floats, plan.counters)
     out = torch.empty((b, 1, hq, d), dtype=torch.bfloat16, device=q.device)
-    return splits, split_len, part_o, part_ml, out
+    return out, partials, counters, plan.chunk
 
 
 def flash_decode(
@@ -112,11 +117,11 @@ def flash_decode(
     if not q.is_cuda:
         return flash_decode_ref(q, k_cache, v_cache, lengths, scale, window)
     _check(q, k_cache, v_cache, lengths, window, torch.bfloat16)
-    splits, split_len, part_o, part_ml, out = _scratch(q, hkv, l)
+    out, partials, counters, chunk = _launch_args(q, hkv, l)
     _build.launch(
         "eetq_flash_decode", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-        b, hq, hkv, l, d, splits, split_len, scale, _build.stream_of(q),
+        lengths.data_ptr(), out.data_ptr(), partials, counters, b, hq, hkv, l, d, chunk, scale,
+        _build.stream_of(q),
     )
     flash_decode.launches += 1
     return out
@@ -162,12 +167,11 @@ def flash_decode_int8(
         if (t.dtype != torch.float32 or t.shape != k_cache.shape[:3] or not t.is_contiguous()
                 or t.device != q.device):
             raise TypeError(f"{name} must be contiguous f32 [B, Hkv, L] on q's device")
-    splits, split_len, part_o, part_ml, out = _scratch(q, hkv, l)
+    out, partials, counters, chunk = _launch_args(q, hkv, l)
     _build.launch(
         "eetq_flash_decode_int8", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), b, hq, hkv, l, d, splits, split_len, scale,
-        _build.stream_of(q),
+        k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials,
+        counters, b, hq, hkv, l, d, chunk, scale, _build.stream_of(q),
     )
     flash_decode_int8.launches += 1
     return out
@@ -207,9 +211,9 @@ def _check_paged(q, k_pool, v_pool, table, lengths, window, cache_dtype):
     if (table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != b
             or not table.is_contiguous() or table.device != q.device):
         raise TypeError("table must be contiguous int32 [B, max_blocks] on q's device")
-    if bs % PAGED_KEY_STEP or bs < 128:
-        raise ValueError(f"block size {bs} must be a multiple of {PAGED_KEY_STEP}, at least 128 "
-                         "(a step of keys must not straddle two pool blocks)")
+    if bs % 128 or bs < 128:
+        raise ValueError(f"block size {bs} must be a multiple of 128 (a tile of keys must not "
+                         "straddle two pool blocks)")
 
 
 def paged_flash_decode(
@@ -223,7 +227,7 @@ def paged_flash_decode(
 ) -> torch.Tensor:
     """q [B, 1, Hq, D] bf16; k/v pools [NB, Hkv, BS, D] bf16; table
     [B, max_blocks] int32, entry (b, i) the pool block of keys [i * BS,
-    (i + 1) * BS) of row b (read only for blocks below the row's length, each
+    (i + 1) * BS) of row b (used only for blocks below the row's length, each
     in [0, NB): the kernel cannot check them); lengths [B] int32 (1 <= length
     <= max_blocks * BS). Returns [B, 1, Hq, D] bf16."""
     b, s, hq, d = q.shape
@@ -234,12 +238,11 @@ def paged_flash_decode(
         return paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale, window)
     _check_paged(q, k_pool, v_pool, table, lengths, window, torch.bfloat16)
     max_blocks = table.shape[1]
-    splits, split_len, part_o, part_ml, out = _scratch(q, hkv, max_blocks * bs, PAGED_KEY_STEP)
+    out, partials, counters, chunk = _launch_args(q, hkv, max_blocks * bs)
     _build.launch(
         "eetq_paged_flash_decode", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(),
-        part_ml.data_ptr(), b, hq, hkv, max_blocks, bs, d, splits, split_len, scale,
-        _build.stream_of(q),
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials, counters, b, hq, hkv,
+        max_blocks, bs, d, chunk, scale, _build.stream_of(q),
     )
     paged_flash_decode.launches += 1
     return out
@@ -271,12 +274,12 @@ def paged_flash_decode_int8(
                 or t.device != q.device):
             raise TypeError(f"{name} must be contiguous f32 [NB, Hkv, BS] on q's device")
     max_blocks = table.shape[1]
-    splits, split_len, part_o, part_ml, out = _scratch(q, hkv, max_blocks * bs, PAGED_KEY_STEP)
+    out, partials, counters, chunk = _launch_args(q, hkv, max_blocks * bs)
     _build.launch(
         "eetq_paged_flash_decode_int8", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, hq, hkv, max_blocks, bs, d,
-        splits, split_len, scale, _build.stream_of(q),
+        out.data_ptr(), partials, counters, b, hq, hkv, max_blocks, bs, d, chunk, scale,
+        _build.stream_of(q),
     )
     paged_flash_decode_int8.launches += 1
     return out

@@ -115,7 +115,7 @@ def _fused(counter, entry: str, bits: int, x, gamma, eps, gu_data, gu_scales, d_
     plans = [(gemv_splits(rows, strips, 1, bits, m, 0, sms), strips) for rows, strips in (
         (kp // pack, ip // FUSED_MLP_SLICE), (ip // pack, np_ // GEMV_BLOCK_N))]
     sizes = [gemv_scratch_size(splits, strips, 1) for splits, strips in plans]
-    partials, counters = _build.gemv_scratch(x.device, *map(max, zip(*sizes)))
+    partials, counters = _build.scratch("gemv", x.device, *map(max, zip(*sizes)))
     _build.launch(
         entry, x.data_ptr(), m, k, gamma.data_ptr(), eps,
         gu_data.data_ptr(), kp, ip, gu_scales.data_ptr(), d_data.data_ptr(), np_,

@@ -15,7 +15,7 @@ per bit width:
   loading its next step as it multiplies one; where the column strips leave SMs
   idle, K is split across blocks (`autotune.gemv_splits`) and the strip's
   last block sums the f32 partials in split order, in the same launch
-  (the scratch: `_build.gemv_scratch`). x (RMSNorm'd in the prologue when
+  (the scratch: `_build.scratch`). x (RMSNorm'd in the prologue when
   a gamma is given) is staged in shared memory per block.
 - `w8a16_gemm` (m > MAX_DECODE_M, `csrc/w8a16_gemm.cu`). Bound by tensor-core
   FLOPs at prefill sizes: m = 1024 does 2*m FLOPs per weight byte, far above
@@ -196,7 +196,7 @@ def _logical(qdata: torch.Tensor, bits: int, k: int, n: int) -> torch.Tensor:
 def _gemv_plan(x, rows: int, strips: int, sels: int, bits: int, m: int, group: int):
     """(K splits, partials pointer, counters pointer) of one GEMV launch."""
     splits = gemv_splits(rows, strips, sels, bits, m, group, sm_count(x.device.index))
-    return (splits, *_build.gemv_scratch(x.device, *gemv_scratch_size(splits, strips, sels)))
+    return (splits, *_build.scratch("gemv", x.device, *gemv_scratch_size(splits, strips, sels)))
 
 
 def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps):

@@ -23,8 +23,8 @@ donates the cache pytree (`eetq_tpu/serve/engine.py:588-595`); PyTorch has
 no donation, so the engine updates the one tensor with a single `copy_`.
 
 The block size is a multiple of 128, the JAX package's rule (there a pool
-block is whole Mosaic tiles; the CUDA kernel only needs a multiple of its
-32-key step), so both packages accept the same engines.
+block is whole Mosaic tiles; the CUDA kernel needs blocks whole in its
+64-key tiles), so both packages accept the same engines.
 """
 
 from __future__ import annotations

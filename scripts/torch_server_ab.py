@@ -7,7 +7,9 @@ Run from the repository root, on a machine with an H100:
 
     python3 scripts/torch_server_ab.py [--rounds N]
     python3 scripts/torch_server_ab.py --kernels-of DIR [--rounds N] [--kernels-only]
+    python3 scripts/torch_server_ab.py --kernels-of DIR --decode-only [--rounds N]
     python3 scripts/torch_server_ab.py --grouped-sweep [--rounds N]
+    python3 scripts/torch_server_ab.py --decode-sweep [--rounds N]
     python3 scripts/torch_server_ab.py --mixtral-decode [--rounds N]
 
 The first form serves the same HTTP requests from llama2-7b at W8A16, W4A16
@@ -58,6 +60,22 @@ per tree). `--kernels-only` stops after the kernel cases; `--gemv-only`
 runs the GEMV's cases and readings alone. DIR may be a copy of this tree
 with one constant changed: the kernels of `csrc/gemv.cuh` have internal
 linkage, so each library keeps its own state.
+
+`--decode-only` (with `--kernels-of DIR`) times the flash-decode alone:
+its four entry points at the main paths' shapes (the two paged engines'
+8-slot steps, then `DECODE_DENSE_CASES`: b=1 decode in bf16 and int8 and
+Mixtral's, generate's b=4 request, the default engine's 8-slot step over a
+2048-key int8 cache), each beside its byte bound, in the order
+DIR, here, here, DIR, where DIR's flash-decode takes this tree's ABI (a copy
+with one change) or the older split ABI (its split plan is repeated by the
+launcher that calls it); then (not with `--kernels-only`) one 8-slot
+step of llama2-7b W8A16's paged and default engines and of the W4A16 g=128
+Mixtral's paged int8 engine through either tree's flash-decode: wall ms in
+turns, device busy and launches profiled once per tree.
+
+`--decode-sweep` times the flash-decode at the same shapes with the plan's
+chunk and with the chunk forced to each of SWEEP_CHUNKS, in turns (the
+source of `DECODE_CHUNK`).
 
 `--grouped-sweep` times the grouped GEMM's skinny tile against its
 128-row tile on Mixtral's banks at bm in {8, 16, 32} (and the 128-row tile
@@ -116,6 +134,20 @@ AB_GROUPED = [(bits, group, bm, nb, real)
               for bits, group in ((8, None), (4, cs.INT4_GROUP))
               for bm, nb, real, regime in cs.GROUPED_CASES if regime is not None]
 SWEEP_BM = (8, 16, 32, 48, 64, 128)
+# The flash-decode's C entry points, and the chunks `--decode-sweep` forces
+DECODE_ENTRIES = ("eetq_flash_decode", "eetq_flash_decode_int8", "eetq_paged_flash_decode",
+                  "eetq_paged_flash_decode_int8")
+SWEEP_CHUNKS = (64, 128, 192, 256, 384, 512)
+# The dense flash-decode at the main paths' shapes, Hq = 32, D = 128: (int8,
+# Hkv, L, lengths). b=1 decode after a 1024-token prompt (llama2-7b bf16 and
+# int8, Mixtral GQA 32/8 bf16), generate's b=4 request (128-token prompts,
+# 32 new tokens: llama2-7b and Mixtral) and the default engine's 8-slot step
+# over its 2048-key int8 cache.
+DECODE_DENSE_CASES = [
+    (False, 32, 1152, [1074]), (True, 32, 1152, [1074]), (False, 8, 1152, [1074]),
+    (False, 32, 160, [150] * 4), (False, 8, 160, [150] * 4),
+    (True, 32, 2048, [1074, 1, 640, 2048, 17, 1500, 300, 1024]),
+]
 
 
 def _child_library(cwd: str, prelude: str = ""):
@@ -537,6 +569,225 @@ def _gemv_kernel_ab(gen, dev, trees, rounds: int, flush) -> None:
                {**a_bounds, **b_bounds})
 
 
+def _split_abi_launcher(lib, what: str):
+    """A stand-in for `_build.launch` that sends the flash-decode entry
+    points to `lib`, a library whose flash-decode takes the older split ABI
+    (a split kernel and a combine kernel; f32 (part_o, part_ml) scratch made
+    per call; `splits` key ranges of `split_len` keys sized by the cache's
+    capacity: its wrapper's plan, repeated here), and everything else to this
+    tree's library."""
+    import torch
+
+    from eetq_tpu_torch.kernels import _build
+    from eetq_tpu_torch.kernels.autotune import sm_count
+
+    launch_here = _build.launch
+
+    def launch(name, *args):
+        if name not in DECODE_ENTRIES:
+            return launch_here(name, *args)
+        at, ints = _decode_ints(name, args)  # (part_o, part_ml) there at `at`
+        b, hq, hkv, d = ints[0], ints[1], ints[2], ints[-2]
+        cap, step = (ints[3] * ints[4], 32) if "paged" in name else (ints[3], 1)
+        dev = torch.cuda.current_device()
+        ns = max(1, min(-(-2 * sm_count(dev) // (b * hkv)), -(-cap // 64)))
+        split_len = -(-cap // (ns * step)) * step
+        splits = -(-cap // split_len)
+        rows = b * hkv * splits * (hq // hkv)
+        part_o = torch.empty(rows * d, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=dev)
+        rc = getattr(lib, name)(*args[:at], part_o.data_ptr(), part_ml.data_ptr(), *ints[:-1],
+                                splits, split_len, *args[-2:])
+        if rc != 0:
+            raise RuntimeError(f"{name} of {what} failed: CUDA error {rc}")
+
+    return launch
+
+
+def _decode_ints(name: str, args) -> tuple[int, tuple]:
+    """(index of the partials pointer, the int arguments b, hq, hkv, l (or
+    max_blocks, bs), d, chunk) of a flash-decode C call."""
+    at = 5 + 2 * ("int8" in name) + ("paged" in name)
+    return at, args[at + 2:-2]
+
+
+def _chunk_launcher(chunk: int):
+    """A stand-in for `_build.launch` that runs this tree's flash-decode with
+    `chunk` keys a chunk (and scratch for it) in place of the plan's."""
+    import torch
+
+    from eetq_tpu_torch.kernels import _build
+
+    launch_here = _build.launch
+
+    def launch(name, *args):
+        if name not in DECODE_ENTRIES:
+            return launch_here(name, *args)
+        at, ints = _decode_ints(name, args)
+        b, hq, hkv, d = ints[0], ints[1], ints[2], ints[-2]
+        cap = ints[3] * ints[4] if "paged" in name else ints[3]
+        chunks = -(-cap // chunk)
+        floats = b * hkv * chunks * (hq // hkv) * (d + 2) if chunks > 1 else 0
+        part, ctr = _build.scratch("decode", torch.device("cuda", torch.cuda.current_device()),
+                                   floats, b * hkv)
+        return launch_here(name, *args[:at], part, ctr, *ints[:-1], chunk, *args[-2:])
+
+    return launch
+
+
+def _decode_cases(gen, dev) -> tuple[dict, dict]:
+    """({case: make(tree) -> callable}, {case: byte bound ms}) of the
+    flash-decode at the main paths' shapes: the two paged engines' 8-slot
+    steps (`chip_smoke.py`'s rows of lengths 1..1088 over 256-key blocks
+    behind a permuted table: bf16 MHA, int8 GQA 32/8), then
+    DECODE_DENSE_CASES."""
+    import torch
+
+    from eetq_tpu_torch.kernels.flash_decode import (
+        flash_decode,
+        flash_decode_int8,
+        paged_flash_decode,
+        paged_flash_decode_int8,
+    )
+    from eetq_tpu_torch.kernels.w8a8 import quantize_activations
+
+    cases, bounds = {}, {}
+
+    def caches(shape, int8):
+        pair = [torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+        if int8:
+            (k, ks), (v, vs) = (quantize_activations(t) for t in pair)
+            return k, v, ks, vs
+        return tuple(t.to(torch.bfloat16) for t in pair)
+
+    lens = list(cs.PAGED_LENGTHS)
+    b, bs, nblocks = len(lens), cs.PAGED_BLOCK_SIZE, cs.PAGED_POOL_BLOCKS
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    table = torch.randperm(nblocks, generator=gen, device=dev)[:b * 2048 // bs].reshape(
+        b, 2048 // bs).to(torch.int32).contiguous()
+    for int8, hkv in ((False, 32), (True, 8)):
+        q = torch.randn(b, 1, 32, 128, generator=gen, device=dev).to(torch.bfloat16)
+        pools = caches((nblocks, hkv, bs, 128), int8)
+        kernel = paged_flash_decode_int8 if int8 else paged_flash_decode
+        case = f"{kernel.__name__} B={b} BS={bs} Hq=32 Hkv={hkv}"
+        cases[case] = (lambda tree, kernel=kernel, q=q, pools=pools:
+                       lambda: kernel(q, *pools, table, lengths))
+        bounds[case] = _bytes_ms(cs.decode_cost(lens, 32, hkv, 2 - int8, 4 * int8)[0])
+    for int8, hkv, l, lens in DECODE_DENSE_CASES:
+        b = len(lens)
+        lengths_d = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn(b, 1, 32, 128, generator=gen, device=dev).to(torch.bfloat16)
+        cache = caches((b, hkv, l, 128), int8)
+        kernel = flash_decode_int8 if int8 else flash_decode
+        case = f"{kernel.__name__} B={b} L={l} Hq=32 Hkv={hkv}"
+        cases[case] = (lambda tree, kernel=kernel, q=q, cache=cache, lengths=lengths_d:
+                       lambda: kernel(q, *cache, lengths))
+        bounds[case] = _bytes_ms(cs.decode_cost(lens, 32, hkv, 2 - int8, 4 * int8)[0])
+    return cases, bounds
+
+
+def _plan_chunk(case: str) -> int:
+    """The plan's chunk for a case of `_decode_cases` on this card."""
+    from eetq_tpu_torch.kernels.autotune import decode_plan
+
+    f = {k: int(v) for k, v in (field.split("=") for field in case.split()[1:])}
+    cap = 2048 if "BS" in f else f["L"]
+    return decode_plan(f["B"], f["Hkv"], f["Hq"] // f["Hkv"], cap, 128).chunk
+
+
+def _decode_report(res: dict, bounds: dict) -> None:
+    for case, per in res.items():
+        print(f"{case}: " + "; ".join(
+            f"{t} {ms:.4f} ms (back to back {b2b:.4f}, {100 * bounds[case] / b2b:.0f}% of the "
+            f"bound)" for t, (ms, b2b) in per.items()) + f"; bound {bounds[case]:.4f} ms (bytes)",
+            flush=True)
+
+
+def decode_ab(other_dir: str, rounds: int, models: bool = True) -> int:
+    """`--kernels-of DIR --decode-only`: the flash-decode of this tree against
+    that of the checkout in DIR (this tree's ABI, or the older split ABI) in
+    turns, at the main paths' shapes; then (unless models=False), through
+    either tree's flash-decode, one 8-slot step of llama2-7b W8A16's paged
+    (bf16 pool) and default (dense int8 cache) engines and of Mixtral-8x7B
+    W4A16 g=128's paged int8 engine: wall ms in turns, and device busy and
+    launches from one profiled run per tree."""
+    import torch
+
+    from eetq_tpu_torch.kernels import _build
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import (
+        quantize_params,
+        random_dense_params,
+        random_quantized_params,
+    )
+
+    dev = torch.device("cuda", 0)
+    print(cs.card_line())
+    other, other_s, arity = _child_library(other_dir)
+    here = _build.build()
+    print(f"kernels of {other_dir} built in {other_s:.1f} s, of this tree in "
+          f"{here['seconds']:.1f} s (cached: {here['cached']})")
+    same_abi = arity["eetq_flash_decode"] == len(_build.SIGNATURES["eetq_flash_decode"])
+    trees = {"other": (_launcher(other, arity, DECODE_ENTRIES, other_dir) if same_abi
+                       else _split_abi_launcher(other, other_dir)), "here": _build.launch}
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    flush = torch.ones(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        cases, bounds = _decode_cases(gen, dev)
+        _decode_report(_time_cases(cases, trees, ORDER, rounds, flush), bounds)
+    del cases, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not models:
+        return 0
+    paged = dict(paged_blocks=cs.PAGED_BLOCKS, paged_block_size=cs.PAGED_BLOCK_SIZE)
+    for name, make, engines in (
+            (f"{cs.MODEL} W8A16", lambda g: quantize_params(
+                random_dense_params(PRESETS[cs.MODEL], g), quantize_lm_head=True),
+             {"paged (bf16 pool)": paged, "default (dense int8 cache)": {}}),
+            (f"{cs.MIXTRAL} W4A16 g={cs.INT4_GROUP}", lambda g: random_quantized_params(
+                PRESETS[cs.MIXTRAL], g, quantize_lm_head=True, bits=4, group_size=cs.INT4_GROUP),
+             {"paged (int8 pool)": dict(paged, kv_dtype=torch.int8)})):
+        cfg = PRESETS[cs.MODEL if name.startswith(cs.MODEL) else cs.MIXTRAL]
+        t0 = time.perf_counter()
+        params = make(torch.Generator(device=dev).manual_seed(cs.SEED))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{name} built in {time.perf_counter() - t0:.1f} s", flush=True)
+        for engine, kw in engines.items():
+            _engine_step_ms(params, cfg, dev, gen, kw)  # warm
+            _report(f"{name} {engine} engine, ms per 8-slot decode step", _in_turns(
+                trees, ORDER, rounds, lambda t: _engine_step_ms(params, cfg, dev, gen, kw)))
+            _in_turns(trees, ("other", "here"), 1,
+                      lambda t: _profile_engine_step(params, cfg, dev, gen, t, engine_kw=kw))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def decode_sweep(rounds: int) -> int:
+    """`--decode-sweep`: the flash-decode with the plan's chunk and with the
+    chunk forced to each of SWEEP_CHUNKS, in turns, at the main paths' shapes
+    (the source of `DECODE_CHUNK`)."""
+    import torch
+
+    from eetq_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    print(cs.card_line())
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    flush = torch.ones(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        cases, bounds = _decode_cases(gen, dev)
+        for case in cases:
+            print(f"{case}: the plan's chunk {_plan_chunk(case)}")
+        chunks = {"plan": _build.launch, **{f"chunk {c}": _chunk_launcher(c) for c in SWEEP_CHUNKS}}
+        order = tuple(chunks) + tuple(reversed(tuple(chunks)))
+        _decode_report(_time_cases(cases, chunks, order, rounds, flush), bounds)
+    return 0
+
+
 def _decode_ms(params, cfg, dev, prompt, n_new: int, kv, fused: bool) -> float:
     """ms per b=1 decode step after a prefill of `prompt` (`decode_loop`)."""
     import torch
@@ -554,14 +805,16 @@ def _decode_ms(params, cfg, dev, prompt, n_new: int, kv, fused: bool) -> float:
     return 1e3 * (time.perf_counter() - t0) / (n_new - 1)
 
 
-def _profile_engine_step(params, cfg, dev, gen, tree: str, steps: int = 10) -> None:
-    """Ten decode steps of the default engine with its 8 slots busy, under
-    torch.profiler: wall and device-busy ms a step, launches, idle share."""
+def _profile_engine_step(params, cfg, dev, gen, tree: str, steps: int = 10,
+                         engine_kw: dict | None = None) -> None:
+    """Ten decode steps of an engine (the default one, or with `engine_kw`)
+    with its 8 slots busy, under torch.profiler: wall and device-busy ms a
+    step, launches (and the flash-decode's), idle share."""
     import torch
 
     from eetq_tpu_torch.serve.engine import Engine
 
-    eng = Engine(params, cfg, max_batch=8, max_len=2048)
+    eng = Engine(params, cfg, max_batch=8, max_len=2048, **(engine_kw or {}))
     for _ in range(8):
         ids = torch.randint(0, cfg.vocab_size, (100,), generator=gen, device=dev).tolist()
         eng.add_request(ids, max_new_tokens=steps + 16)
@@ -576,7 +829,8 @@ def _profile_engine_step(params, cfg, dev, gen, tree: str, steps: int = 10) -> N
     r = cs._profiled(run, steps)
     eng.run()
     print(f"    {tree}, profiled engine step: wall {r['wall_ms_per_step']:.2f} ms, device busy "
-          f"{r['busy_ms_per_step']:.3f} ms, {r['launches_per_step']:.0f} launches, idle share "
+          f"{r['busy_ms_per_step']:.3f} ms, {r['launches_per_step']:.0f} launches "
+          f"({r['decode_launches_per_step']:.0f} of the flash-decode), idle share "
           f"{r['idle_share']:.3f}", flush=True)
 
 
@@ -829,6 +1083,10 @@ def main() -> int:
     parser.add_argument("--gemv-only", action="store_true",
                         help="with --kernels-of: the decode GEMV's cases and decode and engine "
                              "step readings only")
+    parser.add_argument("--decode-only", action="store_true",
+                        help="with --kernels-of: the flash-decode's cases and engine steps only")
+    parser.add_argument("--decode-sweep", action="store_true",
+                        help="time the flash-decode over its chunk length, in turns")
     parser.add_argument("--grouped-sweep", action="store_true",
                         help="time the grouped GEMM's skinny tile against its wide one over bm")
     parser.add_argument("--mixtral-decode", action="store_true",
@@ -837,10 +1095,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_server_ab: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.kernels_of and args.decode_only:
+        return decode_ab(args.kernels_of, args.rounds, not args.kernels_only)
     if args.kernels_of:
         return kernels_ab(args.kernels_of, args.rounds, not args.kernels_only, args.gemv_only)
     if args.grouped_sweep:
         return grouped_sweep(args.rounds)
+    if args.decode_sweep:
+        return decode_sweep(args.rounds)
     if args.mixtral_decode:
         return mixtral_decode(args.rounds)
     dev = torch.device("cuda", 0)

@@ -432,8 +432,9 @@ def _paged_case(g, dev, b, hq, hkv, d, bs, max_blocks, nblocks, int8):
     (8, 32, 32, 128, 256, 8), (8, 32, 8, 128, 256, 8), (3, 8, 8, 64, 128, 3),
     (5, 16, 4, 64, 384, 2), (2, 8, 1, 128, 128, 5), (1, 4, 2, 128, 128, 1)])
 def test_paged_flash_decode(dev, b, hq, hkv, d, bs, max_blocks, int8):
-    """Against the plain version, and against the dense kernel on the cache
-    gathered through the table; groups 1, 2, 4 and 8, D 64 and 128."""
+    """Against the plain version, and bit-equal to the dense kernel on the
+    cache gathered through the table (the same chunks, tiles and order);
+    groups 1, 2, 4 and 8, D 64 and 128, blocks of 128, 256 and 384 keys."""
     g = torch.Generator(device=dev).manual_seed(b + hq)
     q, pools, table, wild, lengths = _paged_case(g, dev, b, hq, hkv, d, bs, max_blocks,
                                                  b * max_blocks + 7, int8)
@@ -443,7 +444,101 @@ def test_paged_flash_decode(dev, b, hq, hkv, d, bs, max_blocks, int8):
     out = kernel(q, *pools, wild, lengths)
     assert out.shape == (b, 1, hq, d)
     _close(out, ref(q, *pools, table, lengths))
-    _close(out, dense(q, *(gather_pool(t, table) for t in pools), lengths))
+    assert torch.equal(out, dense(q, *(gather_pool(t, table) for t in pools), lengths))
+
+
+def _decode_calls(g, dev, mode, b, hq, hkv, d, lengths, l=2048, bs=256):
+    """(kernel call, plain call) of one flash-decode entry point on random
+    caches of l keys a row (paged: pools of bs-key blocks behind a permuted
+    table) and the given lengths."""
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(b, 1, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    int8, paged = "int8" in mode, mode.startswith("paged")
+    shape = (b * l // bs + 3, hkv, bs, d) if paged else (b, hkv, l, d)
+    caches = [torch.randn(shape, generator=g, device=dev) for _ in range(2)]
+    if int8:
+        (k, ks), (v, vs) = (quantize_activations(t) for t in caches)
+        caches = (k, v, ks, vs)
+    else:
+        caches = tuple(t.to(torch.bfloat16) for t in caches)
+    if not paged:
+        kernel, ref = ((flash_decode_int8, flash_decode_int8_ref) if int8
+                       else (flash_decode, flash_decode_ref))
+        return (lambda: kernel(q, *caches, lengths)), (lambda: ref(q, *caches, lengths))
+    table = torch.randperm(shape[0], generator=g, device=dev)[:b * (l // bs)].reshape(
+        b, l // bs).to(torch.int32).contiguous()
+    kernel, ref = ((paged_flash_decode_int8, paged_flash_decode_int8_ref) if int8
+                   else (paged_flash_decode, paged_flash_decode_ref))
+    return (lambda: kernel(q, *caches, table, lengths)), (lambda: ref(q, *caches, table, lengths))
+
+
+DECODE_MODES = ["dense", "dense_int8", "paged", "paged_int8"]
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("b,hq,hkv,d,lengths", [
+    (1, 32, 32, 128, [1074]), (8, 32, 8, 128, [1, 2048, 17, 1500, 300, 1024, 640, 2047]),
+    (3, 16, 2, 64, [129, 64, 1])])
+def test_flash_decode_repeats_bit_equal(dev, mode, b, hq, hkv, d, lengths):
+    """Two launches give bit-equal outputs: the chunks' states are merged in
+    chunk order by one block, with no float atomics."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    kernel, ref = _decode_calls(g, dev, mode, b, hq, hkv, d, lengths)
+    out = _twice(kernel)
+    _close(out, ref())
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
+def test_flash_decode_long_rows_beside_rows_of_one_key(dev, mode, hq, hkv):
+    """B = 8 rows of the cache's whole length L = 2048 beside rows of one key:
+    the long rows' chunks merge across blocks, the short rows write at once."""
+    g = torch.Generator(device=dev).manual_seed(hkv)
+    kernel, ref = _decode_calls(g, dev, mode, 8, hq, hkv, 128, [2048, 1, 2048, 1, 1, 2048, 1, 2048])
+    _close(kernel(), ref())
+
+
+def test_paged_flash_decode_idle_rows_beside_live_rows(dev):
+    """Idle rows of an engine (length 1 in the zeroed trash block 0) beside
+    live rows: the idle rows' outputs are zeros, the live rows' agree with
+    the plain version, for bf16 and int8 pools."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, hq, hkv, bs, max_blocks = 6, 16, 4, 128, 4
+    idle = torch.tensor([True, False, True, False, True, True], device=dev)
+    q = torch.randn(b, 1, hq, 128, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.where(idle, 1, torch.tensor([0, 300, 0, 512, 0, 0], device=dev)).to(
+        torch.int32)
+    table = (1 + torch.arange(b * max_blocks, device=dev, dtype=torch.int32)).reshape(b, max_blocks)
+    table[idle] = 0
+    pools = [torch.randn(b * max_blocks + 1, hkv, bs, 128, generator=g, device=dev)
+             for _ in range(2)]
+    for t in pools:
+        t[0] = 0
+    k, v = (t.to(torch.bfloat16) for t in pools)
+    out = paged_flash_decode(q, k, v, table, lengths)
+    (k8, ks), (v8, vs) = (quantize_activations(t) for t in pools)
+    out8 = paged_flash_decode_int8(q, k8, v8, ks, vs, table, lengths)
+    torch.cuda.synchronize()
+    assert not out[idle].any() and not out8[idle].any()
+    _close(out[~idle], paged_flash_decode_ref(q, k, v, table, lengths)[~idle])
+    _close(out8[~idle], paged_flash_decode_int8_ref(q, k8, v8, ks, vs, table, lengths)[~idle])
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+def test_flash_decode_is_one_launch(dev, mode):
+    """One kernel launch per call (torch.profiler), with rows whose chunks
+    merge across blocks: the merge runs in the same launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    kernel, _ = _decode_calls(g, dev, mode, 8, 32, 8, 128, [2048, 1, 640, 1500, 17, 1, 300, 1024])
+    kernel()  # the scratch is allocated (and its counters zeroed) once, here
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernel()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "flash_decode" in names[0], names
 
 
 def test_paged_flash_decode_idle_rows_in_the_trash_block(dev):
