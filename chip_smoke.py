@@ -59,23 +59,31 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      step against the plain path (the decode step must make as many GEMV
      launches as before the tensor-core GEMV: 4 a layer + the lm_head, 129),
      then batch 1 x 1024-token prompt x 50 greedy tokens and batch 4 x 128 x
-     32.
+     32. `decode_loop` runs on the card as one captured step replayed
+     (`serve/graph.py`): its 50 greedy tokens must be bit-equal to a Python
+     loop of eager `decode_step` on a copy of the same caches, and its
+     launch counts those of 49 eager steps (a replay adds its capture's).
+     The timing prints ms/step over the 49 steps, and apart the eager
+     warm-up step, the capture and the ms of a replayed step.
    - bench decode (`bench.py`'s configuration): prefill into an int8 KV
      cache, then `decode_loop(fused_mlp=True)`; the same checks and
      requests, and prefill/decode times beside the generate path's.
    - server: `Engine(params, cfg, max_batch=8, max_len=2048)` with its
-     defaults (which must resolve to W8A8 prefill and int8 KV) behind
+     defaults (which must resolve to W8A8 prefill, int8 KV, decode windows
+     of 8 chained up to 8; `warmup()` and `warmup(temperature=0.8)` capture
+     the greedy and the sampled window-1 and window-8 programs) behind
      `EngineServer` on 127.0.0.1; about 12 HTTP requests of mixed prompt
      lengths and budgets from several threads; one admission's logits
-     against the plain path; `w8a16_gemm` must not launch.
+     against the plain path; `w8a16_gemm` must not launch; the greedy
+     requests' tokens equal those of an `Engine(decode_window=1)` twin.
    - paged_server: `Engine(..., paged_blocks=41)` (40 blocks of 256 tokens
      and the trash block) behind the same server and requests. It must
      resolve to W8A8 prefill and a bf16 pool; the paged flash-decode kernel
      launches 32 times per decode step and the dense flash-decode entry
      points not at all; the logits of one 8-slot engine step are held
      against the plain path; every block is back on the free list at the
-     end; and the greedy requests' tokens equal those of an engine with a
-     dense bf16 cache.
+     end; and the greedy requests' tokens equal those of a window-1 engine
+     with a dense bf16 cache.
    llama2-7b is freed before the next model is built.
 4. llama2-7b again with int4 weights, at full width and depth, built one
    layer at a time (`random_quantized_params`, 3.6-3.9 GB), two models:
@@ -108,10 +116,13 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    flash-decode; the bf16 one must not launch), checked as in 5.
 
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
-paths are also run under `torch.profiler` (one prefill, ten decode
-or engine steps): device-busy time, launches per step (and those of the
-flash-decode, which must be one a layer on every decode and engine step)
-and the idle share go to the output and to `chip_smoke.json`. `--phases`
+paths are also run under `torch.profiler` (one prefill, the first request's
+whole decode_loop, and one steady-state engine step after `warmup()`: a
+chain of 8 windows of 8 with 8 slots busy): per decode step, device-busy
+time, kernel events (and those of the flash-decode, which must be one a
+layer on every decode and engine step), the host's launch calls (a graph
+replay is one) and the idle share go to the output and to
+`chip_smoke.json`. `--phases`
 runs a subset of `kernels,moe_layer,llama,int4,mixtral,mixtral_int4` (for
 debugging: a partial run checks what it runs and prints no result line).
 
@@ -206,6 +217,7 @@ PAGED_POOL_BLOCKS = 72  # a distinct block for every table entry (8 x 8)
 PAGED_LENGTHS = (1, 17, 130, 300, 555, 777, 1024, 1088)
 # The engine step whose decode logits are checked: prompts of these lengths
 STEP_PROMPTS = (17, 100, 300, 700, 1024, 33, 257, 512)
+STEP_BUDGET = 200  # more than the 8 x 8 tokens of the chain after the last admission
 # max |kernel - plain| <= TOL * max |plain|: four bf16 ulps of the largest
 # output. Sums run in another order and attention rounds p to bf16 before
 # p.v (as the TPU kernel does), both far inside this bound; a wrong tile,
@@ -1049,6 +1061,50 @@ def check_logits(name: str, got, ref, tol: float = MODEL_TOL) -> dict:
     return dict(max_abs_err=err, rel_err=rel, tol=tol, argmax_equal=same)
 
 
+def graph_against_eager(params, cfg, dev, prompt, n: int, kv, fused) -> dict:
+    """decode_loop (one step captured, replayed n - 2 times) against a Python
+    loop of eager decode_step on a copy of the same prefilled caches: the
+    greedy tokens must be bit-equal, and the launches of the whole loop those
+    of n - 1 eager steps (the warm-up step and the replays; the capture adds
+    none)."""
+    import torch
+
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.modules.attention import KVCache
+    from eetq_tpu_torch.serve.generate import decode_loop, decode_step, prefill
+
+    p = prompt.shape[1]
+    caches = init_caches(cfg, prompt.shape[0], p + n, device=dev, dtype=kv)
+    lp, caches = prefill(params, cfg, prompt, caches)
+    first = torch.argmax(lp, -1)
+    twin = [KVCache(*(None if t is None else t.clone() for t in (c.k, c.v, c.k_scale, c.v_scale)))
+            for c in caches]
+    tok, eager = first, [first]
+    for i in range(n - 1):
+        reset_launch_counts()
+        logits, _ = decode_step(params, cfg, tok[:, None], p + i, twin, fused_mlp=fused)
+        if i == 0:
+            one_step = launch_counts()
+        tok = torch.argmax(logits, -1)
+        eager.append(tok)
+    del twin
+    reset_launch_counts()
+    toks, caches = decode_loop(params, cfg, first, p, caches, n, fused_mlp=fused)
+    counts = launch_counts()
+    equal = bool(torch.equal(toks, torch.stack(eager, dim=1)))
+    first_diff = None if equal else int((toks != torch.stack(eager, dim=1)).any(0).nonzero()[0])
+    check(equal, f"the replayed decode_loop's tokens differ from eager decode_step's from "
+                 f"token {first_diff}")
+    want = {k: (n - 1) * v for k, v in one_step.items()}
+    check(counts == want, f"launches of the replayed decode_loop {counts}, want (n - 1) x one "
+                          f"eager step's {want}")
+    launches = sum(one_step.values())
+    print(f"  decode_loop replayed: {n} greedy tokens bit-equal to eager decode_step's; "
+          f"{launches} kernel-wrapper launches a step, replayed and eager alike")
+    return dict(tokens=n, equal=equal, wrapper_launches_per_step=launches)
+
+
 def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
     """Each path of `configs` ({path: (KV dtype, fused MLP)}), e.g. the
     generate path (bf16 KV, unfused MLP) and bench.py's decode
@@ -1097,6 +1153,7 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
         print(f"  {path}: {gemv_step} GEMV launches in one decode step (want {want})")
         check(gemv_step == want, f"{path}: {gemv_step} GEMV launches a decode step, want {want}")
         checks["gemv_launches_per_step"] = gemv_step
+        checks["graph"] = graph_against_eager(params, cfg, dev, prompt1, n1, kv, fused)
         if routes:
             checks["routing"] = routing_differences(lambda: check_run(False), routes)
             print(f"  {path}: {checks['routing']['differ']} of {checks['routing']['routings']} "
@@ -1126,8 +1183,11 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
             check(bool((g[:, 0] == outs[0][:, 0]).all()), "generate disagrees with prefill")
         out[path] = dict(checks=checks, counts=counts, generate_ms=gen_ms)
 
-    # the two stages of the first request, timed apart, the paths in turns
-    runs = {path: dict(prefill_ms=[], decode_ms=[]) for path in configs}
+    # the two stages of the first request, timed apart, the paths in turns;
+    # decode_loop's own graph records say what its eager warm-up step and its
+    # capture took, and the rest is n1 - 2 replays
+    runs = {path: dict(prefill_ms=[], decode_ms=[], replay_ms=[], warm_ms=[], capture_ms=[])
+            for path in configs}
     for _ in range(3):
         for path, (kv, fused) in configs.items():
             caches = init_caches(cfg, 1, p1 + n1, device=dev, dtype=kv)
@@ -1137,21 +1197,30 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
             tok = torch.argmax(lp, -1)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            decode_loop(params, cfg, tok, p1, caches, n1, fused_mlp=fused)
+            rec = {}
+            decode_loop(params, cfg, tok, p1, caches, n1, fused_mlp=fused, stats=rec)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            runs[path]["prefill_ms"].append(1e3 * (t1 - t0))
-            runs[path]["decode_ms"].append(1e3 * (t2 - t1) / (n1 - 1))
+            r = runs[path]
+            r["prefill_ms"].append(1e3 * (t1 - t0))
+            r["decode_ms"].append(1e3 * (t2 - t1) / (n1 - 1))
+            r["warm_ms"].append(rec["warm_ms"])
+            r["capture_ms"].append(rec["capture_ms"])
+            r["replay_ms"].append((1e3 * (t2 - t1) - rec["warm_ms"] - rec["capture_ms"])
+                                  / (n1 - 2))
             del caches
     for path, r in runs.items():
-        dms = statistics.median(r["decode_ms"])
+        med = {key: statistics.median(v) for key, v in r.items()}
         out[path]["timing"] = dict(
-            prefill_ms=statistics.median(r["prefill_ms"]), decode_ms_per_step=dms,
-            decode_tok_s=1e3 / dms, prefill_ms_runs=r["prefill_ms"],
-            decode_ms_per_step_runs=r["decode_ms"])
-        print(f"  {path} b=1 p={p1}: prefill {out[path]['timing']['prefill_ms']:.2f} ms, "
-              f"decode {dms:.3f} ms/step = {1e3 / dms:.2f} tok/s "
-              f"(runs {['%.3f' % v for v in r['decode_ms']]})")
+            prefill_ms=med["prefill_ms"], decode_ms_per_step=med["decode_ms"],
+            decode_tok_s=1e3 / med["decode_ms"], replay_ms_per_step=med["replay_ms"],
+            warm_ms=med["warm_ms"], capture_ms=med["capture_ms"], prefill_ms_runs=r["prefill_ms"],
+            decode_ms_per_step_runs=r["decode_ms"], replay_ms_per_step_runs=r["replay_ms"])
+        print(f"  {path} b=1 p={p1}: prefill {med['prefill_ms']:.2f} ms, decode "
+              f"{med['decode_ms']:.3f} ms/step = {1e3 / med['decode_ms']:.2f} tok/s over "
+              f"{n1 - 1} steps (runs {['%.3f' % v for v in r['decode_ms']]}); of it the eager "
+              f"warm-up step {med['warm_ms']:.2f} ms, the capture {med['capture_ms']:.2f} ms, "
+              f"then {med['replay_ms']:.3f} ms a replayed step")
     return out
 
 
@@ -1185,8 +1254,10 @@ def engine_step_check(eng, cfg, dev, gen, path: str) -> dict:
 
     for n in STEP_PROMPTS[:eng.max_batch]:
         ids = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist()
-        eng.add_request(ids, max_new_tokens=24)
-    while eng.queue:  # one admission and one decode step each
+        eng.add_request(ids, max_new_tokens=STEP_BUDGET)
+    # one admission each, with a window-1 step while the queue holds more and
+    # a chain of windows after the last (shorter than every budget)
+    while eng.queue:
         eng.step()
     active = [i for i, r in enumerate(eng.slot_req) if r is not None]
     check(len(active) == eng.max_batch, f"{path}: {len(active)} slots busy before the step check")
@@ -1209,10 +1280,12 @@ def engine_step_check(eng, cfg, dev, gen, path: str) -> dict:
 
 
 def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | None = None,
-                dense_twin: bool = False) -> dict:
-    """The engine behind its HTTP server: with its accelerator defaults, or
-    with `engine_kw` (a paged pool). dense_twin: the greedy requests also go
-    through an engine with a dense bf16 cache, whose tokens must be equal."""
+                twin_kw: dict | None = None) -> dict:
+    """The engine behind its HTTP server: with its accelerator defaults
+    (window 8, chained), or with `engine_kw` (a paged pool). twin_kw: the
+    greedy requests also go through an engine built with these keywords
+    instead (window 1; a dense bf16 cache for a paged engine), whose tokens
+    must be equal."""
     import torch
 
     from eetq_tpu_torch.models.transformer import forward_inner, init_caches
@@ -1226,16 +1299,26 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
     cache_gb = (torch.cuda.memory_allocated() - held) / 1e9
     # the CUDA defaults: W8A8 prefill; an int8 dense cache, a bf16 pool
     want_kv = engine_kw.get("kv_dtype", torch.bfloat16 if paged else torch.int8)
-    check(eng.a8_prefill and eng.kv_dtype == want_kv and eng.paged == paged,
+    check(eng.a8_prefill and eng.kv_dtype == want_kv and eng.paged == paged
+          and eng.decode_window == 8 and eng.max_chain == 8,
           f"{path} engine on CUDA: a8_prefill {eng.a8_prefill}, kv {eng.kv_dtype}, "
-          f"paged {eng.paged}")
+          f"paged {eng.paged}, window {eng.decode_window}, chain {eng.max_chain}")
     shape = (f"a pool of {engine_kw['paged_blocks']} blocks of {eng.paged_bs}" if paged
              else "dense 8 x 2048")
     print(f"  {path}: KV cache of the engine {cache_gb:.2f} GB ({eng.kv_dtype}, {shape})")
+    # the traffic below has sampled requests: warm the sampled programs too
     t0 = time.perf_counter()
     eng.warmup()
+    eng.warmup(temperature=0.8)
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
+    captures = [dict(window=w, sampled=smp, warm_ms=g.warm_ms, capture_ms=g.capture_ms)
+                for (w, smp), (g, _) in eng._programs.items()]
+    check(all(g.captured for g, _ in eng._programs.values())
+          and set(eng._programs) == {(1, False), (8, False), (1, True), (8, True)},
+          f"{path}: warmup() left programs uncaptured: {sorted(eng._programs)}")
+    print(f"  {path}: warmup {warmup_s:.1f} s; captures of the greedy and sampled window-1 and "
+          f"window-8 programs {['%.1f ms' % c['capture_ms'] for c in captures]}")
 
     # one admission's forward, with kernels and with the plain versions: a
     # prompt right-padded to its bucket, as _prefill_group runs it
@@ -1322,27 +1405,29 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
               and not any(eng._slot_blocks) and not eng._table_np.any(),
               f"{path}: blocks still held after the run: {eng._slot_blocks}")
     twin = None
-    if dense_twin:
-        # the same kernels apart from the address map, the same chunks of the
-        # key range, rows that do not see each other: the same greedy tokens
+    if twin_kw is not None:
+        # the same kernels, the same chunks of the key range, rows that do not
+        # see each other: the same greedy tokens at any window and chain, and
+        # through the paged address map or the dense one
         greedy = [i for i, body in enumerate(bodies) if "temperature" not in body]
         held = torch.cuda.memory_allocated()
-        de = Engine(params, cfg, max_batch=8, max_len=2048, kv_dtype=torch.bfloat16)
-        dense_gb = (torch.cuda.memory_allocated() - held) / 1e9
-        uids = {i: de.add_request(bodies[i]["prompt"], bodies[i]["max_new_tokens"])
+        te = Engine(params, cfg, max_batch=8, max_len=2048, **twin_kw)
+        twin_gb = (torch.cuda.memory_allocated() - held) / 1e9
+        uids = {i: te.add_request(bodies[i]["prompt"], bodies[i]["max_new_tokens"])
                 for i in greedy}
-        de.run()
+        te.run()
         for i in greedy:
-            want = de.result(uids[i])
+            want = te.result(uids[i])
             first = next((j for j, (a, b) in enumerate(zip(results[i], want)) if a != b), None)
             if first is not None:
                 print(f"  {path} request {i} (prompt {lengths[i]}): token {first} is "
-                      f"{results[i][first]}, the dense engine's {want[first]}")
-            check(results[i] == want, f"{path}: request {i} differs from the dense bf16-KV engine")
-        twin = dict(requests=len(greedy), equal=True, cache_gb=dense_gb)
-        print(f"  {path}: {len(greedy)} greedy requests equal the tokens of the dense bf16-KV "
-              f"engine (its cache: {dense_gb:.2f} GB)")
-        del de
+                      f"{results[i][first]}, the twin's {want[first]}")
+            check(results[i] == want, f"{path}: request {i} differs from the twin engine "
+                                      f"{twin_kw}")
+        twin = dict(requests=len(greedy), equal=True, cache_gb=twin_gb, engine=str(twin_kw))
+        print(f"  {path}: {len(greedy)} greedy requests equal the tokens of a twin engine "
+              f"{twin_kw} (its cache: {twin_gb:.2f} GB)")
+        del te
     tokens = sum(budgets)
     lat = [latency[i] for i in range(SERVE_REQUESTS)]
     print(f"  {path}: {SERVE_REQUESTS} requests, prompts {lengths}, budgets {budgets}; "
@@ -1351,33 +1436,38 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
     print(f"  {path} latencies (ms): {['%.1f' % v for v in lat]}")
     return dict(admission=admission, counts=counts, prompt_lengths=lengths, budgets=budgets,
                 tokens=tokens, wall_s=wall_s, served_tok_s=tokens / wall_s,
-                latency_ms=lat, warmup_s=warmup_s, cache_gb=cache_gb, engine_step=step,
-                dense_twin=twin)
+                latency_ms=lat, warmup_s=warmup_s, captures=captures, cache_gb=cache_gb,
+                engine_step=step, twin=twin)
 
 
-PROFILE_STEPS = 10
+PROFILE_ENGINE_BUDGET = 200  # two chains of 8 x 8 after the admissions
 
 
-def _device_events(prof) -> tuple[float, int, int]:
-    """(device-busy ms, kernel launches, flash-decode launches) of a
-    torch.profiler run: the sum and the count of its kernel events (copies
-    and memsets are busy time but no launches of a kernel), and the count of
-    those of `csrc/flash_decode.cu`."""
+def _device_events(prof) -> tuple[float, int, int, int]:
+    """(device-busy ms, kernel launches, flash-decode launches, host launch
+    calls) of a torch.profiler run: the sum and the count of its kernel
+    events (copies and memsets are busy time but no launches of a kernel),
+    the count of those of `csrc/flash_decode.cu`, and the host's calls that
+    launch a kernel or a graph (a graph replay is one call for all of its
+    kernels)."""
     import torch
 
-    busy_us, launches, decode = 0.0, 0, 0
+    busy_us, launches, decode, host = 0.0, 0, 0, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            host += "Launch" in ev.name and ev.name.startswith(("cuda", "cu"))
             continue
         busy_us += ev.time_range.elapsed_us()
         launches += not ev.name.startswith(("Memcpy", "Memset"))
         decode += "flash_decode" in ev.name
-    return busy_us / 1e3, launches, decode
+    return busy_us / 1e3, launches, decode, host
 
 
-def _profiled(fn, steps: int) -> dict:
-    """fn() under torch.profiler, per step; `decode_calls_per_step` counts
-    the flash-decode wrappers' calls (their launch counters, exact), and
+def _profiled(fn, steps: int | None, layers: int = 0) -> dict:
+    """fn() under torch.profiler, per decode step: `steps` of them, or with
+    steps None the flash-decode calls over `layers` (one call a layer a
+    step). `decode_calls_per_step` counts the flash-decode wrappers' calls
+    (their launch counters, exact: a replay adds its capture's counts), and
     `decode_launches_per_step` its kernel events (the profiler may drop a few
     events of a run, and never adds one)."""
     import torch
@@ -1393,19 +1483,25 @@ def _profiled(fn, steps: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     calls = sum(launch_counts()[k] for k in DECODE_FAMILY)
-    busy_ms, launches, decode = _device_events(prof)
+    if steps is None:
+        check(calls > 0 and calls % layers == 0, f"{calls} flash-decode calls over {layers} layers")
+        steps = calls // layers
+    busy_ms, launches, decode, host = _device_events(prof)
     check(busy_ms > 0, "the profiler saw no device time")
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps, busy_ms_per_step=busy_ms / steps,
                 launches_per_step=launches / steps, decode_launches_per_step=decode / steps,
-                decode_calls_per_step=calls / steps, idle_share=1 - busy_ms / wall_ms)
+                decode_calls_per_step=calls / steps, host_launch_calls_per_step=host / steps,
+                idle_share=1 - busy_ms / wall_ms)
 
 
 def profile_paths(params, cfg, dev, gen, configs: dict, engines: dict) -> dict:
     """`--profile`: each path's first request under torch.profiler: one
-    prefill, then PROFILE_STEPS decode steps; and PROFILE_STEPS steps of
-    each engine of `engines` ({path: Engine keywords}) with all 8 slots
-    decoding. The profiler slows the host, so the wall time and the idle
-    share are those of a profiled run."""
+    prefill, then its whole decode_loop (the eager warm-up step, the capture
+    and the replays); and for each engine of `engines` ({path: Engine
+    keywords}), after warmup() and the admissions, one scheduler step of the
+    steady state with all 8 slots decoding: a chain of 8 windows of 8 steps.
+    Every figure is per decode step. The profiler slows the host, so the
+    wall time and the idle share are those of a profiled run."""
     import torch
 
     from eetq_tpu_torch.models.transformer import init_caches
@@ -1425,27 +1521,30 @@ def profile_paths(params, cfg, dev, gen, configs: dict, engines: dict) -> dict:
 
         run_prefill()  # warm
         out[path] = dict(prefill=_profiled(run_prefill, 1))
-        decode_loop(params, cfg, state["tok"], p1, state["caches"], 3, fused_mlp=fused)  # warm
+        # the first request's whole decode_loop: the eager warm-up step, the
+        # capture and n1 - 2 replays, per step
         out[path]["decode"] = _profiled(
-            lambda: decode_loop(params, cfg, state["tok"], p1 + 2, state["caches"],
-                                PROFILE_STEPS + 1, fused_mlp=fused), PROFILE_STEPS)
+            lambda: decode_loop(params, cfg, state["tok"], p1, state["caches"], n1,
+                                fused_mlp=fused), n1 - 1)
         del state
     for engine_path, engine_kw in engines.items():
         eng = Engine(params, cfg, max_batch=8, max_len=2048, **engine_kw)
+        eng.warmup()
         for _ in range(8):
             ids = torch.randint(0, cfg.vocab_size, (100,), generator=gen, device=dev).tolist()
-            eng.add_request(ids, max_new_tokens=PROFILE_STEPS + 16)
-        while eng.queue:  # admissions, and the first decode steps
+            eng.add_request(ids, max_new_tokens=PROFILE_ENGINE_BUDGET)
+        while eng.queue:  # admissions (window 1), then a chain of 8 windows
             eng.step()
-        eng.step()
-        out[engine_path] = dict(engine_step=_profiled(
-            lambda: [eng.step() for _ in range(PROFILE_STEPS)], PROFILE_STEPS))
+        # one scheduler step of the steady state: a chain of 8 windows of 8,
+        # per decode step (the flash-decode's calls count them)
+        out[engine_path] = dict(engine_step=_profiled(eng.step, None, cfg.num_layers))
         del eng
     for path, stages in out.items():
         for stage, r in stages.items():
             print(f"  profile {path} {stage}: device busy {r['busy_ms_per_step']:.3f} ms, "
-                  f"{r['launches_per_step']:.0f} launches ({r['decode_launches_per_step']:.0f} "
-                  f"of the flash-decode), wall {r['wall_ms_per_step']:.2f} ms, idle share "
+                  f"{r['launches_per_step']:.1f} kernel events ({r['decode_launches_per_step']:.1f} "
+                  f"of the flash-decode) from {r['host_launch_calls_per_step']:.1f} host launch "
+                  f"calls, wall {r['wall_ms_per_step']:.2f} ms, idle share "
                   f"{r['idle_share']:.3f} (per step, {r['steps']} profiled)")
             # a decode step attends once a layer (the wrappers' counters), in
             # one launch a call (the profiler's flash-decode kernel events are
@@ -1481,10 +1580,10 @@ def model_phase(dev, profile: bool = False) -> dict:
     print(f"  {MODEL} W8A16 built in {init_s:.1f} s, {weight_gb:.2f} GB on the card")
     configs = {"generate": (torch.bfloat16, False), "bench_decode": (torch.int8, True)}
     paths = generate_paths(params, cfg, dev, gen, configs)
-    paths["server"] = server_path(params, cfg, dev, gen)
+    paths["server"] = server_path(params, cfg, dev, gen, twin_kw=dict(decode_window=1))
     paged = dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE)
     paths["paged_server"] = server_path(params, cfg, dev, gen, "paged_server", paged,
-                                        dense_twin=True)
+                                        twin_kw=dict(kv_dtype=torch.bfloat16, decode_window=1))
     prof = profile_paths(params, cfg, dev, gen, configs,
                          {"server": {}, "paged_server": paged}) if profile else None
     return dict(paths=paths, init_s=init_s, weight_gb=weight_gb, profile=prof,

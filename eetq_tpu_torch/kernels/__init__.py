@@ -2,7 +2,9 @@
 
 Each wrapper in `KERNELS` launches its CUDA kernel for CUDA tensors (or
 raises) and runs its plain version for CPU tensors; its `launches`
-attribute counts kernel launches.
+attribute counts kernel launches. A CUDA graph that replays captured
+launches adds the counts of its capture on each replay (`add_launch_counts`,
+called by `serve/graph.py`).
 """
 
 from eetq_tpu_torch.kernels.flash_attention import flash_attention
@@ -53,3 +55,9 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add `counts` ({wrapper name: launches}) to the wrappers' counters."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

@@ -212,7 +212,10 @@ def ptr(t: torch.Tensor | None) -> int | None:
 # GEMV's K split, the flash-decode's chunks), per user and device: f32
 # partials and int32 counters. The counters are zeroed once here and each
 # launch leaves them at zero; both only grow. Launches on one stream use
-# them in turn.
+# them in turn. A larger request replaces a buffer; a CUDA graph captured
+# against the old one keeps it alive itself (`live_scratch`), and a request
+# that would grow a buffer while a stream is capturing raises: the graph's
+# warm-up call sizes the scratch before its capture.
 _SCRATCH: dict = {}
 
 
@@ -224,9 +227,20 @@ def scratch(user: str, device: torch.device, floats: int,
     if not floats:
         return None, None
     part, ctr = _SCRATCH.get((user, device), (None, None))
-    if part is None or part.numel() < floats:
+    grow_part = part is None or part.numel() < floats
+    grow_ctr = ctr is None or ctr.numel() < counters
+    if (grow_part or grow_ctr) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{user} scratch would grow during a CUDA graph capture: run the "
+                           "step once before capturing it")
+    if grow_part:
         part = torch.empty(max(floats, 1 << 18), dtype=torch.float32, device=device)
-    if ctr is None or ctr.numel() < counters:
+    if grow_ctr:
         ctr = torch.zeros(max(counters, 1 << 12), dtype=torch.int32, device=device)
     _SCRATCH[(user, device)] = part, ctr
     return part.data_ptr(), ctr.data_ptr()
+
+
+def live_scratch() -> list[torch.Tensor]:
+    """Every scratch buffer in use now: what a graph captured now must keep
+    alive."""
+    return [t for pair in _SCRATCH.values() for t in pair]

@@ -6,7 +6,12 @@ Port of `eetq_tpu/models/transformer.py` for the dense MLP: parameters are
 in f32 with its product cast to bf16 (:197), and logits come out in f32
 (:262). `a8` routes the projections through the W8A8 path (prefill), and
 `fused_mlp` runs a decode-regime MLP block as the fused kernel (:172-189);
-`fused_mlp=None` reads EETQ_FUSED_MLP as the JAX package does. A layer
+`fused_mlp=None` reads EETQ_FUSED_MLP as the JAX package does. A tied head
+multiplies by the bf16 table a vocabulary chunk at a time (`_tied_head`).
+Positions past the rope table read its last row, as JAX's gather clamps
+them, and a decode step's cache positions are clamped once for every layer
+(`modules.attention.decode_at`): a decode window runs a row a few steps
+past its budget. A layer
 with `moe` set runs the routed MLP instead (:158-170), which takes neither
 `a8` nor `fused_mlp`, as in the JAX package. ALiBi, LoRA, tensor
 parallelism and the verify step raise NotImplementedError.
@@ -21,7 +26,7 @@ from torch import nn
 
 from eetq_tpu_torch.kernels.mlp_fused import ACTIVATIONS
 from eetq_tpu_torch.models.config import ModelConfig
-from eetq_tpu_torch.modules.attention import KVCache, attention, init_kv_cache
+from eetq_tpu_torch.modules.attention import KVCache, attention, decode_at, init_kv_cache
 from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear, linear_apply
 from eetq_tpu_torch.modules.moe import MoEMLP, moe_apply
 from eetq_tpu_torch.ops.mlp import can_fuse_mlp, fused_mlp as fused_mlp_op
@@ -126,6 +131,22 @@ def decoder_layer(
     return residual + down, cache
 
 
+# the f32 copy of one vocabulary chunk of a tied head's table
+_TIED_CHUNK_BYTES = 64 << 20
+
+
+def _tied_head(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """x [..., H] bf16 against the bf16 table [V, H]: f32 logits of the exact
+    bf16 products summed in f32, the reference's bf16 dot with f32
+    accumulation (`eetq_tpu/models/transformer.py:259-261`). Only one chunk of
+    the table is widened to f32 at a time, never the whole of it (gemma-7b's
+    would be 3.1 GB)."""
+    rows = max(1, _TIED_CHUNK_BYTES // (embed.shape[1] * 4))
+    xf = x.float()
+    return torch.cat([xf @ embed[v:v + rows].to(x.dtype).float().T
+                      for v in range(0, embed.shape[0], rows)], dim=-1)
+
+
 def forward_inner(
     params: ModelParams,
     cfg: ModelConfig,
@@ -150,6 +171,11 @@ def forward_inner(
     if cfg.embedding_multiplier is not None:
         x = (x.float() * cfg.embedding_multiplier).to(x.dtype)
     cos_sin = cos_sin_cache(cfg.max_position, cfg.rot_dim, base=cfg.rope_theta, device=x.device)
+    positions = positions.clamp(max=cfg.max_position - 1)
+    if caches is not None and tokens.shape[1] == 1 and isinstance(offset, torch.Tensor):
+        # once a step for every layer: the write index and the attention
+        # lengths, clamped to the caches' capacity
+        offset = decode_at(caches[0], offset.reshape(-1).expand(tokens.shape[0]))
     for i, layer in enumerate(params.layers):
         cache_i = caches[i] if caches is not None else None
         x, _ = decoder_layer(layer, cfg, x, positions, cos_sin, cache_i, offset,
@@ -163,7 +189,7 @@ def forward_inner(
     if params.lm_head is not None:
         logits = linear_apply(params.lm_head, x, use_kernel=use_kernels)
     else:
-        logits = x.float() @ params.embed.float().T
+        logits = _tied_head(x, params.embed)
     return logits.float(), caches
 
 

@@ -40,9 +40,9 @@ if TYPE_CHECKING:  # modules.paged imports this module
     from eetq_tpu_torch.modules.paged import PagedKVCache
 
 __all__ = [
-    "KVCache", "attention", "attention_decode", "attention_decode_ref",
-    "attention_prefill", "attention_reference", "causal_mask", "init_kv_cache",
-    "update_cache",
+    "DecodeAt", "KVCache", "attention", "attention_decode", "attention_decode_ref",
+    "attention_prefill", "attention_reference", "causal_mask", "decode_at", "init_kv_cache",
+    "update_cache", "write_token",
 ]
 
 
@@ -94,14 +94,67 @@ def init_kv_cache(
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodeAt:
+    """Where one decode step writes its token and how far it attends, per
+    row: made once a step by `decode_at` and read by every layer (the layers
+    of a model have caches of one capacity and, paged, one block table).
+    `index` is the pair of [B] indices into dims 0 and 2 of a cache leaf
+    (row and position, or pool block and offset in it); `lengths` [B] int32
+    counts the positions attended, the new token's included."""
+
+    index: tuple[torch.Tensor, torch.Tensor]
+    lengths: torch.Tensor
+
+
+def decode_at(cache: KVCache | PagedKVCache, pos: torch.Tensor) -> DecodeAt:
+    """The `DecodeAt` of a decode step at per-row positions `pos` [B]. A
+    position past the cache's capacity writes its last slot, as JAX's
+    dynamic_update_slice clamps the write, and attends over the whole cache:
+    a decode window runs a row up to W - 1 steps past its budget, and those
+    tokens are never committed."""
+    from eetq_tpu_torch.modules import paged  # at call time: it imports this module
+
+    pos = pos.long()
+    if isinstance(cache, paged.PagedKVCache):
+        bs = cache.block_size
+        pos = pos.clamp(max=cache.table.shape[1] * bs - 1)
+        index = (cache.table.gather(1, (pos // bs)[:, None])[:, 0].long(), pos % bs)
+    else:
+        pos = pos.clamp(max=cache.max_len - 1)
+        index = (torch.arange(pos.shape[0], device=pos.device), pos)
+    return DecodeAt(index, (pos + 1).to(torch.int32))
+
+
+def write_token(cache: KVCache | PagedKVCache, index: tuple[torch.Tensor, torch.Tensor],
+                k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache | PagedKVCache:
+    """Write ONE token per row, IN PLACE, at `index` (`DecodeAt.index`).
+    k_new/v_new [B, Hkv, D]. An int8 cache stores the quantized values and
+    their scales (per (row, head) over D, as `update_cache`). Rows whose
+    index is the same (a paged engine's inactive slots, all in block 0)
+    write over each other; any winner is fine. Returns `cache`."""
+    i0, i2 = index
+    if cache.quantized:
+        k_new, ks = quantize_activations(k_new)  # scales [B, Hkv]
+        v_new, vs = quantize_activations(v_new)
+        cache.k_scale[i0, :, i2] = ks
+        cache.v_scale[i0, :, i2] = vs
+    # advanced indices around a slice come first: the indexed view is [B, Hkv, D]
+    cache.k[i0, :, i2] = k_new.to(cache.k.dtype)
+    cache.v[i0, :, i2] = v_new.to(cache.v.dtype)
+    return cache
+
+
 def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, offset) -> KVCache:
     """Write [B, S, Hkv, D] new keys/values at sequence position `offset`,
     IN PLACE (slice assignment where the JAX package returns a new cache
     from `dynamic_update_slice`). offset is an int (every row at the same
-    position) or a [B] tensor of per-row positions. An int8 cache stores
-    the quantized values and their scales at the same positions. Returns
-    `cache`."""
+    position), a [B] tensor of per-row positions that fit the cache, or a
+    `DecodeAt` (S = 1). An int8 cache stores the quantized values and their
+    scales at the same positions. Returns `cache`."""
     s = k_new.shape[1]
+    if isinstance(offset, DecodeAt):
+        return write_token(cache, offset.index, k_new[:, 0], v_new[:, 0])
     ks = vs = None
     if cache.quantized:
         # per-(head, token) int8 over D: the activation quantizer's arithmetic,
@@ -180,20 +233,24 @@ def attention(
 ) -> tuple[torch.Tensor, KVCache | PagedKVCache | None]:
     """Write K/V to the cache at `offset`, then attend: prefill when S > 1
     (offset the int 0; it attends over the unquantized new K/V, so only
-    the cache holds int8), decode when S == 1. cache is a KVCache, None, or
-    a PagedKVCache (decode only: prefill runs on a dense scratch and is
-    handed off with `paged_insert_rows`). use_kernels=False runs the plain
-    versions. Returns (out [B, S, Hq, D], cache)."""
+    the cache holds int8), decode when S == 1 (offset an int, a [B] tensor
+    or the step's `DecodeAt`). cache is a KVCache, None, or a PagedKVCache
+    (decode only: prefill runs on a dense scratch and is handed off with
+    `paged_insert_rows`). use_kernels=False runs the plain versions.
+    Returns (out [B, S, Hq, D], cache)."""
     from eetq_tpu_torch.modules import paged  # at call time: it imports this module
 
-    s = q.shape[1]
+    b, s = q.shape[:2]
+    if s == 1 and cache is not None and isinstance(offset, torch.Tensor):
+        offset = decode_at(cache, offset.reshape(-1).expand(b))
+    length = offset.lengths if isinstance(offset, DecodeAt) else offset + 1
     if isinstance(cache, paged.PagedKVCache):
         if s != 1:
             raise NotImplementedError(
                 "paged caches serve decode; prefill runs on the dense scratch and hands off "
                 "(the multi-token verify step over a paged cache is not ported yet)")
         paged.paged_write(cache, k_new, v_new, offset)
-        out = paged.paged_attention_decode(q, cache, offset + 1, window=window,
+        out = paged.paged_attention_decode(q, cache, length, window=window,
                                            use_kernel=use_kernels)
         return out, cache
     if cache is not None:
@@ -201,7 +258,7 @@ def attention(
     if s == 1:
         if cache is None:
             raise ValueError("decode requires a KV cache")
-        out = attention_decode(q, cache, offset + 1, window=window, use_kernel=use_kernels)
+        out = attention_decode(q, cache, length, window=window, use_kernel=use_kernels)
     elif isinstance(offset, int) and offset == 0:
         out = attention_prefill(q, k_new, v_new, window=window, use_flash=use_kernels)
     else:

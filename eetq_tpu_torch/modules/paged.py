@@ -41,8 +41,7 @@ from eetq_tpu_torch.kernels.flash_decode import (
     paged_flash_decode,
     paged_flash_decode_int8,
 )
-from eetq_tpu_torch.kernels.w8a8 import quantize_activations
-from eetq_tpu_torch.modules.attention import KVCache, _lengths
+from eetq_tpu_torch.modules.attention import DecodeAt, KVCache, _lengths, decode_at, write_token
 from eetq_tpu_torch.utils.device import resolve
 
 __all__ = [
@@ -109,27 +108,16 @@ def init_paged_kv_cache(
 
 def paged_write(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
                 pos) -> PagedKVCache:
-    """Write ONE token per row, IN PLACE. k_new/v_new [B, 1, Hkv, D]; pos an
-    int or a [B] tensor, the logical position of the new token. An int8 pool
-    stores the quantized values and their scales (the dense cache's
-    arithmetic, `update_cache`). Rows whose table entry is the same block at
-    the same offset (inactive slots, all in block 0) write over each other;
-    any winner is fine. Returns `cache`."""
-    bs = cache.block_size
-    b = k_new.shape[0]
-    pos = torch.as_tensor(pos, device=cache.k.device).reshape(-1).expand(b).long()
-    phys = cache.table.gather(1, (pos // bs)[:, None])[:, 0].long()  # [B]
-    off = pos % bs
-    kn, vn = k_new[:, 0], v_new[:, 0]  # [B, Hkv, D]
-    if cache.quantized:
-        kn, ks = quantize_activations(kn)  # scales [B, Hkv]
-        vn, vs = quantize_activations(vn)
-        cache.k_scale[phys, :, off] = ks
-        cache.v_scale[phys, :, off] = vs
-    # advanced indices around a slice come first: the indexed view is [B, Hkv, D]
-    cache.k[phys, :, off] = kn.to(cache.k.dtype)
-    cache.v[phys, :, off] = vn.to(cache.v.dtype)
-    return cache
+    """Write ONE token per row, IN PLACE, at (table[p // bs], :, p % bs).
+    k_new/v_new [B, 1, Hkv, D]; pos an int or a [B] tensor, the logical
+    position of the new token (a position past the table's last slot writes
+    that slot, `decode_at`), or the step's `DecodeAt`. An int8 pool stores
+    the quantized values and their scales (`write_token`). Returns
+    `cache`."""
+    if not isinstance(pos, DecodeAt):
+        b = k_new.shape[0]
+        pos = decode_at(cache, torch.as_tensor(pos, device=cache.k.device).reshape(-1).expand(b))
+    return write_token(cache, pos.index, k_new[:, 0], v_new[:, 0])
 
 
 def _as_blocks(leaf: torch.Tensor, n_blocks: int, bs: int) -> torch.Tensor:

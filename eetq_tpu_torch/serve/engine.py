@@ -6,9 +6,22 @@ Requests arrive at any time; each scheduler step admits queued requests
 into free slots (one grouped prefill of up to `prefill_rows` prompts,
 right-padded to a length bucket, its KV rows inserted into the slots and
 its first tokens sampled, as `_prefill_commit` does at engine.py:97-136),
-then advances every active slot by one lock-step decode step over the
-fixed [max_batch] slot array. Inactive slots decode garbage at a safe
+then advances every active slot by a decode window of lock-step steps over
+the fixed [max_batch] slot array. Inactive slots decode garbage at a safe
 position that is never committed. Finished slots are recycled at once.
+
+The decode window (engine.py:1345-1448): `decode_window` steps run as one
+program whose tokens come back in one host fetch; the window is 1 while a
+queued request could be admitted next step. When the batch is full, the
+queue empty and no active request has an eos, up to `max_chain` windows run
+back to back with their carry on the device and one fetch at the end.
+Tokens past a slot's budget are discarded, and the cache writes of those
+extra steps are clamped at the cache's capacity (`modules/attention.py`,
+`modules/paged.py`), as JAX's are. Each (window, sampled) program is a
+`serve/graph.py::StepGraph` over the engine's static buffers: on the card a
+captured CUDA graph, replayed once a window; on the CPU the same steps run
+eagerly. The window defaults to 8 on a CUDA device and to 1 on the CPU
+(JAX's "8 on the TPU", engine.py:737-739).
 
 The KV caches are preallocated [max_batch, max_len] buffers updated in
 place with per-row offsets. On a CUDA device, for a quantized model, the
@@ -22,20 +35,21 @@ blocks as their sequences grow and return them when they retire, so device
 memory follows the live tokens, not max_batch x max_len. Block 0 is a trash
 block that is never granted: the table rows of idle slots point at it, and
 their lock-step writes land there. The allocator runs on the host
-(`_alloc_blocks`, `_release_blocks`); the one device table shared by all
-layers is refreshed by a single copy when it changed (`_sync_tables`).
-Prefill still runs on the dense scratch and is handed off block by block. A
-paged engine keeps a bf16 pool unless the caller passes `kv_dtype`
-(engine.py:690-696).
+(`_alloc_blocks`, `_release_blocks`); a window's blocks (its overshoot
+included) are granted before it runs, and the one device table shared by
+all layers is refreshed outside the graph by a single copy when it changed
+(`_sync_tables`). Prefill still runs on the dense scratch and is handed off
+block by block. A paged engine keeps a bf16 pool unless the caller passes
+`kv_dtype` (engine.py:690-696).
 
-Outputs are reproducible run to run (the sampler draws from a
-`torch.Generator` seeded from `seed`), and on the CPU greedy outputs equal
-`prefill` followed by `decode_loop` with the same options (the property
+Outputs are reproducible run to run (the sampler draws Gumbel noise from a
+device stream seeded from `seed`, `serve/sampling.py`), greedy outputs do
+not depend on the window or the chain, and on the CPU they equal `prefill`
+followed by `decode_loop` with the same options (the property
 engine.py:21-22 states for JAX).
 
-Later work, which raises NotImplementedError here: decode windows > 1 and
-their chaining, `prefill_chunk`, `spec_ngram`, banked LoRA and a sharded
-model.
+Later work, which raises NotImplementedError here: `prefill_chunk`,
+`spec_ngram`, banked LoRA and a sharded model.
 """
 
 from __future__ import annotations
@@ -51,6 +65,8 @@ from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.models.transformer import ModelParams, forward_inner, init_caches
 from eetq_tpu_torch.modules.linear import QuantLinear
 from eetq_tpu_torch.modules.paged import init_paged_kv_cache, paged_insert_rows
+from eetq_tpu_torch.serve.graph import StepGraph
+from eetq_tpu_torch.serve.sampling import rng_state, sample_rows
 from eetq_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -75,31 +91,6 @@ class Request:
     # (index into out_tokens of the first not-yet-polled token)
     on_token: object = None
     polled: int = 0
-
-
-def _sample_rows(logits: torch.Tensor, temps: np.ndarray, topks: np.ndarray, topk_cap: int,
-                 generator: torch.Generator) -> torch.Tensor:
-    """Per-row mixed greedy/sampled next tokens, the one sampler of every
-    path (engine.py:161-180, :1461-1462). logits [B, V]; temps [B] (0 =
-    greedy row); topks [B] (0 = no top-k filter); topk_cap bounds every
-    row's top_k (the top topk_cap are taken once and each row reads its own
-    k-th value as its threshold). Only the sampled rows draw from
-    `generator`. Returns tokens [B] int64 on the logits' device."""
-    tokens = torch.argmax(logits, dim=-1)
-    rows = np.flatnonzero(temps > 0)
-    if rows.size == 0:
-        return tokens
-    dev = logits.device
-    idx = torch.as_tensor(rows, device=dev)
-    scaled = logits[idx].float() / torch.as_tensor(temps[rows], device=dev)[:, None]
-    if topk_cap > 0:
-        k = torch.as_tensor(topks[rows], device=dev)
-        vals = torch.topk(scaled, topk_cap, dim=-1).values
-        kth = vals.gather(1, (k - 1).clamp(0, topk_cap - 1)[:, None].long())
-        scaled = scaled.masked_fill((k[:, None] > 0) & (scaled < kth), float("-inf"))
-    drawn = torch.multinomial(torch.softmax(scaled, dim=-1), 1, generator=generator)
-    tokens[idx] = drawn[:, 0]
-    return tokens
 
 
 class Engine:
@@ -128,12 +119,11 @@ class Engine:
         paged_blocks: int | None = None,
         paged_block_size: int = 256,
         topk_cap: int = 64,
+        max_chain: int = 8,
         spec_ngram: int | None = None,
     ):
         if cfg is None:
             raise NotImplementedError("a sharded model has no engine backend in the port yet")
-        if decode_window is not None and decode_window > 1:
-            raise NotImplementedError("decode windows > 1 (and their chaining) are not ported yet")
         if spec_ngram is not None:
             raise NotImplementedError("n-gram speculative decoding is not ported yet")
         if prefill_chunk is not None:
@@ -148,6 +138,12 @@ class Engine:
         if kv_dtype is None:
             kv_dtype = (torch.int8 if on_cuda and quantized and paged_blocks is None
                         and max_len >= 512 else torch.bfloat16)
+        if decode_window is None:
+            decode_window = 8 if on_cuda else 1
+        self.decode_window = max(1, int(decode_window))
+        # back-to-back windows a step at most (window * max_chain tokens
+        # between host fetches; step()'s chaining rules)
+        self.max_chain = max(1, int(max_chain))
         self.a8_prefill = bool(a8_prefill)
         self.prefill_rows = 1 if prefill_rows is None else max(1, min(prefill_rows, max_batch))
         if max_batch % self.prefill_rows:
@@ -189,7 +185,12 @@ class Engine:
         self._scratch = None  # reused prefill scratch caches
         self._scratch_len = 0
         self.topk_cap = int(topk_cap)
-        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._rng = rng_state(seed, self.device)
+        # the decode programs' static inputs: next token, length and top-k of
+        # every slot (one upload a step), and the temperatures
+        self._state = torch.zeros((3, max_batch), dtype=torch.int64, device=self.device)
+        self._temps = torch.zeros((max_batch,), dtype=torch.float32, device=self.device)
+        self._programs: dict[tuple[int, bool], tuple[StepGraph, torch.Tensor]] = {}
         self._uid = itertools.count()
         self.queue: deque[Request] = deque()
         self.requests: dict[int, Request] = {}
@@ -198,8 +199,8 @@ class Engine:
         self.lengths = np.zeros((max_batch,), np.int64)
         self.next_token = np.zeros((max_batch,), np.int64)
         log.debug("engine: max_batch %d, max_len %d, kv %s, a8 prefill %s, paged blocks %s, "
-                  "device %s", max_batch, self.max_len, kv_dtype, self.a8_prefill, paged_blocks,
-                  self.device)
+                  "window %d, device %s", max_batch, self.max_len, kv_dtype, self.a8_prefill,
+                  paged_blocks, self.decode_window, self.device)
 
     # ---- client API ----
 
@@ -264,12 +265,14 @@ class Engine:
         """Run one request per prompt bucket (and, with max_batch >
         prefill_rows, a queue deeper than one admission round) through the
         normal scheduler before real traffic, then forget those requests;
-        slot and cache state is garbage that slot reuse overwrites.
-        temperature > 0 also exercises the sampled path."""
+        slot and cache state is garbage that slot reuse overwrites. Then
+        make sure both decode programs (window 1 and the full window) are
+        captured, as JAX's warmup compiles both (engine.py:906-946).
+        temperature > 0 does all of it for the sampled programs."""
         assert not self.has_work, "warmup() requires an idle engine"
         kw = dict(temperature=temperature,
                   top_k=min(8, self.topk_cap) if temperature > 0 else 0)
-        new = 3  # the admission's token and two decode steps
+        new = self.decode_window + 2
         uids = []
         for b in self.buckets:
             n = min(b, self.max_len - new)
@@ -283,6 +286,13 @@ class Engine:
             self.run()
         for u in uids:
             del self.requests[u]
+        # a program not yet captured is warmed (one garbage step of idle
+        # slots at length 1, the trash block's rows when paged) and captured
+        self._sync_tables()
+        self._state.zero_()
+        self._state[1].fill_(1)
+        for window in sorted({1, self.decode_window}):
+            self._program(window, temperature > 0)[0].prepare()
 
     @property
     def has_work(self) -> bool:
@@ -381,8 +391,9 @@ class Engine:
             self.params, self.cfg, tokens, positions, self._scratch, 0, a8=self.a8_prefill,
             last_pos=torch.as_tensor(lens - 1, device=dev),
         )
-        first = _sample_rows(logits[:, -1, :], temps, topks,
-                             self.topk_cap if temps.any() else 0, self._generator)
+        first = sample_rows(logits[:, -1, :], torch.as_tensor(temps, device=dev),
+                            torch.as_tensor(topks, device=dev),
+                            self.topk_cap if temps.any() else 0, self._rng)
         if self.paged:
             nb = min(-(-upto // self.paged_bs), self._max_seq_blocks)
             blocks_np = np.zeros((rows, nb), np.int64)
@@ -422,37 +433,56 @@ class Engine:
             if self.paged:
                 self._release_blocks(slot)
 
-    @torch.inference_mode()
-    def _decode(self, active: list[int]) -> np.ndarray:
-        """One lock-step decode over all slots: each slot's current token at
-        position lengths (inactive slots at 1, never committed). Returns the
-        sampled tokens [max_batch]. A paged engine first grants every active
-        slot the block its new token falls in and points retired slots' table
-        rows at the trash block."""
-        if self.paged:
-            for i in active:
-                self._alloc_blocks(i, int(self.lengths[i]) + 1)
-            self._sync_tables()
-        dev = self.device
-        lengths = torch.as_tensor(np.maximum(self.lengths, 1), device=dev)
-        tokens = torch.as_tensor(self.next_token[:, None], device=dev)
-        logits, _ = forward_inner(self.params, self.cfg, tokens, lengths[:, None], self.caches,
-                                  lengths)
-        temps = np.zeros((self.max_batch,), np.float32)
-        topks = np.zeros((self.max_batch,), np.int64)
-        for i in active:
-            r = self.slot_req[i]
-            if r.temperature > 0:
-                temps[i] = r.temperature
-                topks[i] = r.top_k
-        toks = _sample_rows(logits[:, -1, :], temps, topks,
-                            self.topk_cap if temps.any() else 0, self._generator)
-        return toks.cpu().numpy()
+    def _program(self, window: int, sample: bool) -> tuple[StepGraph, torch.Tensor]:
+        """The decode program of `window` lock-step steps over all slots
+        (`_decode_multi`, engine.py:198-238), and its output buffer [B,
+        window]. Each step runs the forward at every slot's length, samples
+        (argmax unless `sample`), and advances the static token and length
+        rows in place: the carry of the next window of a chain."""
+        key = (window, sample)
+        if key not in self._programs:
+            out = torch.zeros((self.max_batch, window), dtype=torch.int64, device=self.device)
+            tok, lens, topks = self._state
+            cap = self.topk_cap if sample else 0
+            # the step holds what it reads, not the engine (no reference cycle)
+            params, cfg, caches, temps, rng = (self.params, self.cfg, self.caches, self._temps,
+                                               self._rng)
+
+            def run():
+                for j in range(window):
+                    logits, _ = forward_inner(params, cfg, tok[:, None], lens[:, None], caches,
+                                              lens)
+                    logits = logits[:, -1, :]
+                    nxt = (sample_rows(logits, temps, topks, cap, rng) if sample
+                           else torch.argmax(logits, dim=-1))
+                    out[:, j] = nxt
+                    tok.copy_(nxt)
+                    lens.add_(1)
+
+            self._programs[key] = StepGraph(torch.inference_mode()(run), self.device), out
+        return self._programs[key]
+
+    def _decode(self, window: int, chain: int, temps: np.ndarray, topks: np.ndarray) -> np.ndarray:
+        """`chain` windows of `window` lock-step steps over all slots, each
+        slot's current token at position lengths (inactive slots at 1, never
+        committed). Returns the sampled tokens [max_batch, window * chain],
+        the chain's one host fetch."""
+        sample = bool(temps.any())
+        state = np.stack([self.next_token, np.maximum(self.lengths, 1), topks])
+        self._state.copy_(torch.from_numpy(state.astype(np.int64)))
+        if sample:
+            self._temps.copy_(torch.from_numpy(temps))
+        program, out = self._program(window, sample)
+        parts = []
+        for _ in range(chain):
+            program()
+            parts.append(out if chain == 1 else out.clone())
+        return (parts[0] if chain == 1 else torch.cat(parts, dim=1)).cpu().numpy()
 
     def step(self) -> None:
         """One scheduler step: admit queued requests into free slots (one
-        grouped prefill), then advance every active slot by one decode step
-        in the same step."""
+        grouped prefill), then advance every active slot by a decode window,
+        or a chain of them, in the same step (engine.py:1293-1473)."""
         if self.queue:
             assignments = []
             for row in range(self.prefill_rows):
@@ -467,12 +497,41 @@ class Engine:
         active = [i for i, s in enumerate(self.slot_req) if s is not None and self.lengths[i] > 0]
         if not active:
             return
-        toks = self._decode(active)
+        # the full window unless a queued request could be admitted next step
+        window = 1
+        if self.decode_window > 1 and (not self.queue or self._free_slot() is None):
+            window = self.decode_window
+        temps = np.zeros((self.max_batch,), np.float32)
+        topks = np.zeros((self.max_batch,), np.int64)
         for i in active:
-            self.lengths[i] += 1
-            tok = int(toks[i])
-            self.next_token[i] = tok
-            self._commit(i, tok)
+            r = self.slot_req[i]
+            if r.temperature > 0:
+                temps[i] = r.temperature
+                topks[i] = r.top_k
+        # chain windows when no retirement can surprise the host: the batch
+        # full, the queue empty and no eos to meet; the shortest remaining
+        # budget bounds the chain
+        chain = 1
+        if (window > 1 and not self.queue and self._free_slot() is None
+                and all(self.slot_req[i].eos_token_id is None for i in active)):
+            min_rem = min(self.slot_req[i].max_new_tokens - len(self.slot_req[i].out_tokens)
+                          for i in active)
+            chain = max(1, min(-(-min_rem // window), self.max_chain))
+        if self.paged:
+            # blocks for every write of the chain (its overshoot included),
+            # and retired slots' rows pointed at the trash block, before it runs
+            for i in active:
+                self._alloc_blocks(i, int(self.lengths[i]) + window * chain)
+            self._sync_tables()
+        toks = self._decode(window, chain, temps, topks)
+        for i in active:
+            for j in range(window * chain):
+                if self.slot_req[i] is None:
+                    break  # finished mid-window: the rest is garbage
+                tok = int(toks[i, j])
+                self.lengths[i] += 1
+                self.next_token[i] = tok
+                self._commit(i, tok)
 
     def run(self, max_steps: int | None = None) -> None:
         steps = 0

@@ -479,7 +479,8 @@ def _engine_step_ms(params, cfg, dev, gen, engine_kw, steps: int = 10) -> float:
 
     from eetq_tpu_torch.serve.engine import Engine
 
-    eng = Engine(params, cfg, max_batch=8, max_len=2048, **engine_kw)
+    # window 1: one lock-step decode step a scheduler step, the unit timed here
+    eng = Engine(params, cfg, max_batch=8, max_len=2048, decode_window=1, **engine_kw)
     for _ in range(8):
         ids = torch.randint(0, cfg.vocab_size, (100,), generator=gen, device=dev).tolist()
         eng.add_request(ids, max_new_tokens=steps + 16)
@@ -526,7 +527,7 @@ def _profile_admission(eng, cfg, dev, gen, prompt_len: int, tree: str, top: int 
         eng.step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    busy, launches = cs._device_events(prof)
+    busy, launches, _, _ = cs._device_events(prof)
     per = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -814,7 +815,7 @@ def _profile_engine_step(params, cfg, dev, gen, tree: str, steps: int = 10,
 
     from eetq_tpu_torch.serve.engine import Engine
 
-    eng = Engine(params, cfg, max_batch=8, max_len=2048, **(engine_kw or {}))
+    eng = Engine(params, cfg, max_batch=8, max_len=2048, decode_window=1, **(engine_kw or {}))
     for _ in range(8):
         ids = torch.randint(0, cfg.vocab_size, (100,), generator=gen, device=dev).tolist()
         eng.add_request(ids, max_new_tokens=steps + 16)
@@ -962,7 +963,8 @@ def kernels_ab(other_dir: str, rounds: int, models: bool = True, gemv_only: bool
         _report(f"{name} prefill b=1 p={p1}", _in_turns(
             trees, ORDER, rounds, lambda t: _prefill_ms(params, cfg, dev, prompt, n1)))
         if name.startswith(cs.MODEL):  # the default engine: W8A8 / W4A8 at admission
-            eng = Engine(params, cfg, max_batch=8, max_len=2048)
+            # window 1: the admission's step decodes one token, not a window
+            eng = Engine(params, cfg, max_batch=8, max_len=2048, decode_window=1)
             _admission_ms(eng, cfg, dev, gen, p1)  # warm
             _report(f"{name} engine admission of one {p1}-token prompt "
                     f"({'W8A8' if 'W8A16' in name else 'W4A8'})", _in_turns(

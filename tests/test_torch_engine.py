@@ -21,8 +21,9 @@ from eetq_tpu_torch.models.config import PRESETS, ModelConfig
 from eetq_tpu_torch.models.convert import params_from_numpy
 from eetq_tpu_torch.models.init import quantize_params, random_dense_params
 from eetq_tpu_torch.models.transformer import init_caches
-from eetq_tpu_torch.serve.engine import Engine, _sample_rows
+from eetq_tpu_torch.serve.engine import Engine
 from eetq_tpu_torch.serve.generate import decode_loop, prefill
+from eetq_tpu_torch.serve.sampling import rng_state, sample_rows
 from test_torch_model import jax_params_to_numpy
 
 CFG = PRESETS["toy"]
@@ -147,7 +148,7 @@ def test_overflow_and_unported_options_rejected(params):
         eng.add_request([1, 2], 4, temperature=0.7, top_k=eng.topk_cap + 1)
     with pytest.raises(NotImplementedError):
         eng.add_request([1, 2], 4, lora_id=1)
-    for kw in (dict(decode_window=4), dict(spec_ngram=3), dict(prefill_chunk=8)):
+    for kw in (dict(spec_ngram=3), dict(prefill_chunk=8)):
         with pytest.raises(NotImplementedError):
             Engine(params, CFG, max_batch=2, max_len=64, **kw)
     with pytest.raises(NotImplementedError):  # a sharded model (no cfg)
@@ -193,11 +194,11 @@ def test_sampled_run_reproducible(params):
 
 def test_sample_rows_top_k():
     logits = torch.tensor([[0.0, 5.0, 4.0, -1.0, 3.0]] * 3)
-    gen = torch.Generator().manual_seed(0)
-    temps, topks = np.array([0.0, 1.0, 1.0], np.float32), np.array([0, 2, 0])
+    rng = rng_state(0, "cpu")
+    temps, topks = torch.tensor([0.0, 1.0, 1.0]), torch.tensor([0, 2, 0])
     seen = set()
     for _ in range(50):
-        t = _sample_rows(logits, temps, topks, 4, gen)
+        t = sample_rows(logits, temps, topks, 4, rng)
         assert t[0] == 1 and int(t[1]) in (1, 2)
         seen.add(int(t[2]))
     assert len(seen) > 2  # the unfiltered row draws beyond the top 2

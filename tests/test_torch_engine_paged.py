@@ -127,7 +127,7 @@ def test_paged_engine_rejects_bad_pool_shapes(params):
         Engine(params, CFG, max_batch=2, max_len=100, paged_blocks=4, paged_block_size=256)
     with pytest.raises(ValueError, match="multiple of 128"):
         Engine(params, CFG, max_batch=2, max_len=256, paged_blocks=4, paged_block_size=64)
-    for kw in (dict(decode_window=4), dict(spec_ngram=3), dict(prefill_chunk=8)):
+    for kw in (dict(spec_ngram=3), dict(prefill_chunk=8)):
         with pytest.raises(NotImplementedError):  # still to be ported, paged or not
             Engine(params, CFG, max_batch=2, max_len=256, **PAGED, **kw)
 

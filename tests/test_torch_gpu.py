@@ -874,3 +874,201 @@ def test_expert_gemv_repeats_bit_equal(dev, bits, k, group, m, ids):
     kernel = w4a16_expert_gemv if bits == 4 else w8a16_expert_gemv
     out = _twice(lambda: kernel(x, data, scales, eids, n))
     _close(out, expert_matmul_ref(x, q, scales, eids))
+
+
+# ---- the captured decode step (serve/graph.py) ----
+
+# a small llama on the card whose decode GEMVs split K (4 ranges at K = 1024)
+# and whose flash-decode merges chunks (a cache of 384 keys, two chunks):
+# both use the kernels' scratch
+GRAPH_DIMS = dict(vocab_size=1024, hidden_size=1024, intermediate_size=2048, num_layers=2,
+                  num_heads=8, num_kv_heads=2, head_dim=128, max_position=1024)
+GRAPH_PROMPT, GRAPH_STEPS = 300, 16
+
+
+def _graph_model(dev):
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.init import quantize_params, random_dense_params
+
+    cfg = ModelConfig(**GRAPH_DIMS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, quantize_params(random_dense_params(cfg, gen), quantize_lm_head=True)
+
+
+def _prefilled(cfg, params, dev, kv):
+    """(first tokens [2], caches) after a prompt of GRAPH_PROMPT tokens."""
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import prefill
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, GRAPH_PROMPT), generator=gen, device=dev)
+    caches = init_caches(cfg, 2, GRAPH_PROMPT + GRAPH_STEPS, device=dev, dtype=kv)
+    logits, caches = prefill(params, cfg, prompt, caches)
+    return torch.argmax(logits, -1), caches
+
+
+def _clone_caches(caches):
+    from eetq_tpu_torch.modules.attention import KVCache
+
+    return [KVCache(*(None if t is None else t.clone() for t in (c.k, c.v, c.k_scale, c.v_scale)))
+            for c in caches]
+
+
+@pytest.mark.parametrize("kv,fused", [(torch.bfloat16, False), (torch.int8, True)],
+                         ids=["bf16", "int8-fused-mlp"])
+def test_graph_decode_loop_bit_equal_to_eager(dev, kv, fused):
+    """decode_loop (one step captured, replayed) against a Python loop of
+    eager decode_step on a copy of the same caches: the same greedy tokens
+    and the same caches, bit for bit, and the launches of n - 1 eager
+    steps; `stats` receives the warm-up's and the capture's ms."""
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eetq_tpu_torch.serve.generate import decode_loop, decode_step
+
+    cfg, params = _graph_model(dev)
+    first, caches = _prefilled(cfg, params, dev, kv)
+    twin = _clone_caches(caches)
+    s, n = GRAPH_PROMPT, GRAPH_STEPS
+    tok, eager = first, [first]
+    for i in range(n - 1):
+        reset_launch_counts()
+        logits, _ = decode_step(params, cfg, tok[:, None], s + i, twin, fused_mlp=fused)
+        if i == 0:
+            one_step = launch_counts()
+        tok = torch.argmax(logits, -1)
+        eager.append(tok)
+    reset_launch_counts()
+    stats = {}
+    toks, _ = decode_loop(params, cfg, first, s, caches, n, fused_mlp=fused, stats=stats)
+    counts = launch_counts()
+    assert stats["warm_ms"] > 0 and stats["capture_ms"] > 0
+    assert torch.equal(toks, torch.stack(eager, dim=1))
+    for a, b in zip(caches, twin):
+        assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("k", "v", "k_scale", "v_scale")
+                   if getattr(a, f) is not None)
+    assert sum(one_step.values()) > 0
+    assert counts == {k: (n - 1) * v for k, v in one_step.items()}
+
+
+def _logits_step(cfg, params, dev, caches, first):
+    """A StepGraph over one forward at a fixed position, its logits copied
+    into a static buffer (the same writes and logits at every call)."""
+    from eetq_tpu_torch.models.transformer import forward
+    from eetq_tpu_torch.serve.graph import StepGraph
+
+    pos = torch.full((2,), GRAPH_PROMPT, dtype=torch.int64, device=dev)
+    out = torch.empty((2, cfg.vocab_size), dtype=torch.float32, device=dev)
+
+    @torch.inference_mode()
+    def step():
+        logits, _ = forward(params, cfg, first[:, None], pos[:, None], caches, pos)
+        out.copy_(logits[:, -1])
+
+    return StepGraph(step, dev), out
+
+
+def test_graph_replay_counts_one_eager_step(dev):
+    """A replay adds the launches its capture counted, which are those of an
+    eager call; the capture itself adds none."""
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg, params = _graph_model(dev)
+    first, caches = _prefilled(cfg, params, dev, torch.bfloat16)
+    graph, _ = _logits_step(cfg, params, dev, caches, first)
+    reset_launch_counts()
+    graph()  # eager, the warm-up
+    eager = launch_counts()
+    reset_launch_counts()
+    graph.prepare()  # the capture
+    assert graph.captured and not any(launch_counts().values())
+    for _ in range(3):
+        graph()
+    assert launch_counts() == {k: 3 * v for k, v in eager.items()}
+    assert graph.counts == {k: v for k, v in eager.items() if v}
+    assert eager["w8a16_gemv"] and eager["flash_decode"] == cfg.num_layers
+
+
+def test_graph_keeps_its_scratch_when_the_scratch_grows(dev):
+    """After capture the kernels' scratch is replaced by larger buffers and
+    the freed memory is filled with NaN: the graph still reads the buffers
+    of its capture, which it holds, and gives the same logits."""
+    from eetq_tpu_torch.kernels import _build
+
+    cfg, params = _graph_model(dev)
+    first, caches = _prefilled(cfg, params, dev, torch.bfloat16)
+    graph, out = _logits_step(cfg, params, dev, caches, first)
+    graph()
+    want = out.clone()
+    graph()
+    assert graph.captured and torch.equal(out, want)
+    old = {key: pair[0].data_ptr() for key, pair in _build._SCRATCH.items()}
+    assert {"gemv", "decode"} <= {user for user, _ in old}
+    for user in ("gemv", "decode"):
+        _build.scratch(user, dev, 1 << 26, 1 << 20)
+    assert all(_build._SCRATCH[key][0].data_ptr() != p for key, p in old.items())
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << 24,), float("nan"), device=dev) for _ in range(8)]
+    graph()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    del junk
+
+
+def test_scratch_cannot_grow_during_a_capture(dev):
+    from eetq_tpu_torch.kernels import _build
+
+    graph = torch.cuda.CUDAGraph()
+    size = max(_build._SCRATCH.get(("decode", dev), (torch.empty(0),))[0].numel(), 1) * 4
+    with pytest.raises(RuntimeError, match="grow during a CUDA graph capture"):
+        with torch.cuda.graph(graph):
+            _build.scratch("decode", dev, size, 1)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_engine_windows_on_the_card(dev, paged):
+    """The CUDA default window (8) with chains: the greedy tokens of a
+    window-1 twin, every program a captured graph after warmup()."""
+    from eetq_tpu_torch.serve.engine import Engine
+
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lengths, budgets = (17, 300, 5, 120, 64, 9), (20, 33, 9, 40, 17, 25)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist()
+               for n in lengths]
+    kw = dict(max_batch=4, max_len=512, prompt_buckets=(64, 512))
+    if paged:
+        kw.update(paged_blocks=9, paged_block_size=256)
+    outs = []
+    for window in ({}, dict(decode_window=1)):
+        eng = Engine(params, cfg, **kw, **window)
+        eng.warmup()
+        assert all(g.captured for g, _ in eng._programs.values())
+        uids = [eng.add_request(p, b) for p, b in zip(prompts, budgets)]
+        eng.run()
+        outs.append([eng.result(u) for u in uids])
+        if not window:
+            assert eng.decode_window == 8 and set(eng._programs) == {(1, False), (8, False)}
+        if paged:
+            assert sorted(eng._free_blocks) == list(range(1, 9))
+    assert outs[0] == outs[1] and [len(t) for t in outs[0]] == list(budgets)
+
+
+def test_tied_head_makes_no_f32_copy_of_the_table(dev):
+    """The tied head's peak memory stays far below one f32 copy of the table
+    (524 MB here; a chunk is 64 MB), and its f32 logits are the f32 product
+    of the bf16 values (cuBLAS sums in its own order: 1e-5)."""
+    from eetq_tpu_torch.models.transformer import _tied_head
+
+    v, h = 64000, 2048
+    gen = torch.Generator(device=dev).manual_seed(0)
+    embed = (torch.randn(v, h, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    x = torch.randn(8, 1, h, generator=gen, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    logits = _tied_head(x, embed)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert logits.dtype == torch.float32 and logits.shape == (8, 1, v)
+    assert peak < v * h * 4 // 4, peak
+    ref = x.float() @ embed.float().T
+    torch.testing.assert_close(logits, ref, rtol=1e-5, atol=1e-5)

@@ -27,6 +27,7 @@ from eetq_tpu_torch.models.init import quantize_params, random_dense_params
 from eetq_tpu_torch.models.transformer import init_caches
 from eetq_tpu_torch.modules.linear import QuantLinear
 from eetq_tpu_torch.ops import rope as port_rope
+from eetq_tpu_torch.serve import sampling
 
 jax_gen = importlib.import_module("eetq_tpu.serve.generate")
 port_gen = importlib.import_module("eetq_tpu_torch.serve.generate")
@@ -213,9 +214,30 @@ def test_generate_eos_and_sampling(models, prompt):
 
 def test_top_k_sampling_stays_in_top_k():
     logits = torch.tensor([[0.0, 5.0, 4.0, -1.0, 3.0]])
-    gen = torch.Generator().manual_seed(0)
-    draws = {int(port_gen._sample(logits, 1.0, 2, gen)) for _ in range(50)}
-    assert draws <= {1, 2} and port_gen._sample(logits).item() == 1
+    rng = sampling.rng_state(0, "cpu")
+    draws = {int(sampling.sample(logits, 1.0, 2, rng)) for _ in range(50)}
+    assert draws == {1, 2} and sampling.sample(logits).item() == 1
+    # at gemma's vocabulary: 16 rows x 16 draws over 256,000 logits, each
+    # draw among its row's top 2 (a noise value of +inf on a masked logit
+    # makes a NaN whose index argmax returns: at 2^-24 a value, once in 66
+    # draws here)
+    big = torch.from_numpy(np.random.default_rng(0).standard_normal((16, 256_000))
+                           .astype(np.float32))
+    top2 = torch.topk(big, 2, dim=-1).indices
+    for _ in range(16):
+        got = sampling.sample(big, 1.0, 2, rng)
+        assert (top2 == got[:, None]).any(dim=-1).all()
+
+
+def test_gumbel_noise_is_finite():
+    """Every 32-bit hash maps to a uniform strictly inside (0, 1), so its
+    Gumbel noise is finite: checked at both ends of each of the 2^23 hash
+    ranges that give distinct uniforms."""
+    top = torch.arange(1 << 23, dtype=torch.int64) << 9
+    for h in (top, top | 511):
+        u = sampling._uniform(h)
+        assert (u > 0).all() and (u < 1).all()
+        assert torch.isfinite(-torch.log(-torch.log(u))).all()
 
 
 def test_port_random_init_and_quantize():
@@ -244,3 +266,73 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
+
+
+def test_streaming_generate_with_eos_matches_jax_and_stops_early(models, prompt, monkeypatch):
+    """generate(use_scan=False) streams through decode_step as JAX's does
+    (eetq_tpu/serve/generate.py:207-228): a row that meets eos emits it from
+    then on, and the loop stops once every row has met it, the rest padded
+    with eos. One row whose eos is its third greedy token: two decode steps,
+    not STEPS - 1."""
+    jp, tp = models
+    row = prompt[:1]
+    greedy = np.asarray(jax_gen.generate(jp, JAX_PRESETS["toy"], jnp.asarray(row), STEPS))
+    eos = int(greedy[0, 2])
+    want = np.asarray(jax_gen.generate(jp, JAX_PRESETS["toy"], jnp.asarray(row), STEPS,
+                                       eos_token_id=eos, use_scan=False))
+    calls = []
+    step = port_gen.decode_step
+    monkeypatch.setattr(port_gen, "decode_step", lambda *a, **k: calls.append(1) or step(*a, **k))
+    got = port_gen.generate(tp, CFG, torch.from_numpy(row).long(), STEPS, eos_token_id=eos,
+                            use_scan=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+    first = int(np.flatnonzero(greedy[0] == eos)[0])
+    assert (got[0, first:] == eos).all() and len(calls) == first < STEPS - 1
+    scan = port_gen.generate(tp, CFG, torch.from_numpy(row).long(), STEPS, eos_token_id=eos)
+    assert torch.equal(scan, got)
+
+
+def test_greedy_generate_entry_point_matches_jax(models, prompt):
+    """`greedy_generate`, the reference's shorthand for generate at
+    temperature 0 (eetq_tpu/serve/generate.py:231)."""
+    jp, tp = models
+    want = np.asarray(jax_gen.greedy_generate(jp, JAX_PRESETS["toy"], jnp.asarray(prompt), STEPS))
+    got = port_gen.greedy_generate(tp, CFG, torch.from_numpy(prompt).long(), STEPS)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_tied_head_logits_match_jax():
+    """A gemma-style toy (tied head, unit-offset norms, embedding multiplier,
+    gelu), bf16 weights: the port's head multiplies by the bf16 table a
+    vocabulary chunk at a time, the reference takes one bf16 dot with f32
+    accumulation (eetq_tpu/models/transformer.py:259-261). Both sum exact
+    products in f32, so the logits differ by what the body's bf16 roundings
+    at other places leave in the hidden states: up to two bf16 ulps of the
+    largest logit (|logit| < 2 here, an ulp 2^-7; measured 1.5). Every chunk
+    width gives the same logits."""
+    import dataclasses
+
+    from eetq_tpu_torch.models import transformer
+
+    tied = dict(tie_word_embeddings=True, rmsnorm_unit_offset=True, activation="gelu",
+                embedding_multiplier=128 ** 0.5)
+    jcfg = dataclasses.replace(JAX_PRESETS["toy"], **tied)
+    cfg = dataclasses.replace(CFG, **tied)
+    jp = jax_random_dense_params(jcfg, jax.random.PRNGKey(3))
+    tp = params_from_numpy(jax_params_to_numpy(jp), device="cpu")
+    assert jp.lm_head is None and tp.lm_head is None
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    want, _ = jax_gen.prefill(jp, jcfg, jnp.asarray(toks), jax_init_caches(jcfg, B, S))
+    got, _ = port_gen.prefill(tp, cfg, torch.from_numpy(toks).long(),
+                              init_caches(cfg, B, S, device="cpu"))
+    assert got.dtype == torch.float32
+    assert np.abs(np.asarray(want)).max() < 2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2 * 2 ** -7)
+    wide = transformer._TIED_CHUNK_BYTES
+    try:  # 7 vocabulary rows a chunk: chunks that do not divide the vocabulary
+        transformer._TIED_CHUNK_BYTES = 7 * cfg.hidden_size * 4
+        again, _ = port_gen.prefill(tp, cfg, torch.from_numpy(toks).long(),
+                                    init_caches(cfg, B, S, device="cpu"))
+    finally:
+        transformer._TIED_CHUNK_BYTES = wide
+    assert torch.equal(again, got)
