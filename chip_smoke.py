@@ -45,7 +45,16 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    int4 banks, per-channel and with 128-row scale groups; the grouped GEMM
    at bm = 128 (a prompt: the wide tile), bm = 8 (an 8-slot engine step: the
    skinny tile), 16 and 64, with the padding blocks skipped by their count,
-   and its summary keeps the prompt and the engine-step regimes apart.
+   and its summary keeps the prompt and the engine-step regimes apart. The
+   flash-decode's multi-query mode (S query tokens a row, the verify of
+   speculative decoding) runs in its four entry points: b=1 at S = 2 and 8
+   over 1152 keys (length 1074), Mixtral's GQA 4 at S = 8 (32 query rows a
+   kv head), the dense engine's 8 rows at S = 8 over 2176 keys, and 8 paged
+   rows of lengths 1..1088 at S = 8 behind a permuted table; each against
+   its plain version, its repeats bit-equal and every token bit-equal to a
+   one-token call at its own length (paged also to the dense kernel), with
+   `F.scaled_dot_product_attention` under an explicit [S, L] mask beside
+   the bf16 MHA cases.
    Then `moe_apply` on one full-width Mixtral layer (int8 per-channel, and
    int4 g=128) at 2, 8 and 2048 selections, kernels against the plain path
    on identical input (the routing ids must agree), the kernel calls under
@@ -84,6 +93,23 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      against the plain path; every block is back on the free list at the
      end; and the greedy requests' tokens equal those of a window-1 engine
      with a dense bf16 cache.
+   - ngram_spec, ngram_spec_bench, draft_spec: speculative decoding at b=1
+     (k = 7; a verify is m = 8, the GEMV) on a seeded 64-token sequence
+     tiled to 1024 tokens: `ngram_spec_generate` with bf16 KV and with
+     bench decode's int8 KV + fused MLP, and `spec_generate` with the
+     target's first 8 layers and its head as the draft. Greedy tokens must
+     be bit-equal to `decode_loop`'s; rounds, accepted drafts, ms a
+     replayed round and ms an emitted token are printed beside decode_loop's
+     ms/step, timed in turns.
+   - spec_server, spec_paged_server: the same HTTP requests through
+     `Engine(spec_ngram=7)` (dense int8 cache; then `paged_blocks=41`, a
+     bf16 pool), warmed up so that every program is a captured graph; the
+     paged one's 8-slot verify round held against the plain path and every
+     block freed. Greedy requests must equal the non-spec window-8 twin's,
+     or differ first where the twin's tokens leave a near tie (both tokens'
+     logits there within SPEC_TIE_ULPS bf16 ulps of the largest |logit| of
+     the top one, on the kernel path): an 8-slot verify is m = 64 rows, the
+     GEMM, where the twin runs the GEMV.
    llama2-7b is freed before the next model is built.
 4. llama2-7b again with int4 weights, at full width and depth, built one
    layer at a time (`random_quantized_params`, 3.6-3.9 GB), two models:
@@ -215,6 +241,24 @@ PAGED_BLOCKS, PAGED_BLOCK_SIZE = 41, 256
 # rows of very different lengths (one token, block edges, the longest request)
 PAGED_POOL_BLOCKS = 72  # a distinct block for every table entry (8 x 8)
 PAGED_LENGTHS = (1, 17, 130, 300, 555, 777, 1024, 1088)
+# The multi-query verify of speculative decoding in the kernel phase: (batch,
+# S, q heads, kv heads, cache length, lengths, the main path's regime or
+# None): llama2-7b at b=1 over the 1152 keys of a 1024-token prompt with
+# k = 1 and k = 7 drafts (ngram_spec), Mixtral's 32 query rows a kv head
+# (GQA 4, S = 8), and the dense engine's 8 slots over its 2176-key cache
+# (spec_server); the paged engine's 8 rows at S = 8 follow (spec_paged_server)
+VERIFY_CASES = ((1, 2, 32, 32, 1152, (1074,), None),
+                (1, 8, 32, 32, 1152, (1074,), "verify b=1 S=8"),
+                (1, 8, 32, 8, 1152, (1074,), None),
+                (8, 8, 32, 32, 2176, (1074, 8, 640, 2176, 17, 1500, 300, 1024),
+                 "engine verify B=8 S=8"))
+VERIFY_PAGED_S = 8
+# Speculative decoding on MODEL: k drafts a round (a verify is m = k + 1 = 8
+# rows at b=1), the draft model's layers (the target's first ones), and the
+# prompt's period (a seeded sequence of this many tokens, tiled)
+SPEC_K = 7
+SPEC_DRAFT_LAYERS = 8
+SPEC_BASE = 64
 # The engine step whose decode logits are checked: prompts of these lengths
 STEP_PROMPTS = (17, 100, 300, 700, 1024, 33, 257, 512)
 STEP_BUDGET = 200  # more than the 8 x 8 tokens of the chain after the last admission
@@ -231,6 +275,15 @@ MODEL_TOL = 5e-2
 # difference from attention can come out of the next projection as a whole
 # step. The kernel and plain W8A8 products themselves are bit-identical.
 A8_MODEL_TOL = 2 * MODEL_TOL
+# A speculative engine's greedy request may part from its non-spec twin's
+# (the verify at 8 slots is m = 64 rows, the GEMM, where the twin's step is
+# the GEMV) only at a near tie: its token and the twin's each within
+# SPEC_TIE_ULPS bf16 ulps (of the largest |logit|) of the top next-token
+# logit after the twin's tokens. Runs read 0 to 4 ulps, at positions that
+# move with the requests' timing (PERF.md §6); a tie may hold more than two
+# tokens, so the two need not be the top two. A wrong token lands in the
+# band with the odds of a few tokens in 32,000.
+SPEC_TIE_ULPS = 8
 # The sources behind w8a16_gemm, w4a16_gemm, w8a8_gemm and w4a8_gemm: a C7520
 # warning of ptxas for any of them fails the run (the grouped GEMM's
 # per-slice group modes are known to draw it and are listed only).
@@ -281,6 +334,16 @@ PATH_KERNELS = {
                           "flash_attention_fwd", "flash_decode_int8"),
     "int4_server": ("w4a8_gemm", "w4a16_gemv", "flash_attention_fwd", "flash_decode_int8"),
     "paged_server": ("w8a16_gemv", "flash_attention_fwd", "w8a8_gemm", "paged_flash_decode"),
+    # b=1 speculation: the verify's m = 8 rows on the GEMV (and the fused MLP)
+    "ngram_spec": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode"),
+    "ngram_spec_bench": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "fused_mlp_gemv",
+                         "flash_decode_int8"),
+    "draft_spec": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode"),
+    # an 8-slot verify is m = 64 rows: the GEMM; the admissions' lm_head the GEMV
+    "spec_server": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "w8a8_gemm",
+                    "flash_decode_int8"),
+    "spec_paged_server": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "w8a8_gemm",
+                          "paged_flash_decode"),
     "mixtral_int4_generate": ("w4a16_expert_gemv", "w4a16_grouped_gemm", "w4a16_gemv",
                               "w4a16_gemm", "flash_attention_fwd", "flash_decode"),
     # the 8-slot step holds 16 selections: always the grouped GEMM
@@ -314,6 +377,10 @@ PATH_IDLE = {
     "int4_bench_decode": MOE_KERNELS + ("w8a16_gemm", "fused_mlp_gemv", "w8a8_gemm", "w4a8_gemm"),
     # under a8 every prefill projection of an int4 model is W4A8
     "int4_server": INT8_DENSE + MOE_KERNELS + ("w4a16_gemm", "fused_mlp_gemv_i4"),
+    "ngram_spec": MOE_KERNELS + INT4_KERNELS,
+    "ngram_spec_bench": MOE_KERNELS + INT4_KERNELS,
+    "draft_spec": MOE_KERNELS + INT4_KERNELS,
+    "spec_server": MOE_KERNELS + INT4_KERNELS,
 }
 # none of the paths above runs a paged cache or an int4 expert bank
 PATH_IDLE = {path: idle + PAGED_KERNELS + INT4_MOE_KERNELS for path, idle in PATH_IDLE.items()}
@@ -325,6 +392,8 @@ PATH_IDLE.update({
     + ("fused_mlp_gemv_i4", "w4a8_gemm", "flash_decode_int8"),
     "mixtral_int4_paged_server": INT8_DENSE + MOE_KERNELS + DENSE_DECODE
     + ("paged_flash_decode", "w4a16_gemm", "fused_mlp_gemv_i4"),
+    "spec_paged_server": DENSE_DECODE + ("paged_flash_decode_int8",) + MOE_KERNELS + INT4_KERNELS
+    + INT4_MOE_KERNELS,
 })
 
 
@@ -448,13 +517,16 @@ def compare(out, ref) -> tuple[float, float]:
 
 
 def decode_cost(lens, hq: int, hkv: int, kv_bytes: int, scale_bytes: int,
-                d: int = 128) -> tuple[float, float]:
-    """(bytes, operations) of one flash-decode call with rows of `lens` keys:
-    only the keys below each row's length are needed (K and V at kv_bytes a
-    value and scale_bytes a key), q read and the output written once."""
+                d: int = 128, s: int = 1) -> tuple[float, float]:
+    """(bytes, operations) of one flash-decode call of S query tokens a row
+    over rows of `lens` keys: only the keys below each row's length are
+    needed (K and V at kv_bytes a value and scale_bytes a key), q read and
+    the output written once; token i of a row scores the len - S + i + 1
+    keys it sees."""
     keys = sum(lens)
-    return (keys * hkv * 2 * (d * kv_bytes + scale_bytes) + len(lens) * (2 * hq * d * 2 + 4),
-            4.0 * hq * d * keys)
+    scored = sum(max(n - s + i + 1, 0) for n in lens for i in range(s))
+    return (keys * hkv * 2 * (d * kv_bytes + scale_bytes) + len(lens) * (2 * s * hq * d * 2 + 4),
+            4.0 * hq * d * scored)
 
 
 def linear_cost(m: int, k: int, n: int, w_bytes: float, scale_rows: int = 1, x_bytes: int = 2,
@@ -842,6 +914,85 @@ def kernel_phase(dev) -> dict:
                   f"dense kernel {dense_ms:.4f} ms")
             check(equal, f"paged decode differs from the dense kernel: {case}")
             del pools, dense, kp_, vp_
+
+    # The multi-query (S > 1) verify of speculative decoding, query token i of
+    # a row at length - S + i: each case against its plain version, its
+    # repeats bit-equal, and token i bit-equal to an S = 1 call at
+    # length - S + i + 1 (the same chunks, tiles and merge order).
+    def sequential_equal(kernel, out, q, lengths, s, case):
+        seq = torch.cat([kernel(q[:, i:i + 1].contiguous(), lengths - s + i + 1)
+                         for i in range(s)], dim=1)
+        equal = bool(torch.equal(out, seq))
+        rows[-1].update(sequential_equal=equal)
+        print(f"  {'':20s} against {s} sequential S = 1 calls: "
+              f"{'bit-equal' if equal else 'DIFFERS'}")
+        check(equal, f"the S = {s} call differs from S sequential S = 1 calls: {case}")
+
+    for int8 in (False, True):
+        for b, s, hq, hkv, l, lens, regime in VERIFY_CASES:
+            q = torch.randn(b, s, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            caches = [torch.randn(b, hkv, l, 128, generator=gen, device=dev) for _ in range(2)]
+            case = f"S={s} B={b} L={l} Hq={hq} Hkv={hkv} D=128 lengths {min(lens)}..{max(lens)}"
+            if int8:
+                (kc, ks), (vc, vs) = (quantize_activations(t) for t in caches)
+                kernel = lambda q_, n_: flash_decode_int8(q_, kc, vc, ks, vs, n_)  # noqa: E731
+                plain = lambda: flash_decode_int8_ref(q, kc, vc, ks, vs, lengths)  # noqa: E731
+                name, cost, library = "flash_decode_int8", decode_cost(lens, hq, hkv, 1, 4, s=s), None
+            else:
+                kc, vc = (t.to(torch.bfloat16) for t in caches)
+                kernel = lambda q_, n_: flash_decode(q_, kc, vc, n_)  # noqa: E731
+                plain = lambda: flash_decode_ref(q, kc, vc, lengths)  # noqa: E731
+                name, cost = "flash_decode", decode_cost(lens, hq, hkv, 2, 0, s=s)
+                # the same function as one attention call with an explicit [S, L] mask
+                qpos = lengths[:, None] - s + torch.arange(s, device=dev)
+                mask = (torch.arange(l, device=dev) <= qpos[..., None])[:, None]
+                library = ((lambda: sdpa(q, kc.transpose(1, 2), vc.transpose(1, 2), mask))
+                           if hq == hkv else None)
+            if b > 1 and not int8:
+                regime = None  # the dense spec engine's cache is int8
+            out = record(name, case, lambda: kernel(q, lengths), plain, regime is not None, cost,
+                         library=library, regime=regime, s=s)
+            sequential_equal(kernel, out, q, lengths, s, case)
+            del caches, kc, vc
+
+    # paged verify: the engine's 8 rows of very different lengths (the
+    # shortest row's first tokens see no key: zeros), a permuted table whose
+    # dead entries point out of the pool; also bit-equal to the dense kernel
+    # on the gathered cache
+    s, lens = VERIFY_PAGED_S, list(PAGED_LENGTHS)
+    b = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for int8 in (False, True):
+        hq = hkv = 32
+        table = torch.randperm(nblocks, generator=gen, device=dev)[:b * max_blocks].reshape(
+            b, max_blocks).to(torch.int32).contiguous()
+        live = torch.arange(max_blocks, device=dev)[None] * bs < lengths[:, None]
+        wild = torch.where(live, table, torch.full_like(table, 10 ** 6 + 12345))
+        q = torch.randn(b, s, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
+        pools = [torch.randn(nblocks, hkv, bs, 128, generator=gen, device=dev)
+                 for _ in range(2)]
+        case = f"S={s} B={b} BS={bs} NB={nblocks} Hq={hq} Hkv={hkv} D=128 permuted table"
+        if int8:
+            (kp_, ksc), (vp_, vsc) = (quantize_activations(t) for t in pools)
+            leaves = (kp_, vp_, ksc, vsc)
+            kernel = lambda q_, n_: paged_flash_decode_int8(q_, *leaves, wild, n_)  # noqa: E731
+            plain = lambda: paged_flash_decode_int8_ref(q, *leaves, table, lengths)  # noqa: E731
+            name, dense_fn, cost = ("paged_flash_decode_int8", flash_decode_int8,
+                                    decode_cost(lens, hq, hkv, 1, 4, s=s))
+        else:
+            leaves = tuple(t.to(torch.bfloat16) for t in pools)
+            kernel = lambda q_, n_: paged_flash_decode(q_, *leaves, wild, n_)  # noqa: E731
+            plain = lambda: paged_flash_decode_ref(q, *leaves, table, lengths)  # noqa: E731
+            name, dense_fn, cost = ("paged_flash_decode", flash_decode,
+                                    decode_cost(lens, hq, hkv, 2, 0, s=s))
+        out = record(name, case, lambda: kernel(q, lengths), plain, not int8, cost,
+                     regime="engine verify B=8 S=8" if not int8 else None, s=s)
+        sequential_equal(kernel, out, q, lengths, s, case)
+        twin = dense_fn(q, *(gather_pool(t, table) for t in leaves), lengths)
+        check(bool(torch.equal(out, twin)), f"paged verify differs from the dense kernel: {case}")
+        print(f"  {'':20s} against the dense kernel on the gathered cache: bit-equal")
+        del pools, leaves
 
     # Mixtral's banks, int8 and int4, per-channel and with 128-row scale
     # groups. The path's time: the gather of a b=1 decode step (gate|up and
@@ -1246,7 +1397,8 @@ def engine_step_check(eng, cfg, dev, gen, path: str) -> dict:
     run the forward of its next decode step twice on the same caches, with
     the kernels and with the plain versions (the step's writes are the same
     both times), and hold the logits of the busy slots against each other.
-    The requests are then run to their end."""
+    A speculative engine runs a verify round instead: each slot's token and
+    k random drafts. The requests are then run to their end."""
     import numpy as np
     import torch
 
@@ -1261,19 +1413,25 @@ def engine_step_check(eng, cfg, dev, gen, path: str) -> dict:
         eng.step()
     active = [i for i, r in enumerate(eng.slot_req) if r is not None]
     check(len(active) == eng.max_batch, f"{path}: {len(active)} slots busy before the step check")
+    k = eng.spec_ngram or 0
     if eng.paged:  # as Engine._decode does before its forward
         for i in active:
-            eng._alloc_blocks(i, int(eng.lengths[i]) + 1)
+            eng._alloc_blocks(i, int(eng.lengths[i]) + k + 1)
         eng._sync_tables()
     lengths = torch.as_tensor(np.maximum(eng.lengths, 1), device=dev)
     tokens = torch.as_tensor(eng.next_token[:, None], device=dev)
+    if k:
+        drafts = torch.randint(0, cfg.vocab_size, (eng.max_batch, k), generator=gen, device=dev)
+        tokens = torch.cat([tokens, drafts], dim=1)
+    positions = lengths[:, None] + torch.arange(k + 1, device=dev)
     logits, routes = {}, []
     for use in (True, False):  # the plain path replays the kernel path's routing
         with routing("record" if use else "replay", routes), torch.inference_mode():
-            lg, _ = forward_inner(eng.params, cfg, tokens, lengths[:, None], eng.caches, lengths,
-                                  use_kernels=use)
-        logits[use] = lg[:, -1]
-    out = check_logits(f"{path} engine step ({len(active)} slots, lengths "
+            lg, _ = forward_inner(eng.params, cfg, tokens, positions, eng.caches, lengths,
+                                  use_kernels=use, verify=k > 0)
+        logits[use] = lg if k else lg[:, -1]
+    what = f"verify round (S = {k + 1})" if k else "step"
+    out = check_logits(f"{path} engine {what} ({len(active)} slots, lengths "
                        f"{sorted(int(v) for v in eng.lengths)})", logits[True], logits[False])
     eng.run()
     return out
@@ -1294,6 +1452,7 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
 
     engine_kw = dict(engine_kw or {})
     paged = "paged_blocks" in engine_kw
+    spec = engine_kw.get("spec_ngram")
     held = torch.cuda.memory_allocated()
     eng = Engine(params, cfg, max_batch=8, max_len=2048, **engine_kw)
     cache_gb = (torch.cuda.memory_allocated() - held) / 1e9
@@ -1304,7 +1463,7 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
           f"{path} engine on CUDA: a8_prefill {eng.a8_prefill}, kv {eng.kv_dtype}, "
           f"paged {eng.paged}, window {eng.decode_window}, chain {eng.max_chain}")
     shape = (f"a pool of {engine_kw['paged_blocks']} blocks of {eng.paged_bs}" if paged
-             else "dense 8 x 2048")
+             else f"dense 8 x {eng.caches[0].max_len}")
     print(f"  {path}: KV cache of the engine {cache_gb:.2f} GB ({eng.kv_dtype}, {shape})")
     # the traffic below has sampled requests: warm the sampled programs too
     t0 = time.perf_counter()
@@ -1312,13 +1471,17 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
     eng.warmup(temperature=0.8)
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
-    captures = [dict(window=w, sampled=smp, warm_ms=g.warm_ms, capture_ms=g.capture_ms)
-                for (w, smp), (g, _) in eng._programs.items()]
-    check(all(g.captured for g, _ in eng._programs.values())
-          and set(eng._programs) == {(1, False), (8, False), (1, True), (8, True)},
-          f"{path}: warmup() left programs uncaptured: {sorted(eng._programs)}")
+    graphs = {(w, smp, False): g for (w, smp), (g, _) in eng._programs.items()}
+    graphs.update({(w, smp, True): prog.graph for (w, smp), prog in eng._spec_programs.items()})
+    captures = [dict(window=w, sampled=smp, spec=sp, warm_ms=g.warm_ms, capture_ms=g.capture_ms)
+                for (w, smp, sp), g in graphs.items()]
+    # a speculative engine's windows above 1 and sampled windows are spec windows
+    want = {(w, smp, bool(spec) and (w > 1 or smp)) for w in (1, 8) for smp in (False, True)}
+    check(all(g.captured for g in graphs.values()) and set(graphs) == want,
+          f"{path}: warmup() left programs uncaptured: {sorted(graphs)}")
     print(f"  {path}: warmup {warmup_s:.1f} s; captures of the greedy and sampled window-1 and "
-          f"window-8 programs {['%.1f ms' % c['capture_ms'] for c in captures]}")
+          f"window-8 programs (spec: {sorted(k for k in graphs if k[2])}) "
+          f"{['%.1f ms' % c['capture_ms'] for c in captures]}")
 
     # one admission's forward, with kernels and with the plain versions: a
     # prompt right-padded to its bucket, as _prefill_group runs it
@@ -1347,6 +1510,7 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
         print(f"  {path} admission: {admission['routing']['differ']} of "
               f"{admission['routing']['routings']} routings differ when not replayed")
     step = engine_step_check(eng, cfg, dev, gen, path) if paged else None
+    spec_before = (eng.spec_rounds, eng.spec_tokens)
 
     lengths = [SERVE_LENGTHS[i] for i in torch.randint(
         0, len(SERVE_LENGTHS), (SERVE_REQUESTS,), generator=gen, device=dev).tolist()]
@@ -1404,11 +1568,21 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
         check(sorted(eng._free_blocks) == list(range(1, engine_kw["paged_blocks"]))
               and not any(eng._slot_blocks) and not eng._table_np.any(),
               f"{path}: blocks still held after the run: {eng._slot_blocks}")
+    spec_run = None
+    if spec:
+        rounds, toks = (a - b for a, b in zip((eng.spec_rounds, eng.spec_tokens), spec_before))
+        spec_run = dict(rounds=rounds, tokens=toks, tokens_per_round=toks / max(rounds, 1))
+        print(f"  {path}: {rounds} speculative rounds committed {toks} tokens "
+              f"({toks / max(rounds, 1):.2f} a round, k = {spec})")
     twin = None
     if twin_kw is not None:
         # the same kernels, the same chunks of the key range, rows that do not
         # see each other: the same greedy tokens at any window and chain, and
-        # through the paged address map or the dense one
+        # through the paged address map or the dense one. A speculative
+        # engine's verify at 8 slots is m = 64 rows, the GEMM where its twin
+        # runs the GEMV: where a request first differs, the twin's tokens up
+        # to there must leave both tokens in a near tie with the top logit
+        # (SPEC_TIE_ULPS, on the kernel path)
         greedy = [i for i, body in enumerate(bodies) if "temperature" not in body]
         held = torch.cuda.memory_allocated()
         te = Engine(params, cfg, max_batch=8, max_len=2048, **twin_kw)
@@ -1416,17 +1590,30 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
         uids = {i: te.add_request(bodies[i]["prompt"], bodies[i]["max_new_tokens"])
                 for i in greedy}
         te.run()
+        ties = []
         for i in greedy:
             want = te.result(uids[i])
             first = next((j for j, (a, b) in enumerate(zip(results[i], want)) if a != b), None)
-            if first is not None:
-                print(f"  {path} request {i} (prompt {lengths[i]}): token {first} is "
-                      f"{results[i][first]}, the twin's {want[first]}")
-            check(results[i] == want, f"{path}: request {i} differs from the twin engine "
-                                      f"{twin_kw}")
-        twin = dict(requests=len(greedy), equal=True, cache_gb=twin_gb, engine=str(twin_kw))
-        print(f"  {path}: {len(greedy)} greedy requests equal the tokens of a twin engine "
-              f"{twin_kw} (its cache: {twin_gb:.2f} GB)")
+            if first is None:
+                continue
+            print(f"  {path} request {i} (prompt {lengths[i]}): token {first} is "
+                  f"{results[i][first]}, the twin's {want[first]}")
+            check(bool(spec), f"{path}: request {i} differs from the twin engine {twin_kw}")
+            tie = near_tie(params, cfg, dev, bodies[i]["prompt"] + want[:first],
+                           results[i][first], want[first])
+            print(f"  {'':20s} logits there: top three {tie['top_ids']} at {tie['top']}; the "
+                  f"spec engine's token {tie['spec_logit']:.6f} (rank {tie['spec_rank']}), the "
+                  f"twin's {tie['twin_logit']:.6f} (rank {tie['twin_rank']}); "
+                  f"{tie['ulps']:.2f} bf16 ulps of the largest |logit| {tie['largest']:.6f} "
+                  f"below the top (near tie: {tie['ok']})")
+            check(tie["ok"], f"{path}: request {i} differs from the twin engine {twin_kw} at "
+                             f"token {first}, not at a near tie of the two tokens")
+            ties.append(dict(request=i, token=first, **tie))
+        twin = dict(requests=len(greedy), equal=not ties, near_ties=ties, cache_gb=twin_gb,
+                    engine=str(twin_kw))
+        print(f"  {path}: {len(greedy)} greedy requests against a twin engine {twin_kw} "
+              f"(its cache: {twin_gb:.2f} GB): {len(greedy) - len(ties)} equal, {len(ties)} "
+              f"diverge at a near tie")
         del te
     tokens = sum(budgets)
     lat = [latency[i] for i in range(SERVE_REQUESTS)]
@@ -1437,7 +1624,171 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
     return dict(admission=admission, counts=counts, prompt_lengths=lengths, budgets=budgets,
                 tokens=tokens, wall_s=wall_s, served_tok_s=tokens / wall_s,
                 latency_ms=lat, warmup_s=warmup_s, captures=captures, cache_gb=cache_gb,
-                engine_step=step, twin=twin)
+                engine_step=step, twin=twin, spec=spec_run)
+
+
+def near_tie(params, cfg, dev, ids: list[int], spec_tok: int, twin_tok: int) -> dict:
+    """The next-token logits after `ids` by one forward on the kernel path:
+    a near tie of spec_tok and twin_tok when each is at most SPEC_TIE_ULPS
+    bf16 ulps of the largest |logit| below the top logit."""
+    import math
+
+    import torch
+
+    from eetq_tpu_torch.models.transformer import forward_inner, init_caches
+
+    toks = torch.tensor([ids], device=dev)
+    with torch.inference_mode():
+        caches = init_caches(cfg, 1, len(ids), device=dev)
+        lg, _ = forward_inner(params, cfg, toks, torch.arange(len(ids), device=dev)[None], caches,
+                              0, last_only=True)
+    row = lg[0, -1].float()
+    top = row.topk(3)
+    largest = float(row.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(largest)) - 7)  # bf16: 8 significant bits
+    below = max(float(top.values[0] - row[spec_tok]), float(top.values[0] - row[twin_tok]))
+    rank = lambda t: int((row > row[t]).sum()) + 1  # noqa: E731
+    return dict(top_ids=[int(t) for t in top.indices], top=[float(v) for v in top.values],
+                spec_logit=float(row[spec_tok]), twin_logit=float(row[twin_tok]),
+                spec_rank=rank(spec_tok), twin_rank=rank(twin_tok), below=below,
+                largest=largest, ulps=below / ulp, ok=below <= SPEC_TIE_ULPS * ulp)
+
+
+def spec_paths(params, cfg, dev, gen) -> dict:
+    """Speculative decoding at b=1 on MODEL: `ngram_spec_generate` (k =
+    SPEC_K) with bf16 KV and with bench.py's int8 KV + fused MLP, and
+    `spec_generate` with the target's first SPEC_DRAFT_LAYERS layers and its
+    head as the draft. The prompt is a seeded SPEC_BASE-token sequence tiled
+    to REQUESTS[0]'s length, so the n-gram matcher has history to match.
+    Greedy tokens must be bit-equal to `decode_loop`'s on the same prompt
+    and cache dtype. Timed against decode_loop in turns (medians of 3):
+    rounds, accepted drafts, ms per emitted token and per replayed round,
+    the warm-up round and the capture."""
+    import torch
+
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve import spec
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    _, p, n = REQUESTS[0]
+    k = SPEC_K
+    base = torch.randint(0, cfg.vocab_size, (1, SPEC_BASE), generator=gen, device=dev)
+    prompt = base.repeat(1, p // SPEC_BASE)
+    draft, dcfg = spec.truncated_draft(params, cfg, SPEC_DRAFT_LAYERS)
+
+    def timed(loop, kv, with_draft=False):
+        """(tokens, stats with the loop's wall ms) of one decode after a
+        prefill into fresh caches."""
+        caches = init_caches(cfg, 1, p + n + 2 * k + 1, device=dev, dtype=kv)
+        lp, caches = prefill(params, cfg, prompt, caches)
+        extra = ()
+        if with_draft:
+            d_caches = init_caches(dcfg, 1, p + n + 2 * k + 1, device=dev, dtype=kv)
+            _, d_caches = prefill(draft, dcfg, prompt, d_caches)
+            extra = (d_caches,)
+        rec = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = loop(torch.argmax(lp, -1), caches, *extra, rec)
+        torch.cuda.synchronize()
+        rec["ms"] = 1e3 * (time.perf_counter() - t0)
+        return toks, rec
+
+    def plain(fused):
+        return lambda first, caches, rec: decode_loop(params, cfg, first, p, caches, n,
+                                                      fused_mlp=fused, stats=rec)[0]
+
+    def ngram(fused):
+        return lambda first, caches, rec: spec.ngram_spec_decode_loop(
+            params, cfg, prompt, first, p, caches, n, k=k, fused_mlp=fused, stats=rec)[0]
+
+    def drafted(first, caches, d_caches, rec):
+        return spec.spec_decode_loop(params, draft, cfg, dcfg, first, prompt[:, -1], p, caches,
+                                     d_caches, n, k=k, stats=rec)[0]
+
+    out = {}
+    for path, kv, fused in (("ngram_spec", torch.bfloat16, False),
+                            ("ngram_spec_bench", torch.int8, True),
+                            ("draft_spec", torch.bfloat16, False)):
+        print(f"  -- {path}: {kv} KV, fused MLP {fused}, k = {k}"
+              + (f", a draft of {SPEC_DRAFT_LAYERS} layers" if path == "draft_spec" else ""))
+        want, _ = timed(plain(fused), kv)
+        if path == "draft_spec":
+            run = lambda: spec.spec_generate(params, cfg, draft, dcfg, prompt, n, k=k,  # noqa: E731
+                                             kv_dtype=kv, return_stats=True)
+        else:
+            run = lambda: spec.ngram_spec_generate(params, cfg, prompt, n, k=k, kv_dtype=kv,  # noqa: E731
+                                                   fused_mlp=fused, return_stats=True)
+        (got, stats), counts = counted(path, run)
+        first = None if torch.equal(got, want) else int((got != want).any(0).nonzero()[0])
+        check(first is None, f"{path}: greedy tokens differ from decode_loop's from token {first}")
+        runs = {"decode": [], "spec": []}
+        for _ in range(3):
+            runs["decode"].append(timed(plain(fused), kv)[1])
+            loop = drafted if path == "draft_spec" else ngram(fused)
+            runs["spec"].append(timed(loop, kv, with_draft=path == "draft_spec")[1])
+        check(all(r["rounds"] == stats["rounds"] for r in runs["spec"]),
+              f"{path}: the rounds differ from run to run")
+        rounds, acc = stats["rounds"], stats["accepted_drafts"]
+        med = lambda rs, f: statistics.median(f(r) for r in rs)  # noqa: E731
+        timing = dict(
+            decode_ms_per_step=med(runs["decode"], lambda r: r["ms"] / (n - 1)),
+            decode_replay_ms=med(runs["decode"], lambda r: (r["ms"] - r["warm_ms"]
+                                                            - r["capture_ms"]) / (n - 2)),
+            spec_ms_per_token=med(runs["spec"], lambda r: r["ms"] / (n - 1)),
+            spec_replay_ms_per_round=med(runs["spec"], lambda r: (r["ms"] - r["warm_ms"]
+                                                                   - r["capture_ms"])
+                                         / max(rounds - 1, 1)),
+            spec_warm_ms=med(runs["spec"], lambda r: r["warm_ms"]),
+            spec_capture_ms=med(runs["spec"], lambda r: r["capture_ms"]),
+            spec_ms_runs=[r["ms"] for r in runs["spec"]],
+            decode_ms_runs=[r["ms"] for r in runs["decode"]])
+        print(f"  {path} b=1 p={p} n={n}: {n} greedy tokens bit-equal to decode_loop's; "
+              f"{rounds} rounds, {acc} drafts accepted ({acc / rounds:.2f} a round); "
+              f"{timing['spec_ms_per_token']:.3f} ms an emitted token against decode_loop's "
+              f"{timing['decode_ms_per_step']:.3f} ms/step; a replayed round "
+              f"{timing['spec_replay_ms_per_round']:.3f} ms against a replayed step "
+              f"{timing['decode_replay_ms']:.3f} ms; the warm-up round "
+              f"{timing['spec_warm_ms']:.2f} ms, the capture {timing['spec_capture_ms']:.2f} ms")
+        out[path] = dict(counts=counts, rounds=rounds, accepted_drafts=acc, timing=timing)
+        if path == "draft_spec":
+            out[path]["self_draft"] = self_draft(params, cfg, dev, prompt, want, kv)
+    return out
+
+
+def self_draft(params, cfg, dev, prompt, want, kv) -> dict:
+    """spec_decode_loop with the target as its own draft, over caches of the
+    length `want` (decode_loop's tokens) was decoded in: drafts are accepted,
+    up to k + 1 tokens a round, so later rounds run the draft's 2-token
+    catch-up over an accepted round's cache hole (a random truncated draft
+    is rejected at every round on the card and never gets there). Not every
+    draft need be: the first catch-up recomputes the prompt's last KV on the
+    GEMV where the target's prefill used the GEMM, so a near tie in the
+    draft may flip."""
+    import torch
+
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve import spec
+    from eetq_tpu_torch.serve.generate import prefill
+
+    _, p, n = REQUESTS[0]
+    k = SPEC_K
+    ns = 1 + 3 * (k + 1)
+    full, fcfg = spec.truncated_draft(params, cfg, cfg.num_layers)
+    caches, d_caches = (init_caches(cfg, 1, p + n + 2 * k + 1, device=dev, dtype=kv)
+                        for _ in range(2))
+    lp, caches = prefill(params, cfg, prompt, caches)
+    _, d_caches = prefill(full, fcfg, prompt, d_caches)
+    got, (r, acc) = spec.spec_decode_loop(params, full, cfg, fcfg, torch.argmax(lp, -1),
+                                          prompt[:, -1], p, caches, d_caches, ns, k=k)
+    check(torch.equal(got, want[:, :ns]),
+          "draft_spec with the target as its draft: tokens differ from decode_loop's")
+    check(acc >= 2 * k and r < ns - 1,
+          f"draft_spec with the target as its draft: {r} rounds and {acc} accepted drafts, "
+          f"want at least {2 * k}")
+    print(f"  draft_spec, the target as its draft: {ns} tokens bit-equal to decode_loop's in "
+          f"{r} rounds, {acc} of {r * k} drafts accepted")
+    return dict(tokens=ns, rounds=r, accepted_drafts=acc)
 
 
 PROFILE_ENGINE_BUDGET = 200  # two chains of 8 x 8 after the admissions
@@ -1584,6 +1935,11 @@ def model_phase(dev, profile: bool = False) -> dict:
     paged = dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE)
     paths["paged_server"] = server_path(params, cfg, dev, gen, "paged_server", paged,
                                         twin_kw=dict(kv_dtype=torch.bfloat16, decode_window=1))
+    paths.update(spec_paths(params, cfg, dev, gen))
+    spec = dict(spec_ngram=SPEC_K)
+    paths["spec_server"] = server_path(params, cfg, dev, gen, "spec_server", spec, twin_kw={})
+    paths["spec_paged_server"] = server_path(params, cfg, dev, gen, "spec_paged_server",
+                                             dict(paged, **spec), twin_kw=paged)
     prof = profile_paths(params, cfg, dev, gen, configs,
                          {"server": {}, "paged_server": paged}) if profile else None
     return dict(paths=paths, init_s=init_s, weight_gb=weight_gb, profile=prof,

@@ -73,23 +73,23 @@ SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P,
     ),
-    # q, k, v, lengths, out, partials, counters, b, hq, hkv, l, d, chunk,
+    # q, k, v, lengths, out, partials, counters, b, s, hq, hkv, l, d, chunk,
     # scale, stream
-    "eetq_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, k_scale, v_scale, lengths, out, partials, counters, b, hq,
+    "eetq_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, k_scale, v_scale, lengths, out, partials, counters, b, s, hq,
     # hkv, l, d, chunk, scale, stream
     "eetq_flash_decode_int8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # q, k pool, v pool, table, lengths, out, partials, counters, b, hq,
+    # q, k pool, v pool, table, lengths, out, partials, counters, b, s, hq,
     # hkv, max_blocks, block size, d, chunk, scale, stream
     "eetq_paged_flash_decode": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, k pool, v pool, k_scale, v_scale, table, lengths, out, partials,
-    # counters, b, hq, hkv, max_blocks, block size, d, chunk, scale, stream
+    # counters, b, s, hq, hkv, max_blocks, block size, d, chunk, scale, stream
     "eetq_paged_flash_decode_int8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # xq, m, kp, w, np, sx, sw, bias, out, n, stream
     "eetq_w8a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P),

@@ -149,15 +149,18 @@ class DecodePlan(NamedTuple):
     chunk: int  # keys of a chunk: chunk c covers keys [c * chunk, (c + 1) * chunk)
     chunks: int  # chunks of the cache's capacity
     floats: int  # f32 scratch: [B, Hkv, chunks, G, D] outputs, [B, Hkv, chunks, G, 2] (max, sum)
+    # (G: the query rows of a kv head, its q heads times the query tokens)
     counters: int  # int32 scratch: one ticket counter per (row, kv head)
 
 
 @functools.lru_cache(maxsize=4096)  # called once per flash-decode launch, on the host's decode path
 def decode_plan(b: int, hkv: int, group: int, max_len: int, d: int) -> DecodePlan:
     """The plan of a flash-decode launch over B rows, Hkv kv heads of
-    `group` q heads each and head dim d, on a cache of `max_len` keys a row
-    (dense L, or max_blocks * BS). The lengths play no part: the chunks of a
-    cache are the same at any length."""
+    `group` query rows each (q heads times query tokens: S > 1 rows of a
+    verify only widen the scratch) and head dim d, on a cache of `max_len`
+    keys a row (dense L, or max_blocks * BS). The lengths and the query rows
+    play no part in the chunks: those of a cache are the same at any length,
+    so S sequential S = 1 calls cut it as one S-token call does."""
     if min(b, hkv, group, max_len, d) < 1:
         raise ValueError(f"no flash-decode over B={b} Hkv={hkv} G={group} L={max_len} D={d}")
     if max_len > DECODE_MAX_CHUNK * DECODE_MAX_CHUNKS:

@@ -1,9 +1,13 @@
-"""Flash-decode: one query token per row over the dense [B, Hkv, L, D] cache,
-or over a paged cache (block pools and a block table).
+"""Flash-decode: S query tokens per row over the dense [B, Hkv, L, D] cache,
+or over a paged cache (block pools and a block table). S = 1 is the decode
+step; S > 1 the multi-query verify of speculative decoding, query token i
+of a row at position length - S + i, seeing the keys at or before it
+(`eetq_tpu/kernels/flash_decode.py::_fd_kernel` with sq > 1). Token i of an
+S-token call is bit-equal to an S = 1 call at length - S + i + 1.
 
 `flash_decode` and `flash_decode_int8` replace `eetq_tpu/kernels/
-flash_decode.py::flash_decode` (`pallas_call` at flash_decode.py:512) for
-S = 1, over a bf16 cache and over an int8 cache with f32 [B, Hkv, L]
+flash_decode.py::flash_decode` (`pallas_call` at flash_decode.py:512),
+over a bf16 cache and over an int8 cache with f32 [B, Hkv, L]
 scales, with the CUDA kernel of `csrc/flash_decode.cu`. They are bound by
 KV-cache bytes: a bf16 step reads 2 * length * D * 2 bytes per kv head
 (16.8 MB per llama2-7b layer at length 1024) and does about 2 FLOPs per
@@ -17,11 +21,13 @@ index-map clamp, flash_decode.py:459-474), stages its keys through shared
 memory in tiles and keeps an online softmax in f32. The last block of a
 row's live chunks merges their states in chunk order, in the same launch:
 one launch per call, the same output from launch to launch, and the
-lengths never read on the host.
+lengths never read on the host. A block scores all the query rows of its kv
+head (G heads times S tokens, at most 64) against each staged tile, so S
+tokens cost one read of the keys.
 
 `paged_flash_decode` and `paged_flash_decode_int8` replace `eetq_tpu/kernels/
-flash_decode.py::paged_flash_decode` (`pallas_call` at flash_decode.py:329)
-for S = 1: the same computation over pools [NB, Hkv, BS, D] shared by all
+flash_decode.py::paged_flash_decode` (`pallas_call` at flash_decode.py:329):
+the same computation over pools [NB, Hkv, BS, D] shared by all
 rows, logical block i of row b being pool block table[b, i]. As on the TPU
 it is the dense kernel with another address map (a template mode of
 `csrc/flash_decode.cu`): each tile of keys is translated through the table,
@@ -41,12 +47,18 @@ from eetq_tpu_torch.kernels.autotune import decode_plan
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+# query rows of a kv head a launch takes: q heads of the group times tokens
+MAX_QUERY_ROWS = 64
 
 
 def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None):
-    """Plain version: q [B, S, Hq, D] against cache[:, :, :length] in f32.
-    lengths is an int or a [B] tensor of valid entries (the new token's K/V
-    already written at length - 1)."""
+    """Plain version: q [B, S, Hq, D] against cache[:, :, :length] in f32,
+    per-row causal: query token i of a row sits at position length - S + i
+    and sees the keys at or before it (`eetq_tpu/modules/attention.py::
+    attention_verify_ref`; S = 1 is the decode step). lengths is an int or
+    a [B] tensor of valid entries (the S new tokens' K/V already written at
+    length - S .. length - 1). A query token that sees no key gives 0, as
+    the kernels do."""
     b, s, hq, d = q.shape
     hkv, l = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
@@ -55,10 +67,13 @@ def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None):
     scores = torch.einsum("bskgd,bkld->bkgsl", qg, k_cache.float()) * scale
     pos = torch.arange(l, device=q.device).reshape(1, 1, 1, 1, l)
     lv = torch.as_tensor(lengths, device=q.device).reshape(-1, 1, 1, 1, 1)
-    mask = pos < lv
+    # query token i at position lv - s + i
+    qpos = lv - s + torch.arange(s, device=q.device).reshape(1, 1, 1, s, 1)
+    mask = pos <= qpos
     if window is not None:
-        mask &= pos >= lv - window
+        mask &= pos > qpos - window
     probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    probs = probs.masked_fill(~mask.any(dim=-1, keepdim=True), 0.0)
     out = torch.einsum("bkgsl,bkld->bskgd", probs, v_cache.float())
     return out.reshape(b, s, hq, d).to(q.dtype)
 
@@ -68,8 +83,6 @@ def _check(q, k_cache, v_cache, lengths, window, cache_dtype, batch_axis: bool =
     [NB, Hkv, BS, D] shared by all rows."""
     b, s, hq, d = q.shape
     hkv = k_cache.shape[1]
-    if s != 1:
-        raise NotImplementedError("multi-query (S > 1) decode has no CUDA kernel yet")
     if window is not None:
         raise NotImplementedError("sliding-window decode has no CUDA kernel yet")
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
@@ -88,15 +101,19 @@ def _check(q, k_cache, v_cache, lengths, window, cache_dtype, batch_axis: bool =
     group = hq // hkv
     if d not in HEAD_DIMS or group * hkv != hq or group not in GROUPS:
         raise NotImplementedError(f"head_dim {d}, group {hq}/{hkv}: the kernel takes {HEAD_DIMS}, {GROUPS}")
+    if not 1 <= group * s <= MAX_QUERY_ROWS:
+        raise NotImplementedError(f"{group} q heads x {s} query tokens: the kernel takes at most "
+                                  f"{MAX_QUERY_ROWS} query rows a kv head")
 
 
 def _launch_args(q, hkv, max_len):
     """(out, partials, counters, chunk) of one launch over a cache of
-    `max_len` keys a row."""
-    b, _, hq, d = q.shape
-    plan = decode_plan(b, hkv, hq // hkv, max_len, d)
+    `max_len` keys a row: the plan of (q heads of a group) x S query rows a
+    kv head, whose chunks are those of any S."""
+    b, s, hq, d = q.shape
+    plan = decode_plan(b, hkv, hq // hkv * s, max_len, d)
     partials, counters = _build.scratch("decode", q.device, plan.floats, plan.counters)
-    out = torch.empty((b, 1, hq, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((b, s, hq, d), dtype=torch.bfloat16, device=q.device)
     return out, partials, counters, plan.chunk
 
 
@@ -108,8 +125,9 @@ def flash_decode(
     scale: float | None = None,
     window: int | None = None,
 ) -> torch.Tensor:
-    """q [B, 1, Hq, D] bf16; k/v cache [B, Hkv, L, D] bf16; lengths [B]
-    int32 valid entries per row (1 <= length <= L). Returns [B, 1, Hq, D]."""
+    """q [B, S, Hq, D] bf16; k/v cache [B, Hkv, L, D] bf16; lengths [B]
+    int32 valid entries per row (S <= length <= L), query token i at
+    position length - S + i. Returns [B, S, Hq, D]."""
     b, s, hq, d = q.shape
     hkv, l = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
@@ -120,8 +138,8 @@ def flash_decode(
     out, partials, counters, chunk = _launch_args(q, hkv, l)
     _build.launch(
         "eetq_flash_decode", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), partials, counters, b, hq, hkv, l, d, chunk, scale,
-        _build.stream_of(q),
+        lengths.data_ptr(), out.data_ptr(), partials, counters, b, s, hq, hkv, l, d, chunk,
+        scale, _build.stream_of(q),
     )
     flash_decode.launches += 1
     return out
@@ -152,9 +170,9 @@ def flash_decode_int8(
     scale: float | None = None,
     window: int | None = None,
 ) -> torch.Tensor:
-    """q [B, 1, Hq, D] bf16; k/v cache [B, Hkv, L, D] int8 with f32 scales
-    k_scale/v_scale [B, Hkv, L]; lengths [B] int32 (1 <= length <= L).
-    Returns [B, 1, Hq, D] bf16."""
+    """q [B, S, Hq, D] bf16; k/v cache [B, Hkv, L, D] int8 with f32 scales
+    k_scale/v_scale [B, Hkv, L]; lengths [B] int32 (S <= length <= L), as
+    :func:`flash_decode`. Returns [B, S, Hq, D] bf16."""
     b, s, hq, d = q.shape
     hkv, l = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
@@ -171,7 +189,7 @@ def flash_decode_int8(
     _build.launch(
         "eetq_flash_decode_int8", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials,
-        counters, b, hq, hkv, l, d, chunk, scale, _build.stream_of(q),
+        counters, b, s, hq, hkv, l, d, chunk, scale, _build.stream_of(q),
     )
     flash_decode_int8.launches += 1
     return out
@@ -225,11 +243,11 @@ def paged_flash_decode(
     scale: float | None = None,
     window: int | None = None,
 ) -> torch.Tensor:
-    """q [B, 1, Hq, D] bf16; k/v pools [NB, Hkv, BS, D] bf16; table
+    """q [B, S, Hq, D] bf16; k/v pools [NB, Hkv, BS, D] bf16; table
     [B, max_blocks] int32, entry (b, i) the pool block of keys [i * BS,
     (i + 1) * BS) of row b (used only for blocks below the row's length, each
-    in [0, NB): the kernel cannot check them); lengths [B] int32 (1 <= length
-    <= max_blocks * BS). Returns [B, 1, Hq, D] bf16."""
+    in [0, NB): the kernel cannot check them); lengths [B] int32 (S <= length
+    <= max_blocks * BS), as :func:`flash_decode`. Returns [B, S, Hq, D] bf16."""
     b, s, hq, d = q.shape
     hkv, bs = k_pool.shape[1], k_pool.shape[2]
     if scale is None:
@@ -241,8 +259,8 @@ def paged_flash_decode(
     out, partials, counters, chunk = _launch_args(q, hkv, max_blocks * bs)
     _build.launch(
         "eetq_paged_flash_decode", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials, counters, b, hq, hkv,
-        max_blocks, bs, d, chunk, scale, _build.stream_of(q),
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials, counters, b, s, hq,
+        hkv, max_blocks, bs, d, chunk, scale, _build.stream_of(q),
     )
     paged_flash_decode.launches += 1
     return out
@@ -278,7 +296,7 @@ def paged_flash_decode_int8(
     _build.launch(
         "eetq_paged_flash_decode_int8", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), partials, counters, b, hq, hkv, max_blocks, bs, d, chunk, scale,
+        out.data_ptr(), partials, counters, b, s, hq, hkv, max_blocks, bs, d, chunk, scale,
         _build.stream_of(q),
     )
     paged_flash_decode_int8.launches += 1

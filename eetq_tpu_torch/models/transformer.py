@@ -11,10 +11,14 @@ multiplies by the bf16 table a vocabulary chunk at a time (`_tied_head`).
 Positions past the rope table read its last row, as JAX's gather clamps
 them, and a decode step's cache positions are clamped once for every layer
 (`modules.attention.decode_at`): a decode window runs a row a few steps
-past its budget. A layer
+past its budget. `verify=True` is the verify step of speculative decoding
+(:89-95, :217-241): S tokens a row at the per-row positions offset ..
+offset + S - 1, written and attended causally through the flash-decode's
+multi-query mode, their write positions and lengths likewise clamped once
+a round. A layer
 with `moe` set runs the routed MLP instead (:158-170), which takes neither
-`a8` nor `fused_mlp`, as in the JAX package. ALiBi, LoRA, tensor
-parallelism and the verify step raise NotImplementedError.
+`a8` nor `fused_mlp`, as in the JAX package. ALiBi, LoRA and tensor
+parallelism raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -86,13 +90,15 @@ def decoder_layer(
     use_kernels: bool = True,
     a8: bool = False,
     fused_mlp: bool | None = None,
+    verify: bool = False,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """One decoder layer on x [B, S, H]. The RMSNorms before qkv and gate/up
     are handed to the linear as a prenorm (fused into the GEMV kernel in the
     decode regime). a8 routes every projection through W8A8; fused_mlp runs
     the MLP block as one fused dispatch where `can_fuse_mlp` allows (never
     under a8, as in the JAX package). A MoE layer's routed MLP takes
-    neither."""
+    neither. verify: the S > 1 tokens sit at per-row offsets and attend
+    causally over the cache (`modules.attention.attention`)."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -104,7 +110,7 @@ def decoder_layer(
     k = rope(k.reshape(b, s, hkv, d), positions, cos_sin, interleaved=cfg.rope_interleaved)
     v = v.reshape(b, s, hkv, d)
     attn, cache = attention(q, k, v, cache, offset, window=cfg.sliding_window,
-                            use_kernels=use_kernels)
+                            use_kernels=use_kernels, verify=verify)
     o = linear_apply(p.o_proj, attn.reshape(b, s, hq * d), use_kernel=use_kernels, a8=a8)
     x = residual + o
 
@@ -159,27 +165,34 @@ def forward_inner(
     a8: bool = False,
     fused_mlp: bool | None = None,
     last_pos: torch.Tensor | None = None,
+    verify: bool = False,
 ) -> tuple[torch.Tensor, list[KVCache] | None]:
     """Logits [B, S, V] f32 (or [B, 1, V] with last_only, which runs the
     lm_head on the last position only, or with last_pos [B], each row's
     own position of a right-padded prefill bucket) and the caches, updated
     in place. use_kernels=False runs every op's plain version; a8 and
     fused_mlp as in `decoder_layer`. The lm_head never takes a8 (as in the
-    JAX package)."""
+    JAX package). verify=True runs the verify step of speculative decoding:
+    tokens [B, S] at positions offset .. offset + S - 1, offset [B] (the
+    m = B S rows pick the GEMV, the fused MLP or the GEMM as any call
+    does)."""
     _check_supported(cfg)
     x = params.embed[tokens].to(torch.bfloat16)
     if cfg.embedding_multiplier is not None:
         x = (x.float() * cfg.embedding_multiplier).to(x.dtype)
     cos_sin = cos_sin_cache(cfg.max_position, cfg.rot_dim, base=cfg.rope_theta, device=x.device)
     positions = positions.clamp(max=cfg.max_position - 1)
-    if caches is not None and tokens.shape[1] == 1 and isinstance(offset, torch.Tensor):
-        # once a step for every layer: the write index and the attention
-        # lengths, clamped to the caches' capacity
-        offset = decode_at(caches[0], offset.reshape(-1).expand(tokens.shape[0]))
+    b, s = tokens.shape
+    verify = verify and s > 1
+    if caches is not None and (s == 1 or verify) and isinstance(offset, torch.Tensor):
+        # once a step (a round) for every layer: the write indices and the
+        # attention lengths, clamped to the caches' capacity
+        offset = decode_at(caches[0], offset.reshape(-1).expand(b), s)
     for i, layer in enumerate(params.layers):
         cache_i = caches[i] if caches is not None else None
         x, _ = decoder_layer(layer, cfg, x, positions, cos_sin, cache_i, offset,
-                             use_kernels=use_kernels, a8=a8, fused_mlp=fused_mlp)
+                             use_kernels=use_kernels, a8=a8, fused_mlp=fused_mlp,
+                             verify=verify)
 
     if last_only:
         x = x[:, -1:, :]

@@ -5,10 +5,12 @@ The cache layout is [batch, n_kv_heads, max_len, head_dim]; the int8 cache
 keeps f32 per-(row, head, position) scales [batch, n_kv_heads, max_len].
 Prefill (S > 1, offset 0) runs the flash-attention kernel over the new,
 unquantized K/V; decode (S = 1) runs the flash-decode kernel (its int8 mode
-for an int8 cache) over each row's live prefix. A paged cache
-(`modules/paged.py`) serves decode only: one scattered write through the
-block table, then the paged flash-decode kernel. Chunked prefill and the
-multi-query verify step are not ported yet.
+for an int8 cache) over each row's live prefix. The verify step of
+speculative decoding (`verify=True`, S > 1) writes S tokens at per-row
+offsets and attends with the same kernel's multi-query mode, query token i
+at length - S + i (`attention_verify`). A paged cache (`modules/paged.py`)
+serves decode and verify: scattered writes through the block table, then
+the paged flash-decode kernel. Chunked prefill is not ported yet.
 
 The prefill offset is the Python int 0. The JAX engine passes a traced
 `jnp.int32(0)` (`eetq_tpu/serve/engine.py:114`); the port's engine passes an
@@ -41,8 +43,8 @@ if TYPE_CHECKING:  # modules.paged imports this module
 
 __all__ = [
     "DecodeAt", "KVCache", "attention", "attention_decode", "attention_decode_ref",
-    "attention_prefill", "attention_reference", "causal_mask", "decode_at", "init_kv_cache",
-    "update_cache", "write_token",
+    "attention_prefill", "attention_reference", "attention_verify", "attention_verify_ref",
+    "causal_mask", "decode_at", "init_kv_cache", "update_cache", "write_token",
 ]
 
 
@@ -96,43 +98,53 @@ def init_kv_cache(
 
 @dataclasses.dataclass(frozen=True)
 class DecodeAt:
-    """Where one decode step writes its token and how far it attends, per
-    row: made once a step by `decode_at` and read by every layer (the layers
-    of a model have caches of one capacity and, paged, one block table).
-    `index` is the pair of [B] indices into dims 0 and 2 of a cache leaf
-    (row and position, or pool block and offset in it); `lengths` [B] int32
-    counts the positions attended, the new token's included."""
+    """Where one decode step (or verify round) writes its tokens and how far
+    it attends, per row: made once a step by `decode_at` and read by every
+    layer (the layers of a model have caches of one capacity and, paged,
+    one block table). `index` is the pair of indices into dims 0 and 2 of a
+    cache leaf (row and position, or pool block and offset in it), [B] for
+    one token a row, [B, S] for S; `lengths` [B] int32 counts the positions
+    the last token attends, itself included."""
 
     index: tuple[torch.Tensor, torch.Tensor]
     lengths: torch.Tensor
 
 
-def decode_at(cache: KVCache | PagedKVCache, pos: torch.Tensor) -> DecodeAt:
-    """The `DecodeAt` of a decode step at per-row positions `pos` [B]. A
-    position past the cache's capacity writes its last slot, as JAX's
-    dynamic_update_slice clamps the write, and attends over the whole cache:
-    a decode window runs a row up to W - 1 steps past its budget, and those
-    tokens are never committed."""
+def decode_at(cache: KVCache | PagedKVCache, pos: torch.Tensor, s: int = 1) -> DecodeAt:
+    """The `DecodeAt` of a decode step at per-row positions `pos` [B], or of
+    a verify round of S tokens a row at pos .. pos + S - 1. A position past
+    the cache's capacity writes its last slot, as JAX's dynamic_update_slice
+    clamps the write, and the lengths stop at the capacity: a decode window
+    runs a row up to W - 1 steps past its budget, a speculative round up to
+    2k + W, and those tokens are never committed (the speculative loops
+    size their caches so that no committed token is clamped)."""
     from eetq_tpu_torch.modules import paged  # at call time: it imports this module
 
     pos = pos.long()
+    if s > 1:
+        pos = pos[:, None] + torch.arange(s, device=pos.device)
     if isinstance(cache, paged.PagedKVCache):
         bs = cache.block_size
         pos = pos.clamp(max=cache.table.shape[1] * bs - 1)
-        index = (cache.table.gather(1, (pos // bs)[:, None])[:, 0].long(), pos % bs)
+        blocks = (pos // bs).reshape(pos.shape[0], -1)
+        index = (cache.table.gather(1, blocks).reshape(pos.shape).long(), pos % bs)
     else:
         pos = pos.clamp(max=cache.max_len - 1)
-        index = (torch.arange(pos.shape[0], device=pos.device), pos)
-    return DecodeAt(index, (pos + 1).to(torch.int32))
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        index = (rows[:, None] if s > 1 else rows, pos)
+    last = pos[:, -1] if s > 1 else pos
+    return DecodeAt(index, (last + 1).to(torch.int32))
 
 
 def write_token(cache: KVCache | PagedKVCache, index: tuple[torch.Tensor, torch.Tensor],
                 k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache | PagedKVCache:
-    """Write ONE token per row, IN PLACE, at `index` (`DecodeAt.index`).
-    k_new/v_new [B, Hkv, D]. An int8 cache stores the quantized values and
-    their scales (per (row, head) over D, as `update_cache`). Rows whose
-    index is the same (a paged engine's inactive slots, all in block 0)
-    write over each other; any winner is fine. Returns `cache`."""
+    """Write one token per row ([B] indices, k_new/v_new [B, Hkv, D]) or S
+    ([B, S] indices, k_new/v_new [B, S, Hkv, D]), IN PLACE, at `index`
+    (`DecodeAt.index`). An int8 cache stores the quantized values and their
+    scales (per (row, head) over D, as `update_cache`). Writes whose index
+    is the same (a paged engine's inactive slots, all in block 0; clamped
+    overshoot) write over each other; any winner is fine. Returns
+    `cache`."""
     i0, i2 = index
     if cache.quantized:
         k_new, ks = quantize_activations(k_new)  # scales [B, Hkv]
@@ -150,11 +162,13 @@ def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, offse
     IN PLACE (slice assignment where the JAX package returns a new cache
     from `dynamic_update_slice`). offset is an int (every row at the same
     position), a [B] tensor of per-row positions that fit the cache, or a
-    `DecodeAt` (S = 1). An int8 cache stores the quantized values and their
-    scales at the same positions. Returns `cache`."""
+    `DecodeAt` of the S tokens. An int8 cache stores the quantized values
+    and their scales at the same positions. Returns `cache`."""
     s = k_new.shape[1]
     if isinstance(offset, DecodeAt):
-        return write_token(cache, offset.index, k_new[:, 0], v_new[:, 0])
+        if s == 1:
+            k_new, v_new = k_new[:, 0], v_new[:, 0]
+        return write_token(cache, offset.index, k_new, v_new)
     ks = vs = None
     if cache.quantized:
         # per-(head, token) int8 over D: the activation quantizer's arithmetic,
@@ -202,7 +216,8 @@ def attention_decode(q, cache: KVCache, length, window: int | None = None,
                      use_kernel: bool = True):
     """One decode step: q [B, 1, Hq, D] attends over cache[:, :, :length].
     length counts the valid entries INCLUDING the token being decoded (its
-    K/V already written at length - 1): an int or a per-row [B] tensor."""
+    K/V already written at length - 1): an int or a per-row [B] tensor.
+    With S > 1 tokens it is the verify attention (`attention_verify`)."""
     scale = q.shape[-1] ** -0.5
     lengths = _lengths(length, q.shape[0], q.device)
     if not use_kernel:
@@ -222,6 +237,17 @@ def attention_decode_ref(q, cache: KVCache, length, window, scale):
     return flash_decode_ref(q, k, v, length, scale=scale, window=window)
 
 
+# The verify step of speculative decoding (`eetq_tpu/modules/attention.py::
+# attention_verify`, :297-358): q [B, S, Hq, D], query token i at position
+# length - S + i attending causally over cache[:, :, :length], the S new
+# tokens' K/V already written. The flash-decode kernel and its plain version
+# take S > 1 with these semantics, so verify is decode with S tokens: token i
+# is bit-equal to a decode step at length - S + i + 1, the greedy exactness
+# of `serve/spec.py`.
+attention_verify = attention_decode
+attention_verify_ref = attention_decode_ref
+
+
 def attention(
     q: torch.Tensor,
     k_new: torch.Tensor,
@@ -230,32 +256,44 @@ def attention(
     offset,
     window: int | None = None,
     use_kernels: bool = True,
+    verify: bool = False,
 ) -> tuple[torch.Tensor, KVCache | PagedKVCache | None]:
     """Write K/V to the cache at `offset`, then attend: prefill when S > 1
     (offset the int 0; it attends over the unquantized new K/V, so only
     the cache holds int8), decode when S == 1 (offset an int, a [B] tensor
-    or the step's `DecodeAt`). cache is a KVCache, None, or a PagedKVCache
-    (decode only: prefill runs on a dense scratch and is handed off with
-    `paged_insert_rows`). use_kernels=False runs the plain versions.
-    Returns (out [B, S, Hq, D], cache)."""
+    or the step's `DecodeAt`), the verify step when verify=True and S > 1
+    (offset the [B] start positions, an int, or the round's `DecodeAt`:
+    token i at offset + i, attending causally over the cache). cache is a
+    KVCache, None, or a PagedKVCache (decode and verify: prefill runs on a
+    dense scratch and is handed off with `paged_insert_rows`).
+    use_kernels=False runs the plain versions. Returns (out [B, S, Hq, D],
+    cache)."""
     from eetq_tpu_torch.modules import paged  # at call time: it imports this module
 
     b, s = q.shape[:2]
-    if s == 1 and cache is not None and isinstance(offset, torch.Tensor):
-        offset = decode_at(cache, offset.reshape(-1).expand(b))
+    verify = verify and s > 1
+    if verify and cache is None:
+        raise ValueError("verify requires a KV cache")
+    if (cache is not None and not isinstance(offset, DecodeAt)
+            and (verify or (s == 1 and isinstance(offset, torch.Tensor)))):
+        start = torch.as_tensor(offset, device=q.device).reshape(-1).expand(b)
+        offset = decode_at(cache, start, s)
     length = offset.lengths if isinstance(offset, DecodeAt) else offset + 1
     if isinstance(cache, paged.PagedKVCache):
-        if s != 1:
+        if s != 1 and not verify:
             raise NotImplementedError(
-                "paged caches serve decode; prefill runs on the dense scratch and hands off "
-                "(the multi-token verify step over a paged cache is not ported yet)")
-        paged.paged_write(cache, k_new, v_new, offset)
+                "paged caches serve decode and verify; prefill runs on the dense scratch and "
+                "hands off")
+        if verify:
+            paged.paged_write_multi(cache, k_new, v_new, offset)
+        else:
+            paged.paged_write(cache, k_new, v_new, offset)
         out = paged.paged_attention_decode(q, cache, length, window=window,
                                            use_kernel=use_kernels)
         return out, cache
     if cache is not None:
         cache = update_cache(cache, k_new, v_new, offset)
-    if s == 1:
+    if s == 1 or verify:
         if cache is None:
             raise ValueError("decode requires a KV cache")
         out = attention_decode(q, cache, length, window=window, use_kernel=use_kernels)

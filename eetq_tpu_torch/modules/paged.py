@@ -1,7 +1,6 @@
 """Paged KV cache: a shared block pool and per-slot block tables.
 
-Port of `eetq_tpu/modules/paged.py` (all of it but the multi-token verify
-write and attention, which wait for speculative decoding). The dense engine
+Port of `eetq_tpu/modules/paged.py`. The dense engine
 cache preallocates [max_batch, max_len] rows per layer, so its memory is set
 by the worst-case context whatever the traffic. Paging allocates fixed-size
 blocks from a shared pool as sequences grow:
@@ -13,7 +12,10 @@ blocks from a shared pool as sequences grow:
   freed;
 - the decode kernel (`kernels.flash_decode.paged_flash_decode`) translates
   key positions through the table and reads only the blocks a row owns;
-- a decode step writes one token per row at (table[p // bs], :, p % bs).
+- a decode step writes one token per row at (table[p // bs], :, p % bs),
+  a speculative verify round S tokens a row (`paged_write_multi`), which
+  then attend through the same kernel's multi-query mode
+  (`paged_attention_verify`).
 
 Two things differ from the JAX package. The writes are IN PLACE
 (`index_put_`, as `modules.attention.update_cache`): nothing returns a new
@@ -45,8 +47,8 @@ from eetq_tpu_torch.modules.attention import DecodeAt, KVCache, _lengths, decode
 from eetq_tpu_torch.utils.device import resolve
 
 __all__ = [
-    "PagedKVCache", "init_paged_kv_cache", "paged_attention_decode", "paged_gather_dense",
-    "paged_insert_dense", "paged_write",
+    "PagedKVCache", "init_paged_kv_cache", "paged_attention_decode", "paged_attention_verify",
+    "paged_gather_dense", "paged_insert_dense", "paged_write", "paged_write_multi",
 ]
 
 
@@ -120,6 +122,22 @@ def paged_write(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return write_token(cache, pos.index, k_new[:, 0], v_new[:, 0])
 
 
+def paged_write_multi(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                      pos) -> PagedKVCache:
+    """Write S tokens per row, IN PLACE, at the logical positions pos ..
+    pos + S - 1 (the verify write of speculative decoding), each through the
+    table, a block edge wherever it falls. k_new/v_new [B, S, Hkv, D]; pos
+    an int, a [B] tensor or the round's `DecodeAt` (positions past the
+    table's last slot write that slot). One indexed write per leaf where
+    JAX's scatters S times (`eetq_tpu/modules/paged.py:128-141`). Returns
+    `cache`."""
+    if not isinstance(pos, DecodeAt):
+        b, s = k_new.shape[:2]
+        start = torch.as_tensor(pos, device=cache.k.device).reshape(-1).expand(b)
+        pos = decode_at(cache, start, s)
+    return write_token(cache, pos.index, k_new, v_new)
+
+
 def _as_blocks(leaf: torch.Tensor, n_blocks: int, bs: int) -> torch.Tensor:
     """Dense rows [R, Hkv, L(, D)] cut into [R * n_blocks, Hkv, bs(, D)]
     blocks of their first n_blocks * bs positions, zero-padded where the
@@ -178,7 +196,8 @@ def paged_attention_decode(q: torch.Tensor, cache: PagedKVCache, lengths,
     """One decode step over a paged cache. q [B, 1, Hq, D]; lengths an int
     or [B], the valid positions INCLUDING the token just written.
     use_kernel=False gathers the dense view and runs the plain decode
-    attention."""
+    attention. With S > 1 tokens it is the verify attention
+    (`paged_attention_verify`)."""
     scale = q.shape[-1] ** -0.5
     lengths = _lengths(lengths, q.shape[0], q.device)
     if not use_kernel:
@@ -192,3 +211,10 @@ def paged_attention_decode(q: torch.Tensor, cache: PagedKVCache, lengths,
                                        cache.table, lengths, scale=scale, window=window)
     return paged_flash_decode(q, cache.k, cache.v, cache.table, lengths, scale=scale,
                               window=window)
+
+
+# The verify attention over a paged cache (`eetq_tpu/modules/paged.py::
+# paged_attention_verify`, :144-171): q [B, S, Hq, D], lengths [B] the valid
+# positions INCLUDING the S verify tokens, token i at lengths - S + i, per-row
+# causal. The paged kernel's multi-query mode, or the gathered plain version.
+paged_attention_verify = paged_attention_decode

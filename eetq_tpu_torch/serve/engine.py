@@ -48,8 +48,21 @@ not depend on the window or the chain, and on the CPU they equal `prefill`
 followed by `decode_loop` with the same options (the property
 engine.py:21-22 states for JAX).
 
-Later work, which raises NotImplementedError here: `prefill_chunk`,
-`spec_ngram`, banked LoRA and a sharded model.
+With `spec_ngram=k` (1 <= k <= 7; engine.py:740-760, 1227-1291) a decode
+window runs n-gram speculative rounds instead of lock-step steps
+(`serve/spec.py::NgramWindow`): drafts matched against each row's prompt
+and output, one verify forward over k + 1 tokens a row, greedy acceptance,
+until every slot has its window. A round is one replay of a captured graph
+and one host fetch of the loop's condition. Spec windows run when the
+window is above 1 or a busy slot samples (its tokens come from the
+positional sampler, keyed by request and emission index, so its stream
+does not depend on the window); greedy window-1 steps take the plain
+program. The caches hold max_len + decode_window + 2k + 1 positions a row
+(`_kv_len`): the verify writes of a window reach that far past a row's
+length, and no write may be clamped onto committed KV.
+
+Later work, which raises NotImplementedError here: `prefill_chunk`, banked
+LoRA and a sharded model.
 """
 
 from __future__ import annotations
@@ -66,7 +79,8 @@ from eetq_tpu_torch.models.transformer import ModelParams, forward_inner, init_c
 from eetq_tpu_torch.modules.linear import QuantLinear
 from eetq_tpu_torch.modules.paged import init_paged_kv_cache, paged_insert_rows
 from eetq_tpu_torch.serve.graph import StepGraph
-from eetq_tpu_torch.serve.sampling import rng_state, sample_rows
+from eetq_tpu_torch.serve.sampling import row_keys, rng_state, sample_rows
+from eetq_tpu_torch.serve.spec import NgramWindow
 from eetq_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -124,8 +138,9 @@ class Engine:
     ):
         if cfg is None:
             raise NotImplementedError("a sharded model has no engine backend in the port yet")
-        if spec_ngram is not None:
-            raise NotImplementedError("n-gram speculative decoding is not ported yet")
+        if spec_ngram is not None and not 1 <= spec_ngram <= 7:
+            raise ValueError("spec_ngram must be in [1, 7] (the k + 1-token verify must stay "
+                             "in the m <= 8 decode regime)")
         if prefill_chunk is not None:
             raise NotImplementedError("chunked prefill is not ported yet")
         self.device = params.embed.device
@@ -156,6 +171,13 @@ class Engine:
         self.buckets = tuple(sorted(b for b in prompt_buckets if b <= self.max_len)) or (
             self.max_len,)
         self.kv_dtype = kv_dtype
+        self.spec_ngram = spec_ngram
+        # the caches' positions a row: a speculative window's verify writes
+        # reach lengths + window + 2k past a row's length (spec_generate's
+        # slack s + new + 2k + 1, plus the window's advance); requests are
+        # still budgeted against max_len
+        self._kv_len = self.max_len + (
+            self.decode_window + 2 * spec_ngram + 1 if spec_ngram else 0)
         self.paged = paged_blocks is not None
         if self.paged:
             bs = paged_block_size
@@ -164,7 +186,7 @@ class Engine:
             if bs > -(-self.max_len // 128) * 128:
                 raise ValueError(f"paged_block_size {bs} exceeds the (rounded) max_len")
             self.paged_bs = bs
-            self._max_seq_blocks = -(-self.max_len // bs)
+            self._max_seq_blocks = -(-self._kv_len // bs)
             # the host's copy of the block table, and the one device table
             # every layer's cache holds
             self._table_np = np.zeros((max_batch, self._max_seq_blocks), np.int32)
@@ -181,7 +203,7 @@ class Engine:
             self._free_blocks = list(range(paged_blocks - 1, 0, -1))
             self._slot_blocks: list[list[int]] = [[] for _ in range(max_batch)]
         else:
-            self.caches = init_caches(cfg, max_batch, self.max_len, self.device, kv_dtype)
+            self.caches = init_caches(cfg, max_batch, self._kv_len, self.device, kv_dtype)
         self._scratch = None  # reused prefill scratch caches
         self._scratch_len = 0
         self.topk_cap = int(topk_cap)
@@ -191,6 +213,11 @@ class Engine:
         self._state = torch.zeros((3, max_batch), dtype=torch.int64, device=self.device)
         self._temps = torch.zeros((max_batch,), dtype=torch.float32, device=self.device)
         self._programs: dict[tuple[int, bool], tuple[StepGraph, torch.Tensor]] = {}
+        # the speculative windows' programs, by (window, sampled); their
+        # sampler keys each request's draws by (seed, uid) and emission index
+        self._spec_programs: dict[tuple[int, bool], NgramWindow] = {}
+        self._spec_seed = (seed * 0x9E3779B1 + 0x5BEC) & 0xFFFFFFFF
+        self.spec_rounds = self.spec_tokens = 0  # verify rounds run, tokens they committed
         self._uid = itertools.count()
         self.queue: deque[Request] = deque()
         self.requests: dict[int, Request] = {}
@@ -267,8 +294,11 @@ class Engine:
         normal scheduler before real traffic, then forget those requests;
         slot and cache state is garbage that slot reuse overwrites. Then
         make sure both decode programs (window 1 and the full window) are
-        captured, as JAX's warmup compiles both (engine.py:906-946).
-        temperature > 0 does all of it for the sampled programs."""
+        captured, as JAX's warmup compiles both (engine.py:906-946), or with
+        spec_ngram those the serving loop runs: the greedy window-1 program
+        and the full spec window, or for temperature > 0 the sampled spec
+        windows of both sizes. temperature > 0 does all of it for the
+        sampled programs."""
         assert not self.has_work, "warmup() requires an idle engine"
         kw = dict(temperature=temperature,
                   top_k=min(8, self.topk_cap) if temperature > 0 else 0)
@@ -291,8 +321,15 @@ class Engine:
         self._sync_tables()
         self._state.zero_()
         self._state[1].fill_(1)
+        sample = temperature > 0
         for window in sorted({1, self.decode_window}):
-            self._program(window, temperature > 0)[0].prepare()
+            if self._spec_window(window, sample):
+                prog = self._spec_program(window, sample)
+                prog.load(np.zeros(prog.hist.shape, np.int64), np.full(self.max_batch, 2),
+                          np.zeros(self.max_batch, np.int64), np.ones(self.max_batch, np.int64))
+                prog.graph.prepare()
+            else:
+                self._program(window, sample)[0].prepare()
 
     @property
     def has_work(self) -> bool:
@@ -462,6 +499,59 @@ class Engine:
             self._programs[key] = StepGraph(torch.inference_mode()(run), self.device), out
         return self._programs[key]
 
+    def _spec_window(self, window: int, sample: bool) -> bool:
+        """Whether a window runs speculative rounds: with spec_ngram, a
+        window above 1 or one where a slot samples."""
+        return self.spec_ngram is not None and (window > 1 or sample)
+
+    def _spec_program(self, window: int, sample: bool) -> NgramWindow:
+        """The speculative window of `window` tokens a slot over all slots
+        (`_spec_decode_window`, engine.py:1227-1291)."""
+        key = (window, sample)
+        if key not in self._spec_programs:
+            k = self.spec_ngram
+            self._spec_programs[key] = NgramWindow(
+                self.params, self.cfg, self.caches, self.max_batch,
+                self.max_len + window + 2 * k + 2, window, k, self.device, sampled=sample,
+                topk_cap=self.topk_cap if sample else 0)
+        return self._spec_programs[key]
+
+    def _spec_decode(self, active: list[int], window: int, temps: np.ndarray,
+                     topks: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """One speculative window over all slots. The history each row's
+        drafts match is its committed prompt and output, rebuilt on the host
+        and uploaded with the window's inputs. Returns (tokens [max_batch,
+        window], counts [max_batch]), the window's host fetch."""
+        k = self.spec_ngram
+        sample = bool(temps.any())
+        if self.paged:
+            # the rounds write KV up to lengths + window - 1 + k for every
+            # committed position: blocks for all of it, so no accepted
+            # token's KV lands in the trash block
+            for i in active:
+                self._alloc_blocks(i, int(self.lengths[i]) + window + k + 1)
+            self._sync_tables()
+        prog = self._spec_program(window, sample)
+        hist = np.zeros(prog.hist.shape, np.int64)
+        valid = np.full((self.max_batch,), 2, np.int64)
+        uids = np.zeros((self.max_batch,), np.int64)
+        emit0 = np.zeros((self.max_batch,), np.int64)
+        for i in active:
+            req = self.slot_req[i]
+            toks = req.prompt + req.out_tokens
+            hist[i, :len(toks)] = toks
+            valid[i] = len(toks)  # == lengths[i] + 1
+            uids[i] = req.uid
+            emit0[i] = len(req.out_tokens)
+        sample_args = ()
+        if sample:
+            keys = row_keys(self._spec_seed, torch.as_tensor(uids))
+            sample_args = (emit0, keys, temps, topks)
+        prog.load(hist, valid, self.next_token, np.maximum(self.lengths, 1), *sample_args)
+        out, counts, rounds = prog.run()
+        self.spec_rounds += rounds
+        return out.cpu().numpy(), counts.cpu().numpy()
+
     def _decode(self, window: int, chain: int, temps: np.ndarray, topks: np.ndarray) -> np.ndarray:
         """`chain` windows of `window` lock-step steps over all slots, each
         slot's current token at position lengths (inactive slots at 1, never
@@ -511,6 +601,18 @@ class Engine:
         # chain windows when no retirement can surprise the host: the batch
         # full, the queue empty and no eos to meet; the shortest remaining
         # budget bounds the chain
+        if self._spec_window(window, bool(temps.any())):
+            toks, counts = self._spec_decode(active, window, temps, topks)
+            for i in active:
+                for j in range(int(counts[i])):
+                    if self.slot_req[i] is None:
+                        break  # finished mid-window: the rest is garbage
+                    tok = int(toks[i, j])
+                    self.lengths[i] += 1
+                    self.next_token[i] = tok
+                    self.spec_tokens += 1
+                    self._commit(i, tok)
+            return
         chain = 1
         if (window > 1 and not self.queue and self._free_slot() is None
                 and all(self.slot_req[i].eos_token_id is None for i in active)):

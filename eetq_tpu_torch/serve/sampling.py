@@ -12,6 +12,14 @@ a CUDA graph that captured it draws anew on every replay, and the CPU and
 the card give the same noise from the same state. The numbers differ from
 JAX's (another generator): tests compare properties of sampled streams,
 never their tokens.
+
+The positional sampler of speculative decoding (`eetq_tpu/serve/spec.py::
+_sample_pos`, `_sample_pos_rows`; the engine's `_spec_row_keys`) keys its
+noise by position, not by draw order: the token of (row, emission index)
+comes from a hash of (the row's key, the index, the vocabulary entry), the
+row's key a hash of (seed, row) or (seed, request). A sequential decode and
+a speculative decode that evaluate the same (row, index) draw the same
+token, so a draft is accepted exactly when it equals the target's draw.
 """
 
 from __future__ import annotations
@@ -91,3 +99,52 @@ def sample_rows(logits: torch.Tensor, temps: torch.Tensor, topks: torch.Tensor, 
         scaled = scaled.masked_fill((topks[:, None] > 0) & (scaled < kth), float("-inf"))
     drawn = torch.argmax(scaled + gumbel(rng, tuple(scaled.shape)), dim=-1)
     return torch.where(temps > 0, drawn, greedy)
+
+
+def row_keys(seed: int, rows: torch.Tensor) -> torch.Tensor:
+    """The positional sampler's 32-bit key of each row [B] int64: a hash of
+    (seed, row id), the row's index in a batch or, in the engine, its
+    request's uid."""
+    return _hash32(_hash32(torch.full_like(rows, seed & _M32)) ^ (rows & _M32))
+
+
+def positional_gumbel(keys: torch.Tensor, emit_idx: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Gumbel noise [B, S, vocab] (f32) of emission indices emit_idx [B, S]
+    of rows with keys [B]: a function of (key, index, entry) alone."""
+    key = _hash32(_hash32(keys[:, None]) ^ (emit_idx & _M32))[..., None]  # [B, S, 1]
+    idx = torch.arange(vocab, dtype=torch.int64, device=keys.device)
+    h = _hash32(_hash32(idx ^ key) ^ key)
+    return -torch.log(-torch.log(_uniform(h)))
+
+
+def sample_pos(logits: torch.Tensor, emit_idx: torch.Tensor, keys: torch.Tensor,
+               temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
+    """Positional sampling: logits [B, S, V], emit_idx [B, S], keys [B] ->
+    tokens [B, S] int64; argmax when temperature == 0, else the Gumbel-max
+    draw of (row key, emission index) from softmax(logits / temperature)
+    over the top_k largest (all when top_k == 0): `sample_pos_rows` with
+    every row at one temperature and top_k, so both draw the same token."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    b, dev = logits.shape[0], logits.device
+    return sample_pos_rows(logits, emit_idx, keys,
+                           torch.full((b,), temperature, dtype=torch.float32, device=dev),
+                           torch.full((b,), top_k, dtype=torch.int64, device=dev), top_k)
+
+
+def sample_pos_rows(logits: torch.Tensor, emit_idx: torch.Tensor, keys: torch.Tensor,
+                    temps: torch.Tensor, topks: torch.Tensor, topk_cap: int) -> torch.Tensor:
+    """Per-row mixed greedy/sampled positional sampling (the engine's
+    speculative windows): logits [B, S, V]; emit_idx [B, S] per-request
+    emission indices; keys [B] per-request keys (`row_keys` of the uid);
+    temps [B] (0 = greedy row); topks [B] (0 = no filter) under topk_cap,
+    as `sample_rows`. Returns [B, S] int64."""
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits.float() / temps.clamp(min=1e-6)[:, None, None]
+    if topk_cap > 0:
+        vals = torch.topk(scaled, topk_cap, dim=-1).values
+        idx = (topks.long() - 1).clamp(0, topk_cap - 1)[:, None, None].expand(-1, scaled.shape[1], 1)
+        kth = vals.gather(2, idx)
+        scaled = scaled.masked_fill((topks[:, None, None] > 0) & (scaled < kth), float("-inf"))
+    drawn = torch.argmax(scaled + positional_gumbel(keys, emit_idx, scaled.shape[-1]), dim=-1)
+    return torch.where(temps[:, None] > 0, drawn, greedy)

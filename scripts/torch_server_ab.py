@@ -67,8 +67,8 @@ its four entry points at the main paths' shapes (the two paged engines'
 Mixtral's, generate's b=4 request, the default engine's 8-slot step over a
 2048-key int8 cache), each beside its byte bound, in the order
 DIR, here, here, DIR, where DIR's flash-decode takes this tree's ABI (a copy
-with one change) or the older split ABI (its split plan is repeated by the
-launcher that calls it); then (not with `--kernels-only`) one 8-slot
+with one change) or the one-token ABI before the multi-query mode (the
+launcher drops the count of query tokens); then (not with `--kernels-only`) one 8-slot
 step of llama2-7b W8A16's paged and default engines and of the W4A16 g=128
 Mixtral's paged int8 engine through either tree's flash-decode: wall ms in
 turns, device busy and launches profiled once per tree.
@@ -570,35 +570,22 @@ def _gemv_kernel_ab(gen, dev, trees, rounds: int, flush) -> None:
                {**a_bounds, **b_bounds})
 
 
-def _split_abi_launcher(lib, what: str):
+def _s_less_launcher(lib, what: str):
     """A stand-in for `_build.launch` that sends the flash-decode entry
-    points to `lib`, a library whose flash-decode takes the older split ABI
-    (a split kernel and a combine kernel; f32 (part_o, part_ml) scratch made
-    per call; `splits` key ranges of `split_len` keys sized by the cache's
-    capacity: its wrapper's plan, repeated here), and everything else to this
-    tree's library."""
-    import torch
-
+    points to `lib`, a library whose flash-decode takes no count of query
+    tokens (the one-token ABI before the multi-query mode: S = 1 calls
+    only), and everything else to this tree's library."""
     from eetq_tpu_torch.kernels import _build
-    from eetq_tpu_torch.kernels.autotune import sm_count
 
     launch_here = _build.launch
 
     def launch(name, *args):
         if name not in DECODE_ENTRIES:
             return launch_here(name, *args)
-        at, ints = _decode_ints(name, args)  # (part_o, part_ml) there at `at`
-        b, hq, hkv, d = ints[0], ints[1], ints[2], ints[-2]
-        cap, step = (ints[3] * ints[4], 32) if "paged" in name else (ints[3], 1)
-        dev = torch.cuda.current_device()
-        ns = max(1, min(-(-2 * sm_count(dev) // (b * hkv)), -(-cap // 64)))
-        split_len = -(-cap // (ns * step)) * step
-        splits = -(-cap // split_len)
-        rows = b * hkv * splits * (hq // hkv)
-        part_o = torch.empty(rows * d, dtype=torch.float32, device=dev)
-        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=dev)
-        rc = getattr(lib, name)(*args[:at], part_o.data_ptr(), part_ml.data_ptr(), *ints[:-1],
-                                splits, split_len, *args[-2:])
+        at, ints = _decode_ints(name, args)
+        if ints[1] != 1:
+            raise ValueError(f"{what}'s flash-decode takes one query token a row")
+        rc = getattr(lib, name)(*args[:at + 3], *args[at + 4:])  # without S (after b)
         if rc != 0:
             raise RuntimeError(f"{name} of {what} failed: CUDA error {rc}")
 
@@ -606,8 +593,8 @@ def _split_abi_launcher(lib, what: str):
 
 
 def _decode_ints(name: str, args) -> tuple[int, tuple]:
-    """(index of the partials pointer, the int arguments b, hq, hkv, l (or
-    max_blocks, bs), d, chunk) of a flash-decode C call."""
+    """(index of the partials pointer, the int arguments b, s, hq, hkv, l
+    (or max_blocks, bs), d, chunk) of a flash-decode C call."""
     at = 5 + 2 * ("int8" in name) + ("paged" in name)
     return at, args[at + 2:-2]
 
@@ -625,10 +612,10 @@ def _chunk_launcher(chunk: int):
         if name not in DECODE_ENTRIES:
             return launch_here(name, *args)
         at, ints = _decode_ints(name, args)
-        b, hq, hkv, d = ints[0], ints[1], ints[2], ints[-2]
-        cap = ints[3] * ints[4] if "paged" in name else ints[3]
+        b, s, hq, hkv, d = ints[0], ints[1], ints[2], ints[3], ints[-2]
+        cap = ints[4] * ints[5] if "paged" in name else ints[4]
         chunks = -(-cap // chunk)
-        floats = b * hkv * chunks * (hq // hkv) * (d + 2) if chunks > 1 else 0
+        floats = b * hkv * chunks * (hq // hkv) * s * (d + 2) if chunks > 1 else 0
         part, ctr = _build.scratch("decode", torch.device("cuda", torch.cuda.current_device()),
                                    floats, b * hkv)
         return launch_here(name, *args[:at], part, ctr, *ints[:-1], chunk, *args[-2:])
@@ -706,7 +693,7 @@ def _decode_report(res: dict, bounds: dict) -> None:
 
 def decode_ab(other_dir: str, rounds: int, models: bool = True) -> int:
     """`--kernels-of DIR --decode-only`: the flash-decode of this tree against
-    that of the checkout in DIR (this tree's ABI, or the older split ABI) in
+    that of the checkout in DIR (this tree's ABI, or the one-token ABI) in
     turns, at the main paths' shapes; then (unless models=False), through
     either tree's flash-decode, one 8-slot step of llama2-7b W8A16's paged
     (bf16 pool) and default (dense int8 cache) engines and of Mixtral-8x7B
@@ -730,7 +717,7 @@ def decode_ab(other_dir: str, rounds: int, models: bool = True) -> int:
           f"{here['seconds']:.1f} s (cached: {here['cached']})")
     same_abi = arity["eetq_flash_decode"] == len(_build.SIGNATURES["eetq_flash_decode"])
     trees = {"other": (_launcher(other, arity, DECODE_ENTRIES, other_dir) if same_abi
-                       else _split_abi_launcher(other, other_dir)), "here": _build.launch}
+                       else _s_less_launcher(other, other_dir)), "here": _build.launch}
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     flush = torch.ones(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     with torch.inference_mode():

@@ -1,9 +1,12 @@
 """The port's attention against the JAX package: prefill against the
 Pallas flash-attention kernel (interpret mode on the CPU), decode against
-`attention_decode_ref`, and the in-place cache update against JAX's."""
+`attention_decode_ref`, the in-place cache update against JAX's, and the
+multi-query verify of speculative decoding against JAX's multi-query
+`flash_decode` (interpret mode) and `attention_verify_ref`."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,11 +14,12 @@ import torch
 
 from eetq_tpu.kernels.flash_attention import flash_attention as jax_flash_attention
 from eetq_tpu_torch.kernels.flash_attention import flash_attention
-from eetq_tpu_torch.kernels.flash_decode import flash_decode
+from eetq_tpu_torch.kernels.flash_decode import dequantize_kv, flash_decode
 from eetq_tpu_torch.modules.attention import (
     attention,
     attention_decode,
     attention_prefill,
+    attention_verify,
     init_kv_cache,
     update_cache,
 )
@@ -135,3 +139,114 @@ def test_attention_prefill_then_decode_matches_jax():
     with pytest.raises(NotImplementedError):
         attention(q_t[:, :2], k_t[:, :2], v_t[:, :2], cache_t, 4)  # chunked prefill
 
+
+
+# ---- the multi-query (S > 1) verify mode of speculative decoding ----
+
+def _old_decode_ref(q, k, v, lengths, scale):
+    """The plain decode attention before it took S > 1: every query row
+    masked by pos < length (right for S = 1 only)."""
+    b, s, hq, d = q.shape
+    hkv, l = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bskgd,bkld->bkgsl", qg, k.float()) * scale
+    mask = torch.arange(l).reshape(1, 1, 1, 1, l) < torch.as_tensor(lengths).reshape(-1, 1, 1, 1, 1)
+    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    out = torch.einsum("bkgsl,bkld->bskgd", probs, v.float())
+    return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def _verify_case(rng, s, hq, hkv, lengths, int8, l=128):
+    """A query of S tokens a row and one cache in both packages (bf16, or
+    quantized to int8 by each package's own writer from the same values)."""
+    b = len(lengths)
+    q_j, q_t = _both(rng.standard_normal((b, s, hq, D)).astype(np.float32))
+    k_j, k_t = _both(rng.standard_normal((b, l, hkv, D)).astype(np.float32))
+    v_j, v_t = _both(rng.standard_normal((b, l, hkv, D)).astype(np.float32))
+    jdt, tdt = (jnp.int8, torch.int8) if int8 else (jnp.bfloat16, torch.bfloat16)
+    # JAX quantizes inside its jitted forwards (tests/test_torch_kv_int8.py)
+    cache_j = jax.jit(jax_attn.update_cache)(jax_attn.init_kv_cache(b, l, hkv, D, dtype=jdt),
+                                             k_j, v_j, jnp.int32(0))
+    cache_t = update_cache(init_kv_cache(b, l, hkv, D, device="cpu", dtype=tdt), k_t, v_t, 0)
+    return q_j, q_t, cache_j, cache_t
+
+
+VERIFY_CASES = [(2, 4, 2, [5, 128]), (3, 4, 4, [3, 70]), (8, 8, 2, [9, 64, 127])]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("s,hq,hkv,lengths", VERIFY_CASES, ids=["S2-gqa", "S3-mha", "S8-gqa"])
+def test_multiquery_decode_ref_matches_jax(s, hq, hkv, lengths, int8):
+    """The plain flash-decode with S > 1 query tokens is per-row causal
+    (token i at length - S + i): against JAX's multi-query `flash_decode`
+    (interpret mode) and its `attention_verify_ref`, per-row lengths, GQA,
+    bf16 and int8 caches. The decode mask it had before (every token sees
+    the whole prefix) is far off. One bf16 ulp against the oracle, a few
+    against the Pallas kernel (it rounds q * scale and p to bf16)."""
+    from eetq_tpu.kernels.flash_decode import flash_decode as jax_flash_decode
+
+    rng = np.random.default_rng(s + hq)
+    q_j, q_t, cache_j, cache_t = _verify_case(rng, s, hq, hkv, lengths, int8)
+    lens = np.array(lengths, np.int32)
+    got = attention_verify(q_t, cache_t, torch.from_numpy(lens))
+    assert got.shape == (len(lengths), s, hq, D)
+    oracle = jax_attn.attention_verify_ref(q_j, cache_j, jnp.asarray(lens), None, D ** -0.5)
+    np.testing.assert_allclose(got.float().numpy(), _np(oracle), rtol=2**-7, atol=2**-8)
+    kern = jax_flash_decode(q_j, cache_j, jnp.asarray(lens), scale=D ** -0.5, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), _np(kern), rtol=0, atol=2**-6)
+    k, v = cache_t.k, cache_t.v
+    if int8:
+        k, v = dequantize_kv(k, cache_t.k_scale), dequantize_kv(v, cache_t.v_scale)
+    old = _old_decode_ref(q_t, k, v, lens, D ** -0.5)
+    assert (old.float() - got.float()).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_single_query_decode_ref_unchanged(int8):
+    """S = 1 results are those of the decode mask, bit for bit."""
+    rng = np.random.default_rng(4)
+    _, q_t, _, cache_t = _verify_case(rng, 1, 8, 2, [1, 77, 128], int8)
+    lens = torch.tensor([1, 77, 128], dtype=torch.int32)
+    k, v = cache_t.k, cache_t.v
+    if int8:
+        k, v = dequantize_kv(k, cache_t.k_scale), dequantize_kv(v, cache_t.v_scale)
+    assert torch.equal(attention_decode(q_t, cache_t, lens), _old_decode_ref(q_t, k, v, lens,
+                                                                             D ** -0.5))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_multiquery_rows_equal_sequential_single_queries(int8):
+    """Token i of an S-token call against an S = 1 call at length - S + i + 1
+    on the same cache (the plain versions: one bf16 ulp; the CUDA kernel is
+    held to bit-equality in tests/test_torch_gpu.py); a token that sees no
+    key gives zeros, as the kernels do."""
+    rng = np.random.default_rng(5)
+    s = 5
+    _, q_t, _, cache_t = _verify_case(rng, s, 8, 2, [64, 6, 3], int8)
+    lens = torch.tensor([64, 6, 3], dtype=torch.int32)
+    out = attention_verify(q_t, cache_t, lens)
+    for i in range(s):
+        one = attention_decode(q_t[:, i:i + 1], cache_t, (lens - s + i + 1).clamp(min=0))
+        keep = (lens - s + i + 1) > 0
+        torch.testing.assert_close(out[keep, i:i + 1], one[keep], rtol=2**-7, atol=2**-8)
+        assert not out[~keep, i].any()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_attention_verify_writes_and_attends_as_jax(int8):
+    """`attention(verify=True)`: S tokens a row written at per-row offsets
+    and attended causally, the cache and the output as JAX's."""
+    rng = np.random.default_rng(6)
+    s, l = 4, 128
+    off = np.array([9, 60], np.int32)
+    q_j, q_t, cache_j, cache_t = _verify_case(rng, s, HQ, HKV, [l, l], int8, l)
+    k_j, k_t = _both(rng.standard_normal((B, s, HKV, D)).astype(np.float32))
+    v_j, v_t = _both(rng.standard_normal((B, s, HKV, D)).astype(np.float32))
+    o_j, cache_j = jax.jit(jax_attn.attention, static_argnames=("verify", "decode_kernel"))(
+        q_j, k_j, v_j, cache_j, jnp.asarray(off), verify=True, decode_kernel=False)
+    o_t, same = attention(q_t, k_t, v_t, cache_t, torch.from_numpy(off), verify=True)
+    assert same is cache_t
+    np.testing.assert_array_equal(cache_t.k.float().numpy(), _np(cache_j.k))
+    if int8:
+        np.testing.assert_array_equal(cache_t.k_scale.numpy(), np.asarray(cache_j.k_scale))
+    np.testing.assert_allclose(o_t.float().numpy(), _np(o_j), rtol=2**-7, atol=2**-8)

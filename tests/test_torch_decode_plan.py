@@ -112,3 +112,15 @@ def test_the_kernel_is_compiled_with_the_plan_units():
     assert f"-DEETQ_DECODE_MAX_CHUNKS={DECODE_MAX_CHUNKS}" in defines
     assert 128 % DECODE_TILE == 0 and DECODE_CHUNK % DECODE_TILE == 0
     assert DECODE_MAX_CHUNK % DECODE_TILE == 0 and DECODE_CHUNK <= DECODE_MAX_CHUNK
+
+
+@pytest.mark.parametrize("b,hkv,group", [(1, 32, 1), (8, 8, 4), (4, 8, 8)])
+@pytest.mark.parametrize("s", [2, 3, 8])
+@pytest.mark.parametrize("cap", CAPACITIES)
+def test_query_tokens_widen_only_the_scratch(b, hkv, group, s, cap):
+    """An S-token verify plans G * S query rows a kv head: the chunks are
+    those of the S = 1 call (so S sequential S = 1 calls cut the cache as
+    one S-token call does) and the scratch holds a state for every row."""
+    one, many = decode_plan(b, hkv, group, cap, D), decode_plan(b, hkv, group * s, cap, D)
+    assert (many.chunk, many.chunks, many.counters) == (one.chunk, one.chunks, one.counters)
+    assert many.floats == s * one.floats

@@ -148,7 +148,7 @@ def test_overflow_and_unported_options_rejected(params):
         eng.add_request([1, 2], 4, temperature=0.7, top_k=eng.topk_cap + 1)
     with pytest.raises(NotImplementedError):
         eng.add_request([1, 2], 4, lora_id=1)
-    for kw in (dict(spec_ngram=3), dict(prefill_chunk=8)):
+    for kw in (dict(prefill_chunk=8),):
         with pytest.raises(NotImplementedError):
             Engine(params, CFG, max_batch=2, max_len=64, **kw)
     with pytest.raises(NotImplementedError):  # a sharded model (no cfg)

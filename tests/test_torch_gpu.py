@@ -488,6 +488,71 @@ def test_flash_decode_repeats_bit_equal(dev, mode, b, hq, hkv, d, lengths):
     _close(out, ref())
 
 
+def _decode_fns(g, dev, mode, b, hq, hkv, d, l=2048, bs=256):
+    """(kernel(q, lengths), plain(q, lengths)) of one flash-decode entry
+    point on random caches of l keys a row (paged: pools of bs-key blocks
+    behind a permuted table), for q of any S."""
+    int8, paged = "int8" in mode, mode.startswith("paged")
+    shape = (b * l // bs + 3, hkv, bs, d) if paged else (b, hkv, l, d)
+    caches = [torch.randn(shape, generator=g, device=dev) for _ in range(2)]
+    if int8:
+        (k, ks), (v, vs) = (quantize_activations(t) for t in caches)
+        caches = (k, v, ks, vs)
+    else:
+        caches = tuple(t.to(torch.bfloat16) for t in caches)
+    if paged:
+        table = torch.randperm(shape[0], generator=g, device=dev)[:b * (l // bs)].reshape(
+            b, l // bs).to(torch.int32).contiguous()
+        caches = caches + (table,)
+        kernel, ref = ((paged_flash_decode_int8, paged_flash_decode_int8_ref) if int8
+                       else (paged_flash_decode, paged_flash_decode_ref))
+    else:
+        kernel, ref = ((flash_decode_int8, flash_decode_int8_ref) if int8
+                       else (flash_decode, flash_decode_ref))
+    return (lambda q, n: kernel(q, *caches, n)), (lambda q, n: ref(q, *caches, n))
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("s", [2, 3, 8])
+@pytest.mark.parametrize("group", [1, 4])
+def test_multiquery_flash_decode_bit_equal_to_sequential_calls(dev, mode, s, group):
+    """S query tokens a row (the verify of speculative decoding): within the
+    plain version's tolerance, repeats bit-equal, and token i bit-equal to
+    an S = 1 call at length - S + i + 1 (the same chunks, tiles and order).
+    Rows end across a chunk edge (255, 256, 257 + S), beside a row whose
+    first token sees one key, a row of the whole cache, and a row shorter
+    than S whose first tokens see no key (zeros, as S = 1 calls at length 0
+    give)."""
+    g = torch.Generator(device=dev).manual_seed(10 * s + group)
+    hkv = 8
+    kernel, ref = _decode_fns(g, dev, mode, 6, hkv * group, hkv, 128)
+    q = torch.randn(6, s, hkv * group, 128, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([255 + s, 256 + s, 257 + s, s, 2048, 1], dtype=torch.int32,
+                           device=dev)
+    out = _twice(lambda: kernel(q, lengths))
+    assert out.shape == q.shape
+    _close(out, ref(q, lengths))
+    for i in range(s):
+        one = kernel(q[:, i:i + 1].contiguous(), lengths - s + i + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, i:i + 1], one), i
+    assert not out[5, :s - 1].any()
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+def test_multiquery_flash_decode_mixtral_rows(dev, mode):
+    """Mixtral's GQA 32/8 at S = 8: 32 query rows a kv head, two M tiles
+    over each staged tile; bit-equal to sequential calls."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    kernel, ref = _decode_fns(g, dev, mode, 2, 32, 8, 128)
+    q = torch.randn(2, 8, 32, 128, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([1074, 517], dtype=torch.int32, device=dev)
+    out = _twice(lambda: kernel(q, lengths))
+    _close(out, ref(q, lengths))
+    for i in range(8):
+        assert torch.equal(out[:, i:i + 1], kernel(q[:, i:i + 1].contiguous(), lengths - 7 + i))
+
+
 @pytest.mark.parametrize("mode", DECODE_MODES)
 @pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
 def test_flash_decode_long_rows_beside_rows_of_one_key(dev, mode, hq, hkv):
@@ -745,12 +810,13 @@ def test_unsupported_variants_raise(dev):
         flash_attention(q, q, q, window=2)
     cache = torch.zeros(1, 2, 128, 128, dtype=torch.bfloat16, device=dev)
     lengths = torch.ones(1, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):  # multi-query decode
-        flash_decode(q, cache, cache, lengths)
+    wide = torch.zeros(1, 9, 16, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):  # 8 q heads x 9 tokens: 72 query rows a kv head
+        flash_decode(wide, cache, cache, lengths)
     i8 = torch.zeros(1, 2, 128, 128, dtype=torch.int8, device=dev)
     sc = torch.ones(1, 2, 128, device=dev)
-    with pytest.raises(NotImplementedError):  # multi-query int8 decode
-        flash_decode_int8(q, i8, i8, sc, sc, lengths)
+    with pytest.raises(NotImplementedError):  # the same over an int8 cache
+        flash_decode_int8(wide, i8, i8, sc, sc, lengths)
     with pytest.raises(TypeError):  # a bf16 cache handed to the int8 kernel
         flash_decode_int8(q[:, :1], cache, cache, sc, sc, lengths)
     xq = torch.zeros(1, 128, dtype=torch.int8, device=dev)
@@ -782,8 +848,8 @@ def test_unsupported_variants_raise(dev):
         w8a16_expert_gemv(x, bank4.data, torch.ones(2, 128, device=dev), ids, 128)
     pool = torch.zeros(4, 2, 128, 128, dtype=torch.bfloat16, device=dev)
     table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):  # multi-query decode over a paged cache
-        paged_flash_decode(q, pool, pool, table, lengths)
+    with pytest.raises(NotImplementedError):  # 72 query rows a kv head over a paged cache
+        paged_flash_decode(wide, pool, pool, table, lengths)
     with pytest.raises(NotImplementedError):  # sliding window over a paged cache
         paged_flash_decode(q[:, :1], pool, pool, table, lengths, window=64)
     with pytest.raises(TypeError):  # an int64 table
@@ -1072,3 +1138,150 @@ def test_tied_head_makes_no_f32_copy_of_the_table(dev):
     assert peak < v * h * 4 // 4, peak
     ref = x.float() @ embed.float().T
     torch.testing.assert_close(logits, ref, rtol=1e-5, atol=1e-5)
+
+
+LLAMA_GEMV_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("bits,group", [(8, None), (4, 128), (4, None)],
+                         ids=["int8", "int4-g128", "int4"])
+@pytest.mark.parametrize("k,n", LLAMA_GEMV_SHAPES)
+def test_gemv_rows_bit_equal_to_single_rows(dev, bits, group, k, n):
+    """Row i of an m = 8 GEMV (a b=1 verify of k = 7 drafts) is bit-equal to
+    an m = 1 call on that row (a decode step), with and without the RMSNorm
+    prologue: the same K split at both m (`gemv_splits` takes m in its
+    shared-memory term), rows of x the MMA's N. Greedy speculation is exact
+    because of it."""
+    g = torch.Generator(device=dev).manual_seed(k + n + bits)
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    assert (gemv_splits(data.shape[0], -(-n // GEMV_BLOCK_N), 1, bits, 1, group or 0,
+                        sm_count(dev.index))
+            == gemv_splits(data.shape[0], -(-n // GEMV_BLOCK_N), 1, bits, 8, group or 0,
+                           sm_count(dev.index)))
+    scales = _scales(g, dev, k, n, group)
+    gamma = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev)
+    x = torch.randn(8, k, generator=g, device=dev).to(torch.bfloat16)
+    gemv = w4a16_gemv if bits == 4 else w8a16_gemv
+    for norm in (None, gamma):
+        out = gemv(x, data, scales, n, None, norm, 1e-5)
+        for i in range(8):
+            assert torch.equal(out[i:i + 1], gemv(x[i:i + 1].contiguous(), data, scales, n, None,
+                                                  norm, 1e-5)), i
+
+
+@pytest.mark.parametrize("fused", [fused_mlp_gemv, fused_mlp_gemv_i4], ids=["int8", "int4"])
+def test_fused_mlp_rows_bit_equal_to_single_rows(dev, fused):
+    """The same for the fused MLP at llama2-7b's shape (bench.py's decode
+    configuration under speculation), with the residual."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    k, i, n = 4096, 11008, 4096
+    bits = 4 if fused is fused_mlp_gemv_i4 else 8
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    gu = pack_weights(torch.randint(lo, hi, (k, 2 * i), generator=g, device=dev,
+                                    dtype=torch.int8), bits=bits)
+    dn = pack_weights(torch.randint(lo, hi, (i, n), generator=g, device=dev, dtype=torch.int8),
+                      bits=bits)
+    gu_s = torch.rand(2 * i, generator=g, device=dev) * 2e-3 + 1e-4
+    dn_s = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+    gamma = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev)
+    x = torch.randn(8, k, generator=g, device=dev).to(torch.bfloat16)
+    res = torch.randn(8, n, generator=g, device=dev).to(torch.bfloat16)
+    out = fused(x, gamma, 1e-5, gu.data, gu_s, dn.data, dn_s, n, res, "silu")
+    for r in range(8):
+        one = fused(x[r:r + 1].contiguous(), gamma, 1e-5, gu.data, gu_s, dn.data, dn_s, n,
+                    res[r:r + 1].contiguous(), "silu")
+        assert torch.equal(out[r:r + 1], one), r
+
+
+@pytest.mark.parametrize("kv,fused", [(torch.bfloat16, False), (torch.int8, True)],
+                         ids=["bf16", "int8-fused-mlp"])
+def test_ngram_spec_bit_equal_to_decode_loop_on_the_card(dev, kv, fused):
+    """ngram_spec_generate (each round a replayed graph) gives decode_loop's
+    greedy tokens on a small model, with drafts accepted on a tiled prompt;
+    sampled, the stream of positional_generate at the same seed. One row:
+    the verify's m = k + 1 = 8 rows take the GEMV, as the decode steps do
+    (more rows would take the GEMM, which sums in another order)."""
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve import spec
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen, device=dev).repeat(1, 8)
+    n = 40
+    caches = init_caches(cfg, 1, prompt.shape[1] + n, device=dev, dtype=kv)
+    logits, caches = prefill(params, cfg, prompt, caches)
+    want, _ = decode_loop(params, cfg, torch.argmax(logits, -1), prompt.shape[1], caches, n,
+                          fused_mlp=fused)
+    stats = {}
+    got = spec.ngram_spec_generate(params, cfg, prompt, n, k=7, kv_dtype=kv, fused_mlp=fused,
+                                   stats=stats)
+    assert torch.equal(got, want)
+    assert stats["capture_ms"] > 0 and stats["rounds"] < n - 1
+    draft, dcfg = spec.truncated_draft(params, cfg, 1)
+    assert torch.equal(spec.spec_generate(params, cfg, draft, dcfg, prompt, n, k=3, kv_dtype=kv,
+                                          fused_mlp=fused), want)
+    sampled = dict(temperature=0.8, top_k=20, seed=5, kv_dtype=kv, fused_mlp=fused)
+    assert torch.equal(spec.ngram_spec_generate(params, cfg, prompt, n, k=7, **sampled),
+                       spec.positional_generate(params, cfg, prompt, n, **sampled))
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_spec_generate_self_draft_accepts_every_draft_on_the_card(dev, kv):
+    """spec_generate with the target as its own draft: drafts are accepted
+    (up to k + 1 tokens a round), so later rounds run the draft's 2-token
+    catch-up over an accepted round's cache hole, and the tokens are still
+    decode_loop's. Not every draft need be: the first catch-up recomputes
+    the prompt's last KV on the GEMV where the target's prefill used the
+    GEMM, so a near tie in the draft may flip."""
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve import spec
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 100), generator=gen, device=dev)
+    k, n = 7, 33
+    caches = init_caches(cfg, 1, prompt.shape[1] + n, device=dev, dtype=kv)
+    logits, caches = prefill(params, cfg, prompt, caches)
+    want, _ = decode_loop(params, cfg, torch.argmax(logits, -1), prompt.shape[1], caches, n)
+    draft, dcfg = spec.truncated_draft(params, cfg, cfg.num_layers)
+    got, stats = spec.spec_generate(params, cfg, draft, dcfg, prompt, n, k=k, kv_dtype=kv,
+                                    return_stats=True)
+    assert torch.equal(got, want)
+    assert stats["accepted_drafts"] >= 3 * k and stats["rounds"] <= 5, stats
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_spec_engine_on_the_card(dev, paged):
+    """Engine(spec_ngram=3) at the CUDA window (8): the greedy tokens of a
+    window-1 engine without speculation (2 slots: a verify is m = 8, the
+    GEMV, as a step's), every program captured after warmup(), every block
+    freed."""
+    from eetq_tpu_torch.serve.engine import Engine
+
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lengths, budgets = (17, 300, 5, 64), (20, 33, 9, 40)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist() * 2
+               for n in lengths]
+    kw = dict(max_batch=2, max_len=1024, prompt_buckets=(64, 1024))
+    if paged:
+        kw.update(paged_blocks=9, paged_block_size=256)
+    outs = []
+    for extra in (dict(spec_ngram=3), dict(decode_window=1)):
+        eng = Engine(params, cfg, **kw, **extra)
+        eng.warmup()
+        graphs = [g for g, _ in eng._programs.values()] + [
+            p.graph for p in eng._spec_programs.values()]
+        assert all(g.captured for g in graphs)
+        uids = [eng.add_request(p, b) for p, b in zip(prompts, budgets)]
+        eng.run()
+        outs.append([eng.result(u) for u in uids])
+        if "spec_ngram" in extra:
+            assert set(eng._spec_programs) == {(8, False)} and eng.spec_rounds > 0
+        if paged:
+            assert sorted(eng._free_blocks) == list(range(1, 9))
+    assert outs[0] == outs[1]

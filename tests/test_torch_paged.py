@@ -1,6 +1,7 @@
 """The port's paged KV cache against the JAX package on the CPU: pool and
 table primitives (`init_paged_kv_cache`, `paged_write`, `paged_insert_dense`,
-`paged_gather_dense`) bit-identical to JAX's, and `paged_attention_decode`
+`paged_gather_dense`, `paged_write_multi`) bit-identical to JAX's, and
+`paged_attention_decode` and `paged_attention_verify` (S > 1 query tokens)
 against JAX's Pallas `paged_flash_decode` in interpret mode and against its
 gather oracle, with pool blocks deliberately permuted through the pool.
 Inputs are made from a numpy seed and handed to both packages.
@@ -33,14 +34,21 @@ from eetq_tpu_torch.kernels.flash_decode import (
     paged_flash_decode_int8_ref,
     paged_flash_decode_ref,
 )
-from eetq_tpu_torch.modules.attention import attention, init_kv_cache, update_cache
+from eetq_tpu_torch.modules.attention import (
+    attention,
+    attention_verify,
+    init_kv_cache,
+    update_cache,
+)
 from eetq_tpu_torch.modules.paged import (
     PagedKVCache,
     init_paged_kv_cache,
     paged_attention_decode,
+    paged_attention_verify,
     paged_gather_dense,
     paged_insert_dense,
     paged_write,
+    paged_write_multi,
 )
 from eetq_tpu_torch.utils.device import resolve
 
@@ -294,3 +302,49 @@ def test_attention_dispatches_on_a_paged_cache(tdtype, jdtype):
     with pytest.raises(NotImplementedError):
         jax_attn.attention(jnp.tile(qj, (1, 2, 1, 1)), jnp.tile(kj, (1, 2, 1, 1)),
                            jnp.tile(vj, (1, 2, 1, 1)), cj, jnp.int32(0))
+
+
+@pytest.mark.parametrize("tdtype,jdtype", DTYPES, ids=IDS)
+@pytest.mark.parametrize("s,hq,hkv", [(3, 4, 4), (8, 8, 2)], ids=["S3-mha", "S8-gqa"])
+def test_paged_verify_matches_jax_kernel_and_oracle(s, hq, hkv, tdtype, jdtype):
+    """The multi-query verify over a paged cache (query token i at
+    length - S + i), blocks permuted through the pool: against JAX's paged
+    Pallas kernel in its S > 1 mode (interpret) and its gather oracle, and
+    equal to the port's dense verify on the cache the pool was cut from."""
+    rng = np.random.default_rng(10 * s + hq)
+    lengths = np.array([3 * BS + 17, 2 * BS, s], np.int32)
+    cj, ct, _, dt, _, _ = _filled(rng, hq, hkv, tdtype, jdtype, lengths)
+    qj, qt = _both(rng.standard_normal((3, s, hq, D)).astype(np.float32))
+    lt = torch.from_numpy(lengths)
+    got = paged_attention_verify(qt, ct, lt)
+    assert got.shape == (3, s, hq, D)
+    kern_j = jax_paged_flash_decode(qj, cj, jnp.asarray(lengths), scale=D ** -0.5,
+                                    interpret=True)
+    np.testing.assert_allclose(_np(got), _np(kern_j), rtol=0, atol=2**-6)
+    oracle_j = jax_paged.paged_attention_verify(qj, cj, jnp.asarray(lengths), use_kernel=False)
+    np.testing.assert_allclose(_np(got), _np(oracle_j), rtol=2**-7, atol=2**-8)
+    assert torch.equal(got, attention_verify(qt, dt, lt))
+
+
+@pytest.mark.parametrize("tdtype,jdtype", DTYPES, ids=IDS)
+def test_attention_verify_on_a_paged_cache(tdtype, jdtype):
+    """`attention(verify=True)` over a paged cache writes S tokens a row
+    through the table (across a block edge) and attends, as JAX's
+    `paged_write_multi` and `paged_attention_verify` do."""
+    rng = np.random.default_rng(12)
+    s = 4
+    lengths = np.array([BS - 2, 2 * BS + 5], np.int32)  # row 0's tokens straddle a block edge
+    cj, ct, _, _, _, _ = _filled(rng, 8, 4, tdtype, jdtype, lengths)
+    qj, qt = _both(rng.standard_normal((B, s, 8, D)).astype(np.float32))
+    kj, kt = _both(rng.standard_normal((B, s, 4, D)).astype(np.float32))
+    vj, vt = _both(rng.standard_normal((B, s, 4, D)).astype(np.float32))
+    oj, cj = jax.jit(jax_attn.attention, static_argnames=("verify", "decode_kernel"))(
+        qj, kj, vj, cj, jnp.asarray(lengths), verify=True, decode_kernel=False)
+    ot, same = attention(qt, kt, vt, ct, torch.from_numpy(lengths), verify=True)
+    assert same is ct
+    np.testing.assert_allclose(_np(ot), _np(oj), rtol=2**-7, atol=2**-8)
+    _assert_pools_equal(ct, cj)
+    ct2 = PagedKVCache(*(t.clone() for t in (ct.k, ct.v, ct.table)),
+                       *(None if t is None else t.clone() for t in (ct.k_scale, ct.v_scale)))
+    paged_write_multi(ct2, kt, vt, torch.from_numpy(lengths))
+    _assert_pools_equal(ct2, cj)
