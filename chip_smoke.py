@@ -54,7 +54,20 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    its plain version, its repeats bit-equal and every token bit-equal to a
    one-token call at its own length (paged also to the dense kernel), with
    `F.scaled_dot_product_attention` under an explicit [S, L] mask beside
-   the bf16 MHA cases.
+   the bf16 MHA cases. The attention kernels' variants (a sliding window,
+   ALiBi, a GQA group other than 1, 2, 4, 8) run at the shapes of the
+   families below, each recorded as "kernel[variant]": prefill under
+   mistral's 4096-key window at S = 4608 and a 256-key window at 1024,
+   baichuan-13b's 40 ALiBi heads, qwen2's group 7 and chatglm3's 16; the
+   four flash-decode entry points under the window (over 4672 keys at B =
+   1 and 8, over 1152 with a 256-key window, and over mistral's 32,768-key
+   capacity), ALiBi and both groups at B = 1 and 8 (paged over a table
+   whose entries before the earliest window and past the length point out
+   of the pool, bit-equal to the dense kernel on the same keys); S = 8
+   under a window and ALiBi, S = 9 at G = 7 and S = 4 at G = 16, each token
+   bit-equal to a one-token call. Their bounds count only the keys a row's
+   window holds; SDPA under the same float mask (bias and -inf) is the
+   yardstick of the bf16 cases.
    Then `moe_apply` on one full-width Mixtral layer (int8 per-channel, and
    int4 g=128) at 2, 8 and 2048 selections, kernels against the plain path
    on identical input (the routing ids must agree), the kernel calls under
@@ -141,6 +154,21 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    grouped GEMM at admission and at every 8-slot step, the paged int8
    flash-decode; the bf16 one must not launch), checked as in 5.
 
+7. Families (FAMILIES): mistral-7b (window 4096, GQA 4), qwen2-7b (group
+   7, qkv bias, a 152,064-token vocabulary), chatglm3-6b (group 16,
+   interleaved half rope) and baichuan-13b (ALiBi over 40 heads, no rope),
+   each at full width and depth, W8A16 per-channel with an int8 lm_head,
+   built one layer at a time and freed before the next: a b=1 decode path
+   as in 3 (prefill and one decode step against the plain path, the
+   replayed decode_loop's 50 greedy tokens bit-equal to eager steps, timed;
+   mistral over a 4608-token prompt so that its window bites, bf16 KV;
+   qwen2 int8 KV; chatglm3 bf16 KV; baichuan-13b `bench.py`'s int8 KV and
+   fused MLP) and an engine behind the server (mistral paged bf16 with a
+   request of 4400 + 64 tokens and a step check over a 4465-key row;
+   qwen2 and baichuan-13b dense int8; chatglm3 a paged int8 pool), greedy
+   tokens equal to a window-1 twin's. A family path launches its
+   kernels' variant and nothing else of the port.
+
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, the first request's
 whole decode_loop, and one steady-state engine step after `warmup()`: a
@@ -149,10 +177,13 @@ time, kernel events (and those of the flash-decode, which must be one a
 layer on every decode and engine step), the host's launch calls (a graph
 replay is one) and the idle share go to the output and to
 `chip_smoke.json`. `--phases`
-runs a subset of `kernels,moe_layer,llama,int4,mixtral,mixtral_int4` (for
-debugging: a partial run checks what it runs and prints no result line).
+runs a subset of `kernels,moe_layer,llama,int4,mixtral,mixtral_int4,families`
+(for debugging: a partial run checks what it runs and prints no result
+line).
 
-Prints one JSON line of per-kernel results, then as its last line
+Prints one JSON line of per-kernel results (the attention kernels'
+variants as entries of their own, "kernel[variant]", their launches those
+of the paths that run them), then as its last line
 `{"ok": true, "device": {...}}`. Any failed check, build or launch ends the
 run with a non-zero exit code and no result line; so does a machine without
 a CUDA device. With `--out DIR` the details (every kernel case, the model
@@ -253,6 +284,47 @@ VERIFY_CASES = ((1, 2, 32, 32, 1152, (1074,), None),
                 (8, 8, 32, 32, 2176, (1074, 8, 640, 2176, 17, 1500, 300, 1024),
                  "engine verify B=8 S=8"))
 VERIFY_PAGED_S = 8
+# The attention kernels' variants at the family paths' shapes (FAMILIES), D =
+# 128. Prefill: (variant, batch, S, q heads, kv heads, window, ALiBi, a path's
+# shape): mistral-7b's 4608-token prompt under its 4096-key window, a window
+# of 256 (most tiles skipped), baichuan-13b's 40 ALiBi heads, qwen2-7b's
+# group 7 and chatglm3-6b's 16.
+ATTENTION_VARIANT_CASES = (
+    ("window", 1, 4608, 32, 8, 4096, False, True), ("window", 1, 1024, 32, 8, 256, False, False),
+    ("alibi", 1, 1024, 40, 40, None, True, True), ("group", 1, 1024, 28, 4, None, False, True),
+    ("group", 1, 1024, 32, 2, None, False, True),
+)
+# Decode, one token a row: (variant, batch, q heads, kv heads, cache length,
+# lengths, window, ALiBi, a path's shape, paged too). b=1 after the
+# families' prompts (a path's shape for the dense entry points) and an 8-slot
+# engine step (for the paged ones); mistral over 4672 keys (the window
+# bites), a window of 256 over 1152, and mistral's 32,768-key capacity with
+# 4672 live (the grid's dead blocks).
+WINDOW_LENGTHS = (4672, 1, 640, 4355, 17, 1500, 300, 4100)  # 4355: chunk 0 leaves the window
+ENGINE_LENGTHS = (1074, 1, 640, 2048, 17, 1500, 300, 1024)
+DECODE_VARIANT_CASES = (
+    ("window", 1, 32, 8, 4864, (4672,), 4096, False, True, True),
+    ("window", 8, 32, 8, 4864, WINDOW_LENGTHS, 4096, False, True, True),
+    ("window", 1, 32, 8, 1280, (1152,), 256, False, False, True),
+    ("window", 1, 32, 8, 32768, (4672,), 4096, False, False, False),
+    ("alibi", 1, 40, 40, 1280, (1074,), None, True, True, True),
+    ("alibi", 8, 40, 40, 2048, ENGINE_LENGTHS, None, True, True, True),
+    ("group", 1, 28, 4, 1280, (1074,), None, False, True, True),
+    ("group", 8, 28, 4, 2048, ENGINE_LENGTHS, None, False, True, True),
+    ("group", 1, 32, 2, 1280, (1074,), None, False, True, True),
+    ("group", 8, 32, 2, 2048, ENGINE_LENGTHS, None, False, True, True),
+)
+# The multi-query verify under the variants: (variant, batch, S, q heads, kv
+# heads, cache length, lengths, window, ALiBi). Rows whose window starts move
+# across a tile or a chunk between their tokens; G = 7 and 16 at the most
+# tokens that fit 64 query rows a kv head.
+VERIFY_VARIANT_CASES = (
+    ("window", 8, 8, 32, 8, 4864, (4672, 8, 640, 4355, 17, 1500, 300, 4100), 4096, False),
+    ("window", 8, 8, 32, 8, 2048, (1074, 8, 640, 2048, 17, 263, 300, 1027), 256, False),
+    ("alibi", 1, 8, 40, 40, 1280, (1074,), None, True),
+    ("group", 1, 8, 28, 4, 1280, (1074,), None, False),
+    ("group", 1, 4, 32, 2, 1280, (1074,), None, False),
+)
 # Speculative decoding on MODEL: k drafts a round (a verify is m = k + 1 = 8
 # rows at b=1), the draft model's layers (the target's first ones), and the
 # prompt's period (a seeded sequence of this many tokens, tiled)
@@ -318,6 +390,16 @@ REPLACES = {
     "w4a16_grouped_gemm": ("cuda", "eetq_tpu_torch/csrc/w4a16_grouped_gemm.cu",
                            "eetq_tpu/kernels/w8a16.py:537"),
 }
+# ... and the attention kernels' variants, each compiled apart (the group
+# variant is the plain body's, at a group other than 1, 2, 4, 8)
+VARIANTS = ("window", "alibi", "group")
+VARIANT_SOURCES = {"window": "flash_decode_window.cu", "alibi": "flash_decode_alibi.cu",
+                   "group": "flash_decode.cu"}
+REPLACES.update({f"{name}[{v}]": (
+    "cuda", REPLACES[name][1] if name == "flash_attention_fwd"
+    else f"eetq_tpu_torch/csrc/{VARIANT_SOURCES[v]}", REPLACES[name][2])
+    for name in ("flash_attention_fwd", "flash_decode", "flash_decode_int8", "paged_flash_decode",
+                 "paged_flash_decode_int8") for v in VARIANTS})
 # The kernels each path must launch, and those it must not.
 PATH_KERNELS = {
     "generate": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode"),
@@ -397,7 +479,68 @@ PATH_IDLE.update({
 })
 
 
-PHASES = ("kernels", "moe_layer", "llama", "int4", "mixtral", "mixtral_int4")
+# The families phase: each preset at full width and depth, W8A16 per-channel
+# with an int8 lm_head, through one b=1 decode path (its KV dtype, fused MLP
+# or not, prompt tokens; 50 new tokens) and one engine behind the server
+# (its keywords; greedy requests of (prompt tokens, budget) beside the mix;
+# a paged engine's step prompts). Each path runs the kernels of
+# FAMILY_KERNELS and their variants, and nothing else.
+FAMILIES = {
+    # window 4096: a 4608-token prompt and a request of 4400 + 64 tokens, so
+    # the window bites in prefill, decode and the engine; a bf16 pool
+    "mistral-7b": dict(
+        tag="mistral", variant="window", kv="bf16", fused=False, prompt=4608,
+        engine=dict(paged_blocks=81, paged_block_size=PAGED_BLOCK_SIZE, max_len=5120,
+                    prompt_buckets=(32, 128, 512, 1024, 2048, 4608)),
+        twin=dict(kv_dtype="bf16", decode_window=1), long=((4400, 64),),
+        step_prompts=(17, 100, 300, 700, 1024, 33, 4400, 512)),
+    # group 7, qkv bias, a 152,064-token vocabulary; the dense int8 default
+    "qwen2-7b": dict(tag="qwen2", variant="group", kv="int8", fused=False, prompt=1024,
+                     engine={}, twin=dict(decode_window=1)),
+    # group 16, interleaved half rope, qkv bias; an int8 pool
+    "chatglm3-6b": dict(
+        tag="chatglm3", variant="group", kv="bf16", fused=False, prompt=1024,
+        engine=dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE,
+                    kv_dtype="int8"),
+        twin=dict(kv_dtype="int8", decode_window=1)),
+    # ALiBi over 40 heads, no rope; bench.py's int8 KV + fused MLP; dense int8.
+    # Its engine admits with W8A16: under W8A8 the admission's logits of this
+    # random 40-layer ALiBi model part from the plain path by 0.137-0.139 of
+    # the largest logit, past A8_MODEL_TOL, as much against a plain path with
+    # the flash kernel's own rounding, and 0.067 with rope in place of ALiBi
+    # on the same weights: per-token requantization amplifies any ulp-level
+    # difference of its large, unaveraged attention outputs (PERF.md §6,
+    # scripts/torch_a8_admission.py)
+    "baichuan-13b": dict(tag="baichuan13", variant="alibi", kv="int8", fused=True, prompt=1024,
+                         engine=dict(a8_prefill=False),
+                         twin=dict(decode_window=1, a8_prefill=False)),
+}
+FAMILY_NEW_TOKENS = 50
+
+
+def _family_paths() -> dict:
+    """PATH_KERNELS of the families' paths: their decode kernel, prefill
+    attention and their variants (a family path launches nothing else)."""
+    paths = {}
+    for f in FAMILIES.values():
+        paged = "paged_blocks" in f["engine"]
+        dec = "flash_decode_int8" if f["kv"] == "int8" else "flash_decode"
+        srv = ("paged_flash_decode" if paged else "flash_decode") + (
+            "_int8" if f["engine"].get("kv_dtype", "int8" if not paged else "bf16") == "int8"
+            else "")
+        v = f["variant"]
+        paths[f"{f['tag']}_decode"] = (
+            "w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", dec, f"flash_attention_fwd[{v}]",
+            f"{dec}[{v}]") + (("fused_mlp_gemv",) if f["fused"] else ())
+        prefill = "w8a8_gemm" if f["engine"].get("a8_prefill", True) else "w8a16_gemm"
+        paths[f"{f['tag']}_{'paged_' if paged else ''}server"] = (
+            "w8a16_gemv", prefill, "flash_attention_fwd", srv, f"flash_attention_fwd[{v}]",
+            f"{srv}[{v}]")
+    return paths
+
+
+PATH_KERNELS.update(_family_paths())
+PHASES = ("kernels", "moe_layer", "llama", "int4", "mixtral", "mixtral_int4", "families")
 
 
 class CheckFailed(Exception):
@@ -517,14 +660,16 @@ def compare(out, ref) -> tuple[float, float]:
 
 
 def decode_cost(lens, hq: int, hkv: int, kv_bytes: int, scale_bytes: int,
-                d: int = 128, s: int = 1) -> tuple[float, float]:
+                d: int = 128, s: int = 1, window: int | None = None) -> tuple[float, float]:
     """(bytes, operations) of one flash-decode call of S query tokens a row
     over rows of `lens` keys: only the keys below each row's length are
-    needed (K and V at kv_bytes a value and scale_bytes a key), q read and
-    the output written once; token i of a row scores the len - S + i + 1
-    keys it sees."""
-    keys = sum(lens)
-    scored = sum(max(n - s + i + 1, 0) for n in lens for i in range(s))
+    needed (K and V at kv_bytes a value and scale_bytes a key), under a
+    window only those some token's window holds, q read and the output
+    written once; token i of a row scores the len - S + i + 1 keys it sees,
+    at most `window` of them."""
+    w = window or 1 << 62
+    keys = sum(min(n, w + s - 1) for n in lens)
+    scored = sum(min(max(n - s + i + 1, 0), w) for n in lens for i in range(s))
     return (keys * hkv * 2 * (d * kv_bytes + scale_bytes) + len(lens) * (2 * s * hq * d * 2 + 4),
             4.0 * hq * d * scored)
 
@@ -640,7 +785,8 @@ def kernel_phase(dev) -> dict:
         out, ref = fn(), plain()
         err, ref_max = compare(out, ref)
         n_diff = int((out.float() != ref.float()).sum().item())
-        repeat_equal = bool(torch.equal(out, fn())) if name in REPEAT_EQUAL else None
+        repeat_equal = (bool(torch.equal(out, fn())) if name.partition("[")[0] in REPEAT_EQUAL
+                        else None)
         ms, plain_ms = time_ms(fn, flush=flush), time_ms(plain, flush=flush)
         library_ms = None if library is None else time_ms(library, flush=flush)
         many_ms = time_many_ms(fn, ms, flush)
@@ -994,6 +1140,8 @@ def kernel_phase(dev) -> dict:
         print(f"  {'':20s} against the dense kernel on the gathered cache: bit-equal")
         del pools, leaves
 
+    variant_cases(record, sequential_equal, gen, dev)
+
     # Mixtral's banks, int8 and int4, per-channel and with 128-row scale
     # groups. The path's time: the gather of a b=1 decode step (gate|up and
     # down), and the grouped GEMMs of a 1024-token prompt and of an 8-slot
@@ -1078,6 +1226,147 @@ def kernel_phase(dev) -> dict:
     return dict(rows=rows, summary=summary)
 
 
+def variant_tag(window, alibi: bool, hq: int, hkv: int) -> str:
+    return (f"window {window}" if window else "ALiBi" if alibi else f"G={hq // hkv}")
+
+
+def seen_bias(qpos, kpos, window, slopes):
+    """[B, Hq or 1, S, L] bf16: what a query at qpos [B, S] sees of the keys
+    at kpos [L] as one float mask, the ALiBi bias slope (key - qpos) (or 0)
+    where it sees a key, -inf elsewhere: the attention kernels' function as
+    one `F.scaled_dot_product_attention` call."""
+    import torch
+
+    dist = (kpos - qpos[..., None]).float()[:, None]  # [B, 1, S, L]
+    seen = dist <= 0
+    if window:
+        seen &= dist > -window
+    bias = dist * slopes.float()[:, None, None] if slopes is not None else torch.zeros_like(dist)
+    return torch.where(seen, bias, float("-inf")).to(torch.bfloat16)
+
+
+def variant_cases(record, sequential_equal, gen, dev) -> None:
+    """The attention kernels' variants (a sliding window, ALiBi, a GQA group
+    other than 1, 2, 4, 8) at the family paths' shapes, each recorded as
+    "kernel[variant]" against its plain version, beside the byte or
+    operation bound of the keys it must see and SDPA under the same float
+    mask. The flash-decode cases run their four entry points: the paged
+    ones over a pool holding the dense cache's keys behind a permuted table
+    whose entries before the earliest window and past the length point out
+    of the pool, bit-equal to the dense kernel; the multi-query cases each
+    token bit-equal to a one-token call at its own length."""
+    import torch
+    import torch.nn.functional as F
+
+    from eetq_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from eetq_tpu_torch.kernels.flash_decode import (
+        flash_decode,
+        flash_decode_int8,
+        flash_decode_int8_ref,
+        flash_decode_ref,
+        paged_flash_decode,
+        paged_flash_decode_int8,
+        paged_flash_decode_int8_ref,
+        paged_flash_decode_ref,
+    )
+    from eetq_tpu_torch.kernels.w8a8 import quantize_activations
+    from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
+
+    def sdpa(q, k, v, bias):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=bias,
+            enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+    for variant, b, sq, hq, hkv, window, alibi, main in ATTENTION_VARIANT_CASES:
+        q = torch.randn(b, sq, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn(b, sq, 2 * hkv, 128, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+        slopes = alibi_slopes_cache(hq, dev) if alibi else None
+        pos = torch.arange(sq, device=dev)
+        scores = int(torch.clamp(pos + 1, max=window or sq).sum())  # the keys each row sees
+        cost = (b * sq * 2 * (hq + hkv) * 128 * 2, 4.0 * b * hq * 128 * scores)
+        bias = seen_bias(pos[None].expand(b, sq), pos, window, slopes)
+        record(f"flash_attention_fwd[{variant}]",
+               f"B={b} S={sq} Hq={hq} Hkv={hkv} D=128 {variant_tag(window, alibi, hq, hkv)}",
+               lambda: flash_attention(q, k, v, window=window, slopes=slopes),
+               lambda: flash_attention_ref(q, k, v, window=window, slopes=slopes), main, cost,
+               library=lambda: sdpa(q, k, v, bias))
+        del q, kv, k, v, bias
+
+    def pooled(leaf, table, bs):
+        """A pool holding leaf [B, Hkv, L(, D)] cut into blocks of bs keys at
+        the blocks table [B, L / bs] names, with one spare block."""
+        b, hkv, l = leaf.shape[:3]
+        nb = l // bs
+        blocks = leaf.reshape(b, hkv, nb, bs, *leaf.shape[3:]).transpose(1, 2)
+        pool = torch.zeros(b * nb + 1, hkv, bs, *leaf.shape[3:], dtype=leaf.dtype, device=dev)
+        pool[table.reshape(-1).long()] = blocks.reshape(b * nb, hkv, bs, *leaf.shape[3:])
+        return pool
+
+    def decode_entry_points(variant, b, s, hq, hkv, l, lens, window, alibi, main, paged=True):
+        """Dense bf16 and int8, then paged, of one shape: S = 1 cases, or
+        S > 1 cases each checked token by token."""
+        slopes = alibi_slopes_cache(hq, dev) if alibi else None
+        kw = dict(window=window, slopes=slopes)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn(b, s, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
+        caches = [torch.randn(b, hkv, l, 128, generator=gen, device=dev) for _ in range(2)]
+        bs = PAGED_BLOCK_SIZE
+        nb = l // bs
+        table = torch.randperm(b * nb + 1, generator=gen, device=dev)[:b * nb].reshape(
+            b, nb).to(torch.int32).contiguous()
+        start = torch.arange(nb, device=dev)[None] * bs
+        first = (lengths - s + 1 - (window or 1 << 30)).clamp(min=0)  # token 0's first key
+        live = (start < lengths[:, None]) & (start + bs > first[:, None])
+        wild = torch.where(live, table, torch.full_like(table, 10 ** 6 + 12345))
+        tag = (f"S={s} " if s > 1 else "") + (
+            f"B={b} L={l} Hq={hq} Hkv={hkv} D=128 {variant_tag(window, alibi, hq, hkv)} "
+            f"lengths {min(lens)}..{max(lens)}")
+        qpos = lengths[:, None] - s + torch.arange(s, device=dev)
+        for int8 in (False, True):
+            if int8:
+                (kc, ks), (vc, vs) = (quantize_activations(t) for t in caches)
+                leaves = (kc, vc, ks, vs)
+                dense, dense_ref = flash_decode_int8, flash_decode_int8_ref
+                paged_fn, paged_ref = paged_flash_decode_int8, paged_flash_decode_int8_ref
+                cost, library = decode_cost(lens, hq, hkv, 1, 4, s=s, window=window), None
+            else:
+                leaves = tuple(t.to(torch.bfloat16) for t in caches)
+                dense, dense_ref = flash_decode, flash_decode_ref
+                paged_fn, paged_ref = paged_flash_decode, paged_flash_decode_ref
+                cost = decode_cost(lens, hq, hkv, 2, 0, s=s, window=window)
+                bias = seen_bias(qpos, torch.arange(l, device=dev), window, slopes)
+                kd, vd = (t.transpose(1, 2) for t in leaves)
+                library = lambda: sdpa(q, kd, vd, bias)  # noqa: E731
+            kernel = lambda q_, n_: dense(q_, *leaves, n_, **kw)  # noqa: E731
+            out = record(f"{dense.__name__}[{variant}]", tag, lambda: kernel(q, lengths),
+                         lambda: dense_ref(q, *leaves, lengths, **kw), main and b == 1, cost,
+                         library=library, s=s)
+            if s > 1:
+                sequential_equal(kernel, out, q, lengths, s, tag)
+            if not paged:
+                continue
+            pools = [pooled(t, table, bs) for t in leaves]
+            kernel = lambda q_, n_: paged_fn(q_, *pools, wild, n_, **kw)  # noqa: E731
+            got = record(f"{paged_fn.__name__}[{variant}]", f"{tag} BS={bs} permuted table",
+                         lambda: kernel(q, lengths),
+                         lambda: paged_ref(q, *pools, table, lengths, **kw), main and b > 1, cost,
+                         s=s)
+            if s > 1:
+                sequential_equal(kernel, got, q, lengths, s, tag)
+            equal = bool(torch.equal(got, out))
+            print(f"  {'':20s} against the dense kernel on the same keys: "
+                  f"{'bit-equal' if equal else 'DIFFERS'}")
+            check(equal, f"paged decode differs from the dense kernel: {paged_fn.__name__} {tag}")
+            del pools
+        del caches, leaves
+
+    for case in DECODE_VARIANT_CASES:
+        decode_entry_points(case[0], case[1], 1, *case[2:])
+    for case in VERIFY_VARIANT_CASES:
+        decode_entry_points(*case[:7], window=case[7], alibi=case[8], main=False)
+
+
 @contextlib.contextmanager
 def routing(mode: str, log: list):
     """Wrap `modules.moe.route`: "record" appends each call's (weights, ids)
@@ -1120,7 +1409,8 @@ def routing_differences(fn, kernel_log: list) -> dict:
 def counted(path: str, fn):
     """Run fn() with every launch counter at 0; return (its result, the
     counts). Fails if a kernel of the path did not launch, or if one it
-    must not run did."""
+    must not run did: those of PATH_IDLE, the attention kernels' variants
+    the path does not run, and on a family path any kernel not of it."""
     import torch
 
     from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1132,7 +1422,10 @@ def counted(path: str, fn):
     print(f"  launches on the {path} path: {counts}")
     idle = [k for k in PATH_KERNELS[path] if counts[k] == 0]
     check(not idle, f"kernels not launched on the {path} path: {idle}")
-    busy = [k for k in PATH_IDLE[path] if counts[k]]
+    idle = PATH_IDLE.get(path, ())
+    idle += tuple(k for k in counts if k not in PATH_KERNELS[path]
+                  and (path not in PATH_IDLE or "[" in k))
+    busy = [k for k in idle if counts[k]]
     check(not busy, f"kernels launched on the {path} path that must not be: {busy}")
     return out, counts
 
@@ -1256,11 +1549,12 @@ def graph_against_eager(params, cfg, dev, prompt, n: int, kv, fused) -> dict:
     return dict(tokens=n, equal=equal, wrapper_launches_per_step=launches)
 
 
-def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
+def generate_paths(params, cfg, dev, gen, configs: dict, requests=REQUESTS) -> dict:
     """Each path of `configs` ({path: (KV dtype, fused MLP)}), e.g. the
     generate path (bf16 KV, unfused MLP) and bench.py's decode
     configuration (int8 KV, fused MLP), checked against the plain path and
-    driven through the same requests, and timed side by side."""
+    driven through the same `requests` ((batch, prompt tokens, new tokens),
+    the first of them checked and timed), and timed side by side."""
     import torch
 
     from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1269,8 +1563,8 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
     from eetq_tpu_torch.serve.generate import decode_loop, decode_step, generate, prefill
 
     prompts = [torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=dev)
-               for b, p, _ in REQUESTS]
-    (_, p1, n1), prompt1 = REQUESTS[0], prompts[0]
+               for b, p, _ in requests]
+    (_, p1, n1), prompt1 = requests[0], prompts[0]
     out = {}
     for path, (kv, fused) in configs.items():
         print(f"  -- {path}: {kv} KV, fused MLP {fused}")
@@ -1312,7 +1606,7 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
 
         def serve(kv=kv, fused=fused):
             outs, ms = [], []
-            for (b, p, n), prompt in zip(REQUESTS, prompts):
+            for (b, p, n), prompt in zip(requests, prompts):
                 t0 = time.perf_counter()
                 caches = init_caches(cfg, b, p + n, device=dev, dtype=kv)
                 lp, caches = prefill(params, cfg, prompt, caches)
@@ -1324,7 +1618,7 @@ def generate_paths(params, cfg, dev, gen, configs: dict) -> dict:
             return outs, ms
 
         (outs, gen_ms), counts = counted(path, serve)
-        for (b, p, n), toks, ms in zip(REQUESTS, outs, gen_ms):
+        for (b, p, n), toks, ms in zip(requests, outs, gen_ms):
             print(f"  {path} b={b} p={p} n={n}: {ms:.1f} ms")
             check(tuple(toks.shape) == (b, n), f"{path} returned {tuple(toks.shape)}, want {(b, n)}")
             check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "tokens out of range")
@@ -1392,8 +1686,8 @@ def _post(port: int, body: dict):
     return json.loads(data)["tokens"]
 
 
-def engine_step_check(eng, cfg, dev, gen, path: str) -> dict:
-    """Fill the engine's slots with prompts of STEP_PROMPTS' lengths, then
+def engine_step_check(eng, cfg, dev, gen, path: str, prompts=STEP_PROMPTS) -> dict:
+    """Fill the engine's slots with prompts of these lengths, then
     run the forward of its next decode step twice on the same caches, with
     the kernels and with the plain versions (the step's writes are the same
     both times), and hold the logits of the busy slots against each other.
@@ -1404,7 +1698,7 @@ def engine_step_check(eng, cfg, dev, gen, path: str) -> dict:
 
     from eetq_tpu_torch.models.transformer import forward_inner
 
-    for n in STEP_PROMPTS[:eng.max_batch]:
+    for n in prompts[:eng.max_batch]:
         ids = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist()
         eng.add_request(ids, max_new_tokens=STEP_BUDGET)
     # one admission each, with a window-1 step while the queue holds more and
@@ -1438,27 +1732,31 @@ def engine_step_check(eng, cfg, dev, gen, path: str) -> dict:
 
 
 def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | None = None,
-                twin_kw: dict | None = None) -> dict:
+                twin_kw: dict | None = None, long: tuple = (),
+                step_prompts: tuple = STEP_PROMPTS) -> dict:
     """The engine behind its HTTP server: with its accelerator defaults
-    (window 8, chained), or with `engine_kw` (a paged pool). twin_kw: the
-    greedy requests also go through an engine built with these keywords
-    instead (window 1; a dense bf16 cache for a paged engine), whose tokens
-    must be equal."""
+    (window 8, chained; max_batch 8, max_len 2048), or with `engine_kw` (a
+    paged pool, another max_len and prompt buckets). twin_kw: the greedy
+    requests also go through an engine built with these keywords instead
+    (window 1; a dense bf16 cache for a paged engine), whose tokens must be
+    equal. long: (prompt tokens, budget) of greedy requests sent beside the
+    server mix; step_prompts: the prompts of a paged engine's step check."""
     import torch
 
     from eetq_tpu_torch.models.transformer import forward_inner, init_caches
     from eetq_tpu_torch.serve.api import EngineServer
     from eetq_tpu_torch.serve.engine import Engine
 
-    engine_kw = dict(engine_kw or {})
+    engine_kw = dict(dict(max_batch=8, max_len=2048), **(engine_kw or {}))
     paged = "paged_blocks" in engine_kw
     spec = engine_kw.get("spec_ngram")
     held = torch.cuda.memory_allocated()
-    eng = Engine(params, cfg, max_batch=8, max_len=2048, **engine_kw)
+    eng = Engine(params, cfg, **engine_kw)
     cache_gb = (torch.cuda.memory_allocated() - held) / 1e9
     # the CUDA defaults: W8A8 prefill; an int8 dense cache, a bf16 pool
     want_kv = engine_kw.get("kv_dtype", torch.bfloat16 if paged else torch.int8)
-    check(eng.a8_prefill and eng.kv_dtype == want_kv and eng.paged == paged
+    a8 = engine_kw.get("a8_prefill", True)
+    check(eng.a8_prefill == a8 and eng.kv_dtype == want_kv and eng.paged == paged
           and eng.decode_window == 8 and eng.max_chain == 8,
           f"{path} engine on CUDA: a8_prefill {eng.a8_prefill}, kv {eng.kv_dtype}, "
           f"paged {eng.paged}, window {eng.decode_window}, chain {eng.max_chain}")
@@ -1496,20 +1794,20 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
     def admit(use):
         with torch.inference_mode():
             scratch = init_caches(cfg, 1, bucket, dev, eng.kv_dtype)
-            lg, _ = forward_inner(params, cfg, toks, pos, scratch, 0, use_kernels=use, a8=True,
+            lg, _ = forward_inner(params, cfg, toks, pos, scratch, 0, use_kernels=use, a8=a8,
                                   last_pos=last)
         return lg[:, -1]
 
     for use in (True, False):  # the plain path replays the kernel path's routing
         with routing("record" if use else "replay", routes):
             logits[use] = admit(use)
-    admission = check_logits(f"{path} admission (a8)", logits[True], logits[False],
-                             A8_MODEL_TOL)
+    admission = check_logits(f"{path} admission ({'a8' if a8 else 'w8a16'})", logits[True],
+                             logits[False], A8_MODEL_TOL if a8 else MODEL_TOL)
     if routes:
         admission["routing"] = routing_differences(lambda: admit(False), routes)
         print(f"  {path} admission: {admission['routing']['differ']} of "
               f"{admission['routing']['routings']} routings differ when not replayed")
-    step = engine_step_check(eng, cfg, dev, gen, path) if paged else None
+    step = engine_step_check(eng, cfg, dev, gen, path, step_prompts) if paged else None
     spec_before = (eng.spec_rounds, eng.spec_tokens)
 
     lengths = [SERVE_LENGTHS[i] for i in torch.randint(
@@ -1523,6 +1821,12 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
         if i in (3, 8):  # two sampled requests
             body.update(temperature=0.8, top_k=40)
         bodies.append(body)
+    for p, b in long:
+        lengths.append(p)
+        budgets.append(b)
+        bodies.append({"prompt": torch.randint(0, cfg.vocab_size, (p,), generator=gen,
+                                               device=dev).tolist(), "max_new_tokens": b})
+    n_req = len(bodies)
 
     srv = EngineServer(eng, host="127.0.0.1", port=0)
     srv.start()
@@ -1539,7 +1843,7 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
             latency[i] = 1e3 * (time.perf_counter() - t)
 
     def serve():
-        threads = [threading.Thread(target=worker, args=(range(j, SERVE_REQUESTS, SERVE_THREADS),))
+        threads = [threading.Thread(target=worker, args=(range(j, n_req, SERVE_THREADS),))
                    for j in range(SERVE_THREADS)]
         t = time.perf_counter()
         for th in threads:
@@ -1553,7 +1857,7 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
     finally:
         srv.shutdown()
     check(not errors, f"HTTP requests failed: {errors}")
-    check(len(results) == SERVE_REQUESTS, f"{len(results)} of {SERVE_REQUESTS} requests answered")
+    check(len(results) == n_req, f"{len(results)} of {n_req} requests answered")
     for i, body in enumerate(bodies):
         got = results[i]
         check(len(got) == body["max_new_tokens"],
@@ -1585,7 +1889,9 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
         # (SPEC_TIE_ULPS, on the kernel path)
         greedy = [i for i, body in enumerate(bodies) if "temperature" not in body]
         held = torch.cuda.memory_allocated()
-        te = Engine(params, cfg, max_batch=8, max_len=2048, **twin_kw)
+        sizes = {k: v for k, v in engine_kw.items()
+                 if k in ("max_batch", "max_len", "prompt_buckets")}
+        te = Engine(params, cfg, **dict(sizes, **twin_kw))
         twin_gb = (torch.cuda.memory_allocated() - held) / 1e9
         uids = {i: te.add_request(bodies[i]["prompt"], bodies[i]["max_new_tokens"])
                 for i in greedy}
@@ -1616,8 +1922,8 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
               f"diverge at a near tie")
         del te
     tokens = sum(budgets)
-    lat = [latency[i] for i in range(SERVE_REQUESTS)]
-    print(f"  {path}: {SERVE_REQUESTS} requests, prompts {lengths}, budgets {budgets}; "
+    lat = [latency[i] for i in range(n_req)]
+    print(f"  {path}: {n_req} requests, prompts {lengths}, budgets {budgets}; "
           f"{tokens} tokens in {wall_s:.2f} s = {tokens / wall_s:.2f} tok/s served "
           f"(warmup {warmup_s:.1f} s)")
     print(f"  {path} latencies (ms): {['%.1f' % v for v in lat]}")
@@ -2056,6 +2362,54 @@ def mixtral_phase(dev, int4: bool = False, profile: bool = False) -> dict:
                 scale_gb=scale_gb, peak_gb=peak_gb, profile=prof)
 
 
+def families_phase(dev) -> dict:
+    """Each of FAMILIES at full width and depth (random W8A16 weights, an
+    int8 lm_head, built one layer at a time from SEED), through its b=1
+    decode path (prefill and one decode step against the plain path,
+    decode_loop bit-equal to eager steps, timed) and its engine behind the
+    server; each model is freed before the next is built."""
+    import torch
+
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import random_quantized_params
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8}
+    out = dict(paths={}, models={})
+    for preset, f in FAMILIES.items():
+        cfg = PRESETS[preset]
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = random_quantized_params(cfg, gen, quantize_lm_head=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gb = sum(b.numel() * b.element_size() for b in params.buffers()) / 1e9
+        print(f"  {preset} W8A16 built layer by layer in {build_s:.1f} s, {gb:.2f} GB on the "
+              f"card (GQA {cfg.num_heads}/{cfg.num_kv_heads}, window {cfg.sliding_window}, "
+              f"ALiBi {cfg.alibi})")
+        kw = {k: dtypes.get(v, v) for k, v in f["engine"].items()}
+        twin = {k: dtypes.get(v, v) for k, v in f["twin"].items()}
+        dec, srv = (f"{f['tag']}_decode",
+                    f"{f['tag']}_{'paged_' if 'paged_blocks' in kw else ''}server")
+        paths = generate_paths(params, cfg, dev, gen, {dec: (dtypes[f["kv"]], f["fused"])},
+                               requests=((1, f["prompt"], FAMILY_NEW_TOKENS),))
+        paths[srv] = server_path(params, cfg, dev, gen, srv, kw, twin_kw=twin,
+                                 long=f.get("long", ()),
+                                 step_prompts=f.get("step_prompts", STEP_PROMPTS))
+        t = paths[dec]["timing"]
+        print(f"  {preset}: prefill {t['prefill_ms']:.2f} ms (b=1 p={f['prompt']}), decode "
+              f"{t['decode_ms_per_step']:.3f} ms/step ({t['replay_ms_per_step']:.3f} a replayed "
+              f"step), {f['kv']} KV{', fused MLP' if f['fused'] else ''}; {srv} served "
+              f"{paths[srv]['served_tok_s']:.2f} tok/s")
+        out["paths"].update(paths)
+        out["models"][preset] = dict(build_s=build_s, weight_gb=gb,
+                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -2110,6 +2464,7 @@ def main() -> int:
         "int4": lambda: int4_phase(dev, args.profile),
         "mixtral": lambda: mixtral_phase(dev, profile=args.profile),
         "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
+        "families": lambda: families_phase(dev),
     }
     done = {}
     for phase in PHASES:
@@ -2133,13 +2488,13 @@ def main() -> int:
                            kernel_summary=done.get("kernels", {}).get("summary"),
                            moe_layer=done.get("moe_layer"), model=done.get("llama"),
                            int4=done.get("int4"), mixtral=done.get("mixtral"),
-                           mixtral_int4=done.get("mixtral_int4"),
+                           mixtral_int4=done.get("mixtral_int4"), families=done.get("families"),
                            seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     if len(done) < len(PHASES):
         print(f"partial run ({','.join(done)}): every check of these phases passed")
         return 0
     paths = {}
-    for phase in ("llama", "int4", "mixtral", "mixtral_int4"):
+    for phase in ("llama", "int4", "mixtral", "mixtral_int4", "families"):
         paths.update(done[phase]["paths"])
     kern = done["kernels"]
     kernels = [

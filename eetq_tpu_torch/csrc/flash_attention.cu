@@ -33,6 +33,17 @@
 // reversed), all heads of a q tile side by side. kv head = q head / group.
 // Masking uses -0.7 * f32max and a row whose sum is 0 divides by 1
 // (flash_attention.py:24-25, :131).
+//
+// Two position-dependent variants, each a template flag compiled apart from
+// the plain causal body (flash_attention.py:51-58, :70-86, :119-125):
+//   - kWindow (sliding window, mistral): row p sees keys p - window < key <=
+//     p. A block's key loop starts at the first 64-key tile that touches its
+//     earliest row's window, and a warpgroup skips the tiles left of its own
+//     first row's window: those tiles are never loaded or multiplied. Edge
+//     tiles are masked key <= p - window.
+//   - kAlibi (baichuan-13b): slope_h * (key - p) is added to the scaled q.k
+//     scores of every tile before the mask (the bias is not scaled: the TPU
+//     kernel adds it after the scale), slopes [hq] f32, one load a block.
 #include "hopper.cuh"
 
 namespace {
@@ -53,12 +64,12 @@ constexpr int smem_bytes() {
 // d[4j+2], d[4j+3] = (row 16w + g + 8, the same columns). The A operand of a
 // k16 step in registers: a0 (g, k 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 // a3 (g+8, 2t+8..).
-template <int D, int kWG>
+template <int D, int kWG, bool kWindow, bool kAlibi>
 __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, int sq, int skv, int hq, int hkv, int64_t q_sb, int64_t q_ss,
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-    int64_t v_sh, float scale, int causal) {
+    int64_t v_sh, float scale, int causal, const float* __restrict__ slopes, int window) {
   constexpr int kThreads = 128 * kWG, kBlockQ = 64 * kWG;
   constexpr int kTile = kKV * D * 2;   // bytes of one K or V tile
   constexpr int kBlock = kKV * 128;    // bytes of one 64-column block of it
@@ -86,10 +97,14 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
   const int wg_last = min(wrow0 + 64, sq) - 1;
   const int wg_end = causal ? min(skv, wg_last + delta + 1) : skv;
   const int wg_tiles = max(0, (wg_end + kKV - 1) / kKV);
+  // under a window: the first tile of the block (its first row's window)
+  // and of this warpgroup
+  const int t_lo = kWindow ? max(0, q0 + delta - window + 1) / kKV : 0;
+  const int wg_lo = kWindow ? max(0, wrow0 + delta - window + 1) / kKV : 0;
 
   auto load_tile = [&](int it) {
     const int kv0 = it * kKV;
-    const uint32_t kdst = ring + (it % kStages) * 2 * kTile, vdst = kdst + kTile;
+    const uint32_t kdst = ring + ((it - t_lo) % kStages) * 2 * kTile, vdst = kdst + kTile;
     for (int idx = tid; idx < kKV * kChunks; idx += kThreads) {
       const int r = idx / kChunks, c = idx % kChunks;
       const uint32_t off = (c >> 3) * kBlock + swizzle128(r, c & 7);
@@ -101,10 +116,11 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
   };
   // two tiles in flight before the first multiply; one commit per tile,
   // empty past the end, so the group count stays uniform
-  if (n_tiles > 0) load_tile(0);
+  if (t_lo < n_tiles) load_tile(t_lo);
   cp_async_commit();
-  if (n_tiles > 1) load_tile(1);
+  if (t_lo + 1 < n_tiles) load_tile(t_lo + 1);
   cp_async_commit();
+  const float slope = kAlibi ? slopes[h] : 0.f;
 
   uint32_t qf[D / 16][4];
 #pragma unroll
@@ -131,7 +147,7 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
   float m_run[2] = {eetq::kMaskValue, eetq::kMaskValue};
   float l_run[2] = {0.f, 0.f};  // per-thread partial sums; the quad adds them at the end
 
-  for (int it = 0; it < n_tiles; ++it) {
+  for (int it = t_lo; it < n_tiles; ++it) {
     const int kv0 = it * kKV;
     cp_async_wait<1>();   // this thread's copies of tile `it` have landed
     fence_proxy_async();  // and wgmma may read them
@@ -139,8 +155,9 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
     if (it + 2 < n_tiles) load_tile(it + 2);  // into the stage of tile it - 1
     cp_async_commit();
     if (it >= wg_tiles) continue;  // above this warpgroup's diagonal
+    if (kWindow && it < wg_lo) continue;  // left of this warpgroup's windows
 
-    const uint32_t ks = ring + (it % kStages) * 2 * kTile, vs = ks + kTile;
+    const uint32_t ks = ring + ((it - t_lo) % kStages) * 2 * kTile, vs = ks + kTile;
     float s[kKV / 2];
     wgmma_fence();
 #pragma unroll
@@ -152,13 +169,24 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
     wgmma_wait<0>();
     fence_registers(s);
 
-    // mask keys past skv and, causally, past each row's position
-    if (kv0 + kKV > skv || (causal && kv0 + kKV - 1 > wrow0 + delta)) {
+    if constexpr (kAlibi) {
 #pragma unroll
       for (int i = 0; i < kKV / 2; ++i) {
         const int key = kv0 + (i >> 2) * 8 + 2 * t + (i & 1);
         const int pos = row0 + 8 * ((i >> 1) & 1) + delta;
-        if (key >= skv || (causal && key > pos)) s[i] = eetq::kMaskValue;
+        s[i] += slope * static_cast<float>(key - pos);
+      }
+    }
+    // mask keys past skv and, causally, past each row's position; under a
+    // window, keys at or left of its row's position - window
+    if (kv0 + kKV > skv || (causal && kv0 + kKV - 1 > wrow0 + delta) ||
+        (kWindow && kv0 <= wrow0 + 63 + delta - window)) {
+#pragma unroll
+      for (int i = 0; i < kKV / 2; ++i) {
+        const int key = kv0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        const int pos = row0 + 8 * ((i >> 1) & 1) + delta;
+        if (key >= skv || (causal && key > pos) || (kWindow && key <= pos - window))
+          s[i] = eetq::kMaskValue;
       }
     }
 
@@ -236,11 +264,11 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
   }
 }
 
-template <int D, int kWG>
+template <int D, int kWG, bool kWindow, bool kAlibi>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
                    int skv, int hq, int hkv, const int64_t* st, float scale, int causal,
-                   cudaStream_t stream) {
-  auto kernel = flash_attention_fwd_kernel<D, kWG>;
+                   const float* slopes, int window, cudaStream_t stream) {
+  auto kernel = flash_attention_fwd_kernel<D, kWG, kWindow, kAlibi>;
   static bool opted_in = false;  // above 48 KB of dynamic shared memory
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -252,35 +280,63 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   kernel<<<grid, 128 * kWG, smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), sq, skv, hq, hkv, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], scale, causal);
+      st[6], st[7], st[8], scale, causal, slopes, window);
   return cudaGetLastError();
+}
+
+// The plain body, or the window and ALiBi variants (window > 0, slopes not
+// null), each compiled apart
+template <int D, int kWG>
+cudaError_t launch_variant(const void* q, const void* k, const void* v, void* out, int b,
+                           int sq, int skv, int hq, int hkv, const int64_t* st, float scale,
+                           int causal, const float* slopes, int window, cudaStream_t stream) {
+  if (window > 0 && slopes)
+    return launch<D, kWG, true, true>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal,
+                                      slopes, window, stream);
+  if (window > 0)
+    return launch<D, kWG, true, false>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal,
+                                       slopes, window, stream);
+  if (slopes)
+    return launch<D, kWG, false, true>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal,
+                                       slopes, window, stream);
+  return launch<D, kWG, false, false>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal,
+                                      slopes, window, stream);
 }
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, int b, int sq,
                      int skv, int hq, int hkv, const int64_t* st, float scale, int causal,
-                     cudaStream_t stream) {
+                     const float* slopes, int window, cudaStream_t stream) {
   // 128-row tiles where they still give every SM of the card a block
   const long long wide = (long long)((sq + 127) / 128) * hq * b;
-  if (wide >= 132) return launch<D, 2>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, stream);
-  return launch<D, 1>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, stream);
+  if (wide >= 132)
+    return launch_variant<D, 2>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, slopes,
+                                window, stream);
+  return launch_variant<D, 1>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, slopes,
+                              window, stream);
 }
 
 }  // namespace
 
 // q [b, sq, hq, d], k/v [b, skv, hkv, d] bf16 with element strides (batch,
 // seq, head) and unit stride in d, rows 16-byte aligned; out [b, sq, hq, d]
-// contiguous bf16; sq, skv >= 1.
+// contiguous bf16; sq, skv >= 1. slopes: null, or ALiBi slopes f32 [hq];
+// window: 0, or the sliding window (row p sees keys p - window < key <= p).
 extern "C" int eetq_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                         int b, int sq, int skv, int hq, int hkv, int d,
                                         long long q_sb, long long q_ss, long long q_sh,
                                         long long k_sb, long long k_ss, long long k_sh,
                                         long long v_sb, long long v_ss, long long v_sh,
-                                        float scale, int causal, void* stream) {
+                                        float scale, int causal, const void* slopes, int window,
+                                        void* stream) {
   const int64_t st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   auto s = static_cast<cudaStream_t>(stream);
-  if (sq < 1 || skv < 1 || (sq + 63) / 64 > 65535 || b > 65535) return cudaErrorInvalidValue;
-  if (d == 64) return launch_d<64>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, s);
-  if (d == 128) return launch_d<128>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, s);
+  auto sl = static_cast<const float*>(slopes);
+  if (sq < 1 || skv < 1 || (sq + 63) / 64 > 65535 || b > 65535 || window < 0)
+    return cudaErrorInvalidValue;
+  if (d == 64)
+    return launch_d<64>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, sl, window, s);
+  if (d == 128)
+    return launch_d<128>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, sl, window, s);
   return cudaErrorInvalidValue;
 }

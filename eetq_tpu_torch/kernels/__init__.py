@@ -2,9 +2,11 @@
 
 Each wrapper in `KERNELS` launches its CUDA kernel for CUDA tensors (or
 raises) and runs its plain version for CPU tensors; its `launches`
-attribute counts kernel launches. A CUDA graph that replays captured
-launches adds the counts of its capture on each replay (`add_launch_counts`,
-called by `serve/graph.py`).
+attribute counts kernel launches; the attention kernels also count the
+launches of each variant they ran (`variant_launches`: a sliding window,
+ALiBi, a GQA group other than 1, 2, 4, 8), read as "name[variant]". A CUDA
+graph that replays captured launches adds the counts of its capture on each
+replay (`add_launch_counts`, called by `serve/graph.py`).
 """
 
 from eetq_tpu_torch.kernels.flash_attention import flash_attention
@@ -51,13 +53,25 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        for variant in getattr(fn, "variant_launches", ()):
+            fn.variant_launches[variant] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """{wrapper name: launches}, and {"name[variant]": launches} of the
+    attention kernels' variants."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    for name, fn in KERNELS.items():
+        for variant, n in getattr(fn, "variant_launches", {}).items():
+            counts[f"{name}[{variant}]"] = n
+    return counts
 
 
 def add_launch_counts(counts: dict[str, int]) -> None:
-    """Add `counts` ({wrapper name: launches}) to the wrappers' counters."""
-    for name, n in counts.items():
-        KERNELS[name].launches += n
+    """Add `counts` (as `launch_counts` gives them) to the wrappers' counters."""
+    for key, n in counts.items():
+        name, _, variant = key.partition("[")
+        if variant:
+            KERNELS[name].variant_launches[variant[:-1]] += n
+        else:
+            KERNELS[name].launches += n

@@ -7,9 +7,12 @@ mode of a shared header (`gemv.cuh`: the int8 and int4 GEMVs, the expert
 gathers and both fused MLPs; `wgmma_gemm.cuh`: the int8 and int4 GEMMs,
 per-channel and group-wise; `wgmma_grouped.cuh`: the int8 and int4 grouped
 expert GEMMs; `a8_gemm.cuh`: W8A8 and W4A8 on the int8 `wgmma`;
-`hopper.cuh`: the `cp.async`, `mbarrier` and `wgmma` wrappers of the
-`wgmma` kernels and `flash_attention.cu`), compiled in parallel. The library lands in `eetq_tpu_torch/_build/<hash>/`, keyed on a
-hash of the sources and flags, so it is rebuilt only when they change.
+`flash_decode.cuh`: the four flash-decode entry points, whose plain body
+and window and ALiBi variants are four sources; `hopper.cuh`: the
+`cp.async`, `mbarrier` and `wgmma` wrappers of the `wgmma` kernels and
+`flash_attention.cu`), compiled in parallel. The library lands in
+`eetq_tpu_torch/_build/<hash>/`, keyed on a hash of the sources and flags,
+so it is rebuilt only when they change.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns `cudaGetLastError()` after its launches; `launch` raises on a
@@ -68,28 +71,32 @@ SIGNATURES = {
     "eetq_w8a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P),
     "eetq_w4a16_grouped_gemm": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P),
     # q, k, v, out, b, sq, skv, hq, hkv, d, q strides (b, s, h),
-    # k strides, v strides, scale, causal, stream
+    # k strides, v strides, scale, causal, ALiBi slopes, window, stream
     "eetq_flash_attention_fwd": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P,
+        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P, _I, _P,
     ),
     # q, k, v, lengths, out, partials, counters, b, s, hq, hkv, l, d, chunk,
-    # scale, stream
-    "eetq_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # scale, ALiBi slopes, window, stream
+    "eetq_flash_decode": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P,
+    ),
     # q, k, v, k_scale, v_scale, lengths, out, partials, counters, b, s, hq,
-    # hkv, l, d, chunk, scale, stream
+    # hkv, l, d, chunk, scale, ALiBi slopes, window, stream
     "eetq_flash_decode_int8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P,
     ),
     # q, k pool, v pool, table, lengths, out, partials, counters, b, s, hq,
-    # hkv, max_blocks, block size, d, chunk, scale, stream
+    # hkv, max_blocks, block size, d, chunk, scale, ALiBi slopes, window, stream
     "eetq_paged_flash_decode": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P,
     ),
     # q, k pool, v pool, k_scale, v_scale, table, lengths, out, partials,
-    # counters, b, s, hq, hkv, max_blocks, block size, d, chunk, scale, stream
+    # counters, b, s, hq, hkv, max_blocks, block size, d, chunk, scale, ALiBi
+    # slopes, window, stream
     "eetq_paged_flash_decode_int8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,
+        _P,
     ),
     # xq, m, kp, w, np, sx, sw, bias, out, n, stream
     "eetq_w8a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P),

@@ -79,6 +79,13 @@ DECODE_TILE = 64
 DECODE_CHUNK = 256
 DECODE_MAX_CHUNK = 1024
 DECODE_MAX_CHUNKS = 480
+# GQA groups whose decode step (one query token a row) is compiled apart
+# (G a constant, one length for every row: no per-row masks); any other
+# group runs the multi-query body, which takes any G * S <= 64. Groups 7
+# (qwen2-7b) and 16 (chatglm3-6b) were timed both ways on an H100
+# (`scripts/torch_server_ab.py --kernels-of DIR --decode-only --families`,
+# DIR a copy with this tuple cut to 1, 2, 4, 8; `PERF.md` §6).
+DECODE_STEP_GROUPS = (1, 2, 4, 7, 8, 16)
 
 
 def compile_defines() -> tuple[str, ...]:
@@ -89,7 +96,8 @@ def compile_defines() -> tuple[str, ...]:
             f"-DEETQ_GROUPED_SKINNY_BM={GROUPED_SKINNY_BM}",
             f"-DEETQ_GEMV_BLOCK_N={GEMV_BLOCK_N}", f"-DEETQ_GEMV_STEP_ROWS={GEMV_STEP_ROWS}",
             f"-DEETQ_DECODE_TILE={DECODE_TILE}", f"-DEETQ_DECODE_MAX_CHUNK={DECODE_MAX_CHUNK}",
-            f"-DEETQ_DECODE_MAX_CHUNKS={DECODE_MAX_CHUNKS}")
+            f"-DEETQ_DECODE_MAX_CHUNKS={DECODE_MAX_CHUNKS}",
+            f"-DEETQ_DECODE_STEP_GROUPS={sum(1 << g for g in DECODE_STEP_GROUPS)}u")
 
 
 @functools.lru_cache(maxsize=4096)  # called once per GEMV launch, on the host's decode path

@@ -18,6 +18,13 @@ layout through strides (the TPU version padded and transposed to
 
 Masking uses -0.7 * f32max, not -inf, and rows whose sum is 0 divide by 1,
 as the TPU kernel does (flash_attention.py:24-25, :131).
+
+Two variants are compiled apart from the plain body, as template flags of
+the same kernel (flash_attention.py:51-58, :70-86, :119-125): a sliding
+window (`window`: row p sees keys p - window < key <= p; the tiles wholly
+left of a block's windows are never loaded) and ALiBi (`slopes` [Hq] f32:
+slope_h * (key - p) added to the scaled scores before the mask). Any GQA
+group runs, the kv head of q head h being h // group.
 """
 
 from __future__ import annotations
@@ -29,6 +36,28 @@ from eetq_tpu_torch.utils.device import resolve
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIMS = (64, 128)
+# The variants a launch counts beside its total (`count_launch`): a sliding
+# window, ALiBi, and a GQA group other than 1, 2, 4, 8 (qwen2-7b's 7,
+# chatglm3-6b's 16)
+VARIANTS = ("window", "alibi", "group")
+BASE_GROUPS = (1, 2, 4, 8)
+
+
+def count_launch(fn, window, slopes, group: int) -> None:
+    """One launch of the attention kernel behind wrapper `fn`: its count, and
+    the count of each variant it ran."""
+    fn.launches += 1
+    for name, on in zip(VARIANTS, (window is not None, slopes is not None,
+                                   group not in BASE_GROUPS)):
+        fn.variant_launches[name] += on
+
+
+def alibi_bias(slopes: torch.Tensor, hkv: int, key_pos: torch.Tensor,
+               query_pos: torch.Tensor) -> torch.Tensor:
+    """slope_h * (key_pos - query_pos) in f32 for scores [B, Hkv, G, S, L]
+    (`eetq_tpu/modules/attention.py:172-178`); the positions broadcast to
+    [S, L] or [B, 1, 1, S, L]."""
+    return slopes.float().reshape(1, hkv, -1, 1, 1) * (key_pos - query_pos).float()
 
 
 def causal_mask(
@@ -57,13 +86,19 @@ def attention_reference(
     v: torch.Tensor,
     mask: torch.Tensor | None,
     scale: float,
+    slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Masked softmax attention in f32. q [B, S, Hq, D], k/v [B, L, Hkv, D],
-    mask broadcastable to [B, 1, S, L] (True = attend). Returns q.dtype."""
+    mask broadcastable to [B, 1, S, L] (True = attend). slopes [Hq]: the
+    ALiBi bias slope_h * (key_pos - query_pos), the last query on the last
+    key. Returns q.dtype."""
     b, s, hq, d = q.shape
-    hkv = k.shape[2]
+    hkv, l = k.shape[2], k.shape[1]
     qg = q.float().reshape(b, s, hkv, hq // hkv, d)
     scores = torch.einsum("bskgd,blkd->bkgsl", qg, k.float()) * scale
+    if slopes is not None:
+        pos = torch.arange(l, device=q.device)
+        scores = scores + alibi_bias(slopes, hkv, pos[None], pos[l - s:, None])
     if mask is not None:
         scores = scores.masked_fill(~mask[:, :, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
@@ -71,17 +106,21 @@ def attention_reference(
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, causal=True, scale=None, window=None):
+def flash_attention_ref(q, k, v, causal=True, scale=None, window=None, slopes=None):
     """Plain version of :func:`flash_attention`. It rounds where the kernels
     (this one and the TPU one) round: q * scale to bf16 before q.k, and the
     unnormalised probabilities to bf16 before p.v; the max, the sum and the
-    division stay in f32."""
+    division stay in f32. The ALiBi bias is added to the scaled scores
+    before the mask."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, s, hq, d = q.shape
-    hkv = k.shape[2]
+    hkv, l = k.shape[2], k.shape[1]
     qg = (q.float() * scale).to(q.dtype).float().reshape(b, s, hkv, hq // hkv, d)
     scores = torch.einsum("bskgd,blkd->bkgsl", qg, k.float())
+    if slopes is not None:
+        pos = torch.arange(l, device=q.device)
+        scores = scores + alibi_bias(slopes, hkv, pos[None], pos[l - s:, None])
     if causal or window is not None:
         mask = causal_mask(s, window, k.shape[1], q.device)
         scores = scores.masked_fill(~mask[:, :, None], MASK_VALUE)
@@ -107,6 +146,16 @@ def _check_qkv(q, k, v):
         raise NotImplementedError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
 
 
+def check_variant(q, window, slopes) -> None:
+    """The window (None or >= 1) and the ALiBi slopes (None or f32 [Hq] on
+    q's device) of an attention kernel call."""
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be at least 1")
+    if slopes is not None and (slopes.dtype != torch.float32 or slopes.shape != (q.shape[2],)
+                               or not slopes.is_contiguous() or slopes.device != q.device):
+        raise TypeError(f"slopes must be contiguous f32 [{q.shape[2]}] on q's device")
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -114,17 +163,19 @@ def flash_attention(
     causal: bool = True,
     scale: float | None = None,
     window: int | None = None,
+    slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D] with Hq % Hkv == 0, any
     strides with D contiguous. Causal masking aligns the last query with the
-    last key (delta = Skv - Sq). Returns a contiguous [B, Sq, Hq, D]."""
+    last key (delta = Skv - Sq); under `window` row p sees only the keys
+    p - window < key; `slopes` [Hq] f32 adds ALiBi. Returns a contiguous
+    [B, Sq, Hq, D]."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
-        return flash_attention_ref(q, k, v, causal, scale, window)
-    if window is not None:
-        raise NotImplementedError("sliding-window attention has no CUDA kernel yet")
+        return flash_attention_ref(q, k, v, causal, scale, window, slopes)
     _check_qkv(q, k, v)
+    check_variant(q, window, slopes)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, hq, d), dtype=torch.bfloat16, device=q.device)
@@ -132,10 +183,11 @@ def flash_attention(
         "eetq_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, sq, skv, hq, hkv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        scale, int(causal), _build.stream_of(q),
+        scale, int(causal), _build.ptr(slopes), window or 0, _build.stream_of(q),
     )
-    flash_attention.launches += 1
+    count_launch(flash_attention, window, slopes, hq // hkv)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -36,6 +36,15 @@ they lie in the pool. Dense and paged run the same plan in
 the same order: on a cache gathered through the table their outputs are
 bit-equal. The bound is the same as the dense kernel's: the bytes of each
 row's live keys.
+
+Every entry point takes a sliding window (`window`: a token at position p
+sees the keys p - window < key <= p, flash_decode.py:116-118, :139-149) and
+ALiBi (`slopes` [Hq] f32: slope_h * (key - p) added to the scaled scores,
+after an int8 key's scale, :170-181), each a variant compiled apart from the
+plain body. Under a window only the chunks and tiles that hold a row's
+window are read: the others return or are skipped, as the TPU index maps
+clamp them (:459-474). Any GQA group runs: up to 64 query rows (q heads
+times query tokens) a kv head.
 """
 
 from __future__ import annotations
@@ -44,19 +53,26 @@ import torch
 
 from eetq_tpu_torch.kernels import _build
 from eetq_tpu_torch.kernels.autotune import decode_plan
+from eetq_tpu_torch.kernels.flash_attention import (
+    VARIANTS,
+    alibi_bias,
+    check_variant,
+    count_launch,
+)
 
 HEAD_DIMS = (64, 128)
-GROUPS = (1, 2, 4, 8)
 # query rows of a kv head a launch takes: q heads of the group times tokens
 MAX_QUERY_ROWS = 64
 
 
-def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None):
+def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None, slopes=None):
     """Plain version: q [B, S, Hq, D] against cache[:, :, :length] in f32,
     per-row causal: query token i of a row sits at position length - S + i
     and sees the keys at or before it (`eetq_tpu/modules/attention.py::
-    attention_verify_ref`; S = 1 is the decode step). lengths is an int or
-    a [B] tensor of valid entries (the S new tokens' K/V already written at
+    attention_verify_ref`; S = 1 is the decode step), under a window only
+    the last `window` of them; slopes [Hq] adds the ALiBi bias slope_h *
+    (key - position) to the scaled scores. lengths is an int or a [B]
+    tensor of valid entries (the S new tokens' K/V already written at
     length - S .. length - 1). A query token that sees no key gives 0, as
     the kernels do."""
     b, s, hq, d = q.shape
@@ -69,6 +85,8 @@ def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None):
     lv = torch.as_tensor(lengths, device=q.device).reshape(-1, 1, 1, 1, 1)
     # query token i at position lv - s + i
     qpos = lv - s + torch.arange(s, device=q.device).reshape(1, 1, 1, s, 1)
+    if slopes is not None:
+        scores = scores + alibi_bias(slopes, hkv, pos, qpos)
     mask = pos <= qpos
     if window is not None:
         mask &= pos > qpos - window
@@ -78,13 +96,12 @@ def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None):
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
-def _check(q, k_cache, v_cache, lengths, window, cache_dtype, batch_axis: bool = True):
+def _check(q, k_cache, v_cache, lengths, window, slopes, cache_dtype, batch_axis: bool = True):
     """k/v cache [B, Hkv, L, D], or with batch_axis=False pools
     [NB, Hkv, BS, D] shared by all rows."""
     b, s, hq, d = q.shape
     hkv = k_cache.shape[1]
-    if window is not None:
-        raise NotImplementedError("sliding-window decode has no CUDA kernel yet")
+    check_variant(q, window, slopes)
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise TypeError("q must be contiguous bf16")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
@@ -99,8 +116,10 @@ def _check(q, k_cache, v_cache, lengths, window, cache_dtype, batch_axis: bool =
     if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("q and the caches must be 16-byte aligned")
     group = hq // hkv
-    if d not in HEAD_DIMS or group * hkv != hq or group not in GROUPS:
-        raise NotImplementedError(f"head_dim {d}, group {hq}/{hkv}: the kernel takes {HEAD_DIMS}, {GROUPS}")
+    if group * hkv != hq:
+        raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
     if not 1 <= group * s <= MAX_QUERY_ROWS:
         raise NotImplementedError(f"{group} q heads x {s} query tokens: the kernel takes at most "
                                   f"{MAX_QUERY_ROWS} query rows a kv head")
@@ -124,24 +143,26 @@ def flash_decode(
     lengths: torch.Tensor,
     scale: float | None = None,
     window: int | None = None,
+    slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q [B, S, Hq, D] bf16; k/v cache [B, Hkv, L, D] bf16; lengths [B]
     int32 valid entries per row (S <= length <= L), query token i at
-    position length - S + i. Returns [B, S, Hq, D]."""
+    position length - S + i; a sliding `window`, ALiBi `slopes` [Hq] f32.
+    Returns [B, S, Hq, D]."""
     b, s, hq, d = q.shape
     hkv, l = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
         scale = d ** -0.5
     if not q.is_cuda:
-        return flash_decode_ref(q, k_cache, v_cache, lengths, scale, window)
-    _check(q, k_cache, v_cache, lengths, window, torch.bfloat16)
+        return flash_decode_ref(q, k_cache, v_cache, lengths, scale, window, slopes)
+    _check(q, k_cache, v_cache, lengths, window, slopes, torch.bfloat16)
     out, partials, counters, chunk = _launch_args(q, hkv, l)
     _build.launch(
         "eetq_flash_decode", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), partials, counters, b, s, hq, hkv, l, d, chunk,
-        scale, _build.stream_of(q),
+        scale, _build.ptr(slopes), window or 0, _build.stream_of(q),
     )
-    flash_decode.launches += 1
+    count_launch(flash_decode, window, slopes, hq // hkv)
     return out
 
 
@@ -152,12 +173,12 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def flash_decode_int8_ref(q, k_cache, v_cache, k_scale, v_scale, lengths, scale=None,
-                          window=None):
+                          window=None, slopes=None):
     """Plain version of :func:`flash_decode_int8`: dequantise the cache in
     bf16, then attend as :func:`flash_decode_ref` (the JAX package's
     `attention_decode_ref` on an int8 cache)."""
     return flash_decode_ref(q, dequantize_kv(k_cache, k_scale),
-                            dequantize_kv(v_cache, v_scale), lengths, scale, window)
+                            dequantize_kv(v_cache, v_scale), lengths, scale, window, slopes)
 
 
 def flash_decode_int8(
@@ -169,6 +190,7 @@ def flash_decode_int8(
     lengths: torch.Tensor,
     scale: float | None = None,
     window: int | None = None,
+    slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q [B, S, Hq, D] bf16; k/v cache [B, Hkv, L, D] int8 with f32 scales
     k_scale/v_scale [B, Hkv, L]; lengths [B] int32 (S <= length <= L), as
@@ -179,8 +201,8 @@ def flash_decode_int8(
         scale = d ** -0.5
     if not q.is_cuda:
         return flash_decode_int8_ref(q, k_cache, v_cache, k_scale, v_scale, lengths, scale,
-                                     window)
-    _check(q, k_cache, v_cache, lengths, window, torch.int8)
+                                     window, slopes)
+    _check(q, k_cache, v_cache, lengths, window, slopes, torch.int8)
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if (t.dtype != torch.float32 or t.shape != k_cache.shape[:3] or not t.is_contiguous()
                 or t.device != q.device):
@@ -189,9 +211,10 @@ def flash_decode_int8(
     _build.launch(
         "eetq_flash_decode_int8", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials,
-        counters, b, s, hq, hkv, l, d, chunk, scale, _build.stream_of(q),
+        counters, b, s, hq, hkv, l, d, chunk, scale, _build.ptr(slopes), window or 0,
+        _build.stream_of(q),
     )
-    flash_decode_int8.launches += 1
+    count_launch(flash_decode_int8, window, slopes, hq // hkv)
     return out
 
 
@@ -203,29 +226,30 @@ def gather_pool(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return moved.reshape(moved.shape[0], moved.shape[1], -1, *moved.shape[4:])
 
 
-def paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale=None, window=None):
+def paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale=None, window=None,
+                           slopes=None):
     """Plain version of :func:`paged_flash_decode`: gather the logical dense
     cache through the table, then :func:`flash_decode_ref`. Table entries
     past a row's length must still be valid pool indices here (the kernel
     never reads them)."""
     return flash_decode_ref(q, gather_pool(k_pool, table), gather_pool(v_pool, table), lengths,
-                            scale, window)
+                            scale, window, slopes)
 
 
 def paged_flash_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                                scale=None, window=None):
+                                scale=None, window=None, slopes=None):
     """Plain version of :func:`paged_flash_decode_int8`: gather, then
     :func:`flash_decode_int8_ref`."""
     return flash_decode_int8_ref(
         q, gather_pool(k_pool, table), gather_pool(v_pool, table),
-        gather_pool(k_scale, table), gather_pool(v_scale, table), lengths, scale, window)
+        gather_pool(k_scale, table), gather_pool(v_scale, table), lengths, scale, window, slopes)
 
 
-def _check_paged(q, k_pool, v_pool, table, lengths, window, cache_dtype):
+def _check_paged(q, k_pool, v_pool, table, lengths, window, slopes, cache_dtype):
     """The dense checks (the pools have no batch axis), then the table."""
     b = q.shape[0]
     bs = k_pool.shape[2]
-    _check(q, k_pool, v_pool, lengths, window, cache_dtype, batch_axis=False)
+    _check(q, k_pool, v_pool, lengths, window, slopes, cache_dtype, batch_axis=False)
     if (table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != b
             or not table.is_contiguous() or table.device != q.device):
         raise TypeError("table must be contiguous int32 [B, max_blocks] on q's device")
@@ -242,6 +266,7 @@ def paged_flash_decode(
     lengths: torch.Tensor,
     scale: float | None = None,
     window: int | None = None,
+    slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q [B, S, Hq, D] bf16; k/v pools [NB, Hkv, BS, D] bf16; table
     [B, max_blocks] int32, entry (b, i) the pool block of keys [i * BS,
@@ -253,16 +278,17 @@ def paged_flash_decode(
     if scale is None:
         scale = d ** -0.5
     if not q.is_cuda:
-        return paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale, window)
-    _check_paged(q, k_pool, v_pool, table, lengths, window, torch.bfloat16)
+        return paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale, window, slopes)
+    _check_paged(q, k_pool, v_pool, table, lengths, window, slopes, torch.bfloat16)
     max_blocks = table.shape[1]
     out, partials, counters, chunk = _launch_args(q, hkv, max_blocks * bs)
     _build.launch(
         "eetq_paged_flash_decode", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials, counters, b, s, hq,
-        hkv, max_blocks, bs, d, chunk, scale, _build.stream_of(q),
+        hkv, max_blocks, bs, d, chunk, scale, _build.ptr(slopes), window or 0,
+        _build.stream_of(q),
     )
-    paged_flash_decode.launches += 1
+    count_launch(paged_flash_decode, window, slopes, hq // hkv)
     return out
 
 
@@ -276,6 +302,7 @@ def paged_flash_decode_int8(
     lengths: torch.Tensor,
     scale: float | None = None,
     window: int | None = None,
+    slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """:func:`paged_flash_decode` over int8 pools [NB, Hkv, BS, D] with f32
     scale pools k_scale/v_scale [NB, Hkv, BS]."""
@@ -285,8 +312,8 @@ def paged_flash_decode_int8(
         scale = d ** -0.5
     if not q.is_cuda:
         return paged_flash_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                                           scale, window)
-    _check_paged(q, k_pool, v_pool, table, lengths, window, torch.int8)
+                                           scale, window, slopes)
+    _check_paged(q, k_pool, v_pool, table, lengths, window, slopes, torch.int8)
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if (t.dtype != torch.float32 or t.shape != k_pool.shape[:3] or not t.is_contiguous()
                 or t.device != q.device):
@@ -297,13 +324,13 @@ def paged_flash_decode_int8(
         "eetq_paged_flash_decode_int8", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), partials, counters, b, s, hq, hkv, max_blocks, bs, d, chunk, scale,
-        _build.stream_of(q),
+        _build.ptr(slopes), window or 0, _build.stream_of(q),
     )
-    paged_flash_decode_int8.launches += 1
+    count_launch(paged_flash_decode_int8, window, slopes, hq // hkv)
     return out
 
 
-flash_decode.launches = 0
-flash_decode_int8.launches = 0
-paged_flash_decode.launches = 0
-paged_flash_decode_int8.launches = 0
+for _fn in (flash_decode, flash_decode_int8, paged_flash_decode, paged_flash_decode_int8):
+    _fn.launches = 0
+    _fn.variant_launches = dict.fromkeys(VARIANTS, 0)
+del _fn

@@ -17,8 +17,11 @@ offset + S - 1, written and attended causally through the flash-decode's
 multi-query mode, their write positions and lengths likewise clamped once
 a round. A layer
 with `moe` set runs the routed MLP instead (:158-170), which takes neither
-`a8` nor `fused_mlp`, as in the JAX package. ALiBi, LoRA and tensor
-parallelism raise NotImplementedError.
+`a8` nor `fused_mlp`, as in the JAX package. Under `cfg.alibi` (baichuan-13b)
+no rope is applied and the attention takes the ALiBi slopes instead
+(:131-146), one tensor per (head count, device) for every layer and step
+(`ops/alibi.py::alibi_slopes_cache`). LoRA and tensor parallelism are not
+ported.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.modules.attention import KVCache, attention, decode_at, init_kv_cache
 from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear, linear_apply
 from eetq_tpu_torch.modules.moe import MoEMLP, moe_apply
+from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
 from eetq_tpu_torch.ops.mlp import can_fuse_mlp, fused_mlp as fused_mlp_op
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 from eetq_tpu_torch.ops.rope import cos_sin_cache, rope
@@ -66,11 +70,6 @@ class ModelParams(nn.Module):
         self.lm_head = lm_head  # None -> tied to embed
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.alibi:
-        raise NotImplementedError("ALiBi attention is not ported yet")
-
-
 def _gamma(gamma: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return gamma + 1.0 if cfg.rmsnorm_unit_offset else gamma  # gemma stores gamma - 1
 
@@ -91,6 +90,7 @@ def decoder_layer(
     a8: bool = False,
     fused_mlp: bool | None = None,
     verify: bool = False,
+    slopes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """One decoder layer on x [B, S, H]. The RMSNorms before qkv and gate/up
     are handed to the linear as a prenorm (fused into the GEMV kernel in the
@@ -98,7 +98,8 @@ def decoder_layer(
     the MLP block as one fused dispatch where `can_fuse_mlp` allows (never
     under a8, as in the JAX package). A MoE layer's routed MLP takes
     neither. verify: the S > 1 tokens sit at per-row offsets and attend
-    causally over the cache (`modules.attention.attention`)."""
+    causally over the cache (`modules.attention.attention`). slopes: the
+    ALiBi slopes of an ALiBi model, whose q and k take no rope."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -106,11 +107,12 @@ def decoder_layer(
     qkv = linear_apply(p.qkv, x, prenorm=(_gamma(p.input_norm, cfg), cfg.rms_eps),
                        use_kernel=use_kernels, a8=a8)
     q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
-    q = rope(q.reshape(b, s, hq, d), positions, cos_sin, interleaved=cfg.rope_interleaved)
-    k = rope(k.reshape(b, s, hkv, d), positions, cos_sin, interleaved=cfg.rope_interleaved)
-    v = v.reshape(b, s, hkv, d)
+    q, k, v = q.reshape(b, s, hq, d), k.reshape(b, s, hkv, d), v.reshape(b, s, hkv, d)
+    if slopes is None:
+        q = rope(q, positions, cos_sin, interleaved=cfg.rope_interleaved)
+        k = rope(k, positions, cos_sin, interleaved=cfg.rope_interleaved)
     attn, cache = attention(q, k, v, cache, offset, window=cfg.sliding_window,
-                            use_kernels=use_kernels, verify=verify)
+                            use_kernels=use_kernels, verify=verify, slopes=slopes)
     o = linear_apply(p.o_proj, attn.reshape(b, s, hq * d), use_kernel=use_kernels, a8=a8)
     x = residual + o
 
@@ -176,11 +178,11 @@ def forward_inner(
     tokens [B, S] at positions offset .. offset + S - 1, offset [B] (the
     m = B S rows pick the GEMV, the fused MLP or the GEMM as any call
     does)."""
-    _check_supported(cfg)
     x = params.embed[tokens].to(torch.bfloat16)
     if cfg.embedding_multiplier is not None:
         x = (x.float() * cfg.embedding_multiplier).to(x.dtype)
     cos_sin = cos_sin_cache(cfg.max_position, cfg.rot_dim, base=cfg.rope_theta, device=x.device)
+    slopes = alibi_slopes_cache(cfg.num_heads, x.device) if cfg.alibi else None
     positions = positions.clamp(max=cfg.max_position - 1)
     b, s = tokens.shape
     verify = verify and s > 1
@@ -192,7 +194,7 @@ def forward_inner(
         cache_i = caches[i] if caches is not None else None
         x, _ = decoder_layer(layer, cfg, x, positions, cos_sin, cache_i, offset,
                              use_kernels=use_kernels, a8=a8, fused_mlp=fused_mlp,
-                             verify=verify)
+                             verify=verify, slopes=slopes)
 
     if last_only:
         x = x[:, -1:, :]

@@ -10,7 +10,10 @@ speculative decoding (`verify=True`, S > 1) writes S tokens at per-row
 offsets and attends with the same kernel's multi-query mode, query token i
 at length - S + i (`attention_verify`). A paged cache (`modules/paged.py`)
 serves decode and verify: scattered writes through the block table, then
-the paged flash-decode kernel. Chunked prefill is not ported yet.
+the paged flash-decode kernel. Chunked prefill is not ported yet. Every
+path takes the model's sliding window and ALiBi slopes [Hq] (`slopes`,
+`ops/alibi.py`; the bias slope_h * (key_pos - query_pos) in place of rope,
+`eetq_tpu/modules/attention.py:168-181`), which the kernels compute.
 
 The prefill offset is the Python int 0. The JAX engine passes a traced
 `jnp.int32(0)` (`eetq_tpu/serve/engine.py:114`); the port's engine passes an
@@ -196,13 +199,14 @@ def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, offse
     return cache
 
 
-def attention_prefill(q, k, v, window: int | None = None, use_flash: bool = True):
+def attention_prefill(q, k, v, window: int | None = None, use_flash: bool = True,
+                      slopes: torch.Tensor | None = None):
     """Causal self-attention among the S new tokens (empty cache)."""
     scale = q.shape[-1] ** -0.5
     if use_flash:
-        return flash_attention(q, k, v, causal=True, scale=scale, window=window)
+        return flash_attention(q, k, v, causal=True, scale=scale, window=window, slopes=slopes)
     return attention_reference(
-        q, k, v, causal_mask(q.shape[1], window, k.shape[1], q.device), scale
+        q, k, v, causal_mask(q.shape[1], window, k.shape[1], q.device), scale, slopes=slopes
     )
 
 
@@ -213,28 +217,32 @@ def _lengths(length, batch: int, device) -> torch.Tensor:
 
 
 def attention_decode(q, cache: KVCache, length, window: int | None = None,
-                     use_kernel: bool = True):
+                     use_kernel: bool = True, slopes: torch.Tensor | None = None):
     """One decode step: q [B, 1, Hq, D] attends over cache[:, :, :length].
     length counts the valid entries INCLUDING the token being decoded (its
     K/V already written at length - 1): an int or a per-row [B] tensor.
-    With S > 1 tokens it is the verify attention (`attention_verify`)."""
+    With S > 1 tokens it is the verify attention (`attention_verify`). q
+    may be a strided view (an ALiBi model's q takes no rope): the kernels
+    read a contiguous copy."""
     scale = q.shape[-1] ** -0.5
     lengths = _lengths(length, q.shape[0], q.device)
+    q = q.contiguous()
     if not use_kernel:
-        return attention_decode_ref(q, cache, lengths, window, scale)
+        return attention_decode_ref(q, cache, lengths, window, scale, slopes=slopes)
     if cache.quantized:
         return flash_decode_int8(q, cache.k, cache.v, cache.k_scale, cache.v_scale, lengths,
-                                 scale=scale, window=window)
-    return flash_decode(q, cache.k, cache.v, lengths, scale=scale, window=window)
+                                 scale=scale, window=window, slopes=slopes)
+    return flash_decode(q, cache.k, cache.v, lengths, scale=scale, window=window, slopes=slopes)
 
 
-def attention_decode_ref(q, cache: KVCache, length, window, scale):
+def attention_decode_ref(q, cache: KVCache, length, window, scale,
+                         slopes: torch.Tensor | None = None):
     """Plain decode attention over the [B, H, L, D] cache; an int8 cache is
     dequantized in bf16 first (`eetq_tpu/modules/attention.py:271-273`)."""
     k, v = cache.k, cache.v
     if cache.quantized:
         k, v = dequantize_kv(k, cache.k_scale), dequantize_kv(v, cache.v_scale)
-    return flash_decode_ref(q, k, v, length, scale=scale, window=window)
+    return flash_decode_ref(q, k, v, length, scale=scale, window=window, slopes=slopes)
 
 
 # The verify step of speculative decoding (`eetq_tpu/modules/attention.py::
@@ -257,6 +265,7 @@ def attention(
     window: int | None = None,
     use_kernels: bool = True,
     verify: bool = False,
+    slopes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache | PagedKVCache | None]:
     """Write K/V to the cache at `offset`, then attend: prefill when S > 1
     (offset the int 0; it attends over the unquantized new K/V, so only
@@ -266,7 +275,8 @@ def attention(
     token i at offset + i, attending causally over the cache). cache is a
     KVCache, None, or a PagedKVCache (decode and verify: prefill runs on a
     dense scratch and is handed off with `paged_insert_rows`).
-    use_kernels=False runs the plain versions. Returns (out [B, S, Hq, D],
+    use_kernels=False runs the plain versions. slopes [Hq] f32: the ALiBi
+    bias (the caller applies no rope). Returns (out [B, S, Hq, D],
     cache)."""
     from eetq_tpu_torch.modules import paged  # at call time: it imports this module
 
@@ -289,16 +299,18 @@ def attention(
         else:
             paged.paged_write(cache, k_new, v_new, offset)
         out = paged.paged_attention_decode(q, cache, length, window=window,
-                                           use_kernel=use_kernels)
+                                           use_kernel=use_kernels, slopes=slopes)
         return out, cache
     if cache is not None:
         cache = update_cache(cache, k_new, v_new, offset)
     if s == 1 or verify:
         if cache is None:
             raise ValueError("decode requires a KV cache")
-        out = attention_decode(q, cache, length, window=window, use_kernel=use_kernels)
+        out = attention_decode(q, cache, length, window=window, use_kernel=use_kernels,
+                               slopes=slopes)
     elif isinstance(offset, int) and offset == 0:
-        out = attention_prefill(q, k_new, v_new, window=window, use_flash=use_kernels)
+        out = attention_prefill(q, k_new, v_new, window=window, use_flash=use_kernels,
+                                slopes=slopes)
     else:
         raise NotImplementedError("chunked prefill (S > 1 at an offset) is not ported yet")
     return out, cache

@@ -192,25 +192,29 @@ def paged_gather_dense(cache: PagedKVCache, max_len: int) -> KVCache:
 
 
 def paged_attention_decode(q: torch.Tensor, cache: PagedKVCache, lengths,
-                           window: int | None = None, use_kernel: bool = True) -> torch.Tensor:
+                           window: int | None = None, use_kernel: bool = True,
+                           slopes: torch.Tensor | None = None) -> torch.Tensor:
     """One decode step over a paged cache. q [B, 1, Hq, D]; lengths an int
     or [B], the valid positions INCLUDING the token just written.
     use_kernel=False gathers the dense view and runs the plain decode
     attention. With S > 1 tokens it is the verify attention
-    (`paged_attention_verify`)."""
+    (`paged_attention_verify`). slopes [Hq] f32: the ALiBi bias. q may be
+    a strided view, as `attention_decode` takes it."""
     scale = q.shape[-1] ** -0.5
     lengths = _lengths(lengths, q.shape[0], q.device)
+    q = q.contiguous()
     if not use_kernel:
         dense = paged_gather_dense(cache, cache.table.shape[1] * cache.block_size)
         if cache.quantized:
             return flash_decode_int8_ref(q, dense.k, dense.v, dense.k_scale, dense.v_scale,
-                                         lengths, scale, window)
-        return flash_decode_ref(q, dense.k, dense.v, lengths, scale, window)
+                                         lengths, scale, window, slopes)
+        return flash_decode_ref(q, dense.k, dense.v, lengths, scale, window, slopes)
     if cache.quantized:
         return paged_flash_decode_int8(q, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                                       cache.table, lengths, scale=scale, window=window)
+                                       cache.table, lengths, scale=scale, window=window,
+                                       slopes=slopes)
     return paged_flash_decode(q, cache.k, cache.v, cache.table, lengths, scale=scale,
-                              window=window)
+                              window=window, slopes=slopes)
 
 
 # The verify attention over a paged cache (`eetq_tpu/modules/paged.py::

@@ -48,8 +48,9 @@ not depend on the window or the chain, and on the CPU they equal `prefill`
 followed by `decode_loop` with the same options (the property
 engine.py:21-22 states for JAX).
 
-With `spec_ngram=k` (1 <= k <= 7; engine.py:740-760, 1227-1291) a decode
-window runs n-gram speculative rounds instead of lock-step steps
+With `spec_ngram=k` (1 <= k <= 7, and G (k + 1) <= 64 for a GQA group of
+G; engine.py:740-760, 1227-1291) a decode window runs n-gram speculative
+rounds instead of lock-step steps
 (`serve/spec.py::NgramWindow`): drafts matched against each row's prompt
 and output, one verify forward over k + 1 tokens a row, greedy acceptance,
 until every slot has its window. A round is one replay of a captured graph
@@ -141,6 +142,12 @@ class Engine:
         if spec_ngram is not None and not 1 <= spec_ngram <= 7:
             raise ValueError("spec_ngram must be in [1, 7] (the k + 1-token verify must stay "
                              "in the m <= 8 decode regime)")
+        if spec_ngram is not None and cfg.num_heads // cfg.num_kv_heads * (spec_ngram + 1) > 64:
+            # the verify's query rows a kv head (q heads of a group times the
+            # k + 1 tokens): the flash-decode takes at most 64
+            raise ValueError(f"spec_ngram {spec_ngram}: a verify of {spec_ngram + 1} tokens "
+                             f"over a GQA group of {cfg.num_heads // cfg.num_kv_heads} is more "
+                             "than the flash-decode's 64 query rows a kv head")
         if prefill_chunk is not None:
             raise NotImplementedError("chunked prefill is not ported yet")
         self.device = params.embed.device

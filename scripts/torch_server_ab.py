@@ -7,7 +7,7 @@ Run from the repository root, on a machine with an H100:
 
     python3 scripts/torch_server_ab.py [--rounds N]
     python3 scripts/torch_server_ab.py --kernels-of DIR [--rounds N] [--kernels-only]
-    python3 scripts/torch_server_ab.py --kernels-of DIR --decode-only [--rounds N]
+    python3 scripts/torch_server_ab.py --kernels-of DIR --decode-only [--families] [--rounds N]
     python3 scripts/torch_server_ab.py --grouped-sweep [--rounds N]
     python3 scripts/torch_server_ab.py --decode-sweep [--rounds N]
     python3 scripts/torch_server_ab.py --mixtral-decode [--rounds N]
@@ -27,9 +27,10 @@ The second form compares this tree's kernels with those of another
 checkout of the repository in DIR (`git archive <commit> | tar -x -C DIR`):
 DIR's kernel library is built by DIR's own `_build.py` in a child process
 and loaded beside this tree's, with DIR's own argument types
-(`_build.SIGNATURES`; where this tree's entry point takes one more
-argument, the count of real blocks before the stream, it is dropped for
-DIR). Timed in the order DIR, here, here, DIR per round (one event pair per
+(`_build.SIGNATURES`; where this tree's entry point takes more arguments
+before the stream, they are dropped for DIR: the count of real blocks, the
+GEMV's K split, the attention kernels' ALiBi slopes and window, which must
+then be unset). Timed in the order DIR, here, here, DIR per round (one event pair per
 launch after an L2 flush, and many launches back to back:
 `chip_smoke.time_ms` and `time_many_ms`): `eetq_flash_attention_fwd`; the
 dense GEMMs at llama2-7b's four prefill shapes, summed over them
@@ -61,13 +62,17 @@ runs the GEMV's cases and readings alone. DIR may be a copy of this tree
 with one constant changed: the kernels of `csrc/gemv.cuh` have internal
 linkage, so each library keeps its own state.
 
-`--decode-only` (with `--kernels-of DIR`) times the flash-decode alone:
-its four entry points at the main paths' shapes (the two paged engines'
+`--decode-only` (with `--kernels-of DIR`) times the attention kernels
+alone: `eetq_flash_attention_fwd` at llama2-7b's and Mixtral's b=1
+1024-token prefill (`AB_ATTENTION`), then the flash-decode's four entry
+points at the main paths' shapes (the two paged engines'
 8-slot steps, then `DECODE_DENSE_CASES`: b=1 decode in bf16 and int8 and
 Mixtral's, generate's b=4 request, the default engine's 8-slot step over a
-2048-key int8 cache), each beside its byte bound, in the order
-DIR, here, here, DIR, where DIR's flash-decode takes this tree's ABI (a copy
-with one change) or the one-token ABI before the multi-query mode (the
+2048-key int8 cache; with `--families` also `DECODE_GROUP_CASES`, the decode
+steps of GQA groups 7 and 16, which DIR must take too), each beside its
+byte bound, in the order DIR, here, here, DIR, where DIR's kernels take
+this tree's ABI (a copy with one change), the ABI before the window and
+ALiBi arguments, or the one-token ABI before the multi-query mode (the
 launcher drops the count of query tokens); then (not with `--kernels-only`) one 8-slot
 step of llama2-7b W8A16's paged and default engines and of the W4A16 g=128
 Mixtral's paged int8 engine through either tree's flash-decode: wall ms in
@@ -148,6 +153,15 @@ DECODE_DENSE_CASES = [
     (False, 32, 160, [150] * 4), (False, 8, 160, [150] * 4),
     (True, 32, 2048, [1074, 1, 640, 2048, 17, 1500, 300, 1024]),
 ]
+# The decode step of GQA groups 7 (qwen2-7b, Hq = 28) and 16 (chatglm3-6b):
+# (int8, Hq, Hkv, L, lengths) at b=1 after a 1024-token prompt and at an
+# 8-slot engine step (`--families`: the source of DECODE_STEP_GROUPS)
+DECODE_GROUP_CASES = [
+    (int8, hq, hkv, l, lens) for hq, hkv in ((28, 4), (32, 2)) for int8 in (False, True)
+    for l, lens in ((1152, [1074]), (2048, [1074, 1, 640, 2048, 17, 1500, 300, 1024]))]
+# Prefill attention, (batch, S, Hq, Hkv, D): llama2-7b's and Mixtral's
+AB_ATTENTION = [(1, 1024, 32, 32, 128), (1, 1024, 32, 8, 128)]
+ATTENTION_ENTRIES = DECODE_ENTRIES + ("eetq_flash_attention_fwd",)
 
 
 def _child_library(cwd: str, prelude: str = ""):
@@ -176,7 +190,10 @@ def _launcher(lib, arity: dict, entries, what: str):
         if name not in entries:
             return launch_here(name, *args)
         if len(args) > arity[name]:  # this tree's arguments before the stream that DIR does
-            # not take (the grouped GEMM's count of real blocks, the GEMV's K split)
+            # not take (the grouped GEMM's count of real blocks, the GEMV's K split, the
+            # attention kernels' slopes and window: unset)
+            if name in ATTENTION_ENTRIES and any(args[arity[name] - 1:-1]):
+                raise ValueError(f"{what}'s {name} takes no window or ALiBi slopes")
             args = args[:arity[name] - 1] + args[-1:]
         rc = getattr(lib, name)(*args)
         if rc != 0:
@@ -583,9 +600,11 @@ def _s_less_launcher(lib, what: str):
         if name not in DECODE_ENTRIES:
             return launch_here(name, *args)
         at, ints = _decode_ints(name, args)
-        if ints[1] != 1:
-            raise ValueError(f"{what}'s flash-decode takes one query token a row")
-        rc = getattr(lib, name)(*args[:at + 3], *args[at + 4:])  # without S (after b)
+        if ints[1] != 1 or any(args[-3:-1]):
+            raise ValueError(f"{what}'s flash-decode takes one query token a row, no window "
+                             "and no ALiBi slopes")
+        # without S (after b), the slopes and the window (before the stream)
+        rc = getattr(lib, name)(*args[:at + 3], *args[at + 4:-3], args[-1])
         if rc != 0:
             raise RuntimeError(f"{name} of {what} failed: CUDA error {rc}")
 
@@ -594,9 +613,10 @@ def _s_less_launcher(lib, what: str):
 
 def _decode_ints(name: str, args) -> tuple[int, tuple]:
     """(index of the partials pointer, the int arguments b, s, hq, hkv, l
-    (or max_blocks, bs), d, chunk) of a flash-decode C call."""
+    (or max_blocks, bs), d, chunk) of a flash-decode C call (after them:
+    scale, slopes, window, stream)."""
     at = 5 + 2 * ("int8" in name) + ("paged" in name)
-    return at, args[at + 2:-2]
+    return at, args[at + 2:-4]
 
 
 def _chunk_launcher(chunk: int):
@@ -618,17 +638,37 @@ def _chunk_launcher(chunk: int):
         floats = b * hkv * chunks * (hq // hkv) * s * (d + 2) if chunks > 1 else 0
         part, ctr = _build.scratch("decode", torch.device("cuda", torch.cuda.current_device()),
                                    floats, b * hkv)
-        return launch_here(name, *args[:at], part, ctr, *ints[:-1], chunk, *args[-2:])
+        return launch_here(name, *args[:at], part, ctr, *ints[:-1], chunk, *args[-4:])
 
     return launch
 
 
-def _decode_cases(gen, dev) -> tuple[dict, dict]:
+def _attention_cases(gen, dev) -> tuple[dict, dict]:
+    """({case: make(tree) -> callable}, {case: operation bound ms}) of the
+    prefill flash-attention at AB_ATTENTION's shapes (q, k, v strided views
+    of one tensor, as the model passes them)."""
+    import torch
+
+    from eetq_tpu_torch.kernels.flash_attention import flash_attention
+
+    cases, bounds = {}, {}
+    for b, sq, hq, hkv, d in AB_ATTENTION:
+        q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn(b, sq, 2 * hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+        case = f"flash_attention_fwd B={b} S={sq} Hq={hq} Hkv={hkv} D={d}"
+        cases[case] = (lambda tree, q=q, kv=kv, hkv=hkv:
+                       lambda: flash_attention(q, kv[:, :, :hkv], kv[:, :, hkv:]))
+        ops = 4.0 * b * hq * d * sq * (sq + 1) / 2
+        bounds[case] = 1e3 * ops / cs.PEAK_OPS_PER_S["bf16"]
+    return cases, bounds
+
+
+def _decode_cases(gen, dev, families: bool = False) -> tuple[dict, dict]:
     """({case: make(tree) -> callable}, {case: byte bound ms}) of the
     flash-decode at the main paths' shapes: the two paged engines' 8-slot
     steps (`chip_smoke.py`'s rows of lengths 1..1088 over 256-key blocks
     behind a permuted table: bf16 MHA, int8 GQA 32/8), then
-    DECODE_DENSE_CASES."""
+    DECODE_DENSE_CASES (and with `families` DECODE_GROUP_CASES)."""
     import torch
 
     from eetq_tpu_torch.kernels.flash_decode import (
@@ -661,16 +701,17 @@ def _decode_cases(gen, dev) -> tuple[dict, dict]:
         cases[case] = (lambda tree, kernel=kernel, q=q, pools=pools:
                        lambda: kernel(q, *pools, table, lengths))
         bounds[case] = _bytes_ms(cs.decode_cost(lens, 32, hkv, 2 - int8, 4 * int8)[0])
-    for int8, hkv, l, lens in DECODE_DENSE_CASES:
+    dense = [(int8, 32, hkv, l, lens) for int8, hkv, l, lens in DECODE_DENSE_CASES]
+    for int8, hq, hkv, l, lens in dense + (DECODE_GROUP_CASES if families else []):
         b = len(lens)
         lengths_d = torch.tensor(lens, dtype=torch.int32, device=dev)
-        q = torch.randn(b, 1, 32, 128, generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn(b, 1, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
         cache = caches((b, hkv, l, 128), int8)
         kernel = flash_decode_int8 if int8 else flash_decode
-        case = f"{kernel.__name__} B={b} L={l} Hq=32 Hkv={hkv}"
+        case = f"{kernel.__name__} B={b} L={l} Hq={hq} Hkv={hkv}"
         cases[case] = (lambda tree, kernel=kernel, q=q, cache=cache, lengths=lengths_d:
                        lambda: kernel(q, *cache, lengths))
-        bounds[case] = _bytes_ms(cs.decode_cost(lens, 32, hkv, 2 - int8, 4 * int8)[0])
+        bounds[case] = _bytes_ms(cs.decode_cost(lens, hq, hkv, 2 - int8, 4 * int8)[0])
     return cases, bounds
 
 
@@ -683,18 +724,20 @@ def _plan_chunk(case: str) -> int:
     return decode_plan(f["B"], f["Hkv"], f["Hq"] // f["Hkv"], cap, 128).chunk
 
 
-def _decode_report(res: dict, bounds: dict) -> None:
+def _decode_report(res: dict, bounds: dict, by: str = "bytes") -> None:
     for case, per in res.items():
         print(f"{case}: " + "; ".join(
             f"{t} {ms:.4f} ms (back to back {b2b:.4f}, {100 * bounds[case] / b2b:.0f}% of the "
-            f"bound)" for t, (ms, b2b) in per.items()) + f"; bound {bounds[case]:.4f} ms (bytes)",
+            f"bound)" for t, (ms, b2b) in per.items()) + f"; bound {bounds[case]:.4f} ms ({by})",
             flush=True)
 
 
-def decode_ab(other_dir: str, rounds: int, models: bool = True) -> int:
-    """`--kernels-of DIR --decode-only`: the flash-decode of this tree against
-    that of the checkout in DIR (this tree's ABI, or the one-token ABI) in
-    turns, at the main paths' shapes; then (unless models=False), through
+def decode_ab(other_dir: str, rounds: int, models: bool = True, families: bool = False) -> int:
+    """`--kernels-of DIR --decode-only`: the attention kernels of this tree
+    against those of the checkout in DIR (this tree's ABI, or an older one)
+    in turns: the prefill flash-attention, then the flash-decode at the main
+    paths' shapes (with `families` also the decode steps of groups 7 and
+    16); then (unless models=False), through
     either tree's flash-decode, one 8-slot step of llama2-7b W8A16's paged
     (bf16 pool) and default (dense int8 cache) engines and of Mixtral-8x7B
     W4A16 g=128's paged int8 engine: wall ms in turns, and device busy and
@@ -715,13 +758,19 @@ def decode_ab(other_dir: str, rounds: int, models: bool = True) -> int:
     here = _build.build()
     print(f"kernels of {other_dir} built in {other_s:.1f} s, of this tree in "
           f"{here['seconds']:.1f} s (cached: {here['cached']})")
-    same_abi = arity["eetq_flash_decode"] == len(_build.SIGNATURES["eetq_flash_decode"])
-    trees = {"other": (_launcher(other, arity, DECODE_ENTRIES, other_dir) if same_abi
-                       else _s_less_launcher(other, other_dir)), "here": _build.launch}
+    # the ABI from the multi-query mode on takes S: 16 arguments at least
+    multi_query = arity["eetq_flash_decode"] >= 16
+    launcher = _launcher(other, arity, ATTENTION_ENTRIES, other_dir)
+    trees = {"other": (launcher if multi_query else _s_less_launcher(other, other_dir)),
+             "here": _build.launch}
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     flush = torch.ones(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     with torch.inference_mode():
-        cases, bounds = _decode_cases(gen, dev)
+        cases, bounds = _attention_cases(gen, dev)
+        attn_trees = dict(trees, other=launcher)
+        _decode_report(_time_cases(cases, attn_trees, ORDER, rounds, flush), bounds,
+                       "operations")
+        cases, bounds = _decode_cases(gen, dev, families)
         _decode_report(_time_cases(cases, trees, ORDER, rounds, flush), bounds)
     del cases, flush
     gc.collect()
@@ -1073,7 +1122,10 @@ def main() -> int:
                         help="with --kernels-of: the decode GEMV's cases and decode and engine "
                              "step readings only")
     parser.add_argument("--decode-only", action="store_true",
-                        help="with --kernels-of: the flash-decode's cases and engine steps only")
+                        help="with --kernels-of: the attention kernels' cases and engine steps "
+                             "only")
+    parser.add_argument("--families", action="store_true",
+                        help="with --decode-only: also the decode steps of GQA groups 7 and 16")
     parser.add_argument("--decode-sweep", action="store_true",
                         help="time the flash-decode over its chunk length, in turns")
     parser.add_argument("--grouped-sweep", action="store_true",
@@ -1085,7 +1137,7 @@ def main() -> int:
         print("torch_server_ab: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     if args.kernels_of and args.decode_only:
-        return decode_ab(args.kernels_of, args.rounds, not args.kernels_only)
+        return decode_ab(args.kernels_of, args.rounds, not args.kernels_only, args.families)
     if args.kernels_of:
         return kernels_ab(args.kernels_of, args.rounds, not args.kernels_only, args.gemv_only)
     if args.grouped_sweep:

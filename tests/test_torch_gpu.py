@@ -806,8 +806,13 @@ def test_unsupported_variants_raise(dev):
     with pytest.raises(TypeError):  # f32 activations
         w8a16_gemv(x.float(), w, torch.ones(128, device=dev), 128)
     q = torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):  # sliding window
-        flash_attention(q, q, q, window=2)
+    q256 = torch.zeros(1, 4, 2, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):  # head_dim 256, also under a window
+        flash_attention(q256, q256, q256, window=2)
+    with pytest.raises(ValueError):  # a window of no key
+        flash_attention(q, q, q, window=0)
+    with pytest.raises(TypeError):  # ALiBi slopes of another head count
+        flash_attention(q, q, q, slopes=torch.ones(3, device=dev))
     cache = torch.zeros(1, 2, 128, 128, dtype=torch.bfloat16, device=dev)
     lengths = torch.ones(1, dtype=torch.int32, device=dev)
     wide = torch.zeros(1, 9, 16, 128, dtype=torch.bfloat16, device=dev)
@@ -850,8 +855,9 @@ def test_unsupported_variants_raise(dev):
     table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError):  # 72 query rows a kv head over a paged cache
         paged_flash_decode(wide, pool, pool, table, lengths)
-    with pytest.raises(NotImplementedError):  # sliding window over a paged cache
-        paged_flash_decode(q[:, :1], pool, pool, table, lengths, window=64)
+    pool256 = torch.zeros(4, 2, 128, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):  # head_dim 256 under a window over a paged cache
+        paged_flash_decode(q256[:, :1], pool256, pool256, table, lengths, window=64)
     with pytest.raises(TypeError):  # an int64 table
         paged_flash_decode(q[:, :1], pool, pool, table.long(), lengths)
     with pytest.raises(TypeError):  # a table of another batch
@@ -1285,3 +1291,164 @@ def test_spec_engine_on_the_card(dev, paged):
         if paged:
             assert sorted(eng._free_blocks) == list(range(1, 9))
     assert outs[0] == outs[1]
+
+
+# ---- the attention kernels' variants: a sliding window, ALiBi, any group ----
+
+# (batch, sq, skv, q heads, kv heads, head_dim, window, ALiBi): windows shorter
+# and longer than a tile, over a query block appended to a cache (delta > 0),
+# both together, in one- and two-warpgroup tiles, D = 64, groups 7 and 16
+FLASH_VARIANTS = [
+    (1, 300, 300, 8, 2, 128, 64, False), (1, 1000, 1000, 32, 8, 128, 256, False),
+    (2, 77, 333, 8, 8, 64, 100, False), (1, 1000, 1000, 40, 40, 128, None, True),
+    (2, 130, 200, 5, 5, 64, None, True), (1, 500, 500, 6, 3, 128, 40, True),
+    (1, 1024, 1024, 28, 4, 128, None, False), (1, 300, 300, 32, 2, 128, None, False),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window,alibi", FLASH_VARIANTS)
+def test_flash_attention_variants(dev, b, sq, skv, hq, hkv, d, window, alibi):
+    from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
+
+    g = torch.Generator(device=dev).manual_seed(sq + skv + hq)
+    q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn(b, skv, 2 * hkv, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+    slopes = alibi_slopes_cache(hq, dev) if alibi else None
+    out = _twice(lambda: flash_attention(q, k, v, window=window, slopes=slopes))
+    _close(out, flash_attention_ref(q, k, v, window=window, slopes=slopes))
+
+
+def _variant_fns(g, dev, mode, b, hq, hkv, l, window, slopes, bs=256):
+    """(kernel(q, lengths), plain(q, lengths), dense(q, lengths)) of one
+    flash-decode entry point under a window and ALiBi slopes; a paged mode's
+    pool holds the dense cache's keys behind a permuted table, and dense()
+    is the dense kernel on that cache (the paged kernel must equal it)."""
+    int8, paged = "int8" in mode, mode.startswith("paged")
+    caches = [torch.randn(b, hkv, l, 128, generator=g, device=dev) for _ in range(2)]
+    if int8:
+        (k, ks), (v, vs) = (quantize_activations(t) for t in caches)
+        leaves = (k, v, ks, vs)
+        dense, ref = flash_decode_int8, flash_decode_int8_ref
+        pkernel, pref = paged_flash_decode_int8, paged_flash_decode_int8_ref
+    else:
+        leaves = tuple(t.to(torch.bfloat16) for t in caches)
+        dense, ref = flash_decode, flash_decode_ref
+        pkernel, pref = paged_flash_decode, paged_flash_decode_ref
+    kw = dict(window=window, slopes=slopes)
+    on_dense = lambda q, n: dense(q, *leaves, n, **kw)  # noqa: E731
+    if not paged:
+        return on_dense, (lambda q, n: ref(q, *leaves, n, **kw)), on_dense
+    nb = l // bs
+    table = torch.randperm(b * nb, generator=g, device=dev).reshape(b, nb).to(torch.int32)
+    pools = []
+    for t in leaves:
+        pool = torch.empty(b * nb, hkv, bs, *t.shape[3:], dtype=t.dtype, device=dev)
+        pool[table.reshape(-1).long()] = t.reshape(b, hkv, nb, bs, *t.shape[3:]).transpose(
+            1, 2).reshape(b * nb, hkv, bs, *t.shape[3:])
+        pools.append(pool)
+    return ((lambda q, n: pkernel(q, *pools, table, n, **kw)),
+            (lambda q, n: pref(q, *pools, table, n, **kw)), on_dense)
+
+
+# (q heads, kv heads, window, ALiBi): mistral's window, baichuan-13b's 40
+# ALiBi heads, both together, qwen2-7b's group 7 and chatglm3-6b's 16
+DECODE_VARIANTS = {"window": (32, 8, 300, False), "alibi": (40, 40, None, True),
+                   "window+alibi": (16, 8, 200, True), "group7": (28, 4, None, False),
+                   "group16": (32, 2, None, False)}
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("variant", DECODE_VARIANTS)
+def test_flash_decode_variants(dev, mode, variant):
+    """One token a row under each variant: within the plain version's
+    tolerance, repeats bit-equal, paged bit-equal to dense. Rows whose
+    window starts in chunk 0, on a chunk edge and past it, rows shorter than
+    the window, a row of one key and one of the whole cache."""
+    from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
+
+    hq, hkv, window, alibi = DECODE_VARIANTS[variant]
+    g = torch.Generator(device=dev).manual_seed(hq + hkv)
+    slopes = alibi_slopes_cache(hq, dev) if alibi else None
+    kernel, ref, dense = _variant_fns(g, dev, mode, 6, hq, hkv, 2048, window, slopes)
+    q = torch.randn(6, 1, hq, 128, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([555, 256 + (window or 0), 2048, 1, 100, 1300], dtype=torch.int32,
+                           device=dev)
+    out = _twice(lambda: kernel(q, lengths))
+    _close(out, ref(q, lengths))
+    assert torch.equal(out, dense(q, lengths))
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("variant,s", [("window", 8), ("alibi", 8), ("window+alibi", 3),
+                                       ("group7", 9), ("group16", 4)])
+def test_multiquery_variants_bit_equal_to_sequential_calls(dev, mode, variant, s):
+    """S query tokens a row under each variant (as many as 64 query rows a
+    kv head allow): token i bit-equal to an S = 1 call at length - S + i + 1,
+    whose window starts at its own position; rows whose tokens' windows
+    start on both sides of a tile and of a chunk edge."""
+    from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
+
+    hq, hkv, window, alibi = DECODE_VARIANTS[variant]
+    g = torch.Generator(device=dev).manual_seed(10 * s + hq)
+    slopes = alibi_slopes_cache(hq, dev) if alibi else None
+    kernel, ref, dense = _variant_fns(g, dev, mode, 5, hq, hkv, 2048, window, slopes)
+    q = torch.randn(5, s, hq, 128, generator=g, device=dev).to(torch.bfloat16)
+    w = window or 0
+    lengths = torch.tensor([w + 256 + 3, w + 64 + 2, 2048, s, 1074], dtype=torch.int32,
+                           device=dev)
+    out = _twice(lambda: kernel(q, lengths))
+    _close(out, ref(q, lengths))
+    assert torch.equal(out, dense(q, lengths))
+    for i in range(s):
+        assert torch.equal(out[:, i:i + 1], kernel(q[:, i:i + 1].contiguous(), lengths - s + i + 1))
+
+
+# small models of the four families on the card: a window of 64 keys under a
+# 300-token prompt, ALiBi over 5 heads, groups 7 and 16
+FAMILY_DIMS = {
+    "window": dict(num_heads=8, num_kv_heads=2, sliding_window=64),
+    "alibi": dict(num_heads=5, num_kv_heads=5, alibi=True),
+    "group7": dict(num_heads=7, num_kv_heads=1, qkv_bias=True),
+    "group16": dict(num_heads=16, num_kv_heads=1, rope_dim=64, rope_interleaved=True,
+                    qkv_bias=True),
+}
+
+
+@pytest.mark.parametrize("kv,fused", [(torch.bfloat16, False), (torch.int8, True)],
+                         ids=["bf16", "int8-fused-mlp"])
+@pytest.mark.parametrize("family", FAMILY_DIMS)
+def test_family_decode_on_the_card(dev, family, kv, fused):
+    """Prefill and one decode step against the plain path, then decode_loop
+    bit-equal to eager decode_step on a copy of the caches; the kernels run
+    their variant."""
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.init import quantize_params, random_dense_params
+    from eetq_tpu_torch.serve.generate import decode_loop, decode_step, prefill
+
+    dims = dict(GRAPH_DIMS, head_dim=128, **FAMILY_DIMS[family])
+    cfg = ModelConfig(**dims)
+    params = quantize_params(random_dense_params(cfg, torch.Generator(device=dev).manual_seed(0)),
+                             quantize_lm_head=True)
+    first, caches = _prefilled(cfg, params, dev, kv)
+    twin, plain = _clone_caches(caches), _clone_caches(caches)
+    s, n = GRAPH_PROMPT, GRAPH_STEPS
+    reset_launch_counts()
+    got, _ = decode_step(params, cfg, first[:, None], s, twin, fused_mlp=fused)
+    counts = launch_counts()
+    want, _ = decode_step(params, cfg, first[:, None], s, plain, fused_mlp=fused,
+                          use_kernels=False)
+    err = (got - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item(), err
+    variant = "group" if family.startswith("group") else family
+    decode = "flash_decode_int8" if kv == torch.int8 else "flash_decode"
+    assert counts[f"{decode}[{variant}]"] == cfg.num_layers == counts[decode]
+    twin = _clone_caches(caches)
+    tok, eager = first, [first]
+    for i in range(n - 1):
+        logits, _ = decode_step(params, cfg, tok[:, None], s + i, twin, fused_mlp=fused)
+        tok = torch.argmax(logits, -1)
+        eager.append(tok)
+    toks, _ = decode_loop(params, cfg, first, s, caches, n, fused_mlp=fused)
+    assert torch.equal(toks, torch.stack(eager, dim=1))
