@@ -9,8 +9,10 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    builds the kernels of `eetq_tpu_torch/csrc/` with nvcc (one process per
    source, all at once). It reads ptxas's `-Xptxas=-v` report and lists the
    kernels whose `wgmma`s ptxas serialized (warning C7520); the run fails if
-   any of them is behind `w8a16_gemm`, `w4a16_gemm`, `w8a8_gemm` or
-   `w4a8_gemm`. It counts the tensor-core MMAs (`HMMA.16816`) of every
+   any of them is behind `w8a16_gemm`, `w4a16_gemm`, `w8a8_gemm`, `w4a8_gemm`
+   or the prefill flash-attention. It prints the registers and spill bytes
+   of the attention kernels' head-dim-256 instances (the same report, per
+   instance, goes to chip_smoke.json). It counts the tensor-core MMAs (`HMMA.16816`) of every
    decode GEMV kernel in the library's SASS (`cuobjdump -sass`) and fails if
    one has none.
 2. Kernels: each of the seventeen kernel entry points against its plain
@@ -67,7 +69,13 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    under a window and ALiBi, S = 9 at G = 7 and S = 4 at G = 16, each token
    bit-equal to a one-token call. Their bounds count only the keys a row's
    window holds; SDPA under the same float mask (bias and -inf) is the
-   yardstick of the bf16 cases.
+   yardstick of the bf16 cases. Head dim 256 (gemma-7b, recorded as
+   "kernel[d256]"): prefill at B=1 S=1024 over 16 heads, also under a
+   256-key window and with ALiBi; the four flash-decode entry points at b=1
+   over 1280 keys (length 1074), in an 8-slot step over 2048, under a window
+   and with ALiBi; verifies of 8, 16 and 32 query rows a kv head (S = 8 at
+   G = 1, S = 4 at G = 4 over 8 rows, S = 2 at G = 16), each token bit-equal
+   to a one-token call; paged bit-equal to dense throughout.
    Then `moe_apply` on one full-width Mixtral layer (int8 per-channel, and
    int4 g=128) at 2, 8 and 2048 selections, kernels against the plain path
    on identical input (the routing ids must agree), the kernel calls under
@@ -156,16 +164,21 @@ Run from the repository root, on a machine with one CUDA card (an H100):
 
 7. Families (FAMILIES): mistral-7b (window 4096, GQA 4), qwen2-7b (group
    7, qkv bias, a 152,064-token vocabulary), chatglm3-6b (group 16,
-   interleaved half rope) and baichuan-13b (ALiBi over 40 heads, no rope),
-   each at full width and depth, W8A16 per-channel with an int8 lm_head,
+   interleaved half rope), baichuan-13b (ALiBi over 40 heads, no rope) and
+   gemma-7b (16 heads of 256, GeGLU, unit-offset norms at gain 1, the
+   embedding multiplier, a tied 256,000-token head: the bf16 table, its
+   device time printed at 1 and 8 rows),
+   each at full width and depth, W8A16 per-channel with an int8 lm_head
+   (gemma: tied),
    built one layer at a time and freed before the next: a b=1 decode path
    as in 3 (prefill and one decode step against the plain path, the
    replayed decode_loop's 50 greedy tokens bit-equal to eager steps, timed;
    mistral over a 4608-token prompt so that its window bites, bf16 KV;
-   qwen2 int8 KV; chatglm3 bf16 KV; baichuan-13b `bench.py`'s int8 KV and
-   fused MLP) and an engine behind the server (mistral paged bf16 with a
-   request of 4400 + 64 tokens and a step check over a 4465-key row;
-   qwen2 and baichuan-13b dense int8; chatglm3 a paged int8 pool), greedy
+   qwen2 int8 KV; chatglm3 bf16 KV; baichuan-13b and gemma-7b `bench.py`'s
+   int8 KV and fused MLP) and an engine behind the server (mistral paged bf16
+   with a request of 4400 + 64 tokens and a step check over a 4465-key row;
+   qwen2 and baichuan-13b dense int8; chatglm3 a paged int8 pool; gemma-7b a
+   paged bf16 pool), greedy
    tokens equal to a window-1 twin's. A family path launches its
    kernels' variant and nothing else of the port.
 
@@ -284,46 +297,61 @@ VERIFY_CASES = ((1, 2, 32, 32, 1152, (1074,), None),
                 (8, 8, 32, 32, 2176, (1074, 8, 640, 2176, 17, 1500, 300, 1024),
                  "engine verify B=8 S=8"))
 VERIFY_PAGED_S = 8
-# The attention kernels' variants at the family paths' shapes (FAMILIES), D =
-# 128. Prefill: (variant, batch, S, q heads, kv heads, window, ALiBi, a path's
-# shape): mistral-7b's 4608-token prompt under its 4096-key window, a window
-# of 256 (most tiles skipped), baichuan-13b's 40 ALiBi heads, qwen2-7b's
-# group 7 and chatglm3-6b's 16.
+# The attention kernels' variants at the family paths' shapes (FAMILIES).
+# Prefill: (variant, batch, S, q heads, kv heads, window, ALiBi, a path's
+# shape, head dim): mistral-7b's 4608-token prompt under its 4096-key window,
+# a window of 256 (most tiles skipped), baichuan-13b's 40 ALiBi heads,
+# qwen2-7b's group 7 and chatglm3-6b's 16; gemma-7b's 16 heads of 256 (the
+# d256 variant), also under a window of 256 and with ALiBi.
 ATTENTION_VARIANT_CASES = (
-    ("window", 1, 4608, 32, 8, 4096, False, True), ("window", 1, 1024, 32, 8, 256, False, False),
-    ("alibi", 1, 1024, 40, 40, None, True, True), ("group", 1, 1024, 28, 4, None, False, True),
-    ("group", 1, 1024, 32, 2, None, False, True),
+    ("window", 1, 4608, 32, 8, 4096, False, True, 128),
+    ("window", 1, 1024, 32, 8, 256, False, False, 128),
+    ("alibi", 1, 1024, 40, 40, None, True, True, 128),
+    ("group", 1, 1024, 28, 4, None, False, True, 128),
+    ("group", 1, 1024, 32, 2, None, False, True, 128),
+    ("d256", 1, 1024, 16, 16, None, False, True, 256),
+    ("d256", 1, 1024, 16, 16, 256, False, False, 256),
+    ("d256", 1, 1024, 16, 16, None, True, False, 256),
 )
 # Decode, one token a row: (variant, batch, q heads, kv heads, cache length,
-# lengths, window, ALiBi, a path's shape, paged too). b=1 after the
+# lengths, window, ALiBi, a path's shape, paged too, head dim). b=1 after the
 # families' prompts (a path's shape for the dense entry points) and an 8-slot
 # engine step (for the paged ones); mistral over 4672 keys (the window
 # bites), a window of 256 over 1152, and mistral's 32,768-key capacity with
-# 4672 live (the grid's dead blocks).
+# 4672 live (the grid's dead blocks); gemma-7b's 16 heads of 256 at b=1 and
+# in an 8-slot step, and under a window and with ALiBi at D = 256.
 WINDOW_LENGTHS = (4672, 1, 640, 4355, 17, 1500, 300, 4100)  # 4355: chunk 0 leaves the window
 ENGINE_LENGTHS = (1074, 1, 640, 2048, 17, 1500, 300, 1024)
 DECODE_VARIANT_CASES = (
-    ("window", 1, 32, 8, 4864, (4672,), 4096, False, True, True),
-    ("window", 8, 32, 8, 4864, WINDOW_LENGTHS, 4096, False, True, True),
-    ("window", 1, 32, 8, 1280, (1152,), 256, False, False, True),
-    ("window", 1, 32, 8, 32768, (4672,), 4096, False, False, False),
-    ("alibi", 1, 40, 40, 1280, (1074,), None, True, True, True),
-    ("alibi", 8, 40, 40, 2048, ENGINE_LENGTHS, None, True, True, True),
-    ("group", 1, 28, 4, 1280, (1074,), None, False, True, True),
-    ("group", 8, 28, 4, 2048, ENGINE_LENGTHS, None, False, True, True),
-    ("group", 1, 32, 2, 1280, (1074,), None, False, True, True),
-    ("group", 8, 32, 2, 2048, ENGINE_LENGTHS, None, False, True, True),
+    ("window", 1, 32, 8, 4864, (4672,), 4096, False, True, True, 128),
+    ("window", 8, 32, 8, 4864, WINDOW_LENGTHS, 4096, False, True, True, 128),
+    ("window", 1, 32, 8, 1280, (1152,), 256, False, False, True, 128),
+    ("window", 1, 32, 8, 32768, (4672,), 4096, False, False, False, 128),
+    ("alibi", 1, 40, 40, 1280, (1074,), None, True, True, True, 128),
+    ("alibi", 8, 40, 40, 2048, ENGINE_LENGTHS, None, True, True, True, 128),
+    ("group", 1, 28, 4, 1280, (1074,), None, False, True, True, 128),
+    ("group", 8, 28, 4, 2048, ENGINE_LENGTHS, None, False, True, True, 128),
+    ("group", 1, 32, 2, 1280, (1074,), None, False, True, True, 128),
+    ("group", 8, 32, 2, 2048, ENGINE_LENGTHS, None, False, True, True, 128),
+    ("d256", 1, 16, 16, 1280, (1074,), None, False, True, True, 256),
+    ("d256", 8, 16, 16, 2048, ENGINE_LENGTHS, None, False, True, True, 256),
+    ("d256", 1, 16, 16, 1280, (1152,), 256, False, False, True, 256),
+    ("d256", 1, 16, 16, 1280, (1074,), None, True, False, True, 256),
 )
 # The multi-query verify under the variants: (variant, batch, S, q heads, kv
-# heads, cache length, lengths, window, ALiBi). Rows whose window starts move
-# across a tile or a chunk between their tokens; G = 7 and 16 at the most
-# tokens that fit 64 query rows a kv head.
+# heads, cache length, lengths, window, ALiBi, head dim). Rows whose window
+# starts move across a tile or a chunk between their tokens; G = 7 and 16 at
+# the most tokens that fit 64 query rows a kv head; at D = 256 gemma-7b's
+# 8-token verify (8 rows) and 16 and 32 rows a kv head (the most there).
 VERIFY_VARIANT_CASES = (
-    ("window", 8, 8, 32, 8, 4864, (4672, 8, 640, 4355, 17, 1500, 300, 4100), 4096, False),
-    ("window", 8, 8, 32, 8, 2048, (1074, 8, 640, 2048, 17, 263, 300, 1027), 256, False),
-    ("alibi", 1, 8, 40, 40, 1280, (1074,), None, True),
-    ("group", 1, 8, 28, 4, 1280, (1074,), None, False),
-    ("group", 1, 4, 32, 2, 1280, (1074,), None, False),
+    ("window", 8, 8, 32, 8, 4864, (4672, 8, 640, 4355, 17, 1500, 300, 4100), 4096, False, 128),
+    ("window", 8, 8, 32, 8, 2048, (1074, 8, 640, 2048, 17, 263, 300, 1027), 256, False, 128),
+    ("alibi", 1, 8, 40, 40, 1280, (1074,), None, True, 128),
+    ("group", 1, 8, 28, 4, 1280, (1074,), None, False, 128),
+    ("group", 1, 4, 32, 2, 1280, (1074,), None, False, 128),
+    ("d256", 1, 8, 16, 16, 1280, (1074,), None, False, 256),
+    ("d256", 8, 4, 16, 4, 2048, ENGINE_LENGTHS, None, False, 256),
+    ("d256", 1, 2, 32, 2, 1280, (1074,), None, False, 256),
 )
 # Speculative decoding on MODEL: k drafts a round (a verify is m = k + 1 = 8
 # rows at b=1), the draft model's layers (the target's first ones), and the
@@ -356,10 +384,12 @@ A8_MODEL_TOL = 2 * MODEL_TOL
 # tokens, so the two need not be the top two. A wrong token lands in the
 # band with the odds of a few tokens in 32,000.
 SPEC_TIE_ULPS = 8
-# The sources behind w8a16_gemm, w4a16_gemm, w8a8_gemm and w4a8_gemm: a C7520
+# The sources behind w8a16_gemm, w4a16_gemm, w8a8_gemm, w4a8_gemm and the
+# prefill flash-attention (all its instances, head dim 256's too): a C7520
 # warning of ptxas for any of them fails the run (the grouped GEMM's
 # per-slice group modes are known to draw it and are listed only).
-UNSERIALIZED_SOURCES = ("w8a16_gemm.cu", "w4a16_gemm.cu", "w8a8_gemm.cu", "w4a8_gemm.cu")
+UNSERIALIZED_SOURCES = ("w8a16_gemm.cu", "w4a16_gemm.cu", "w8a8_gemm.cu", "w4a8_gemm.cu",
+                        "flash_attention.cu")
 REPLACES = {
     "w8a16_gemv": ("cuda", "eetq_tpu_torch/csrc/w8a16_gemv.cu", "eetq_tpu/kernels/w8a16.py:239"),
     "w8a16_gemm": ("cuda", "eetq_tpu_torch/csrc/w8a16_gemm.cu", "eetq_tpu/kernels/w8a16.py:239"),
@@ -391,10 +421,11 @@ REPLACES = {
                            "eetq_tpu/kernels/w8a16.py:537"),
 }
 # ... and the attention kernels' variants, each compiled apart (the group
-# variant is the plain body's, at a group other than 1, 2, 4, 8)
-VARIANTS = ("window", "alibi", "group")
+# variant is the plain body's, at a group other than 1, 2, 4, 8; d256 its
+# instances at head dim 256)
+VARIANTS = ("window", "alibi", "group", "d256")
 VARIANT_SOURCES = {"window": "flash_decode_window.cu", "alibi": "flash_decode_alibi.cu",
-                   "group": "flash_decode.cu"}
+                   "group": "flash_decode.cu", "d256": "flash_decode.cu"}
 REPLACES.update({f"{name}[{v}]": (
     "cuda", REPLACES[name][1] if name == "flash_attention_fwd"
     else f"eetq_tpu_torch/csrc/{VARIANT_SOURCES[v]}", REPLACES[name][2])
@@ -514,6 +545,15 @@ FAMILIES = {
     "baichuan-13b": dict(tag="baichuan13", variant="alibi", kv="int8", fused=True, prompt=1024,
                          engine=dict(a8_prefill=False),
                          twin=dict(decode_window=1, a8_prefill=False)),
+    # 16 heads of 256 (the attention kernels' d256 instances), GeGLU (gelu in
+    # the fused MLP), unit-offset norms, the embedding multiplier and a tied
+    # 256,000-token head: the bf16 embedding table through
+    # models/transformer.py::_tied_head (random_quantized_params leaves a tied
+    # config's lm_head None); bench.py's int8 KV + fused MLP; a paged bf16 pool
+    "gemma-7b": dict(
+        tag="gemma", variant="d256", kv="int8", fused=True, prompt=1024,
+        engine=dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE),
+        twin=dict(kv_dtype="bf16", decode_window=1)),
 }
 FAMILY_NEW_TOKENS = 50
 
@@ -567,6 +607,48 @@ def serialized_wgmma(log: str) -> dict:
             name = re.search(r"function '([^']+)'", line)
             found.setdefault(source, []).append(name.group(1) if name else line.strip())
     return found
+
+
+def ptxas_usage(log: str) -> dict:
+    """{function: (registers, spill stores, spill loads)} of every entry
+    function in the build log's `-Xptxas=-v` report (bytes of spill)."""
+    import re
+
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            regs = usage.get(name, (0, 0, 0))[0]
+            usage[name] = (regs, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name] = (int(m.group(1)),) + usage.get(name, (0, 0, 0))[1:]
+    return usage
+
+
+def head256_usage(log: str) -> dict:
+    """ptxas_usage of the attention kernels' head-dim-256 instances (template
+    argument 256), by kernel: instances, the least and most registers, the
+    most spill stores and loads, and how many spill."""
+    out = {}
+    for name, (regs, st, ld) in ptxas_usage(log).items():
+        kernel = next((k for k in ("flash_attention_fwd_kernel", "flash_decode_kernel")
+                       if k in name), None)
+        if kernel is None or "Li256E" not in name:
+            continue
+        o = out.setdefault(kernel, dict(instances=0, min_registers=255, max_registers=0,
+                                        max_spill_stores=0, max_spill_loads=0, spilling=0))
+        o["instances"] += 1
+        o["min_registers"] = min(o["min_registers"], regs)
+        o["max_registers"] = max(o["max_registers"], regs)
+        o["max_spill_stores"] = max(o["max_spill_stores"], st)
+        o["max_spill_loads"] = max(o["max_spill_loads"], ld)
+        o["spilling"] += bool(st or ld)
+    return out
 
 
 def gemv_tensor_core_mmas(lib_path: str) -> dict:
@@ -1230,6 +1312,7 @@ def variant_tag(window, alibi: bool, hq: int, hkv: int) -> str:
     return (f"window {window}" if window else "ALiBi" if alibi else f"G={hq // hkv}")
 
 
+
 def seen_bias(qpos, kpos, window, slopes):
     """[B, Hq or 1, S, L] bf16: what a query at qpos [B, S] sees of the keys
     at kpos [L] as one float mask, the ALiBi bias slope (key - qpos) (or 0)
@@ -1277,17 +1360,17 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=bias,
             enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
-    for variant, b, sq, hq, hkv, window, alibi, main in ATTENTION_VARIANT_CASES:
-        q = torch.randn(b, sq, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
-        kv = torch.randn(b, sq, 2 * hkv, 128, generator=gen, device=dev).to(torch.bfloat16)
+    for variant, b, sq, hq, hkv, window, alibi, main, d in ATTENTION_VARIANT_CASES:
+        q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn(b, sq, 2 * hkv, d, generator=gen, device=dev).to(torch.bfloat16)
         k, v = kv[:, :, :hkv], kv[:, :, hkv:]
         slopes = alibi_slopes_cache(hq, dev) if alibi else None
         pos = torch.arange(sq, device=dev)
         scores = int(torch.clamp(pos + 1, max=window or sq).sum())  # the keys each row sees
-        cost = (b * sq * 2 * (hq + hkv) * 128 * 2, 4.0 * b * hq * 128 * scores)
+        cost = (b * sq * 2 * (hq + hkv) * d * 2, 4.0 * b * hq * d * scores)
         bias = seen_bias(pos[None].expand(b, sq), pos, window, slopes)
         record(f"flash_attention_fwd[{variant}]",
-               f"B={b} S={sq} Hq={hq} Hkv={hkv} D=128 {variant_tag(window, alibi, hq, hkv)}",
+               f"B={b} S={sq} Hq={hq} Hkv={hkv} D={d} {variant_tag(window, alibi, hq, hkv)}",
                lambda: flash_attention(q, k, v, window=window, slopes=slopes),
                lambda: flash_attention_ref(q, k, v, window=window, slopes=slopes), main, cost,
                library=lambda: sdpa(q, k, v, bias))
@@ -1303,14 +1386,15 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
         pool[table.reshape(-1).long()] = blocks.reshape(b * nb, hkv, bs, *leaf.shape[3:])
         return pool
 
-    def decode_entry_points(variant, b, s, hq, hkv, l, lens, window, alibi, main, paged=True):
+    def decode_entry_points(variant, b, s, hq, hkv, l, lens, window, alibi, main, paged=True,
+                            d=128):
         """Dense bf16 and int8, then paged, of one shape: S = 1 cases, or
         S > 1 cases each checked token by token."""
         slopes = alibi_slopes_cache(hq, dev) if alibi else None
         kw = dict(window=window, slopes=slopes)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        q = torch.randn(b, s, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
-        caches = [torch.randn(b, hkv, l, 128, generator=gen, device=dev) for _ in range(2)]
+        q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+        caches = [torch.randn(b, hkv, l, d, generator=gen, device=dev) for _ in range(2)]
         bs = PAGED_BLOCK_SIZE
         nb = l // bs
         table = torch.randperm(b * nb + 1, generator=gen, device=dev)[:b * nb].reshape(
@@ -1320,7 +1404,7 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
         live = (start < lengths[:, None]) & (start + bs > first[:, None])
         wild = torch.where(live, table, torch.full_like(table, 10 ** 6 + 12345))
         tag = (f"S={s} " if s > 1 else "") + (
-            f"B={b} L={l} Hq={hq} Hkv={hkv} D=128 {variant_tag(window, alibi, hq, hkv)} "
+            f"B={b} L={l} Hq={hq} Hkv={hkv} D={d} {variant_tag(window, alibi, hq, hkv)} "
             f"lengths {min(lens)}..{max(lens)}")
         qpos = lengths[:, None] - s + torch.arange(s, device=dev)
         for int8 in (False, True):
@@ -1329,17 +1413,18 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
                 leaves = (kc, vc, ks, vs)
                 dense, dense_ref = flash_decode_int8, flash_decode_int8_ref
                 paged_fn, paged_ref = paged_flash_decode_int8, paged_flash_decode_int8_ref
-                cost, library = decode_cost(lens, hq, hkv, 1, 4, s=s, window=window), None
+                cost, library = decode_cost(lens, hq, hkv, 1, 4, d, s, window), None
             else:
                 leaves = tuple(t.to(torch.bfloat16) for t in caches)
                 dense, dense_ref = flash_decode, flash_decode_ref
                 paged_fn, paged_ref = paged_flash_decode, paged_flash_decode_ref
-                cost = decode_cost(lens, hq, hkv, 2, 0, s=s, window=window)
+                cost = decode_cost(lens, hq, hkv, 2, 0, d, s, window)
                 bias = seen_bias(qpos, torch.arange(l, device=dev), window, slopes)
                 kd, vd = (t.transpose(1, 2) for t in leaves)
                 library = lambda: sdpa(q, kd, vd, bias)  # noqa: E731
             kernel = lambda q_, n_: dense(q_, *leaves, n_, **kw)  # noqa: E731
-            out = record(f"{dense.__name__}[{variant}]", tag, lambda: kernel(q, lengths),
+            out = record(f"{dense.__name__}[{variant}]", tag,
+                         lambda: kernel(q, lengths),
                          lambda: dense_ref(q, *leaves, lengths, **kw), main and b == 1, cost,
                          library=library, s=s)
             if s > 1:
@@ -1348,7 +1433,8 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
                 continue
             pools = [pooled(t, table, bs) for t in leaves]
             kernel = lambda q_, n_: paged_fn(q_, *pools, wild, n_, **kw)  # noqa: E731
-            got = record(f"{paged_fn.__name__}[{variant}]", f"{tag} BS={bs} permuted table",
+            got = record(f"{paged_fn.__name__}[{variant}]",
+                         f"{tag} BS={bs} permuted table",
                          lambda: kernel(q, lengths),
                          lambda: paged_ref(q, *pools, table, lengths, **kw), main and b > 1, cost,
                          s=s)
@@ -1364,7 +1450,7 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
     for case in DECODE_VARIANT_CASES:
         decode_entry_points(case[0], case[1], 1, *case[2:])
     for case in VERIFY_VARIANT_CASES:
-        decode_entry_points(*case[:7], window=case[7], alibi=case[8], main=False)
+        decode_entry_points(*case[:7], window=case[7], alibi=case[8], main=False, d=case[9])
 
 
 @contextlib.contextmanager
@@ -2362,6 +2448,23 @@ def mixtral_phase(dev, int4: bool = False, profile: bool = False) -> dict:
                 scale_gb=scale_gb, peak_gb=peak_gb, profile=prof)
 
 
+def unit_gain_norms(params, cfg) -> None:
+    """Every RMSNorm of a random model at gain 1, as the generic initializer
+    gives the presets whose norms store their gain (ones): a unit-offset
+    preset (gemma) stores gain - 1, so its norms are set to 0. With the
+    initializer's ones, gemma-7b's 57 norms each double their input, and
+    the random model amplifies the paths' ulp-level differences about 30x
+    over 28 layers: its prefill logits part from the plain path's by
+    0.1316 of the largest logit, 0.0079 at gain 1, while each layer's own
+    difference is at llama2-7b's level (`scripts/torch_logit_drift.py`,
+    PERF.md §6)."""
+    if cfg.rmsnorm_unit_offset:
+        for layer in params.layers:
+            layer.input_norm.zero_()
+            layer.post_norm.zero_()
+        params.final_norm.zero_()
+
+
 def families_phase(dev) -> dict:
     """Each of FAMILIES at full width and depth (random W8A16 weights, an
     int8 lm_head, built one layer at a time from SEED), through its b=1
@@ -2381,12 +2484,32 @@ def families_phase(dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = random_quantized_params(cfg, gen, quantize_lm_head=True)
+        unit_gain_norms(params, cfg)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         gb = sum(b.numel() * b.element_size() for b in params.buffers()) / 1e9
+        head = ("an int8 lm_head" if params.lm_head is not None else
+                f"a tied head: the bf16 table {tuple(params.embed.shape)} through _tied_head")
+        if cfg.rmsnorm_unit_offset:
+            head += "; unit-offset norms stored at 0: gain 1"
         print(f"  {preset} W8A16 built layer by layer in {build_s:.1f} s, {gb:.2f} GB on the "
-              f"card (GQA {cfg.num_heads}/{cfg.num_kv_heads}, window {cfg.sliding_window}, "
-              f"ALiBi {cfg.alibi})")
+              f"card (GQA {cfg.num_heads}/{cfg.num_kv_heads}, head dim {cfg.head_dim}, window "
+              f"{cfg.sliding_window}, ALiBi {cfg.alibi}, {cfg.activation}; {head})")
+        tied = None
+        if params.lm_head is None:
+            # the tied head's device time at a decode step's rows (b=1) and an
+            # 8-slot engine step's (its table, 1.57 GB at gemma-7b, is far
+            # larger than L2)
+            from eetq_tpu_torch.models.transformer import _tied_head
+
+            tied = {}
+            for m in (1, 8):
+                x = torch.randn(m, 1, cfg.hidden_size, generator=gen, device=dev).to(
+                    torch.bfloat16)
+                with torch.inference_mode():
+                    tied[f"m={m}"] = time_ms(lambda: _tied_head(x, params.embed), reps=10)
+            print(f"  {preset} tied head on the card: {tied['m=1']:.4f} ms a b=1 decode step, "
+                  f"{tied['m=8']:.4f} ms an 8-slot engine step")
         kw = {k: dtypes.get(v, v) for k, v in f["engine"].items()}
         twin = {k: dtypes.get(v, v) for k, v in f["twin"].items()}
         dec, srv = (f"{f['tag']}_decode",
@@ -2402,7 +2525,7 @@ def families_phase(dev) -> dict:
               f"step), {f['kv']} KV{', fused MLP' if f['fused'] else ''}; {srv} served "
               f"{paths[srv]['served_tok_s']:.2f} tok/s")
         out["paths"].update(paths)
-        out["models"][preset] = dict(build_s=build_s, weight_gb=gb,
+        out["models"][preset] = dict(build_s=build_s, weight_gb=gb, tied_head_ms=tied,
                                      peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         del params
         gc.collect()
@@ -2451,6 +2574,11 @@ def main() -> int:
     if bad:
         print(f"chip_smoke: C7520 in {bad}: their wgmma must not be serialized", file=sys.stderr)
         return 1
+    head256 = head256_usage(info["log"])
+    for kernel, u in sorted(head256.items()):
+        print(f"{kernel} at head dim 256: {u['instances']} instances, {u['min_registers']}.."
+              f"{u['max_registers']} registers, {u['spilling']} spilling (at most "
+              f"{u['max_spill_stores']} bytes stored, {u['max_spill_loads']} loaded)")
     mmas = gemv_tensor_core_mmas(info["path"])
     print(f"decode GEMV kernels: {len(mmas)} instances, HMMA.16816 instructions in each: "
           f"{sorted(set(mmas.values()))}")
@@ -2483,7 +2611,8 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build_s=info["seconds"], nvcc_log=info["log"],
-                           serialized_wgmma=serialized, gemv_hmma=mmas,
+                           serialized_wgmma=serialized, head256_ptxas=head256,
+                           gemv_hmma=mmas,
                            kernels=done.get("kernels", {}).get("rows"),
                            kernel_summary=done.get("kernels", {}).get("summary"),
                            moe_layer=done.get("moe_layer"), model=done.get("llama"),

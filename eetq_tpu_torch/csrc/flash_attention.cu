@@ -44,6 +44,17 @@
 //   - kAlibi (baichuan-13b): slope_h * (key - p) is added to the scaled q.k
 //     scores of every tile before the mask (the bias is not scaled: the TPU
 //     kernel adds it after the scale), slopes [hq] f32, one load a block.
+//
+// Head dim 256 (gemma-7b). With Q as the register A operand a thread would
+// hold 64 registers of Q beside the m64n256 output accumulator (128), S (32)
+// and P (16): past what ptxas can keep without spilling. So at D = 256 the
+// scaled, rounded Q tile goes to shared memory once (the same swizzled
+// K-major layout K uses, 32 KB a warpgroup) and S = Q K^T takes it as the
+// shared-memory A operand (wgmma m64n64k16, both operands from shared
+// memory); the K/V ring shrinks to two stages (2 x 64 KB) to leave room for
+// it, one tile in flight while the other is multiplied, and O += P V runs as
+// two m64n128 halves of d. The arithmetic and its rounding are the same as
+// at D = 64 and 128.
 #include "hopper.cuh"
 
 namespace {
@@ -51,12 +62,20 @@ namespace {
 using eetq::bf16;
 using namespace eetq::hopper;
 
-constexpr int kKV = 64;     // keys per tile
-constexpr int kStages = 3;  // K/V tiles in the ring
+constexpr int kKV = 64;  // keys per tile
 
+// Q in shared memory (the SS form of the S = Q K^T wgmma): at D = 256 only
 template <int D>
+constexpr bool kQSmem = D == 256;
+// K/V tiles in the ring: three, or two beside the Q tile in shared memory
+template <int D>
+constexpr int kStages = kQSmem<D> ? 2 : 3;
+
+template <int D, int kWG>
 constexpr int smem_bytes() {
-  return kStages * 2 * kKV * D * 2 + 1024;  // + room to align the ring to 1024
+  // the ring, the Q tile of each warpgroup (D = 256), and room to align the
+  // ring to 1024
+  return kStages<D> * 2 * kKV * D * 2 + (kQSmem<D> ? 64 * kWG * D * 2 : 0) + 1024;
 }
 
 // Accumulator layout of wgmma m64nN (g = lane / 4, t = lane % 4, warp w of
@@ -75,9 +94,12 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
   constexpr int kBlock = kKV * 128;    // bytes of one 64-column block of it
   constexpr int kChunks = D / 8;       // 16-byte chunks per row
   constexpr int kOutLd = D + 8;        // padded rows of the output staging
-  static_assert(kBlockQ * kOutLd * 2 <= kStages * 2 * kTile, "output staging fits the ring");
+  constexpr int kRing = kStages<D>;
+  constexpr int kQTile = 64 * D * 2;   // bytes of one warpgroup's Q tile (kQSmem)
+  static_assert(kBlockQ * kOutLd * 2 <= kRing * 2 * kTile, "output staging fits the ring");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qsm = ring + kRing * 2 * kTile;  // the Q tiles (kQSmem), 1024-aligned
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -104,7 +126,7 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
 
   auto load_tile = [&](int it) {
     const int kv0 = it * kKV;
-    const uint32_t kdst = ring + ((it - t_lo) % kStages) * 2 * kTile, vdst = kdst + kTile;
+    const uint32_t kdst = ring + ((it - t_lo) % kRing) * 2 * kTile, vdst = kdst + kTile;
     for (int idx = tid; idx < kKV * kChunks; idx += kThreads) {
       const int r = idx / kChunks, c = idx % kChunks;
       const uint32_t off = (c >> 3) * kBlock + swizzle128(r, c & 7);
@@ -114,29 +136,53 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
       cp_async16(vdst + off, vb + row * v_ss + c * 8, ok ? 16 : 0);
     }
   };
-  // two tiles in flight before the first multiply; one commit per tile,
-  // empty past the end, so the group count stays uniform
-  if (t_lo < n_tiles) load_tile(t_lo);
-  cp_async_commit();
-  if (t_lo + 1 < n_tiles) load_tile(t_lo + 1);
-  cp_async_commit();
+  // kRing - 1 tiles in flight before the first multiply; one commit per
+  // tile, empty past the end, so the group count stays uniform
+#pragma unroll
+  for (int i = 0; i < kRing - 1; ++i) {
+    if (t_lo + i < n_tiles) load_tile(t_lo + i);
+    cp_async_commit();
+  }
   const float slope = kAlibi ? slopes[h] : 0.f;
 
-  uint32_t qf[D / 16][4];
+  // Q scaled and rounded to bf16: the register A fragments, or (kQSmem) the
+  // block's Q tile in shared memory, zero past sq, made visible to wgmma by
+  // the fence and barrier at the top of the first tile
+  uint32_t qf[kQSmem<D> ? 1 : D / 16][4];
+  if constexpr (kQSmem<D>) {
+    uint8_t* qgen = smem_raw + (qsm - smem_addr(smem_raw));
+    for (int idx = tid; idx < kBlockQ * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = idx % kChunks, row = q0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row < sq) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(qb + row * q_ss + c * 8);
+        uint32_t* w = &val.x;
+        const uint32_t* in = &raw.x;
 #pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int row = row0 + 8 * r, col = s * 16 + 2 * t + 8 * c;
-        uint32_t val = 0;
-        if (row < sq) {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(qb + row * q_ss + col));
-          val = eetq::pack_bf16x2(f.x * scale, f.y * scale);
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(in + e));
+          w[e] = eetq::pack_bf16x2(f.x * scale, f.y * scale);
         }
-        qf[s][r + 2 * c] = val;
+      }
+      *reinterpret_cast<uint4*>(qgen + (r >> 6) * kQTile + (c >> 3) * kBlock +
+                                swizzle128(r & 63, c & 7)) = val;
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int row = row0 + 8 * r, col = s * 16 + 2 * t + 8 * c;
+          uint32_t val = 0;
+          if (row < sq) {
+            const float2 f = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(qb + row * q_ss + col));
+            val = eetq::pack_bf16x2(f.x * scale, f.y * scale);
+          }
+          qf[s][r + 2 * c] = val;
+        }
       }
     }
   }
@@ -149,21 +195,26 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
 
   for (int it = t_lo; it < n_tiles; ++it) {
     const int kv0 = it * kKV;
-    cp_async_wait<1>();   // this thread's copies of tile `it` have landed
-    fence_proxy_async();  // and wgmma may read them
-    __syncthreads();      // everyone's have; tile it - 1 has been multiplied
-    if (it + 2 < n_tiles) load_tile(it + 2);  // into the stage of tile it - 1
+    cp_async_wait<kRing - 2>();  // this thread's copies of tile `it` have landed
+    fence_proxy_async();         // and wgmma may read them (and the Q tile)
+    __syncthreads();             // everyone's have; tile it - 1 has been multiplied
+    if (it + kRing - 1 < n_tiles) load_tile(it + kRing - 1);  // into the stage of tile it - 1
     cp_async_commit();
     if (it >= wg_tiles) continue;  // above this warpgroup's diagonal
     if (kWindow && it < wg_lo) continue;  // left of this warpgroup's windows
 
-    const uint32_t ks = ring + ((it - t_lo) % kStages) * 2 * kTile, vs = ks + kTile;
+    const uint32_t ks = ring + ((it - t_lo) % kRing) * 2 * kTile, vs = ks + kTile;
     float s[kKV / 2];
     wgmma_fence();
 #pragma unroll
     for (int st = 0; st < D / 16; ++st) {
-      const uint32_t addr = ks + (st >> 2) * kBlock + (st & 3) * 32;
-      wgmma_rs_n64<0>(s, qf[st], smem_desc(addr, 16, 1024), st > 0);
+      const uint32_t step = (st >> 2) * kBlock + (st & 3) * 32;
+      if constexpr (kQSmem<D>) {
+        wgmma_ss_n64<0, 0>(s, smem_desc(qsm + wg * kQTile + step, 16, 1024),
+                           smem_desc(ks + step, 16, 1024), st > 0);
+      } else {
+        wgmma_rs_n64<0>(s, qf[st], smem_desc(ks + step, 16, 1024), st > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -229,7 +280,11 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_attention_fwd_kernel(
       // V is [key][d]: d contiguous (MN-major), 16 keys a step, the second
       // 64-column block of d one tile block further
       const uint64_t desc = smem_desc(vs + st * 2048, kBlock, 1024);
-      if constexpr (D == 128) {
+      if constexpr (D == 256) {  // two halves of d, two 64-column blocks apart
+        wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(o), pf[st], desc, 1);
+        wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(o + 64), pf[st],
+                         smem_desc(vs + 2 * kBlock + st * 2048, kBlock, 1024), 1);
+      } else if constexpr (D == 128) {
         wgmma_rs_n128<1>(o, pf[st], desc, 1);
       } else {
         wgmma_rs_n64<1>(o, pf[st], desc, 1);
@@ -272,12 +327,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   static bool opted_in = false;  // above 48 KB of dynamic shared memory
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem_bytes<D>());
+                                           smem_bytes<D, kWG>());
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const dim3 grid(hq, (sq + 64 * kWG - 1) / (64 * kWG), b);
-  kernel<<<grid, 128 * kWG, smem_bytes<D>(), stream>>>(
+  kernel<<<grid, 128 * kWG, smem_bytes<D, kWG>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), sq, skv, hq, hkv, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], scale, causal, slopes, window);
@@ -338,5 +393,7 @@ extern "C" int eetq_flash_attention_fwd(const void* q, const void* k, const void
     return launch_d<64>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, sl, window, s);
   if (d == 128)
     return launch_d<128>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, sl, window, s);
+  if (d == 256)
+    return launch_d<256>(q, k, v, out, b, sq, skv, hq, hkv, st, scale, causal, sl, window, s);
   return cudaErrorInvalidValue;
 }

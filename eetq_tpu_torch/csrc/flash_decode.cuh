@@ -101,10 +101,18 @@
 //   - kAlibi (baichuan-13b): slope_h * log2 e * (key - qpos) is added to a
 //     row's score after the scale (and the int8 key scale), qpos = its
 //     length - 1; slopes [Hq] f32, read once per row at the block's start.
-// Any GQA group: up to 64 query rows a kv head (G * S). The decode step of
+// Any GQA group: up to 64 query rows a kv head (G * S) at D = 64 and 128,
+// 32 at D = 256, where the warps' states of 64 rows (4 kWarps 64 (D + 2)
+// bytes, 258 KB) would not fit the block's shared memory
+// (kernels/flash_decode.py::max_query_rows). The decode step of
 // the groups in EETQ_DECODE_STEP_GROUPS (kernels/autotune.py) is compiled
 // apart per G (kG <= 8: the top half of one M tile; kG = 16: one whole M
 // tile); any other group takes the multi-query body.
+//
+// Head dim 256 (gemma-7b) runs the same body: a bf16 stage of 64 keys is
+// 67.6 KB (rows of 528 bytes), three stages 198 KB, one block an SM; a lane
+// holds 128 f32 of the output accumulator, and in int8 reads 32 bytes of
+// each of its four keys' V rows a tile.
 #pragma once
 
 #include "hopper.cuh"
@@ -156,7 +164,8 @@ constexpr int kStages = 3;
 // The most chunks a row may have: the last block keeps (weight, sum) of
 // each chunk and query row of a merge pass in the ring, at least one row
 // (the smallest ring, int8 at D = 64, holds 31.5 KB: 8 rows of the most
-// chunks, so a decode step of G <= 8 merges in one pass). The plan
+// chunks, so a decode step of G <= 8 merges in one pass; the D = 256 rings
+// are larger, 103.5 KB in int8 and 198 KB in bf16). The plan
 // lengthens the chunk where a cache would need more
 // (kernels/autotune.py::DECODE_MAX_CHUNKS).
 constexpr int kMaxChunks = EETQ_DECODE_MAX_CHUNKS;
@@ -164,6 +173,11 @@ constexpr int kMaxChunks = EETQ_DECODE_MAX_CHUNKS;
 constexpr int kMaxChunk = EETQ_DECODE_MAX_CHUNK;
 constexpr int kMaxTiles = kMaxChunk / kTile;
 constexpr int kMaxRows = 64;  // query rows of a kv head: q heads times query tokens
+// ... at head dim D: the most rows whose warps' states fit the 227 KB of
+// shared memory a block may take (64 at D <= 128, 32 at D = 256)
+template <int D>
+constexpr int kMaxRowsOf =
+    4 * kWarps * kMaxRows * (D + 2) <= 227 * 1024 ? kMaxRows : kMaxRows / 2;
 // The groups whose decode step (S = 1) is compiled apart
 constexpr unsigned kStepGroups = EETQ_DECODE_STEP_GROUPS;
 static_assert(kMaxTiles <= 32 * kWarps, "a thread reads the table entry of each tile");
@@ -470,31 +484,38 @@ struct Warp {
     }
     if constexpr (kInt8) {
       // keys 2t, 2t + 1, 2t + 8, 2t + 9 at dims (D / 8) g .. (D / 8) (g + 1) - 1:
-      // output column g of n-tile j is dim (D / 8) g + j
+      // output column g of n-tile j is dim (D / 8) g + j. 16 bytes of each
+      // key a pass (8 at D = 64; two passes at D = 256, so that a lane holds
+      // only one pass's words)
       constexpr int kBytes = D / 8;
-      uint4 w[4];
+      constexpr int kWords = kBytes >= 16 ? 4 : kBytes / 4;  // words of a pass
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const unsigned char* src = vs + (2 * t + kOff[j]) * L::kRow + kBytes * g;
-        if constexpr (kBytes == 16) {
-          w[j] = *reinterpret_cast<const uint4*>(src);
-        } else {
-          const uint2 h = *reinterpret_cast<const uint2*>(src);
-          w[j] = make_uint4(h.x, h.y, 0u, 0u);
+      for (int u = 0; u < kBytes / (4 * kWords); ++u) {
+        uint4 w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned char* src = vs + (2 * t + kOff[j]) * L::kRow + kBytes * g + 16 * u;
+          if constexpr (kBytes >= 16) {
+            w[j] = *reinterpret_cast<const uint4*>(src);
+          } else {
+            const uint2 h = *reinterpret_cast<const uint2*>(src);
+            w[j] = make_uint4(h.x, h.y, 0u, 0u);
+          }
         }
-      }
 #pragma unroll
-      for (int i = 0; i < kBytes / 4; ++i) {  // n-tiles 4i .. 4i + 3: bytes of word i
-        const uint32_t r0 = word(w[0], i), r1 = word(w[1], i);  // keys 2t, 2t + 1
-        const uint32_t r2 = word(w[2], i), r3 = word(w[3], i);  // keys 2t + 8, 2t + 9
-        eetq::mma_bf16(o[4 * i], a0, a1, a2, a3, eetq::int8_pair<0>(r0, r1),
-                       eetq::int8_pair<0>(r2, r3));
-        eetq::mma_bf16(o[4 * i + 1], a0, a1, a2, a3, eetq::int8_pair<1>(r0, r1),
-                       eetq::int8_pair<1>(r2, r3));
-        eetq::mma_bf16(o[4 * i + 2], a0, a1, a2, a3, eetq::int8_pair<2>(r0, r1),
-                       eetq::int8_pair<2>(r2, r3));
-        eetq::mma_bf16(o[4 * i + 3], a0, a1, a2, a3, eetq::int8_pair<3>(r0, r1),
-                       eetq::int8_pair<3>(r2, r3));
+        for (int i = 0; i < kWords; ++i) {  // n-tiles 4n .. 4n + 3: bytes of word n
+          const int n = kWords * u + i;
+          const uint32_t r0 = word(w[0], i), r1 = word(w[1], i);  // keys 2t, 2t + 1
+          const uint32_t r2 = word(w[2], i), r3 = word(w[3], i);  // keys 2t + 8, 2t + 9
+          eetq::mma_bf16(o[4 * n], a0, a1, a2, a3, eetq::int8_pair<0>(r0, r1),
+                         eetq::int8_pair<0>(r2, r3));
+          eetq::mma_bf16(o[4 * n + 1], a0, a1, a2, a3, eetq::int8_pair<1>(r0, r1),
+                         eetq::int8_pair<1>(r2, r3));
+          eetq::mma_bf16(o[4 * n + 2], a0, a1, a2, a3, eetq::int8_pair<2>(r0, r1),
+                         eetq::int8_pair<2>(r2, r3));
+          eetq::mma_bf16(o[4 * n + 3], a0, a1, a2, a3, eetq::int8_pair<3>(r0, r1),
+                         eetq::int8_pair<3>(r2, r3));
+        }
       }
     } else {
 #pragma unroll
@@ -807,7 +828,7 @@ cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
 
 // The decode step (S = 1) of a group in kStepGroups, compiled apart; the
 // multi-query body otherwise, by its query rows a kv head rounded up to 8,
-// 16, 32 or 64.
+// 16, 32 or 64 (at most kMaxRowsOf<D>).
 template <int kG, int D, bool kInt8, bool kPaged, bool kWindow, bool kAlibi>
 cudaError_t launch_step(const Params& p, int b, cudaStream_t s) {
   if constexpr ((kStepGroups >> kG) & 1u) {
@@ -834,8 +855,10 @@ cudaError_t launch_rows(const Params& p, int b, cudaStream_t s) {
   if (p.rows <= 8) return launch<8, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
   if (p.rows <= 16) return launch<16, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
   if (p.rows <= 32) return launch<32, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
-  if (p.rows <= kMaxRows) return launch<64, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
-  return cudaErrorInvalidValue;
+  if constexpr (kMaxRowsOf<D> >= 64) {
+    if (p.rows <= 64) return launch<64, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
+  }
+  return cudaErrorInvalidValue;  // past kMaxRowsOf<D>
 }
 
 // One variant's launch, by head dim, cache dtype and address map
@@ -852,6 +875,7 @@ cudaError_t dispatch(const Params& p, int b, int d, bool int8, bool paged, cudaS
   }
   EETQ_FD_MODES(64)
   EETQ_FD_MODES(128)
+  EETQ_FD_MODES(256)
 #undef EETQ_FD_MODES
   return cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@ Each wrapper in `KERNELS` launches its CUDA kernel for CUDA tensors (or
 raises) and runs its plain version for CPU tensors; its `launches`
 attribute counts kernel launches; the attention kernels also count the
 launches of each variant they ran (`variant_launches`: a sliding window,
-ALiBi, a GQA group other than 1, 2, 4, 8), read as "name[variant]". A CUDA
-graph that replays captured launches adds the counts of its capture on each
-replay (`add_launch_counts`, called by `serve/graph.py`).
+ALiBi, a GQA group other than 1, 2, 4, 8, head dim 256), read as
+"name[variant]". A CUDA graph that replays captured launches adds the
+counts of its capture on each replay (`add_launch_counts`, called by
+`serve/graph.py`).
 """
 
 from eetq_tpu_torch.kernels.flash_attention import flash_attention

@@ -25,6 +25,11 @@ window (`window`: row p sees keys p - window < key <= p; the tiles wholly
 left of a block's windows are never loaded) and ALiBi (`slopes` [Hq] f32:
 slope_h * (key - p) added to the scaled scores before the mask). Any GQA
 group runs, the kv head of q head h being h // group.
+
+Head dims 64, 128 and 256 (gemma-7b). At 256 the kernel keeps the scaled q
+tile in shared memory as the S = q k^T product's A operand, beside a
+two-stage K/V ring, where the narrower head dims hold q in registers: the
+output accumulator of a 256-wide head takes 128 registers a thread.
 """
 
 from __future__ import annotations
@@ -35,20 +40,20 @@ from eetq_tpu_torch.kernels import _build
 from eetq_tpu_torch.utils.device import resolve
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 # The variants a launch counts beside its total (`count_launch`): a sliding
-# window, ALiBi, and a GQA group other than 1, 2, 4, 8 (qwen2-7b's 7,
-# chatglm3-6b's 16)
-VARIANTS = ("window", "alibi", "group")
+# window, ALiBi, a GQA group other than 1, 2, 4, 8 (qwen2-7b's 7,
+# chatglm3-6b's 16), and head dim 256 (gemma-7b)
+VARIANTS = ("window", "alibi", "group", "d256")
 BASE_GROUPS = (1, 2, 4, 8)
 
 
-def count_launch(fn, window, slopes, group: int) -> None:
+def count_launch(fn, window, slopes, group: int, d: int) -> None:
     """One launch of the attention kernel behind wrapper `fn`: its count, and
     the count of each variant it ran."""
     fn.launches += 1
     for name, on in zip(VARIANTS, (window is not None, slopes is not None,
-                                   group not in BASE_GROUPS)):
+                                   group not in BASE_GROUPS, d == 256)):
         fn.variant_launches[name] += on
 
 
@@ -185,7 +190,7 @@ def flash_attention(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         scale, int(causal), _build.ptr(slopes), window or 0, _build.stream_of(q),
     )
-    count_launch(flash_attention, window, slopes, hq // hkv)
+    count_launch(flash_attention, window, slopes, hq // hkv, d)
     return out
 
 

@@ -43,8 +43,9 @@ ALiBi (`slopes` [Hq] f32: slope_h * (key - p) added to the scaled scores,
 after an int8 key's scale, :170-181), each a variant compiled apart from the
 plain body. Under a window only the chunks and tiles that hold a row's
 window are read: the others return or are skipped, as the TPU index maps
-clamp them (:459-474). Any GQA group runs: up to 64 query rows (q heads
-times query tokens) a kv head.
+clamp them (:459-474). Any GQA group runs: up to `max_query_rows(D)` query
+rows (q heads times query tokens) a kv head, 64 at head dims 64 and 128 and
+32 at 256 (gemma-7b).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.kernels.autotune import decode_plan
+from eetq_tpu_torch.kernels.autotune import DECODE_TILE, decode_plan
 from eetq_tpu_torch.kernels.flash_attention import (
     VARIANTS,
     alibi_bias,
@@ -60,9 +61,21 @@ from eetq_tpu_torch.kernels.flash_attention import (
     count_launch,
 )
 
-HEAD_DIMS = (64, 128)
-# query rows of a kv head a launch takes: q heads of the group times tokens
-MAX_QUERY_ROWS = 64
+HEAD_DIMS = (64, 128, 256)
+# A block holds the softmax states of its query rows (q heads of the group
+# times tokens) for each of its key warps in shared memory at the end:
+# 4 (D + 2) bytes a row and warp. A launch takes the most rows, 64 or 32,
+# whose states fit the 227 KB a block may have (`csrc/flash_decode.cuh`
+# computes the same, kMaxRowsOf).
+_ROW_STEPS = (64, 32)
+_SMEM_BYTES = 227 * 1024
+_KEY_WARPS = DECODE_TILE // 16
+
+
+def max_query_rows(d: int) -> int:
+    """Query rows of a kv head one launch takes at head dim d: 64 at d = 64
+    and 128, 32 at d = 256."""
+    return next((r for r in _ROW_STEPS if 4 * _KEY_WARPS * r * (d + 2) <= _SMEM_BYTES), 0)
 
 
 def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None, slopes=None):
@@ -120,9 +133,9 @@ def _check(q, k_cache, v_cache, lengths, window, slopes, cache_dtype, batch_axis
         raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
-    if not 1 <= group * s <= MAX_QUERY_ROWS:
+    if not 1 <= group * s <= max_query_rows(d):
         raise NotImplementedError(f"{group} q heads x {s} query tokens: the kernel takes at most "
-                                  f"{MAX_QUERY_ROWS} query rows a kv head")
+                                  f"{max_query_rows(d)} query rows a kv head at head_dim {d}")
 
 
 def _launch_args(q, hkv, max_len):
@@ -162,7 +175,7 @@ def flash_decode(
         lengths.data_ptr(), out.data_ptr(), partials, counters, b, s, hq, hkv, l, d, chunk,
         scale, _build.ptr(slopes), window or 0, _build.stream_of(q),
     )
-    count_launch(flash_decode, window, slopes, hq // hkv)
+    count_launch(flash_decode, window, slopes, hq // hkv, d)
     return out
 
 
@@ -214,7 +227,7 @@ def flash_decode_int8(
         counters, b, s, hq, hkv, l, d, chunk, scale, _build.ptr(slopes), window or 0,
         _build.stream_of(q),
     )
-    count_launch(flash_decode_int8, window, slopes, hq // hkv)
+    count_launch(flash_decode_int8, window, slopes, hq // hkv, d)
     return out
 
 
@@ -288,7 +301,7 @@ def paged_flash_decode(
         hkv, max_blocks, bs, d, chunk, scale, _build.ptr(slopes), window or 0,
         _build.stream_of(q),
     )
-    count_launch(paged_flash_decode, window, slopes, hq // hkv)
+    count_launch(paged_flash_decode, window, slopes, hq // hkv, d)
     return out
 
 
@@ -326,7 +339,7 @@ def paged_flash_decode_int8(
         out.data_ptr(), partials, counters, b, s, hq, hkv, max_blocks, bs, d, chunk, scale,
         _build.ptr(slopes), window or 0, _build.stream_of(q),
     )
-    count_launch(paged_flash_decode_int8, window, slopes, hq // hkv)
+    count_launch(paged_flash_decode_int8, window, slopes, hq // hkv, d)
     return out
 
 

@@ -75,6 +75,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from eetq_tpu_torch.kernels.flash_decode import max_query_rows
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.models.transformer import ModelParams, forward_inner, init_caches
 from eetq_tpu_torch.modules.linear import QuantLinear
@@ -142,12 +143,15 @@ class Engine:
         if spec_ngram is not None and not 1 <= spec_ngram <= 7:
             raise ValueError("spec_ngram must be in [1, 7] (the k + 1-token verify must stay "
                              "in the m <= 8 decode regime)")
-        if spec_ngram is not None and cfg.num_heads // cfg.num_kv_heads * (spec_ngram + 1) > 64:
+        rows = max_query_rows(cfg.head_dim)
+        if spec_ngram is not None and cfg.num_heads // cfg.num_kv_heads * (spec_ngram + 1) > rows:
             # the verify's query rows a kv head (q heads of a group times the
-            # k + 1 tokens): the flash-decode takes at most 64
+            # k + 1 tokens): the flash-decode takes at most 64 (32 at head
+            # dim 256)
             raise ValueError(f"spec_ngram {spec_ngram}: a verify of {spec_ngram + 1} tokens "
                              f"over a GQA group of {cfg.num_heads // cfg.num_kv_heads} is more "
-                             "than the flash-decode's 64 query rows a kv head")
+                             f"than the flash-decode's {rows} query rows a kv head at head_dim "
+                             f"{cfg.head_dim}")
         if prefill_chunk is not None:
             raise NotImplementedError("chunked prefill is not ported yet")
         self.device = params.embed.device

@@ -64,7 +64,7 @@ linkage, so each library keeps its own state.
 
 `--decode-only` (with `--kernels-of DIR`) times the attention kernels
 alone: `eetq_flash_attention_fwd` at llama2-7b's and Mixtral's b=1
-1024-token prefill (`AB_ATTENTION`), then the flash-decode's four entry
+1024-token prefill and at D = 64 (`AB_ATTENTION`), then the flash-decode's four entry
 points at the main paths' shapes (the two paged engines'
 8-slot steps, then `DECODE_DENSE_CASES`: b=1 decode in bf16 and int8 and
 Mixtral's, generate's b=4 request, the default engine's 8-slot step over a
@@ -159,8 +159,9 @@ DECODE_DENSE_CASES = [
 DECODE_GROUP_CASES = [
     (int8, hq, hkv, l, lens) for hq, hkv in ((28, 4), (32, 2)) for int8 in (False, True)
     for l, lens in ((1152, [1074]), (2048, [1074, 1, 640, 2048, 17, 1500, 300, 1024]))]
-# Prefill attention, (batch, S, Hq, Hkv, D): llama2-7b's and Mixtral's
-AB_ATTENTION = [(1, 1024, 32, 32, 128), (1, 1024, 32, 8, 128)]
+# Prefill attention, (batch, S, Hq, Hkv, D): llama2-7b's and Mixtral's, and
+# D = 64 over 1000 tokens
+AB_ATTENTION = [(1, 1024, 32, 32, 128), (1, 1024, 32, 8, 128), (1, 1000, 32, 8, 64)]
 ATTENTION_ENTRIES = DECODE_ENTRIES + ("eetq_flash_attention_fwd",)
 
 

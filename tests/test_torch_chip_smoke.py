@@ -33,3 +33,72 @@ def test_serialized_wgmma_flags_the_dense_gemms():
     found = chip_smoke.serialized_wgmma(log)
     assert set(found) & set(chip_smoke.UNSERIALIZED_SOURCES) == {"w4a8_gemm.cu"}
     assert chip_smoke.serialized_wgmma("== w8a8_gemm.cu\nptxas info : 0 bytes gmem") == {}
+
+
+_USAGE_LOG = "\n".join([
+    "== flash_attention.cu",
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_126flash_attention_fwd_kernelILi256ELi1ELb0ELb0EEEvPK' for 'sm_90a'",
+    "ptxas info    : Function properties for "
+    "_ZN12_GLOBAL__N_126flash_attention_fwd_kernelILi256ELi1ELb0ELb0EEEvPK",
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "ptxas info    : Used 218 registers, used 1 barriers, 472 bytes cmem[0]",
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_126flash_attention_fwd_kernelILi128ELi2ELb0ELb0EEEvPK' for 'sm_90a'",
+    "ptxas info    : Function properties for "
+    "_ZN12_GLOBAL__N_126flash_attention_fwd_kernelILi128ELi2ELb0ELb0EEEvPK",
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "ptxas info    : Used 189 registers, used 1 barriers, 472 bytes cmem[0]",
+    "== flash_decode.cu",
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_119flash_decode_kernelILi8ELi1ELi256ELb1ELb0ELb0ELb0EEEv6Params' for 'sm_90a'",
+    "ptxas info    : Function properties for "
+    "_ZN12_GLOBAL__N_119flash_decode_kernelILi8ELi1ELi256ELb1ELb0ELb0ELb0EEEv6Params",
+    "    16 bytes stack frame, 12 bytes spill stores, 32 bytes spill loads",
+    "ptxas info    : Used 255 registers, used 1 barriers, 544 bytes cmem[0]",
+])
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    usage = chip_smoke.ptxas_usage(_USAGE_LOG)
+    assert len(usage) == 3
+    assert usage["_ZN12_GLOBAL__N_126flash_attention_fwd_kernelILi128ELi2ELb0ELb0EEEvPK"] == (
+        189, 0, 0)
+    assert usage["_ZN12_GLOBAL__N_119flash_decode_kernelILi8ELi1ELi256ELb1ELb0ELb0ELb0EEEv6Params"
+                 ] == (255, 12, 32)
+
+
+def test_head256_usage_keeps_the_head_dim_256_instances():
+    got = chip_smoke.head256_usage(_USAGE_LOG)
+    assert got == {
+        "flash_attention_fwd_kernel": dict(instances=1, min_registers=218, max_registers=218,
+                                           max_spill_stores=0, max_spill_loads=0, spilling=0),
+        "flash_decode_kernel": dict(instances=1, min_registers=255, max_registers=255,
+                                    max_spill_stores=12, max_spill_loads=32, spilling=1),
+    }
+
+
+def test_flash_attention_source_must_not_serialize_wgmma():
+    log = _LOG + "\n== flash_attention.cu\n" + _WARN.format(
+        "_ZN12_GLOBAL__N_126flash_attention_fwd_kernelILi256ELi2ELb0ELb0EEEvPK")
+    assert set(chip_smoke.serialized_wgmma(log)) & set(chip_smoke.UNSERIALIZED_SOURCES) == {
+        "flash_attention.cu"}
+
+
+def test_unit_gain_norms_zeroes_only_unit_offset_norms():
+    """A unit-offset (gemma) random model's stored norms go to 0, gain 1;
+    another preset's stay at the initializer's ones."""
+    import dataclasses
+
+    import torch
+
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import random_dense_params
+
+    base = dataclasses.replace(PRESETS["toy"], num_layers=1)
+    for offset in (False, True):
+        cfg = dataclasses.replace(base, rmsnorm_unit_offset=offset)
+        params = random_dense_params(cfg, torch.Generator().manual_seed(0))
+        chip_smoke.unit_gain_norms(params, cfg)
+        norms = [params.final_norm, params.layers[0].input_norm, params.layers[0].post_norm]
+        assert all(torch.equal(n, torch.full_like(n, 0.0 if offset else 1.0)) for n in norms)

@@ -478,7 +478,8 @@ DECODE_MODES = ["dense", "dense_int8", "paged", "paged_int8"]
 @pytest.mark.parametrize("mode", DECODE_MODES)
 @pytest.mark.parametrize("b,hq,hkv,d,lengths", [
     (1, 32, 32, 128, [1074]), (8, 32, 8, 128, [1, 2048, 17, 1500, 300, 1024, 640, 2047]),
-    (3, 16, 2, 64, [129, 64, 1])])
+    (3, 16, 2, 64, [129, 64, 1]), (1, 16, 16, 256, [1074]),
+    (8, 16, 16, 256, [1, 2048, 17, 1500, 300, 1024, 640, 2047])])
 def test_flash_decode_repeats_bit_equal(dev, mode, b, hq, hkv, d, lengths):
     """Two launches give bit-equal outputs: the chunks' states are merged in
     chunk order by one block, with no float atomics."""
@@ -806,9 +807,13 @@ def test_unsupported_variants_raise(dev):
     with pytest.raises(TypeError):  # f32 activations
         w8a16_gemv(x.float(), w, torch.ones(128, device=dev), 128)
     q = torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16, device=dev)
-    q256 = torch.zeros(1, 4, 2, 256, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):  # head_dim 256, also under a window
-        flash_attention(q256, q256, q256, window=2)
+    q96 = torch.zeros(1, 4, 2, 96, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):  # head_dim 96, also under a window
+        flash_attention(q96, q96, q96, window=2)
+    with pytest.raises(NotImplementedError):  # head_dim 96 in the flash-decode
+        flash_decode(q96[:, :1].contiguous(), q96.transpose(1, 2).contiguous(),
+                     q96.transpose(1, 2).contiguous(), torch.ones(1, dtype=torch.int32,
+                                                                  device=dev))
     with pytest.raises(ValueError):  # a window of no key
         flash_attention(q, q, q, window=0)
     with pytest.raises(TypeError):  # ALiBi slopes of another head count
@@ -822,6 +827,18 @@ def test_unsupported_variants_raise(dev):
     sc = torch.ones(1, 2, 128, device=dev)
     with pytest.raises(NotImplementedError):  # the same over an int8 cache
         flash_decode_int8(wide, i8, i8, sc, sc, lengths)
+    # at head dim 256 a launch takes 32 query rows a kv head: 16 q heads x 4
+    # tokens (64) are past it, 16 x 2 are not
+    wide256 = torch.zeros(1, 4, 16, 256, dtype=torch.bfloat16, device=dev)
+    cache256 = torch.zeros(1, 1, 128, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):
+        flash_decode(wide256, cache256, cache256, 4 * lengths)
+    i8_256 = torch.zeros(1, 1, 128, 256, dtype=torch.int8, device=dev)
+    sc256 = torch.ones(1, 1, 128, device=dev)
+    with pytest.raises(NotImplementedError):
+        flash_decode_int8(wide256, i8_256, i8_256, sc256, sc256, 4 * lengths)
+    assert flash_decode(wide256[:, :2].contiguous(), cache256, cache256, 2 * lengths).shape == (
+        1, 2, 16, 256)
     with pytest.raises(TypeError):  # a bf16 cache handed to the int8 kernel
         flash_decode_int8(q[:, :1], cache, cache, sc, sc, lengths)
     xq = torch.zeros(1, 128, dtype=torch.int8, device=dev)
@@ -855,9 +872,12 @@ def test_unsupported_variants_raise(dev):
     table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError):  # 72 query rows a kv head over a paged cache
         paged_flash_decode(wide, pool, pool, table, lengths)
-    pool256 = torch.zeros(4, 2, 128, 256, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):  # head_dim 256 under a window over a paged cache
-        paged_flash_decode(q256[:, :1], pool256, pool256, table, lengths, window=64)
+    pool96 = torch.zeros(4, 2, 128, 96, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):  # head_dim 96 under a window over a paged cache
+        paged_flash_decode(q96[:, :1], pool96, pool96, table, lengths, window=64)
+    pool256 = torch.zeros(4, 1, 128, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):  # 64 query rows a kv head at head_dim 256
+        paged_flash_decode(wide256, pool256, pool256, table, 4 * lengths)
     with pytest.raises(TypeError):  # an int64 table
         paged_flash_decode(q[:, :1], pool, pool, table.long(), lengths)
     with pytest.raises(TypeError):  # a table of another batch
@@ -1303,6 +1323,11 @@ FLASH_VARIANTS = [
     (2, 77, 333, 8, 8, 64, 100, False), (1, 1000, 1000, 40, 40, 128, None, True),
     (2, 130, 200, 5, 5, 64, None, True), (1, 500, 500, 6, 3, 128, 40, True),
     (1, 1024, 1024, 28, 4, 128, None, False), (1, 300, 300, 32, 2, 128, None, False),
+    # head dim 256 (gemma-7b): one- and two-warpgroup tiles, a block appended
+    # to a cache, GQA, the window and ALiBi
+    (1, 1024, 1024, 16, 16, 256, None, False), (2, 1024, 1024, 16, 16, 256, None, False),
+    (2, 77, 333, 8, 2, 256, None, False), (1, 1000, 1000, 16, 16, 256, 256, False),
+    (1, 500, 500, 6, 3, 256, 40, True), (2, 130, 200, 5, 5, 256, None, True),
 ]
 
 
@@ -1319,13 +1344,13 @@ def test_flash_attention_variants(dev, b, sq, skv, hq, hkv, d, window, alibi):
     _close(out, flash_attention_ref(q, k, v, window=window, slopes=slopes))
 
 
-def _variant_fns(g, dev, mode, b, hq, hkv, l, window, slopes, bs=256):
+def _variant_fns(g, dev, mode, b, hq, hkv, l, window, slopes, bs=256, d=128):
     """(kernel(q, lengths), plain(q, lengths), dense(q, lengths)) of one
     flash-decode entry point under a window and ALiBi slopes; a paged mode's
     pool holds the dense cache's keys behind a permuted table, and dense()
     is the dense kernel on that cache (the paged kernel must equal it)."""
     int8, paged = "int8" in mode, mode.startswith("paged")
-    caches = [torch.randn(b, hkv, l, 128, generator=g, device=dev) for _ in range(2)]
+    caches = [torch.randn(b, hkv, l, d, generator=g, device=dev) for _ in range(2)]
     if int8:
         (k, ks), (v, vs) = (quantize_activations(t) for t in caches)
         leaves = (k, v, ks, vs)
@@ -1412,6 +1437,10 @@ FAMILY_DIMS = {
     "group7": dict(num_heads=7, num_kv_heads=1, qkv_bias=True),
     "group16": dict(num_heads=16, num_kv_heads=1, rope_dim=64, rope_interleaved=True,
                     qkv_bias=True),
+    # gemma-style: 4 heads of 256, a tied head, unit-offset norms, the
+    # embedding multiplier, GeGLU
+    "d256": dict(num_heads=4, num_kv_heads=4, head_dim=256, tie_word_embeddings=True,
+                 rmsnorm_unit_offset=True, activation="gelu", embedding_multiplier=32.0),
 }
 
 
@@ -1427,7 +1456,7 @@ def test_family_decode_on_the_card(dev, family, kv, fused):
     from eetq_tpu_torch.models.init import quantize_params, random_dense_params
     from eetq_tpu_torch.serve.generate import decode_loop, decode_step, prefill
 
-    dims = dict(GRAPH_DIMS, head_dim=128, **FAMILY_DIMS[family])
+    dims = {**GRAPH_DIMS, "head_dim": 128, **FAMILY_DIMS[family]}
     cfg = ModelConfig(**dims)
     params = quantize_params(random_dense_params(cfg, torch.Generator(device=dev).manual_seed(0)),
                              quantize_lm_head=True)
@@ -1452,3 +1481,48 @@ def test_family_decode_on_the_card(dev, family, kv, fused):
         eager.append(tok)
     toks, _ = decode_loop(params, cfg, first, s, caches, n, fused_mlp=fused)
     assert torch.equal(toks, torch.stack(eager, dim=1))
+
+
+# ---- head dim 256 (gemma-7b) in the flash-decode ----
+
+# (q heads, kv heads, window, ALiBi): gemma-7b's 16 heads, a window, ALiBi,
+# and group 16 (the decode step's 16-row instance)
+HEAD256_DECODE = {"mha": (16, 16, None, False), "window": (16, 8, 300, False),
+                  "alibi": (8, 8, None, True), "group16": (32, 2, None, False)}
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("case", HEAD256_DECODE)
+def test_flash_decode_head256(dev, mode, case):
+    """One token a row at head dim 256: within the plain version's
+    tolerance, repeats bit-equal, paged bit-equal to dense; rows of one key,
+    of the whole cache and across chunk edges."""
+    from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
+
+    hq, hkv, window, alibi = HEAD256_DECODE[case]
+    g = torch.Generator(device=dev).manual_seed(256 + hq + hkv)
+    slopes = alibi_slopes_cache(hq, dev) if alibi else None
+    kernel, ref, dense = _variant_fns(g, dev, mode, 6, hq, hkv, 2048, window, slopes, d=256)
+    q = torch.randn(6, 1, hq, 256, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([555, 257, 2048, 1, 100, 1300], dtype=torch.int32, device=dev)
+    out = _twice(lambda: kernel(q, lengths))
+    _close(out, ref(q, lengths))
+    assert torch.equal(out, dense(q, lengths))
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("hq,hkv,s", [(16, 16, 8), (16, 4, 4), (32, 2, 2)],
+                         ids=["8-rows", "16-rows", "32-rows"])
+def test_multiquery_head256_bit_equal_to_sequential_calls(dev, mode, hq, hkv, s):
+    """S query tokens a row at head dim 256, 8, 16 and 32 query rows a kv
+    head (32 is the most there): token i bit-equal to an S = 1 call at
+    length - S + i + 1, paged bit-equal to dense."""
+    g = torch.Generator(device=dev).manual_seed(2560 + s)
+    kernel, ref, dense = _variant_fns(g, dev, mode, 4, hq, hkv, 2048, None, None, d=256)
+    q = torch.randn(4, s, hq, 256, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([255 + s, 2048, s, 1074], dtype=torch.int32, device=dev)
+    out = _twice(lambda: kernel(q, lengths))
+    _close(out, ref(q, lengths))
+    assert torch.equal(out, dense(q, lengths))
+    for i in range(s):
+        assert torch.equal(out[:, i:i + 1], kernel(q[:, i:i + 1].contiguous(), lengths - s + i + 1))
