@@ -75,7 +75,17 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    over 1280 keys (length 1074), in an 8-slot step over 2048, under a window
    and with ALiBi; verifies of 8, 16 and 32 query rows a kv head (S = 8 at
    G = 1, S = 4 at G = 4 over 8 rows, S = 2 at G = 16), each token bit-equal
-   to a one-token call; paged bit-equal to dense throughout.
+   to a one-token call; paged bit-equal to dense throughout. The verify past
+   one row block of the flash-decode (ROW_BLOCK_CASES: chatglm3-6b's 32/2 at
+   S = 8, 128 query rows a kv head, at b=1 and in an 8-slot step; 32/4 at S
+   = 9, 72 rows; each plain, under mistral's window and with ALiBi; at head
+   dim 256 64 rows), in the four entry points, each token bit-equal to a
+   one-token call and paged bit-equal to dense. The prefill flash-attention
+   at chunked prefill's shapes (CHUNK_ATTENTION_CASES: a 512-token chunk
+   over 4096 keys, mistral's over 4608 under its window, bench.py's b=4
+   chunks of 256) over the cache read in place as [B, L, Hkv, D], against
+   its plain version, bit-equal to the kernel on contiguous keys, beside
+   SDPA under a lower-right causal bias (a float mask under the window).
    Then `moe_apply` on one full-width Mixtral layer (int8 per-channel, and
    int4 g=128) at 2, 8 and 2048 selections, kernels against the plain path
    on identical input (the routing ids must agree), the kernel calls under
@@ -114,6 +124,19 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      against the plain path; every block is back on the free list at the
      end; and the greedy requests' tokens equal those of a window-1 engine
      with a dense bf16 cache.
+   - bench_decode_chunked: `bench.py` under EETQ_BENCH_PREFILL_CHUNK=256:
+     b=4 p=1024 through `prefill_chunked(chunk=256)` into an int8 cache (four
+     chunks, each attention on the prefill kernel: 4 launches a layer), then
+     `decode_loop(fused_mlp=True)`; its logits within MODEL_TOL of the
+     unchunked prefill's and of the chunked plain path's; the chunked
+     prefill timed against the unchunked one in turns.
+   - chunked_server, chunked_paged_server: `Engine(prefill_chunk=512,
+     max_len=4096)` (W8A16 admissions; dense int8, then a paged bf16 pool of
+     80 blocks), warmed up, ten requests (two of 3,300 and 3,500 tokens,
+     bucket 4096: eight chunks each, queued behind six short ones): every
+     chunk runs beside busy slots, each of which commits a token in the same
+     step; the greedy tokens equal the same engine's without prefill_chunk,
+     or part at a near tie (SPEC_TIE_ULPS); every block freed.
    - ngram_spec, ngram_spec_bench, draft_spec: speculative decoding at b=1
      (k = 7; a verify is m = 8, the GEMV) on a seeded 64-token sequence
      tiled to 1024 tokens: `ngram_spec_generate` with bf16 KV and with
@@ -148,7 +171,13 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    4096 x 14336, top-2), built one layer at a time (the bf16 model,
    ~93 GB, never exists), int8 lm_head, driven two ways: generate (as in
    3, the same requests) and the default Engine behind EngineServer (as in
-   3). The fused MLP must not launch on either. Top-2 routing is
+   3), and `Engine(spec_ngram=3)` over the same default engine
+   (mixtral_spec_server: at k = 3 a b=1 verify's 8 expert selections stay
+   in the gather regime): one 8-slot verify round against the plain path
+   with the routing replayed, greedy requests equal to its non-spec twin's
+   or parting at a near tie of the tokens or of the last token's top-2
+   routing (`near_tie`), rounds and drafts a round printed. The fused MLP
+   must not launch on any. Top-2 routing is
    discontinuous, so each check of the logits replays the kernel path's
    routing in the plain path (a wrapper of `modules.moe.route` records
    each call's weights and ids, then hands them back in order); how many
@@ -179,8 +208,14 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    with a request of 4400 + 64 tokens and a step check over a 4465-key row;
    qwen2 and baichuan-13b dense int8; chatglm3 a paged int8 pool; gemma-7b a
    paged bf16 pool), greedy
-   tokens equal to a window-1 twin's. A family path launches its
-   kernels' variant and nothing else of the port.
+   tokens equal to a window-1 twin's. mistral_chunked: the 4608-token
+   prompt through `prefill_chunked(chunk=512)` (nine chunks, the later ones
+   under the window), logits within MODEL_TOL of the unchunked prefill's,
+   then 50 greedy tokens. chatglm3-6b at the reference's k = 7 (a verify of
+   128 query rows a kv head: two row blocks): `ngram_spec_generate` at b=1,
+   greedy tokens bit-equal to `greedy_generate`'s, and `Engine(spec_ngram=7)`
+   over a paged int8 pool behind the server, against its window-1 twin. A
+   family path launches its kernels' variant and nothing else of the port.
 
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, the first request's
@@ -353,6 +388,66 @@ VERIFY_VARIANT_CASES = (
     ("d256", 8, 4, 16, 4, 2048, ENGINE_LENGTHS, None, False, 256),
     ("d256", 1, 2, 32, 2, 1280, (1074,), None, False, 256),
 )
+# The multi-query verify past one row block of the flash-decode (64 query
+# rows a kv head, 32 at D = 256): (variant, batch, S, q heads, kv heads, cache
+# length, lengths, window, ALiBi, a path's shape, head dim). chatglm3-6b's
+# 32/2 at S = 8 (128 rows, two row blocks: a b=1 k = 7 verify and its spec
+# engine's 8 slots over an int8 pool), under mistral's window and with ALiBi
+# slopes of 32 heads; 32/4 at S = 9 (72 rows: the block edge inside token
+# 8's rows) plain, under the window and with ALiBi; at D = 256 32/2 at S = 4
+# (64 rows), plain, under a window of 256 and with ALiBi. Each dense bf16 and
+# int8, paged bf16 and int8, every token bit-equal to a one-token call and
+# paged bit-equal to dense. (A variant of None: the plain body at a base
+# group, recorded under the entry point's own name.)
+SPEC_ENGINE_LENGTHS = (1074, 8, 640, 2048, 17, 1500, 300, 1024)
+ROW_BLOCK_CASES = (
+    ("group", 1, 8, 32, 2, 1280, (1074,), None, False, True, 128),
+    ("group", 8, 8, 32, 2, 2048, SPEC_ENGINE_LENGTHS, None, False, True, 128),
+    ("window", 1, 8, 32, 2, 4864, (4672,), 4096, False, False, 128),
+    ("alibi", 1, 8, 32, 2, 1280, (1074,), None, True, False, 128),
+    (None, 1, 9, 32, 4, 1280, (1074,), None, False, False, 128),
+    ("window", 1, 9, 32, 4, 4864, (4672,), 4096, False, False, 128),
+    ("alibi", 1, 9, 32, 4, 1280, (1074,), None, True, False, 128),
+    ("d256", 1, 4, 32, 2, 1280, (1074,), None, False, False, 256),
+    ("d256", 1, 4, 32, 2, 1280, (1152,), 256, False, False, 256),
+    ("d256", 1, 4, 32, 2, 1280, (1074,), None, True, False, 256),
+)
+# The prefill flash-attention at chunked prefill's shapes, over the cache's
+# [B, Hkv, L, D] read as [B, L, Hkv, D] (head stride L D, sequence stride D):
+# (variant, batch, chunk, keys, q heads, kv heads, cache capacity, window,
+# the bench chunked path's shape): llama2-7b's last 512-token chunk of 4096,
+# mistral-7b's last of 4608 under its 4096-key window, and bench.py's b=4
+# p=1024 chunk 256 (its last chunk, and its first three)
+CHUNK_ATTENTION_CASES = (
+    (None, 1, 512, 4096, 32, 32, 4096, None, False),
+    ("window", 1, 512, 4608, 32, 8, 4608, 4096, False),
+    (None, 4, 256, 1024, 32, 32, 1024, None, True),
+    (None, 4, 256, 768, 32, 32, 1024, None, True),
+    (None, 4, 256, 512, 32, 32, 1024, None, True),
+    (None, 4, 256, 256, 32, 32, 1024, None, True),
+)
+# Chunked prefill (serve/generate.py::prefill_chunked): bench.py under
+# EETQ_BENCH_PREFILL_CHUNK=256 (llama2-7b b=4 p=1024, int8 KV, then
+# decode_loop(fused_mlp=True)); mistral-7b's 4608-token prompt in chunks of
+# 512 (families)
+BENCH_CHUNKED = (4, 1024, 256)  # (batch, prompt tokens, chunk)
+MISTRAL_CHUNK = 512
+# The chunked engine (Engine(prefill_chunk=CHUNKED_ENGINE_CHUNK)) of llama2-7b:
+# max_len 4096, eight short requests and two long ones (bucket 4096: eight
+# chunks each), the long ones queued behind six short ones so that chunks run
+# beside decoding slots; dense int8 and a paged bf16 pool
+CHUNKED_ENGINE_CHUNK = 512
+CHUNKED_ENGINE_MAX_LEN = 4096
+CHUNKED_ENGINE_REQUESTS = ((17, 64), (300, 96), (700, 64), (100, 128), (1024, 64), (33, 96),
+                           (3500, 48), (3300, 48), (257, 64), (512, 32))
+CHUNKED_ENGINE_BLOCKS = 81  # 80 blocks of 256 and the trash block
+# Mixtral's spec engine: k = 3, so that a b=1 verify's 2 (k + 1) = 8 expert
+# selections stay in the gather-GEMV regime
+MIXTRAL_SPEC_K = 3
+# ... and its 8-slot verify round held against the plain path (the routing
+# replayed) after admissions of this budget: past the tokens each slot takes
+# before the last admission and its spec window, short enough to finish fast
+MIXTRAL_SPEC_STEP_BUDGET = 40
 # Speculative decoding on MODEL: k drafts a round (a verify is m = k + 1 = 8
 # rows at b=1), the draft model's layers (the target's first ones), and the
 # prompt's period (a seeded sequence of this many tokens, tiled)
@@ -382,7 +477,11 @@ A8_MODEL_TOL = 2 * MODEL_TOL
 # logit after the twin's tokens. Runs read 0 to 4 ulps, at positions that
 # move with the requests' timing (PERF.md §6); a tie may hold more than two
 # tokens, so the two need not be the top two. A wrong token lands in the
-# band with the odds of a few tokens in 32,000.
+# band with the odds of a few tokens in 32,000. The chunked engines take the
+# same rule against their unchunked twins. On a MoE model (Mixtral's spec
+# engine) a request may also part where the last token's top-2 routing is
+# near a tie at some layer (`near_tie`): a flipped expert moves the logits by
+# far more than an ulp (PERF.md §6).
 SPEC_TIE_ULPS = 8
 # The sources behind w8a16_gemm, w4a16_gemm, w8a8_gemm, w4a8_gemm and the
 # prefill flash-attention (all its instances, head dim 256's too): a C7520
@@ -462,6 +561,17 @@ PATH_KERNELS = {
     # the 8-slot step holds 16 selections: always the grouped GEMM
     "mixtral_int4_paged_server": ("w4a16_grouped_gemm", "w4a8_gemm", "w4a16_gemv",
                                   "flash_attention_fwd", "paged_flash_decode_int8"),
+    # chunked prefill: every chunk on the prefill flash-attention (W8A16
+    # projections: the GEMM), then bench decode
+    "bench_decode_chunked": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "fused_mlp_gemv",
+                             "flash_decode_int8"),
+    # the chunked engines: short prompts admitted, long ones chunked, all W8A16
+    "chunked_server": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode_int8"),
+    "chunked_paged_server": ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd",
+                             "paged_flash_decode"),
+    # Mixtral's spec engine: verify rounds of up to 8 slots x 4 tokens
+    "mixtral_spec_server": ("w8a16_grouped_gemm", "w8a8_gemm", "w8a16_gemv",
+                            "flash_attention_fwd", "flash_decode_int8"),
 }
 # The entry points of the decode GEMV (`csrc/gemv.cuh`)
 GEMV_FAMILY = ("w8a16_gemv", "w4a16_gemv", "w8a16_expert_gemv", "w4a16_expert_gemv",
@@ -494,6 +604,9 @@ PATH_IDLE = {
     "ngram_spec_bench": MOE_KERNELS + INT4_KERNELS,
     "draft_spec": MOE_KERNELS + INT4_KERNELS,
     "spec_server": MOE_KERNELS + INT4_KERNELS,
+    "bench_decode_chunked": MOE_KERNELS + INT4_KERNELS + ("w8a8_gemm",),
+    "chunked_server": MOE_KERNELS + INT4_KERNELS + ("w8a8_gemm", "fused_mlp_gemv"),
+    "mixtral_spec_server": ("fused_mlp_gemv",) + INT4_KERNELS,
 }
 # none of the paths above runs a paged cache or an int4 expert bank
 PATH_IDLE = {path: idle + PAGED_KERNELS + INT4_MOE_KERNELS for path, idle in PATH_IDLE.items()}
@@ -506,6 +619,9 @@ PATH_IDLE.update({
     "mixtral_int4_paged_server": INT8_DENSE + MOE_KERNELS + DENSE_DECODE
     + ("paged_flash_decode", "w4a16_gemm", "fused_mlp_gemv_i4"),
     "spec_paged_server": DENSE_DECODE + ("paged_flash_decode_int8",) + MOE_KERNELS + INT4_KERNELS
+    + INT4_MOE_KERNELS,
+    "chunked_paged_server": DENSE_DECODE + ("paged_flash_decode_int8", "w8a8_gemm",
+                                            "fused_mlp_gemv") + MOE_KERNELS + INT4_KERNELS
     + INT4_MOE_KERNELS,
 })
 
@@ -520,7 +636,7 @@ FAMILIES = {
     # window 4096: a 4608-token prompt and a request of 4400 + 64 tokens, so
     # the window bites in prefill, decode and the engine; a bf16 pool
     "mistral-7b": dict(
-        tag="mistral", variant="window", kv="bf16", fused=False, prompt=4608,
+        tag="mistral", variant="window", kv="bf16", fused=False, prompt=4608, chunk=MISTRAL_CHUNK,
         engine=dict(paged_blocks=81, paged_block_size=PAGED_BLOCK_SIZE, max_len=5120,
                     prompt_buckets=(32, 128, 512, 1024, 2048, 4608)),
         twin=dict(kv_dtype="bf16", decode_window=1), long=((4400, 64),),
@@ -528,12 +644,16 @@ FAMILIES = {
     # group 7, qkv bias, a 152,064-token vocabulary; the dense int8 default
     "qwen2-7b": dict(tag="qwen2", variant="group", kv="int8", fused=False, prompt=1024,
                      engine={}, twin=dict(decode_window=1)),
-    # group 16, interleaved half rope, qkv bias; an int8 pool
+    # group 16, interleaved half rope, qkv bias; an int8 pool. Speculation at
+    # the reference's k = 7: a verify of 8 tokens is 128 query rows a kv head,
+    # two row blocks of the flash-decode (b=1 ngram_spec_generate, and the
+    # spec engine over a larger int8 pool)
     "chatglm3-6b": dict(
         tag="chatglm3", variant="group", kv="bf16", fused=False, prompt=1024,
         engine=dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE,
                     kv_dtype="int8"),
-        twin=dict(kv_dtype="int8", decode_window=1)),
+        twin=dict(kv_dtype="int8", decode_window=1), spec=SPEC_K,
+        spec_engine=dict(paged_blocks=CHUNKED_ENGINE_BLOCKS)),
     # ALiBi over 40 heads, no rope; bench.py's int8 KV + fused MLP; dense int8.
     # Its engine admits with W8A16: under W8A8 the admission's logits of this
     # random 40-layer ALiBi model part from the plain path by 0.137-0.139 of
@@ -576,6 +696,14 @@ def _family_paths() -> dict:
         paths[f"{f['tag']}_{'paged_' if paged else ''}server"] = (
             "w8a16_gemv", prefill, "flash_attention_fwd", srv, f"flash_attention_fwd[{v}]",
             f"{srv}[{v}]")
+        if "chunk" in f:  # chunked prefill, then the decode path's decode
+            paths[f"{f['tag']}_chunked"] = paths[f"{f['tag']}_decode"]
+        if "spec" in f:  # b=1 verifies of k + 1 tokens on the GEMV; an 8-slot one on the GEMM
+            paths[f"{f['tag']}_ngram_spec"] = (
+                "w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode",
+                f"flash_attention_fwd[{v}]", f"flash_decode[{v}]")
+            paths[f"{f['tag']}_spec_{'paged_' if paged else ''}server"] = (
+                paths[f"{f['tag']}_{'paged_' if paged else ''}server"] + ("w8a16_gemm",))
     return paths
 
 
@@ -1352,6 +1480,7 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
         paged_flash_decode_int8_ref,
         paged_flash_decode_ref,
     )
+    from eetq_tpu_torch.kernels.autotune import max_query_rows
     from eetq_tpu_torch.kernels.w8a8 import quantize_activations
     from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
 
@@ -1359,6 +1488,36 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=bias,
             enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+    def lower_right_sdpa(q, k, v, window, ref):
+        """One SDPA call computing a chunk's attention, the last query on the
+        last key: under torch's lower-right causal bias (MHA, no window), else
+        under the same float mask; None where the card's PyTorch cannot or
+        does not reproduce `ref` (printed once)."""
+        b, sq, hq = q.shape[:3]
+        skv = k.shape[1]
+        plain = window is None and hq == k.shape[2]
+        name = ("F.scaled_dot_product_attention " +
+                ("(causal_lower_right)" if plain else "(float mask)"))
+        if LIBRARY.get(name):
+            return None
+        try:
+            if plain:
+                from torch.nn.attention.bias import causal_lower_right
+
+                bias = causal_lower_right(sq, skv)
+            else:
+                bias = seen_bias(torch.arange(skv - sq, skv, device=dev)[None].expand(b, sq),
+                                 torch.arange(skv, device=dev), window, None)
+            fn = lambda: sdpa(q, k, v, bias)  # noqa: E731
+            err = (fn().float() - ref.float()).abs().max().item()
+            if err > TOL * ref.float().abs().max().item():
+                raise RuntimeError(f"differs from the plain version by {err:.3e}")
+        except Exception as exc:  # the yardstick is optional: the run goes on without it
+            LIBRARY[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+            print(f"  {name} is not timed on this card: {LIBRARY[name]}")
+            return None
+        return fn
 
     for variant, b, sq, hq, hkv, window, alibi, main, d in ATTENTION_VARIANT_CASES:
         q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -1389,8 +1548,14 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
     def decode_entry_points(variant, b, s, hq, hkv, l, lens, window, alibi, main, paged=True,
                             d=128):
         """Dense bf16 and int8, then paged, of one shape: S = 1 cases, or
-        S > 1 cases each checked token by token."""
+        S > 1 cases each checked token by token. variant None: the entry
+        points' own names."""
         slopes = alibi_slopes_cache(hq, dev) if alibi else None
+        suffix = f"[{variant}]" if variant else ""
+        # the query rows of a kv head and the row blocks they take (K and V
+        # are read once a row block)
+        rows = hq // hkv * s
+        blocks = dict(rows=rows, row_blocks=-(-rows // max_query_rows(d)))
         kw = dict(window=window, slopes=slopes)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -1423,21 +1588,21 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
                 kd, vd = (t.transpose(1, 2) for t in leaves)
                 library = lambda: sdpa(q, kd, vd, bias)  # noqa: E731
             kernel = lambda q_, n_: dense(q_, *leaves, n_, **kw)  # noqa: E731
-            out = record(f"{dense.__name__}[{variant}]", tag,
+            out = record(f"{dense.__name__}{suffix}", tag,
                          lambda: kernel(q, lengths),
                          lambda: dense_ref(q, *leaves, lengths, **kw), main and b == 1, cost,
-                         library=library, s=s)
+                         library=library, s=s, **blocks)
             if s > 1:
                 sequential_equal(kernel, out, q, lengths, s, tag)
             if not paged:
                 continue
             pools = [pooled(t, table, bs) for t in leaves]
             kernel = lambda q_, n_: paged_fn(q_, *pools, wild, n_, **kw)  # noqa: E731
-            got = record(f"{paged_fn.__name__}[{variant}]",
+            got = record(f"{paged_fn.__name__}{suffix}",
                          f"{tag} BS={bs} permuted table",
                          lambda: kernel(q, lengths),
                          lambda: paged_ref(q, *pools, table, lengths, **kw), main and b > 1, cost,
-                         s=s)
+                         s=s, **blocks)
             if s > 1:
                 sequential_equal(kernel, got, q, lengths, s, tag)
             equal = bool(torch.equal(got, out))
@@ -1451,6 +1616,36 @@ def variant_cases(record, sequential_equal, gen, dev) -> None:
         decode_entry_points(case[0], case[1], 1, *case[2:])
     for case in VERIFY_VARIANT_CASES:
         decode_entry_points(*case[:7], window=case[7], alibi=case[8], main=False, d=case[9])
+    for case in ROW_BLOCK_CASES:
+        decode_entry_points(*case[:10], d=case[10])
+
+    # chunked prefill's attention: a chunk of queries over the cache's prefix,
+    # the cache [B, Hkv, L, D] read in place as [B, L, Hkv, D]; also bit-equal
+    # to the kernel on a contiguous copy of the same keys
+    for variant, b, sq, skv, hq, hkv, cap, window, main in CHUNK_ATTENTION_CASES:
+        d = 128
+        q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        k, v = kc[:, :, :skv].transpose(1, 2), vc[:, :, :skv].transpose(1, 2)
+        qpos = torch.arange(skv - sq, skv, device=dev)
+        # causal, the last query on the last key: sq (skv - sq) + sq (sq + 1) / 2
+        # scores without a window, each at most `window` with one
+        scores = int(torch.clamp(qpos + 1, max=window or skv).sum())
+        cost = (b * (sq * 2 * hq + skv * 2 * hkv) * d * 2, 4.0 * b * hq * d * scores)
+        ref = flash_attention_ref(q, k, v, window=window)
+        name = "flash_attention_fwd" + (f"[{variant}]" if variant else "")
+        case = (f"chunk B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d}"
+                + (f" window {window}" if window else "") + f" over a cache of {cap}")
+        out = record(name, case, lambda: flash_attention(q, k, v, window=window),
+                     lambda: flash_attention_ref(q, k, v, window=window), False, cost,
+                     library=lower_right_sdpa(q, k, v, window, ref), chunk_path=main)
+        twin = flash_attention(q, k.contiguous(), v.contiguous(), window=window)
+        equal = bool(torch.equal(out, twin))
+        print(f"  {'':20s} against the kernel on contiguous keys: "
+              f"{'bit-equal' if equal else 'DIFFERS'}")
+        check(equal, f"the prefill kernel over the cache view differs from contiguous keys: {case}")
+        del q, kc, vc, k, v, ref, out, twin
 
 
 @contextlib.contextmanager
@@ -1772,7 +1967,8 @@ def _post(port: int, body: dict):
     return json.loads(data)["tokens"]
 
 
-def engine_step_check(eng, cfg, dev, gen, path: str, prompts=STEP_PROMPTS) -> dict:
+def engine_step_check(eng, cfg, dev, gen, path: str, prompts=STEP_PROMPTS,
+                      budget: int = STEP_BUDGET) -> dict:
     """Fill the engine's slots with prompts of these lengths, then
     run the forward of its next decode step twice on the same caches, with
     the kernels and with the plain versions (the step's writes are the same
@@ -1786,7 +1982,7 @@ def engine_step_check(eng, cfg, dev, gen, path: str, prompts=STEP_PROMPTS) -> di
 
     for n in prompts[:eng.max_batch]:
         ids = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist()
-        eng.add_request(ids, max_new_tokens=STEP_BUDGET)
+        eng.add_request(ids, max_new_tokens=budget)
     # one admission each, with a window-1 step while the queue holds more and
     # a chain of windows after the last (shorter than every budget)
     while eng.queue:
@@ -1819,14 +2015,20 @@ def engine_step_check(eng, cfg, dev, gen, path: str, prompts=STEP_PROMPTS) -> di
 
 def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | None = None,
                 twin_kw: dict | None = None, long: tuple = (),
-                step_prompts: tuple = STEP_PROMPTS) -> dict:
+                step_prompts: tuple = STEP_PROMPTS, admission: bool = True,
+                step_budget: int | None = None) -> dict:
     """The engine behind its HTTP server: with its accelerator defaults
     (window 8, chained; max_batch 8, max_len 2048), or with `engine_kw` (a
     paged pool, another max_len and prompt buckets). twin_kw: the greedy
     requests also go through an engine built with these keywords instead
     (window 1; a dense bf16 cache for a paged engine), whose tokens must be
     equal. long: (prompt tokens, budget) of greedy requests sent beside the
-    server mix; step_prompts: the prompts of a paged engine's step check."""
+    server mix; step_prompts: the prompts of a paged engine's step check;
+    admission=False skips the admission's check against the plain path (a
+    spec engine admits as the engine of another path, checked there);
+    step_budget: the budget of the step check's requests, which a dense
+    engine runs too where it is given (a paged engine's default:
+    STEP_BUDGET)."""
     import torch
 
     from eetq_tpu_torch.models.transformer import forward_inner, init_caches
@@ -1884,16 +2086,19 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
                                   last_pos=last)
         return lg[:, -1]
 
-    for use in (True, False):  # the plain path replays the kernel path's routing
+    for use in (True, False) if admission else ():  # the plain path replays the kernel's routing
         with routing("record" if use else "replay", routes):
             logits[use] = admit(use)
-    admission = check_logits(f"{path} admission ({'a8' if a8 else 'w8a16'})", logits[True],
-                             logits[False], A8_MODEL_TOL if a8 else MODEL_TOL)
+    if admission:
+        admission = check_logits(f"{path} admission ({'a8' if a8 else 'w8a16'})", logits[True],
+                                 logits[False], A8_MODEL_TOL if a8 else MODEL_TOL)
     if routes:
         admission["routing"] = routing_differences(lambda: admit(False), routes)
         print(f"  {path} admission: {admission['routing']['differ']} of "
               f"{admission['routing']['routings']} routings differ when not replayed")
-    step = engine_step_check(eng, cfg, dev, gen, path, step_prompts) if paged else None
+    step = (engine_step_check(eng, cfg, dev, gen, path, step_prompts,
+                              step_budget or STEP_BUDGET)
+            if paged or step_budget else None)
     spec_before = (eng.spec_rounds, eng.spec_tokens)
 
     lengths = [SERVE_LENGTHS[i] for i in torch.randint(
@@ -1997,7 +2202,11 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
                   f"spec engine's token {tie['spec_logit']:.6f} (rank {tie['spec_rank']}), the "
                   f"twin's {tie['twin_logit']:.6f} (rank {tie['twin_rank']}); "
                   f"{tie['ulps']:.2f} bf16 ulps of the largest |logit| {tie['largest']:.6f} "
-                  f"below the top (near tie: {tie['ok']})")
+                  f"below the top" + ("" if tie["route_margin"] is None else
+                                      f"; the last token's closest routing tie "
+                                      f"{tie['route_margin']:.4f} of the largest router logit "
+                                      f"(layer {tie['route_layer']})")
+                  + f" (near tie: {tie['ok']})")
             check(tie["ok"], f"{path}: request {i} differs from the twin engine {twin_kw} at "
                              f"token {first}, not at a near tie of the two tokens")
             ties.append(dict(request=i, token=first, **tie))
@@ -2022,28 +2231,52 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
 def near_tie(params, cfg, dev, ids: list[int], spec_tok: int, twin_tok: int) -> dict:
     """The next-token logits after `ids` by one forward on the kernel path:
     a near tie of spec_tok and twin_tok when each is at most SPEC_TIE_ULPS
-    bf16 ulps of the largest |logit| below the top logit."""
+    bf16 ulps of the largest |logit| below the top logit. On a MoE model
+    also when the last token's routing is near a tie at some layer: its
+    second and third router logits within MODEL_TOL of the largest |router
+    logit| there (a flip of the top-2 experts between two arithmetics moves
+    the logits far past any ulp bound, as the routing replay of the plain
+    checks shows)."""
     import math
 
     import torch
 
     from eetq_tpu_torch.models.transformer import forward_inner, init_caches
+    from eetq_tpu_torch.modules import moe
 
     toks = torch.tensor([ids], device=dev)
-    with torch.inference_mode():
-        caches = init_caches(cfg, 1, len(ids), device=dev)
-        lg, _ = forward_inner(params, cfg, toks, torch.arange(len(ids), device=dev)[None], caches,
-                              0, last_only=True)
+    route, margins = moe.route, []
+
+    def recorded(router, x2, top_k):
+        logits = x2[-1:].float() @ router.weight.to(x2.dtype).float()
+        top = logits[0].topk(top_k + 1).values
+        margins.append(float((top[top_k - 1] - top[top_k]) / logits.abs().max()))
+        return route(router, x2, top_k)
+
+    moe.route = recorded
+    try:
+        with torch.inference_mode():
+            caches = init_caches(cfg, 1, len(ids), device=dev)
+            lg, _ = forward_inner(params, cfg, toks, torch.arange(len(ids), device=dev)[None],
+                                  caches, 0, last_only=True)
+    finally:
+        moe.route = route
     row = lg[0, -1].float()
     top = row.topk(3)
     largest = float(row.abs().max())
     ulp = 2.0 ** (math.floor(math.log2(largest)) - 7)  # bf16: 8 significant bits
     below = max(float(top.values[0] - row[spec_tok]), float(top.values[0] - row[twin_tok]))
     rank = lambda t: int((row > row[t]).sum()) + 1  # noqa: E731
+    logit_tie = below <= SPEC_TIE_ULPS * ulp
+    route_margin = min(margins) if margins else None
+    route_tie = route_margin is not None and route_margin <= MODEL_TOL
     return dict(top_ids=[int(t) for t in top.indices], top=[float(v) for v in top.values],
                 spec_logit=float(row[spec_tok]), twin_logit=float(row[twin_tok]),
                 spec_rank=rank(spec_tok), twin_rank=rank(twin_tok), below=below,
-                largest=largest, ulps=below / ulp, ok=below <= SPEC_TIE_ULPS * ulp)
+                largest=largest, ulps=below / ulp, logit_tie=logit_tie,
+                route_margin=route_margin,
+                route_layer=margins.index(route_margin) if margins else None,
+                route_tie=route_tie, ok=logit_tie or route_tie)
 
 
 def spec_paths(params, cfg, dev, gen) -> dict:
@@ -2181,6 +2414,203 @@ def self_draft(params, cfg, dev, prompt, want, kv) -> dict:
     print(f"  draft_spec, the target as its draft: {ns} tokens bit-equal to decode_loop's in "
           f"{r} rounds, {acc} of {r * k} drafts accepted")
     return dict(tokens=ns, rounds=r, accepted_drafts=acc)
+
+
+def chunked_prefill_path(params, cfg, dev, gen, path: str, b: int, p: int, chunk: int, kv,
+                         fused: bool, n: int = FAMILY_NEW_TOKENS, plain: bool = False) -> dict:
+    """`prefill_chunked(chunk)` of a seeded [b, p] prompt into a `kv` cache,
+    then `decode_loop` of n greedy tokens (fused MLP or not): every chunk's
+    attention on the prefill kernel (p / chunk launches a layer), the
+    last-token logits within MODEL_TOL of the largest logit of the unchunked
+    prefill's on the same prompts (and, with `plain`, of the chunked plain
+    path's), the path's launches counted, and the chunked prefill timed
+    against the unchunked one in turns (medians of 3)."""
+    import torch
+
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill, prefill_chunked
+
+    prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=dev)
+    print(f"  -- {path}: b={b} p={p} in chunks of {chunk}, {kv} KV, fused MLP {fused}")
+    reset_launch_counts()
+    lc, _ = prefill_chunked(params, cfg, prompt, init_caches(cfg, b, p, dev, kv), chunk=chunk)
+    torch.cuda.synchronize()
+    attn = launch_counts()["flash_attention_fwd"]
+    check(attn == p // chunk * cfg.num_layers,
+          f"{path}: {attn} prefill-attention launches, want {p // chunk} chunks x {cfg.num_layers}")
+    lu, _ = prefill(params, cfg, prompt, init_caches(cfg, b, p, dev, kv))
+    checks = dict(unchunked=check_logits(f"{path} chunked prefill against unchunked", lc, lu))
+    if plain:
+        lp, _ = prefill_chunked(params, cfg, prompt, init_caches(cfg, b, p, dev, kv), chunk=chunk,
+                                use_kernels=False)
+        checks["plain"] = check_logits(f"{path} chunked prefill", lc, lp)
+    del lu
+
+    def serve():
+        caches = init_caches(cfg, b, p + n, dev, kv)
+        lp, caches = prefill_chunked(params, cfg, prompt, caches, chunk=chunk)
+        return decode_loop(params, cfg, torch.argmax(lp, -1), p, caches, n, fused_mlp=fused)[0]
+
+    toks, counts = counted(path, serve)
+    check(tuple(toks.shape) == (b, n) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{path} returned {tuple(toks.shape)} tokens, want {(b, n)} in the vocabulary")
+    check(bool((toks[:, 0] == torch.argmax(lc, -1)).all()),
+          f"{path}: the first tokens are not the chunked prefill's argmax")
+    runs = dict(chunked_ms=[], unchunked_ms=[])
+    for _ in range(3):
+        for key, fn in (("unchunked_ms", lambda c: prefill(params, cfg, prompt, c)),
+                        ("chunked_ms", lambda c: prefill_chunked(params, cfg, prompt, c,
+                                                                 chunk=chunk))):
+            caches = init_caches(cfg, b, p, dev, kv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(caches)
+            torch.cuda.synchronize()
+            runs[key].append(1e3 * (time.perf_counter() - t0))
+            del caches
+    med = {key: statistics.median(v) for key, v in runs.items()}
+    print(f"  {path}: prefill of {b} x {p} tokens in {p // chunk} chunks {med['chunked_ms']:.2f} ms "
+          f"against {med['unchunked_ms']:.2f} ms unchunked (runs {runs}); then {n} greedy tokens")
+    return dict(checks=checks, counts=counts, chunks=p // chunk, timing=dict(med, runs=runs))
+
+
+def family_ngram_path(params, cfg, dev, gen, path: str, k: int) -> dict:
+    """`ngram_spec_generate(k)` at b=1 (bf16 KV) on a seeded SPEC_BASE-token
+    sequence tiled to REQUESTS[0]'s prompt length: greedy tokens bit-equal
+    to `greedy_generate`'s; rounds and accepted drafts, both timed once."""
+    import torch
+
+    from eetq_tpu_torch.serve import spec
+    from eetq_tpu_torch.serve.generate import greedy_generate
+
+    _, p, n = REQUESTS[0]
+    base = torch.randint(0, cfg.vocab_size, (1, SPEC_BASE), generator=gen, device=dev)
+    prompt = base.repeat(1, p // SPEC_BASE)
+    want = greedy_generate(params, cfg, prompt, n)
+    (got, stats), counts = counted(path, lambda: spec.ngram_spec_generate(
+        params, cfg, prompt, n, k=k, return_stats=True))
+    first = None if torch.equal(got, want) else int((got != want).any(0).nonzero()[0])
+    check(first is None, f"{path}: greedy tokens differ from greedy_generate's from token {first}")
+    ms = {}
+    for name, fn in (("greedy_generate", lambda: greedy_generate(params, cfg, prompt, n)),
+                     ("ngram_spec_generate", lambda: spec.ngram_spec_generate(
+                         params, cfg, prompt, n, k=k))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+    rounds, acc = stats["rounds"], stats["accepted_drafts"]
+    print(f"  {path} b=1 p={p} n={n} k={k}: {n} greedy tokens bit-equal to greedy_generate's; "
+          f"{rounds} rounds, {acc} drafts accepted ({acc / rounds:.2f} a round); "
+          f"{ms['ngram_spec_generate']:.1f} ms against {ms['greedy_generate']:.1f} ms (prefill "
+          f"included, one run each)")
+    return dict(counts=counts, rounds=rounds, accepted_drafts=acc, k=k, ms=ms)
+
+
+def chunked_engine_path(params, cfg, dev, gen, path: str, engine_kw: dict) -> dict:
+    """`Engine(prefill_chunk=CHUNKED_ENGINE_CHUNK)` over max_len
+    CHUNKED_ENGINE_MAX_LEN with its CUDA window and W8A16 admissions, warmed
+    up, driven step by step through CHUNKED_ENGINE_REQUESTS (submitted at
+    once: six short prompts, two long ones, two short). A prompt whose bucket
+    is larger than the chunk and a multiple of it (700 and 1024 tokens: two
+    chunks; the long ones, bucket 4096: eight) takes one chunk a step; every
+    chunk must run beside busy slots, each of which commits a token in the
+    same step.
+    The greedy outputs are held against the same engine without
+    prefill_chunk: equal, or where a request first differs both tokens in a
+    near tie (SPEC_TIE_ULPS) after the twin's tokens (an int8 cache holds a
+    chunk's own keys quantized where unchunked prefill attends over them
+    unquantized). A paged engine frees every block."""
+    import torch
+
+    from eetq_tpu_torch.serve.engine import Engine
+
+    kw = dict(max_batch=8, max_len=CHUNKED_ENGINE_MAX_LEN, a8_prefill=False,
+              prompt_buckets=(32, 128, 512, 1024, 2048, CHUNKED_ENGINE_MAX_LEN), **engine_kw)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist()
+               for n, _ in CHUNKED_ENGINE_REQUESTS]
+    budgets = [n for _, n in CHUNKED_ENGINE_REQUESTS]
+    held = torch.cuda.memory_allocated()
+    eng = Engine(params, cfg, prefill_chunk=CHUNKED_ENGINE_CHUNK, **kw)
+    cache_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    check(eng.decode_window == 8 and not eng.a8_prefill, f"{path}: window {eng.decode_window}")
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    buckets = [eng._bucket_for(len(ids)) for ids in prompts]
+    want_chunks = sum(b // CHUNKED_ENGINE_CHUNK for b in buckets
+                      if b > CHUNKED_ENGINE_CHUNK and b % CHUNKED_ENGINE_CHUNK == 0)
+    chunks = []  # (time, the request's uid) of every chunk
+    run_chunk = eng._chunk_step
+    eng._chunk_step = lambda: (chunks.append((time.perf_counter(), eng._chunking[0].uid)),
+                               run_chunk())[1]
+    stats = dict(steps=0, chunk_steps=0, advanced=0)
+
+    prompt_of = {}  # uid: prompt tokens
+
+    def serve():
+        uids = [eng.add_request(ids, n) for ids, n in zip(prompts, budgets)]
+        prompt_of.update((u, len(ids)) for u, ids in zip(uids, prompts))
+        while eng.has_work:
+            busy = [r for i, r in enumerate(eng.slot_req) if r is not None and eng.lengths[i] > 0]
+            before, ran = [len(r.out_tokens) for r in busy], len(chunks)
+            eng.step()
+            stats["steps"] += 1
+            if len(chunks) > ran and busy:  # a chunk beside decoding slots
+                stats["chunk_steps"] += 1
+                stats["advanced"] += all(len(r.out_tokens) > k for r, k in zip(busy, before))
+        return [eng.result(u) for u in uids]
+
+    t0 = time.perf_counter()
+    outs, counts = counted(path, serve)
+    wall_s = time.perf_counter() - t0
+    check(len(chunks) == want_chunks, f"{path}: {len(chunks)} chunks, want {want_chunks}")
+    check(stats["chunk_steps"] == want_chunks and stats["advanced"] == stats["chunk_steps"],
+          f"{path}: busy slots advanced in {stats['advanced']} of {stats['chunk_steps']} chunk "
+          f"steps ({want_chunks} chunks)")
+    check(all(len(o) == n for o, n in zip(outs, budgets)), f"{path}: budgets not met")
+    if eng.paged:
+        check(sorted(eng._free_blocks) == list(range(1, engine_kw["paged_blocks"]))
+              and not any(eng._slot_blocks), f"{path}: blocks still held after the run")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = Engine(params, cfg, **kw)
+    uids = [twin.add_request(ids, n) for ids, n in zip(prompts, budgets)]
+    twin.run()
+    ties = []
+    for i, got in enumerate(outs):
+        ref = twin.result(uids[i])
+        first = next((j for j, (a, b_) in enumerate(zip(got, ref)) if a != b_), None)
+        if first is None:
+            continue
+        tie = near_tie(params, cfg, dev, prompts[i] + ref[:first], got[first], ref[first])
+        print(f"  {path} request {i} (prompt {len(prompts[i])}): token {first} is {got[first]}, "
+              f"the unchunked engine's {ref[first]}: {tie['ulps']:.2f} bf16 ulps below the top "
+              f"(near tie: {tie['ok']})")
+        check(tie["ok"], f"{path}: request {i} differs from the unchunked engine at token {first}, "
+                         "not at a near tie")
+        ties.append(dict(request=i, token=first, **tie))
+    del twin
+    tokens = sum(budgets)
+    # first to last chunk of each chunked prompt (ms), by its prompt length
+    span = {}
+    for t, uid in chunks:
+        span.setdefault(uid, []).append(t)
+    span = {prompt_of[uid]: 1e3 * (ts[-1] - ts[0]) for uid, ts in span.items()}
+    print(f"  {path}: {len(prompts)} requests (prompts {[len(x) for x in prompts]}), {tokens} "
+          f"tokens in {wall_s:.2f} s = {tokens / wall_s:.2f} tok/s ({stats['steps']} steps, "
+          f"{len(chunks)} chunks of {CHUNKED_ENGINE_CHUNK}, busy slots advancing in all "
+          f"{stats['chunk_steps']} chunk steps; first to last chunk by prompt length "
+          f"{ {n: round(t, 1) for n, t in span.items()} } ms); cache {cache_gb:.2f} GB; warmup {warmup_s:.1f} s; "
+          f"greedy outputs against the unchunked engine: {len(outs) - len(ties)} equal, "
+          f"{len(ties)} part at a near tie")
+    return dict(counts=counts, wall_s=wall_s, tokens=tokens, served_tok_s=tokens / wall_s,
+                chunks=len(chunks), long_prefill_span_ms=span, cache_gb=cache_gb,
+                warmup_s=warmup_s, twin=dict(equal=not ties, near_ties=ties), **stats)
 
 
 PROFILE_ENGINE_BUDGET = 200  # two chains of 8 x 8 after the admissions
@@ -2323,6 +2753,13 @@ def model_phase(dev, profile: bool = False) -> dict:
     print(f"  {MODEL} W8A16 built in {init_s:.1f} s, {weight_gb:.2f} GB on the card")
     configs = {"generate": (torch.bfloat16, False), "bench_decode": (torch.int8, True)}
     paths = generate_paths(params, cfg, dev, gen, configs)
+    paths["bench_decode_chunked"] = chunked_prefill_path(
+        params, cfg, dev, gen, "bench_decode_chunked", *BENCH_CHUNKED, torch.int8, True,
+        n=REQUESTS[0][2], plain=True)
+    paths["chunked_server"] = chunked_engine_path(params, cfg, dev, gen, "chunked_server", {})
+    paths["chunked_paged_server"] = chunked_engine_path(
+        params, cfg, dev, gen, "chunked_paged_server",
+        dict(paged_blocks=CHUNKED_ENGINE_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE))
     paths["server"] = server_path(params, cfg, dev, gen, twin_kw=dict(decode_window=1))
     paged = dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE)
     paths["paged_server"] = server_path(params, cfg, dev, gen, "paged_server", paged,
@@ -2437,6 +2874,13 @@ def mixtral_phase(dev, int4: bool = False, profile: bool = False) -> dict:
     configs = {gen_path: (torch.bfloat16, False)}
     paths = generate_paths(params, cfg, dev, gen, configs)
     paths[srv_path] = server_path(params, cfg, dev, gen, srv_path, engine_kw)
+    if not int4:
+        # the spec engine (k = MIXTRAL_SPEC_K) over the same dense int8 cache:
+        # an 8-slot verify round against the plain path, and the greedy
+        # requests against its non-spec twin
+        paths["mixtral_spec_server"] = server_path(
+            params, cfg, dev, gen, "mixtral_spec_server", dict(spec_ngram=MIXTRAL_SPEC_K),
+            twin_kw={}, admission=False, step_budget=MIXTRAL_SPEC_STEP_BUDGET)
     prof = profile_paths(params, cfg, dev, gen, configs, {srv_path: engine_kw}) if profile else None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t = paths[gen_path]["timing"]
@@ -2519,6 +2963,17 @@ def families_phase(dev) -> dict:
         paths[srv] = server_path(params, cfg, dev, gen, srv, kw, twin_kw=twin,
                                  long=f.get("long", ()),
                                  step_prompts=f.get("step_prompts", STEP_PROMPTS))
+        if "chunk" in f:
+            paths[f"{f['tag']}_chunked"] = chunked_prefill_path(
+                params, cfg, dev, gen, f"{f['tag']}_chunked", 1, f["prompt"], f["chunk"],
+                dtypes[f["kv"]], f["fused"])
+        if "spec" in f:
+            paths[f"{f['tag']}_ngram_spec"] = family_ngram_path(
+                params, cfg, dev, gen, f"{f['tag']}_ngram_spec", f["spec"])
+            spec = f"{f['tag']}_spec_{'paged_' if 'paged_blocks' in kw else ''}server"
+            paths[spec] = server_path(params, cfg, dev, gen, spec,
+                                      dict(kw, spec_ngram=f["spec"], **f["spec_engine"]),
+                                      twin_kw=twin, admission=False)
         t = paths[dec]["timing"]
         print(f"  {preset}: prefill {t['prefill_ms']:.2f} ms (b=1 p={f['prompt']}), decode "
               f"{t['decode_ms_per_step']:.3f} ms/step ({t['replay_ms_per_step']:.3f} a replayed "

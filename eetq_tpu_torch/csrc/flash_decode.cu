@@ -21,7 +21,6 @@ cudaError_t launch_d(Params p, int b, int d, void* stream) {
     return cudaErrorInvalidValue;
   p.group = p.hq / p.hkv;
   p.rows = p.group * p.s;
-  if (p.rows > kMaxRows) return cudaErrorInvalidValue;
   p.chunks = (p.l + p.chunk - 1) / p.chunk;
   p.scale_log2 *= eetq::kLog2e;
   if (p.chunks > 1 && (p.partials == nullptr || p.counters == nullptr))
@@ -75,10 +74,12 @@ Params params(const void* q, const void* k, const void* v, const void* k_scale,
 // q [b, s, hq, d] bf16 contiguous (s query tokens a row: s = 1 decode,
 // s > 1 the per-row causal verify, token i at position lengths[r] - s + i);
 // k/v cache [b, hkv, l, d] bf16 contiguous; lengths int32 [b], the keys
-// token s - 1 sees; out [b, s, hq, d] bf16; (hq / hkv) * s <= 64; chunk a
-// multiple of EETQ_DECODE_TILE; with chunks = ceil(l / chunk) > 1, partials
-// f32 [b * hkv * chunks * (hq / hkv) * s * (d + 2)] and counters int32
-// [b * hkv], all zero (both are scratch, left as they were found). slopes:
+// token s - 1 sees; out [b, s, hq, d] bf16; any (hq / hkv) * s query rows a
+// kv head, cut into row blocks of 64 (32 at d = 256); chunk a multiple of
+// EETQ_DECODE_TILE; with chunks = ceil(l / chunk) > 1, partials f32
+// [b * hkv * chunks * (hq / hkv) * s * (d + 2)] and counters int32
+// [b * hkv * row blocks], all zero (both are scratch, left as they were
+// found). slopes:
 // null, or the ALiBi slopes f32 [hq]; window: 0, or the sliding window (a
 // token at position p sees the keys p - window < key <= p).
 extern "C" int eetq_flash_decode(const void* q, const void* k, const void* v, const void* lengths,

@@ -101,10 +101,17 @@
 //   - kAlibi (baichuan-13b): slope_h * log2 e * (key - qpos) is added to a
 //     row's score after the scale (and the int8 key scale), qpos = its
 //     length - 1; slopes [Hq] f32, read once per row at the block's start.
-// Any GQA group: up to 64 query rows a kv head (G * S) at D = 64 and 128,
-// 32 at D = 256, where the warps' states of 64 rows (4 kWarps 64 (D + 2)
-// bytes, 258 KB) would not fit the block's shared memory
-// (kernels/flash_decode.py::max_query_rows). The decode step of
+// Any GQA group and any count of query tokens. A block takes up to 64 query
+// rows of its kv head (G * S) at D = 64 and 128, 32 at D = 256, where the
+// warps' states of 64 rows (4 kWarps 64 (D + 2) bytes, 258 KB) would not fit
+// its shared memory (kMaxRowsOf, kernels/autotune.py::max_query_rows). More
+// rows are cut into row blocks of that many: block (c, hk * R + rb, b) takes
+// rows [rb kRows, (rb + 1) kRows) of kv head hk, its live chunks those of its
+// own rows' tokens, a ticket counter of its own per (row, kv head, row
+// block). A row's arithmetic does not depend on the block that holds it (its
+// M-tile row, its own length, mask, identity updates and merge), so it stays
+// bit-equal to an S = 1 call, and paged to dense; K and V are read once per
+// row block. The decode step of
 // the groups in EETQ_DECODE_STEP_GROUPS (kernels/autotune.py) is compiled
 // apart per G (kG <= 8: the top half of one M tile; kG = 16: one whole M
 // tile); any other group takes the multi-query body.
@@ -135,7 +142,7 @@ struct Params {
   const float* slopes;  // [Hq] ALiBi slopes, or null
   bf16* out;
   float* partials;  // [B, Hkv, chunks, rows, D] outputs, then [B, Hkv, chunks, rows, 2] (max, sum)
-  int* counters;    // [B, Hkv], zero before the launch and after it
+  int* counters;    // [B, Hkv, row blocks], zero before the launch and after it
   int s, hq, hkv, l, max_blocks, bs, chunk, chunks;
   int group, rows;  // q heads of a kv head; query rows of a kv head (group * s)
   int window;       // keys a row sees under a sliding window (0: all)
@@ -172,9 +179,10 @@ constexpr int kMaxChunks = EETQ_DECODE_MAX_CHUNKS;
 // The longest chunk, in keys and in tiles (DECODE_MAX_CHUNK).
 constexpr int kMaxChunk = EETQ_DECODE_MAX_CHUNK;
 constexpr int kMaxTiles = kMaxChunk / kTile;
-constexpr int kMaxRows = 64;  // query rows of a kv head: q heads times query tokens
+constexpr int kMaxRows = 64;  // query rows of a block: q heads times query tokens
 // ... at head dim D: the most rows whose warps' states fit the 227 KB of
-// shared memory a block may take (64 at D <= 128, 32 at D = 256)
+// shared memory a block may take (64 at D <= 128, 32 at D = 256); a launch of
+// more rows cuts them into row blocks of this many
 template <int D>
 constexpr int kMaxRowsOf =
     4 * kWarps * kMaxRows * (D + 2) <= 227 * 1024 ? kMaxRows : kMaxRows / 2;
@@ -268,8 +276,10 @@ struct Warp {
   int kw, row0, g, t;  // key warp; the M tile's first row
 
   // q: query row 0 of the block's kv head (q[b, 0, hk G]); len_max the
-  // row's length (query token S - 1's); head0 the kv head's first q head.
-  __device__ void init(const bf16* q, const Params& p, int len_max, int head0, int tid) {
+  // row's length (query token S - 1's); head0 the kv head's first q head;
+  // rbase the block's first query row (its row block's).
+  __device__ void init(const bf16* q, const Params& p, int len_max, int head0, int rbase,
+                       int tid) {
     const int warp = tid >> 5;
     kw = warp % kWarps;
     row0 = (warp / kWarps) * 16;
@@ -297,7 +307,7 @@ struct Warp {
     }
 #pragma unroll
     for (int h = 0; h < kHalves; ++h) {
-      const int r = row0 + g + 8 * h;
+      const int r = rbase + row0 + g + 8 * h;
       const bool valid = r < p.rows;
       const int s = valid ? r / p.group : 0;
       len[h] = valid ? max(len_max - p.s + s + 1, 0) : 0;
@@ -309,10 +319,10 @@ struct Warp {
     }
     // rows grow in s: the warp's last valid row sees the most keys, its first
     // the least first key
-    const int last = min(p.rows, row0 + 8 * kHalves) - 1;
-    warp_len = last < row0 ? 0 : max(len_max - p.s + last / p.group + 1, 0);
+    const int first = rbase + row0, last = min(p.rows, first + 8 * kHalves) - 1;
+    warp_len = last < first ? 0 : max(len_max - p.s + last / p.group + 1, 0);
     if constexpr (kWindow)
-      warp_lo = max(max(len_max - p.s + min(row0, p.rows - 1) / p.group + 1, 0) - p.window, 0);
+      warp_lo = max(max(len_max - p.s + min(first, p.rows - 1) / p.group + 1, 0) - p.window, 0);
   }
 
   // The half's row of q [D] (zero where the row is padding).
@@ -593,17 +603,24 @@ template <int kRows, int kG, int D, bool kInt8, bool kPaged, bool kWindow, bool 
 __global__ void __launch_bounds__(kThreads<kRows>) flash_decode_kernel(const Params p) {
   using L = Layout<D, kInt8>;
   constexpr int kT = kThreads<kRows>;
-  // query rows of the kv head, and of a query token: constants in the decode step
-  const int rows = kG > 0 ? kG : p.rows;
+  // query rows of the kv head (the stride of the scratch's states), and q
+  // heads of a query token: constants in the decode step
+  const int kv_rows = kG > 0 ? kG : p.rows;
   const int group = kG > 0 ? kG : p.group;
   const int nq = kG > 0 ? 1 : p.s;
+  // row blocks of the kv head: this block's rows [rbase, rbase + rows) and
+  // the tokens they hold, [s_first, s_last] (one block in the decode step)
+  const int nrb = kG > 0 ? 1 : (kv_rows + kRows - 1) / kRows;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
 
   __shared__ long long tile_base[kMaxTiles];  // paged: the pool index of each tile's first key
 
-  const int c = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x, b = blockIdx.z;
+  const int hk = kG > 0 ? blockIdx.y : blockIdx.y / nrb, rb = kG > 0 ? 0 : blockIdx.y % nrb;
   const int tid = threadIdx.x;
+  const int rbase = rb * kRows, rows = kG > 0 ? kG : min(kRows, kv_rows - rbase);
+  const int s_first = kG > 0 ? 0 : rbase / group, s_last = kG > 0 ? 0 : (rbase + rows - 1) / group;
   const int start = c * p.chunk;
   if constexpr (kPaged) {
     // The table entries of the chunk's tiles, read beside the row's length,
@@ -618,30 +635,32 @@ __global__ void __launch_bounds__(kThreads<kRows>) flash_decode_kernel(const Par
   }
   // the row's length: query token S - 1's; token s sees len - S + s + 1 keys
   const int len = min(max(p.lengths[b], 0), p.l);
-  // the earliest query row's first key (token 0's window start) and the
-  // block's live chunks [c_lo, c_hi]: c_lo always runs
-  const int lo = kWindow ? max(max(len - nq + 1, 0) - p.window, 0) : 0;
+  // the keys the block's last token sees, the earliest of its rows' first
+  // key (token s_first's window start) and the block's live chunks
+  // [c_lo, c_hi]: c_lo always runs
+  const int blen = max(len - nq + s_last + 1, 0);
+  const int lo = kWindow ? max(max(len - nq + s_first + 1, 0) - p.window, 0) : 0;
   const int c_lo = kWindow ? lo / p.chunk : 0;
-  // not a live chunk of this row (uniform over the block)
-  if (c < c_lo || (c > c_lo && start >= len)) return;
-  const int end = min(len, start + p.chunk);
+  // not a live chunk of this block's rows (uniform over the block)
+  if (c < c_lo || (c > c_lo && start >= blen)) return;
+  const int end = min(blen, start + p.chunk);
   const int ntiles = (max(end - start, 0) + kTile - 1) / kTile;
-  const int c_hi = max(1, (len + p.chunk - 1) / p.chunk) - 1;  // (>= c_lo: lo < len or 0)
+  const int c_hi = max(1, (blen + p.chunk - 1) / p.chunk) - 1;  // (>= c_lo: lo < blen or 0)
   const int t_first = kWindow ? max(lo - start, 0) / kTile : 0;  // tiles before it: no row's
-  // Per query row r (token s = r / G, head r % G): its live chunks [lo, hi]
-  // and the offset of its output, once, for the merges (read after the tile
-  // loop's last barrier)
+  // Per query row rbase + r of the block (token s = r / G, head r % G): its
+  // live chunks [lo, hi] and the offset of its output, once, for the merges
+  // (read after the tile loop's last barrier)
   // (the decode step's rows all have the block's chunks)
-  __shared__ int row_lo[kG > 0 ? 1 : kMaxRows], row_hi[kG > 0 ? 1 : kMaxRows];
-  __shared__ long long row_out[kG > 0 ? 1 : kMaxRows];
+  __shared__ int row_lo[kG > 0 ? 1 : kRows], row_hi[kG > 0 ? 1 : kRows];
+  __shared__ long long row_out[kG > 0 ? 1 : kRows];
   if constexpr (kG == 0) {
-    if (tid < p.rows) {
-      const int s = tid / p.group;
+    if (tid < rows) {
+      const int r = rbase + tid, s = r / p.group;
       const int n = max(len - p.s + s + 1, 0);
       const int first = kWindow ? max(n - p.window, 0) / p.chunk : 0;
       row_lo[tid] = first;
       row_hi[tid] = max(1, (n + p.chunk - 1) / p.chunk) - 1;
-      row_out[tid] = (((long long)b * p.s + s) * p.hq + hk * p.group + tid % p.group) * D;
+      row_out[tid] = (((long long)b * p.s + s) * p.hq + hk * p.group + r % p.group) * D;
     }
   }
   auto lo_of = [&](int r) { return kG > 0 ? c_lo : row_lo[r]; };
@@ -687,7 +706,7 @@ __global__ void __launch_bounds__(kThreads<kRows>) flash_decode_kernel(const Par
   }
   Warp<kRows, kG, D, kInt8, kWindow, kAlibi> w;
   const bf16* q0 = p.q + ((size_t)b * nq * p.hq + hk * group) * D;  // q[b, 0, hk G]
-  w.init(q0, p, len, hk * group, tid);
+  w.init(q0, p, len, hk * group, rbase, tid);
   for (int i = t_first; i < ntiles; ++i) {
     hp::cp_async_wait<kStages - 2>();
     __syncthreads();  // tile i landed; every warp is done with tile i - 1
@@ -709,9 +728,10 @@ __global__ void __launch_bounds__(kThreads<kRows>) flash_decode_kernel(const Par
   w.stash(red_o, red_m, red_l, rows);
   __syncthreads();
   float* part_o = p.partials;
-  float* part_ml = p.partials + (size_t)gridDim.z * p.hkv * p.chunks * rows * D;
-  const size_t row0 = ((size_t)b * p.hkv + hk) * p.chunks * rows;  // state (chunk 0, row 0)
-  const size_t mine = row0 + (size_t)c * rows;
+  // state (chunk j, row r of the kv head) at row0 + j kv_rows + r
+  float* part_ml = p.partials + (size_t)gridDim.z * p.hkv * p.chunks * kv_rows * D;
+  const size_t row0 = ((size_t)b * p.hkv + hk) * p.chunks * kv_rows + rbase;  // (chunk 0, row rbase)
+  const size_t mine = row0 + (size_t)c * kv_rows;
   // A row with one live chunk writes its output here; the others put the
   // chunk's state into the scratch, where the chunk is live for them.
   for (int i = tid; i < rows * D; i += kT) {
@@ -734,7 +754,7 @@ __global__ void __launch_bounds__(kThreads<kRows>) flash_decode_kernel(const Par
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* ctr = p.counters + (size_t)b * p.hkv + hk;
+    int* ctr = p.counters + ((size_t)b * p.hkv + hk) * nrb + rb;
     is_last = atomicAdd(ctr, 1) == c_hi - c_lo;
     if (is_last) *ctr = 0;  // for the next launch
   }
@@ -766,7 +786,7 @@ __global__ void __launch_bounds__(kThreads<kRows>) flash_decode_kernel(const Par
       // (a decode step's rows all have the pass's chunks)
       if (kG == 0 && (j < lo_of(r0 + h) || j > hi_of(r0 + h))) continue;
       const float2 ml =
-          __ldcg(reinterpret_cast<const float2*>(part_ml) + base + (size_t)j * rows + h);
+          __ldcg(reinterpret_cast<const float2*>(part_ml) + base + (size_t)j * kv_rows + h);
       wt[i] = ml.x;
       sum[i] = ml.y;
     }
@@ -795,7 +815,7 @@ __global__ void __launch_bounds__(kThreads<kRows>) flash_decode_kernel(const Par
       for (int j = j0; j <= j1; ++j) {
         const float wj = wt[(j - first) * nr + h];
         const float4 v = __ldcg(
-            reinterpret_cast<const float4*>(part_o + (base + (size_t)j * rows) * D + i));
+            reinterpret_cast<const float4*>(part_o + (base + (size_t)j * kv_rows) * D + i));
         acc.x = fmaf(wj, v.x, acc.x);
         acc.y = fmaf(wj, v.y, acc.y);
         acc.z = fmaf(wj, v.z, acc.z);
@@ -822,13 +842,17 @@ cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  kernel<<<dim3(p.chunks, p.hkv, b), kThreads<kRows>, kBytes, stream>>>(p);
+  // row blocks of kRows query rows a kv head (one in the decode step)
+  const int nrb = kG > 0 ? 1 : (p.rows + kRows - 1) / kRows;
+  if ((long long)p.hkv * nrb > 65535) return cudaErrorInvalidValue;
+  kernel<<<dim3(p.chunks, p.hkv * nrb, b), kThreads<kRows>, kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The decode step (S = 1) of a group in kStepGroups, compiled apart; the
 // multi-query body otherwise, by its query rows a kv head rounded up to 8,
-// 16, 32 or 64 (at most kMaxRowsOf<D>).
+// 16, 32 or 64 (at most kMaxRowsOf<D>), past which the rows are cut into row
+// blocks of kMaxRowsOf<D>.
 template <int kG, int D, bool kInt8, bool kPaged, bool kWindow, bool kAlibi>
 cudaError_t launch_step(const Params& p, int b, cudaStream_t s) {
   if constexpr ((kStepGroups >> kG) & 1u) {
@@ -855,10 +879,7 @@ cudaError_t launch_rows(const Params& p, int b, cudaStream_t s) {
   if (p.rows <= 8) return launch<8, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
   if (p.rows <= 16) return launch<16, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
   if (p.rows <= 32) return launch<32, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
-  if constexpr (kMaxRowsOf<D> >= 64) {
-    if (p.rows <= 64) return launch<64, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
-  }
-  return cudaErrorInvalidValue;  // past kMaxRowsOf<D>
+  return launch<kMaxRowsOf<D>, 0, D, kInt8, kPaged, kWindow, kAlibi>(p, b, s);
 }
 
 // One variant's launch, by head dim, cache dtype and address map

@@ -81,7 +81,8 @@ DECODE_MAX_CHUNK = 1024
 DECODE_MAX_CHUNKS = 480
 # GQA groups whose decode step (one query token a row) is compiled apart
 # (G a constant, one length for every row: no per-row masks); any other
-# group runs the multi-query body, which takes any G * S <= 64. Groups 7
+# group runs the multi-query body, which takes any G * S query rows a kv
+# head in row blocks of `max_query_rows(D)`. Groups 7
 # (qwen2-7b) and 16 (chatglm3-6b) were timed both ways on an H100
 # (`scripts/torch_server_ab.py --kernels-of DIR --decode-only --families`,
 # DIR a copy with this tuple cut to 1, 2, 4, 8; `PERF.md` §6).
@@ -151,21 +152,38 @@ def group_size_of(k: int, scales: torch.Tensor) -> int:
     return g
 
 
+# A flash-decode block holds the softmax states of its query rows (q heads
+# of the group times tokens) for each of its key warps in shared memory at
+# the end: 4 (D + 2) bytes a row and warp. A block takes the most rows, 64 or
+# 32, whose states fit the 227 KB a block may have (`csrc/flash_decode.cuh`
+# computes the same, kMaxRowsOf); a launch of more cuts them into row blocks.
+DECODE_ROW_STEPS = (64, 32)
+DECODE_SMEM_BYTES = 227 * 1024
+
+
+def max_query_rows(d: int) -> int:
+    """Query rows of a kv head one flash-decode block takes at head dim d
+    (a row block): 64 at d = 64 and 128, 32 at d = 256."""
+    warps = DECODE_TILE // 16
+    return next((r for r in DECODE_ROW_STEPS if 4 * warps * r * (d + 2) <= DECODE_SMEM_BYTES), 0)
+
+
 class DecodePlan(NamedTuple):
-    """The launch of one flash-decode call: grid (chunks, Hkv, B)."""
+    """The launch of one flash-decode call: grid (chunks, Hkv x row blocks, B)."""
 
     chunk: int  # keys of a chunk: chunk c covers keys [c * chunk, (c + 1) * chunk)
     chunks: int  # chunks of the cache's capacity
     floats: int  # f32 scratch: [B, Hkv, chunks, G, D] outputs, [B, Hkv, chunks, G, 2] (max, sum)
     # (G: the query rows of a kv head, its q heads times the query tokens)
-    counters: int  # int32 scratch: one ticket counter per (row, kv head)
+    counters: int  # int32 scratch: one ticket counter per (row, kv head, row block)
 
 
 @functools.lru_cache(maxsize=4096)  # called once per flash-decode launch, on the host's decode path
 def decode_plan(b: int, hkv: int, group: int, max_len: int, d: int) -> DecodePlan:
     """The plan of a flash-decode launch over B rows, Hkv kv heads of
     `group` query rows each (q heads times query tokens: S > 1 rows of a
-    verify only widen the scratch) and head dim d, on a cache of `max_len`
+    verify widen the scratch, and past one row block of `max_query_rows(d)`
+    add a counter per row block) and head dim d, on a cache of `max_len`
     keys a row (dense L, or max_blocks * BS). The lengths and the query rows
     play no part in the chunks: those of a cache are the same at any length,
     so S sequential S = 1 calls cut it as one S-token call does."""
@@ -180,4 +198,5 @@ def decode_plan(b: int, hkv: int, group: int, max_len: int, d: int) -> DecodePla
     chunks = -(-max_len // chunk)
     if chunks == 1:
         return DecodePlan(chunk, 1, 0, 0)
-    return DecodePlan(chunk, chunks, b * hkv * chunks * group * (d + 2), b * hkv)
+    row_blocks = -(-group // max_query_rows(d))
+    return DecodePlan(chunk, chunks, b * hkv * chunks * group * (d + 2), b * hkv * row_blocks)

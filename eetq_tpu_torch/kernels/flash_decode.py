@@ -21,9 +21,11 @@ index-map clamp, flash_decode.py:459-474), stages its keys through shared
 memory in tiles and keeps an online softmax in f32. The last block of a
 row's live chunks merges their states in chunk order, in the same launch:
 one launch per call, the same output from launch to launch, and the
-lengths never read on the host. A block scores all the query rows of its kv
-head (G heads times S tokens, at most 64) against each staged tile, so S
-tokens cost one read of the keys.
+lengths never read on the host. A block scores the query rows of its kv
+head (G heads times S tokens, up to `autotune.max_query_rows(D)` of
+them, a row block) against each staged tile, so S tokens cost one read of
+the keys a row block; more rows take more row blocks, each row bit-equal
+whichever block holds it.
 
 `paged_flash_decode` and `paged_flash_decode_int8` replace `eetq_tpu/kernels/
 flash_decode.py::paged_flash_decode` (`pallas_call` at flash_decode.py:329):
@@ -43,9 +45,10 @@ ALiBi (`slopes` [Hq] f32: slope_h * (key - p) added to the scaled scores,
 after an int8 key's scale, :170-181), each a variant compiled apart from the
 plain body. Under a window only the chunks and tiles that hold a row's
 window are read: the others return or are skipped, as the TPU index maps
-clamp them (:459-474). Any GQA group runs: up to `max_query_rows(D)` query
-rows (q heads times query tokens) a kv head, 64 at head dims 64 and 128 and
-32 at 256 (gemma-7b).
+clamp them (:459-474). Any GQA group and any count of query tokens run, as
+in the TPU kernel (:362): a launch cuts the query rows (q heads times query
+tokens) of a kv head into row blocks of `autotune.max_query_rows(D)`, 64
+at head dims 64 and 128 and 32 at 256 (gemma-7b).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from __future__ import annotations
 import torch
 
 from eetq_tpu_torch.kernels import _build
-from eetq_tpu_torch.kernels.autotune import DECODE_TILE, decode_plan
+from eetq_tpu_torch.kernels.autotune import decode_plan
 from eetq_tpu_torch.kernels.flash_attention import (
     VARIANTS,
     alibi_bias,
@@ -62,20 +65,6 @@ from eetq_tpu_torch.kernels.flash_attention import (
 )
 
 HEAD_DIMS = (64, 128, 256)
-# A block holds the softmax states of its query rows (q heads of the group
-# times tokens) for each of its key warps in shared memory at the end:
-# 4 (D + 2) bytes a row and warp. A launch takes the most rows, 64 or 32,
-# whose states fit the 227 KB a block may have (`csrc/flash_decode.cuh`
-# computes the same, kMaxRowsOf).
-_ROW_STEPS = (64, 32)
-_SMEM_BYTES = 227 * 1024
-_KEY_WARPS = DECODE_TILE // 16
-
-
-def max_query_rows(d: int) -> int:
-    """Query rows of a kv head one launch takes at head dim d: 64 at d = 64
-    and 128, 32 at d = 256."""
-    return next((r for r in _ROW_STEPS if 4 * _KEY_WARPS * r * (d + 2) <= _SMEM_BYTES), 0)
 
 
 def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None, slopes=None):
@@ -112,7 +101,7 @@ def flash_decode_ref(q, k_cache, v_cache, lengths, scale=None, window=None, slop
 def _check(q, k_cache, v_cache, lengths, window, slopes, cache_dtype, batch_axis: bool = True):
     """k/v cache [B, Hkv, L, D], or with batch_axis=False pools
     [NB, Hkv, BS, D] shared by all rows."""
-    b, s, hq, d = q.shape
+    b, _, hq, d = q.shape
     hkv = k_cache.shape[1]
     check_variant(q, window, slopes)
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
@@ -128,14 +117,10 @@ def _check(q, k_cache, v_cache, lengths, window, slopes, cache_dtype, batch_axis
         raise TypeError("lengths must be contiguous int32 [B] on q's device")
     if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("q and the caches must be 16-byte aligned")
-    group = hq // hkv
-    if group * hkv != hq:
+    if hq % hkv:
         raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
-    if not 1 <= group * s <= max_query_rows(d):
-        raise NotImplementedError(f"{group} q heads x {s} query tokens: the kernel takes at most "
-                                  f"{max_query_rows(d)} query rows a kv head at head_dim {d}")
 
 
 def _launch_args(q, hkv, max_len):

@@ -10,14 +10,19 @@ speculative decoding (`verify=True`, S > 1) writes S tokens at per-row
 offsets and attends with the same kernel's multi-query mode, query token i
 at length - S + i (`attention_verify`). A paged cache (`modules/paged.py`)
 serves decode and verify: scattered writes through the block table, then
-the paged flash-decode kernel. Chunked prefill is not ported yet. Every
+the paged flash-decode kernel. Chunked prefill (S > 1 at an int offset >
+0, `eetq_tpu/modules/attention.py:430-450`) writes the chunk into the cache,
+then attends with the prefill kernel over the cache's first offset + S
+positions, read in place as a strided [B, L, Hkv, D] view (an int8 cache
+dequantized first), the chunk's last query on the last key. Every
 path takes the model's sliding window and ALiBi slopes [Hq] (`slopes`,
 `ops/alibi.py`; the bias slope_h * (key_pos - query_pos) in place of rope,
 `eetq_tpu/modules/attention.py:168-181`), which the kernels compute.
 
 The prefill offset is the Python int 0. The JAX engine passes a traced
 `jnp.int32(0)` (`eetq_tpu/serve/engine.py:114`); the port's engine passes an
-int, so `attention` tells prefill from chunked prefill by the int alone.
+int, so `attention` tells prefill (0) from chunked prefill (> 0) by the int
+alone.
 """
 
 from __future__ import annotations
@@ -201,7 +206,9 @@ def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, offse
 
 def attention_prefill(q, k, v, window: int | None = None, use_flash: bool = True,
                       slopes: torch.Tensor | None = None):
-    """Causal self-attention among the S new tokens (empty cache)."""
+    """Causal attention of q [B, S, Hq, D] over k/v [B, L, Hkv, D], L >= S,
+    the last query on the last key: the S new tokens among themselves
+    (empty cache), or a prefill chunk over its cached prefix."""
     scale = q.shape[-1] ** -0.5
     if use_flash:
         return flash_attention(q, k, v, causal=True, scale=scale, window=window, slopes=slopes)
@@ -269,7 +276,9 @@ def attention(
 ) -> tuple[torch.Tensor, KVCache | PagedKVCache | None]:
     """Write K/V to the cache at `offset`, then attend: prefill when S > 1
     (offset the int 0; it attends over the unquantized new K/V, so only
-    the cache holds int8), decode when S == 1 (offset an int, a [B] tensor
+    the cache holds int8), chunked prefill when S > 1 at an int offset > 0
+    (over cache[:, :, :offset + S], dequantized for an int8 cache), decode
+    when S == 1 (offset an int, a [B] tensor
     or the step's `DecodeAt`), the verify step when verify=True and S > 1
     (offset the [B] start positions, an int, or the round's `DecodeAt`:
     token i at offset + i, attending causally over the cache). cache is a
@@ -311,6 +320,17 @@ def attention(
     elif isinstance(offset, int) and offset == 0:
         out = attention_prefill(q, k_new, v_new, window=window, use_flash=use_kernels,
                                 slopes=slopes)
+    elif isinstance(offset, int) and cache is not None:
+        # a prefill chunk, written at [offset, offset + S): it attends over the
+        # whole prefix, the cache's [B, Hkv, hist, D] read as [B, hist, Hkv, D]
+        hist = offset + s
+        k_ctx, v_ctx = cache.k[:, :, :hist], cache.v[:, :, :hist]
+        if cache.quantized:
+            k_ctx = dequantize_kv(k_ctx, cache.k_scale[:, :, :hist])
+            v_ctx = dequantize_kv(v_ctx, cache.v_scale[:, :, :hist])
+        out = attention_prefill(q, k_ctx.transpose(1, 2), v_ctx.transpose(1, 2), window=window,
+                                use_flash=use_kernels, slopes=slopes)
     else:
-        raise NotImplementedError("chunked prefill (S > 1 at an offset) is not ported yet")
+        raise NotImplementedError(f"S = {s} tokens at offset {offset!r}: prefill takes the int 0, "
+                                  "chunked prefill an int offset and a cache")
     return out, cache

@@ -48,9 +48,10 @@ not depend on the window or the chain, and on the CPU they equal `prefill`
 followed by `decode_loop` with the same options (the property
 engine.py:21-22 states for JAX).
 
-With `spec_ngram=k` (1 <= k <= 7, and G (k + 1) <= 64 for a GQA group of
-G; engine.py:740-760, 1227-1291) a decode window runs n-gram speculative
-rounds instead of lock-step steps
+With `spec_ngram=k` (1 <= k <= 7, any GQA group: the verify's G (k + 1)
+query rows a kv head take as many row blocks of the flash-decode as they
+need; engine.py:740-760, 1227-1291) a decode window runs n-gram
+speculative rounds instead of lock-step steps
 (`serve/spec.py::NgramWindow`): drafts matched against each row's prompt
 and output, one verify forward over k + 1 tokens a row, greedy acceptance,
 until every slot has its window. A round is one replay of a captured graph
@@ -62,8 +63,19 @@ program. The caches hold max_len + decode_window + 2k + 1 positions a row
 (`_kv_len`): the verify writes of a window reach that far past a row's
 length, and no write may be clamped onto committed KV.
 
-Later work, which raises NotImplementedError here: `prefill_chunk`, banked
-LoRA and a sharded model.
+With `prefill_chunk=c` (engine.py:1137-1212, 1293-1323) a prompt whose
+bucket is larger than c and a multiple of it is prefilled one chunk of c
+tokens a scheduler step on the shared prefill scratch (its slot reserved at
+length 0, so decode skips it), each chunk attending over the scratch's
+prefix, while the running slots' decode window still advances in the same
+step. The chunks run W8A16 (JAX's `_prefill_chunk_step` passes no `a8`) and
+eagerly, as admissions do; after the last one the first token is sampled
+and the scratch row goes into the slot (paged: blocks granted, then cut
+into the pool). A chunk-eligible prompt queued behind a short one stays at
+the head of the queue for the next step's chunked path.
+
+Later work, which raises NotImplementedError here: banked LoRA and a
+sharded model.
 """
 
 from __future__ import annotations
@@ -75,11 +87,10 @@ from collections import deque
 import numpy as np
 import torch
 
-from eetq_tpu_torch.kernels.flash_decode import max_query_rows
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.models.transformer import ModelParams, forward_inner, init_caches
 from eetq_tpu_torch.modules.linear import QuantLinear
-from eetq_tpu_torch.modules.paged import init_paged_kv_cache, paged_insert_rows
+from eetq_tpu_torch.modules.paged import init_paged_kv_cache, paged_insert_dense, paged_insert_rows
 from eetq_tpu_torch.serve.graph import StepGraph
 from eetq_tpu_torch.serve.sampling import row_keys, rng_state, sample_rows
 from eetq_tpu_torch.serve.spec import NgramWindow
@@ -143,17 +154,8 @@ class Engine:
         if spec_ngram is not None and not 1 <= spec_ngram <= 7:
             raise ValueError("spec_ngram must be in [1, 7] (the k + 1-token verify must stay "
                              "in the m <= 8 decode regime)")
-        rows = max_query_rows(cfg.head_dim)
-        if spec_ngram is not None and cfg.num_heads // cfg.num_kv_heads * (spec_ngram + 1) > rows:
-            # the verify's query rows a kv head (q heads of a group times the
-            # k + 1 tokens): the flash-decode takes at most 64 (32 at head
-            # dim 256)
-            raise ValueError(f"spec_ngram {spec_ngram}: a verify of {spec_ngram + 1} tokens "
-                             f"over a GQA group of {cfg.num_heads // cfg.num_kv_heads} is more "
-                             f"than the flash-decode's {rows} query rows a kv head at head_dim "
-                             f"{cfg.head_dim}")
-        if prefill_chunk is not None:
-            raise NotImplementedError("chunked prefill is not ported yet")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.device = params.embed.device
         # the accelerator defaults of engine.py:686-696, asked of the
         # parameters' device
@@ -217,6 +219,11 @@ class Engine:
             self.caches = init_caches(cfg, max_batch, self._kv_len, self.device, kv_dtype)
         self._scratch = None  # reused prefill scratch caches
         self._scratch_len = 0
+        # prompts whose bucket is larger than and a multiple of this prefill
+        # a chunk a step; the one in flight: (request, slot, tokens [rows,
+        # bucket], bucket, chunks done, the logits of its last real token)
+        self.prefill_chunk = prefill_chunk
+        self._chunking: tuple | None = None
         self.topk_cap = int(topk_cap)
         self._rng = rng_state(seed, self.device)
         # the decode programs' static inputs: next token, length and top-k of
@@ -452,13 +459,9 @@ class Engine:
             for pool, small in zip(self.caches, self._scratch):
                 paged_insert_rows(pool, small, blocks)
         else:
-            src = torch.as_tensor([row for row, _, _ in assignments], device=dev)
-            dst = torch.as_tensor([slot for _, slot, _ in assignments], device=dev)
-            for big, small in zip(self.caches, self._scratch):
-                for name in ("k", "v", "k_scale", "v_scale"):
-                    b, s = getattr(big, name), getattr(small, name)
-                    if b is not None:
-                        b[dst, :, :upto] = s[src, :, :upto]
+            self._insert_scratch(
+                torch.as_tensor([row for row, _, _ in assignments], device=dev),
+                torch.as_tensor([slot for _, slot, _ in assignments], device=dev), upto)
         first_np = first.cpu().numpy()  # the admission's one host fetch
         for row, slot, req in assignments:
             self.slot_req[slot] = req
@@ -466,6 +469,73 @@ class Engine:
             tok = int(first_np[row])
             self.next_token[slot] = tok
             self._commit(slot, tok)
+
+    def _chunk_eligible(self, req: Request) -> bool:
+        """Whether `req` prefills by chunks: prefill_chunk set, and its bucket
+        larger than and a multiple of it (engine.py:1137-1146)."""
+        if not self.prefill_chunk:
+            return False
+        bucket = self._bucket_for(len(req.prompt))
+        return bucket > self.prefill_chunk and bucket % self.prefill_chunk == 0
+
+    def _start_chunked(self, slot: int, req: Request) -> None:
+        """Begin a chunked prefill: reserve the slot (its length stays 0, so
+        decode skips it) and run the first chunk on the scratch."""
+        bucket = self._bucket_for(len(req.prompt))
+        toks = np.zeros((self.prefill_rows, bucket), np.int64)
+        toks[0, :len(req.prompt)] = req.prompt
+        self._ensure_scratch(bucket)
+        self.slot_req[slot] = req
+        self._chunking = (req, slot, toks, bucket, 0, None)
+        self._chunk_step()
+
+    @torch.inference_mode()
+    def _chunk_step(self) -> None:
+        """Advance the chunked prefill in flight by one chunk: W8A16 over the
+        scratch at positions offset .. offset + c - 1, the logits gathered at
+        the chunk's last real token (`_prefill_chunk_step`, engine.py:492-510).
+        After the last chunk: sample the first token with the engine's one
+        sampler, hand scratch row 0 to the slot and activate it."""
+        req, slot, toks, bucket, done, last_logits = self._chunking
+        c, n, rows, dev = self.prefill_chunk, len(req.prompt), self.prefill_rows, self.device
+        offset = done * c
+        tokens = torch.as_tensor(toks[:, offset:offset + c], device=dev)
+        positions = torch.arange(offset, offset + c, device=dev).expand(rows, c)
+        last = min(max(n - 1 - offset, 0), c - 1)  # only the owning chunk's gather is kept
+        logits, _ = forward_inner(self.params, self.cfg, tokens, positions, self._scratch, offset,
+                                  last_pos=torch.full((rows,), last, device=dev))
+        if offset <= n - 1 < offset + c:
+            last_logits = logits[:1, -1, :]
+        done += 1
+        if done * c < bucket:
+            self._chunking = (req, slot, toks, bucket, done, last_logits)
+            return
+        self._chunking = None
+        temps = torch.full((1,), req.temperature, dtype=torch.float32, device=dev)
+        topks = torch.full((1,), req.top_k if req.temperature > 0 else 0, device=dev)
+        first = sample_rows(last_logits, temps, topks,
+                            self.topk_cap if req.temperature > 0 else 0, self._rng)
+        if self.paged:
+            self._alloc_blocks(slot, n)
+            self._sync_tables()
+            blocks = torch.as_tensor(self._slot_blocks[slot], device=dev)
+            for pool, small in zip(self.caches, self._scratch):
+                paged_insert_dense(pool, small, 0, blocks, len(blocks))
+        else:
+            self._insert_scratch(0, slot, min(bucket, self.max_len))
+        tok = int(first[0])  # the chunked prefill's one host fetch
+        self.lengths[slot] = n
+        self.next_token[slot] = tok
+        self._commit(slot, tok)
+
+    def _insert_scratch(self, src, dst, upto: int) -> None:
+        """Copy the first `upto` positions of scratch row(s) `src` (k, v and,
+        for an int8 cache, their scales) into dense slot(s) `dst`."""
+        for big, small in zip(self.caches, self._scratch):
+            for name in ("k", "v", "k_scale", "v_scale"):
+                b, s = getattr(big, name), getattr(small, name)
+                if b is not None:
+                    b[dst, :, :upto] = s[src, :, :upto]
 
     def _commit(self, slot: int, tok: int) -> None:
         """Append a sampled token to the slot's request; retire if done."""
@@ -581,14 +651,24 @@ class Engine:
         return (parts[0] if chain == 1 else torch.cat(parts, dim=1)).cpu().numpy()
 
     def step(self) -> None:
-        """One scheduler step: admit queued requests into free slots (one
-        grouped prefill), then advance every active slot by a decode window,
-        or a chain of them, in the same step (engine.py:1293-1473)."""
-        if self.queue:
+        """One scheduler step: advance a chunked prefill in flight by one
+        chunk, or start one for a chunk-eligible queue head, or admit queued
+        requests into free slots (one grouped prefill); then advance every
+        active slot by a decode window, or a chain of them, in the same step
+        (engine.py:1293-1473)."""
+        if self._chunking is not None:
+            self._chunk_step()
+        elif self.queue and self._chunk_eligible(self.queue[0]):
+            slot = self._free_slot()
+            if slot is not None:
+                self._start_chunked(slot, self.queue.popleft())
+        elif self.queue:
             assignments = []
             for row in range(self.prefill_rows):
                 slot = self._free_slot()
-                if not self.queue or slot is None:
+                # a chunk-eligible prompt stays at the head for the next
+                # step's chunked path, never in a grouped admission
+                if not self.queue or slot is None or self._chunk_eligible(self.queue[0]):
                     break
                 req = self.queue.popleft()
                 assignments.append((row, slot, req))
@@ -610,8 +690,9 @@ class Engine:
                 temps[i] = r.temperature
                 topks[i] = r.top_k
         # chain windows when no retirement can surprise the host: the batch
-        # full, the queue empty and no eos to meet; the shortest remaining
-        # budget bounds the chain
+        # full, the queue empty, no chunked prefill in flight (its next chunk
+        # would wait for the chain) and no eos to meet; the shortest
+        # remaining budget bounds the chain
         if self._spec_window(window, bool(temps.any())):
             toks, counts = self._spec_decode(active, window, temps, topks)
             for i in active:
@@ -626,6 +707,7 @@ class Engine:
             return
         chain = 1
         if (window > 1 and not self.queue and self._free_slot() is None
+                and self._chunking is None
                 and all(self.slot_req[i].eos_token_id is None for i in active)):
             min_rem = min(self.slot_req[i].max_new_tokens - len(self.slot_req[i].out_tokens)
                           for i in active)

@@ -11,7 +11,9 @@ step, and `generate(use_scan=False)` streams through it. Sampling draws
 Gumbel noise on the device from a stream seeded by a `torch.Generator`
 (`serve/sampling.py`). `prefill(a8=True)` runs the W8A8 projections, and
 `decode_loop(fused_mlp=True)` the fused-MLP kernel: `bench.py`'s decode
-configuration with an int8 cache.
+configuration with an int8 cache. `prefill_chunked` prefills in fixed
+chunks, each attending over the cached prefix (`bench.py`'s
+EETQ_BENCH_PREFILL_CHUNK).
 """
 
 from __future__ import annotations
@@ -34,6 +36,26 @@ def prefill(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, caches,
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     logits, caches = forward(params, cfg, tokens, positions, caches, 0,
                              use_kernels=use_kernels, last_only=True, a8=a8)
+    return logits[:, -1, :], caches
+
+
+@torch.inference_mode()
+def prefill_chunked(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, caches,
+                    chunk: int = 512, use_kernels: bool = True):
+    """Prefill tokens [B, S] in chunks of `chunk` tokens, one forward each at
+    positions i * chunk .. (i + 1) * chunk - 1, each chunk attending over the
+    cache's prefix (`eetq_tpu/serve/generate.py::prefill_chunked`): the
+    attention's working set and a forward's latency are bounded by the chunk.
+    S must be a multiple of `chunk` (pad the prompt). The projections are
+    W8A16. Returns (last-token logits [B, V] f32, caches)."""
+    b, s = tokens.shape
+    if s % chunk:
+        raise ValueError(f"prompt length {s} must divide by chunk {chunk}")
+    logits = None
+    for i in range(s // chunk):
+        positions = torch.arange(i * chunk, (i + 1) * chunk, device=tokens.device).expand(b, chunk)
+        logits, caches = forward(params, cfg, tokens[:, i * chunk:(i + 1) * chunk], positions,
+                                 caches, i * chunk, use_kernels=use_kernels, last_only=True)
     return logits[:, -1, :], caches
 
 

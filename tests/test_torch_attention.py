@@ -136,8 +136,12 @@ def test_attention_prefill_then_decode_matches_jax():
     np.testing.assert_array_equal(cache_t.k.float().numpy(), _np(cache_j.k))
     np.testing.assert_allclose(outs_t[0], outs_j[0], rtol=0, atol=2**-6)
     np.testing.assert_allclose(outs_t[1], outs_j[1], rtol=2**-7, atol=1e-3)
-    with pytest.raises(NotImplementedError):
-        attention(q_t[:, :2], k_t[:, :2], v_t[:, :2], cache_t, 4)  # chunked prefill
+    # a prefill chunk at an int offset: written there, it attends over the
+    # cached prefix (tests/test_torch_chunked_prefill.py holds it at length)
+    o_j, cache_j = jax_attn.attention(q_j[:, :2], k_j[:, :2], v_j[:, :2], cache_j, 4)
+    o_t, cache_t = attention(q_t[:, :2], k_t[:, :2], v_t[:, :2], cache_t, 4)
+    np.testing.assert_array_equal(cache_t.k.float().numpy(), _np(cache_j.k))
+    np.testing.assert_allclose(o_t.float().numpy(), _np(o_j), rtol=0, atol=2**-6)
 
 
 

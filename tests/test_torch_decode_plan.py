@@ -124,3 +124,21 @@ def test_query_tokens_widen_only_the_scratch(b, hkv, group, s, cap):
     one, many = decode_plan(b, hkv, group, cap, D), decode_plan(b, hkv, group * s, cap, D)
     assert (many.chunk, many.chunks, many.counters) == (one.chunk, one.chunks, one.counters)
     assert many.floats == s * one.floats
+
+
+@pytest.mark.parametrize("b,hkv,group,s,d", [
+    (1, 2, 16, 8, 128), (1, 4, 8, 9, 128), (8, 2, 16, 5, 64), (1, 1, 16, 4, 256),
+    (4, 1, 8, 8, 256)])
+@pytest.mark.parametrize("cap", CAPACITIES)
+def test_rows_past_one_block_take_a_counter_per_row_block(b, hkv, group, s, d, cap):
+    """More query rows a kv head than one block takes (`max_query_rows(d)`:
+    64, or 32 at d = 256) run as row blocks, each with a ticket counter of
+    its own per (row, kv head): chatglm3-6b's 128 rows at S = 8 are two row
+    blocks. The chunks stay those of the S = 1 call, the scratch a state for
+    every row."""
+    one, many = decode_plan(b, hkv, group, cap, d), decode_plan(b, hkv, group * s, cap, d)
+    blocks = -(-group * s // autotune.max_query_rows(d))
+    assert blocks > 1
+    assert (many.chunk, many.chunks) == (one.chunk, one.chunks)
+    assert many.counters == blocks * one.counters == b * hkv * blocks
+    assert many.floats == s * one.floats

@@ -148,9 +148,10 @@ def test_overflow_and_unported_options_rejected(params):
         eng.add_request([1, 2], 4, temperature=0.7, top_k=eng.topk_cap + 1)
     with pytest.raises(NotImplementedError):
         eng.add_request([1, 2], 4, lora_id=1)
-    for kw in (dict(prefill_chunk=8),):
-        with pytest.raises(NotImplementedError):
-            Engine(params, CFG, max_batch=2, max_len=64, **kw)
+    for kw in (dict(prefill_chunk=8),):  # chunked prefill is served (test_torch_chunked_prefill.py)
+        assert Engine(params, CFG, max_batch=2, max_len=64, **kw).prefill_chunk == 8
+    with pytest.raises(ValueError):  # a chunk of no token
+        Engine(params, CFG, max_batch=2, max_len=64, prefill_chunk=0)
     with pytest.raises(NotImplementedError):  # a sharded model (no cfg)
         Engine(params)
     with pytest.raises(ValueError):

@@ -127,9 +127,9 @@ def test_paged_engine_rejects_bad_pool_shapes(params):
         Engine(params, CFG, max_batch=2, max_len=100, paged_blocks=4, paged_block_size=256)
     with pytest.raises(ValueError, match="multiple of 128"):
         Engine(params, CFG, max_batch=2, max_len=256, paged_blocks=4, paged_block_size=64)
-    for kw in (dict(prefill_chunk=8),):
-        with pytest.raises(NotImplementedError):  # still to be ported, paged or not
-            Engine(params, CFG, max_batch=2, max_len=256, **PAGED, **kw)
+    for kw in (dict(prefill_chunk=8),):  # chunked prefill is served, paged or not
+        eng = Engine(params, CFG, max_batch=2, max_len=256, **PAGED, **kw)
+        assert eng.paged and eng.prefill_chunk == 8
 
 
 def test_paged_engine_default_kv_is_bf16(params):

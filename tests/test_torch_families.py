@@ -12,8 +12,9 @@ that is not a power of two (baichuan-13b), GQA group 7 with a qkv bias
   prefill logits of every position and teacher-forced decode steps against
   JAX's `forward`, and the paged engine's greedy tokens against JAX's paged
   engine (window and ALiBi).
-- `Engine(spec_ngram=k)` refuses a verify of more than 64 query rows a kv
-  head at construction.
+- `Engine(spec_ngram=k)` at group 16 with k = 4 and 7 (80 and 128 query
+  rows a kv head, past one row block of the flash-decode) against
+  `JaxEngine(spec_ngram=k)`.
 
 Tolerances. Kernel outputs: as tests/test_torch_paged.py, JAX's Pallas
 kernels round q * scale and the unnormalised p to bf16 against a running
@@ -281,12 +282,25 @@ def test_paged_engine_greedy_tokens_equal_jax_paged_engine(name):
 
 
 def test_spec_engine_refuses_more_than_64_query_rows_a_kv_head():
-    """Group 16: a verify of k + 1 = 4 tokens is 64 query rows a kv head,
-    k = 4 would be 80."""
+    """Group 16: a verify of k + 1 tokens is 80 (k = 4) or 128 (k = 7) query
+    rows a kv head, past one row block of the flash-decode (64). The engine
+    no longer refuses them: as JAX's, it takes every k in [1, 7], its greedy
+    tokens those of `JaxEngine(spec_ngram=k)` on a repeating prompt, where
+    drafts match."""
     cfg, jcfg = _configs("group16")
     jp = jax_quantize_params(jax_random_dense_params(jcfg, jax.random.PRNGKey(0)))
     tp = params_from_numpy(jax_params_to_numpy(jp), device="cpu")
-    assert Engine(tp, cfg, max_batch=1, max_len=64, spec_ngram=3).spec_ngram == 3
     for k in (4, 7):
-        with pytest.raises(ValueError, match="64 query rows"):
-            Engine(tp, cfg, max_batch=1, max_len=64, spec_ngram=k)
+        rng = np.random.default_rng(k)
+        base = [int(t) for t in rng.integers(1, cfg.vocab_size, size=6)]
+        prompts = [base * 3, [int(t) for t in rng.integers(1, cfg.vocab_size, size=9)]]
+        kw = dict(max_batch=2, max_len=96, prompt_buckets=(32,), decode_window=4, spec_ngram=k)
+        je, pe = JaxEngine(jp, jcfg, **kw), Engine(tp, cfg, **kw)
+        assert pe.spec_ngram == k
+        for eng in (je, pe):
+            for p in prompts:
+                eng.add_request(p, 12)
+            eng.run()
+        for uid, p in enumerate(prompts):
+            assert pe.result(uid) == je.result(uid), (k, p)
+        assert pe.spec_rounds > 0

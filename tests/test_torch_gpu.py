@@ -793,6 +793,18 @@ def test_flash_decode_int8(dev, b, l, hq, hkv, d):
            flash_decode_int8_ref(q, kc, vc, ks, vs, lengths))
 
 
+def _rows_bit_equal(kernel, q, lengths):
+    """kernel(q, lengths) for q [B, S, Hq, D]: token i bit-equal to a
+    one-token call at length - S + i + 1. Returns the output."""
+    s = q.shape[1]
+    out = kernel(q, lengths)
+    for i in range(s):
+        one = kernel(q[:, i:i + 1].contiguous(), lengths - s + i + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, i:i + 1], one), i
+    return out
+
+
 def test_unsupported_variants_raise(dev):
     x = torch.zeros(1, 128, dtype=torch.bfloat16, device=dev)
     w = torch.zeros(128, 128, dtype=torch.int8, device=dev)
@@ -818,25 +830,24 @@ def test_unsupported_variants_raise(dev):
         flash_attention(q, q, q, window=0)
     with pytest.raises(TypeError):  # ALiBi slopes of another head count
         flash_attention(q, q, q, slopes=torch.ones(3, device=dev))
-    cache = torch.zeros(1, 2, 128, 128, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(96)
+    cache = torch.randn(1, 2, 128, 128, generator=g, device=dev).to(torch.bfloat16)
     lengths = torch.ones(1, dtype=torch.int32, device=dev)
-    wide = torch.zeros(1, 9, 16, 128, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):  # 8 q heads x 9 tokens: 72 query rows a kv head
-        flash_decode(wide, cache, cache, lengths)
-    i8 = torch.zeros(1, 2, 128, 128, dtype=torch.int8, device=dev)
-    sc = torch.ones(1, 2, 128, device=dev)
-    with pytest.raises(NotImplementedError):  # the same over an int8 cache
-        flash_decode_int8(wide, i8, i8, sc, sc, lengths)
-    # at head dim 256 a launch takes 32 query rows a kv head: 16 q heads x 4
-    # tokens (64) are past it, 16 x 2 are not
-    wide256 = torch.zeros(1, 4, 16, 256, dtype=torch.bfloat16, device=dev)
-    cache256 = torch.zeros(1, 1, 128, 256, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):
-        flash_decode(wide256, cache256, cache256, 4 * lengths)
-    i8_256 = torch.zeros(1, 1, 128, 256, dtype=torch.int8, device=dev)
-    sc256 = torch.ones(1, 1, 128, device=dev)
-    with pytest.raises(NotImplementedError):
-        flash_decode_int8(wide256, i8_256, i8_256, sc256, sc256, 4 * lengths)
+    wide = torch.randn(1, 9, 16, 128, generator=g, device=dev).to(torch.bfloat16)
+    # 8 q heads x 9 tokens: 72 query rows a kv head, two row blocks; each
+    # token bit-equal to a one-token call
+    _rows_bit_equal(lambda q, n: flash_decode(q, cache, cache, n), wide, 100 * lengths)
+    i8, sc = quantize_activations(torch.randn(1, 2, 128, 128, generator=g, device=dev))
+    # the same over an int8 cache
+    _rows_bit_equal(lambda q, n: flash_decode_int8(q, i8, i8, sc, sc, n), wide, 100 * lengths)
+    # at head dim 256 a block takes 32 query rows a kv head: 16 q heads x 4
+    # tokens (64) are two row blocks, 16 x 2 one
+    wide256 = torch.randn(1, 4, 16, 256, generator=g, device=dev).to(torch.bfloat16)
+    cache256 = torch.randn(1, 1, 128, 256, generator=g, device=dev).to(torch.bfloat16)
+    _rows_bit_equal(lambda q, n: flash_decode(q, cache256, cache256, n), wide256, 100 * lengths)
+    i8_256, sc256 = quantize_activations(torch.randn(1, 1, 128, 256, generator=g, device=dev))
+    _rows_bit_equal(lambda q, n: flash_decode_int8(q, i8_256, i8_256, sc256, sc256, n), wide256,
+                    100 * lengths)
     assert flash_decode(wide256[:, :2].contiguous(), cache256, cache256, 2 * lengths).shape == (
         1, 2, 16, 256)
     with pytest.raises(TypeError):  # a bf16 cache handed to the int8 kernel
@@ -868,16 +879,23 @@ def test_unsupported_variants_raise(dev):
     assert w8a16_expert_matmul(x, bank4, torch.ones(2, 128, device=dev), ids).shape == (2, 1, 128)
     with pytest.raises(ValueError):  # int4 data handed to the int8 bank kernel: K 128 > 64 rows
         w8a16_expert_gemv(x, bank4.data, torch.ones(2, 128, device=dev), ids, 128)
-    pool = torch.zeros(4, 2, 128, 128, dtype=torch.bfloat16, device=dev)
-    table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):  # 72 query rows a kv head over a paged cache
-        paged_flash_decode(wide, pool, pool, table, lengths)
+    pool = torch.randn(4, 2, 128, 128, generator=g, device=dev).to(torch.bfloat16)
+    table = torch.tensor([[2, 0]], dtype=torch.int32, device=dev)
+    # 72 query rows a kv head over a paged cache: bit-equal to one-token calls
+    # and to the dense kernel on the gathered cache
+    out = _rows_bit_equal(lambda q, n: paged_flash_decode(q, pool, pool, table, n), wide,
+                          200 * lengths)
+    dense = gather_pool(pool, table)
+    assert torch.equal(out, flash_decode(wide, dense, dense, 200 * lengths))
     pool96 = torch.zeros(4, 2, 128, 96, dtype=torch.bfloat16, device=dev)
     with pytest.raises(NotImplementedError):  # head_dim 96 under a window over a paged cache
         paged_flash_decode(q96[:, :1], pool96, pool96, table, lengths, window=64)
-    pool256 = torch.zeros(4, 1, 128, 256, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):  # 64 query rows a kv head at head_dim 256
-        paged_flash_decode(wide256, pool256, pool256, table, 4 * lengths)
+    pool256 = torch.randn(4, 1, 128, 256, generator=g, device=dev).to(torch.bfloat16)
+    # 64 query rows a kv head at head_dim 256: two row blocks
+    out = _rows_bit_equal(lambda q, n: paged_flash_decode(q, pool256, pool256, table, n),
+                          wide256, 200 * lengths)
+    dense = gather_pool(pool256, table)
+    assert torch.equal(out, flash_decode(wide256, dense, dense, 200 * lengths))
     with pytest.raises(TypeError):  # an int64 table
         paged_flash_decode(q[:, :1], pool, pool, table.long(), lengths)
     with pytest.raises(TypeError):  # a table of another batch
@@ -1526,3 +1544,137 @@ def test_multiquery_head256_bit_equal_to_sequential_calls(dev, mode, hq, hkv, s)
     assert torch.equal(out, dense(q, lengths))
     for i in range(s):
         assert torch.equal(out[:, i:i + 1], kernel(q[:, i:i + 1].contiguous(), lengths - s + i + 1))
+
+
+# ---- the flash-decode's verify past one row block; chunked prefill ----
+
+# (q heads, kv heads, S, window, ALiBi, head dim): query rows a kv head past
+# one row block (64, or 32 at D = 256): chatglm3-6b's 32/2 at S = 8 (128
+# rows, two blocks, the block edge on a token edge), 32/4 at S = 9 (72 rows,
+# the edge inside token 8's rows), under a window and with ALiBi, and at
+# D = 256 16/1 at S = 4 (64 rows) and 32/2 at S = 3 (48)
+ROW_BLOCK_CASES = {
+    "g16-s8": (32, 2, 8, None, False, 128), "g8-s9": (32, 4, 9, None, False, 128),
+    "window-g16-s8": (32, 2, 8, 300, False, 128), "alibi-g16-s8": (32, 2, 8, None, True, 128),
+    "window-alibi-g8-s9": (32, 4, 9, 200, True, 128), "d256-g16-s4": (16, 1, 4, None, False, 256),
+    "d256-g16-s3": (32, 2, 3, None, False, 256),
+}
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("case", ROW_BLOCK_CASES)
+def test_multiquery_row_blocks_bit_equal_to_sequential_calls(dev, mode, case):
+    """Query rows a kv head past one row block: within the plain version's
+    tolerance, repeats bit-equal, paged bit-equal to dense, token i
+    bit-equal to an S = 1 call at length - S + i + 1; rows across tile and
+    chunk edges, a row of the whole cache and one shorter than S."""
+    from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
+
+    hq, hkv, s, window, alibi, d = ROW_BLOCK_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(hq * s + hkv)
+    slopes = alibi_slopes_cache(hq, dev) if alibi else None
+    kernel, ref, dense = _variant_fns(g, dev, mode, 5, hq, hkv, 2048, window, slopes, d=d)
+    q = torch.randn(5, s, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    w = window or 0
+    lengths = torch.tensor([w + 256 + 3, w + 64 + 2, 2048, s - 1, 1074], dtype=torch.int32,
+                           device=dev)
+    out = _twice(lambda: kernel(q, lengths))
+    _close(out, ref(q, lengths))
+    assert torch.equal(out, dense(q, lengths))
+    _rows_bit_equal(kernel, q, lengths)
+
+
+# chunk shapes of the prefill flash-attention over the cache's [B, L, Hkv, D]
+# view (head stride L D > sequence stride D): (batch, chunk, keys, q heads,
+# kv heads, cache capacity, window): a late chunk, a chunk under a window
+# shorter than its prefix, a batch of four, GQA
+CHUNK_CASES = [(1, 512, 2048, 32, 32, 4096, None), (1, 512, 2560, 32, 8, 4096, 1024),
+               (4, 256, 1024, 8, 8, 1024, None), (2, 128, 384, 16, 2, 512, 256)]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,cap,window", CHUNK_CASES)
+def test_flash_attention_over_the_cache_view(dev, b, sq, skv, hq, hkv, cap, window):
+    """A prefill chunk of sq queries over the first skv keys of a cache
+    [B, Hkv, cap, D], read as the strided view [B, skv, Hkv, D]: within the
+    plain version's tolerance, and bit-equal to the kernel on a contiguous
+    copy of the same keys."""
+    g = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = torch.randn(b, sq, hq, 128, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(b, hkv, cap, 128, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    k, v = kc[:, :, :skv].transpose(1, 2), vc[:, :, :skv].transpose(1, 2)
+    assert k.stride()[1:] == (128, cap * 128, 1)
+    out = flash_attention(q, k, v, window=window)
+    _close(out, flash_attention_ref(q, k, v, window=window))
+    assert torch.equal(out, flash_attention(q, k.contiguous(), v.contiguous(), window=window))
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_prefill_chunked_on_the_card(dev, kv):
+    """prefill_chunked over 4 chunks of 128: every chunk's attention on the
+    prefill kernel (its launch count), the logits within 5e-2 of the largest
+    of the unchunked prefill's, and decode after it bit-equal between a
+    replayed decode_loop and eager steps."""
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import decode_loop, decode_step, prefill, prefill_chunked
+
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device=dev)
+    caches = init_caches(cfg, 2, 512 + GRAPH_STEPS, device=dev, dtype=kv)
+    reset_launch_counts()
+    logits, caches = prefill_chunked(params, cfg, prompt, caches, chunk=128)
+    assert launch_counts()["flash_attention_fwd"] == 4 * cfg.num_layers
+    full, _ = prefill(params, cfg, prompt, init_caches(cfg, 2, 512, device=dev, dtype=kv))
+    err = (logits - full).abs().max().item()
+    assert err <= 5e-2 * full.abs().max().item(), err
+    first = torch.argmax(logits, -1)
+    twin = _clone_caches(caches)
+    toks, _ = decode_loop(params, cfg, first, 512, caches, GRAPH_STEPS)
+    tok, eager = first, [first]
+    for i in range(GRAPH_STEPS - 1):
+        lg, _ = decode_step(params, cfg, tok[:, None], 512 + i, twin)
+        tok = torch.argmax(lg, -1)
+        eager.append(tok)
+    assert torch.equal(toks, torch.stack(eager, dim=1))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_chunked_engine_on_the_card(dev, paged):
+    """Engine(prefill_chunk=128) at the CUDA window (8): two long prompts
+    (bucket 512: four chunks each) among short ones, the running slots'
+    decode advancing in every chunk step; the greedy tokens of the same
+    engine without chunks admitting with W8A16 (the chunks' projections)
+    over a bf16 cache (an int8 one would hold a chunk's own keys quantized),
+    every block freed."""
+    from eetq_tpu_torch.serve.engine import Engine
+
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lengths, budgets = (17, 450, 5, 400, 64), (20, 12, 40, 9, 25)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist()
+               for n in lengths]
+    kw = dict(max_batch=4, max_len=1024, prompt_buckets=(64, 512), a8_prefill=False,
+              kv_dtype=torch.bfloat16)
+    if paged:
+        kw.update(paged_blocks=13, paged_block_size=256)
+    outs = []
+    for extra in (dict(prefill_chunk=128), {}):
+        eng = Engine(params, cfg, **kw, **extra)
+        uids = [eng.add_request(p, b) for p, b in zip(prompts, budgets)]
+        chunk_steps, advanced = 0, 0
+        while eng.has_work:
+            busy = [r for i, r in enumerate(eng.slot_req) if r is not None and eng.lengths[i] > 0]
+            before = [len(r.out_tokens) for r in busy]
+            chunking = eng._chunking is not None
+            eng.step()
+            if chunking and busy:  # a chunk step beside running slots
+                chunk_steps += 1
+                advanced += all(len(r.out_tokens) > n for r, n in zip(busy, before))
+        outs.append([eng.result(u) for u in uids])
+        if extra:
+            assert chunk_steps > 0 and advanced == chunk_steps
+        if paged:
+            assert sorted(eng._free_blocks) == list(range(1, 13))
+    assert outs[0] == outs[1]

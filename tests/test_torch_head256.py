@@ -6,9 +6,9 @@ at toy size.
   window, ALiBi); the dense flash-decode, bf16 and int8, S = 1 and S > 1;
   the paged flash-decode, bf16 and int8, over a permuted table, equal to
   the dense plain version on the cache the pool was cut from.
-- `max_query_rows` (64 rows a kv head at D <= 128, 32 at 256) and the
-  decode plan's scratch at D = 256; the engine's speculative guard at D =
-  256.
+- `max_query_rows` (a row block of the flash-decode: 64 rows a kv head at
+  D <= 128, 32 at 256) and the decode plan's scratch at D = 256; the spec
+  engine at D = 256 past one row block.
 - A gemma-style toy at head dim 256 (tied head, unit-offset norms, the
   embedding multiplier, gelu; 2 layers, JAX's W8A16 parameters carried
   across): every prefill position's logits and teacher-forced decode steps
@@ -41,12 +41,11 @@ from eetq_tpu.models.transformer import forward as jax_forward
 from eetq_tpu.modules import paged as jax_paged
 from eetq_tpu.ops.alibi import alibi_slopes as jax_alibi_slopes
 from eetq_tpu.serve.engine import Engine as JaxEngine
-from eetq_tpu_torch.kernels.autotune import decode_plan
+from eetq_tpu_torch.kernels.autotune import decode_plan, max_query_rows
 from eetq_tpu_torch.kernels.flash_attention import flash_attention
 from eetq_tpu_torch.kernels.flash_decode import (
     flash_decode,
     flash_decode_int8,
-    max_query_rows,
     paged_flash_decode,
     paged_flash_decode_int8,
 )
@@ -91,8 +90,8 @@ def _slopes(hq: int, alibi: bool):
 
 
 def test_max_query_rows_by_head_dim():
-    """A launch's warps' states of 64 rows fit shared memory at D <= 128,
-    of 32 at D = 256 (csrc/flash_decode.cuh, kMaxRowsOf)."""
+    """A block's warps' states of 64 rows fit shared memory at D <= 128,
+    of 32 at D = 256 (csrc/flash_decode.cuh, kMaxRowsOf): a row block."""
     assert [max_query_rows(d) for d in (64, 128, 256)] == [64, 64, 32]
 
 
@@ -256,9 +255,16 @@ def test_gemma_toy_paged_engine_greedy_tokens_equal_jax_paged_engine():
 
 def test_spec_engine_refuses_more_than_32_query_rows_a_kv_head_at_head_dim_256():
     """Group 8 at D = 256: a verify of k + 1 = 4 tokens is 32 query rows a
-    kv head, k = 4 would be 40."""
+    kv head, one row block; k = 4 is 40, two. The engine takes both, and its
+    greedy tokens are those of the engine without speculation."""
     cfg = dataclasses.replace(ModelConfig(**GEMMA), num_heads=8, num_kv_heads=1)
     tp = random_dense_params(cfg, torch.Generator().manual_seed(0))
-    assert Engine(tp, cfg, max_batch=1, max_len=64, spec_ngram=3).spec_ngram == 3
-    with pytest.raises(ValueError, match="32 query rows a kv head at head_dim 256"):
-        Engine(tp, cfg, max_batch=1, max_len=64, spec_ngram=4)
+    prompt = [3, 9, 4, 3, 9, 4, 3, 9, 4, 3]
+    want = None
+    for k in (None, 3, 4):
+        eng = Engine(tp, cfg, max_batch=1, max_len=64, decode_window=4, spec_ngram=k)
+        assert eng.spec_ngram == k
+        got = eng.generate_all([prompt], 10)
+        want = want or got
+        assert got == want, k
+        assert (eng.spec_rounds > 0) == (k is not None)

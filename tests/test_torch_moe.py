@@ -388,3 +388,22 @@ def test_moe_engine_matches_jax_engine_and_generate(models):
     for uid, (p, n) in enumerate(zip(prompts, budgets)):
         assert te.result(uid) == je.result(uid), p
         assert te.result(uid) == port_gen.generate(tp, CFG, torch.tensor([p]), n)[0].tolist()
+
+
+def test_moe_spec_engine_matches_jax_spec_engine(models):
+    """`Engine(spec_ngram=3)` on the routed model (a verify of 4 tokens a
+    row through `moe_apply`): the greedy tokens of `JaxEngine(spec_ngram=3)`
+    on repeating prompts, where drafts are accepted."""
+    jp, tp = models
+    rng = np.random.default_rng(3)
+    base = [int(t) for t in rng.integers(1, CFG.vocab_size, size=5)]
+    prompts = [base * 3, [int(t) for t in rng.integers(1, CFG.vocab_size, size=7)]]
+    kw = dict(max_batch=2, max_len=64, decode_window=4, spec_ngram=3)
+    je, te = JaxEngine(jp, JCFG, **kw), Engine(tp, CFG, **kw)
+    for eng in (je, te):
+        for p in prompts:
+            eng.add_request(p, 10)
+        eng.run()
+    for uid, p in enumerate(prompts):
+        assert te.result(uid) == je.result(uid), p
+    assert te.spec_rounds > 0
