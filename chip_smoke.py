@@ -217,6 +217,25 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    over a paged int8 pool behind the server, against its window-1 twin. A
    family path launches its kernels' variant and nothing else of the port.
 
+8. Checkpoints (the `checkpoint` phase, run after 3): llama2-7b W8A16 with
+   an int8 lm_head at full width and depth, built as in 3, saved by
+   `EETQCausalLM.save_quantized` at the default 4 GiB shards (two shards and
+   an index, in a temporary directory), loaded by
+   `AutoEETQForCausalLM.from_quantized` onto the card: every int8 tensor
+   equal, every tensor the format stores in fp16 (scales, norms, the
+   embedding) equal to the source's as fp16 holds it, the count of values
+   fp16 changes printed by kind (the scales must round-trip exactly), then
+   bench decode's 50 greedy tokens (b=1 p=1024, int8 KV, fused MLP) of the
+   loaded model (checkpoint_llama) bit-equal to the source's as stored;
+   GB on disk, save and load seconds and GB/s printed. checkpoint_dense_import:
+   an fp16 HF-layout llama checkpoint of llama2-7b's width at 2 layers
+   written by the port's own writer, `from_pretrained(quantize=True)`
+   bit-equal to `eet_quantize` of the same dense params built in memory,
+   its prefill within MODEL_TOL of the plain path. checkpoint_mixtral:
+   Mixtral-8x7B W8A16 at full width and 2 layers, the same round trip
+   (per-expert w1/w3/w2, the router as fp16), generate's decode (bf16 KV).
+   Each directory is deleted after its model.
+
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, the first request's
 whole decode_loop, and one steady-state engine step after `warmup()`: a
@@ -225,7 +244,8 @@ time, kernel events (and those of the flash-decode, which must be one a
 layer on every decode and engine step), the host's launch calls (a graph
 replay is one) and the idle share go to the output and to
 `chip_smoke.json`. `--phases`
-runs a subset of `kernels,moe_layer,llama,int4,mixtral,mixtral_int4,families`
+runs a subset of
+`kernels,moe_layer,llama,checkpoint,int4,mixtral,mixtral_int4,families`
 (for debugging: a partial run checks what it runs and prints no result
 line).
 
@@ -241,10 +261,12 @@ timings, nvcc's register report) also go to `DIR/chip_smoke.json`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import http.client
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -708,7 +730,32 @@ def _family_paths() -> dict:
 
 
 PATH_KERNELS.update(_family_paths())
-PHASES = ("kernels", "moe_layer", "llama", "int4", "mixtral", "mixtral_int4", "families")
+
+# The checkpoint phase: llama2-7b at full width and depth saved at the
+# default shard size (two shards and an index) and loaded back; a dense
+# fp16 HF checkpoint of llama2-7b's width at CKPT_DENSE_LAYERS layers,
+# written by the port's own writer, imported with quantize=True; Mixtral-8x7B
+# at full width and CKPT_MIXTRAL_LAYERS layers saved and loaded.
+CKPT_DENSE_LAYERS = 2
+CKPT_MIXTRAL_LAYERS = 2
+CKPT_SHARDS = 2  # llama2-7b W8A16 (6.9 GB) at the default 4 GiB shards
+CKPT_FREE_GB = 8.0  # the phase's peak on disk: llama2-7b's 6.9 GB checkpoint
+PATH_KERNELS.update({
+    # the loaded llama2-7b through bench.py's decode (int8 KV, fused MLP)
+    "checkpoint_llama": PATH_KERNELS["bench_decode"],
+    # the imported dense checkpoint, quantized: a W8A16 prefill (the lm_head stays dense)
+    "checkpoint_dense_import": ("w8a16_gemm", "flash_attention_fwd"),
+    # the loaded 2-layer Mixtral through generate's decode (bf16 KV)
+    "checkpoint_mixtral": PATH_KERNELS["mixtral_generate"],
+})
+PATH_IDLE.update({
+    "checkpoint_llama": PATH_IDLE["bench_decode"] + ("w8a8_gemm",),
+    "checkpoint_dense_import": tuple(k for k in REPLACES if "[" not in k and k not in
+                                     PATH_KERNELS["checkpoint_dense_import"]),
+    "checkpoint_mixtral": PATH_IDLE["mixtral_generate"] + ("w8a8_gemm",),
+})
+PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "int4", "mixtral", "mixtral_int4",
+          "families")
 
 
 class CheckFailed(Exception):
@@ -2988,6 +3035,288 @@ def families_phase(dev) -> dict:
     return out
 
 
+def buffer_kind(name: str) -> str:
+    """What a buffer of the port's ModelParams is, by the fp16 tensor the
+    checkpoint stores it as."""
+    last = name.rsplit(".", 1)[-1]
+    if last in ("input_norm", "post_norm", "final_norm"):
+        return "norms"
+    if ".router." in name:
+        return "router"
+    return {"scales": "scales", "embed": "embed", "bias": "biases"}.get(last, "dense weights")
+
+
+def checkpoint_equal(src, got, tag: str) -> dict:
+    """Every tensor of `got` (a model loaded from a checkpoint of `src`)
+    equal to `src`'s: int8 weights as they are, the tensors the format
+    stores in fp16 (scales, norms, biases, the embedding, a router, a dense
+    head) as fp16 holds them. Counts the values fp16 changes, by kind; the
+    scales must round-trip exactly (a bf16 max|w| / 2^(bits-1) in fp16's
+    normal range does). Then rounds src's fp16-stored tensors in place, so
+    that src is the model as stored."""
+    import torch
+
+    from eetq_tpu_torch.modules.linear import QuantLinear
+
+    mods = dict(got.named_modules())
+    for name, mod in src.named_modules():
+        other = mods.get(name)
+        check(type(other) is type(mod), f"{tag}: {name or 'the model'} loaded as "
+                                        f"{type(other).__name__}, saved as {type(mod).__name__}")
+        if isinstance(mod, QuantLinear):
+            check((other.k, other.n, other.bits) == (mod.k, mod.n, mod.bits),
+                  f"{tag}: {name} loaded as k, n, bits {(other.k, other.n, other.bits)}, "
+                  f"saved as {(mod.k, mod.n, mod.bits)}")
+    want, have = dict(src.named_buffers()), dict(got.named_buffers())
+    check(want.keys() == have.keys(), f"{tag}: buffers {sorted(want.keys() ^ have.keys())} on "
+                                      f"one side only")
+    changed, total, smallest = {}, {}, {}
+    for name, t in want.items():
+        g = have[name]
+        check(g.dtype == t.dtype and g.shape == t.shape,
+              f"{tag}: {name} loaded as {g.dtype} {tuple(g.shape)}, saved {t.dtype} "
+              f"{tuple(t.shape)}")
+        if t.dtype == torch.int8:
+            check(torch.equal(g, t), f"{tag}: int8 {name} differs after the round trip")
+            continue
+        kind = buffer_kind(name)
+        stored = t.to(torch.float16).to(t.dtype)
+        diff = stored != t
+        n = int(diff.sum())
+        changed[kind] = changed.get(kind, 0) + n
+        total[kind] = total.get(kind, 0) + t.numel()
+        if n:
+            smallest[kind] = max(smallest.get(kind, 0.0), float(t[diff].abs().max()))
+        check(torch.equal(g, stored), f"{tag}: {name} differs from the source as fp16 holds it")
+        t.copy_(stored)
+    for kind in sorted(total):
+        note = (f", all with |x| <= {smallest[kind]:.3e} (fp16 is subnormal below 6.1e-5)"
+                if kind in smallest else "")
+        print(f"  {tag}: {kind}: {changed[kind]} of {total[kind]} values change when stored as "
+              f"fp16{note}")
+    check(changed.get("scales", 0) == 0, f"{tag}: {changed.get('scales')} scales change when "
+                                         "stored as fp16")
+    return dict(changed_by_fp16=changed, values=total, largest_changed=smallest)
+
+
+def greedy_tokens(params, cfg, dev, prompt, n: int, kv, fused: bool):
+    """prefill, then decode_loop's n greedy tokens."""
+    import torch
+
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    caches = init_caches(cfg, prompt.shape[0], prompt.shape[1] + n, device=dev, dtype=kv)
+    lp, caches = prefill(params, cfg, prompt, caches)
+    toks, _ = decode_loop(params, cfg, torch.argmax(lp, -1), prompt.shape[1], caches, n,
+                          fused_mlp=fused)
+    torch.cuda.synchronize()
+    return toks
+
+
+def disk_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
+
+
+def round_trip(params, cfg, dev, gen, path: str, kv, fused: bool, shards: int | None) -> dict:
+    """save_quantized through `EETQCausalLM`, `from_quantized` back, every
+    tensor against the source (`checkpoint_equal`), and the loaded model's
+    greedy tokens (the path, counted) against the source's, before and after
+    the source's fp16-stored tensors are rounded as the file holds them: the
+    latter must be equal."""
+    import tempfile
+
+    import torch
+
+    from eetq_tpu_torch.models.auto import AutoEETQForCausalLM, EETQCausalLM
+
+    _, p, n = REQUESTS[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=gen, device=dev)
+    first = greedy_tokens(params, cfg, dev, prompt, n, kv, fused)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        free_gb = shutil.disk_usage(d).free / 1e9
+        check(free_gb >= CKPT_FREE_GB, f"{path}: {free_gb:.1f} GB free under {d}, the phase "
+                                       f"needs {CKPT_FREE_GB} GB")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        EETQCausalLM(cfg, params).save_quantized(d)
+        save_s = time.perf_counter() - t0
+        gb, files = disk_gb(d), sorted(os.listdir(d))
+        st = [f for f in files if f.endswith(".safetensors")]
+        print(f"  {path} on {card_line()}: saved {gb:.3f} GB in {save_s:.2f} s "
+              f"({gb / save_s:.2f} GB/s) under {d} ({free_gb:.1f} GB free before): {files}")
+        if shards is not None:
+            check(len(st) == shards and (shards == 1 or "model.safetensors.index.json" in files),
+                  f"{path}: {len(st)} shards, want {shards} and an index")
+        t0 = time.perf_counter()
+        model = AutoEETQForCausalLM.from_quantized(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    print(f"  {path}: loaded in {load_s:.2f} s ({gb / load_s:.2f} GB/s, the files just "
+          f"written, through the page cache)")
+    check(model.cfg == cfg, f"{path}: the loaded config {model.cfg} is not {cfg}")
+    check(next(model.params.buffers()).device == dev, f"{path}: from_quantized did not load "
+                                                      "onto the card")
+    stored = checkpoint_equal(params, model.params, path)
+    toks, counts = counted(path, lambda: greedy_tokens(model.params, cfg, dev, prompt, n, kv,
+                                                       fused))
+    want = greedy_tokens(params, cfg, dev, prompt, n, kv, fused)
+    check(torch.equal(toks, want), f"{path}: the loaded model's {n} greedy tokens differ from "
+                                   "the source's as stored")
+    same = bool(torch.equal(toks, first))
+    print(f"  {path}: {n} greedy tokens (b=1 p={p}, {kv} KV, fused MLP {fused}) bit-equal to the "
+          f"source's as stored; to the source's before fp16 rounding: {same}")
+    return dict(counts=counts, save_s=save_s, load_s=load_s, disk_gb=gb, files=files,
+                save_gb_s=gb / save_s, load_gb_s=gb / load_s, stored=stored,
+                tokens_equal_unrounded=same)
+
+
+def dense_hf_checkpoint(cfg, gen, dev) -> tuple[dict, dict]:
+    """An fp16 HF-layout llama checkpoint of cfg's shapes, made on the card
+    from `gen`: [out, in] projections ~ N(0, 1/in), norms ~ N(1, 0.02^2), the
+    embedding ~ N(0, 0.02^2); and its config.json in HF keys."""
+    import torch
+
+    def normal(shape, std, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(torch.float16)
+
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    tensors = {}
+    for layer in range(cfg.num_layers):
+        pfx = f"model.layers.{layer}"
+        for name, (out, k) in (("self_attn.q_proj", (nq, h)), ("self_attn.k_proj", (nkv, h)),
+                               ("self_attn.v_proj", (nkv, h)), ("self_attn.o_proj", (h, nq)),
+                               ("mlp.gate_proj", (i, h)), ("mlp.up_proj", (i, h)),
+                               ("mlp.down_proj", (h, i))):
+            tensors[f"{pfx}.{name}.weight"] = normal((out, k), k ** -0.5)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{pfx}.{name}.weight"] = normal((h,), 0.02, 1.0)
+    tensors["model.embed_tokens.weight"] = normal((cfg.vocab_size, h), 0.02)
+    tensors["model.norm.weight"] = normal((h,), 0.02, 1.0)
+    tensors["lm_head.weight"] = normal((cfg.vocab_size, h), h ** -0.5)
+    hf = dict(model_type="llama", architectures=["LlamaForCausalLM"], vocab_size=cfg.vocab_size,
+              hidden_size=h, intermediate_size=i, num_hidden_layers=cfg.num_layers,
+              num_attention_heads=cfg.num_heads, num_key_value_heads=cfg.num_kv_heads,
+              max_position_embeddings=cfg.max_position, rms_norm_eps=cfg.rms_eps,
+              rope_theta=cfg.rope_theta, hidden_act=cfg.activation, tie_word_embeddings=False,
+              torch_dtype="float16")
+    return tensors, hf
+
+
+def dense_in_memory(tensors: dict, cfg):
+    """The dense bf16 params of `dense_hf_checkpoint`'s tensors, built in
+    memory: [in, out] weights, q|k|v and gate|up fused along N."""
+    import torch
+
+    from eetq_tpu_torch.models.transformer import LayerParams, ModelParams
+    from eetq_tpu_torch.modules.linear import DenseLinear
+    from eetq_tpu_torch.surgery import fuse_gateup, fuse_qkv
+
+    def w(name):
+        return tensors[f"{name}.weight"].T.to(torch.bfloat16)
+
+    layers = []
+    for layer in range(cfg.num_layers):
+        a, m = f"model.layers.{layer}.self_attn", f"model.layers.{layer}.mlp"
+        layers.append(LayerParams(
+            tensors[f"model.layers.{layer}.input_layernorm.weight"].float(),
+            DenseLinear(fuse_qkv(w(f"{a}.q_proj"), w(f"{a}.k_proj"), w(f"{a}.v_proj"))),
+            DenseLinear(w(f"{a}.o_proj").contiguous()),
+            tensors[f"model.layers.{layer}.post_attention_layernorm.weight"].float(),
+            DenseLinear(fuse_gateup(w(f"{m}.gate_proj"), w(f"{m}.up_proj"))),
+            DenseLinear(w(f"{m}.down_proj").contiguous())))
+    return ModelParams(tensors["model.embed_tokens.weight"].to(torch.bfloat16), layers,
+                       tensors["model.norm.weight"].float(), DenseLinear(w("lm_head").contiguous()))
+
+
+def dense_import_path(dev, gen) -> dict:
+    """`from_pretrained(quantize=True)` over an fp16 HF checkpoint written by
+    the port's own writer: its quantized params bit-equal to `eet_quantize`
+    of the same dense params built in memory, and its prefill (the path,
+    counted) within MODEL_TOL of the plain path."""
+    import tempfile
+
+    import torch
+
+    from eetq_tpu_torch.models.auto import AutoEETQForCausalLM
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.safetensors_io import save_file
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import prefill
+    from eetq_tpu_torch.surgery import eet_quantize
+
+    path = "checkpoint_dense_import"
+    cfg = dataclasses.replace(PRESETS[MODEL], num_layers=CKPT_DENSE_LAYERS)
+    tensors, hf = dense_hf_checkpoint(cfg, gen, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_file(tensors, os.path.join(d, "model.safetensors"))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf, f, indent=2)
+        write_s = time.perf_counter() - t0
+        gb = disk_gb(d)
+        t0 = time.perf_counter()
+        model = AutoEETQForCausalLM.from_pretrained(d, quantize=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    print(f"  {path}: an fp16 HF checkpoint of {MODEL}'s width at {cfg.num_layers} layers, "
+          f"{gb:.3f} GB written in {write_s:.2f} s; from_pretrained(quantize=True) in "
+          f"{load_s:.2f} s")
+    check(model.cfg == cfg, f"{path}: the loaded config {model.cfg} is not {cfg}")
+    want = eet_quantize(dense_in_memory(tensors, cfg))
+    del tensors
+    have = dict(model.params.named_buffers())
+    for name, t in want.named_buffers():
+        check(torch.equal(have[name], t), f"{path}: {name} differs from eet_quantize of the "
+                                          "same dense params built in memory")
+    print(f"  {path}: {len(have)} tensors bit-equal to eet_quantize in memory")
+    prompt = torch.randint(0, cfg.vocab_size, (1, REQUESTS[0][1]), generator=gen, device=dev)
+
+    def run(use):
+        caches = init_caches(cfg, 1, prompt.shape[1], device=dev)
+        return prefill(model.params, cfg, prompt, caches, use_kernels=use)[0]
+
+    logits, counts = counted(path, lambda: run(True))
+    checks = check_logits(f"{path} prefill", logits, run(False))
+    return dict(counts=counts, write_s=write_s, load_s=load_s, disk_gb=gb, checks=checks)
+
+
+def checkpoint_phase(dev) -> dict:
+    """(a) MODEL W8A16 (int8 lm_head) at full width and depth, built as the
+    llama phase builds it: saved in two shards, loaded, every tensor and 50
+    greedy tokens (bench.py's int8 KV and fused MLP) against the source;
+    (b) the dense import; (c) MIXTRAL W8A16 at full width and
+    CKPT_MIXTRAL_LAYERS layers: the same round trip (bf16 KV). Each model
+    and directory goes before the next."""
+    import torch
+
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import (quantize_params, random_dense_params,
+                                            random_quantized_params)
+
+    out = dict(paths={})
+    cfg = PRESETS[MODEL]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dense = random_dense_params(cfg, gen)
+    params = quantize_params(dense, quantize_lm_head=True)
+    del dense
+    out["paths"]["checkpoint_llama"] = round_trip(params, cfg, dev, gen, "checkpoint_llama",
+                                                  torch.int8, True, CKPT_SHARDS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["paths"]["checkpoint_dense_import"] = dense_import_path(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(PRESETS[MIXTRAL], num_layers=CKPT_MIXTRAL_LAYERS)
+    params = random_quantized_params(cfg, gen, quantize_lm_head=True)
+    out["paths"]["checkpoint_mixtral"] = round_trip(params, cfg, dev, gen, "checkpoint_mixtral",
+                                                    torch.bfloat16, False, None)
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -3044,6 +3373,7 @@ def main() -> int:
         "kernels": lambda: kernel_phase(dev),
         "moe_layer": lambda: moe_layer_phase(dev),
         "llama": lambda: model_phase(dev, args.profile),
+        "checkpoint": lambda: checkpoint_phase(dev),
         "int4": lambda: int4_phase(dev, args.profile),
         "mixtral": lambda: mixtral_phase(dev, profile=args.profile),
         "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
@@ -3071,6 +3401,7 @@ def main() -> int:
                            kernels=done.get("kernels", {}).get("rows"),
                            kernel_summary=done.get("kernels", {}).get("summary"),
                            moe_layer=done.get("moe_layer"), model=done.get("llama"),
+                           checkpoint=done.get("checkpoint"),
                            int4=done.get("int4"), mixtral=done.get("mixtral"),
                            mixtral_int4=done.get("mixtral_int4"), families=done.get("families"),
                            seconds=time.perf_counter() - t_start), f, indent=1, default=str)
@@ -3078,7 +3409,7 @@ def main() -> int:
         print(f"partial run ({','.join(done)}): every check of these phases passed")
         return 0
     paths = {}
-    for phase in ("llama", "int4", "mixtral", "mixtral_int4", "families"):
+    for phase in ("llama", "checkpoint", "int4", "mixtral", "mixtral_int4", "families"):
         paths.update(done[phase]["paths"])
     kern = done["kernels"]
     kernels = [

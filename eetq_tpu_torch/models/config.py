@@ -3,7 +3,8 @@
 A framework-free copy of `eetq_tpu/models/config.py` (the port imports
 nothing from `eetq_tpu`, whose package import pulls in JAX). One
 parameterized architecture covers every preset; per-model differences are
-data, not code. Parsing HuggingFace config files is not ported yet.
+data, not code. `ModelConfig.from_hf_config` reads a HuggingFace config.json
+dict (llama-family keys, or chatglm2/3's own).
 """
 
 from __future__ import annotations
@@ -47,6 +48,93 @@ class ModelConfig:
     @property
     def qkv_out(self) -> int:
         return (self.num_heads + 2 * self.num_kv_heads) * self.head_dim
+
+    @classmethod
+    def from_hf_config(cls, hf: dict) -> "ModelConfig":
+        """Build from a HuggingFace config.json dict (llama/mistral/gemma/
+        baichuan/tinyllama)."""
+        model_type = hf.get("model_type", "llama")
+        if model_type.startswith("chatglm"):
+            return cls._from_chatglm_config(hf)
+        num_heads = hf["num_attention_heads"]
+        num_kv = hf.get("num_key_value_heads", num_heads)
+        head_dim = hf.get("head_dim") or hf["hidden_size"] // num_heads
+        act = hf.get("hidden_act", "silu")
+        if act in ("gelu_pytorch_tanh", "gelu_new", "gelu_fast"):
+            act = "gelu"
+        return cls(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=num_heads,
+            num_kv_heads=num_kv,
+            head_dim=head_dim,
+            max_position=hf.get("max_position_embeddings", 4096),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            rms_eps=hf.get("rms_norm_eps", 1e-5),
+            activation=act,
+            sliding_window=hf.get("sliding_window"),
+            # transformers' GemmaConfig defaults tie_word_embeddings=True
+            # and save_pretrained OMITS class-default keys from config.json
+            # — so absence means TIED for gemma, untied for llama-family
+            tie_word_embeddings=hf.get(
+                "tie_word_embeddings", model_type == "gemma"
+            ),
+            embedding_multiplier=(
+                hf["hidden_size"] ** 0.5 if model_type == "gemma" else None
+            ),
+            rmsnorm_unit_offset=model_type == "gemma",
+            # qwen2 always uses q/k/v biases; llama-family configs may opt
+            # in via attention_bias
+            qkv_bias=model_type == "qwen2" or hf.get("attention_bias", False),
+            # Baichuan configs carry no position-embedding field; the 13B
+            # (40 heads / hidden 5120) uses ALiBi, the 7B RoPE — same
+            # detection the community loaders use. Explicit "alibi": true
+            # or "position_embedding": "ALIBI" (baichuan2) also honored.
+            alibi=bool(
+                hf.get("alibi", False)
+                or str(hf.get("position_embedding", "")).upper() == "ALIBI"
+                or (model_type == "baichuan" and num_heads >= 40)
+            ),
+            num_experts=hf.get("num_local_experts"),
+            num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+            model_type=model_type,
+        )
+
+    @classmethod
+    def _from_chatglm_config(cls, hf: dict) -> "ModelConfig":
+        """ChatGLM2/3 configs use their own key names (num_layers,
+        padded_vocab_size, ffn_hidden_size, kv_channels,
+        multi_query_group_num, seq_length, layernorm_epsilon) — the family
+        the reference's WIP fuser targets
+        (`python/eetq/models/chatglm.py:41-83`)."""
+        num_heads = hf["num_attention_heads"]
+        head_dim = hf.get("kv_channels") or hf["hidden_size"] // num_heads
+        num_kv = (
+            hf["multi_query_group_num"]
+            if hf.get("multi_query_attention")
+            else num_heads
+        )
+        return cls(
+            vocab_size=hf.get("padded_vocab_size") or hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["ffn_hidden_size"],
+            num_layers=hf["num_layers"],
+            num_heads=num_heads,
+            num_kv_heads=num_kv,
+            head_dim=head_dim,
+            max_position=hf.get("seq_length", 8192),
+            # rotary: adjacent-lane pairing over HALF of head_dim
+            rope_theta=10000.0 * hf.get("rope_ratio", 1.0),
+            rope_dim=head_dim // 2,
+            rope_interleaved=True,
+            rms_eps=hf.get("layernorm_epsilon", 1e-5),
+            activation="silu",  # swiglu via the fused dense_h_to_4h
+            qkv_bias=bool(hf.get("add_qkv_bias", True)),
+            tie_word_embeddings=bool(hf.get("tie_word_embeddings", False)),
+            model_type="chatglm",
+        )
 
 
 # ---- presets (shapes from the public HF configs) ----

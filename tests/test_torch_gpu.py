@@ -1678,3 +1678,78 @@ def test_chunked_engine_on_the_card(dev, paged):
         if paged:
             assert sorted(eng._free_blocks) == list(range(1, 13))
     assert outs[0] == outs[1]
+
+
+# ---- checkpoints and quantization on the card (models/hf.py, quant/quantizer.py) ----
+
+CKPT_BASE = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                 num_heads=4, num_kv_heads=2, head_dim=64, max_position=2048)
+CKPT_FAMILIES = {"llama": {}, "mixtral": dict(num_experts=4, model_type="mixtral"),
+                 "chatglm": dict(rope_dim=32, rope_interleaved=True, qkv_bias=True,
+                                 max_position=8192, model_type="chatglm")}
+
+
+@pytest.mark.parametrize("shape", [(1024, 384), (3, 512, 256)], ids=["linear", "bank"])
+@pytest.mark.parametrize("group", [None, 64, 128], ids=["per-channel", "g64", "g128"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32],
+                         ids=["f16", "bf16", "f32"])
+def test_quantize_on_the_card_equals_the_cpu(dev, dtype, bits, group, shape):
+    """`symmetric_quantize` on the card gives the CPU's int8 values and f32
+    scales bit for bit (the loaders quantize on the device they load to)."""
+    from eetq_tpu_torch.quant.quantizer import symmetric_quantize
+
+    gen = torch.Generator().manual_seed(bits * 10 + len(shape))
+    w = (torch.randn(shape, generator=gen) * 0.05).to(dtype)
+    q_cpu, s_cpu = symmetric_quantize(w, bits=bits, group_size=group)
+    q_card, s_card = symmetric_quantize(w.to(dev), bits=bits, group_size=group)
+    assert q_card.is_cuda and torch.equal(q_card.cpu(), q_cpu)
+    assert torch.equal(s_card.cpu(), s_cpu)
+
+
+def _assert_as_stored(src, got):
+    """Every tensor of `got` equal to `src`'s: int8 as it is, the rest as
+    the checkpoint's fp16 holds it."""
+    have = dict(got.named_buffers())
+    for name, t in src.named_buffers():
+        g, t = have[name].cpu(), t.cpu()
+        want = t if t.dtype == torch.int8 else t.to(torch.float16).to(t.dtype)
+        assert g.dtype == t.dtype and torch.equal(g, want), name
+
+
+@pytest.mark.parametrize("card_first", [True, False], ids=["card-to-cpu", "cpu-to-card"])
+@pytest.mark.parametrize("quant", [(8, None), (4, 64)], ids=["int8", "int4-g64"])
+@pytest.mark.parametrize("family", CKPT_FAMILIES)
+def test_checkpoint_between_the_card_and_the_cpu(dev, tmp_path, family, quant, card_first):
+    """save_quantized of params on the card, load_quantized(device="cpu"),
+    and the reverse: the same tensors and config, in several shards."""
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.hf import load_quantized, save_quantized
+    from eetq_tpu_torch.models.init import random_quantized_params
+
+    cfg = ModelConfig(**{**CKPT_BASE, **CKPT_FAMILIES[family]})
+    src_dev, dst_dev = (dev, torch.device("cpu")) if card_first else (torch.device("cpu"), dev)
+    bits, group = quant
+    params = random_quantized_params(cfg, torch.Generator(device=src_dev).manual_seed(0),
+                                     quantize_lm_head=True, bits=bits, group_size=group)
+    save_quantized(params, cfg, str(tmp_path), max_shard_bytes=1 << 19)
+    assert len(list(tmp_path.glob("*.safetensors"))) >= 3
+    cfg2, got = load_quantized(str(tmp_path), device=dst_dev)
+    assert cfg2 == cfg
+    assert all(b.device.type == dst_dev.type for b in got.buffers())
+    _assert_as_stored(params, got)
+
+
+def test_load_quantized_defaults_to_the_card(dev, tmp_path):
+    from eetq_tpu_torch.models.auto import AutoEETQForCausalLM
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.hf import load_quantized, save_quantized
+    from eetq_tpu_torch.models.init import random_quantized_params
+
+    cfg = ModelConfig(**CKPT_BASE)
+    params = random_quantized_params(cfg, torch.Generator().manual_seed(0))
+    save_quantized(params, cfg, str(tmp_path))
+    for got in (load_quantized(str(tmp_path))[1],
+                AutoEETQForCausalLM.from_quantized(str(tmp_path)).params):
+        assert all(b.is_cuda for b in got.buffers())
+        _assert_as_stored(params, got)
