@@ -86,6 +86,12 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    chunks of 256) over the cache read in place as [B, L, Hkv, D], against
    its plain version, bit-equal to the kernel on contiguous keys, beside
    SDPA under a lower-right causal bias (a float mask under the window).
+   The GEMMs' fused epilogue (EPILOGUE_SHAPES): relu, gelu and silu on the
+   gate|up shape and a residual added and multiplied on the o_proj shape, all
+   with a bias, in the GEMV (m = 1, 8), the GEMM and the W8A8 / W4A8 GEMM (m =
+   1024), int8 per-channel and int4 g = 128, each against its plain version
+   and recorded as "kernel[epilogue]" beside the bias-only kernel's times on
+   the same inputs (the int8 W8A8 cases without a transcendental bit-equal).
    Then `moe_apply` on one full-width Mixtral layer (int8 per-channel, and
    int4 g=128) at 2, 8 and 2048 selections, kernels against the plain path
    on identical input (the routing ids must agree), the kernel calls under
@@ -236,6 +242,27 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    (per-expert w1/w3/w2, the router as fp16), generate's decode (bf16 KV).
    Each directory is deleted after its model.
 
+9. LoRA (the `lora` phase, after 8): llama2-7b W8A16 with an int8 lm_head
+   at full width and depth. epilogue_linear: `linear_apply(activation=,
+   residual=)` and `w8a16_matmul(residual_mode="mul")` on layer 0's gate|up
+   and o_proj, int8 and requantized to int4 g = 128, at m = 1, 8, 1024 and
+   a8, against the plain path (every epilogue variant must launch). Then a
+   bank of LORA_ADAPTERS adapters of rank LORA_RANK on every qkv and o_proj
+   (`surgery.stack_adapters`; its single-adapter twins are slices of the
+   bank over the same base, no copy): lora_prefill (b = 4 prompts of 1024
+   tokens, row i on adapter i, every position's logits against twin i's and
+   the plain path; the bank's prefill and the base's timed in turns); the
+   side path's kernel launches and device ms in an eager 8-slot decode step
+   (torch.profiler, bank against base); lora_server (dense int8),
+   lora_paged_server (a bf16 pool) and lora_spec_server (`spec_ngram=3`),
+   W8A16 admission, 12 greedy HTTP requests with adapters mixed, each equal
+   to its twin's `greedy_generate` or parting at a near tie (SPEC_TIE_ULPS),
+   the same engine over the base serving the same requests in turn (served
+   tok/s of both); every adapter must move some request's tokens off the
+   base model's; lora_merge: `merge_lora` of adapter 2, the requantized
+   weights that moved counted, its prefill logits against the bank at id 2
+   within the JAX test's bounds (mean |diff| < 0.05, argmax equal at > 90%).
+
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, the first request's
 whole decode_loop, and one steady-state engine step after `warmup()`: a
@@ -245,13 +272,13 @@ layer on every decode and engine step), the host's launch calls (a graph
 replay is one) and the idle share go to the output and to
 `chip_smoke.json`. `--phases`
 runs a subset of
-`kernels,moe_layer,llama,checkpoint,int4,mixtral,mixtral_int4,families`
+`kernels,moe_layer,llama,checkpoint,lora,int4,mixtral,mixtral_int4,families`
 (for debugging: a partial run checks what it runs and prints no result
 line).
 
 Prints one JSON line of per-kernel results (the attention kernels'
-variants as entries of their own, "kernel[variant]", their launches those
-of the paths that run them), then as its last line
+variants and the GEMMs' epilogue as entries of their own, "kernel[variant]",
+their launches those of the paths that run them), then as its last line
 `{"ok": true, "device": {...}}`. Any failed check, build or launch ends the
 run with a non-zero exit code and no result line; so does a machine without
 a CUDA device. With `--out DIR` the details (every kernel case, the model
@@ -262,6 +289,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import http.client
 import json
@@ -505,6 +533,26 @@ A8_MODEL_TOL = 2 * MODEL_TOL
 # near a tie at some layer (`near_tie`): a flipped expert moves the logits by
 # far more than an ulp (PERF.md §6).
 SPEC_TIE_ULPS = 8
+# The GEMMs' fused epilogue: each activation on llama2-7b's gate|up shape,
+# each residual mode on its o_proj shape, all with a bias; in each regime of
+# the GEMV (m = 1, 8), the GEMM and the W8A8 / W4A8 GEMM (m = 1024)
+ACTIVATION_NAMES = ("relu", "gelu", "silu")
+EPILOGUE_SHAPES = ((4096, 22016, ACTIVATION_NAMES), (4096, 4096, ("add", "mul")))
+EPILOGUE_REGIMES = (("gemv", 1), ("gemv", 8), ("gemm", 1024), ("a8", 1024))
+EPILOGUE_KERNELS = ("w8a16_gemv", "w4a16_gemv", "w8a16_gemm", "w4a16_gemm", "w8a8_gemm",
+                    "w4a8_gemm")
+# The lora phase: a bank of LORA_ADAPTERS adapters of rank LORA_RANK on
+# every layer's qkv and o_proj of llama2-7b W8A16, A ~ N(0, 1/r) and B ~
+# N(0, LORA_B_STD^2), both from the phase's seeded generator, scaling
+# LORA_ALPHA / r = 1: a unit-variance input's side path is about 64
+# LORA_B_STD = 0.32 against the projection's unit variance (about 0.1 GB)
+LORA_ADAPTERS, LORA_RANK, LORA_ALPHA, LORA_B_STD = 4, 16, 16.0, 0.005
+LORA_PREFILL = (4, 1024)  # lora_prefill: batch (one row an adapter), prompt tokens
+LORA_SPEC_K = 3
+LORA_MERGE_ID = 2
+# merged against the bank at its id, prefill logits: the bounds of the JAX
+# package's test_merge_lora_matches_adapter_model (mean |diff|, argmax share)
+LORA_MERGE_MEAN, LORA_MERGE_ARGMAX = 0.05, 0.9
 # The sources behind w8a16_gemm, w4a16_gemm, w8a8_gemm, w4a8_gemm and the
 # prefill flash-attention (all its instances, head dim 256's too): a C7520
 # warning of ptxas for any of them fails the run (the grouped GEMM's
@@ -547,6 +595,7 @@ REPLACES = {
 VARIANTS = ("window", "alibi", "group", "d256")
 VARIANT_SOURCES = {"window": "flash_decode_window.cu", "alibi": "flash_decode_alibi.cu",
                    "group": "flash_decode.cu", "d256": "flash_decode.cu"}
+REPLACES.update({f"{name}[epilogue]": REPLACES[name] for name in EPILOGUE_KERNELS})
 REPLACES.update({f"{name}[{v}]": (
     "cuda", REPLACES[name][1] if name == "flash_attention_fwd"
     else f"eetq_tpu_torch/csrc/{VARIANT_SOURCES[v]}", REPLACES[name][2])
@@ -595,6 +644,18 @@ PATH_KERNELS = {
     "mixtral_spec_server": ("w8a16_grouped_gemm", "w8a8_gemm", "w8a16_gemv",
                             "flash_attention_fwd", "flash_decode_int8"),
 }
+# The lora phase's paths. The LoRA engines admit with W8A16 (a8_prefill
+# False), as their twins' greedy_generate prefills; an 8-slot verify of
+# k = 3 is m = 32 rows, the GEMM
+_LORA_SERVE = ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd")
+PATH_KERNELS.update({
+    "epilogue_linear": EPILOGUE_KERNELS + tuple(f"{k}[epilogue]" for k in EPILOGUE_KERNELS),
+    "lora_prefill": ("w8a16_gemm", "flash_attention_fwd"),
+    "lora_server": _LORA_SERVE + ("flash_decode_int8",),
+    "lora_paged_server": _LORA_SERVE + ("paged_flash_decode",),
+    "lora_spec_server": _LORA_SERVE + ("flash_decode_int8",),
+    "lora_merge": ("w8a16_gemm", "flash_attention_fwd"),
+})
 # The entry points of the decode GEMV (`csrc/gemv.cuh`)
 GEMV_FAMILY = ("w8a16_gemv", "w4a16_gemv", "w8a16_expert_gemv", "w4a16_expert_gemv",
                "fused_mlp_gemv", "fused_mlp_gemv_i4")
@@ -632,7 +693,15 @@ PATH_IDLE = {
 }
 # none of the paths above runs a paged cache or an int4 expert bank
 PATH_IDLE = {path: idle + PAGED_KERNELS + INT4_MOE_KERNELS for path, idle in PATH_IDLE.items()}
+_NOT_LORA = ("w8a8_gemm", "fused_mlp_gemv") + MOE_KERNELS + INT4_KERNELS + INT4_MOE_KERNELS
 PATH_IDLE.update({
+    "epilogue_linear": ("flash_attention_fwd", "fused_mlp_gemv", "fused_mlp_gemv_i4")
+    + MOE_KERNELS + INT4_MOE_KERNELS + DENSE_DECODE + PAGED_KERNELS,
+    "lora_prefill": ("w8a16_gemv",) + _NOT_LORA + DENSE_DECODE + PAGED_KERNELS,
+    "lora_merge": ("w8a16_gemv",) + _NOT_LORA + DENSE_DECODE + PAGED_KERNELS,
+    "lora_server": _NOT_LORA + PAGED_KERNELS + ("flash_decode",),
+    "lora_spec_server": _NOT_LORA + PAGED_KERNELS + ("flash_decode",),
+    "lora_paged_server": _NOT_LORA + DENSE_DECODE + ("paged_flash_decode_int8",),
     # a paged engine never reaches the dense flash-decode entry points
     "paged_server": DENSE_DECODE + ("paged_flash_decode_int8", "w8a16_gemm") + MOE_KERNELS
     + INT4_KERNELS + INT4_MOE_KERNELS,
@@ -754,8 +823,8 @@ PATH_IDLE.update({
                                      PATH_KERNELS["checkpoint_dense_import"]),
     "checkpoint_mixtral": PATH_IDLE["mixtral_generate"] + ("w8a8_gemm",),
 })
-PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "int4", "mixtral", "mixtral_int4",
-          "families")
+PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "lora", "int4", "mixtral",
+          "mixtral_int4", "families")
 
 
 class CheckFailed(Exception):
@@ -982,6 +1051,76 @@ def weight_pack_call(x, q, scales, bits: int, group, ref):
     return fn
 
 
+def epilogue_cases(record, gen, dev, flush, scales_for) -> None:
+    """The GEMMs' fused epilogue (EPILOGUE_SHAPES): each activation on the
+    gate|up shape and each residual mode on the o_proj shape, all with a
+    bias, in every regime (the GEMV at m = 1 and 8, the GEMM and the W8A8 /
+    W4A8 GEMM at m = 1024; int8 per-channel and int4 g = 128), each against
+    its plain version, recorded as "kernel[epilogue]" beside the bias-only
+    kernel's times on the same inputs (`base_ms`, `base_many_ms`): the
+    epilogue's cost. The int8 W8A8 cases without a transcendental (relu, add,
+    mul) must equal the plain version bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from eetq_tpu_torch.kernels.w8a8 import (
+        quantize_activations,
+        w4a8_gemm,
+        w8a8_gemm,
+        w8a8_gemm_ref,
+    )
+    from eetq_tpu_torch.kernels.w8a16 import (
+        w4a16_gemm,
+        w4a16_gemv,
+        w8a16_gemm,
+        w8a16_gemv,
+        w8a16_matmul_ref,
+    )
+    from eetq_tpu_torch.layout.tiling import pack_weights
+
+    kernels = {("gemv", 8): w8a16_gemv, ("gemv", 4): w4a16_gemv, ("gemm", 8): w8a16_gemm,
+               ("gemm", 4): w4a16_gemm, ("a8", 8): w8a8_gemm, ("a8", 4): w4a8_gemm}
+    for k, n, kinds in EPILOGUE_SHAPES:
+        bias = (0.1 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+        for bits, group in ((8, None), (4, INT4_GROUP)):
+            lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+            q = torch.randint(lo, hi, (k, n), generator=gen, device=dev, dtype=torch.int8)
+            data = pack_weights(q, bits=bits).data
+            sc = scales_for(k, n, group)
+            srows = 1 if group is None else k // group
+            tag = f"K={k} N={n} int{bits} {'per-channel' if group is None else f'g={group}'}"
+            for kind, m in EPILOGUE_REGIMES:
+                kern = kernels[kind, bits]
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                res = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+                if kind == "a8":
+                    xq, sx = quantize_activations(x)
+                    xq = F.pad(xq, (0, data.shape[0] * (8 // bits) - k)).contiguous()
+                    qp = F.pad(q, (0, 0, 0, xq.shape[1] - k))
+                    grp = {} if bits == 8 else dict(group_size=group)
+                    run = functools.partial(kern, xq, sx, data, sc, n, bias, **grp)
+                    plain = functools.partial(w8a8_gemm_ref, xq, sx, qp, sc, n, bias,
+                                              group_size=group)
+                    cost = linear_cost(m, k, n, bits / 8, srows, x_bytes=1, extra=4 * m + 2 * n)
+                else:
+                    run = functools.partial(kern, x, data, sc, n, bias)
+                    plain = functools.partial(w8a16_matmul_ref, x, q, sc, bias)
+                    cost = linear_cost(m, k, n, bits / 8, srows, extra=2 * n)
+                base_ms = time_ms(run, flush=flush)
+                base_many_ms = time_many_ms(run, base_ms, flush)
+                for e in kinds:
+                    epi = (dict(activation=e) if e in ACTIVATION_NAMES
+                           else dict(residual=res, residual_mode=e))
+                    record(f"{kern.__name__}[epilogue]", f"m={m} {tag} +bias {e}",
+                           functools.partial(run, **epi), functools.partial(plain, **epi), True,
+                           (cost[0] + (2 * m * n if "residual" in epi else 0), cost[1]),
+                           "int8" if kind == "a8" else "bf16",
+                           equal=kind == "a8" and bits == 8 and e in ("relu", "add", "mul"),
+                           regime=GEMV_REGIMES.get(m) if kind == "gemv" else None,
+                           base_ms=base_ms, base_many_ms=base_many_ms, epilogue=e)
+            del q, data
+
+
 def kernel_phase(dev) -> dict:
     """Each kernel against its plain version at llama2-7b shapes, the MoE
     kernels at Mixtral's."""
@@ -1191,6 +1330,8 @@ def kernel_phase(dev) -> dict:
         record("w8a16_gemm", f"m={m} K={k} N={n} +bias", lambda: w8a16_gemm(x, data, scales, n, bias),
                lambda: w8a16_matmul_ref(x, qw, scales, bias), False, linear_cost(m, k, n, 1))
     del qw, data
+
+    epilogue_cases(record, gen, dev, flush, scales_for)
 
     # the MLP of one llama2-7b layer: gate|up [4096, 22016], down [11008, 4096]
     kh, inter = 4096, 11008
@@ -3317,6 +3458,366 @@ def checkpoint_phase(dev) -> dict:
     return out
 
 
+def epilogue_linear_path(base, cfg, dev, gen) -> dict:
+    """The epilogue through its user entry point, `linear_apply(activation=,
+    residual=)`, on llama2-7b layer 0's gate|up (each activation) and o_proj
+    (a residual added, and `w8a16_matmul(residual_mode="mul")`), int8 as the
+    model holds them and requantized to int4 g = 128: m = 1 and 8 (the GEMV),
+    1024 (the GEMM) and a8 at 1024 (W8A8 / W4A8, activations only: a8 takes
+    no residual), each against the plain path within TOL."""
+    import torch
+
+    from eetq_tpu_torch.layout.tiling import unpack_weights
+    from eetq_tpu_torch.modules.linear import linear_apply, quantize_linear
+    from eetq_tpu_torch.ops.linear import w8a16_matmul
+
+    lp = base.layers[0]
+
+    def int4(lin):
+        w = unpack_weights(lin.packed).float() * lin.scales.float()
+        return quantize_linear(w, bits=4, group_size=INT4_GROUP)
+
+    layers = {"int8": (lp.gateup, lp.o_proj), "int4 g=128": (int4(lp.gateup), int4(lp.o_proj))}
+    cases = []
+    for tag, (gu, o) in layers.items():
+        for m, a8 in ((1, False), (8, False), (1024, False), (1024, True)):
+            x = torch.randn(1, m, gu.in_features, generator=gen, device=dev).to(torch.bfloat16)
+            res = torch.randn(1, m, o.out_features, generator=gen, device=dev).to(torch.bfloat16)
+            for act in ACTIVATION_NAMES:
+                cases.append((f"{tag} gate|up m={m}{' a8' if a8 else ''} {act}",
+                              functools.partial(linear_apply, gu, x, activation=act, a8=a8)))
+            if not a8:
+                cases.append((f"{tag} o_proj m={m} +residual",
+                              functools.partial(linear_apply, o, x, residual=res)))
+                cases.append((f"{tag} o_proj m={m} *residual", functools.partial(
+                    w8a16_matmul, x, o.packed, o.scales, residual=res, residual_mode="mul")))
+
+    def run():
+        with torch.inference_mode():
+            return [fn() for _, fn in cases]
+
+    outs, counts = counted("epilogue_linear", run)
+    worst = 0.0
+    with torch.inference_mode():
+        for (case, fn), out in zip(cases, outs):
+            err, ref_max = compare(out, fn(use_kernel=False))
+            worst = max(worst, err / ref_max)
+            check(err <= TOL * ref_max, f"epilogue_linear {case}: error {err:.3e} of {ref_max:.3e}")
+    print(f"  epilogue_linear: {len(cases)} calls through linear_apply / w8a16_matmul against "
+          f"the plain path, the largest error {worst:.3e} of the largest output (tol {TOL})")
+    return dict(counts=counts, cases=len(cases), rel_err=worst)
+
+
+def lora_bank(base, cfg, gen):
+    """LORA_ADAPTERS adapted copies of `base` (A ~ N(0, 1/r), B ~ N(0,
+    LORA_B_STD^2)) stacked into one bank, and each adapter's single-adapter
+    twin: the bank's slices over the same base modules (no copy)."""
+    import torch
+
+    from eetq_tpu_torch.modules.linear import LoraAdapter
+    from eetq_tpu_torch.models.transformer import ModelParams
+    from eetq_tpu_torch.surgery import init_lora, stack_adapters
+    from eetq_tpu_torch.surgery.lora import replace_layer
+
+    def adapter(lin):
+        ad = init_lora(gen, lin.in_features, lin.out_features, LORA_RANK, LORA_ALPHA)
+        ad.lora_b.copy_(torch.randn(ad.lora_b.shape, generator=gen, device=gen.device)
+                        * LORA_B_STD)
+        return ad
+
+    adapted = [ModelParams(base.embed, [replace_layer(lp, qkv_lora=adapter(lp.qkv),
+                                                      o_lora=adapter(lp.o_proj))
+                                        for lp in base.layers], base.final_norm, base.lm_head)
+               for _ in range(LORA_ADAPTERS)]
+    bank = stack_adapters(adapted)
+    del adapted
+    twins = [ModelParams(bank.embed, [replace_layer(
+        lp, qkv_lora=LoraAdapter(lp.qkv_lora.lora_a[i], lp.qkv_lora.lora_b[i], lp.qkv_lora.scaling),
+        o_lora=LoraAdapter(lp.o_lora.lora_a[i], lp.o_lora.lora_b[i], lp.o_lora.scaling))
+        for lp in bank.layers], bank.final_norm, bank.lm_head) for i in range(LORA_ADAPTERS)]
+    return bank, twins
+
+
+def lora_prefill_path(bank, twins, base, cfg, dev, gen) -> dict:
+    """b = LORA_PREFILL prompts through the bank, row i on adapter i: the
+    logits of every position against twin i's and against the plain path,
+    within MODEL_TOL; then the bank's prefill and the base's timed in turns."""
+    import torch
+
+    from eetq_tpu_torch.models.transformer import forward_inner
+
+    b, p = LORA_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=dev)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    idx = torch.arange(b, device=dev) % LORA_ADAPTERS
+
+    def run(params, use=True, rows=slice(None), **kw):
+        with torch.inference_mode():
+            return forward_inner(params, cfg, toks[rows], pos[rows], None, 0, use_kernels=use,
+                                 **kw)[0]
+
+    got, counts = counted("lora_prefill", lambda: run(bank, lora_idx=idx))
+    checks = {"plain": check_logits("lora_prefill (b=4, one adapter a row)", got,
+                                    run(bank, False, lora_idx=idx))}
+    for i in range(b):
+        checks[f"twin{i}"] = check_logits(f"lora_prefill row {i} against its twin", got[i:i + 1],
+                                          run(twins[int(idx[i])], rows=slice(i, i + 1)))
+    del got
+    ms = dict(bank=[], base=[])
+    for _ in range(3):
+        for name, fn in (("bank", lambda: run(bank, lora_idx=idx)), ("base", lambda: run(base))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"  lora_prefill b={b} p={p}: {med['bank']:.2f} ms with the bank against "
+          f"{med['base']:.2f} ms without (medians of 3 in turns: {ms})")
+    return dict(counts=counts, checks=checks, prefill_ms=med, prefill_ms_runs=ms)
+
+
+def side_path_cost(bank, base, cfg, dev) -> dict:
+    """One eager 8-slot decode step (a token a slot over 1024 cached keys,
+    int8 KV) of the bank, each slot on its own adapter, and of the base, under
+    torch.profiler: the side path's kernel launches and device ms a step are
+    the difference."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eetq_tpu_torch.models.transformer import forward_inner, init_caches
+
+    caches = init_caches(cfg, 8, 1040, dev, torch.int8)
+    tok = torch.ones(8, 1, dtype=torch.long, device=dev)
+    lens = torch.full((8,), 1024, device=dev)
+    ids = torch.arange(8, device=dev) % LORA_ADAPTERS
+    out = {}
+    for name, params, kw in (("bank", bank, dict(lora_idx=ids)), ("base", base, {})):
+        with torch.inference_mode():
+            forward_inner(params, cfg, tok, lens[:, None], caches, lens, **kw)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                forward_inner(params, cfg, tok, lens[:, None], caches, lens, **kw)
+                torch.cuda.synchronize()
+        busy_ms, launches, _, _ = _device_events(prof)
+        check(busy_ms > 0, "the profiler saw no device time")
+        out[name] = dict(busy_ms=busy_ms, launches=launches)
+    out["side_launches"] = out["bank"]["launches"] - out["base"]["launches"]
+    out["side_busy_ms"] = out["bank"]["busy_ms"] - out["base"]["busy_ms"]
+    print(f"  LoRA side path in an 8-slot decode step: {out['side_launches']} kernel launches "
+          f"({out['bank']['launches']} against {out['base']['launches']}), "
+          f"{out['side_busy_ms']:.3f} device ms ({out['bank']['busy_ms']:.3f} against "
+          f"{out['base']['busy_ms']:.3f}), one eager step each")
+    return out
+
+
+def lora_requests(cfg, dev, gen) -> list[dict]:
+    """SERVE_REQUESTS greedy HTTP bodies of the server mix, adapters mixed."""
+    import torch
+
+    bodies = []
+    for i in range(SERVE_REQUESTS):
+        p = SERVE_LENGTHS[int(torch.randint(0, len(SERVE_LENGTHS), (), generator=gen, device=dev))]
+        n = SERVE_BUDGETS[int(torch.randint(0, len(SERVE_BUDGETS), (), generator=gen, device=dev))]
+        ids = torch.randint(0, cfg.vocab_size, (p,), generator=gen, device=dev).tolist()
+        bodies.append({"prompt": ids, "max_new_tokens": n, "stream": i % 5 == 1,
+                       "lora_id": (i * 3 + 1) % LORA_ADAPTERS})
+    return bodies
+
+
+def lora_serve(eng, path: str | None, bodies: list[dict]) -> tuple[dict, float, dict | None]:
+    """The bodies from SERVE_THREADS threads through `eng` behind its HTTP
+    server: (tokens by request, wall s, launch counts where `path` is given)."""
+    from eetq_tpu_torch.serve.api import EngineServer
+
+    srv = EngineServer(eng, host="127.0.0.1", port=0)
+    srv.start()
+    results, errors = {}, []
+
+    def worker(idx):
+        for i in idx:
+            try:
+                results[i] = _post(srv.port, bodies[i])
+            except Exception as e:  # reported below, fails the run
+                errors.append(f"request {i}: {e!r}")
+                return
+
+    def serve():
+        threads = [threading.Thread(target=worker, args=(range(j, len(bodies), SERVE_THREADS),))
+                   for j in range(SERVE_THREADS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_TIMEOUT_S)
+        return time.perf_counter() - t
+
+    try:
+        wall_s, counts = counted(path, serve) if path else (serve(), None)
+    finally:
+        srv.shutdown()
+    check(not errors, f"HTTP requests failed: {errors}")
+    check(len(results) == len(bodies), f"{len(results)} of {len(bodies)} requests answered")
+    return results, wall_s, counts
+
+
+def lora_server_path(bank, twins, base, cfg, dev, path: str, engine_kw: dict, bodies,
+                     twin_tokens: list[list[int]]) -> dict:
+    """The bank behind the engine and its HTTP server (W8A16 admission, max_batch
+    8, max_len 2048, `engine_kw`), warmed up: every request equals its twin's
+    greedy_generate (`twin_tokens`), or parts from it at a near tie
+    (SPEC_TIE_ULPS, on the twin's kernel path); then the same engine over the
+    base model serves the same requests without adapters, in turn."""
+    import torch
+
+    from eetq_tpu_torch.serve.engine import Engine
+
+    kw = dict(max_batch=8, max_len=2048, a8_prefill=False, **engine_kw)
+    eng = Engine(bank, cfg, **kw)
+    check(eng._lora_banked and eng._n_adapters == LORA_ADAPTERS and eng.decode_window == 8,
+          f"{path}: engine banks {eng._n_adapters}, window {eng.decode_window}")
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    buf = eng._lora_ids
+    results, wall_s, counts = lora_serve(eng, path, bodies)
+    check(eng._lora_ids is buf, f"{path}: the ids' buffer was rebound")
+    if eng.paged:
+        check(sorted(eng._free_blocks) == list(range(1, engine_kw["paged_blocks"])),
+              f"{path}: blocks still held after the run")
+    ties = []
+    for i, body in enumerate(bodies):
+        got, want = results[i], twin_tokens[i]
+        check(len(got) == body["max_new_tokens"], f"{path} request {i}: {len(got)} tokens")
+        first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if first is None:
+            continue
+        tie = near_tie(twins[body["lora_id"]], cfg, dev, body["prompt"] + want[:first],
+                       got[first], want[first])
+        print(f"  {path} request {i} (adapter {body['lora_id']}, prompt {len(body['prompt'])}): "
+              f"token {first} is {got[first]}, the twin's {want[first]}: {tie['ulps']:.2f} bf16 "
+              f"ulps below the top (near tie: {tie['ok']})")
+        check(tie["ok"], f"{path}: request {i} differs from its twin's greedy_generate at token "
+                         f"{first}, not at a near tie")
+        ties.append(dict(request=i, token=first, **tie))
+    tokens = sum(b["max_new_tokens"] for b in bodies)
+    spec = None
+    if eng.spec_ngram:
+        spec = dict(rounds=eng.spec_rounds, tokens=eng.spec_tokens)
+    del eng
+    torch.cuda.empty_cache()
+    plain = Engine(base, cfg, **kw)
+    plain.warmup()
+    _, base_wall_s, _ = lora_serve(plain, None,
+                                   [{k: v for k, v in b.items() if k != "lora_id"} for b in bodies])
+    del plain
+    torch.cuda.empty_cache()
+    out = dict(counts=counts, results=results, served_tok_s=tokens / wall_s,
+               base_served_tok_s=tokens / base_wall_s, wall_s=wall_s, base_wall_s=base_wall_s,
+               warmup_s=warmup_s, tokens=tokens, near_ties=ties, spec=spec)
+    print(f"  {path}: {len(bodies)} requests, adapters {[b['lora_id'] for b in bodies]}, "
+          f"{tokens} tokens: {out['served_tok_s']:.2f} tok/s served with the bank, "
+          f"{out['base_served_tok_s']:.2f} by the same engine over the base, in turn; "
+          f"{len(bodies) - len(ties)} equal their twin's greedy_generate, {len(ties)} part at a "
+          f"near tie" + (f"; {spec['rounds']} rounds, {spec['tokens']} tokens" if spec else ""))
+    return out
+
+
+def lora_merge_path(bank, twins, base, cfg, dev, gen) -> dict:
+    """`merge_lora` of adapter LORA_MERGE_ID: the requantized weights that
+    moved, then prefill logits of the merged model against the bank's at
+    that id, within the JAX test's bounds (LORA_MERGE_MEAN, LORA_MERGE_ARGMAX)."""
+    import torch
+
+    from eetq_tpu_torch.layout.tiling import unpack_weights
+    from eetq_tpu_torch.models.transformer import forward_inner
+    from eetq_tpu_torch.surgery import merge_lora
+
+    t0 = time.perf_counter()
+    merged = merge_lora(twins[LORA_MERGE_ID])
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    moved = total = 0
+    for lm, lb in zip(merged.layers, base.layers):
+        check(lm.qkv_lora is None and lm.o_lora is None, "merge_lora left a side path")
+        for name in ("qkv", "o_proj"):
+            a, b = unpack_weights(getattr(lm, name).packed), unpack_weights(getattr(lb, name).packed)
+            moved += int((a != b).sum())
+            total += a.numel()
+    p = LORA_PREFILL[1]
+    toks = torch.randint(0, cfg.vocab_size, (1, p), generator=gen, device=dev)
+    pos = torch.arange(p, device=dev)[None]
+    with torch.inference_mode():
+        got, counts = counted("lora_merge", lambda: forward_inner(merged, cfg, toks, pos, None,
+                                                                  0)[0])
+        want = forward_inner(bank, cfg, toks, pos, None, 0,
+                             lora_idx=torch.tensor([LORA_MERGE_ID], device=dev))[0]
+    mean = float((got - want).abs().mean())
+    argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"  lora_merge (adapter {LORA_MERGE_ID}, {merge_s:.2f} s): {moved} of {total} int8 "
+          f"weights of qkv and o_proj moved by the requantization; prefill logits against the "
+          f"bank at id {LORA_MERGE_ID}: mean |diff| {mean:.4f} (tol {LORA_MERGE_MEAN}), argmax "
+          f"equal at {argmax:.4f} of positions (at least {LORA_MERGE_ARGMAX})")
+    check(mean < LORA_MERGE_MEAN and argmax > LORA_MERGE_ARGMAX,
+          f"lora_merge: mean |diff| {mean:.4f}, argmax share {argmax:.4f}")
+    return dict(counts=counts, moved=moved, weights=total, mean_abs=mean, argmax_share=argmax,
+                merge_s=merge_s)
+
+
+def lora_phase(dev) -> dict:
+    """MODEL W8A16 at full width and depth: the epilogue's entry point, then
+    multi-adapter LoRA (a bank of LORA_ADAPTERS, `surgery.stack_adapters`):
+    prefill, three servers, the side path's cost a decode step and a merge."""
+    import torch
+
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import quantize_params, random_dense_params
+    from eetq_tpu_torch.serve.generate import greedy_generate
+
+    cfg = PRESETS[MODEL]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    dense = random_dense_params(cfg, gen)
+    base = quantize_params(dense, quantize_lm_head=True)
+    del dense
+    torch.cuda.empty_cache()
+    paths = {"epilogue_linear": epilogue_linear_path(base, cfg, dev, gen)}
+    bank, twins = lora_bank(base, cfg, gen)
+    bank_gb = sum(ad.lora_a.numel() * 2 + ad.lora_b.numel() * 2 for lp in bank.layers
+                  for ad in (lp.qkv_lora, lp.o_lora)) / 1e9
+    print(f"  {MODEL}: a bank of {LORA_ADAPTERS} adapters of rank {LORA_RANK} on qkv and o_proj "
+          f"({bank_gb:.3f} GB, B ~ N(0, {LORA_B_STD}^2), scaling {LORA_ALPHA / LORA_RANK})")
+    paths["lora_prefill"] = lora_prefill_path(bank, twins, base, cfg, dev, gen)
+    side = side_path_cost(bank, base, cfg, dev)
+    bodies = lora_requests(cfg, dev, gen)
+    twin_tokens = {}
+    for kv in (torch.int8, torch.bfloat16):
+        twin_tokens[kv] = [greedy_generate(twins[b["lora_id"]], cfg, torch.tensor([b["prompt"]],
+                                                                                   device=dev),
+                                           b["max_new_tokens"], kv_dtype=kv)[0].tolist()
+                           for b in bodies]
+    base_tokens = [greedy_generate(base, cfg, torch.tensor([b["prompt"]], device=dev),
+                                   b["max_new_tokens"], kv_dtype=torch.int8)[0].tolist()
+                   for b in bodies]
+    paged = dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE)
+    for path, kw, kv in (("lora_server", {}, torch.int8),
+                         ("lora_paged_server", dict(paged, kv_dtype=torch.bfloat16),
+                          torch.bfloat16),
+                         ("lora_spec_server", dict(spec_ngram=LORA_SPEC_K), torch.int8)):
+        paths[path] = lora_server_path(bank, twins, base, cfg, dev, path, kw, bodies,
+                                       twin_tokens[kv])
+    # each adapter moves some request's greedy tokens off the base model's
+    served = paths["lora_server"]["results"]
+    moved = {a: sum(served[i] != base_tokens[i] for i, b in enumerate(bodies)
+                    if b["lora_id"] == a) for a in range(LORA_ADAPTERS)}
+    print(f"  requests whose tokens an adapter moved off the base model's, by adapter: {moved}")
+    check(all(moved.values()), f"an adapter moved no request off the base model: {moved}")
+    paths["lora_merge"] = lora_merge_path(bank, twins, base, cfg, dev, gen)
+    for path in ("lora_server", "lora_paged_server", "lora_spec_server"):
+        paths[path].pop("results")
+    return dict(paths=paths, bank_gb=bank_gb, side_path=side, moved=moved,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 def main() -> int:
     import argparse
 
@@ -3374,6 +3875,7 @@ def main() -> int:
         "moe_layer": lambda: moe_layer_phase(dev),
         "llama": lambda: model_phase(dev, args.profile),
         "checkpoint": lambda: checkpoint_phase(dev),
+        "lora": lambda: lora_phase(dev),
         "int4": lambda: int4_phase(dev, args.profile),
         "mixtral": lambda: mixtral_phase(dev, profile=args.profile),
         "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
@@ -3401,7 +3903,7 @@ def main() -> int:
                            kernels=done.get("kernels", {}).get("rows"),
                            kernel_summary=done.get("kernels", {}).get("summary"),
                            moe_layer=done.get("moe_layer"), model=done.get("llama"),
-                           checkpoint=done.get("checkpoint"),
+                           checkpoint=done.get("checkpoint"), lora=done.get("lora"),
                            int4=done.get("int4"), mixtral=done.get("mixtral"),
                            mixtral_int4=done.get("mixtral_int4"), families=done.get("families"),
                            seconds=time.perf_counter() - t_start), f, indent=1, default=str)
@@ -3409,7 +3911,7 @@ def main() -> int:
         print(f"partial run ({','.join(done)}): every check of these phases passed")
         return 0
     paths = {}
-    for phase in ("llama", "checkpoint", "int4", "mixtral", "mixtral_int4", "families"):
+    for phase in ("llama", "checkpoint", "lora", "int4", "mixtral", "mixtral_int4", "families"):
         paths.update(done[phase]["paths"])
     kern = done["kernels"]
     kernels = [

@@ -57,7 +57,12 @@
 // The epilogue rounds in the order of the TPU kernel (w8a8.py:72-84,
 // :256-265) with explicitly rounded operations, so no multiply-add is
 // contracted: the integer sum is exact, and the per-channel output is
-// bit-identical to a plain version that also sums exactly.
+// bit-identical to a plain version that also sums exactly. With an
+// activation or a residual (kEpi, a kernel of its own beside the bias-only
+// one) the scaled and biased tile goes through shared memory in f32 and the
+// store loop applies act(.), then the residual's add or multiply, before the
+// one rounding; the mode is a kernel parameter read only there, after the
+// last wgmma.
 #pragma once
 
 #include "hopper.cuh"
@@ -93,7 +98,9 @@ struct Tile {
   static constexpr int kBarOff = kScaleOff + kXSlots * kScaleBytes;
   static constexpr int kSmemBytes = kBarOff + kBarriers * 8 + 1024;
   static constexpr int kOutLd = kBN + 8;  // padded rows of the output staging
+  static constexpr int kOutLdF = kBN + 4;  // ... in f32 (kEpi)
   static_assert(kBM * kOutLd * 2 <= kRawOff, "output staging fits the rings");
+  static_assert(kBM * kOutLdF * 4 <= kRawOff, "f32 output staging fits the rings");
   static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
 
@@ -106,6 +113,9 @@ struct Args {
   const float* sw;  // [n], or [groups, n]
   int groups, group_size;
   const float* bias;  // [n] or null
+  int act;              // kEpi: the activation (common.cuh)
+  const bf16* residual;  // kEpi: [m, n] or null, added or multiplied (res_mul)
+  int res_mul;
   bf16* out;          // [m, n]
   int n;
 };
@@ -135,8 +145,9 @@ __device__ __forceinline__ uint32_t staged(int r, int q) {
 namespace {
 
 // kUnits: 0 for per-channel scales; else group-wise, groups closing after
-// units of kSlices / kUnits slices (1: whole steps; 2: halves; 4: quarters).
-template <int kBits, int kHalves, int kBN, int kUnits>
+// units of kSlices / kUnits slices (1: whole steps; 2: halves; 4: quarters);
+// kEpi: the activation and residual epilogue.
+template <int kBits, int kHalves, int kBN, int kUnits, bool kEpi>
 __global__ void __launch_bounds__(kThreads, 1) a8_gemm_kernel(const Args a) {
   static_assert(kBits == 8 || kBits == 4, "int8 or int4 weights");
   static_assert(kUnits == 0 || kUnits == 1 || kUnits == 2 || kUnits == 4,
@@ -351,12 +362,53 @@ __global__ void __launch_bounds__(kThreads, 1) a8_gemm_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) {
         const int row = m0 + r0 + 64 * h + ((i & 2) ? 8 : 0), gn = n0 + 8 * (i / 4) + 2 * t + (i & 1);
-        if (row < a.m && gn < a.n) a.out[(size_t)row * a.n + gn] = __float2bfloat16_rn(result(h, i));
+        if (row < a.m && gn < a.n) {
+          const size_t o = (size_t)row * a.n + gn;
+          float v = result(h, i);
+          if constexpr (kEpi) {
+            v = activate(v, a.act);
+            if (a.residual != nullptr) v = combine(v, __bfloat162float(a.residual[o]), a.res_mul);
+          }
+          a.out[o] = __float2bfloat16_rn(v);
+        }
       }
     }
     return;
   }
   named_barrier(1, kConsumers);  // both warpgroups have read their last slots
+  if constexpr (kEpi) {  // f32 through shared memory, the epilogue in the store loop
+    float* stage = reinterpret_cast<float*>(generic);
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(stage + (r0 + 64 * h + 8 * r) * T::kOutLdF + j * 8 + 2 * t) =
+              make_float2(result(h, 4 * j + 2 * r), result(h, 4 * j + 2 * r + 1));
+      }
+    }
+    named_barrier(1, kConsumers);
+    for (int idx = tid; idx < kBM * (kBN / 8); idx += kConsumers) {
+      const int r = idx / (kBN / 8), c = idx % (kBN / 8);
+      if (m0 + r < a.m && n0 + c * 8 < a.n) {
+        const size_t o = (size_t)(m0 + r) * a.n + n0 + c * 8;
+        float f[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = activate(stage[r * T::kOutLdF + c * 8 + i], a.act);
+        if (a.residual != nullptr) {
+          float res[8];
+          bf16x8_to_float(*reinterpret_cast<const int4*>(a.residual + o), res);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) f[i] = combine(f[i], res[i], a.res_mul);
+        }
+        *reinterpret_cast<int4*>(a.out + o) = make_int4(
+            pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
+            pack_bf16x2(f[6], f[7]));
+      }
+    }
+    return;
+  }
   bf16* stage = reinterpret_cast<bf16*>(generic);
 #pragma unroll
   for (int h = 0; h < kHalves; ++h) {
@@ -379,10 +431,10 @@ __global__ void __launch_bounds__(kThreads, 1) a8_gemm_kernel(const Args a) {
 }
 
 // One block per kBM rows (fastest) and per kBN output columns.
-template <int kBits, int kHalves, int kBN, int kUnits>
+template <int kBits, int kHalves, int kBN, int kUnits, bool kEpi>
 cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
   using T = Tile<kHalves, kBN, kUnits != 0>;
-  auto kernel = a8_gemm_kernel<kBits, kHalves, kBN, kUnits>;
+  auto kernel = a8_gemm_kernel<kBits, kHalves, kBN, kUnits, kEpi>;
   static bool opted_in = false;  // above 48 KB of dynamic shared memory
   if (!opted_in) {
     cudaError_t err =
@@ -400,10 +452,30 @@ cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
 // The design for the call: per-channel on the W8A8_TILE (128 rows where
 // m <= 128), group-wise (int4 only) on 256 x 64, with the fold unit the
 // largest of a step, a half and a quarter that divides the group.
+template <int kBits, bool kEpi>
+cudaError_t launch_design(const Args& a, cudaStream_t s) {
+  constexpr int kBN = EETQ_W8A8_BN;
+  if (a.groups == 0)
+    return a.m <= 128 ? launch_tile<kBits, 1, kBN, 0, kEpi>(a, s)
+                      : launch_tile<kBits, 2, kBN, 0, kEpi>(a, s);
+  if constexpr (kBits == 4) {
+    if (a.group_size < EETQ_GROUP_GRANULE || a.group_size % EETQ_GROUP_GRANULE)
+      return cudaErrorInvalidValue;
+    if (a.group_size % kBK == 0) return launch_tile<kBits, 2, 64, 1, kEpi>(a, s);
+    if (a.group_size % (kBK / 2) == 0) return launch_tile<kBits, 2, 64, 2, kEpi>(a, s);
+    return launch_tile<kBits, 2, 64, 4, kEpi>(a, s);
+  }
+  return cudaErrorInvalidValue;  // group-wise W8A8 has no kernel
+}
+
+// The C entry points (w8a8_gemm.cu, w4a8_gemm.cu): the epilogue's
+// activation `act` and residual (or null), multiplied where res_mul is set,
+// pick the kEpi kernels.
 template <int kBits>
 cudaError_t launch(const void* xq, int m, int kp, const void* w, int np, const void* sx,
-                   const void* sw, int groups, int group_size, const void* bias, void* out, int n,
-                   void* stream) {
+                   const void* sw, int groups, int group_size, const void* bias, int act,
+                   const void* residual, int res_mul, void* out, int n, void* stream) {
+  if (act < kActSilu || act > kActNone) return cudaErrorInvalidValue;
   Args a{};
   a.xq = static_cast<const int8_t*>(xq);
   a.m = m;
@@ -415,20 +487,14 @@ cudaError_t launch(const void* xq, int m, int kp, const void* w, int np, const v
   a.groups = groups;
   a.group_size = group_size;
   a.bias = static_cast<const float*>(bias);
+  a.act = act;
+  a.residual = static_cast<const bf16*>(residual);
+  a.res_mul = res_mul;
   a.out = static_cast<bf16*>(out);
   a.n = n;
   auto s = static_cast<cudaStream_t>(stream);
-  constexpr int kBN = EETQ_W8A8_BN;
-  if (groups == 0)
-    return m <= 128 ? launch_tile<kBits, 1, kBN, 0>(a, s) : launch_tile<kBits, 2, kBN, 0>(a, s);
-  if constexpr (kBits == 4) {
-    if (group_size < EETQ_GROUP_GRANULE || group_size % EETQ_GROUP_GRANULE)
-      return cudaErrorInvalidValue;
-    if (group_size % kBK == 0) return launch_tile<kBits, 2, 64, 1>(a, s);
-    if (group_size % (kBK / 2) == 0) return launch_tile<kBits, 2, 64, 2>(a, s);
-    return launch_tile<kBits, 2, 64, 4>(a, s);
-  }
-  return cudaErrorInvalidValue;  // group-wise W8A8 has no kernel
+  return act != kActNone || residual != nullptr ? launch_design<kBits, true>(a, s)
+                                                : launch_design<kBits, false>(a, s);
 }
 
 }  // namespace

@@ -78,6 +78,25 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi) {
   return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u, (t & 0x00800080u) | 0x43004300u);
 }
 
+// The GEMMs' fused epilogue after the scale and the bias, in f32 before the
+// one rounding (eetq_tpu/kernels/w8a16.py:213-230, w8a8.py:71-84): an
+// activation, then the residual added or multiplied. The activation codes
+// are kernels/mlp_fused.py::ACT_CODES (the fused MLP's), kActNone none.
+enum Act { kActSilu = 0, kActGelu = 1, kActRelu = 2, kActNone = 3 };
+
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == kActSilu) return v / (1.f + expf(-v));
+  if (act == kActGelu)  // tanh approximation, jax.nn.gelu's default
+    return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+  if (act == kActRelu) return fmaxf(v, 0.f);
+  return v;
+}
+
+// The residual r added to v, or multiplied where res_mul is set.
+__device__ __forceinline__ float combine(float v, float r, int res_mul) {
+  return res_mul ? __fmul_rn(v, r) : __fadd_rn(v, r);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

@@ -72,7 +72,10 @@
 // only moves the base pointers (64-bit offsets).
 //
 // Two modes:
-// - plain: out = sum * scale (+ bias) (+ residual), rounded once to bf16.
+// - plain: out = act(sum * scale (+ bias)) (+ or * residual), in f32 and
+//   rounded once to bf16, as the TPU kernel's epilogue (w8a16.py:213-230).
+//   Over a K split it runs once, in the strip's last block after the
+//   ordered sum: never on a partial.
 // - gate/up (the fused MLP's first half): lane groups 0-3 take 64 columns of
 //   the gate half of the fused [Kp, 2I] weight and groups 4-7 the matching
 //   64 of the up half, in one K loop; the epilogue writes
@@ -103,8 +106,6 @@ static_assert(EETQ_GEMV_STEP_ROWS == kStepRows && EETQ_GEMV_BLOCK_N == kBlockN,
 // a 16-deep (int8) or 32-deep (int4) step lies in one scale group
 static_assert(EETQ_GROUP_GRANULE % (2 * kStepRows) == 0, "a step never straddles two groups");
 
-enum Act { kSilu = 0, kGelu = 1, kRelu = 2 };
-
 struct Args {
   const bf16* x;  // [m, k], k % 8 == 0
   int m, k;
@@ -116,11 +117,12 @@ struct Args {
   const float* bias;    // [n] or null (plain only)
   const float* gamma;   // [k] or null: RMSNorm prologue
   float eps;
-  const bf16* residual;  // [m, n] or null (plain only)
+  const bf16* residual;  // [m, n] or null (plain only): added, or multiplied (res_mul)
+  int res_mul;
   bf16* out;             // [m, n]; gate/up: h [m, n] with n = I
   int n;
-  int up;   // gate/up: column of the up half (= I)
-  int act;  // gate/up: Act
+  int up;               // gate/up: column of the up half (= I)
+  int act = kActNone;   // gate/up: the gate's Act (common.cuh); plain: the epilogue's
   // Expert gather (plain mode), or null: blocks (., ., s) read expert
   // e = expert_ids[s] (0 <= e < the bank's size) at w + e * w_stride and
   // scales + e * s_stride, and write out + s * out_stride.
@@ -136,13 +138,6 @@ struct Args {
   // set by launch: shared-memory offsets of gamma's range and of x
   int gam_off, xs_off;
 };
-
-__device__ __forceinline__ float activate(float g, int act) {
-  if (act == kSilu) return g / (1.f + expf(-g));
-  if (act == kGelu)  // tanh approximation, jax.nn.gelu's default
-    return 0.5f * g * (1.f + tanhf(0.7978845608028654f * (g + 0.044715f * g * g * g)));
-  return fmaxf(g, 0.f);
-}
 
 // 16 bytes of weights, read once: not kept in L1.
 __device__ __forceinline__ int4 load_stream(const int8_t* p) {
@@ -439,7 +434,9 @@ __global__ void __launch_bounds__(kThreads, 2) gemv_kernel(const Args a) {
       if (nn < a.n) {
         float v = kGroup ? fin[i] : fin[i] * scales[nn];  // group-wise: scaled step by step
         if (a.bias != nullptr) v += a.bias[nn];
-        if (a.residual != nullptr) v += __bfloat162float(a.residual[(size_t)r * a.n + nn]);
+        v = activate(v, a.act);
+        if (a.residual != nullptr)
+          v = combine(v, __bfloat162float(a.residual[(size_t)r * a.n + nn]), a.res_mul);
         out[(size_t)r * a.n + nn] = __float2bfloat16(v);
       }
     }
@@ -500,11 +497,15 @@ cudaError_t launch(Args a, int strips, int sels, cudaStream_t stream) {
 }
 
 // The dense GEMV's C entry points (w8a16_gemv.cu, w4a16_gemv.cu): `rows`
-// weight rows (Kp for int8, Kp / 2 for int4), group-wise when groups > 0.
+// weight rows (Kp for int8, Kp / 2 for int4), group-wise when groups > 0;
+// the epilogue's activation `act` and residual (or null), multiplied where
+// res_mul is set.
 template <int kBits>
 int dense_entry(const void* x, int m, int k, const void* w, int rows, int np, const void* scales,
                 int groups, int group_size, const void* bias, const void* gamma, float eps,
-                void* out, int n, void* partials, void* counters, int splits, void* stream) {
+                int act, const void* residual, int res_mul, void* out, int n, void* partials,
+                void* counters, int splits, void* stream) {
+  if (act < kActSilu || act > kActNone) return cudaErrorInvalidValue;
   Args a{};
   a.x = static_cast<const bf16*>(x);
   a.m = m;
@@ -518,6 +519,9 @@ int dense_entry(const void* x, int m, int k, const void* w, int rows, int np, co
   a.bias = static_cast<const float*>(bias);
   a.gamma = static_cast<const float*>(gamma);
   a.eps = eps;
+  a.act = act;
+  a.residual = static_cast<const bf16*>(residual);
+  a.res_mul = res_mul;
   a.out = static_cast<bf16*>(out);
   a.n = n;
   a.partials = static_cast<float*>(partials);

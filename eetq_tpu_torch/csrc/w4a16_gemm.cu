@@ -15,9 +15,13 @@
 // logical padded K; kp, np % 128 == 0); scales f32 [n], or [groups, n] with
 // groups > 0 and group_size logical rows each (a multiple of 32); bias f32
 // [n] or null; out bf16 [m, n].
+// act the epilogue's activation (common.cuh: 0 silu, 1 gelu, 2 relu, 3 none)
+// and residual bf16 [m, n] or null, added or multiplied (res_mul), in f32
+// before the one rounding.
 extern "C" int eetq_w4a16_gemm(const void* x, int m, int k, const void* w, int kp, int np,
                                const void* scales, int groups, int group_size, const void* bias,
-                               void* out, int n, void* stream) {
+                               int act, const void* residual, int res_mul, void* out, int n,
+                               void* stream) {
   return eetq::wgmma_gemm::dense_entry<4>(x, m, k, w, kp, np, scales, groups, group_size, bias,
-                                          out, n, stream);
+                                          act, residual, res_mul, out, n, stream);
 }

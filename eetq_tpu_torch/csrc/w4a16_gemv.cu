@@ -19,10 +19,15 @@
 // and group_size logical rows each (even); bias f32 [n] or null; gamma f32
 // [k] (16-byte aligned) or null; out bf16 [m, n]; splits, partials and
 // counters as for eetq_w8a16_gemv.
+// act the epilogue's activation (common.cuh: 0 silu, 1 gelu, 2 relu, 3 none)
+// and residual bf16 [m, n] or null, added or multiplied (res_mul), in f32
+// before the one rounding.
 extern "C" int eetq_w4a16_gemv(const void* x, int m, int k, const void* w, int rows, int np,
                                const void* scales, int groups, int group_size, const void* bias,
-                               const void* gamma, float eps, void* out, int n, void* partials,
-                               void* counters, int splits, void* stream) {
+                               const void* gamma, float eps, int act, const void* residual,
+                               int res_mul, void* out, int n, void* partials, void* counters,
+                               int splits, void* stream) {
   return eetq::gemv::dense_entry<4>(x, m, k, w, rows, np, scales, groups, group_size, bias, gamma,
-                                    eps, out, n, partials, counters, splits, stream);
+                                    eps, act, residual, res_mul, out, n, partials, counters,
+                                    splits, stream);
 }

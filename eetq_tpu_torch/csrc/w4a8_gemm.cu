@@ -17,8 +17,13 @@
 // K); w int4 pairs [kp / 2, np] (kp, np % 128 == 0); sx f32 [m]; sw f32 [n],
 // or [groups, n] with groups > 0 and group_size logical rows each (a
 // multiple of 32); bias f32 [n] or null; out bf16 [m, n].
+// act the epilogue's activation (common.cuh: 0 silu, 1 gelu, 2 relu, 3 none)
+// and residual bf16 [m, n] or null, added or multiplied (res_mul), in f32
+// before the one rounding.
 extern "C" int eetq_w4a8_gemm(const void* xq, int m, int kp, const void* w, int np,
                               const void* sx, const void* sw, int groups, int group_size,
-                              const void* bias, void* out, int n, void* stream) {
-  return eetq::a8::launch<4>(xq, m, kp, w, np, sx, sw, groups, group_size, bias, out, n, stream);
+                              const void* bias, int act, const void* residual, int res_mul,
+                              void* out, int n, void* stream) {
+  return eetq::a8::launch<4>(xq, m, kp, w, np, sx, sw, groups, group_size, bias, act, residual,
+                             res_mul, out, n, stream);
 }

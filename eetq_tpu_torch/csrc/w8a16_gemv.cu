@@ -16,10 +16,15 @@
 // [m, n]; splits K ranges (kernels/autotune.py::gemv_splits), and for
 // splits > 1 partials f32 [splits, np / 128, 8, 128] and counters int32
 // [np / 128], zero.
+// act the epilogue's activation (common.cuh: 0 silu, 1 gelu, 2 relu, 3 none)
+// and residual bf16 [m, n] or null, added or multiplied (res_mul), in f32
+// before the one rounding.
 extern "C" int eetq_w8a16_gemv(const void* x, int m, int k, const void* w, int kp, int np,
                                const void* scales, int groups, int group_size, const void* bias,
-                               const void* gamma, float eps, void* out, int n, void* partials,
-                               void* counters, int splits, void* stream) {
+                               const void* gamma, float eps, int act, const void* residual,
+                               int res_mul, void* out, int n, void* partials, void* counters,
+                               int splits, void* stream) {
   return eetq::gemv::dense_entry<8>(x, m, k, w, kp, np, scales, groups, group_size, bias, gamma,
-                                    eps, out, n, partials, counters, splits, stream);
+                                    eps, act, residual, res_mul, out, n, partials, counters,
+                                    splits, stream);
 }

@@ -12,8 +12,12 @@
 // xq [m, kp] int8 contiguous (zero past the logical K); w int8 [kp, np]
 // (kp, np % 128 == 0); sx f32 [m]; sw f32 [n]; bias f32 [n] or null;
 // out bf16 [m, n].
+// act the epilogue's activation (common.cuh: 0 silu, 1 gelu, 2 relu, 3 none)
+// and residual bf16 [m, n] or null, added or multiplied (res_mul), in f32
+// before the one rounding.
 extern "C" int eetq_w8a8_gemm(const void* xq, int m, int kp, const void* w, int np,
-                              const void* sx, const void* sw, const void* bias, void* out, int n,
-                              void* stream) {
-  return eetq::a8::launch<8>(xq, m, kp, w, np, sx, sw, 0, 0, bias, out, n, stream);
+                              const void* sx, const void* sw, const void* bias, int act,
+                              const void* residual, int res_mul, void* out, int n, void* stream) {
+  return eetq::a8::launch<8>(xq, m, kp, w, np, sx, sw, 0, 0, bias, act, residual, res_mul, out, n,
+                             stream);
 }

@@ -49,7 +49,14 @@
 //     K rows per register and would need a byte transpose of every tile.
 //   - Epilogue: scale[n] and bias[n] on the accumulator registers, bf16
 //     through shared memory, 16-byte stores (scalar stores where n is not a
-//     multiple of 8 and rows are not 16-byte aligned).
+//     multiple of 8 and rows are not 16-byte aligned). With an activation or
+//     a residual (kEpi, a kernel of its own: the bias-only kernel is left as
+//     it was) the tile goes through shared memory in f32 instead, and the
+//     store loop applies act(.) and the residual's add or multiply to each
+//     value, the residual read in 16-byte rows beside the output's, then
+//     rounds once to bf16, as the TPU kernel's epilogue (w8a16.py:213-230).
+//     The activation and the residual mode are kernel parameters, read only
+//     there, after the last wgmma and away from any accumulator register.
 //
 // Group-wise scales ([groups, n], group_size a multiple of 32): each
 // consumer's two 64-row halves keep their open group's f32 sum in registers
@@ -102,7 +109,9 @@ struct Tile {
   static constexpr int kBarOff = kScaleOff + kXSlots * kScaleBytes;
   static constexpr int kSmemBytes = kBarOff + kBarriers * 8 + 1024;
   static constexpr int kOutLd = kBN + 8;  // padded rows of the output staging
+  static constexpr int kOutLdF = kBN + 4;  // ... in f32 (kEpi)
   static_assert(kBM * kOutLd * 2 <= kRawOff, "output staging fits the rings");
+  static_assert(kBM * kOutLdF * 4 <= kRawOff, "f32 output staging fits the rings");
   static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
 
@@ -114,6 +123,9 @@ struct Args {
   const float* scales;  // [n], or [groups, n]
   int groups, group_size;
   const float* bias;    // [n] or null
+  int act;              // kEpi: the activation (common.cuh)
+  const bf16* residual;  // kEpi: [m, n] or null, added or multiplied (res_mul)
+  int res_mul;
   bf16* out;            // [m, n]
   int n;
 };
@@ -197,8 +209,9 @@ namespace {
 
 // kUnits: 0 for per-channel scales; else the group-wise mode, whose groups
 // close after units of kSlices / kUnits slices (1: whole K steps, 2: halves).
-// kHalves 64-row halves a consumer warpgroup, kBN columns.
-template <int kBits, int kHalves, int kBN, int kUnits>
+// kHalves 64-row halves a consumer warpgroup, kBN columns; kEpi: the
+// activation and residual epilogue.
+template <int kBits, int kHalves, int kBN, int kUnits, bool kEpi>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const Args a) {
   static_assert(kBits == 8 || kBits == 4, "int8 or int4 weights");
   static_assert(kUnits == 0 || kUnits == 1 || kUnits == 2, "a unit is a step or half a step");
@@ -405,14 +418,54 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = m0 + r0 + 64 * h + 8 * (e >> 1), gn = n0 + j * 8 + 2 * t + (e & 1);
-          if (row < a.m && gn < a.n)
-            a.out[(size_t)row * a.n + gn] = __float2bfloat16(acc[h][4 * j + e]);
+          if (row < a.m && gn < a.n) {
+            const size_t i = (size_t)row * a.n + gn;
+            float v = acc[h][4 * j + e];
+            if constexpr (kEpi) {
+              v = activate(v, a.act);
+              if (a.residual != nullptr) v = combine(v, __bfloat162float(a.residual[i]), a.res_mul);
+            }
+            a.out[i] = __float2bfloat16(v);
+          }
         }
       }
     }
     return;
   }
   named_barrier(1, kConsumers);  // both warpgroups have read their last slots
+  if constexpr (kEpi) {  // f32 through shared memory, the epilogue in the store loop
+    float* stage = reinterpret_cast<float*>(generic);
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(stage + (r0 + 64 * h + 8 * r) * T::kOutLdF + j * 8 + 2 * t) =
+              make_float2(acc[h][4 * j + 2 * r], acc[h][4 * j + 2 * r + 1]);
+      }
+    }
+    named_barrier(1, kConsumers);
+    for (int idx = tid; idx < kBM * (kBN / 8); idx += kConsumers) {
+      const int r = idx / (kBN / 8), c = idx % (kBN / 8);
+      if (m0 + r < a.m && n0 + c * 8 < a.n) {
+        const size_t o = (size_t)(m0 + r) * a.n + n0 + c * 8;
+        float f[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = activate(stage[r * T::kOutLdF + c * 8 + i], a.act);
+        if (a.residual != nullptr) {
+          float res[8];
+          bf16x8_to_float(*reinterpret_cast<const int4*>(a.residual + o), res);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) f[i] = combine(f[i], res[i], a.res_mul);
+        }
+        *reinterpret_cast<int4*>(a.out + o) = make_int4(
+            pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
+            pack_bf16x2(f[6], f[7]));
+      }
+    }
+    return;
+  }
   bf16* stage = reinterpret_cast<bf16*>(generic);
 #pragma unroll
   for (int h = 0; h < kHalves; ++h) {
@@ -435,10 +488,10 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const Args a) {
 }
 
 // One block per kBM rows (fastest) and per kBN output columns.
-template <int kBits, int kHalves, int kBN, int kUnits>
+template <int kBits, int kHalves, int kBN, int kUnits, bool kEpi>
 cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
   using T = Tile<kHalves, kBN, kUnits != 0>;
-  auto kernel = gemm_kernel<kBits, kHalves, kBN, kUnits>;
+  auto kernel = gemm_kernel<kBits, kHalves, kBN, kUnits, kEpi>;
   static bool opted_in = false;  // above 48 KB of dynamic shared memory
   if (!opted_in) {
     cudaError_t err =
@@ -455,23 +508,26 @@ cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
 
 // The design for the call: per-channel scales on the 256 x 128 tile (128 x
 // 128 where one 128-row block holds m), group-wise on the 256 x 64 one.
-template <int kBits>
+template <int kBits, bool kEpi>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.groups == 0) {
-    return a.m <= 128 ? launch_tile<kBits, 1, 128, 0>(a, stream)
-                      : launch_tile<kBits, 2, 128, 0>(a, stream);
+    return a.m <= 128 ? launch_tile<kBits, 1, 128, 0, kEpi>(a, stream)
+                      : launch_tile<kBits, 2, 128, 0, kEpi>(a, stream);
   }
   if (a.group_size < EETQ_GROUP_GRANULE || a.group_size % EETQ_GROUP_GRANULE)
     return cudaErrorInvalidValue;
-  return a.group_size % kBK == 0 ? launch_tile<kBits, 2, 64, 1>(a, stream)
-                                 : launch_tile<kBits, 2, 64, 2>(a, stream);
+  return a.group_size % kBK == 0 ? launch_tile<kBits, 2, 64, 1, kEpi>(a, stream)
+                                 : launch_tile<kBits, 2, 64, 2, kEpi>(a, stream);
 }
 
 // The dense GEMM's C entry points (w8a16_gemm.cu, w4a16_gemm.cu); scales
-// [n], or [groups, n] when groups > 0.
+// [n], or [groups, n] when groups > 0; the epilogue's activation `act` and
+// residual (or null), multiplied where res_mul is set.
 template <int kBits>
 int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, const void* scales,
-                int groups, int group_size, const void* bias, void* out, int n, void* stream) {
+                int groups, int group_size, const void* bias, int act, const void* residual,
+                int res_mul, void* out, int n, void* stream) {
+  if (act < kActSilu || act > kActNone) return cudaErrorInvalidValue;
   Args a{};
   a.x = static_cast<const bf16*>(x);
   a.m = m;
@@ -483,9 +539,14 @@ int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, cons
   a.groups = groups;
   a.group_size = group_size;
   a.bias = static_cast<const float*>(bias);
+  a.act = act;
+  a.residual = static_cast<const bf16*>(residual);
+  a.res_mul = res_mul;
   a.out = static_cast<bf16*>(out);
   a.n = n;
-  return launch<kBits>(a, static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  return act != kActNone || residual != nullptr ? launch<kBits, true>(a, s)
+                                                : launch<kBits, false>(a, s);
 }
 
 }  // namespace

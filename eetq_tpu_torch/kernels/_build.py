@@ -52,12 +52,17 @@ _F = ctypes.c_float
 # argtypes of every C entry point; each returns a cudaError_t as int
 SIGNATURES = {
     # x, m, k, w, weight rows, np, scales, groups, group_size, bias, gamma,
-    # eps, out, n, partials, counters, splits, stream
-    "eetq_w8a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _P, _I, _P, _P, _I, _P),
-    "eetq_w4a16_gemv": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _P, _I, _P, _P, _I, _P),
-    # x, m, k, w, kp, np, scales, groups, group_size, bias, out, n, stream
-    "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
-    "eetq_w4a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P),
+    # eps, act, residual, res_mul, out, n, partials, counters, splits, stream
+    "eetq_w8a16_gemv": (
+        _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _I, _P, _I, _P, _I, _P, _P, _I, _P,
+    ),
+    "eetq_w4a16_gemv": (
+        _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _I, _P, _I, _P, _I, _P, _P, _I, _P,
+    ),
+    # x, m, k, w, kp, np, scales, groups, group_size, bias, act, residual,
+    # res_mul, out, n, stream
+    "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P),
+    "eetq_w4a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P),
     # x, m, k, bank, weight rows, np, scales, groups, group_size, expert_ids,
     # n_sel, out, n, partials, counters, splits, stream
     "eetq_w8a16_expert_gemv": (
@@ -98,10 +103,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,
         _P,
     ),
-    # xq, m, kp, w, np, sx, sw, bias, out, n, stream
-    "eetq_w8a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P),
-    # xq, m, kp, w, np, sx, sw, groups, group_size, bias, out, n, stream
-    "eetq_w4a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P),
+    # xq, m, kp, w, np, sx, sw, bias, act, residual, res_mul, out, n, stream
+    "eetq_w8a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P),
+    # xq, m, kp, w, np, sx, sw, groups, group_size, bias, act, residual,
+    # res_mul, out, n, stream
+    "eetq_w4a8_gemm": (_P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P),
     # x, m, k, gamma, eps, gu, kp, i, gu_scales, d, np, d_scales, residual,
     # h, out, n, act, partials, counters, gate/up splits, down splits, stream
     "eetq_fused_mlp_gemv": (

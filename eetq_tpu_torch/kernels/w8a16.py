@@ -39,7 +39,14 @@ per bit width:
   over.
 
 All four take per-channel scales [N] or group-wise scales [K/g, N] (g a
-multiple of `GROUP_GRANULE`). The GEMM applies each group's scale to that
+multiple of `GROUP_GRANULE`), and the TPU kernel's fused epilogue
+(`Epilogue`, w8a16.py:65-77, 213-230): after the scale and the bias, an
+activation (relu, tanh-gelu, silu) and a residual added or multiplied, all
+in f32 before the one rounding to bf16. The GEMV applies it in the strip's
+last block, after the ordered sum of a K split; the GEMM in a kernel of its
+own (the bias-only kernel is unchanged), through an f32 staging of the tile.
+A launch with an activation or a residual also counts as the variant
+"epilogue" (`variant_launches`). The GEMM applies each group's scale to that
 group's f32 partial sum, as the TPU kernel does (w8a16.py:103-126); the
 GEMV folds each K step's f32 partial times its group's scales (the same
 sum in another order; see `csrc/gemv.cuh`).
@@ -82,8 +89,54 @@ from eetq_tpu_torch.kernels.autotune import (
     group_size_of,
     sm_count,
 )
+from eetq_tpu_torch.kernels.mlp_fused import ACT_CODES, ACTIVATIONS
 from eetq_tpu_torch.layout.tiling import TILE, unpack_int4_rows
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
+
+RESIDUAL_MODES = ("add", "mul")
+ACT_NONE = 3  # csrc/common.cuh: the epilogue without an activation
+
+
+def check_epilogue(activation: str | None, residual_mode: str) -> None:
+    """The TPU kernel's `Epilogue` checks (w8a16.py:73-77)."""
+    if activation is not None and activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if residual_mode not in RESIDUAL_MODES:
+        raise ValueError(f"unknown residual mode {residual_mode!r}")
+
+
+def apply_epilogue(r: torch.Tensor, activation: str | None, residual: torch.Tensor | None,
+                   residual_mode: str) -> torch.Tensor:
+    """The epilogue on the f32 result r: act(r), then the residual added or
+    multiplied in f32 (`eetq_tpu/kernels/w8a16.py:225-228`)."""
+    if activation is not None:
+        r = ACTIVATIONS[activation](r)
+    if residual is not None:
+        res = residual.float()
+        r = r + res if residual_mode == "add" else r * res
+    return r
+
+
+def epilogue_args(x, n: int, activation, residual, residual_mode):
+    """(activation code, residual, multiply flag) of a launch on x's device:
+    the residual a contiguous bf16 [m, N], copied where it is not 16-byte
+    aligned (the GEMMs read its rows 16 bytes at a time). The caller keeps
+    the returned residual alive until the launch."""
+    if residual is not None:
+        if (residual.dtype != torch.bfloat16 or not residual.is_contiguous()
+                or residual.shape != (x.shape[0], n) or residual.device != x.device):
+            raise TypeError(f"residual must be a contiguous bf16 [{x.shape[0]}, {n}] on x's "
+                            "device")
+        if residual.data_ptr() % 16:
+            residual = residual.clone()
+    return (ACT_NONE if activation is None else ACT_CODES[activation], residual,
+            int(residual_mode == "mul"))
+
+
+def count_launch(fn, activation, residual) -> None:
+    """One launch behind wrapper `fn`: its count, and the epilogue variant's."""
+    fn.launches += 1
+    fn.variant_launches["epilogue"] += activation is not None or residual is not None
 
 
 def w8a16_matmul_ref(
@@ -91,13 +144,18 @@ def w8a16_matmul_ref(
     qweight: torch.Tensor,
     scales: torch.Tensor,
     bias: torch.Tensor | None = None,
+    activation: str | None = None,
+    residual: torch.Tensor | None = None,
+    residual_mode: str = "add",
 ) -> torch.Tensor:
-    """Plain version: ``x @ dequant(qweight) + bias`` in x.dtype.
+    """Plain version: ``act(x @ dequant(qweight) + bias) [+|*] residual`` in
+    x.dtype.
 
     x [m, K]; qweight the logical int8 [K, N]; scales [N] per-channel or
     [G, N] group-wise. Products of the exact bf16 and int8 values summed in
     f32, the per-channel scale applied once to the sum (each group's scale to
-    its partial sum), as `eetq_tpu/kernels/w8a16.py::w8a16_matmul_ref`.
+    its partial sum), the epilogue in f32 and one rounding, as
+    `eetq_tpu/kernels/w8a16.py::w8a16_matmul_ref`.
     """
     xf = x.float()
     if scales.dim() == 1:
@@ -111,7 +169,7 @@ def w8a16_matmul_ref(
         r = (parts * scales.float()).sum(dim=-2)
     if bias is not None:
         r = r + bias.float()
-    return r.to(x.dtype)
+    return apply_epilogue(r, activation, residual, residual_mode).to(x.dtype)
 
 
 def expert_matmul_ref(
@@ -199,12 +257,16 @@ def _gemv_plan(x, rows: int, strips: int, sels: int, bits: int, m: int, group: i
     return (splits, *_build.scratch("gemv", x.device, *gemv_scratch_size(splits, strips, sels)))
 
 
-def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps):
+def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps, activation,
+          residual, residual_mode):
     k = x.shape[-1]
+    check_epilogue(activation, residual_mode)
     if not x.is_cuda:
         y = x if gamma is None else rmsnorm(x, gamma, eps)
-        return w8a16_matmul_ref(y, _logical(qdata, bits, k, n), scales, bias)
+        return w8a16_matmul_ref(y, _logical(qdata, bits, k, n), scales, bias, activation,
+                                residual, residual_mode)
     groups, group = _check_cuda(x, qdata, scales, n, bias, bits)
+    act, residual, res_mul = epilogue_args(x, n, activation, residual, residual_mode)
     m = x.shape[0]
     rows, np_ = qdata.shape
     if not 1 <= m <= MAX_DECODE_M:
@@ -218,28 +280,32 @@ def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps)
     splits, partials, counters = _gemv_plan(x, rows, np_ // GEMV_BLOCK_N, 1, bits, m, group)
     _build.launch(
         entry, x.data_ptr(), m, k, qdata.data_ptr(), rows, np_, scales.data_ptr(), groups,
-        group, _build.ptr(bias), _build.ptr(gamma), eps, out.data_ptr(), n, partials, counters,
-        splits, _build.stream_of(x),
+        group, _build.ptr(bias), _build.ptr(gamma), eps, act, _build.ptr(residual), res_mul,
+        out.data_ptr(), n, partials, counters, splits, _build.stream_of(x),
     )
-    counter.launches += 1
+    count_launch(counter, activation, residual)
     return out
 
 
-def _gemm(counter, entry: str, bits: int, x, qdata, scales, n, bias):
+def _gemm(counter, entry: str, bits: int, x, qdata, scales, n, bias, activation, residual,
+          residual_mode):
     k = x.shape[-1]
+    check_epilogue(activation, residual_mode)
     if not x.is_cuda:
-        return w8a16_matmul_ref(x, _logical(qdata, bits, k, n), scales, bias)
+        return w8a16_matmul_ref(x, _logical(qdata, bits, k, n), scales, bias, activation,
+                                residual, residual_mode)
     groups, group = _check_cuda(x, qdata, scales, n, bias, bits)
+    act, residual, res_mul = epilogue_args(x, n, activation, residual, residual_mode)
     m = x.shape[0]
     rows, np_ = qdata.shape
     bias = _f32(bias)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     _build.launch(
         entry, x.data_ptr(), m, k, qdata.data_ptr(), rows * 2 if bits == 4 else rows, np_,
-        scales.data_ptr(), groups, group, _build.ptr(bias), out.data_ptr(), n,
-        _build.stream_of(x),
+        scales.data_ptr(), groups, group, _build.ptr(bias), act, _build.ptr(residual), res_mul,
+        out.data_ptr(), n, _build.stream_of(x),
     )
-    counter.launches += 1
+    count_launch(counter, activation, residual)
     return out
 
 
@@ -251,15 +317,22 @@ def w8a16_gemv(
     bias: torch.Tensor | None = None,
     gamma: torch.Tensor | None = None,
     eps: float = 1e-6,
+    activation: str | None = None,
+    residual: torch.Tensor | None = None,
+    residual_mode: str = "add",
 ) -> torch.Tensor:
-    """Decode regime: ``rmsnorm(x) @ dequant(W) + bias`` for m <= 8 rows.
+    """Decode regime: ``act(rmsnorm(x) @ dequant(W) + bias) [+|*] residual``
+    for m <= 8 rows.
 
     x [m, K] bf16; qdata the packed int8 [Kp, Np]; scales f32 [N] or
     [K/g, N]; bias [N]; gamma [K] fuses ``rmsnorm(x, gamma, eps)`` into the
     prologue (y in f32, rounded to bf16 before the dot, as
-    `w8a16.py:180-184`). Returns [m, N] bf16.
+    `w8a16.py:180-184`); activation None, "relu", "gelu" (tanh) or "silu";
+    residual bf16 [m, N], added or, with residual_mode "mul", multiplied.
+    Returns [m, N] bf16.
     """
-    return _gemv(w8a16_gemv, "eetq_w8a16_gemv", 8, x, qdata, scales, n, bias, gamma, eps)
+    return _gemv(w8a16_gemv, "eetq_w8a16_gemv", 8, x, qdata, scales, n, bias, gamma, eps,
+                 activation, residual, residual_mode)
 
 
 def w4a16_gemv(
@@ -270,10 +343,14 @@ def w4a16_gemv(
     bias: torch.Tensor | None = None,
     gamma: torch.Tensor | None = None,
     eps: float = 1e-6,
+    activation: str | None = None,
+    residual: torch.Tensor | None = None,
+    residual_mode: str = "add",
 ) -> torch.Tensor:
     """:func:`w8a16_gemv` on int4 weights: qdata the packed int4 pairs
     [Kp/2, Np]."""
-    return _gemv(w4a16_gemv, "eetq_w4a16_gemv", 4, x, qdata, scales, n, bias, gamma, eps)
+    return _gemv(w4a16_gemv, "eetq_w4a16_gemv", 4, x, qdata, scales, n, bias, gamma, eps,
+                 activation, residual, residual_mode)
 
 
 def w8a16_gemm(
@@ -282,10 +359,15 @@ def w8a16_gemm(
     scales: torch.Tensor,
     n: int,
     bias: torch.Tensor | None = None,
+    activation: str | None = None,
+    residual: torch.Tensor | None = None,
+    residual_mode: str = "add",
 ) -> torch.Tensor:
-    """Prefill regime: ``x @ dequant(W) + bias``. x [m, K] bf16; qdata the
-    packed int8 [Kp, Np]; scales f32 [N] or [K/g, N]. Returns [m, N] bf16."""
-    return _gemm(w8a16_gemm, "eetq_w8a16_gemm", 8, x, qdata, scales, n, bias)
+    """Prefill regime: ``act(x @ dequant(W) + bias) [+|*] residual``. x [m, K]
+    bf16; qdata the packed int8 [Kp, Np]; scales f32 [N] or [K/g, N]; the
+    epilogue as :func:`w8a16_gemv`'s. Returns [m, N] bf16."""
+    return _gemm(w8a16_gemm, "eetq_w8a16_gemm", 8, x, qdata, scales, n, bias, activation,
+                 residual, residual_mode)
 
 
 def w4a16_gemm(
@@ -294,10 +376,14 @@ def w4a16_gemm(
     scales: torch.Tensor,
     n: int,
     bias: torch.Tensor | None = None,
+    activation: str | None = None,
+    residual: torch.Tensor | None = None,
+    residual_mode: str = "add",
 ) -> torch.Tensor:
     """:func:`w8a16_gemm` on int4 weights: qdata the packed int4 pairs
     [Kp/2, Np]."""
-    return _gemm(w4a16_gemm, "eetq_w4a16_gemm", 4, x, qdata, scales, n, bias)
+    return _gemm(w4a16_gemm, "eetq_w4a16_gemm", 4, x, qdata, scales, n, bias, activation,
+                 residual, residual_mode)
 
 
 def _expert_gemv(counter, entry: str, bits: int, x, qdata, scales, expert_ids, n):
@@ -424,10 +510,9 @@ def w4a16_grouped_gemm(
                          block_expert, n, real_blocks)
 
 
-w8a16_gemv.launches = 0
-w8a16_gemm.launches = 0
-w4a16_gemv.launches = 0
-w4a16_gemm.launches = 0
+for _fn in (w8a16_gemv, w8a16_gemm, w4a16_gemv, w4a16_gemm):
+    _fn.launches = 0
+    _fn.variant_launches = {"epilogue": 0}
 w8a16_expert_gemv.launches = 0
 w8a16_grouped_gemm.launches = 0
 w4a16_expert_gemv.launches = 0

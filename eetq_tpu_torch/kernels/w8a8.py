@@ -24,6 +24,12 @@ group-wise scales [K/g, N] each group's s32 sum is converted to f32 and
 scaled by its row (w8a8.py:236-253), the groups added in order; the plain
 version's f32 sum over groups may run in another order.
 
+Both take the TPU kernels' fused epilogue (`Epilogue`, w8a8.py:71-84,
+256-270): after ``(acc * sx) * sw + bias`` an activation and a residual
+added or multiplied, in f32 before the one rounding, in a kernel of their
+own beside the bias-only one; a launch with either counts as the variant
+"epilogue".
+
 `quantize_activations` and the plain product are bit-identical to the JAX
 package's on the CPU: the activation quantizer scales as XLA compiles it
 and rounds half to even as `jnp.round` does, and the plain product sums
@@ -37,6 +43,12 @@ import torch
 
 from eetq_tpu_torch.kernels import _build
 from eetq_tpu_torch.kernels.autotune import group_size_of
+from eetq_tpu_torch.kernels.w8a16 import (
+    apply_epilogue,
+    check_epilogue,
+    count_launch,
+    epilogue_args,
+)
 from eetq_tpu_torch.layout.tiling import TILE, unpack_int4_rows
 
 
@@ -68,20 +80,24 @@ def w8a8_matmul_ref(
     qweight: torch.Tensor,
     w_scales: torch.Tensor,
     bias: torch.Tensor | None = None,
+    activation: str | None = None,
 ) -> torch.Tensor:
     """Plain version: quantize x per token, integer matmul, then
-    ``acc * sx * sw + bias`` in f32 and one rounding to x.dtype
+    ``act(acc * sx * sw + bias)`` in f32 and one rounding to x.dtype
     (`eetq_tpu/kernels/w8a8.py::w8a8_matmul_ref`). x [m, K]; qweight the
     logical int8 [K, N] (int4 values one per int8); w_scales [N], or [G, N]
     group-wise: each group's integer sum is scaled by its row, the groups
     summed in f32, then ``* sx``."""
     xq, sx = quantize_activations(x)
     group_size = None if w_scales.dim() == 1 else qweight.shape[0] // w_scales.shape[0]
-    return w8a8_gemm_ref(xq, sx, qweight, w_scales, qweight.shape[1], bias, x.dtype, group_size)
+    return w8a8_gemm_ref(xq, sx, qweight, w_scales, qweight.shape[1], bias, x.dtype, group_size,
+                         activation)
 
 
 def w8a8_gemm_ref(xq, x_scales, qdata, w_scales, n, bias=None, dtype=torch.bfloat16,
-                  group_size: int | None = None) -> torch.Tensor:
+                  group_size: int | None = None, activation: str | None = None,
+                  residual: torch.Tensor | None = None,
+                  residual_mode: str = "add") -> torch.Tensor:
     """Plain version of :func:`w8a8_gemm` and :func:`w4a8_gemm` on their own
     operands: xq [m, Kp] against the logical values qdata [Kp, >= n], the
     epilogue in f32, one rounding to dtype. Group-wise scales [G, n] cover
@@ -98,13 +114,17 @@ def w8a8_gemm_ref(xq, x_scales, qdata, w_scales, n, bias=None, dtype=torch.bfloa
         r = torch.einsum("mgn,gn->mn", part, w_scales.float()) * x_scales[..., None]
     if bias is not None:
         r = r + bias.float()
-    return r.to(dtype)
+    return apply_epilogue(r, activation, residual, residual_mode).to(dtype)
 
 
-def _a8_gemm(counter, entry: str, bits: int, xq, x_scales, qdata, w_scales, n, bias, group_size):
+def _a8_gemm(counter, entry: str, bits: int, xq, x_scales, qdata, w_scales, n, bias, group_size,
+             activation, residual, residual_mode):
+    check_epilogue(activation, residual_mode)
     if not xq.is_cuda:
         logical = unpack_int4_rows(qdata) if bits == 4 else qdata
-        return w8a8_gemm_ref(xq, x_scales, logical, w_scales, n, bias, group_size=group_size)
+        return w8a8_gemm_ref(xq, x_scales, logical, w_scales, n, bias, group_size=group_size,
+                             activation=activation, residual=residual,
+                             residual_mode=residual_mode)
     m, kx = xq.shape
     rows, np_ = qdata.shape
     kp = rows * 2 if bits == 4 else rows
@@ -138,14 +158,15 @@ def _a8_gemm(counter, entry: str, bits: int, xq, x_scales, qdata, w_scales, n, b
         if bias.shape != (n,) or bias.device != xq.device:
             raise TypeError("bias must be [N] on the activations' device")
         bias = bias.float().contiguous()
+    act, residual, res_mul = epilogue_args(xq, n, activation, residual, residual_mode)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
     group_args = (groups, group_size) if bits == 4 else ()
     _build.launch(
         entry, xq.data_ptr(), m, kp, qdata.data_ptr(), np_, x_scales.data_ptr(),
-        w_scales.data_ptr(), *group_args, _build.ptr(bias), out.data_ptr(), n,
-        _build.stream_of(xq),
+        w_scales.data_ptr(), *group_args, _build.ptr(bias), act, _build.ptr(residual), res_mul,
+        out.data_ptr(), n, _build.stream_of(xq),
     )
-    counter.launches += 1
+    count_launch(counter, activation, residual)
     return out
 
 
@@ -156,11 +177,17 @@ def w8a8_gemm(
     w_scales: torch.Tensor,
     n: int,
     bias: torch.Tensor | None = None,
+    activation: str | None = None,
+    residual: torch.Tensor | None = None,
+    residual_mode: str = "add",
 ) -> torch.Tensor:
     """xq [m, Kp] int8 (zero past the logical K); x_scales f32 [m]; qdata the
-    packed int8 [Kp, Np]; w_scales f32 [N] per-channel; bias [N]. Returns
-    ``bf16((f32(xq @ W) * sx) * sw + bias)`` [m, N]."""
-    return _a8_gemm(w8a8_gemm, "eetq_w8a8_gemm", 8, xq, x_scales, qdata, w_scales, n, bias, None)
+    packed int8 [Kp, Np]; w_scales f32 [N] per-channel; bias [N]; activation
+    None, "relu", "gelu" (tanh) or "silu"; residual bf16 [m, N], added or,
+    with residual_mode "mul", multiplied. Returns
+    ``bf16(act((f32(xq @ W) * sx) * sw + bias) [+|*] residual)`` [m, N]."""
+    return _a8_gemm(w8a8_gemm, "eetq_w8a8_gemm", 8, xq, x_scales, qdata, w_scales, n, bias, None,
+                    activation, residual, residual_mode)
 
 
 def w4a8_gemm(
@@ -171,14 +198,18 @@ def w4a8_gemm(
     n: int,
     bias: torch.Tensor | None = None,
     group_size: int | None = None,
+    activation: str | None = None,
+    residual: torch.Tensor | None = None,
+    residual_mode: str = "add",
 ) -> torch.Tensor:
     """:func:`w8a8_gemm` on int4 weights: qdata the packed int4 pairs
     [Kp/2, Np]; w_scales f32 [N], or [G, N] with `group_size` logical rows a
     group (G * group_size is the logical K), each group's s32 sum scaled by
     its row and the groups summed in f32 before ``* sx``."""
     return _a8_gemm(w4a8_gemm, "eetq_w4a8_gemm", 4, xq, x_scales, qdata, w_scales, n, bias,
-                    group_size)
+                    group_size, activation, residual, residual_mode)
 
 
-w8a8_gemm.launches = 0
-w4a8_gemm.launches = 0
+for _fn in (w8a8_gemm, w4a8_gemm):
+    _fn.launches = 0
+    _fn.variant_launches = {"epilogue": 0}

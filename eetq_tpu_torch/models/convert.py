@@ -16,9 +16,12 @@ int8, packed here by the port's own `pack_weights`) or ``{"weight": [K, N],
 "gateup": bank, "down": bank}`` in place of gateup and down, where a bank
 is a linear with a leading expert axis (``"qweight"`` int8 [E, K, N], int4
 values one per int8 under ``"bits": 4``, and ``"scales"`` [E, N] or
-[E, K/g, N]; or ``"weight"`` [E, K, N]). Float arrays of any float dtype (bf16 ones
-included) are cast to bf16 for weights, biases and the embedding, and to
-f32 for norms and scales.
+[E, K/g, N]; or ``"weight"`` [E, K, N]). A layer may carry LoRA adapters
+``"qkv_lora"`` and ``"o_lora"``: ``{"lora_a": [K, r], "lora_b": [r, N],
+"scaling": float}``, or banks with a leading adapter axis ([n, K, r] and
+[n, r, N]). Float arrays of any float dtype (bf16 ones included) are cast to
+bf16 for weights, biases, adapters and the embedding, and to f32 for norms
+and scales.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from eetq_tpu_torch.layout.tiling import pack_weights
 from eetq_tpu_torch.models.transformer import LayerParams, ModelParams
-from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear
+from eetq_tpu_torch.modules.linear import DenseLinear, LoraAdapter, QuantLinear
 from eetq_tpu_torch.modules.moe import MoEMLP
 from eetq_tpu_torch.utils.device import resolve
 
@@ -49,6 +52,13 @@ def _linear(d: dict, device):
     return DenseLinear(_tensor(d["weight"], torch.bfloat16, device), bias)
 
 
+def _lora(d: dict | None, device) -> LoraAdapter | None:
+    if d is None:
+        return None
+    return LoraAdapter(_tensor(d["lora_a"], torch.bfloat16, device),
+                       _tensor(d["lora_b"], torch.bfloat16, device), float(d["scaling"]))
+
+
 def _layer(lp: dict, device) -> LayerParams:
     moe = lp.get("moe")
     if moe is not None:
@@ -61,6 +71,8 @@ def _layer(lp: dict, device) -> LayerParams:
         qkv=_linear(lp["qkv"], device),
         o_proj=_linear(lp["o_proj"], device),
         post_norm=_tensor(lp["post_norm"], torch.float32, device),
+        qkv_lora=_lora(lp.get("qkv_lora"), device),
+        o_lora=_lora(lp.get("o_lora"), device),
         **mlp,
     )
 

@@ -77,11 +77,12 @@ def _quantize_layer(lp: LayerParams, bits: int, group_size: int | None) -> Layer
     def q(lin):
         return _q(lin, bits, group_size)
 
+    adapters = dict(qkv_lora=lp.qkv_lora, o_lora=lp.o_lora)
     if lp.moe is not None:
         return LayerParams(lp.input_norm, q(lp.qkv), q(lp.o_proj), lp.post_norm,
-                           moe=quantize_moe(lp.moe, bits=bits, group_size=group_size))
+                           moe=quantize_moe(lp.moe, bits=bits, group_size=group_size), **adapters)
     return LayerParams(lp.input_norm, q(lp.qkv), q(lp.o_proj), lp.post_norm,
-                       q(lp.gateup), q(lp.down))
+                       q(lp.gateup), q(lp.down), **adapters)
 
 
 def quantize_params(params: ModelParams, bits: int = 8, quantize_lm_head: bool = False,

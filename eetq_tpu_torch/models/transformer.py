@@ -20,8 +20,11 @@ with `moe` set runs the routed MLP instead (:158-170), which takes neither
 `a8` nor `fused_mlp`, as in the JAX package. Under `cfg.alibi` (baichuan-13b)
 no rope is applied and the attention takes the ALiBi slopes instead
 (:131-146), one tensor per (head count, device) for every layer and step
-(`ops/alibi.py::alibi_slopes_cache`). LoRA and tensor parallelism are not
-ported.
+(`ops/alibi.py::alibi_slopes_cache`). A layer's `qkv_lora` and `o_lora`
+add LoRA side paths to qkv and o_proj (:119-127, :151-152): with a qkv
+adapter the input norm runs apart, not fused into the GEMV, and with banks
+`lora_idx` [B] picks each row's adapter (multi-adapter serving). Tensor
+parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from torch import nn
 from eetq_tpu_torch.kernels.mlp_fused import ACTIVATIONS
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.modules.attention import KVCache, attention, decode_at, init_kv_cache
-from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear, linear_apply
+from eetq_tpu_torch.modules.linear import DenseLinear, LoraAdapter, QuantLinear, linear_apply
 from eetq_tpu_torch.modules.moe import MoEMLP, moe_apply
 from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
 from eetq_tpu_torch.ops.mlp import can_fuse_mlp, fused_mlp as fused_mlp_op
@@ -46,11 +49,13 @@ Linear = QuantLinear | DenseLinear
 
 class LayerParams(nn.Module):
     """One decoder layer: the dense MLP (gateup, down) or, on MoE layers,
-    `moe` with gateup and down None."""
+    `moe` with gateup and down None; optional LoRA adapters (or banks) on
+    qkv and o_proj."""
 
     def __init__(self, input_norm: torch.Tensor, qkv: Linear, o_proj: Linear,
                  post_norm: torch.Tensor, gateup: Linear | None = None,
-                 down: Linear | None = None, moe: MoEMLP | None = None):
+                 down: Linear | None = None, moe: MoEMLP | None = None,
+                 qkv_lora: LoraAdapter | None = None, o_lora: LoraAdapter | None = None):
         super().__init__()
         if (gateup is None, down is None) != (moe is not None,) * 2:
             raise ValueError("a layer has either gateup and down, or moe")
@@ -58,6 +63,7 @@ class LayerParams(nn.Module):
         self.register_buffer("post_norm", post_norm)
         self.qkv, self.o_proj, self.gateup, self.down = qkv, o_proj, gateup, down
         self.moe = moe
+        self.qkv_lora, self.o_lora = qkv_lora, o_lora
 
 
 class ModelParams(nn.Module):
@@ -91,6 +97,7 @@ def decoder_layer(
     fused_mlp: bool | None = None,
     verify: bool = False,
     slopes: torch.Tensor | None = None,
+    lora_idx: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """One decoder layer on x [B, S, H]. The RMSNorms before qkv and gate/up
     are handed to the linear as a prenorm (fused into the GEMV kernel in the
@@ -99,13 +106,19 @@ def decoder_layer(
     under a8, as in the JAX package). A MoE layer's routed MLP takes
     neither. verify: the S > 1 tokens sit at per-row offsets and attend
     causally over the cache (`modules.attention.attention`). slopes: the
-    ALiBi slopes of an ALiBi model, whose q and k take no rope."""
+    ALiBi slopes of an ALiBi model, whose q and k take no rope. lora_idx
+    [B]: each row's adapter where the layer's adapters are banks."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     residual = x
-    qkv = linear_apply(p.qkv, x, prenorm=(_gamma(p.input_norm, cfg), cfg.rms_eps),
-                       use_kernel=use_kernels, a8=a8)
+    if p.qkv_lora is None:
+        qkv = linear_apply(p.qkv, x, prenorm=(_gamma(p.input_norm, cfg), cfg.rms_eps),
+                           use_kernel=use_kernels, a8=a8)
+    else:  # the norm apart, as the JAX package runs it beside an adapter
+        y = rmsnorm(x, _gamma(p.input_norm, cfg), eps=cfg.rms_eps)
+        qkv = linear_apply(p.qkv, y, lora=p.qkv_lora, lora_idx=lora_idx, use_kernel=use_kernels,
+                           a8=a8)
     q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
     q, k, v = q.reshape(b, s, hq, d), k.reshape(b, s, hkv, d), v.reshape(b, s, hkv, d)
     if slopes is None:
@@ -113,7 +126,8 @@ def decoder_layer(
         k = rope(k, positions, cos_sin, interleaved=cfg.rope_interleaved)
     attn, cache = attention(q, k, v, cache, offset, window=cfg.sliding_window,
                             use_kernels=use_kernels, verify=verify, slopes=slopes)
-    o = linear_apply(p.o_proj, attn.reshape(b, s, hq * d), use_kernel=use_kernels, a8=a8)
+    o = linear_apply(p.o_proj, attn.reshape(b, s, hq * d), lora=p.o_lora, lora_idx=lora_idx,
+                     use_kernel=use_kernels, a8=a8)
     x = residual + o
 
     residual = x
@@ -168,6 +182,7 @@ def forward_inner(
     fused_mlp: bool | None = None,
     last_pos: torch.Tensor | None = None,
     verify: bool = False,
+    lora_idx: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, list[KVCache] | None]:
     """Logits [B, S, V] f32 (or [B, 1, V] with last_only, which runs the
     lm_head on the last position only, or with last_pos [B], each row's
@@ -177,7 +192,7 @@ def forward_inner(
     JAX package). verify=True runs the verify step of speculative decoding:
     tokens [B, S] at positions offset .. offset + S - 1, offset [B] (the
     m = B S rows pick the GEMV, the fused MLP or the GEMM as any call
-    does)."""
+    does). lora_idx [B]: each row's adapter of a model with LoRA banks."""
     x = params.embed[tokens].to(torch.bfloat16)
     if cfg.embedding_multiplier is not None:
         x = (x.float() * cfg.embedding_multiplier).to(x.dtype)
@@ -194,7 +209,7 @@ def forward_inner(
         cache_i = caches[i] if caches is not None else None
         x, _ = decoder_layer(layer, cfg, x, positions, cos_sin, cache_i, offset,
                              use_kernels=use_kernels, a8=a8, fused_mlp=fused_mlp,
-                             verify=verify, slopes=slopes)
+                             verify=verify, slopes=slopes, lora_idx=lora_idx)
 
     if last_only:
         x = x[:, -1:, :]

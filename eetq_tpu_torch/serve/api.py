@@ -107,7 +107,7 @@ class EngineServer:
                     with outer.cond:
                         uid = outer.engine.add_request(prompt, **kwargs)
                         outer.cond.notify_all()  # wake the scheduler
-                except (ValueError, NotImplementedError) as e:  # over max_len, LoRA, ...
+                except ValueError as e:  # over max_len, bad top_k or lora_id, ...
                     return self._json(400, {"error": str(e)})
                 if not stream:
                     with outer.cond:

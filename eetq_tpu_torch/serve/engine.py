@@ -74,8 +74,15 @@ and the scratch row goes into the slot (paged: blocks granted, then cut
 into the pool). A chunk-eligible prompt queued behind a short one stays at
 the head of the queue for the next step's chunked path.
 
-Later work, which raises NotImplementedError here: banked LoRA and a
-sharded model.
+Multi-adapter LoRA serving (engine.py:712-730, 842-882): a model whose
+layer 0 carries LoRA banks (`surgery.stack_adapters`) serves one quantized
+base with a bank of adapters, each request picking its own by
+`add_request(lora_id=...)`. Admissions and chunks run each row through its
+request's adapter; the decode and spec programs read the slots' ids from a
+device tensor kept at one address beside the static state, which admission
+writes in place, so the captured graphs never read a rebound tensor.
+
+Later work, which raises NotImplementedError here: a sharded model.
 """
 
 from __future__ import annotations
@@ -179,6 +186,17 @@ class Engine:
                              f"{self.prefill_rows}")
         self.params = params
         self.cfg = cfg
+        # LoRA banks on layer 0 (adapters with a leading [n_adapters] axis):
+        # requests pick theirs by add_request(lora_id=...)
+        first = params.layers[0] if params.layers else None
+        bank = None if first is None else next(
+            (ad for ad in (first.qkv_lora, first.o_lora) if ad is not None and ad.banked), None)
+        self._lora_banked = bank is not None
+        self._n_adapters = bank.lora_a.shape[0] if bank is not None else 0
+        self.lora_ids = np.zeros((max_batch,), np.int64)
+        # the slots' ids as the programs read them: one buffer, written in place
+        self._lora_ids = (torch.zeros((max_batch,), dtype=torch.int64, device=self.device)
+                          if self._lora_banked else None)
         self.max_batch = max_batch
         self.max_len = min(max_len, cfg.max_position)
         self.buckets = tuple(sorted(b for b in prompt_buckets if b <= self.max_len)) or (
@@ -278,7 +296,11 @@ class Engine:
                 f"— construct Engine(topk_cap=...) larger"
             )
         if lora_id:
-            raise NotImplementedError("banked LoRA serving is not ported yet")
+            if not self._lora_banked:
+                raise ValueError("lora_id requires a model with adapter banks "
+                                 "(surgery.stack_adapters)")
+            if not 0 <= lora_id < self._n_adapters:
+                raise ValueError(f"lora_id {lora_id} out of range [0, {self._n_adapters})")
         r = Request(
             uid=next(self._uid),
             prompt=prompt,
@@ -286,6 +308,7 @@ class Engine:
             temperature=temperature,
             top_k=top_k,
             eos_token_id=eos_token_id,
+            lora_id=int(lora_id),
             on_token=on_token,
         )
         self.queue.append(r)
@@ -405,6 +428,12 @@ class Engine:
         self._table_np[slot, :] = 0  # point the row at the trash block
         self._table_dirty = True
 
+    def _set_lora(self, slot: int, lora_id: int) -> None:
+        """The slot's adapter id, on the host and in the programs' buffer."""
+        self.lora_ids[slot] = lora_id
+        if self._lora_banked:
+            self._lora_ids.copy_(torch.from_numpy(self.lora_ids))
+
     def _sync_tables(self) -> None:
         """Bring the device table up to date: one copy for all layers."""
         if self.paged and self._table_dirty:
@@ -426,10 +455,12 @@ class Engine:
         lens = np.ones((rows,), np.int64)  # dummy rows: 1 token, discarded
         temps = np.zeros((rows,), np.float32)
         topks = np.zeros((rows,), np.int64)
+        lids = np.zeros((rows,), np.int64)
         for row, _, req in assignments:
             n = len(req.prompt)
             toks[row, :n] = req.prompt
             lens[row] = n
+            lids[row] = req.lora_id
             if req.temperature > 0:
                 temps[row] = req.temperature
                 topks[row] = req.top_k
@@ -445,6 +476,7 @@ class Engine:
         logits, _ = forward_inner(
             self.params, self.cfg, tokens, positions, self._scratch, 0, a8=self.a8_prefill,
             last_pos=torch.as_tensor(lens - 1, device=dev),
+            lora_idx=torch.as_tensor(lids, device=dev) if self._lora_banked else None,
         )
         first = sample_rows(logits[:, -1, :], torch.as_tensor(temps, device=dev),
                             torch.as_tensor(topks, device=dev),
@@ -464,6 +496,7 @@ class Engine:
                 torch.as_tensor([slot for _, slot, _ in assignments], device=dev), upto)
         first_np = first.cpu().numpy()  # the admission's one host fetch
         for row, slot, req in assignments:
+            self._set_lora(slot, req.lora_id)
             self.slot_req[slot] = req
             self.lengths[slot] = len(req.prompt)
             tok = int(first_np[row])
@@ -502,8 +535,9 @@ class Engine:
         tokens = torch.as_tensor(toks[:, offset:offset + c], device=dev)
         positions = torch.arange(offset, offset + c, device=dev).expand(rows, c)
         last = min(max(n - 1 - offset, 0), c - 1)  # only the owning chunk's gather is kept
+        lids = (torch.full((rows,), req.lora_id, device=dev) if self._lora_banked else None)
         logits, _ = forward_inner(self.params, self.cfg, tokens, positions, self._scratch, offset,
-                                  last_pos=torch.full((rows,), last, device=dev))
+                                  last_pos=torch.full((rows,), last, device=dev), lora_idx=lids)
         if offset <= n - 1 < offset + c:
             last_logits = logits[:1, -1, :]
         done += 1
@@ -524,6 +558,7 @@ class Engine:
         else:
             self._insert_scratch(0, slot, min(bucket, self.max_len))
         tok = int(first[0])  # the chunked prefill's one host fetch
+        self._set_lora(slot, req.lora_id)
         self.lengths[slot] = n
         self.next_token[slot] = tok
         self._commit(slot, tok)
@@ -563,13 +598,13 @@ class Engine:
             tok, lens, topks = self._state
             cap = self.topk_cap if sample else 0
             # the step holds what it reads, not the engine (no reference cycle)
-            params, cfg, caches, temps, rng = (self.params, self.cfg, self.caches, self._temps,
-                                               self._rng)
+            params, cfg, caches, temps, rng, lora = (self.params, self.cfg, self.caches,
+                                                     self._temps, self._rng, self._lora_ids)
 
             def run():
                 for j in range(window):
                     logits, _ = forward_inner(params, cfg, tok[:, None], lens[:, None], caches,
-                                              lens)
+                                              lens, lora_idx=lora)
                     logits = logits[:, -1, :]
                     nxt = (sample_rows(logits, temps, topks, cap, rng) if sample
                            else torch.argmax(logits, dim=-1))
@@ -594,7 +629,7 @@ class Engine:
             self._spec_programs[key] = NgramWindow(
                 self.params, self.cfg, self.caches, self.max_batch,
                 self.max_len + window + 2 * k + 2, window, k, self.device, sampled=sample,
-                topk_cap=self.topk_cap if sample else 0)
+                topk_cap=self.topk_cap if sample else 0, lora_ids=self._lora_ids)
         return self._spec_programs[key]
 
     def _spec_decode(self, active: list[int], window: int, temps: np.ndarray,

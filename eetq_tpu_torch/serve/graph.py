@@ -35,6 +35,7 @@ call would have done.
 
 from __future__ import annotations
 
+import gc
 import time
 from collections.abc import Callable
 
@@ -103,13 +104,22 @@ class StepGraph:
         # allocator's cache: every capture would free the cached blocks of
         # the prefills, and the next admission allocate them anew.
         # thread_local: the HTTP front end's threads may call the CUDA API
-        # while the scheduler thread captures.
-        with torch.cuda.stream(self._stream):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.fn()
-            finally:
-                graph.capture_end()
+        # while the scheduler thread captures. The cyclic collector stays off
+        # meanwhile: a collection may free another graph (an engine behind a
+        # stopped server lives in a reference cycle), and a graph destroyed
+        # during a capture invalidates it.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.fn()
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_ms = 1e3 * (time.perf_counter() - t0)
         after = launch_counts()
         self.counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}

@@ -57,13 +57,14 @@ from eetq_tpu_torch.serve.graph import StepGraph
 from eetq_tpu_torch.serve.sampling import row_keys, sample_pos, sample_pos_rows
 
 
-def _verify_forward(params, cfg, tokens, start, caches, fused_mlp=None):
+def _verify_forward(params, cfg, tokens, start, caches, fused_mlp=None, lora_idx=None):
     """tokens [B, S] at per-row positions start .. start + S - 1 (start
-    [B]). Returns (logits [B, S, V], caches)."""
+    [B]); lora_idx [B] each row's adapter of a model with LoRA banks.
+    Returns (logits [B, S, V], caches)."""
     s = tokens.shape[1]
     positions = start[:, None] + torch.arange(s, device=start.device)
     return forward_inner(params, cfg, tokens, positions, caches, start, verify=True,
-                         fused_mlp=fused_mlp)
+                         fused_mlp=fused_mlp, lora_idx=lora_idx)
 
 
 def _ngram_match(hist: torch.Tensor, valid: torch.Tensor, last: torch.Tensor,
@@ -377,11 +378,14 @@ class NgramWindow:
     otherwise every row takes its argmax. fused_mlp goes to the verify
     forward (`ngram_spec_decode_loop` passes its caller's; the engine
     leaves it to the model). `accepted` counts the drafts accepted by rows
-    still short of their window."""
+    still short of their window. lora_ids [batch]: each slot's adapter of a
+    model with LoRA banks, a tensor the caller keeps at one address and
+    writes in place (the replayed round reads it there, `spec.py:529-540`)."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig, caches, batch: int,
                  hist_len: int, window: int, k: int, device, sampled: bool = False,
-                 topk_cap: int = 0, fused_mlp: bool | None = None):
+                 topk_cap: int = 0, fused_mlp: bool | None = None,
+                 lora_ids: torch.Tensor | None = None):
         dev = torch.device(device)
         i64 = dict(dtype=torch.int64, device=dev)
         self.window, self.k = window, k
@@ -410,7 +414,8 @@ class NgramWindow:
         def round_():
             drafts = _ngram_match(hist, valid, last, k)
             t_in = torch.cat([last[:, None], drafts], dim=1)
-            logits, _ = _verify_forward(params, cfg, t_in, lengths + m, caches, fused_mlp)
+            logits, _ = _verify_forward(params, cfg, t_in, lengths + m, caches, fused_mlp,
+                                        lora_ids)
             if sampled:
                 g = sample_pos_rows(logits, (emit0 + m)[:, None] + ar, keys, temps, topks,
                                     topk_cap)

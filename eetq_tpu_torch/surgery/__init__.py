@@ -1,6 +1,6 @@
-"""Port of `eetq_tpu.surgery`: fusion and one-line quantization. LoRA
-(`lora.py`) and the offline tensor-parallel reshard (`tp_reshard.py`) are
-not ported."""
+"""Port of `eetq_tpu.surgery`: fusion, LoRA (attach, merge, stack into
+banks) and one-line quantization. The offline tensor-parallel reshard
+(`tp_reshard.py`) is not ported."""
 
 from eetq_tpu_torch.surgery.fusion import (
     fuse_columns,
@@ -8,6 +8,7 @@ from eetq_tpu_torch.surgery.fusion import (
     fuse_qkv,
     split_quant_columns,
 )
+from eetq_tpu_torch.surgery.lora import attach_lora, init_lora, merge_lora, stack_adapters
 from eetq_tpu_torch.surgery.quantize import eet_accelerator, eet_quantize
 
 __all__ = [
@@ -15,6 +16,10 @@ __all__ = [
     "split_quant_columns",
     "fuse_qkv",
     "fuse_gateup",
+    "attach_lora",
+    "init_lora",
+    "merge_lora",
+    "stack_adapters",
     "eet_quantize",
     "eet_accelerator",
 ]

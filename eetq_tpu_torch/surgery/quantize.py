@@ -53,7 +53,8 @@ def eet_quantize(
         mlp = dict(moe=moe) if moe is not None else dict(
             gateup=linear(f"{pfx}.gateup", lp.gateup), down=linear(f"{pfx}.down", lp.down))
         return LayerParams(lp.input_norm, linear(f"{pfx}.qkv", lp.qkv),
-                           linear(f"{pfx}.o_proj", lp.o_proj), lp.post_norm, **mlp)
+                           linear(f"{pfx}.o_proj", lp.o_proj), lp.post_norm,
+                           qkv_lora=lp.qkv_lora, o_lora=lp.o_lora, **mlp)
 
     layers = [layer(i, lp) for i, lp in enumerate(params.layers)]
     return ModelParams(params.embed, layers, params.final_norm,

@@ -77,7 +77,7 @@ def test_bad_requests_answer_400(server):
     r = _post(conn, "/generate", {"max_new_tokens": 4})
     assert r.status == 400 and "bad request" in json.loads(r.read())["error"]
     r = _post(conn, "/generate", {"prompt": [1, 2], "max_new_tokens": 4, "lora_id": 1})
-    assert r.status == 400 and "LoRA" in json.loads(r.read())["error"]
+    assert r.status == 400 and "adapter banks" in json.loads(r.read())["error"]
     r = _post(conn, "/nope", {"prompt": [1]})
     assert r.status == 404 and json.loads(r.read()) == {"error": "not found"}
 
@@ -102,3 +102,30 @@ def test_concurrent_requests_batch(params, server):
         t.join(timeout=600)
     for i in range(4):
         assert results[i] == _greedy(params, prompts[i], budgets[i])
+
+
+def test_lora_id_served_on_a_banked_model(params):
+    """A model with LoRA banks serves the request's `lora_id`: the tokens are
+    the engine's own for that adapter, not the base's; an id past the bank
+    answers 400 with the engine's message."""
+    from eetq_tpu_torch.surgery import attach_lora, stack_adapters
+
+    gen = torch.Generator().manual_seed(2)
+    singles = [attach_lora(params, 4, gen) for _ in range(2)]
+    for lp in singles[1].layers:
+        for ad in (lp.qkv_lora, lp.o_lora):
+            ad.lora_b.normal_(0, 0.2, generator=gen)
+    bank = stack_adapters(singles)
+    prompt = [3, 17, 42, 9]
+    want = Engine(bank, CFG, **KW).generate_all([prompt], 8, lora_id=1)[0]
+    assert want != _greedy(params, prompt, 8)
+    srv = EngineServer(Engine(bank, CFG, **KW), port=0)
+    srv.start()
+    try:
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=300)
+        r = _post(conn, "/generate", {"prompt": prompt, "max_new_tokens": 8, "lora_id": 1})
+        assert r.status == 200 and json.loads(r.read())["tokens"] == want
+        r = _post(conn, "/generate", {"prompt": prompt, "max_new_tokens": 8, "lora_id": 2})
+        assert r.status == 400 and "out of range" in json.loads(r.read())["error"]
+    finally:
+        srv.shutdown()

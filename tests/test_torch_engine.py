@@ -146,7 +146,7 @@ def test_overflow_and_unported_options_rejected(params):
         eng.add_request([1, 2], max_new_tokens=0)
     with pytest.raises(ValueError):  # top_k above the engine's cap
         eng.add_request([1, 2], 4, temperature=0.7, top_k=eng.topk_cap + 1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="adapter banks"):  # no LoRA banks on this model
         eng.add_request([1, 2], 4, lora_id=1)
     for kw in (dict(prefill_chunk=8),):  # chunked prefill is served (test_torch_chunked_prefill.py)
         assert Engine(params, CFG, max_batch=2, max_len=64, **kw).prefill_chunk == 8

@@ -1753,3 +1753,162 @@ def test_load_quantized_defaults_to_the_card(dev, tmp_path):
                 AutoEETQForCausalLM.from_quantized(str(tmp_path)).params):
         assert all(b.is_cuda for b in got.buffers())
         _assert_as_stored(params, got)
+
+
+# ---- the GEMMs' fused epilogue and multi-adapter LoRA ----
+
+EPILOGUES = ("relu", "gelu", "silu", "add", "mul")
+EPI_KERNELS = {"w8a16_gemv": (w8a16_gemv, 8), "w4a16_gemv": (w4a16_gemv, 4),
+               "w8a16_gemm": (w8a16_gemm, 8), "w4a16_gemm": (w4a16_gemm, 4),
+               "w8a8_gemm": (w8a8_gemm, 8), "w4a8_gemm": (w4a8_gemm, 4)}
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("group", [None, 64], ids=["per-channel", "g64"])
+@pytest.mark.parametrize("name", list(EPI_KERNELS))
+@pytest.mark.parametrize("n", [384, 300])
+def test_epilogue_against_plain(dev, name, group, epilogue, n):
+    """act(x W s + bias) [+|*] residual against the plain version, in every
+    kernel of the three GEMM families (GEMV m = 1 and 8, K split across blocks
+    at N = 384; GEMM and W8A8 / W4A8 at m = 200, N = 300 through the scalar
+    stores); W8A8 without a transcendental bit-equal; the GEMV's repeats
+    bit-equal; the launch counted as the variant "epilogue"."""
+    kernel, bits = EPI_KERNELS[name]
+    if name == "w8a8_gemm" and group is not None:
+        pytest.skip("group-wise W8A8 has no kernel (it stays on the W8A16 path)")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    k = 512
+    lo, hi = (-127, 128) if bits == 8 else (-8, 8)
+    q = torch.randint(lo, hi, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    shape = (n,) if group is None else (k // group, n)
+    sc = torch.rand(shape, generator=gen, device=dev) * 2e-3 + 1e-4
+    bias = (0.1 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+    epi = (dict(activation=epilogue) if epilogue in ("relu", "gelu", "silu")
+           else dict(residual_mode=epilogue))
+    for m in ((1, 8) if "gemv" in name else (200,)):
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        if "residual_mode" in epi:
+            epi["residual"] = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+        before = dict(kernel.variant_launches)
+        if name.endswith("a8_gemm"):
+            xq, sx = quantize_activations(x)
+            xq = torch.nn.functional.pad(xq, (0, data.shape[0] * (8 // bits) - k)).contiguous()
+            qp = torch.nn.functional.pad(q, (0, 0, 0, xq.shape[1] - k))
+            grp = {} if bits == 8 else dict(group_size=group)
+            out = kernel(xq, sx, data, sc, n, bias, **grp, **epi)
+            ref = w8a8_gemm_ref(xq, sx, qp, sc, n, bias, group_size=group, **epi)
+        else:
+            out = kernel(x, data, sc, n, bias, **epi)
+            ref = w8a16_matmul_ref(x, q, sc, bias, **epi)
+        assert kernel.variant_launches["epilogue"] == before["epilogue"] + 1
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2.0 ** -6 * ref.float().abs().max().item(), (m, err)
+        if name == "w8a8_gemm" and epilogue in ("relu", "add", "mul"):
+            assert torch.equal(out, ref)
+        if "gemv" in name:
+            again = kernel(x, data, sc, n, bias, **epi)
+            assert torch.equal(out, again)
+            row = kernel(x[3:4] if m == 8 else x, data, sc, n, bias,
+                         **{key: (v[3:4] if m == 8 and key == "residual" else v)
+                            for key, v in epi.items()})
+            assert torch.equal(row[0], out[3 if m == 8 else 0])
+
+
+def test_epilogue_wrappers_raise_on_the_card(dev):
+    """A CUDA tensor with an epilogue reaches the kernel or raises: no plain
+    fallback."""
+    q = torch.randint(-127, 128, (256, 256), device=dev, dtype=torch.int8)
+    sc = torch.ones(256, device=dev)
+    x = torch.ones(4, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError, match="residual"):
+        w8a16_gemv(x, q, sc, 256, residual=torch.ones(4, 256, device=dev))  # f32
+    res = torch.randn(4, 257, device=dev).to(torch.bfloat16)[:, 1:]  # not contiguous
+    with pytest.raises(TypeError, match="residual"):
+        w8a16_gemv(x, q, sc, 256, residual=res)
+    with pytest.raises(TypeError, match="residual"):
+        w8a16_gemm(torch.ones(40, 256, dtype=torch.bfloat16, device=dev), q, sc, 256,
+                   residual=torch.ones(4, 256, dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError, match="activation"):
+        w8a16_gemm(x, q, sc, 256, activation="tanh")
+
+
+def _lora_toy(dev):
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.init import quantize_params, random_dense_params
+    from eetq_tpu_torch.surgery import attach_lora, stack_adapters
+
+    # the toy preset's head dim 32 has no CUDA attention kernel
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=64, max_position=512)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = quantize_params(random_dense_params(cfg, gen), quantize_lm_head=True)
+    singles = []
+    for i in range(3):
+        adapted = attach_lora(base, 8, gen)  # adapter 0 keeps B = 0
+        for lp in adapted.layers if i else ():
+            for ad in (lp.qkv_lora, lp.o_lora):
+                ad.lora_b.normal_(0, 0.05 * i, generator=gen)
+        singles.append(adapted)
+    return cfg, base, singles, stack_adapters(singles)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(paged_blocks=9, paged_block_size=128),
+                                dict(spec_ngram=3)], ids=["dense", "paged", "spec"])
+def test_lora_engine_on_the_card(dev, kw):
+    """A bank behind the engine on the card (captured windows of 8): each
+    request's tokens equal those of the same engine serving it alone, slots
+    recycled with new ids between windows included (a stale id in the
+    captured graphs would part them); the ids' buffer keeps its address and
+    holds the host's ids; every adapter moves some request off the base."""
+    from eetq_tpu_torch.serve.engine import Engine
+
+    cfg, base, _, bank = _lora_toy(dev)
+    prompts = [[3 + i, 17, 42, 9, 3, 17 + i] for i in range(6)]
+    ids = [1, 2, 0, 2, 1, 2]
+    make = lambda p: Engine(p, cfg, max_batch=2, max_len=128,  # noqa: E731
+                            prompt_buckets=(8, 16), **kw)
+    eng = make(bank)
+    buf = eng._lora_ids
+    uids = [eng.add_request(p, 20, lora_id=i) for p, i in zip(prompts, ids)]
+    eng.run()
+    got = [eng.result(u) for u in uids]
+    assert eng._lora_ids is buf and eng._lora_ids.tolist() == eng.lora_ids.tolist()
+    alone = []
+    for p, i in zip(prompts, ids):
+        e = make(bank)
+        alone.append(e.generate_all([p], 20, lora_id=i)[0])
+    assert got == alone
+    plain = make(base).generate_all(prompts, 20)
+    for a in (1, 2):
+        assert any(g != b for g, b, i in zip(got, plain, ids) if i == a)
+    assert all(g == b for g, b, i in zip(got, plain, ids) if i == 0)  # B = 0
+
+
+def test_capture_survives_a_collection_of_another_graph(dev):
+    """A captured graph left in a reference cycle (as an engine behind a
+    stopped HTTP server is) is freed by the cyclic collector; a capture
+    during which a collection would run must not destroy it mid-capture
+    (the capture is then invalidated)."""
+    import gc
+
+    from eetq_tpu_torch.serve.graph import StepGraph
+
+    x = torch.zeros(1024, device=dev)
+    old = StepGraph(lambda: x.add_(1), dev)
+    old()
+    old()  # warmed, captured, replayed
+    cycle = [old]
+    cycle.append(cycle)
+    del old, cycle
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)  # a collection at (nearly) every allocation
+    try:
+        step = StepGraph(lambda: x.copy_(x * 2 + torch.ones_like(x)), dev)
+        step()
+        step()
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert step.captured and bool(torch.isfinite(x).all())
