@@ -122,6 +122,12 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      lengths and budgets from several threads; one admission's logits
      against the plain path; `w8a16_gemm` must not launch; the greedy
      requests' tokens equal those of an `Engine(decode_window=1)` twin.
+   - text_server: the same default engine behind `EngineServer(tokenizer=)`,
+     a byte-level BPE of 32,000 ids made from seeded words
+     (`text_tokenizer`); 4 greedy text prompts from threads (one streamed):
+     their tokens equal those of the prompts sent as ids, "text" equal to
+     decode(tokens), the stream's text deltas concatenated to its text; a
+     server without a tokenizer answers a text prompt 400.
    - paged_server: `Engine(..., paged_blocks=41)` (40 blocks of 256 tokens
      and the trash block) behind the same server and requests. It must
      resolve to W8A8 prefill and a bf16 pool; the paged flash-decode kernel
@@ -243,7 +249,13 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    Each directory is deleted after its model.
 
 9. LoRA (the `lora` phase, after 8): llama2-7b W8A16 with an int8 lm_head
-   at full width and depth. epilogue_linear: `linear_apply(activation=,
+   at full width and depth. eval_ppl (`serve/eval.py`, while the bf16 model
+   the W8A16 one is quantized from is still held): `delta_ppl` over 4
+   seeded windows of 2048 tokens (random weights: PPL and ΔPPL printed,
+   unbounded), the W8A16 kernel path's mean NLL within EVAL_NLL_TOL nats of
+   its plain path's and its perplexity within EVAL_MANUAL_RTOL of a
+   straight-line per-window cross-entropy, ms a window and tokens/s.
+   epilogue_linear: `linear_apply(activation=,
    residual=)` and `w8a16_matmul(residual_mode="mul")` on layer 0's gate|up
    and o_proj, int8 and requantized to int4 g = 128, at m = 1, 8, 1024 and
    a8, against the plain path (every epilogue variant must launch). Then a
@@ -251,7 +263,17 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    (`surgery.stack_adapters`; its single-adapter twins are slices of the
    bank over the same base, no copy): lora_prefill (b = 4 prompts of 1024
    tokens, row i on adapter i, every position's logits against twin i's and
-   the plain path; the bank's prefill and the base's timed in turns); the
+   the plain path; the bank's prefill and the base's timed in turns);
+   lora_train: LoRA finetuning through the autograd Functions around the
+   GEMM and the prefill flash-attention (`ops/linear.py::DequantMatmul`,
+   `kernels/flash_attention.py::FlashAttention`): twin 0's adapters cloned,
+   b = 1 x 1024 seeded tokens, next-token cross-entropy, every adapter
+   tensor's gradient finite, nonzero and within TRAIN_TOL of the plain
+   path's at full depth, only the GEMM and the flash-attention launched; ms
+   a forward + backward (the forward and the backward apart), training
+   tokens/s, peak GB, the backward's device ms on the attention and on the
+   linears (CUDA events around each call of their backward), and
+   TRAIN_STEPS SGD steps that must lower the loss; the
    side path's kernel launches and device ms in an eager 8-slot decode step
    (torch.profiler, bank against base); lora_server (dense int8),
    lora_paged_server (a bf16 pool) and lora_spec_server (`spec_ngram=3`),
@@ -553,6 +575,23 @@ LORA_MERGE_ID = 2
 # merged against the bank at its id, prefill logits: the bounds of the JAX
 # package's test_merge_lora_matches_adapter_model (mean |diff|, argmax share)
 LORA_MERGE_MEAN, LORA_MERGE_ARGMAX = 0.05, 0.9
+# eval_ppl (the lora phase, on its bf16 llama2-7b and W8A16 base):
+# `serve/eval.py::delta_ppl` over EVAL_WINDOWS seeded windows of EVAL_WINDOW
+# tokens; the W8A16 kernel path's mean NLL within EVAL_NLL_TOL nats of its
+# plain path's, and its perplexity within EVAL_MANUAL_RTOL of a straight-line
+# per-window cross-entropy
+EVAL_WINDOW, EVAL_WINDOWS = 2048, 4
+EVAL_NLL_TOL, EVAL_MANUAL_RTOL = 0.01, 1e-4
+# lora_train: twin 0's adapters, cloned, trained on one seeded batch of
+# TRAIN_TOKENS tokens (next-token cross-entropy over the f32 logits); every
+# adapter tensor's gradient within TRAIN_TOL (the max error over the largest
+# value, `tests/test_flash_attention.py:194-197`) of the plain path's; then
+# TRAIN_STEPS plain SGD steps on f32 copies of the adapters, at the rate whose
+# first step the gradient predicts to lower the loss by TRAIN_DECREASE of it
+TRAIN_TOKENS, TRAIN_TOL, TRAIN_STEPS, TRAIN_DECREASE = 1024, 5e-2, 5, 0.01
+# text_server (the llama phase): a byte-level BPE tokenizer made from seeded
+# words, each request (words in its prompt, new tokens, streamed or not)
+TEXT_REQUESTS = ((40, 16, False), (150, 24, True), (300, 32, False), (600, 16, False))
 # The sources behind w8a16_gemm, w4a16_gemm, w8a8_gemm, w4a8_gemm and the
 # prefill flash-attention (all its instances, head dim 256's too): a C7520
 # warning of ptxas for any of them fails the run (the grouped GEMM's
@@ -655,6 +694,13 @@ PATH_KERNELS.update({
     "lora_paged_server": _LORA_SERVE + ("paged_flash_decode",),
     "lora_spec_server": _LORA_SERVE + ("flash_decode_int8",),
     "lora_merge": ("w8a16_gemm", "flash_attention_fwd"),
+    # perplexity (prefill windows, the dense model's attention too) and the
+    # training step: the GEMM and the prefill flash-attention under their
+    # autograd Functions; the backward launches no kernel of csrc/
+    "eval_ppl": ("w8a16_gemm", "flash_attention_fwd"),
+    "lora_train": ("w8a16_gemm", "flash_attention_fwd"),
+    # the default engine behind a server with a tokenizer
+    "text_server": PATH_KERNELS["server"],
 })
 # The entry points of the decode GEMV (`csrc/gemv.cuh`)
 GEMV_FAMILY = ("w8a16_gemv", "w4a16_gemv", "w8a16_expert_gemv", "w4a16_expert_gemv",
@@ -822,6 +868,11 @@ PATH_IDLE.update({
     "checkpoint_dense_import": tuple(k for k in REPLACES if "[" not in k and k not in
                                      PATH_KERNELS["checkpoint_dense_import"]),
     "checkpoint_mixtral": PATH_IDLE["mixtral_generate"] + ("w8a8_gemm",),
+})
+PATH_IDLE.update({
+    "text_server": PATH_IDLE["server"],
+    **{path: tuple(k for k in REPLACES if "[" not in k and k not in PATH_KERNELS[path])
+       for path in ("eval_ppl", "lora_train")},
 })
 PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "lora", "int4", "mixtral",
           "mixtral_int4", "families")
@@ -2416,6 +2467,130 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
                 engine_step=step, twin=twin, spec=spec_run)
 
 
+def text_tokenizer(vocab_size: int, seed: int):
+    """A byte-level BPE `Tokenizer` of at most `vocab_size` ids: the 256 byte
+    symbols, then the prefixes of seeded words (half of them after the
+    byte-level space 'Ġ'), each prefix one merge, and one special token
+    "<|end|>" as the last id; and the seeded words themselves."""
+    import random
+
+    from eetq_tpu_torch.serve.tokenizer import Tokenizer, _bytes_to_unicode
+
+    rng = random.Random(seed)
+    b2u = _bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    merges, words = [], []
+    while len(vocab) < vocab_size - 1:
+        word = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz") for _ in range(rng.randint(2, 9)))
+        words.append(word)
+        symbol = ("Ġ" if rng.random() < 0.5 else "") + word
+        for i in range(2 if symbol[0] == "Ġ" else 1, len(symbol)):
+            if symbol[:i + 1] in vocab or len(vocab) == vocab_size - 1:
+                continue
+            merges.append(f"{symbol[:i]} {symbol[i]}")
+            vocab[symbol[:i + 1]] = len(vocab)
+    vocab["<|end|>"] = len(vocab)
+    spec = {"model": {"type": "BPE", "vocab": vocab, "merges": merges},
+            "added_tokens": [{"id": vocab["<|end|>"], "content": "<|end|>", "special": True}],
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False},
+            "decoder": {"type": "ByteLevel"}}
+    return Tokenizer(spec), words
+
+
+def text_server_path(params, cfg, dev, gen) -> dict:
+    """The default engine (W8A8 admission, int8 KV, window 8) behind a server
+    holding a byte-level BPE tokenizer of cfg.vocab_size ids
+    (`text_tokenizer`): TEXT_REQUESTS greedy text prompts from threads, one
+    streamed. Each answer's tokens must equal those of the same prompt sent
+    as ids, its "text" decode(tokens), the stream's text deltas concatenated
+    its final text; a server without a tokenizer answers a text prompt 400."""
+    import torch
+
+    from eetq_tpu_torch.serve.api import EngineServer
+    from eetq_tpu_torch.serve.engine import Engine
+
+    tok, words = text_tokenizer(cfg.vocab_size, SEED + 20)
+    check(tok.vocab_size <= cfg.vocab_size, f"tokenizer of {tok.vocab_size} ids")
+    prompts = []
+    for n_words, _, _ in TEXT_REQUESTS:
+        picks = torch.randint(0, len(words), (n_words,), generator=gen, device=dev).tolist()
+        prompts.append(" ".join(words[i] for i in picks) + ", héllo ☃ 42!")
+    eng = Engine(params, cfg, max_batch=8, max_len=2048)
+    eng.warmup()
+
+    def serve(srv, bodies, raw: bool = False):
+        results, errors = {}, []
+
+        def worker(i):
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=SERVE_TIMEOUT_S)
+            try:
+                conn.request("POST", "/v1/completions", json.dumps(bodies[i]),
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                results[i] = (r.status, r.read())
+            except Exception as e:  # reported below, fails the run
+                errors.append(f"request {i}: {e!r}")
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_TIMEOUT_S)
+        check(not errors and len(results) == len(bodies), f"text requests failed: {errors}")
+        return results
+
+    text_bodies = [{"prompt": p, "max_new_tokens": n, "stream": st}
+                   for p, (_, n, st) in zip(prompts, TEXT_REQUESTS)]
+    id_bodies = [{"prompt": tok.encode(p), "max_new_tokens": n}
+                 for p, (_, n, _) in zip(prompts, TEXT_REQUESTS)]
+    srv = EngineServer(eng, host="127.0.0.1", port=0, tokenizer=tok)
+    srv.start()
+    try:
+        t0 = time.perf_counter()
+        answers, counts = counted("text_server", lambda: serve(srv, text_bodies))
+        wall_s = time.perf_counter() - t0
+        by_ids = serve(srv, id_bodies)
+    finally:
+        srv.shutdown()
+    texts = []
+    for i, body in enumerate(text_bodies):
+        status, data = answers[i]
+        check(status == 200, f"text request {i} answered {status}: {data[:200]!r}")
+        if body["stream"]:
+            events = [json.loads(line[len(b"data: "):]) for line in data.split(b"\n\n")
+                      if line.startswith(b"data: ")]
+            toks = [t for ev in events for t in ev["tokens"]]
+            text = "".join(ev["text"] for ev in events)
+            check(events[-1]["done"], f"text request {i}: the stream did not end")
+        else:
+            out = json.loads(data)
+            toks, text = out["tokens"], out["text"]
+        want = json.loads(by_ids[i][1])["tokens"]
+        check(len(toks) == body["max_new_tokens"] and toks == want,
+              f"text request {i}: tokens {toks} against {want} from the prompt as ids")
+        check(text == tok.decode(toks), f"text request {i}: text {text!r} is not decode(tokens)")
+        texts.append(text)
+    srv = EngineServer(eng, host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        status, data = serve(srv, [{"prompt": prompts[0], "max_new_tokens": 4}])[0]
+    finally:
+        srv.shutdown()
+    check(status == 400 and b"tokenizer" in data, f"a server without a tokenizer answered {status}")
+    prompt_tokens = [len(b["prompt"]) for b in id_bodies]
+    print(f"  text_server: a byte-level BPE of {tok.vocab_size} ids; {len(text_bodies)} text "
+          f"prompts of {prompt_tokens} tokens ({sum(b['stream'] for b in text_bodies)} "
+          f"streamed) answered in {wall_s:.2f} s, tokens equal to the prompts sent as ids, text "
+          f"= decode(tokens), the stream's deltas its text; 400 without a tokenizer; first "
+          f"answer {texts[0][:60]!r}")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(counts=counts, prompt_tokens=prompt_tokens, wall_s=wall_s,
+                vocab=tok.vocab_size, texts=texts)
+
+
 def near_tie(params, cfg, dev, ids: list[int], spec_tok: int, twin_tok: int) -> dict:
     """The next-token logits after `ids` by one forward on the kernel path:
     a near tie of spec_tok and twin_tok when each is at most SPEC_TIE_ULPS
@@ -2949,6 +3124,8 @@ def model_phase(dev, profile: bool = False) -> dict:
         params, cfg, dev, gen, "chunked_paged_server",
         dict(paged_blocks=CHUNKED_ENGINE_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE))
     paths["server"] = server_path(params, cfg, dev, gen, twin_kw=dict(decode_window=1))
+    paths["text_server"] = text_server_path(params, cfg, dev,
+                                            torch.Generator(device=dev).manual_seed(SEED + 20))
     paged = dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE)
     paths["paged_server"] = server_path(params, cfg, dev, gen, "paged_server", paged,
                                         twin_kw=dict(kv_dtype=torch.bfloat16, decode_window=1))
@@ -3764,10 +3941,207 @@ def lora_merge_path(bank, twins, base, cfg, dev, gen) -> dict:
                 merge_s=merge_s)
 
 
+def eval_ppl_path(dense, base, cfg, dev, gen) -> dict:
+    """`serve/eval.py` on MODEL: `delta_ppl` of the bf16 model and its W8A16
+    copy over EVAL_WINDOWS seeded windows of EVAL_WINDOW tokens (random
+    weights: ΔPPL has no bound), the W8A16 kernel path's mean NLL against its
+    plain path's (EVAL_NLL_TOL nats) and its perplexity against a
+    straight-line per-window cross-entropy in float64 (EVAL_MANUAL_RTOL); then
+    the W8A16 perplexity timed (median of 3)."""
+    import math
+
+    import torch
+
+    from eetq_tpu_torch.models.transformer import forward_inner
+    from eetq_tpu_torch.serve.eval import delta_ppl, perplexity
+
+    n = EVAL_WINDOW * EVAL_WINDOWS
+    ids = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).cpu().numpy()
+    r, counts = counted("eval_ppl", lambda: delta_ppl(dense, base, cfg, ids, window=EVAL_WINDOW))
+    check(all(math.isfinite(v) for v in r.values()), f"eval_ppl: {r}")
+    plain = perplexity(base, cfg, ids, window=EVAL_WINDOW, use_kernels=False)
+    nll_gap = abs(math.log(r["ppl_quant"]) - math.log(plain))
+    total = 0.0
+    pos = torch.arange(EVAL_WINDOW, device=dev)[None]
+    with torch.inference_mode():
+        for i in range(0, n, EVAL_WINDOW):
+            chunk = torch.from_numpy(ids[i:i + EVAL_WINDOW]).to(dev)[None]
+            logits, _ = forward_inner(base, cfg, chunk, pos, None, 0)
+            logp = torch.log_softmax(logits[0, :-1].double(), dim=-1)
+            total -= float(logp.gather(-1, chunk[0, 1:, None]).sum())
+    manual = math.exp(total / (n - EVAL_WINDOWS))
+    manual_rel = abs(r["ppl_quant"] - manual) / manual
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perplexity(base, cfg, ids, window=EVAL_WINDOW)
+        runs.append(time.perf_counter() - t0)
+    sec = statistics.median(runs)
+    out = dict(counts=counts, **r, ppl_quant_plain=plain, nll_gap=nll_gap, ppl_manual=manual,
+               manual_rel=manual_rel, ms_per_window=1e3 * sec / EVAL_WINDOWS,
+               tokens_per_s=n / sec, runs_s=runs)
+    print(f"  eval_ppl over {EVAL_WINDOWS} windows of {EVAL_WINDOW} seeded tokens: PPL dense "
+          f"{r['ppl_dense']:.4f}, W8A16 {r['ppl_quant']:.4f}, ΔPPL {r['delta_ppl']:+.4f} "
+          f"(random weights: no bound); W8A16 plain path {plain:.4f}, mean NLL apart by "
+          f"{nll_gap:.2e} nats (tol {EVAL_NLL_TOL}); straight-line {manual:.4f}, relative "
+          f"{manual_rel:.2e} (tol {EVAL_MANUAL_RTOL}); {out['ms_per_window']:.2f} ms a window, "
+          f"{out['tokens_per_s']:.0f} tokens/s (median of 3: {['%.3f s' % v for v in runs]})")
+    check(nll_gap <= EVAL_NLL_TOL, f"eval_ppl: the kernel path's mean NLL is {nll_gap:.3e} nats "
+                                   "from the plain path's")
+    check(manual_rel <= EVAL_MANUAL_RTOL, f"eval_ppl: perplexity {r['ppl_quant']} against the "
+                                          f"straight-line {manual}")
+    return out
+
+
+@contextlib.contextmanager
+def backward_timers(ms: dict):
+    """Record CUDA events around every call of the backward of `DequantMatmul`
+    ("linears") and of `FlashAttention` ("attention"); on exit, after a
+    synchronize, ms[name] is the sum of the ms between each pair (the
+    device's timeline on the stream both run on)."""
+    import torch
+
+    from eetq_tpu_torch.kernels.flash_attention import FlashAttention
+    from eetq_tpu_torch.ops.linear import DequantMatmul
+
+    saved = {DequantMatmul: (DequantMatmul.backward, "linears"),
+             FlashAttention: (FlashAttention.backward, "attention")}
+    pairs = {name: [] for _, name in saved.values()}
+
+    def timed(fn, name):
+        def backward(ctx, *grads):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(ctx, *grads)
+            end.record()
+            pairs[name].append((start, end))
+            return out
+        return staticmethod(backward)
+
+    for cls, (fn, name) in saved.items():
+        cls.backward = timed(fn, name)
+    try:
+        yield
+    finally:
+        for cls, (fn, _) in saved.items():
+            cls.backward = staticmethod(fn)
+    torch.cuda.synchronize()
+    ms.update({name: sum(a.elapsed_time(b) for a, b in ab) for name, ab in pairs.items()})
+
+
+def lora_train_path(twin, cfg, dev, gen) -> dict:
+    """LoRA finetuning on MODEL W8A16: `twin`'s adapters on qkv and o_proj of
+    every layer, cloned (the twins are slices of the serving bank), set to
+    requires_grad_(); one seeded batch of TRAIN_TOKENS tokens, next-token
+    cross-entropy over the f32 logits, `forward_inner` (caches=None) and
+    `torch.autograd.grad`. Every adapter tensor's gradient finite, nonzero and
+    within TRAIN_TOL of the plain path's (use_kernels=False, full depth, on
+    the card); the step timed (median of 3 after a warm-up; the forward and
+    the backward by CUDA events), its peak memory, and in one more step the
+    backward's device time on the attention and on the linears
+    (`backward_timers`); then TRAIN_STEPS SGD steps must lower the batch's
+    loss."""
+    import torch
+
+    from eetq_tpu_torch.models.transformer import ModelParams, forward_inner
+    from eetq_tpu_torch.modules.linear import LoraAdapter
+    from eetq_tpu_torch.surgery.lora import replace_layer
+
+    def clone(ad):
+        return LoraAdapter(ad.lora_a.clone(), ad.lora_b.clone(), ad.scaling)
+
+    params = ModelParams(twin.embed, [replace_layer(lp, qkv_lora=clone(lp.qkv_lora),
+                                                    o_lora=clone(lp.o_lora))
+                                      for lp in twin.layers], twin.final_norm, twin.lm_head)
+    bank_b = twin.layers[-1].o_lora.lora_b.clone()
+    leaves = [getattr(ad, name).requires_grad_() for lp in params.layers
+              for ad in (lp.qkv_lora, lp.o_lora) for name in ("lora_a", "lora_b")]
+    toks = torch.randint(0, cfg.vocab_size, (1, TRAIN_TOKENS), generator=gen, device=dev)
+    pos = torch.arange(TRAIN_TOKENS, device=dev)[None]
+
+    def step(use: bool = True):
+        logits, _ = forward_inner(params, cfg, toks, pos, None, 0, use_kernels=use)
+        loss = torch.nn.functional.cross_entropy(logits[0, :-1], toks[0, 1:])
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (loss0, grads), counts = counted("lora_train", step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    above_gb = peak_gb - held / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _, plain = step(False)
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    worst, names = 0.0, ("qkv A", "qkv B", "o A", "o B")
+    for i, (g, p) in enumerate(zip(grads, plain)):
+        what = f"lora_train layer {i // 4} {names[i % 4]}"
+        check(bool(torch.isfinite(g).all()) and bool(g.any()), f"{what}: gradient not finite "
+                                                               "or zero")
+        rel = ((g.float() - p.float()).abs().max() / p.float().abs().max()).item()
+        check(rel <= TRAIN_TOL, f"{what}: gradient {rel:.3e} from the plain path's")
+        worst = max(worst, rel)
+    del plain
+    runs = []  # (wall, forward, backward) ms: a warm-up, then three
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        logits, _ = forward_inner(params, cfg, toks, pos, None, 0)
+        loss = torch.nn.functional.cross_entropy(logits[0, :-1], toks[0, 1:])
+        ev[1].record()
+        torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        torch.cuda.synchronize()
+        runs.append((1e3 * (time.perf_counter() - t0), ev[0].elapsed_time(ev[1]),
+                     ev[1].elapsed_time(ev[2])))
+        del logits, loss
+    step_ms, fwd_ms, bwd_ms = (statistics.median(r[k] for r in runs[1:]) for k in range(3))
+    split = {}
+    with backward_timers(split):
+        step()
+    gnorm2 = sum(float(g.float().pow(2).sum()) for g in grads)
+    lr = TRAIN_DECREASE * float(loss0) / gnorm2
+    master = [t.detach().float() for t in leaves]
+    losses = [float(loss0)]
+    for _ in range(TRAIN_STEPS):
+        with torch.no_grad():
+            for t, m, g in zip(leaves, master, grads):
+                m -= lr * g.float()
+                t.copy_(m)
+        loss, grads = step()
+        losses.append(float(loss))
+    out = dict(counts=counts, loss=losses[0], worst_rel=worst, step_ms=step_ms, forward_ms=fwd_ms,
+               backward_ms=bwd_ms, runs_ms=runs, tokens_per_s=TRAIN_TOKENS / step_ms * 1e3,
+               peak_gb=peak_gb, peak_above_model_gb=above_gb, plain_peak_gb=plain_peak_gb,
+               backward_attention_ms=split["attention"], backward_linears_ms=split["linears"],
+               sgd_lr=lr, sgd_losses=losses, adapter_tensors=len(leaves))
+    print(f"  lora_train b=1 x {TRAIN_TOKENS}: {len(leaves)} adapter tensors of {cfg.num_layers} "
+          f"layers, gradients within {worst:.3e} of the plain path's at full depth (tol "
+          f"{TRAIN_TOL}); loss {losses[0]:.4f}")
+    print(f"  lora_train: {step_ms:.2f} ms a forward + backward, {fwd_ms:.2f} ms of device time "
+          f"from the start to the loss, {bwd_ms:.2f} from the loss to the gradients (medians of 3 "
+          f"after a warm-up: {[['%.2f' % v for v in r] for r in runs]}), "
+          f"{out['tokens_per_s']:.0f} training tokens/s; peak "
+          f"{peak_gb:.2f} GB ({above_gb:.2f} above the {held / 1e9:.2f} GB held), the plain "
+          f"path's {plain_peak_gb:.2f} GB")
+    print(f"  lora_train: the backward's attention {split['attention']:.2f} ms, its linears "
+          f"{split['linears']:.2f} ms (CUDA events around each call of their backward, one step)")
+    print(f"  lora_train: {TRAIN_STEPS} SGD steps at lr {lr:.3e}: losses "
+          f"{['%.4f' % v for v in losses]}")
+    check(losses[-1] < losses[0], f"lora_train: SGD did not lower the loss: {losses}")
+    check(torch.equal(twin.layers[-1].o_lora.lora_b, bank_b), "lora_train moved the bank")
+    return out
+
+
 def lora_phase(dev) -> dict:
-    """MODEL W8A16 at full width and depth: the epilogue's entry point, then
-    multi-adapter LoRA (a bank of LORA_ADAPTERS, `surgery.stack_adapters`):
-    prefill, three servers, the side path's cost a decode step and a merge."""
+    """MODEL W8A16 at full width and depth: perplexity of the bf16 model and
+    the W8A16 one, the epilogue's entry point, then multi-adapter LoRA (a
+    bank of LORA_ADAPTERS, `surgery.stack_adapters`): prefill, a training
+    step of one adapter, three servers, the side path's cost a decode step
+    and a merge."""
     import torch
 
     from eetq_tpu_torch.models.config import PRESETS
@@ -3778,15 +4152,22 @@ def lora_phase(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     dense = random_dense_params(cfg, gen)
     base = quantize_params(dense, quantize_lm_head=True)
+    # eval_ppl and lora_train draw from generators of their own, so the
+    # phase's generator gives the other paths the draws it gave without them
+    paths = {"eval_ppl": eval_ppl_path(dense, base, cfg, dev,
+                                       torch.Generator(device=dev).manual_seed(SEED + 18))}
     del dense
     torch.cuda.empty_cache()
-    paths = {"epilogue_linear": epilogue_linear_path(base, cfg, dev, gen)}
+    paths["epilogue_linear"] = epilogue_linear_path(base, cfg, dev, gen)
     bank, twins = lora_bank(base, cfg, gen)
     bank_gb = sum(ad.lora_a.numel() * 2 + ad.lora_b.numel() * 2 for lp in bank.layers
                   for ad in (lp.qkv_lora, lp.o_lora)) / 1e9
     print(f"  {MODEL}: a bank of {LORA_ADAPTERS} adapters of rank {LORA_RANK} on qkv and o_proj "
           f"({bank_gb:.3f} GB, B ~ N(0, {LORA_B_STD}^2), scaling {LORA_ALPHA / LORA_RANK})")
     paths["lora_prefill"] = lora_prefill_path(bank, twins, base, cfg, dev, gen)
+    paths["lora_train"] = lora_train_path(twins[0], cfg, dev,
+                                          torch.Generator(device=dev).manual_seed(SEED + 19))
+    torch.cuda.empty_cache()
     side = side_path_cost(bank, base, cfg, dev)
     bodies = lora_requests(cfg, dev, gen)
     twin_tokens = {}

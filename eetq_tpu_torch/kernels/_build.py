@@ -217,6 +217,15 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} failed: {lib.eetq_error_string(rc).decode()} ({rc})")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """Raise where entry point `name`, which has no backward (the JAX package
+    gives its kernel no VJP), is called under grad mode with an input that
+    requires grad: its output would carry no gradient, cut silently."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward: call it under torch.no_grad() or "
+                                  "with inputs that do not require grad")
+
+
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 

@@ -30,6 +30,15 @@ Head dims 64, 128 and 256 (gemma-7b). At 256 the kernel keeps the scaled q
 tile in shared memory as the S = q k^T product's A operand, beside a
 two-stage K/V ring, where the narrower head dims hold q in registers: the
 output accumulator of a 256-wide head takes 128 registers a thread.
+
+Under grad (grad mode on and q, k, v or the slopes requiring grad) the call
+runs inside `FlashAttention`, a `torch.autograd.Function` whose forward is
+the same kernel launch (the plain version for CPU tensors) and whose
+backward is `flash_attention_bwd_ref`, the JAX package's recompute-based
+flash-2 backward (`_flash_vjp`, `_flash_vjp_noalibi` over `_bwd_chunked`,
+flash_attention.py:283-427) in plain torch: it saves q, k, v and the
+output, and no S x S tensor. The ALiBi slopes are model constants and get
+a zero gradient, as in the JAX package (:156-160).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from eetq_tpu_torch.utils.device import resolve
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIMS = (64, 128, 256)
+BWD_CHUNK = 256  # keys a step of the backward (`eetq_tpu/kernels/flash_attention.py:280`)
 # The variants a launch counts beside its total (`count_launch`): a sliding
 # window, ALiBi, a GQA group other than 1, 2, 4, 8 (qwen2-7b's 7,
 # chatglm3-6b's 16), and head dim 256 (gemma-7b)
@@ -174,9 +184,16 @@ def flash_attention(
     strides with D contiguous. Causal masking aligns the last query with the
     last key (delta = Skv - Sq); under `window` row p sees only the keys
     p - window < key; `slopes` [Hq] f32 adds ALiBi. Returns a contiguous
-    [B, Sq, Hq, D]."""
+    [B, Sq, Hq, D]; differentiable in q, k and v (`FlashAttention`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (q, k, v, slopes)):
+        return FlashAttention.apply(q, k, v, slopes, causal, scale, window)
+    return _forward(q, k, v, causal, scale, window, slopes)
+
+
+def _forward(q, k, v, causal: bool, scale: float, window, slopes) -> torch.Tensor:
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal, scale, window, slopes)
     _check_qkv(q, k, v)
@@ -192,6 +209,93 @@ def flash_attention(
     )
     count_launch(flash_attention, window, slopes, hq // hkv, d)
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with the recompute-based flash-2 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, slopes, causal: bool, scale: float, window):
+        out = _forward(q, k, v, causal, scale, window, slopes)
+        ctx.save_for_backward(q, k, v, out, slopes)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, slopes = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, do, ctx.causal, ctx.scale,
+                                             ctx.window, slopes)
+        # the slopes are frozen model constants: a zero gradient by design
+        d_slopes = torch.zeros_like(slopes) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, d_slopes, None, None, None
+
+
+def flash_attention_bwd_ref(q, k, v, out, do, causal: bool = True, scale: float | None = None,
+                            window: int | None = None, slopes: torch.Tensor | None = None):
+    """(dq, dk, dv) of :func:`flash_attention` at output `out` and output
+    gradient `do` [B, Sq, Hq, D], in the inputs' dtypes: the JAX package's
+    `_bwd_chunked` (`eetq_tpu/kernels/flash_attention.py:283-385`) in f32,
+    over chunks of BWD_CHUNK keys (the keys padded to a whole chunk, the
+    padding masked), never an [Sq, Skv] score matrix. Pass 1 takes each
+    row's logsumexp, pass 2 its probabilities again per chunk, accumulating
+    dq and producing that chunk's dk and dv. The mask is the forward's:
+    causal with the last query on the last key (delta = Skv - Sq), the
+    sliding window, and the ALiBi bias slope_h (key - p) on the scaled
+    scores; masked scores hold MASK_VALUE."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    c = min(BWD_CHUNK, skv)
+    nc = -(-skv // c)
+
+    def heads(t):  # [B, S, H, D] -> f32 [B, H, S, D]
+        return t.float().permute(0, 2, 1, 3)
+
+    qg = (heads(q) * scale).reshape(b, hkv, g, sq, d)  # the scale folded into q
+    dog = heads(do).reshape(b, hkv, g, sq, d)
+    pad = (0, 0, 0, nc * c - skv)
+    kc = torch.nn.functional.pad(heads(k), pad).split(c, dim=2)  # nc x [B, Hkv, c, D]
+    vc = torch.nn.functional.pad(heads(v), pad).split(c, dim=2)
+    row = torch.arange(sq, device=q.device)[:, None] + (skv - sq)  # the key a row aligns with
+    sl = None if slopes is None else slopes.float().reshape(1, hkv, g, 1, 1)
+
+    def scores(ci):
+        col = torch.arange(c, device=q.device)[None, :] + ci * c
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kc[ci])
+        if sl is not None:
+            s = s + sl * (col - row).float()
+        mask = col < skv
+        if causal or window is not None:
+            mask = mask & (col <= row)
+        if window is not None:
+            mask = mask & (col > row - window)
+        return torch.where(mask, s, MASK_VALUE)
+
+    m = torch.full((b, hkv, g, sq), MASK_VALUE, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), device=q.device)
+    for ci in range(nc):  # pass 1: the logsumexp of each row
+        s = scores(ci)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(dim=-1)
+        m = m_new
+    lse = m + torch.log(torch.where(l == 0.0, 1.0, l))
+    dsum = (dog * heads(out).reshape(b, hkv, g, sq, d)).sum(dim=-1)
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    for ci in range(nc):  # pass 2: dq accumulated, dk and dv a chunk at a time
+        p = torch.exp(scores(ci) - lse[..., None])  # masked -> 0
+        dvs.append(torch.einsum("bkgqc,bkgqd->bkcd", p, dog))
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", dog, vc[ci])
+        ds = p * (dp - dsum[..., None])
+        dq += torch.einsum("bkgqc,bkcd->bkgqd", ds, kc[ci])
+        dks.append(torch.einsum("bkgqc,bkgqd->bkcd", ds, qg))
+    dq = (dq * scale).reshape(b, hq, sq, d).permute(0, 2, 1, 3)
+    dk = torch.cat(dks, dim=2)[:, :, :skv].permute(0, 2, 1, 3)
+    dv = torch.cat(dvs, dim=2)[:, :, :skv].permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 flash_attention.launches = 0

@@ -147,6 +147,7 @@ def flash_decode(
     int32 valid entries per row (S <= length <= L), query token i at
     position length - S + i; a sliding `window`, ALiBi `slopes` [Hq] f32.
     Returns [B, S, Hq, D]."""
+    _build.refuse_grad("flash_decode", q, k_cache, v_cache, slopes)
     b, s, hq, d = q.shape
     hkv, l = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
@@ -193,6 +194,7 @@ def flash_decode_int8(
     """q [B, S, Hq, D] bf16; k/v cache [B, Hkv, L, D] int8 with f32 scales
     k_scale/v_scale [B, Hkv, L]; lengths [B] int32 (S <= length <= L), as
     :func:`flash_decode`. Returns [B, S, Hq, D] bf16."""
+    _build.refuse_grad("flash_decode_int8", q, k_scale, v_scale, slopes)
     b, s, hq, d = q.shape
     hkv, l = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
@@ -271,6 +273,7 @@ def paged_flash_decode(
     (i + 1) * BS) of row b (used only for blocks below the row's length, each
     in [0, NB): the kernel cannot check them); lengths [B] int32 (S <= length
     <= max_blocks * BS), as :func:`flash_decode`. Returns [B, S, Hq, D] bf16."""
+    _build.refuse_grad("paged_flash_decode", q, k_pool, v_pool, slopes)
     b, s, hq, d = q.shape
     hkv, bs = k_pool.shape[1], k_pool.shape[2]
     if scale is None:
@@ -304,6 +307,7 @@ def paged_flash_decode_int8(
 ) -> torch.Tensor:
     """:func:`paged_flash_decode` over int8 pools [NB, Hkv, BS, D] with f32
     scale pools k_scale/v_scale [NB, Hkv, BS]."""
+    _build.refuse_grad("paged_flash_decode_int8", q, k_scale, v_scale, slopes)
     b, s, hq, d = q.shape
     hkv, bs = k_pool.shape[1], k_pool.shape[2]
     if scale is None:

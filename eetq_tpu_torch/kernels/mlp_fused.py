@@ -67,6 +67,7 @@ def fused_mlp_ref(x, gamma, gu_int, gu_scales, d_int, d_scales, eps, activation=
 
 def _fused(counter, entry: str, bits: int, x, gamma, eps, gu_data, gu_scales, d_data, d_scales,
            n, residual, activation):
+    _build.refuse_grad(entry[len("eetq_"):], x, gamma, gu_scales, d_scales, residual)
     k = x.shape[-1]
     pack = 2 if bits == 4 else 1
     ip = d_data.shape[0] * pack

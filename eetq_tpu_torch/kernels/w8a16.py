@@ -259,6 +259,8 @@ def _gemv_plan(x, rows: int, strips: int, sels: int, bits: int, m: int, group: i
 
 def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps, activation,
           residual, residual_mode):
+    # `ops/linear.py::DequantMatmul` carries this kernel's backward
+    _build.refuse_grad(entry[len("eetq_"):], x, scales, bias, gamma, residual)
     k = x.shape[-1]
     check_epilogue(activation, residual_mode)
     if not x.is_cuda:
@@ -289,6 +291,8 @@ def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps,
 
 def _gemm(counter, entry: str, bits: int, x, qdata, scales, n, bias, activation, residual,
           residual_mode):
+    # `ops/linear.py::DequantMatmul` carries this kernel's backward
+    _build.refuse_grad(entry[len("eetq_"):], x, scales, bias, residual)
     k = x.shape[-1]
     check_epilogue(activation, residual_mode)
     if not x.is_cuda:
@@ -387,6 +391,7 @@ def w4a16_gemm(
 
 
 def _expert_gemv(counter, entry: str, bits: int, x, qdata, scales, expert_ids, n):
+    _build.refuse_grad(entry[len("eetq_"):], x, scales)
     k = x.shape[-1]
     if not x.is_cuda:
         return expert_matmul_ref(x, _logical(qdata, bits, k, n), scales, expert_ids)
@@ -412,6 +417,7 @@ def _expert_gemv(counter, entry: str, bits: int, x, qdata, scales, expert_ids, n
 
 def _grouped_gemm(counter, entry: str, bits: int, x, qdata, scales, block_expert, n,
                   real_blocks):
+    _build.refuse_grad(entry[len("eetq_"):], x, scales)
     k = x.shape[-1]
     nb = block_expert.shape[0]
     if x.shape[0] % nb:

@@ -119,6 +119,7 @@ def w8a8_gemm_ref(xq, x_scales, qdata, w_scales, n, bias=None, dtype=torch.bfloa
 
 def _a8_gemm(counter, entry: str, bits: int, xq, x_scales, qdata, w_scales, n, bias, group_size,
              activation, residual, residual_mode):
+    _build.refuse_grad(entry[len("eetq_"):], x_scales, w_scales, bias, residual)
     check_epilogue(activation, residual_mode)
     if not xq.is_cuda:
         logical = unpack_int4_rows(qdata) if bits == 4 else qdata

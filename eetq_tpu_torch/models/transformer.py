@@ -23,8 +23,12 @@ no rope is applied and the attention takes the ALiBi slopes instead
 (`ops/alibi.py::alibi_slopes_cache`). A layer's `qkv_lora` and `o_lora`
 add LoRA side paths to qkv and o_proj (:119-127, :151-152): with a qkv
 adapter the input norm runs apart, not fused into the GEMV, and with banks
-`lora_idx` [B] picks each row's adapter (multi-adapter serving). Tensor
-parallelism is not ported.
+`lora_idx` [B] picks each row's adapter (multi-adapter serving). The
+prefill path with caches=None is differentiable end to end (LoRA
+finetuning: the adapters' tensors set to requires_grad_()), through the
+quantized linears' and the flash-attention's autograd Functions; the
+decode, verify, W8A8 and fused-MLP kernels have no backward and raise
+under grad. Tensor parallelism is not ported.
 """
 
 from __future__ import annotations

@@ -2,14 +2,17 @@
 
 Port of `eetq_tpu/modules/linear.py`. Weights are stored [K, N]
 (in-features x out-features) as in the JAX package; packed int8 or int4
-weights, per-channel or group-wise scales and biases are buffers (the port
-serves and trains nothing). `a8=True` routes an int8 per-channel layer, or
-any int4 layer, through the W8A8 / W4A8 path (prefill only). An activation
-and a residual fuse into the kernels' epilogue. `LoraAdapter` is the
-low-rank side path x A B * scaling beside the frozen base, one adapter or a
-bank of them selected per batch row (multi-adapter serving); its two
+weights, per-channel or group-wise scales and biases are buffers. `a8=True`
+routes an int8 per-channel layer, or any int4 layer, through the W8A8 /
+W4A8 path (prefill only; it has no backward and raises under grad). An
+activation and a residual fuse into the kernels' epilogue. `LoraAdapter` is
+the low-rank side path x A B * scaling beside the frozen base, one adapter
+or a bank of them selected per batch row (multi-adapter serving); its two
 products are plain batched matmuls, as the JAX package computes them
-outside any kernel (`modules/linear.py:198-212`).
+outside any kernel (`modules/linear.py:198-212`). LoRA finetuning sets
+`requires_grad_()` on an adapter's `lora_a` and `lora_b` and differentiates
+the model's forward: the quantized base passes the gradient on through
+`ops/linear.py::DequantMatmul`.
 """
 
 from __future__ import annotations

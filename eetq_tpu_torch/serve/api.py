@@ -15,8 +15,13 @@ Endpoints:
   GET /health
     -> {"ok": true, "queued": n, "active": m}
 
-Prompts are token ids: the tokenizer is not ported yet, so a text prompt
-is answered with 400.
+Text or token ids in, both out (`eetq_tpu/serve/api.py:21-26`): the prompt
+is a list of token ids, or a string where the server holds a tokenizer
+(`tokenizer=`, a `serve.tokenizer.Tokenizer` or anything with encode and
+decode), which encodes it; then responses carry `"text"` beside the ids
+and stream events the text each adds (`_stream_delta`). `detokenize=` is
+an ids -> text callable alone. A text prompt to a server without a
+tokenizer is answered with 400.
 
 Design notes: the Engine is single-threaded by construction (one device
 stream), so all engine access (admission, stepping, polling) serializes
@@ -37,6 +42,27 @@ from eetq_tpu_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 
+def _stream_delta(prev_text: str, text: str, done: bool):
+    """The text a stream event adds (`eetq_tpu/serve/api.py::_stream_delta`):
+    `text` is the decode of every token so far, `prev_text` what the
+    earlier events sent. Before the end, trailing U+FFFD characters (a
+    UTF-8 sequence cut by the event's last token) are held back until the
+    next event completes them. Returns (delta, restart_at, new prev_text):
+    restart_at is None, or the length of the common prefix where the
+    decoded text no longer extends what was sent (the client rewinds to
+    it)."""
+    if not done:
+        text = text.rstrip("\ufffd")
+    if text.startswith(prev_text):
+        return text[len(prev_text):], None, text
+    common = 0
+    for a, b in zip(prev_text, text):
+        if a != b:
+            break
+        common += 1
+    return text[common:], common, text
+
+
 class EngineServer:
     """Threaded HTTP server around a `serve.engine.Engine`.
 
@@ -49,8 +75,13 @@ class EngineServer:
     or `srv.serve_forever()` to block the calling thread.
     """
 
-    def __init__(self, engine, host: str = "127.0.0.1", port: int = 8000):
+    def __init__(self, engine, host: str = "127.0.0.1", port: int = 8000, detokenize=None,
+                 tokenizer=None):
         self.engine = engine
+        self.tokenizer = tokenizer
+        if detokenize is None and tokenizer is not None:
+            detokenize = tokenizer.decode
+        self.detokenize = detokenize
         # One lock for every engine touch; handlers wait on the condition
         # and the scheduler notifies after each step commits tokens.
         self.cond = threading.Condition()
@@ -89,10 +120,12 @@ class EngineServer:
                     req = json.loads(self.rfile.read(n) or b"{}")
                     prompt = req["prompt"]
                     if isinstance(prompt, str):
-                        return self._json(400, {
-                            "error": "text prompts need a tokenizer, which the "
-                            "server does not have yet; send token ids"
-                        })
+                        if outer.tokenizer is None:
+                            return self._json(400, {
+                                "error": "text prompts need a server-side tokenizer "
+                                "(EngineServer(tokenizer=...)); send token ids"
+                            })
+                        prompt = outer.tokenizer.encode(prompt)
                     kwargs = dict(
                         max_new_tokens=int(req.get("max_new_tokens", 16)),
                         temperature=float(req.get("temperature", 0.0)),
@@ -116,7 +149,10 @@ class EngineServer:
                             or outer._stop
                         )
                         toks = list(outer.engine.requests[uid].out_tokens)
-                    return self._json(200, {"uid": uid, "tokens": toks})
+                    out = {"uid": uid, "tokens": toks}
+                    if outer.detokenize is not None:
+                        out["text"] = outer.detokenize(toks)
+                    return self._json(200, out)
                 # SSE streaming: one event per committed token batch
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
@@ -130,6 +166,8 @@ class EngineServer:
                     self.wfile.flush()
 
                 done = False
+                all_toks: list[int] = []
+                prev_text = ""
                 while not done:
                     with outer.cond:
                         outer.cond.wait_for(
@@ -142,6 +180,15 @@ class EngineServer:
                             break
                         toks, done = outer.engine.poll(uid)
                     ev = {"tokens": toks, "done": done}
+                    if outer.detokenize is not None:
+                        # the whole sequence decoded again and its new text
+                        # sent: a character may span the tokens of two events
+                        all_toks.extend(toks)
+                        delta, restart, prev_text = _stream_delta(
+                            prev_text, outer.detokenize(all_toks), done)
+                        ev["text"] = delta
+                        if restart is not None:
+                            ev["restart_at"] = restart
                     chunk(b"data: " + json.dumps(ev).encode() + b"\n\n")
                 chunk(b"")  # terminating chunk
 

@@ -1,8 +1,9 @@
 """The port's HTTP front end over its engine (toy preset, W8A8 prefill and
 int8 KV), mirroring `tests/test_api.py`: `/health`, non-streamed and
 streamed completions on both routes equal to the engine's own greedy
-output, concurrent requests sharing the batch, and 400s for a text prompt
-without a tokenizer and for invalid requests."""
+output, concurrent requests sharing the batch, 400s for a text prompt
+without a tokenizer and for invalid requests, and the tokenizer path (a
+string prompt encoded, "text" in responses and stream events)."""
 
 import http.client
 import json
@@ -129,3 +130,64 @@ def test_lora_id_served_on_a_banked_model(params):
         assert r.status == 400 and "out of range" in json.loads(r.read())["error"]
     finally:
         srv.shutdown()
+
+
+# ---- text in, text out ----
+
+def test_text_prompt_and_stream_text():
+    """A server holding a tokenizer encodes a string prompt (the same tokens
+    as the prompt sent as ids), answers with "text" = decode(tokens), and
+    streams text deltas that concatenate to it; a server with `detokenize=`
+    alone answers ids with text and a string prompt with 400."""
+    import dataclasses
+
+    from eetq_tpu_torch.serve.tokenizer import Tokenizer
+    from test_torch_tokenizer import _bytelevel_spec
+
+    tok = Tokenizer(_bytelevel_spec())
+    cfg = dataclasses.replace(CFG, vocab_size=tok.vocab_size)  # merged ids past 255
+    params = quantize_params(random_dense_params(cfg, torch.Generator().manual_seed(1)),
+                             quantize_lm_head=True)
+    text = "hello world, héllo ☃"
+    srv = EngineServer(Engine(params, cfg, **KW), port=0, tokenizer=tok)
+    srv.start()
+    try:
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=300)
+        r = _post(conn, "/v1/completions", {"prompt": text, "max_new_tokens": 8})
+        assert r.status == 200
+        out = json.loads(r.read())
+        assert len(out["tokens"]) == 8 and out["text"] == tok.decode(out["tokens"])
+        r = _post(conn, "/generate", {"prompt": tok.encode(text), "max_new_tokens": 8})
+        assert json.loads(r.read())["tokens"] == out["tokens"]
+        r = _post(conn, "/generate", {"prompt": text, "max_new_tokens": 8, "stream": True})
+        events = _events(r.read())
+        assert [t for ev in events for t in ev["tokens"]] == out["tokens"]
+        assert "".join(ev["text"] for ev in events) == out["text"]
+    finally:
+        srv.shutdown()
+    srv = EngineServer(Engine(params, cfg, **KW), port=0, detokenize=tok.decode)
+    srv.start()
+    try:
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=300)
+        r = _post(conn, "/generate", {"prompt": tok.encode(text), "max_new_tokens": 8})
+        assert json.loads(r.read())["text"] == out["text"]
+        r = _post(conn, "/generate", {"prompt": text, "max_new_tokens": 8})
+        assert r.status == 400 and "tokenizer" in json.loads(r.read())["error"]
+    finally:
+        srv.shutdown()
+
+
+def test_stream_delta_holds_back_a_cut_character():
+    """An event whose tokens end inside a UTF-8 sequence sends the text before
+    it; the next event sends the completed character (as
+    `tests/test_api.py::test_stream_delta_utf8_split` holds JAX's)."""
+    from eetq_tpu_torch.serve.api import _stream_delta
+
+    raw = "ok \N{THUMBS UP SIGN}!".encode()
+    cut = raw[:5].decode("utf-8", errors="replace")
+    d1, r1, prev = _stream_delta("", cut, done=False)
+    assert (d1, r1) == ("ok ", None)
+    d2, r2, _ = _stream_delta(prev, raw.decode(), done=False)
+    assert (d2, r2) == ("\N{THUMBS UP SIGN}!", None)
+    assert _stream_delta("", cut, done=True)[0] == cut  # nothing can complete it
+    assert _stream_delta("ok X", "ok Y more", done=False)[:2] == ("Y more", 3)

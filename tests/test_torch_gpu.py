@@ -1912,3 +1912,199 @@ def test_capture_survives_a_collection_of_another_graph(dev):
     gc.collect()
     torch.cuda.synchronize()
     assert step.captured and bool(torch.isfinite(x).all())
+
+
+# ---- LoRA finetuning's backward on the card ----
+
+def _grads(out, leaves, gout):
+    return torch.autograd.grad(out.float(), leaves, gout)
+
+
+def _close_grad(got, want, tol, what):
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert scale > 0 and err <= tol * scale, (what, err, scale)
+
+
+# (activation, residual mode, prenorm)
+GRAD_EPILOGUES = [(None, None, True), ("relu", "add", False), ("gelu", "mul", True),
+                  ("silu", "mul", False)]
+
+
+@pytest.mark.parametrize("m", [3, 200])  # the GEMV and the GEMM under DequantMatmul
+@pytest.mark.parametrize("act,mode,prenorm", GRAD_EPILOGUES)
+@pytest.mark.parametrize("bits,group", [(8, None), (8, 64), (4, None), (4, 128)])
+def test_dequant_matmul_grads_on_the_card(dev, bits, group, act, mode, prenorm, m):
+    """`w8a16_matmul` under grad: the kernel forward inside `DequantMatmul`,
+    its gradients w.r.t. x, scales, bias, residual and gamma against
+    autograd through the plain path on the card (tolerances of
+    `tests/test_torch_train.py`: 2^-6 for dx and dgamma, 2^-7 for the rest);
+    a second backward is bit-equal."""
+    from eetq_tpu_torch.ops.linear import w8a16_matmul
+    from eetq_tpu_torch.quant.quantizer import symmetric_quantize
+
+    g = torch.Generator(device=dev).manual_seed(m + bits)
+    k, n = 1024, 768
+    w = torch.randn(k, n, generator=g, device=dev) / 32
+    q, s = symmetric_quantize(w, bits=bits, group_size=group)
+    packed = pack_weights(q, bits=bits)
+    base = {"x": torch.randn(m, k, generator=g, device=dev).bfloat16(), "scales": s,
+            "bias": torch.randn(n, generator=g, device=dev).bfloat16()}
+    if mode is not None:
+        base["residual"] = torch.randn(m, n, generator=g, device=dev).bfloat16()
+    if prenorm:
+        base["gamma"] = 1 + 0.1 * torch.randn(k, generator=g, device=dev)
+    gout = torch.randn(m, n, generator=g, device=dev)
+    names = list(base)
+
+    def run(use_kernel):
+        t = {name: v.clone().requires_grad_() for name, v in base.items()}
+        out = w8a16_matmul(t["x"], packed, t["scales"], bias=t["bias"], activation=act,
+                           residual=t.get("residual"), residual_mode=mode or "add",
+                           prenorm_gamma=t.get("gamma"), use_kernel=use_kernel)
+        return _grads(out, [t[name] for name in names], gout)
+
+    got, again, want = run(True), run(True), run(False)
+    for name, a, b, r in zip(names, got, again, want):
+        assert torch.equal(a, b), name
+        _close_grad(a, r, 2.0**-6 if name in ("x", "gamma") else 2.0**-7, name)
+
+
+# (batch, Sq, Skv, Hq, Hkv, D, window, ALiBi)
+FLASH_GRAD_CASES = [
+    (1, 1024, 1024, 32, 32, 128, None, False),  # llama2-7b's training shape
+    (2, 300, 300, 8, 2, 64, None, False),
+    (1, 128, 640, 8, 1, 128, None, False),  # delta 512, three chunks
+    (1, 512, 512, 8, 8, 128, 128, False),
+    (1, 256, 256, 8, 2, 128, None, True),
+    (1, 512, 512, 16, 16, 256, None, False),  # gemma-7b's head dim
+    (1, 300, 300, 4, 2, 256, 100, True),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window,alibi", FLASH_GRAD_CASES)
+def test_flash_attention_grads_on_the_card(dev, b, sq, skv, hq, hkv, d, window, alibi):
+    """`flash_attention` under grad: the CUDA forward inside `FlashAttention`,
+    dq, dk and dv against autograd through the plain f32 attention on the
+    card (2^-6 of the largest), a second backward bit-equal, and a zero
+    gradient for the ALiBi slopes."""
+    from eetq_tpu_torch.kernels.flash_attention import attention_reference, causal_mask
+
+    g = torch.Generator(device=dev).manual_seed(sq + d)
+    q = torch.randn(b, sq, hq, d, generator=g, device=dev).bfloat16()
+    kv = torch.randn(b, skv, 2 * hkv, d, generator=g, device=dev).bfloat16()
+    slopes = (2.0 ** -torch.arange(1, hq + 1, device=dev, dtype=torch.float32)) if alibi else None
+    do = torch.randn(b, sq, hq, d, generator=g, device=dev)
+
+    def run(kernel):
+        qq, kk = q.clone().requires_grad_(), kv.clone().requires_grad_()
+        k, v = kk[:, :, :hkv], kk[:, :, hkv:]  # strided views, as the model's split
+        sl = None if slopes is None else slopes.clone().requires_grad_(kernel)
+        if kernel:
+            before = flash_attention.launches
+            out = flash_attention(qq, k, v, window=window, slopes=sl)
+            assert flash_attention.launches == before + 1
+        else:
+            out = attention_reference(qq, k, v, causal_mask(sq, window, skv, dev), d ** -0.5,
+                                      slopes=sl)
+        leaves = [qq, kk] + ([sl] if kernel and sl is not None else [])
+        return _grads(out, leaves, do)
+
+    got, again, want = run(True), run(True), run(False)
+    for name, a, b2, r in zip(("dq", "dkv"), got, again, want):
+        assert torch.equal(a, b2), name
+        _close_grad(a, r, 2.0**-6, name)
+    if alibi:
+        assert not got[2].any()
+
+
+@pytest.mark.parametrize("name", ["w8a8_gemm", "fused_mlp_gemv", "w8a16_expert_gemv",
+                                  "w8a16_grouped_gemm", "flash_decode", "flash_decode_int8",
+                                  "paged_flash_decode", "paged_flash_decode_int8"])
+def test_entries_without_backward_raise_on_the_card(dev, name):
+    """A gradient through W8A8, the fused MLP, the expert kernels or the
+    flash-decode raises NotImplementedError on the card, naming the entry
+    point; the same call runs under no_grad."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    k = n = 256
+    x = torch.randn(2, k, generator=g, device=dev).bfloat16()
+    q8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand(n, generator=g, device=dev) / 100
+    bank = torch.randint(-127, 128, (2, k, n), generator=g, device=dev, dtype=torch.int8)
+    bs = torch.rand(2, n, generator=g, device=dev) / 100
+    ids = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    qd = torch.randn(2, 1, 4, 128, generator=g, device=dev).bfloat16()
+    kc = torch.randn(2, 2, 256, 128, generator=g, device=dev).bfloat16()
+    k8 = torch.randint(-127, 128, (2, 2, 256, 128), generator=g, device=dev, dtype=torch.int8)
+    ks = torch.rand(2, 2, 256, generator=g, device=dev)
+    lens = torch.tensor([5, 200], dtype=torch.int32, device=dev)
+    table = torch.tensor([[0], [1]], dtype=torch.int32, device=dev)
+    xg, qg = x.clone().requires_grad_(), qd.clone().requires_grad_()
+    calls = {
+        "w8a8_gemm": lambda x: w8a8_matmul(x, pack_weights(q8), s),
+        "fused_mlp_gemv": lambda x: fused_mlp_gemv(x, torch.ones(k, device=dev), 1e-6,
+                                                   torch.cat([q8, q8], 1), torch.cat([s, s]),
+                                                   q8, s, n),
+        "w8a16_expert_gemv": lambda x: w8a16_expert_gemv(x, bank, bs, ids, n),
+        "w8a16_grouped_gemm": lambda x: w8a16_grouped_gemm(
+            torch.cat([x] * 8), bank, bs, ids, n),  # two blocks of 8 rows
+        "flash_decode": lambda q: flash_decode(q, kc, kc, lens),
+        "flash_decode_int8": lambda q: flash_decode_int8(q, k8, k8, ks, ks, lens),
+        "paged_flash_decode": lambda q: paged_flash_decode(q, kc, kc, table, lens),
+        "paged_flash_decode_int8": lambda q: paged_flash_decode_int8(q, k8, k8, ks, ks, table,
+                                                                     lens),
+    }
+    arg, frozen = (qg, qd) if "decode" in name else (xg, x)
+    with pytest.raises(NotImplementedError, match=name):
+        calls[name](arg)
+    with torch.no_grad():
+        calls[name](arg)
+    calls[name](frozen)
+    torch.cuda.synchronize()
+
+
+def test_lora_grads_on_the_card(dev):
+    """LoRA gradients through `forward_inner` (prefill, caches=None) on the
+    kernel path against the plain path on the card, within the JAX test's
+    5e-2 (`tests/test_flash_attention.py:194-197`); only the GEMM and the
+    prefill flash-attention launch."""
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.init import quantize_params, random_dense_params
+    from eetq_tpu_torch.models.transformer import ModelParams, forward_inner
+    from eetq_tpu_torch.surgery import init_lora
+    from eetq_tpu_torch.surgery.lora import replace_layer
+
+    cfg = ModelConfig(vocab_size=1024, hidden_size=1024, intermediate_size=2048, num_layers=2,
+                      num_heads=8, num_kv_heads=8, head_dim=128, max_position=2048)
+    g = torch.Generator(device=dev).manual_seed(0)
+    base = quantize_params(random_dense_params(cfg, g), quantize_lm_head=True)
+
+    def adapter(lin):
+        ad = init_lora(g, lin.in_features, lin.out_features, 16)
+        ad.lora_b.copy_(torch.randn(ad.lora_b.shape, generator=g, device=dev) * 0.005)
+        return ad
+
+    params = ModelParams(base.embed, [replace_layer(lp, qkv_lora=adapter(lp.qkv),
+                                                    o_lora=adapter(lp.o_proj))
+                                      for lp in base.layers], base.final_norm, base.lm_head)
+    leaves = [getattr(ad, n).requires_grad_() for lp in params.layers
+              for ad in (lp.qkv_lora, lp.o_lora) for n in ("lora_a", "lora_b")]
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), generator=g, device=dev)
+    pos = torch.arange(512, device=dev)[None]
+
+    def grads(use):
+        logits, _ = forward_inner(params, cfg, toks, pos, None, 0, use_kernels=use)
+        loss = torch.nn.functional.cross_entropy(logits[0, :-1], toks[0, 1:])
+        return torch.autograd.grad(loss, leaves)
+
+    reset_launch_counts()
+    got = grads(True)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"w8a16_gemm": 4 * 2 + 1, "flash_attention_fwd": 2}, counts
+    want = grads(False)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.abs().sum() > 0, i
+        _close_grad(a, b, 5e-2, f"adapter tensor {i}")
