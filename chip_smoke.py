@@ -92,10 +92,21 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    1024), int8 per-channel and int4 g = 128, each against its plain version
    and recorded as "kernel[epilogue]" beside the bias-only kernel's times on
    the same inputs (the int8 W8A8 cases without a transcendental bit-equal).
+   The int8 GEMV and GEMM with group-wise scales, recorded as
+   "kernel[group]" (TP_GROUP_CASES: the offline tensor-parallel reshard's
+   o_proj at g = 2048 and down at g = 5504, tp = 2, and down at g = 1376, tp
+   = 8, the GEMM's second group tile; the GEMV at m = 1 and 8, the GEMM at
+   1024; g = 128 on qkv), and the per-channel GEMM at both of its tiles
+   (`tile_m` 128 and 256) at m = 256 and 512 on the four prefill shapes.
    Then `moe_apply` on one full-width Mixtral layer (int8 per-channel, and
    int4 g=128) at 2, 8 and 2048 selections, kernels against the plain path
    on identical input (the routing ids must agree), the kernel calls under
-   `torch.cuda.set_sync_debug_mode("error")`: any host sync fails.
+   `torch.cuda.set_sync_debug_mode("error")`: any host sync fails; and on
+   the int8 layer each MoE A/B knob in turn (MOE_KNOB_CASES:
+   EETQ_MOE_NO_GATHER at a decode step, no expert gather launched;
+   EETQ_MOE_NO_GROUPED at a prompt, no grouped GEMM; EETQ_MOE_GROUPED_BM = 32
+   at a prompt and 128 at an 8-slot step, the skinny and the wide tile),
+   against the plain path with the routing replayed.
 3. Model: llama2-7b at full width and depth (32 layers), random weights
    from a seeded `torch.Generator` on the card, W8A16 per-channel with an
    int8 lm_head, built once and driven four ways. Each path runs with the
@@ -285,6 +296,30 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    weights that moved counted, its prefill logits against the bank at id 2
    within the JAX test's bounds (mean |diff| < 0.05, argmax equal at > 90%).
 
+10. Tooling (the `tooling` phase, after 9): `native.host_symmetric_quantize`
+   of llama2-7b's gate|up on the host (f32 and bf16, per-channel and g =
+   128, int4 packed by `host_pack_int4`) bit-equal to the card's quantizer,
+   seconds and GB/s printed; `utils/profiling.py`: `profile_w8a16_matmul` at
+   the four layer shapes at m = 1 and 1024 (reports printed, no fraction of
+   the roof above ROOF_SLACK), `device_time` within DEVICE_TIME_AGREE of
+   `time_many_ms` on the same calls in turns, a `trace` holding kernel
+   events. Then llama2-7b built dense at full width and depth, quantized by
+   `EETQCausalLM.quantize(tp=2)` (o_proj and down int8 group-wise at K / 2,
+   the lm_head dense) and for tp = 1: tp_generate (generate's b=1 path, bf16
+   KV, p = 1024, 50 greedy tokens; the int8 group-wise launches counted as
+   "w8a16_gemv[group]" and "w8a16_gemm[group]"; the largest gap of its
+   prefill logits to the tp = 1 model's printed), tp_checkpoint (its round
+   trip as in 8, `config.json` recording tp 2), autotune (the measured sweep
+   of llama2-7b's four projections at m = 1, 8, 256, 512 and 1024 into the
+   run's own cache file, which `main` points EETQ_AUTOTUNE_CACHE at before
+   anything runs: each winner re-read against the rule in turns and no more
+   than AUTOTUNE_SLOWER slower, the lookups reading the file back, b=1
+   decode with the tuned cache against the rules in turns, tokens equal or
+   parting at a near tie; the file removed after) and tp_ranks (layer 0 at
+   tp 2, 4, 8 int8 and 2 int4: each rank's shard through the kernels one
+   rank at a time at m = 1 and 1024, the row shards' partials summed in f32,
+   against the merged layer within MODEL_TOL).
+
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, the first request's
 whole decode_loop, and one steady-state engine step after `warmup()`: a
@@ -294,7 +329,7 @@ layer on every decode and engine step), the host's launch calls (a graph
 replay is one) and the idle share go to the output and to
 `chip_smoke.json`. `--phases`
 runs a subset of
-`kernels,moe_layer,llama,checkpoint,lora,int4,mixtral,mixtral_int4,families`
+`kernels,moe_layer,llama,checkpoint,lora,tooling,int4,mixtral,mixtral_int4,families`
 (for debugging: a partial run checks what it runs and prints no result
 line).
 
@@ -345,6 +380,17 @@ INT4_ODD = ((1000, 300, None), (960, 300, 64))
 GEMM_ROWS = (9, 200, 512, 1024)
 GEMM_EDGE_SHAPES = {(4096, 4096), (11008, 4096)}
 GEMM_ODD = (1000, 300)
+# ... and at both of its tiles (tile_m 128 and 256, the rule picking 256
+# here) at these rows, on the four prefill shapes
+GEMM_TILE_ROWS = (256, 512)
+# The offline tensor-parallel reshard's int8 group-wise o_proj and down
+# (group = K / tp): (K, N, group, the tp_generate path's shape): o_proj and
+# down at tp = 2 (the path), down at tp = 8 (1376, not a multiple of the
+# GEMM's 64-deep K step: its second group tile); the GEMV at m = 1 and 8,
+# the GEMM at 1024
+TP_GROUP_CASES = ((4096, 4096, 2048, True), (11008, 4096, 5504, True),
+                  (11008, 4096, 1376, False))
+TP_GROUP_ROWS = (1, 8, 1024)
 # Prefill attention, (batch, sq, skv, q heads, kv heads, head_dim), causal:
 # the main path's shape first, then GQA, ragged lengths in one- and
 # two-warpgroup tiles, D = 64, a query block appended to a cache of 256 keys
@@ -354,9 +400,24 @@ ATTENTION_CASES = (
     (1, 1000, 1000, 32, 32, 128), (1, 1000, 1000, 32, 8, 64), (1, 128, 384, 32, 8, 128),
     (4, 128, 128, 32, 32, 128),
 )
-# The card's datasheet rates (H100 SXM, dense), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+
+
+def hbm_bytes_per_s() -> float:
+    """The card's datasheet memory rate, for the bounds
+    (`eetq_tpu_torch/utils/profiling.py::chip_peaks`, the one table)."""
+    from eetq_tpu_torch.utils.profiling import chip_peaks
+
+    return chip_peaks().hbm_gbs * 1e9
+
+
+def peak_ops_per_s(op_type: str) -> float:
+    """The card's datasheet dense tensor-core rate for "bf16" or "int8"."""
+    from eetq_tpu_torch.utils.profiling import chip_peaks
+
+    peaks = chip_peaks()
+    return {"bf16": peaks.bf16_tflops, "int8": peaks.int8_tops}[op_type] * 1e12
+
+
 # Mixtral's expert banks, (K, N) of gate|up and down; 8 experts, top-2
 MIXTRAL_BANKS = ((4096, 28672), (14336, 4096))
 # Expert gather: (rows of x at gate|up and at down, ids) of a b=1 and a b=4
@@ -374,6 +435,19 @@ GROUPED_CASES = ((128, 24, (0, 0, 0, 1, 1, 2, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 6, 7
                  (16, 16, (0, 0, 1, 2, 2, 3, 4, 5, 5, 6, 7), None),
                  (64, 16, (0, 0, 1, 1, 2, 3, 3, 4, 5, 5, 6, 7, 7), None))
 MOE_TOKENS = (1, 4, 1024)  # moe_apply on one layer: 2, 8 and 2048 selections
+# The MoE A/B knobs on that layer (int8 per-channel): (knob, value, tokens,
+# kernels that must launch, kernels that must not). NO_GATHER sends a b=1
+# decode step (2 selections) to the masked scan (each expert on the dense
+# GEMV); NO_GROUPED a 1024-token prompt (each expert on the dense GEMM);
+# GROUPED_BM moves a prompt's blocks from 128 rows to 32 (the skinny tile)
+# and an 8-slot step's (16 selections) from 8 rows to 128 (the wide tile).
+MOE_KNOB_CASES = (
+    ("EETQ_MOE_NO_GATHER", "1", 1, ("w8a16_gemv",), ("w8a16_expert_gemv", "w8a16_grouped_gemm")),
+    ("EETQ_MOE_NO_GROUPED", "1", 1024, ("w8a16_gemm",),
+     ("w8a16_expert_gemv", "w8a16_grouped_gemm")),
+    ("EETQ_MOE_GROUPED_BM", "32", 1024, ("w8a16_grouped_gemm",), ("w8a16_expert_gemv",)),
+    ("EETQ_MOE_GROUPED_BM", "128", 8, ("w8a16_grouped_gemm",), ("w8a16_expert_gemv",)),
+)
 # The server phase: prompt lengths and budgets drawn from a seeded generator
 SERVE_REQUESTS = 12
 SERVE_LENGTHS = (17, 100, 300, 700, 1024)
@@ -635,6 +709,8 @@ VARIANTS = ("window", "alibi", "group", "d256")
 VARIANT_SOURCES = {"window": "flash_decode_window.cu", "alibi": "flash_decode_alibi.cu",
                    "group": "flash_decode.cu", "d256": "flash_decode.cu"}
 REPLACES.update({f"{name}[epilogue]": REPLACES[name] for name in EPILOGUE_KERNELS})
+# ... the int8 GEMV's and GEMM's group-wise mode
+REPLACES.update({f"{name}[group]": REPLACES[name] for name in ("w8a16_gemv", "w8a16_gemm")})
 REPLACES.update({f"{name}[{v}]": (
     "cuda", REPLACES[name][1] if name == "flash_attention_fwd"
     else f"eetq_tpu_torch/csrc/{VARIANT_SOURCES[v]}", REPLACES[name][2])
@@ -874,7 +950,7 @@ PATH_IDLE.update({
     **{path: tuple(k for k in REPLACES if "[" not in k and k not in PATH_KERNELS[path])
        for path in ("eval_ppl", "lora_train")},
 })
-PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "lora", "int4", "mixtral",
+PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "lora", "tooling", "int4", "mixtral",
           "mixtral_int4", "families")
 
 
@@ -1238,8 +1314,8 @@ def kernel_phase(dev) -> dict:
         library_ms = None if library is None else time_ms(library, flush=flush)
         many_ms = time_many_ms(fn, ms, flush)
         library_many_ms = None if library is None else time_many_ms(library, library_ms, flush)
-        bytes_ms = 1e3 * cost[0] / HBM_BYTES_PER_S
-        ops_ms = 1e3 * cost[1] / PEAK_OPS_PER_S[op_type]
+        bytes_ms = 1e3 * cost[0] / hbm_bytes_per_s()
+        ops_ms = 1e3 * cost[1] / peak_ops_per_s(op_type)
         ok = err <= TOL * ref_max and not (equal and n_diff) and repeat_equal is not False
         rows.append(dict(kernel=name, case=case, regime=regime, max_abs_err=err,
                          repeat_equal=repeat_equal,
@@ -1349,13 +1425,27 @@ def kernel_phase(dev) -> dict:
             record("w8a16_gemm", f"m={m} K={k} N={n}", lambda: w8a16_gemm(x, qw, scales, n),
                    lambda: w8a16_matmul_ref(x, qw, scales), m == 1024 and (k, n) in W8A8_SHAPES,
                    linear_cost(m, k, n, 1), library=weight_pack_call(x, qw, scales, 8, None, ref))
-        if (k, n) == LLAMA_SHAPES[0]:  # int8 with group-wise scales: the same kernels' group mode
-            gs = scales_for(k, n, INT4_GROUP)
-            for m, kern in ((1, w8a16_gemv), (8, w8a16_gemv), (1024, w8a16_gemm)):
+        # int8 with group-wise scales (the kernels' group mode, counted as the
+        # variant "group"): g = 128 on qkv; the offline tp reshard's o_proj and
+        # down at group K / tp (TP_GROUP_CASES), tp_generate's at tp = 2
+        groups = (((INT4_GROUP, False),) if (k, n) == LLAMA_SHAPES[0] else ()) + tuple(
+            (g, on_path) for kk, nn, g, on_path in TP_GROUP_CASES if (kk, nn) == (k, n))
+        for group, on_path in groups:
+            gs = scales_for(k, n, group)
+            for m in TP_GROUP_ROWS:
+                kern = w8a16_gemv if m <= 8 else w8a16_gemm
                 xg = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-                record(kern.__name__, f"m={m} K={k} N={n} g={INT4_GROUP}",
-                       lambda: kern(xg, qw, gs, n), lambda: w8a16_matmul_ref(xg, qw, gs), False,
-                       linear_cost(m, k, n, 1, k // INT4_GROUP))
+                record(f"{kern.__name__}[group]", f"m={m} K={k} N={n} g={group}",
+                       lambda: kern(xg, qw, gs, n), lambda: w8a16_matmul_ref(xg, qw, gs),
+                       on_path and m in (1, 1024), linear_cost(m, k, n, 1, k // group),
+                       regime=GEMV_REGIMES.get(m) if m <= 8 else None)
+        if (k, n) in W8A8_SHAPES:  # the per-channel GEMM's two tiles off the rule
+            for m in GEMM_TILE_ROWS:
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                for tile in (128, 256):
+                    record("w8a16_gemm", f"m={m} K={k} N={n} tile_m={tile}",
+                           lambda: w8a16_gemm(x, qw, scales, n, tile_m=tile),
+                           lambda: w8a16_matmul_ref(x, qw, scales), False, linear_cost(m, k, n, 1))
         if (k, n) in W8A8_SHAPES:
             for m in W8A8_ROWS:
                 xq, sx = quantize_activations(
@@ -1977,7 +2067,43 @@ def moe_layer_phase(dev) -> dict:
         moe = quantize_moe(bf16, bits=bits, group_size=group)
         tag = f"int{bits} {'per-channel' if group is None else f'g={group}'}"
         out[tag] = _moe_layer_cases(moe, cfg, gen, dev, tag)
+        if bits == 8:
+            out["knobs"] = _moe_knob_cases(moe, cfg, gen, dev)
         del moe
+    return out
+
+
+def _moe_knob_cases(moe, cfg, gen, dev) -> list:
+    """MOE_KNOB_CASES: each knob set in turn, the kernel path's launches
+    counted, its output against the plain path with the routing replayed."""
+    import torch
+
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eetq_tpu_torch.modules.moe import moe_apply
+
+    out = []
+    for knob, value, t, busy, idle in MOE_KNOB_CASES:
+        x = torch.randn(1, t, cfg.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+        log = []
+        os.environ[knob] = value
+        try:
+            with routing("record", log):
+                reset_launch_counts()
+                y = moe_apply(moe, x, cfg.num_experts_per_tok)
+                torch.cuda.synchronize()
+                counts = {k: n for k, n in launch_counts().items() if n}
+        finally:
+            del os.environ[knob]
+        with routing("replay", log):
+            ref = moe_apply(moe, x, cfg.num_experts_per_tok, use_kernel=False)
+        err, ref_max = compare(y, ref)
+        case = f"{knob}={value} at {t} tokens"
+        print(f"  moe_apply {case}: err {err:.3e} (tol {MODEL_TOL * ref_max:.3e}), "
+              f"launches {counts}")
+        check(err <= MODEL_TOL * ref_max, f"moe_apply {case} differs from the plain path")
+        check(all(counts.get(k) for k in busy), f"moe_apply {case}: {busy} must launch")
+        check(not any(counts.get(k) for k in idle), f"moe_apply {case}: {idle} must not launch")
+        out.append(dict(case=case, max_abs_err=err, ref_absmax=ref_max, counts=counts))
     return out
 
 
@@ -3436,11 +3562,13 @@ def disk_gb(path: str) -> float:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
 
 
-def round_trip(params, cfg, dev, gen, path: str, kv, fused: bool, shards: int | None) -> dict:
-    """save_quantized through `EETQCausalLM`, `from_quantized` back, every
-    tensor against the source (`checkpoint_equal`), and the loaded model's
-    greedy tokens (the path, counted) against the source's, before and after
-    the source's fp16-stored tensors are rounded as the file holds them: the
+def round_trip(params, cfg, dev, gen, path: str, kv, fused: bool, shards: int | None,
+               tp: int = 1) -> dict:
+    """save_quantized through `EETQCausalLM` (an artifact quantized for `tp`
+    ranks), `from_quantized` back, `config.json` recording tp, every tensor
+    against the source (`checkpoint_equal`), and the loaded model's greedy
+    tokens (the path, counted) against the source's, before and after the
+    source's fp16-stored tensors are rounded as the file holds them: the
     latter must be equal."""
     import tempfile
 
@@ -3457,8 +3585,11 @@ def round_trip(params, cfg, dev, gen, path: str, kv, fused: bool, shards: int | 
                                        f"needs {CKPT_FREE_GB} GB")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        EETQCausalLM(cfg, params).save_quantized(d)
+        EETQCausalLM(cfg, params, tp=tp).save_quantized(d)
         save_s = time.perf_counter() - t0
+        with open(os.path.join(d, "config.json")) as f:
+            recorded = json.load(f)["quantization_config"].get("tp")
+        check(recorded == tp, f"{path}: config.json records tp {recorded}, want {tp}")
         gb, files = disk_gb(d), sorted(os.listdir(d))
         st = [f for f in files if f.endswith(".safetensors")]
         print(f"  {path} on {card_line()}: saved {gb:.3f} GB in {save_s:.2f} s "
@@ -3472,7 +3603,8 @@ def round_trip(params, cfg, dev, gen, path: str, kv, fused: bool, shards: int | 
         load_s = time.perf_counter() - t0
     print(f"  {path}: loaded in {load_s:.2f} s ({gb / load_s:.2f} GB/s, the files just "
           f"written, through the page cache)")
-    check(model.cfg == cfg, f"{path}: the loaded config {model.cfg} is not {cfg}")
+    check(model.cfg == cfg and model.tp == tp, f"{path}: the loaded config {model.cfg} (tp "
+                                               f"{model.tp}) is not {cfg} (tp {tp})")
     check(next(model.params.buffers()).device == dev, f"{path}: from_quantized did not load "
                                                       "onto the card")
     stored = checkpoint_equal(params, model.params, path)
@@ -4199,6 +4331,338 @@ def lora_phase(dev) -> dict:
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+# The tooling phase: the host quantizer (`native/`) on llama2-7b's gate|up
+# (NATIVE_SHAPE; f32 and bf16, per-channel and g = NATIVE_GROUP, int4
+# packed), `utils/profiling.py` at llama2-7b's four layer shapes
+# (PROFILE_ROWS; device_time within DEVICE_TIME_AGREE of time_many_ms, no
+# fraction of the roof above ROOF_SLACK), the measured autotune, and the
+# offline tensor-parallel reshard: llama2-7b quantized for TP ranks
+# (tp_generate, tp_checkpoint) and layer 0 at each of TP_RANKS run one rank
+# at a time (tp_ranks).
+NATIVE_SHAPE, NATIVE_GROUP = (4096, 22016), 128
+PROFILE_ROWS = (1, 1024)
+DEVICE_TIME_AGREE, ROOF_SLACK = 0.10, 1.05
+# Launches inside the `trace` check: the profiler has been seen to drop a
+# kernel event now and then (ROADMAP.md queue 3), and after the lora phase's
+# profiled steps it once showed none of a single launch
+TRACE_CALLS = 20
+TP = 2
+TP_RANKS = ((2, 8), (4, 8), (8, 8), (2, 4))  # (tp, bits)
+TP_RANK_ROWS = (1, 1024)
+# The autotune: llama2-7b's four projections at the decode GEMV's m (b=1 and
+# an 8-slot step) and the GEMM's rows; a tuned choice may not be slower than
+# the rule by more than AUTOTUNE_SLOWER when the two are re-read in turns
+AUTOTUNE_BATCHES = (1, 8)
+AUTOTUNE_GEMM_ROWS = (256, 512, 1024)
+AUTOTUNE_SLOWER = 1.03
+_TP_PATH = ("w8a16_gemv", "w8a16_gemm", "w8a16_gemv[group]", "w8a16_gemm[group]",
+            "flash_attention_fwd", "flash_decode")
+PATH_KERNELS.update({"tp_generate": _TP_PATH, "tp_checkpoint": _TP_PATH})
+
+
+def native_path(dev) -> dict:
+    """`native.host_symmetric_quantize` of NATIVE_SHAPE on the host against
+    `quant/quantizer.py::symmetric_quantize` on the card (bit-equal), f32
+    and bf16, per-channel and group-wise; int4 g = NATIVE_GROUP packed by
+    `native.host_pack_int4` against `layout/tiling.py::pack_weights`."""
+    import torch
+
+    from eetq_tpu_torch import native
+    from eetq_tpu_torch.layout.tiling import pack_weights
+    from eetq_tpu_torch.quant.quantizer import symmetric_quantize
+
+    check(native.native_available(), "the native quantizer did not load")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    w32 = (torch.randn(NATIVE_SHAPE, generator=gen, device=dev) * 0.02).cpu()
+    out = []
+    for dtype, bits, group in ((torch.float32, 8, None), (torch.bfloat16, 8, None),
+                               (torch.float32, 8, NATIVE_GROUP), (torch.bfloat16, 8, NATIVE_GROUP),
+                               (torch.bfloat16, 4, NATIVE_GROUP)):
+        w = w32.to(dtype)
+        t0 = time.perf_counter()
+        q, sc = native.host_symmetric_quantize(w, bits=bits, group_size=group)
+        sec = time.perf_counter() - t0
+        qd, sd = symmetric_quantize(w.to(dev), bits=bits, group_size=group)
+        equal = torch.equal(q, qd.cpu()) and torch.equal(sc, sd.cpu())
+        case = f"{str(dtype)[6:]} int{bits} {'per-channel' if group is None else f'g={group}'}"
+        gbs = w.numel() * w.element_size() / sec / 1e9
+        print(f"  host_symmetric_quantize {list(NATIVE_SHAPE)} {case}: {sec:.4f} s "
+              f"({gbs:.2f} GB/s of weights, {os.cpu_count()} host cores); bit-equal to the card's "
+              f"symmetric_quantize: {equal}")
+        check(equal, f"host_symmetric_quantize {case} differs from symmetric_quantize")
+        row = dict(case=case, seconds=sec, gb_s=gbs)
+        if bits == 4:
+            t0 = time.perf_counter()
+            packed = native.host_pack_int4(q)
+            row["pack_seconds"] = time.perf_counter() - t0
+            same = torch.equal(packed, pack_weights(qd, bits=4).data.cpu())
+            print(f"  host_pack_int4: {row['pack_seconds']:.4f} s; equal to pack_weights(bits=4): "
+                  f"{same}")
+            check(same, "host_pack_int4 differs from pack_weights(bits=4)")
+        out.append(row)
+    return dict(cases=out)
+
+
+def profiling_path(dev) -> dict:
+    """`utils/profiling.py` on the card: profile_w8a16_matmul at llama2-7b's
+    four layer shapes (no fraction of the roof above ROOF_SLACK), device_time
+    against time_many_ms on the same calls in turns, host_sync_overhead, and
+    a trace written and read back."""
+    import tempfile
+
+    import torch
+
+    from eetq_tpu_torch.layout.tiling import pack_weights
+    from eetq_tpu_torch.ops.linear import w8a16_matmul
+    from eetq_tpu_torch.quant.quantizer import symmetric_quantize
+    from eetq_tpu_torch.utils.profiling import (
+        device_time,
+        host_sync_overhead,
+        profile_w8a16_matmul,
+        trace,
+    )
+
+    reports = []
+    for m in PROFILE_ROWS:
+        for k, n in LLAMA_SHAPES[:4]:
+            r = profile_w8a16_matmul(m, k, n, device=dev)
+            print(f"  profile_w8a16_matmul m={m} K={k} N={n}: {r}")
+            check(r.fraction_of_roof <= ROOF_SLACK,
+                  f"profile_w8a16_matmul m={m} K={k} N={n}: {r.fraction_of_roof:.3f} of the roof")
+            reports.append(dict(m=m, k=k, n=n, **dataclasses.asdict(r)))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    agree = []
+    for m, (k, n) in ((1, LLAMA_SHAPES[1]), (1024, LLAMA_SHAPES[2])):
+        q, sc = symmetric_quantize(torch.randn(k, n, generator=gen, device=dev))
+        pw = pack_weights(q)
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        fn = functools.partial(w8a16_matmul, x, pw, sc)
+        single = time_ms(fn)
+        iters = max(20, min(2000, int(2.0 / max(single, 1e-3)) + 1))  # as time_many_ms
+        got = {"device_time": [], "time_many_ms": []}
+        for name in ("device_time", "time_many_ms", "time_many_ms", "device_time"):
+            got[name].append(1e3 * device_time(fn, iters=iters, reps=1, device=dev)
+                             if name == "device_time" else time_many_ms(fn, single))
+        a, b = (statistics.median(v) for v in got.values())
+        print(f"  m={m} K={k} N={n}: device_time {a:.4f} ms, time_many_ms {b:.4f} ms "
+              f"({iters} launches a graph, in turns)")
+        check(abs(a - b) <= DEVICE_TIME_AGREE * b, f"device_time and time_many_ms disagree at "
+                                                   f"m={m} K={k} N={n}: {a:.4f} vs {b:.4f} ms")
+        agree.append(dict(m=m, k=k, n=n, device_time_ms=a, time_many_ms=b, runs=got))
+    sync_s = host_sync_overhead(device=dev)
+    print(f"  host_sync_overhead: {1e6 * sync_s:.1f} us")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        with trace(path):
+            for _ in range(TRACE_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    print(f"  trace: {len(events)} events, {len(kernels)} kernel events on the card for "
+          f"{TRACE_CALLS} launches")
+    check(kernels, "the trace holds no kernel event of the card")
+    return dict(reports=reports, agree=agree, host_sync_us=1e6 * sync_s,
+                trace_kernel_events=len(kernels))
+
+
+def autotune_path(base, cfg, dev, gen) -> dict:
+    """The measured autotune on llama2-7b's projections into the run's
+    fresh cache file (`main`): every winner re-read against the rule in
+    turns, the lookups reading the file back, and b=1 decode (bf16 KV, 50
+    tokens) with the tuned cache against the rules (greedy tokens equal, or
+    parting at a near tie; ms a replayed step, in turns). The file is
+    removed at the end, so that no other path sees it."""
+    import torch
+
+    from eetq_tpu_torch.kernels import autotune
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    path = autotune.cache_path()
+    check(not os.path.exists(path), f"the autotune cache {path} exists before the sweep")
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    proj = [(h, cfg.qkv_out), (cfg.num_heads * cfg.head_dim, h), (h, 2 * i), (i, h)]
+    t0 = time.perf_counter()
+    tuned = autotune.autotune_shapes(
+        [(m, k, n) for m in AUTOTUNE_BATCHES + AUTOTUNE_GEMM_ROWS for k, n in proj],
+        verbose=False, device=dev)
+    sweep_s = time.perf_counter() - t0
+    check(os.path.exists(path), f"the sweep wrote no cache file at {path}")
+    rows = []
+    for key, t in tuned.items():
+        m, rows_, np_, bits, group = t.shape
+        reread = (autotune.time_candidates(m, rows_, np_, bits, group, (t.rule, t.choice),
+                                           device=dev)
+                  if t.choice != t.rule else {t.rule: t.ms[t.rule]})
+        looked = (autotune.choose_gemv_splits(dev.index, rows_, np_, bits, m, group)
+                  if t.what == "splits" else autotune.choose_gemm_tile(dev.index, m, rows_, np_,
+                                                                       bits, group))
+        print(f"  {key}: {t.what}={t.choice} {t.ms[t.choice]:.4f} ms in the sweep (the rule's "
+              f"{t.rule}: {t.ms[t.rule]:.4f}); re-read in turns: {reread[t.choice]:.4f} ms "
+              f"against the rule's {reread[t.rule]:.4f}; looked up: {looked}")
+        check(reread[t.choice] <= AUTOTUNE_SLOWER * reread[t.rule],
+              f"{key}: the tuned {t.what}={t.choice} is slower than the rule's {t.rule}")
+        check(looked == t.choice, f"{key}: the lookup gives {looked}, the cache {t.choice}")
+        rows.append(dict(key=key, what=t.what, choice=t.choice, rule=t.rule, sweep_ms=t.ms,
+                         reread_ms=reread))
+    print(f"  autotune: {len(tuned)} shapes swept in {sweep_s:.1f} s; "
+          f"{sum(t.choice != t.rule for t in tuned.values())} differ from the rule")
+
+    _, p, n = REQUESTS[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=gen, device=dev)
+    untuned = os.path.join(os.path.dirname(path), "untuned.json")  # never written
+
+    def decode(cache: str):
+        os.environ["EETQ_AUTOTUNE_CACHE"] = cache
+        autotune.clear_caches()
+        caches = init_caches(cfg, 1, p + n, device=dev, dtype=torch.bfloat16)
+        lp, caches = prefill(base, cfg, prompt, caches)
+        rec = {}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, _ = decode_loop(base, cfg, torch.argmax(lp, -1), p, caches, n, stats=rec)
+        torch.cuda.synchronize()
+        total = 1e3 * (time.perf_counter() - t1)
+        return toks, (total - rec["warm_ms"] - rec["capture_ms"]) / (n - 2)
+
+    runs = {path: [], untuned: []}
+    toks = {}
+    for cache in (untuned, path, path, untuned):
+        got, ms = decode(cache)
+        toks.setdefault(cache, got)
+        runs[cache].append(ms)
+    os.environ["EETQ_AUTOTUNE_CACHE"] = path
+    autotune.clear_caches()
+    equal = bool(torch.equal(toks[path], toks[untuned]))
+    tie = None
+    if not equal:
+        j = int((toks[path] != toks[untuned]).any(0).nonzero()[0])
+        ids = prompt[0].tolist() + toks[untuned][0, :j].tolist()
+        tie = near_tie(base, cfg, dev, ids, int(toks[path][0, j]), int(toks[untuned][0, j]))
+        print(f"  tuned decode parts from the rules' at token {j}: {tie}")
+        check(tie["logit_tie"], f"the tuned decode parts from the rules' at token {j}, not at "
+                                "a near tie")
+    runs = {"tuned": runs[path], "rule": runs[untuned]}
+    ms = {name: statistics.median(v) for name, v in runs.items()}
+    print(f"  decode b=1 p={p}, {n} tokens: tuned {ms['tuned']:.3f} ms a replayed step, the rules "
+          f"{ms['rule']:.3f} (in turns: {runs}); greedy tokens equal: {equal}")
+    os.remove(path)
+    autotune.clear_caches()
+    return dict(shapes=rows, sweep_s=sweep_s, decode_ms=ms, decode_runs=runs,
+                tokens_equal=equal, near_tie=tie)
+
+
+def tp_ranks_path(dense, cfg, dev, gen) -> dict:
+    """Layer 0 of the dense model at each (tp, bits) of TP_RANKS through
+    `quantize_params_tp`, then each rank's shard from the split functions
+    through the kernels one rank at a time (m of TP_RANK_ROWS): the column
+    shards (qkv, gate|up) against the merged layer's output split the same
+    way, the row shards' partials (o_proj, down; x split along K) summed in
+    f32, the bias added once by rank 0, against the merged layer, all within
+    MODEL_TOL of the largest output. On one card this stands in for the
+    all-reduce of a sharded model."""
+    import torch
+
+    from eetq_tpu_torch.dist import split_gateup_columns, split_qkv_columns
+    from eetq_tpu_torch.models.transformer import ModelParams
+    from eetq_tpu_torch.ops.linear import w8a16_matmul
+    from eetq_tpu_torch.surgery.tp_reshard import (
+        _split_quant_columns_grouped,
+        quantize_params_tp,
+        split_quant_rows,
+    )
+
+    def run(ql, x):
+        return w8a16_matmul(x, ql.packed, ql.scales, ql.bias)
+
+    one = ModelParams(dense.embed, [dense.layers[0]], dense.final_norm, dense.lm_head)
+    out = []
+    for tp, bits in TP_RANKS:
+        lp = quantize_params_tp(one, cfg, tp, bits=bits).layers[0]
+        worst = 0.0
+        for name in ("qkv", "gateup", "o_proj", "down"):
+            ql = getattr(lp, name)
+            col = name in ("qkv", "gateup")
+            shards = (_split_quant_columns_grouped(ql, cfg, tp, name) if col
+                      else split_quant_rows(ql, tp))
+            for m in TP_RANK_ROWS:
+                x = torch.randn(m, ql.k, generator=gen, device=dev).to(torch.bfloat16)
+                merged = run(ql, x)
+                if col:
+                    split = (split_qkv_columns(merged, cfg, tp) if name == "qkv"
+                             else split_gateup_columns(merged, tp))
+                    got = torch.cat([run(sh, x) for sh in shards], -1).float()
+                    want = torch.cat(split, -1).float()
+                else:
+                    xs = torch.chunk(x, tp, dim=-1)
+                    got = sum(run(sh, xi.contiguous()).float() for sh, xi in zip(shards, xs))
+                    want = merged.float()
+                check(bool(torch.isfinite(got).all()), f"tp_ranks {name} is not finite")
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                worst = max(worst, rel)
+                check(rel <= MODEL_TOL, f"tp_ranks tp={tp} int{bits} {name} m={m}: the ranks "
+                                        f"part from the merged layer by {rel:.3e}")
+        groups = (tuple(lp.o_proj.scales.shape), tuple(lp.down.scales.shape))
+        print(f"  tp_ranks tp={tp} int{bits}: o_proj and down scales {groups[0]}, {groups[1]}; "
+              f"the {tp} ranks against the merged layer at m = {TP_RANK_ROWS}: at most "
+              f"{worst:.3e} of the largest output (tol {MODEL_TOL})")
+        out.append(dict(tp=tp, bits=bits, scales=groups, max_rel_err=worst))
+    return dict(cases=out)
+
+
+def tooling_phase(dev) -> dict:
+    """native_path, profiling_path, then llama2-7b at full width and depth
+    built dense from the seed and quantized twice: `EETQCausalLM.quantize(
+    tp=TP)` (o_proj and down group-wise at K / TP) and tp = 1 (per-channel),
+    both with the dense lm_head: tp_generate (generate's b=1 path on the tp
+    model: prefill and a decode step against the plain path, decode_loop
+    against eager steps, 50 tokens; its prefill logits' largest gap to the tp
+    = 1 model printed), tp_checkpoint (its round trip, `config.json`
+    recording tp), the autotune on the tp = 1 model, and tp_ranks."""
+    import torch
+
+    from eetq_tpu_torch.models.auto import EETQCausalLM
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import random_dense_params
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import prefill
+    from eetq_tpu_torch.surgery.tp_reshard import quantize_params_tp
+
+    out = dict(native=native_path(dev), profiling=profiling_path(dev))
+    cfg = PRESETS[MODEL]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    dense = random_dense_params(cfg, gen)
+    model = EETQCausalLM(cfg, dense).quantize(tp=TP)
+    base = quantize_params_tp(dense, cfg, 1)
+    torch.cuda.synchronize()
+    check(tuple(model.params.layers[0].o_proj.scales.shape) == (TP, cfg.hidden_size)
+          and tuple(model.params.layers[0].down.scales.shape) == (TP, cfg.hidden_size)
+          and model.params.layers[0].qkv.scales.dim() == 1, "quantize(tp) scale shapes")
+    paths = generate_paths(model.params, cfg, dev, gen, {"tp_generate": (torch.bfloat16, False)},
+                           requests=REQUESTS[:1])
+    # o_proj and down, group-wise: 2 a layer in the prefill and in each of
+    # the n - 1 decode steps
+    counts, n = paths["tp_generate"]["counts"], REQUESTS[0][2]
+    want = {"w8a16_gemm[group]": 2 * cfg.num_layers,
+            "w8a16_gemv[group]": 2 * cfg.num_layers * (n - 1)}
+    check(all(counts[k] == v for k, v in want.items()),
+          f"tp_generate: group-wise launches {[counts[k] for k in want]}, want {want}")
+    prompt = torch.randint(0, cfg.vocab_size, (1, REQUESTS[0][1]), generator=gen, device=dev)
+    lg = [prefill(p, cfg, prompt, init_caches(cfg, 1, prompt.shape[1], device=dev))[0].float()
+          for p in (model.params, base)]
+    gap = ((lg[0] - lg[1]).abs().max() / lg[1].abs().max()).item()
+    print(f"  tp_generate: prefill logits of the tp={TP} model against the tp=1 model: largest "
+          f"gap {gap:.4e} of the largest logit")
+    paths["tp_generate"]["tp1_gap"] = gap
+    paths["tp_checkpoint"] = round_trip(model.params, cfg, dev, gen, "tp_checkpoint",
+                                        torch.bfloat16, False, None, tp=TP)
+    out["autotune"] = autotune_path(base, cfg, dev, gen)
+    out["tp_ranks"] = tp_ranks_path(dense, cfg, dev, gen)
+    return dict(out, paths=paths, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 def main() -> int:
     import argparse
 
@@ -4220,6 +4684,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    # the measured autotune's cache: a fresh file that only the tooling
+    # phase's autotune writes (and removes), so that a cache in the home
+    # directory cannot change what any path launches
+    import tempfile
+
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ["EETQ_AUTOTUNE_CACHE"] = os.path.join(tune_dir, "autotune.json")
+    os.environ.pop("EETQ_AUTOTUNE", None)
+    try:
+        return _main(args, phases)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def _main(args, phases) -> int:
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     from eetq_tpu_torch.kernels import _build
@@ -4257,6 +4738,7 @@ def main() -> int:
         "llama": lambda: model_phase(dev, args.profile),
         "checkpoint": lambda: checkpoint_phase(dev),
         "lora": lambda: lora_phase(dev),
+        "tooling": lambda: tooling_phase(dev),
         "int4": lambda: int4_phase(dev, args.profile),
         "mixtral": lambda: mixtral_phase(dev, profile=args.profile),
         "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
@@ -4285,6 +4767,7 @@ def main() -> int:
                            kernel_summary=done.get("kernels", {}).get("summary"),
                            moe_layer=done.get("moe_layer"), model=done.get("llama"),
                            checkpoint=done.get("checkpoint"), lora=done.get("lora"),
+                           tooling=done.get("tooling"),
                            int4=done.get("int4"), mixtral=done.get("mixtral"),
                            mixtral_int4=done.get("mixtral_int4"), families=done.get("families"),
                            seconds=time.perf_counter() - t_start), f, indent=1, default=str)
@@ -4292,7 +4775,8 @@ def main() -> int:
         print(f"partial run ({','.join(done)}): every check of these phases passed")
         return 0
     paths = {}
-    for phase in ("llama", "checkpoint", "lora", "int4", "mixtral", "mixtral_int4", "families"):
+    for phase in ("llama", "checkpoint", "lora", "tooling", "int4", "mixtral", "mixtral_int4",
+                  "families"):
         paths.update(done[phase]["paths"])
     kern = done["kernels"]
     kernels = [

@@ -18,10 +18,13 @@
 // act the epilogue's activation (common.cuh: 0 silu, 1 gelu, 2 relu, 3 none)
 // and residual bf16 [m, n] or null, added or multiplied (res_mul), in f32
 // before the one rounding.
+// tile_m the rows of the output tile: 0 the rule (128 where m <= 128, else
+// 256), or 128 or 256 as given (kernels/autotune.py's measured choice);
+// group-wise scales take 0 or 256 only (cudaErrorInvalidValue otherwise).
 extern "C" int eetq_w4a16_gemm(const void* x, int m, int k, const void* w, int kp, int np,
                                const void* scales, int groups, int group_size, const void* bias,
                                int act, const void* residual, int res_mul, void* out, int n,
-                               void* stream) {
+                               int tile_m, void* stream) {
   return eetq::wgmma_gemm::dense_entry<4>(x, m, k, w, kp, np, scales, groups, group_size, bias,
-                                          act, residual, res_mul, out, n, stream);
+                                          act, residual, res_mul, out, n, tile_m, stream);
 }

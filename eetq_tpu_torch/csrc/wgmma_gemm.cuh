@@ -508,12 +508,18 @@ cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
 
 // The design for the call: per-channel scales on the 256 x 128 tile (128 x
 // 128 where one 128-row block holds m), group-wise on the 256 x 64 one.
+// tile_m 0 keeps that rule; 128 or 256 picks the per-channel tile's rows
+// (kernels/autotune.py's measured choice); the group-wise tile has 256 rows
+// only.
 template <int kBits, bool kEpi>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+cudaError_t launch(const Args& a, int tile_m, cudaStream_t stream) {
   if (a.groups == 0) {
-    return a.m <= 128 ? launch_tile<kBits, 1, 128, 0, kEpi>(a, stream)
-                      : launch_tile<kBits, 2, 128, 0, kEpi>(a, stream);
+    if (tile_m == 0) tile_m = a.m <= 128 ? 128 : 256;
+    if (tile_m == 128) return launch_tile<kBits, 1, 128, 0, kEpi>(a, stream);
+    if (tile_m == 256) return launch_tile<kBits, 2, 128, 0, kEpi>(a, stream);
+    return cudaErrorInvalidValue;
   }
+  if (tile_m != 0 && tile_m != 256) return cudaErrorInvalidValue;
   if (a.group_size < EETQ_GROUP_GRANULE || a.group_size % EETQ_GROUP_GRANULE)
     return cudaErrorInvalidValue;
   return a.group_size % kBK == 0 ? launch_tile<kBits, 2, 64, 1, kEpi>(a, stream)
@@ -522,11 +528,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // The dense GEMM's C entry points (w8a16_gemm.cu, w4a16_gemm.cu); scales
 // [n], or [groups, n] when groups > 0; the epilogue's activation `act` and
-// residual (or null), multiplied where res_mul is set.
+// residual (or null), multiplied where res_mul is set; tile_m the tile's
+// rows (0: the rule of `launch`).
 template <int kBits>
 int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, const void* scales,
                 int groups, int group_size, const void* bias, int act, const void* residual,
-                int res_mul, void* out, int n, void* stream) {
+                int res_mul, void* out, int n, int tile_m, void* stream) {
   if (act < kActSilu || act > kActNone) return cudaErrorInvalidValue;
   Args a{};
   a.x = static_cast<const bf16*>(x);
@@ -545,8 +552,8 @@ int dense_entry(const void* x, int m, int k, const void* w, int kp, int np, cons
   a.out = static_cast<bf16*>(out);
   a.n = n;
   auto s = static_cast<cudaStream_t>(stream);
-  return act != kActNone || residual != nullptr ? launch<kBits, true>(a, s)
-                                                : launch<kBits, false>(a, s);
+  return act != kActNone || residual != nullptr ? launch<kBits, true>(a, tile_m, s)
+                                                : launch<kBits, false>(a, tile_m, s);
 }
 
 }  // namespace

@@ -60,9 +60,9 @@ SIGNATURES = {
         _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _F, _I, _P, _I, _P, _I, _P, _P, _I, _P,
     ),
     # x, m, k, w, kp, np, scales, groups, group_size, bias, act, residual,
-    # res_mul, out, n, stream
-    "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P),
-    "eetq_w4a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P),
+    # res_mul, out, n, tile_m, stream
+    "eetq_w8a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P),
+    "eetq_w4a16_gemm": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P),
     # x, m, k, bank, weight rows, np, scales, groups, group_size, expert_ids,
     # n_sel, out, n, partials, counters, splits, stream
     "eetq_w8a16_expert_gemv": (

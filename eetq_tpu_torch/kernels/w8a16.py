@@ -46,10 +46,12 @@ in f32 before the one rounding to bf16. The GEMV applies it in the strip's
 last block, after the ordered sum of a K split; the GEMM in a kernel of its
 own (the bias-only kernel is unchanged), through an f32 staging of the tile.
 A launch with an activation or a residual also counts as the variant
-"epilogue" (`variant_launches`). The GEMM applies each group's scale to that
-group's f32 partial sum, as the TPU kernel does (w8a16.py:103-126); the
-GEMV folds each K step's f32 partial times its group's scales (the same
-sum in another order; see `csrc/gemv.cuh`).
+"epilogue" (`variant_launches`); an int8 launch with group-wise scales (the
+offline tensor-parallel reshard's o_proj and down, group = K / tp) counts
+as the variant "group" of `w8a16_gemv` and `w8a16_gemm`. The GEMM applies
+each group's scale to that group's f32 partial sum, as the TPU kernel does
+(w8a16.py:103-126); the GEMV folds each K step's f32 partial times its
+group's scales (the same sum in another order; see `csrc/gemv.cuh`).
 
 The MoE kernels run the same designs over a stacked expert bank, int8
 [E, Kp, Np] or int4 [E, Kp/2, Np], with per-channel scales [E, N] or
@@ -72,6 +74,9 @@ memory:
 
 Each wrapper launches its kernel for CUDA tensors (or raises), and runs the
 plain PyTorch version for CPU tensors. `launches` counts kernel launches.
+On CUDA the dense GEMV's K split and the per-channel GEMM's tile rows come
+from `autotune.choose_gemv_splits` / `choose_gemm_tile` (the measured cache,
+else the rule), or from the `splits` / `tile_m` arguments a sweep passes.
 """
 
 from __future__ import annotations
@@ -81,10 +86,14 @@ import torch
 from eetq_tpu_torch.kernels import _build
 from eetq_tpu_torch.kernels.autotune import (
     GEMV_BLOCK_N,
+    GEMV_STEP_ROWS,
     GROUPED_BM_MAX,
     GROUPED_BM_MIN,
     MAX_DECODE_M,
+    choose_gemm_tile,
+    choose_gemv_splits,
     gemv_scratch_size,
+    gemv_split_floor,
     gemv_splits,
     group_size_of,
     sm_count,
@@ -133,10 +142,13 @@ def epilogue_args(x, n: int, activation, residual, residual_mode):
             int(residual_mode == "mul"))
 
 
-def count_launch(fn, activation, residual) -> None:
-    """One launch behind wrapper `fn`: its count, and the epilogue variant's."""
+def count_launch(fn, activation, residual, group: int = 0) -> None:
+    """One launch behind wrapper `fn`: its count, the epilogue variant's, and
+    the group-wise variant's where `fn` counts one."""
     fn.launches += 1
     fn.variant_launches["epilogue"] += activation is not None or residual is not None
+    if "group" in fn.variant_launches:
+        fn.variant_launches["group"] += group > 0
 
 
 def w8a16_matmul_ref(
@@ -251,14 +263,29 @@ def _logical(qdata: torch.Tensor, bits: int, k: int, n: int) -> torch.Tensor:
     return (unpack_int4_rows(qdata) if bits == 4 else qdata)[..., :k, :n]
 
 
-def _gemv_plan(x, rows: int, strips: int, sels: int, bits: int, m: int, group: int):
-    """(K splits, partials pointer, counters pointer) of one GEMV launch."""
-    splits = gemv_splits(rows, strips, sels, bits, m, group, sm_count(x.device.index))
+def _gemv_plan(x, rows: int, strips: int, sels: int, bits: int, m: int, group: int,
+               splits: int | None = None):
+    """(K splits, partials pointer, counters pointer) of one GEMV launch: the
+    rule's splits unless `splits` is given."""
+    if splits is None:
+        splits = gemv_splits(rows, strips, sels, bits, m, group, sm_count(x.device.index))
     return (splits, *_build.scratch("gemv", x.device, *gemv_scratch_size(splits, strips, sels)))
 
 
+def _dense_splits(x, rows: int, np_: int, bits: int, m: int, group: int,
+                  splits: int | None) -> int:
+    """The dense GEMV's K split: `splits` as given (within the shared-memory
+    floor at this m and the K steps), else the tuned cache's or the rule's."""
+    if splits is None:
+        return choose_gemv_splits(x.device.index, rows, np_, bits, m, group)
+    lo, steps = max(gemv_split_floor(rows, bits, m, group), 1), rows // GEMV_STEP_ROWS
+    if not lo <= splits <= steps:
+        raise ValueError(f"{splits} K splits: this GEMV takes {lo}..{steps}")
+    return splits
+
+
 def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps, activation,
-          residual, residual_mode):
+          residual, residual_mode, splits=None):
     # `ops/linear.py::DequantMatmul` carries this kernel's backward
     _build.refuse_grad(entry[len("eetq_"):], x, scales, bias, gamma, residual)
     k = x.shape[-1]
@@ -279,18 +306,20 @@ def _gemv(counter, entry: str, bits: int, x, qdata, scales, n, bias, gamma, eps,
     if gamma is not None and gamma.data_ptr() % 16:  # copied 16 bytes at a time
         gamma = gamma.clone()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    splits, partials, counters = _gemv_plan(x, rows, np_ // GEMV_BLOCK_N, 1, bits, m, group)
+    splits, partials, counters = _gemv_plan(
+        x, rows, np_ // GEMV_BLOCK_N, 1, bits, m, group,
+        _dense_splits(x, rows, np_, bits, m, group, splits))
     _build.launch(
         entry, x.data_ptr(), m, k, qdata.data_ptr(), rows, np_, scales.data_ptr(), groups,
         group, _build.ptr(bias), _build.ptr(gamma), eps, act, _build.ptr(residual), res_mul,
         out.data_ptr(), n, partials, counters, splits, _build.stream_of(x),
     )
-    count_launch(counter, activation, residual)
+    count_launch(counter, activation, residual, group)
     return out
 
 
 def _gemm(counter, entry: str, bits: int, x, qdata, scales, n, bias, activation, residual,
-          residual_mode):
+          residual_mode, tile_m=None):
     # `ops/linear.py::DequantMatmul` carries this kernel's backward
     _build.refuse_grad(entry[len("eetq_"):], x, scales, bias, residual)
     k = x.shape[-1]
@@ -303,13 +332,15 @@ def _gemm(counter, entry: str, bits: int, x, qdata, scales, n, bias, activation,
     m = x.shape[0]
     rows, np_ = qdata.shape
     bias = _f32(bias)
+    if tile_m is None:
+        tile_m = choose_gemm_tile(x.device.index, m, rows, np_, bits, group)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     _build.launch(
         entry, x.data_ptr(), m, k, qdata.data_ptr(), rows * 2 if bits == 4 else rows, np_,
         scales.data_ptr(), groups, group, _build.ptr(bias), act, _build.ptr(residual), res_mul,
-        out.data_ptr(), n, _build.stream_of(x),
+        out.data_ptr(), n, tile_m, _build.stream_of(x),
     )
-    count_launch(counter, activation, residual)
+    count_launch(counter, activation, residual, group)
     return out
 
 
@@ -324,6 +355,8 @@ def w8a16_gemv(
     activation: str | None = None,
     residual: torch.Tensor | None = None,
     residual_mode: str = "add",
+    *,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Decode regime: ``act(rmsnorm(x) @ dequant(W) + bias) [+|*] residual``
     for m <= 8 rows.
@@ -332,11 +365,12 @@ def w8a16_gemv(
     [K/g, N]; bias [N]; gamma [K] fuses ``rmsnorm(x, gamma, eps)`` into the
     prologue (y in f32, rounded to bf16 before the dot, as
     `w8a16.py:180-184`); activation None, "relu", "gelu" (tanh) or "silu";
-    residual bf16 [m, N], added or, with residual_mode "mul", multiplied.
+    residual bf16 [m, N], added or, with residual_mode "mul", multiplied;
+    splits the K split on the card (None: `autotune.choose_gemv_splits`).
     Returns [m, N] bf16.
     """
     return _gemv(w8a16_gemv, "eetq_w8a16_gemv", 8, x, qdata, scales, n, bias, gamma, eps,
-                 activation, residual, residual_mode)
+                 activation, residual, residual_mode, splits)
 
 
 def w4a16_gemv(
@@ -350,11 +384,13 @@ def w4a16_gemv(
     activation: str | None = None,
     residual: torch.Tensor | None = None,
     residual_mode: str = "add",
+    *,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """:func:`w8a16_gemv` on int4 weights: qdata the packed int4 pairs
     [Kp/2, Np]."""
     return _gemv(w4a16_gemv, "eetq_w4a16_gemv", 4, x, qdata, scales, n, bias, gamma, eps,
-                 activation, residual, residual_mode)
+                 activation, residual, residual_mode, splits)
 
 
 def w8a16_gemm(
@@ -366,12 +402,17 @@ def w8a16_gemm(
     activation: str | None = None,
     residual: torch.Tensor | None = None,
     residual_mode: str = "add",
+    *,
+    tile_m: int | None = None,
 ) -> torch.Tensor:
     """Prefill regime: ``act(x @ dequant(W) + bias) [+|*] residual``. x [m, K]
     bf16; qdata the packed int8 [Kp, Np]; scales f32 [N] or [K/g, N]; the
-    epilogue as :func:`w8a16_gemv`'s. Returns [m, N] bf16."""
+    epilogue as :func:`w8a16_gemv`'s; tile_m the output tile's rows on the
+    card, 128 or 256 (group-wise: 256), 0 the kernel's rule, None
+    `autotune.choose_gemm_tile`; the kernel refuses any other. Returns
+    [m, N] bf16."""
     return _gemm(w8a16_gemm, "eetq_w8a16_gemm", 8, x, qdata, scales, n, bias, activation,
-                 residual, residual_mode)
+                 residual, residual_mode, tile_m)
 
 
 def w4a16_gemm(
@@ -383,11 +424,13 @@ def w4a16_gemm(
     activation: str | None = None,
     residual: torch.Tensor | None = None,
     residual_mode: str = "add",
+    *,
+    tile_m: int | None = None,
 ) -> torch.Tensor:
     """:func:`w8a16_gemm` on int4 weights: qdata the packed int4 pairs
     [Kp/2, Np]."""
     return _gemm(w4a16_gemm, "eetq_w4a16_gemm", 4, x, qdata, scales, n, bias, activation,
-                 residual, residual_mode)
+                 residual, residual_mode, tile_m)
 
 
 def _expert_gemv(counter, entry: str, bits: int, x, qdata, scales, expert_ids, n):
@@ -519,6 +562,8 @@ def w4a16_grouped_gemm(
 for _fn in (w8a16_gemv, w8a16_gemm, w4a16_gemv, w4a16_gemm):
     _fn.launches = 0
     _fn.variant_launches = {"epilogue": 0}
+for _fn in (w8a16_gemv, w8a16_gemm):
+    _fn.variant_launches["group"] = 0
 w8a16_expert_gemv.launches = 0
 w8a16_grouped_gemm.launches = 0
 w4a16_expert_gemv.launches = 0

@@ -4,9 +4,10 @@ Port of `eetq_tpu/models/auto.py`: dispatch on config.model_type, then
 from_pretrained -> quantize -> save_quantized -> from_quantized over a local
 checkpoint directory, or from_torch over a live HuggingFace model.
 Generation is the port's own (`serve/generate.py`). Every entry point that
-places parameters takes `device`, the card when None. Not ported: the hub
-download of `resolve_checkpoint`, `quantize(tp > 1)` and `shard()`
-(ROADMAP queue 1 item 9).
+places parameters takes `device`, the card when None. `quantize(tp=N)` is
+the offline tensor-parallel reshard (`surgery/tp_reshard.py`): the artifact
+serves on one card and records tp in its quant config. Not ported: the hub
+download of `resolve_checkpoint` and `shard()` (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ class EETQCausalLM:
     cfg: ModelConfig
     params: ModelParams
     hf_config: dict | None = None
+    tp: int = 1  # the tensor parallelism `quantize` prepared the artifact for
 
     @property
     def quantized(self) -> bool:
@@ -57,16 +59,26 @@ class EETQCausalLM:
         quantize_lm_head: bool = False,
     ) -> "EETQCausalLM":
         """Quantize in place (fused-projection W8A16/W4A16, where the params
-        lie) and optionally save."""
-        if tp > 1:
-            raise NotImplementedError(f"quantize(tp={tp}) {_NOT_PORTED}")
+        lie) and optionally save. tp > 1 mirrors the reference's
+        `quantize(save_dir, tp)` (`models/base.py:74-102`): the row-parallel
+        layers get per-rank K-slice scales (group = K / tp), so that a later
+        tp-way reshard is bit-exact, and the artifact still serves on one
+        card (the group-wise kernels); the lm_head stays dense."""
         if not self.quantized:
-            from eetq_tpu_torch.surgery.quantize import eet_quantize
+            if tp > 1:
+                if group_size is not None:
+                    raise ValueError("pass either tp or group_size, not both")
+                from eetq_tpu_torch.surgery.tp_reshard import quantize_params_tp
 
-            self.params = eet_quantize(
-                self.params, bits=bits, group_size=group_size,
-                exclude=() if quantize_lm_head else ("lm_head",),
-            )
+                self.params = quantize_params_tp(self.params, self.cfg, tp=tp, bits=bits)
+            else:
+                from eetq_tpu_torch.surgery.quantize import eet_quantize
+
+                self.params = eet_quantize(
+                    self.params, bits=bits, group_size=group_size,
+                    exclude=() if quantize_lm_head else ("lm_head",),
+                )
+            self.tp = tp
         if save_dir is not None:
             self.save_quantized(save_dir)
         return self
@@ -74,7 +86,7 @@ class EETQCausalLM:
     def save_quantized(self, save_dir: str) -> None:
         if not self.quantized:
             raise ValueError("call quantize() first")
-        save_quantized(self.params, self.cfg, save_dir, hf_config=self.hf_config)
+        save_quantized(self.params, self.cfg, save_dir, hf_config=self.hf_config, tp=self.tp)
 
     def forward(self, tokens, positions, caches=None, offset=0):
         return forward(self.params, self.cfg, tokens, positions, caches, offset)
@@ -125,7 +137,8 @@ class AutoEETQForCausalLM:
         cfg, hf = load_config(path)
         _check_supported(cfg)
         cfg2, params = load_quantized(path, dtype=dtype, device=device)
-        return EETQCausalLM(cfg=cfg2, params=params, hf_config=hf)
+        tp = int((hf.get("quantization_config") or {}).get("tp", 1))
+        return EETQCausalLM(cfg=cfg2, params=params, hf_config=hf, tp=tp)
 
     @classmethod
     def from_torch(cls, torch_model, quantize: bool = True,

@@ -16,8 +16,10 @@ What differs is where the work runs. Files are read and written by
 a tensor is read from the file's mapping and moved to the target device
 (`device=None` is the card), where it is transposed, quantized and packed;
 a quantized dense projection is quantized there by `quant/quantizer.py::
-symmetric_quantize` (bit-identical to the JAX package's host quantizer, on
-the same f32, f16 or bf16 values) and freed, so the peak is one dense layer. A
+symmetric_quantize` on the card, or by the native host quantizer
+(`native/`) on the CPU (both bit-identical to the JAX package's host
+quantizer, on the same f32, f16 or bf16 values) and freed, so the peak is
+one dense layer. A
 save streams: each tensor is made on its device when the writer reaches it
 and crosses to the host through one pinned buffer.
 """
@@ -161,6 +163,17 @@ def _transposed(w_t: torch.Tensor, dtype, device) -> torch.Tensor:
     return w_t.to(device).T.to(dtype).contiguous()
 
 
+def _quantize(w: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel quantization where w lies: on the CPU by the native host
+    quantizer (`native/`, as the JAX package's `_to_linear` and `_to_moe`),
+    on the card by `symmetric_quantize` there; the same values either way."""
+    if w.device.type == "cpu":
+        from eetq_tpu_torch.native import host_symmetric_quantize
+
+        return host_symmetric_quantize(w, bits=bits)
+    return symmetric_quantize(w, bits=bits)
+
+
 def _to_linear(w_t: torch.Tensor, quantize: bool, bits: int, dtype, device,
                bias: torch.Tensor | None = None):
     """torch [out, in] -> the port's [in, out], on `device`; optionally
@@ -169,7 +182,7 @@ def _to_linear(w_t: torch.Tensor, quantize: bool, bits: int, dtype, device,
     b = None if bias is None else bias.to(device=device, dtype=dtype)
     w = w_t.to(device).T
     if quantize:
-        q, s = symmetric_quantize(w, bits=bits)
+        q, s = _quantize(w, bits)
         return QuantLinear(pack_weights(q, bits=bits), s, b)
     return DenseLinear(w.to(dtype).contiguous(), b)
 
@@ -189,7 +202,7 @@ def _to_moe(src, pfx: str, fam: dict, cfg: ModelConfig, quantize: bool,
                         src(f"{ex}.w3.weight").to(device)]).T  # [H, 2I]
         dn = src(f"{ex}.w2.weight").to(device).T  # [I, H]
         if quantize:
-            gu, dn = symmetric_quantize(gu, bits=bits), symmetric_quantize(dn, bits=bits)
+            gu, dn = _quantize(gu, bits), _quantize(dn, bits)
         else:
             gu, dn = gu.to(dtype), dn.to(dtype)
         gus.append(gu)

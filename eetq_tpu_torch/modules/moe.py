@@ -18,9 +18,20 @@ thresholds:
 
 On CUDA the routing and grouping glue keeps static shapes and never reads
 a value back to the host (no `.item()`, `nonzero`, boolean indexing or
-`bincount`), so the ids never leave the card, as on the TPU. Expert
-parallelism and the JAX package's `EETQ_MOE_*` A/B knobs are not ported
-(the knobs raise NotImplementedError).
+`bincount`), so the ids never leave the card, as on the TPU. The masked
+scan's kernel path runs each expert's slice of the bank through the dense
+kernels (`ops/linear.py::w8a16_matmul`: the GEMV up to MAX_DECODE_M tokens,
+the GEMM above), where JAX calls its expert kernel with one id; the same
+function. Expert parallelism is not ported.
+
+The JAX package's A/B knobs (`eetq_tpu/modules/moe.py:113-119, 238-263`)
+take the same branches here: `EETQ_MOE_NO_GATHER=1` sends the decode
+shapes, and the prompts too, to the masked scan; `EETQ_MOE_NO_GROUPED=1`
+sends the prompts there; `EETQ_MOE_GROUPED_BM` sets the grouped GEMM's rows
+per block (a multiple of 8 in 8..128; at most `GROUPED_SKINNY_BM` takes the
+skinny tile, more the wide one). They are read on every call; a captured
+CUDA graph keeps the branch they chose at capture (where JAX reads them when
+a jitted function is traced).
 """
 
 from __future__ import annotations
@@ -33,13 +44,11 @@ from torch import nn
 from eetq_tpu_torch.kernels.autotune import GROUPED_BM_MAX, GROUPED_BM_MIN, MAX_DECODE_M
 from eetq_tpu_torch.kernels.mlp_fused import ACTIVATIONS
 from eetq_tpu_torch.kernels.w8a16 import w8a16_matmul_ref
-from eetq_tpu_torch.layout.tiling import pack_weights, unpack_weights
+from eetq_tpu_torch.layout.tiling import PackedWeight, pack_weights, unpack_weights
 from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear
+from eetq_tpu_torch.ops.linear import w8a16_matmul
 from eetq_tpu_torch.ops.moe import w8a16_expert_matmul, w8a16_grouped_matmul
 from eetq_tpu_torch.quant.quantizer import symmetric_quantize
-
-_KNOBS = ("EETQ_MOE_NO_GATHER", "EETQ_MOE_NO_GROUPED", "EETQ_MOE_GROUPED_BM")
-
 
 class MoEMLP(nn.Module):
     """Routed MLP block: router [H, E] + stacked expert gate|up and down.
@@ -98,9 +107,23 @@ def _grouped_bm(n_sel: int, e: int) -> int:
     """Rows per block of the grouped GEMM (`eetq_tpu/modules/moe.py:106`):
     128 keeps the weight stream compute-bound; small prompts shrink it
     toward the balanced per-expert count, a multiple of 8, so the padding
-    stays bounded (at most n_sel / bm + E blocks)."""
+    stays bounded (at most n_sel / bm + E blocks). EETQ_MOE_GROUPED_BM
+    overrides it for A/B runs; a value that is not a multiple of 8 in
+    GROUPED_BM_MIN..GROUPED_BM_MAX raises."""
+    env = os.environ.get("EETQ_MOE_GROUPED_BM")
+    if env:
+        bm = int(env)
+        if bm % 8 or not GROUPED_BM_MIN <= bm <= GROUPED_BM_MAX:
+            raise ValueError(f"EETQ_MOE_GROUPED_BM={env}: the grouped GEMM takes a multiple of 8 "
+                             f"in {GROUPED_BM_MIN}..{GROUPED_BM_MAX}")
+        return bm
     per = n_sel // max(e, 1)
     return max(GROUPED_BM_MIN, min(GROUPED_BM_MAX, 8 * (per // 8) or 8))
+
+
+def _expert(bank: PackedWeight, ei: int) -> PackedWeight:
+    """Expert `ei`'s slice of a packed bank, as a dense packed weight."""
+    return PackedWeight(bank.data[ei], bank.k, bank.n, bank.bits)
 
 
 def _one_hot(ids: torch.Tensor, e: int) -> torch.Tensor:
@@ -175,10 +198,8 @@ def moe_apply(
 ) -> torch.Tensor:
     """Routed MLP forward. x [B, S, H] (already normed) -> [B, S, H].
     use_kernel=False runs the masked scan with the plain products (the
-    reference the kernel regimes are checked against)."""
-    set_knobs = [name for name in _KNOBS if os.environ.get(name)]
-    if set_knobs:
-        raise NotImplementedError(f"{set_knobs}: the MoE A/B knobs are not ported")
+    reference the kernel regimes are checked against). The A/B knobs
+    (module docstring) are read here, on every call."""
     b, s, h = x.shape
     t = b * s
     x2 = x.reshape(t, h)
@@ -187,10 +208,12 @@ def moe_apply(
     e = moe.num_experts
     n_sel = t * top_k
 
-    if quantized and use_kernel and n_sel > MAX_DECODE_M:
+    no_gather = os.environ.get("EETQ_MOE_NO_GATHER", "0") == "1"
+    no_grouped = os.environ.get("EETQ_MOE_NO_GROUPED", "0") == "1"
+    if quantized and use_kernel and n_sel > MAX_DECODE_M and not (no_grouped or no_gather):
         out2 = moe_grouped_combine(moe, x2, topw, topi, activation)
         return out2.to(x.dtype).reshape(b, s, h)
-    if quantized and use_kernel and n_sel <= min(MAX_DECODE_M, e):
+    if quantized and use_kernel and n_sel <= min(MAX_DECODE_M, e) and not no_gather:
         # one gather per projection over the selected experts only
         eids = topi.reshape(-1).to(torch.int32)
         sel = torch.arange(n_sel, device=x.device)
@@ -209,10 +232,9 @@ def moe_apply(
     acc = torch.zeros((t, h), dtype=torch.float32, device=x.device)
     for ei in range(e):
         if quantized and use_kernel:
-            ids = torch.full((1,), ei, dtype=torch.int32, device=x.device)
-            g_out = w8a16_expert_matmul(x2, moe.gateup.packed, moe.gateup.scales, ids)[0]
+            g_out = w8a16_matmul(x2, _expert(moe.gateup.packed, ei), moe.gateup.scales[ei])
             hidden = _gated(g_out, activation, x2.dtype)
-            d_out = w8a16_expert_matmul(hidden, moe.down.packed, moe.down.scales, ids)[0]
+            d_out = w8a16_matmul(hidden, _expert(moe.down.packed, ei), moe.down.scales[ei])
         elif quantized:
             g_out = w8a16_matmul_ref(x2, gu_w[ei], moe.gateup.scales[ei])
             hidden = _gated(g_out, activation, x2.dtype)

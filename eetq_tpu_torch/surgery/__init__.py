@@ -1,6 +1,6 @@
 """Port of `eetq_tpu.surgery`: fusion, LoRA (attach, merge, stack into
-banks) and one-line quantization. The offline tensor-parallel reshard
-(`tp_reshard.py`) is not ported."""
+banks), one-line quantization and the offline tensor-parallel reshard
+(`tp_reshard.py`; placing its shards on a mesh is not ported)."""
 
 from eetq_tpu_torch.surgery.fusion import (
     fuse_columns,
@@ -10,6 +10,7 @@ from eetq_tpu_torch.surgery.fusion import (
 )
 from eetq_tpu_torch.surgery.lora import attach_lora, init_lora, merge_lora, stack_adapters
 from eetq_tpu_torch.surgery.quantize import eet_accelerator, eet_quantize
+from eetq_tpu_torch.surgery.tp_reshard import quantize_params_tp, split_quant_rows
 
 __all__ = [
     "fuse_columns",
@@ -22,4 +23,6 @@ __all__ = [
     "stack_adapters",
     "eet_quantize",
     "eet_accelerator",
+    "quantize_params_tp",
+    "split_quant_rows",
 ]

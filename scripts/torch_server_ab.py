@@ -327,13 +327,13 @@ def _dense_cases(gen, dev, specs) -> tuple[dict, dict]:
             cases[case] = lambda tree, call=call: call
             size, ops = cs.linear_cost(m, k, n, bits / 8, 1 if group is None else k // group,
                                        x_bytes=1 if a8 else 2, extra=4 * m if a8 else 0)
-            bounds[case] = 1e3 * max(size / cs.HBM_BYTES_PER_S,
-                                     ops / cs.PEAK_OPS_PER_S["int8" if a8 else "bf16"])
+            bounds[case] = 1e3 * max(size / cs.hbm_bytes_per_s(),
+                                     ops / cs.peak_ops_per_s("int8" if a8 else "bf16"))
     return cases, bounds
 
 
 def _bytes_ms(size: float) -> float:
-    return 1e3 * size / cs.HBM_BYTES_PER_S
+    return 1e3 * size / cs.hbm_bytes_per_s()
 
 
 def _gemv_cases(gen, dev, specs, prenorm: bool = True, label: str = "") -> tuple[dict, dict]:
@@ -660,7 +660,7 @@ def _attention_cases(gen, dev) -> tuple[dict, dict]:
         cases[case] = (lambda tree, q=q, kv=kv, hkv=hkv:
                        lambda: flash_attention(q, kv[:, :, :hkv], kv[:, :, hkv:]))
         ops = 4.0 * b * hq * d * sq * (sq + 1) / 2
-        bounds[case] = 1e3 * ops / cs.PEAK_OPS_PER_S["bf16"]
+        bounds[case] = 1e3 * ops / cs.peak_ops_per_s("bf16")
     return cases, bounds
 
 

@@ -20,8 +20,9 @@
 - `EETQCausalLM.generate`'s greedy tokens equal JAX's on a loaded model.
 - A BF16 checkpoint, which JAX's loader reads (importing JAX teaches numpy
   ml_dtypes' bfloat16), loads bit-equal to JAX's, dense and quantized.
-- The refusals: a plain checkpoint, an unsupported model_type, `tp > 1`,
-  `shard()`, an F8 tensor, a hub id, and `device=None` without a card.
+- The refusals: a plain checkpoint, an unsupported model_type, `tp > 1`
+  with a group size, `shard()`, an F8 tensor, a hub id, and `device=None`
+  without a card.
 - `models/safetensors_io.py` against the `safetensors` library: files the
   library wrote (numpy and torch) read equal, files the port wrote load in
   the library equal, 64-bit offsets past 4 GiB, a misaligned tensor.
@@ -407,8 +408,8 @@ def test_tp_and_shard_are_not_ported(hf_dirs, tmp_path):
     model = AutoEETQForCausalLM.from_pretrained(hf_dirs["llama"], device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         model.save_quantized(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        model.quantize(tp=2)
+    with pytest.raises(ValueError, match="either tp or group_size"):
+        model.quantize(tp=2, group_size=64)
     assert not model.quantized
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         model.shard()

@@ -2108,3 +2108,151 @@ def test_lora_grads_on_the_card(dev):
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.abs().sum() > 0, i
         _close_grad(a, b, 5e-2, f"adapter tensor {i}")
+
+
+# ---- the measured autotune's launch choices, the offline tp reshard's
+# group sizes, the host quantizer ----
+
+
+@pytest.mark.parametrize("tile_m", [0, 128, 256])
+@pytest.mark.parametrize("m", [9, 130, 300])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_gemm_tiles(dev, bits, m, tile_m):
+    """The per-channel GEMM at either tile (or the rule's, 0) on an odd
+    (K, N) with bias, against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(m + tile_m)
+    k, n = 1000, 300
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    scales = _scales(g, dev, k, n, None)
+    bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    gemm = w4a16_gemm if bits == 4 else w8a16_gemm
+    _close(gemm(x, data, scales, n, bias, tile_m=tile_m), w8a16_matmul_ref(x, q, scales, bias))
+
+
+def test_gemm_invalid_tile_raises(dev):
+    """A tile the GEMM has not (64), and 128 under group-wise scales (one
+    256-row tile there), are refused by the kernel's entry point; 256 there
+    is the rule's own launch."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randint(-127, 128, (256, 256), generator=g, device=dev, dtype=torch.int8)
+    x = torch.randn(64, 256, generator=g, device=dev).to(torch.bfloat16)
+    data = pack_weights(q).data
+    per_channel, grouped = _scales(g, dev, 256, 256, None), _scales(g, dev, 256, 256, 128)
+    with pytest.raises(RuntimeError, match="eetq_w8a16_gemm"):
+        w8a16_gemm(x, data, per_channel, 256, tile_m=64)
+    with pytest.raises(RuntimeError, match="eetq_w8a16_gemm"):
+        w8a16_gemm(x, data, grouped, 256, tile_m=128)
+    out = w8a16_gemm(x, data, grouped, 256, tile_m=256)
+    assert torch.equal(out, w8a16_gemm(x, data, grouped, 256, tile_m=0))
+    _close(out, w8a16_matmul_ref(x, q, grouped))
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 1024])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,group", [(4096, 2048), (11008, 5504), (11008, 1376), (4096, 512)])
+def test_tp_reshard_group_sizes(dev, k, group, bits, m):
+    """The GEMV (m <= 8) and the GEMM at the offline tp reshard's group sizes
+    (o_proj K = 4096 and down K = 11008 over tp 2, 4, 8): 5504 and 1376 are
+    multiples of 32 but not of the GEMM's 64-deep K step or of 128."""
+    g = torch.Generator(device=dev).manual_seed(k + group + m)
+    n = 512
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=bits).data
+    scales = _scales(g, dev, k, n, group)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    kern = ((w4a16_gemv if bits == 4 else w8a16_gemv) if m <= 8
+            else (w4a16_gemm if bits == 4 else w8a16_gemm))
+    out = _twice(lambda: kern(x, data, scales, n)) if m <= 8 else kern(x, data, scales, n)
+    _close(out, w8a16_matmul_ref(x, q, scales))
+
+
+def test_tuned_split_is_read_and_launched(dev, tmp_path, monkeypatch):
+    """A K split written to the autotune cache for this card is what the
+    GEMV launches (bit-equal to an explicit call at that split), a split
+    below the floor at the call's m is ignored, and the GEMM's tuned tile is
+    read back."""
+    from eetq_tpu_torch.kernels import autotune
+
+    monkeypatch.setenv("EETQ_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.delenv("EETQ_AUTOTUNE", raising=False)
+    autotune.clear_caches()
+    g = torch.Generator(device=dev).manual_seed(1)
+    k, n = 11008, 4096
+    q = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q).data
+    scales = _scales(g, dev, k, n, None)
+    x = torch.randn(1, k, generator=g, device=dev).to(torch.bfloat16)
+    rows, np_ = data.shape
+    rule = autotune.choose_gemv_splits(dev.index, rows, np_, 8, 1, 0)
+    tuned = 3 if rule != 3 else 5
+    name = autotune.device_name(dev.index)
+    autotune._save_persistent({
+        autotune.tune_key(name, 1, rows, np_, 8, 0): {"splits": tuned},
+        autotune.tune_key(name, 1024, rows, np_, 8, 0): {"tile_m": 128},
+    })
+    try:
+        assert autotune.choose_gemv_splits(dev.index, rows, np_, 8, 1, 0) == tuned
+        got = w8a16_gemv(x, data, scales, n)
+        assert torch.equal(got, w8a16_gemv(x, data, scales, n, splits=tuned))
+        _close(got, w8a16_matmul_ref(x, q, scales))
+        assert autotune.choose_gemm_tile(dev.index, 1024, rows, np_, 8, 0) == 128
+        xg = torch.randn(1024, k, generator=g, device=dev).to(torch.bfloat16)
+        assert torch.equal(w8a16_gemm(xg, data, scales, n), w8a16_gemm(xg, data, scales, n,
+                                                                       tile_m=128))
+        with pytest.raises(ValueError, match="K splits"):
+            w8a16_gemv(x, data, scales, n, splits=rows)
+    finally:
+        autotune.clear_caches()
+
+
+def test_measured_autotune_sweeps_and_persists(dev, tmp_path, monkeypatch):
+    """One sweep of each regime on the card: the winner is a candidate, the
+    rule stays unless beaten by more than AUTOTUNE_MIN_GAIN, and the file
+    holds it under this card's name."""
+    import json
+
+    from eetq_tpu_torch.kernels import autotune
+
+    monkeypatch.setenv("EETQ_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    autotune.clear_caches()
+    try:
+        for m in (1, 512):
+            t = autotune.measured_autotune(m, 4096, 4096, device=dev, iters=50)
+            assert t.choice in t.ms and t.rule in t.ms
+            assert t.choice == t.rule or t.ms[t.choice] < (1 - autotune.AUTOTUNE_MIN_GAIN) * \
+                t.ms[t.rule]
+            with open(tmp_path / "tune.json") as f:
+                assert json.load(f)[t.key] == {t.what: t.choice}
+            assert autotune.device_name(dev.index) in t.key
+    finally:
+        autotune.clear_caches()
+
+
+def test_device_time_on_the_card(dev):
+    from eetq_tpu_torch.utils.profiling import chip_peaks, device_time, host_sync_overhead
+
+    x = torch.randn(2048, 2048, device=dev)
+    t = device_time(lambda: x @ x, iters=20, reps=3, device=dev)
+    assert 0 < t < 1.0
+    assert host_sync_overhead(device=dev) > 0
+    assert chip_peaks(dev).hbm_gbs > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("bits,group", [(8, None), (8, 128), (4, 64)])
+def test_native_quantizer_against_the_card(dev, dtype, bits, group):
+    """The host quantizer bit-equal to `symmetric_quantize` on the card, a
+    bank of 3 experts and an all-zero column included."""
+    from eetq_tpu_torch.native import host_symmetric_quantize
+    from eetq_tpu_torch.quant.quantizer import symmetric_quantize
+
+    g = torch.Generator(device=dev).manual_seed(bits)
+    w = (torch.randn(3, 512, 384, generator=g, device=dev) * 0.05).to(dtype)
+    w[:, :, 7] = 0
+    q, s = host_symmetric_quantize(w.cpu(), bits=bits, group_size=group)
+    qd, sd = symmetric_quantize(w, bits=bits, group_size=group)
+    assert torch.equal(q, qd.cpu()) and torch.equal(s, sd.cpu())

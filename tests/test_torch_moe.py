@@ -253,10 +253,14 @@ def test_grouped_blocks_are_static():
 
 
 def test_moe_knobs_and_expert_bias_raise(moe_pair, monkeypatch):
+    """An EETQ_MOE_GROUPED_BM the grouped GEMM cannot take raises, and so
+    does a bank with expert biases."""
     _, tm = moe_pair
-    monkeypatch.setenv("EETQ_MOE_NO_GATHER", "1")
-    with pytest.raises(NotImplementedError):
-        port_moe.moe_apply(tm, torch.zeros(1, 1, H, dtype=torch.bfloat16), 2)
+    for bad in ("12", "0", "136"):
+        monkeypatch.setenv("EETQ_MOE_GROUPED_BM", bad)
+        with pytest.raises(ValueError, match="EETQ_MOE_GROUPED_BM"):
+            port_moe.moe_apply(tm, torch.zeros(1, 8, H, dtype=torch.bfloat16), 2)
+    monkeypatch.delenv("EETQ_MOE_GROUPED_BM")
     dense = port_moe.MoEMLP(tm.router, DenseLinear(torch.zeros(E, H, 2 * I), torch.zeros(2 * I)),
                             DenseLinear(torch.zeros(E, I, H)))
     with pytest.raises(NotImplementedError):
@@ -407,3 +411,53 @@ def test_moe_spec_engine_matches_jax_spec_engine(models):
     for uid, p in enumerate(prompts):
         assert te.result(uid) == je.result(uid), p
     assert te.spec_rounds > 0
+
+
+@pytest.mark.parametrize("knob,value,shape,regime", [
+    ("EETQ_MOE_NO_GATHER", "1", (1, 1), "scan"),  # 2 selections: gather off
+    ("EETQ_MOE_NO_GATHER", "1", (2, 9), "scan"),  # 36: the grouped GEMM off too
+    ("EETQ_MOE_NO_GROUPED", "1", (2, 9), "scan"),
+    ("EETQ_MOE_NO_GROUPED", "1", (1, 1), "gather"),  # decode shapes keep the gather
+    ("EETQ_MOE_GROUPED_BM", "16", (2, 40), "grouped"),  # 160 selections at bm 16, not 40
+    ("EETQ_MOE_GROUPED_BM", "128", (1, 17), "grouped"),  # 34 at bm 128, not 8
+])
+def test_moe_knobs_take_jaxs_branches(moe_pair, monkeypatch, knob, value, shape, regime):
+    """Each A/B knob sends both packages down the same branch (the grouped
+    GEMM, the gather, or the masked scan: JAX's expert kernel on one id in
+    its scanned body, the port's dense kernels on each expert's slice), at
+    the same rows per block, and the outputs agree."""
+    jm, tm = moe_pair
+    rng = np.random.default_rng(sum(shape) + len(knob))
+    x_j, x_t = _bf16(rng.standard_normal((*shape, H)).astype(np.float32))
+    calls = {}
+
+    def counted(mod, name, key):
+        """Record each call of mod.name: the expert kernels by how many ids
+        they take (a gather all the selections, the scan's traced body one)."""
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            calls.setdefault(key, []).append(a[3].shape[0] if "expert" in key else 1)
+            return fn(*a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    counted(jax_moe, "moe_grouped_combine", "jax grouped")
+    counted(jax_moe, "w8a16_expert_matmul", "jax expert")
+    counted(port_moe, "moe_grouped_combine", "port grouped")
+    counted(port_moe, "w8a16_expert_matmul", "port expert")
+    counted(port_moe, "w8a16_matmul", "port dense")
+    bms = []
+    grouped_bm = port_moe._grouped_bm
+    monkeypatch.setattr(port_moe, "_grouped_bm", lambda n, e: bms.append(grouped_bm(n, e)) or
+                        bms[-1])
+    monkeypatch.setenv(knob, value)
+    out_j = jax_moe.moe_apply(jm, x_j, 2, interpret=True)
+    out_t = port_moe.moe_apply(tm, x_t, 2)
+    _block_close(out_t, out_j)
+    n_sel = 2 * shape[0] * shape[1]
+    want = {"grouped": {"jax grouped": [1], "port grouped": [1]},
+            "gather": {"jax expert": [n_sel] * 2, "port expert": [n_sel] * 2},
+            "scan": {"jax expert": [1, 1], "port dense": [1] * 2 * E}}[regime]
+    if regime == "grouped":
+        assert bms == [int(value)] and jax_moe._grouped_bm(shape[0] * shape[1] * 2, E) == bms[0]
+    assert calls == want, calls
