@@ -198,8 +198,9 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    (mixtral_spec_server: at k = 3 a b=1 verify's 8 expert selections stay
    in the gather regime): one 8-slot verify round against the plain path
    with the routing replayed, greedy requests equal to its non-spec twin's
-   or parting at a near tie of the tokens or of the last token's top-2
-   routing (`near_tie`), rounds and drafts a round printed. The fused MLP
+   with the routing replayed across both engines (`routed_twin`, 11.),
+   or parting at a near tie of the tokens' logits, rounds and drafts a round
+   printed. The fused MLP
    must not launch on any. Top-2 routing is
    discontinuous, so each check of the logits replays the kernel path's
    routing in the plain path (a wrapper of `modules.moe.route` records
@@ -320,6 +321,40 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    rank at a time at m = 1 and 1024, the row shards' partials summed in f32,
    against the merged layer within MODEL_TOL).
 
+11. Sharded (the `sharded` phase, last): tensor and expert parallelism over
+   SHARDED_TP = 2 ranks that the script spawns (`eetq_tpu_torch/dist/
+   launch.py`), each a process holding its shard and launching the port's
+   kernels on it: NCCL on cuda:rank where there is a card for each rank,
+   else gloo with both ranks on cuda:0 (the backend is printed; gloo stages
+   every collective through the host, so the ranks' steps run eagerly and
+   their times model no NVLink deployment). Each rank's launch and
+   collective counters go back to the parent, which sums them per path.
+   - tp2_generate: llama2-7b W8A16 built dense from the seed and saved by
+     `quantize(save_dir, tp=2)`; each rank runs `from_quantized(dir)
+     .shard(mesh)` (o_proj and down per-channel on a rank); b=1, p=1024:
+     prefill logits and 49 teacher-forced decode steps within MODEL_TOL of
+     the largest logit of the tp = 1 run of the same artifact, 50 greedy
+     tokens equal to it or parting at a near tie (SPEC_TIE_ULPS), the ranks
+     identical, one forward's collectives 64 all-reduces and one vocab
+     gather with their bytes (`count_collectives`); prefill ms and ms/step.
+   - tp2_server: `Engine(sharded)` on both ranks (bf16 KV, W8A16 prefill,
+     windows of 8, eager) over server's mix of 12 requests (2 sampled):
+     greedy requests equal to the one-card engine's on the tp = 1 twin or a
+     near tie; the ranks' outputs identical.
+   - tp2_spec_server: `Engine(sharded, spec_ngram=7)`, greedy requests
+     equal to tp2_server's or a near tie (its 8-slot verify is the GEMM).
+   - mixtral_ep2: Mixtral-8x7B at full width cut to SHARDED_MIXTRAL_LAYERS
+     = 2 layers (the EP code is the same in every layer), drawn layer by
+     layer from the seed in each rank, `shard_model(quantize=True)`: 4
+     experts a rank; every shard's integer sums and scales equal to the
+     one-card model's slice (qkv per channel, o_proj group-wise at K / 2,
+     the banks per expert), prefill and 15 decode steps against that model
+     with rank 0's routing replayed, within MODEL_TOL, no near-tie pass.
+   The Mixtral spec engine (5.) is held to its twin by the same kind of
+   replay (`routed_twin`): both engines eager, routing keyed by (prompt,
+   position, token) recorded in the twin and replayed in the spec engine;
+   equal, or a near tie of the logits only.
+
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, the first request's
 whole decode_loop, and one steady-state engine step after `warmup()`: a
@@ -329,7 +364,7 @@ layer on every decode and engine step), the host's launch calls (a graph
 replay is one) and the idle share go to the output and to
 `chip_smoke.json`. `--phases`
 runs a subset of
-`kernels,moe_layer,llama,checkpoint,lora,tooling,int4,mixtral,mixtral_int4,families`
+`kernels,moe_layer,llama,checkpoint,lora,tooling,int4,mixtral,mixtral_int4,families,sharded`
 (for debugging: a partial run checks what it runs and prints no result
 line).
 
@@ -624,10 +659,10 @@ A8_MODEL_TOL = 2 * MODEL_TOL
 # move with the requests' timing (PERF.md §6); a tie may hold more than two
 # tokens, so the two need not be the top two. A wrong token lands in the
 # band with the odds of a few tokens in 32,000. The chunked engines take the
-# same rule against their unchunked twins. On a MoE model (Mixtral's spec
-# engine) a request may also part where the last token's top-2 routing is
-# near a tie at some layer (`near_tie`): a flipped expert moves the logits by
-# far more than an ulp (PERF.md §6).
+# same rule against their unchunked twins. A MoE model's spec engine is
+# held to its twin with the routing replayed across both (`routed_twin`): a
+# flipped expert moves the logits by far more than an ulp (PERF.md §6), and a
+# routing near a tie is no longer a pass.
 SPEC_TIE_ULPS = 8
 # The GEMMs' fused epilogue: each activation on llama2-7b's gate|up shape,
 # each residual mode on its o_proj shape, all with a bias; in each regime of
@@ -951,7 +986,7 @@ PATH_IDLE.update({
        for path in ("eval_ppl", "lora_train")},
 })
 PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "lora", "tooling", "int4", "mixtral",
-          "mixtral_int4", "families")
+          "mixtral_int4", "families", "sharded")
 
 
 class CheckFailed(Exception):
@@ -1171,6 +1206,26 @@ def weight_pack_call(x, q, scales, bits: int, group, ref):
         err = (fn().float() - ref.float()).abs().max().item()
         if err > TOL * ref.float().abs().max().item():
             raise RuntimeError(f"differs from the plain version by {err:.3e}")
+    except Exception as exc:  # the yardstick is optional: the run goes on without it
+        LIBRARY[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+        print(f"  {name} is not timed on this card: {LIBRARY[name]}")
+        return None
+    return fn
+
+
+def int_mm_call(xq, q):
+    """torch._int_mm(xq, q): the int8 x int8 -> int32 product of a W8A8 GEMM
+    before its scales (x's per-token scale, the weight's per-channel one),
+    timed beside the per-channel W8A8 kernel as its yardstick; None where the
+    card's build has no CUDA kernel for it (printed once)."""
+    import torch
+
+    name = "torch._int_mm"
+    if LIBRARY.get(name):
+        return None
+    try:
+        fn = lambda: torch._int_mm(xq, q)  # noqa: E731
+        fn()
     except Exception as exc:  # the yardstick is optional: the run goes on without it
         LIBRARY[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
         print(f"  {name} is not timed on this card: {LIBRARY[name]}")
@@ -1454,7 +1509,8 @@ def kernel_phase(dev) -> dict:
                 record("w8a8_gemm", f"m={m} K={k} N={n}",
                        lambda: w8a8_gemm(xq, sx, qw, scales, n),
                        lambda: w8a8_gemm_ref(xq, sx, qw, scales, n), m == 1024,
-                       linear_cost(m, k, n, 1, x_bytes=1, extra=4 * m), "int8", equal=True)
+                       linear_cost(m, k, n, 1, x_bytes=1, extra=4 * m), "int8", equal=True,
+                       library=int_mm_call(xq, qw) if m == 1024 else None)
         del qw
         prefill = (k, n) in W8A8_SHAPES  # the lm_head sees the last token only
         for group in (None, INT4_GROUP):
@@ -2029,6 +2085,13 @@ def counted(path: str, fn):
     out = fn()
     torch.cuda.synchronize()
     counts = launch_counts()
+    check_launches(path, counts)
+    return out, counts
+
+
+def check_launches(path: str, counts: dict) -> None:
+    """`counted`'s check of one path's launch counts (for a sharded path, the
+    ranks' counts summed)."""
     print(f"  launches on the {path} path: {counts}")
     idle = [k for k in PATH_KERNELS[path] if counts[k] == 0]
     check(not idle, f"kernels not launched on the {path} path: {idle}")
@@ -2037,7 +2100,6 @@ def counted(path: str, fn):
                   and (path not in PATH_IDLE or "[" in k))
     busy = [k for k in idle if counts[k]]
     check(not busy, f"kernels launched on the {path} path that must not be: {busy}")
-    return out, counts
 
 
 def moe_layer_phase(dev) -> dict:
@@ -2390,7 +2452,8 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
     equal. long: (prompt tokens, budget) of greedy requests sent beside the
     server mix; step_prompts: the prompts of a paged engine's step check;
     admission=False skips the admission's check against the plain path (a
-    spec engine admits as the engine of another path, checked there);
+    spec engine admits as the engine of another path, checked there); a MoE
+    model's twin runs with the routing replayed (`routed_twin`);
     step_budget: the budget of the step check's requests, which a dense
     engine runs too where it is given (a paged engine's default:
     STEP_BUDGET)."""
@@ -2535,7 +2598,9 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
         print(f"  {path}: {rounds} speculative rounds committed {toks} tokens "
               f"({toks / max(rounds, 1):.2f} a round, k = {spec})")
     twin = None
-    if twin_kw is not None:
+    if twin_kw is not None and cfg.num_experts:
+        twin = routed_twin(params, cfg, dev, path, bodies, engine_kw, twin_kw)
+    elif twin_kw is not None:
         # the same kernels, the same chunks of the key range, rows that do not
         # see each other: the same greedy tokens at any window and chain, and
         # through the paged address map or the dense one. A speculative
@@ -2567,11 +2632,7 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
                   f"spec engine's token {tie['spec_logit']:.6f} (rank {tie['spec_rank']}), the "
                   f"twin's {tie['twin_logit']:.6f} (rank {tie['twin_rank']}); "
                   f"{tie['ulps']:.2f} bf16 ulps of the largest |logit| {tie['largest']:.6f} "
-                  f"below the top" + ("" if tie["route_margin"] is None else
-                                      f"; the last token's closest routing tie "
-                                      f"{tie['route_margin']:.4f} of the largest router logit "
-                                      f"(layer {tie['route_layer']})")
-                  + f" (near tie: {tie['ok']})")
+                  f"below the top (near tie: {tie['ok']})")
             check(tie["ok"], f"{path}: request {i} differs from the twin engine {twin_kw} at "
                              f"token {first}, not at a near tie of the two tokens")
             ties.append(dict(request=i, token=first, **tie))
@@ -2591,6 +2652,184 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
                 tokens=tokens, wall_s=wall_s, served_tok_s=tokens / wall_s,
                 latency_ms=lat, warmup_s=warmup_s, captures=captures, cache_gb=cache_gb,
                 engine_step=step, twin=twin, spec=spec_run)
+
+
+def replay_rows(topw, topi, keys: list, layer: int, table: dict, stats: dict):
+    """(weights, ids) of one route call with every row whose (layer, key) is
+    in `table` replaced by the recorded routing; counts in `stats` the rows
+    replayed, those whose own routing differed, and those not found."""
+    import torch
+
+    rows = [r for r, key in enumerate(keys) if key is not None and (layer, key) in table]
+    stats["missing"] = stats.get("missing", 0) + sum(k is not None for k in keys) - len(rows)
+    if not rows:
+        return topw, topi
+    idx = torch.tensor(rows, device=topi.device)
+    w = torch.stack([table[(layer, keys[r])][0] for r in rows]).to(topw.device)
+    i = torch.stack([table[(layer, keys[r])][1] for r in rows]).to(topi.device)
+    stats["replayed"] += len(rows)
+    stats["differed"] += int((topi[idx].sort(-1).values != i.sort(-1).values).any(-1).sum())
+    topw, topi = topw.clone(), topi.clone()
+    topw[idx], topi[idx] = w, i
+    return topw, topi
+
+
+def replayed_tie(params, cfg, dev, table: dict, prompt: list, ids: list, spec_tok: int,
+                 twin_tok: int) -> dict:
+    """`near_tie` over ids (prompt + the common output) with the twin's
+    recorded routing replayed at every row (keyed as `keyed_routing` keys
+    them), so that the forward judging the tie routes as both engines did."""
+    from eetq_tpu_torch.modules import moe
+
+    pid = hash(tuple(prompt))
+    keys = [(pid, r, t) for r, t in enumerate(ids)]
+    route, layer, stats = moe.route, [0], dict(replayed=0, differed=0)
+
+    def replay(router, x2, top_k):
+        topw, topi = route(router, x2, top_k)
+        layer[0] += 1
+        return replay_rows(topw, topi, keys, layer[0] - 1, table, stats)
+
+    moe.route = replay
+    try:
+        tie = near_tie(params, cfg, dev, ids, spec_tok, twin_tok)
+    finally:
+        moe.route = route
+    return dict(tie, routing=stats)
+
+
+@contextlib.contextmanager
+def keyed_routing(engine, table: dict, mode: str, stats: dict):
+    """Route an engine's forwards by token, not by call: each row of a
+    forward is keyed (its request's prompt, its position, its input token),
+    and a route call's rows keyed (layer, row key). mode "record" stores
+    every keyed row's (weights, ids) in `table`; "replay" hands back the
+    stored routing of every row whose key is there and counts in `stats` the
+    rows replayed and those whose own routing differed. Before a request's
+    first differing token, rows of equal keys have equal prefixes in both
+    engines, so a replay gives the spec engine its twin's experts there. The
+    engine's programs run eagerly meanwhile (a captured graph runs no
+    Python)."""
+    import torch
+
+    from eetq_tpu_torch.modules import moe
+    from eetq_tpu_torch.serve import engine as engine_mod
+    from eetq_tpu_torch.serve import graph as graph_mod
+    from eetq_tpu_torch.serve import spec as spec_mod
+
+    ctx = dict(keys=None, layer=0, rows=None, prompts={})
+    route, fwd, graphs = moe.route, engine_mod.forward_inner, (engine_mod.StepGraph,
+                                                               spec_mod.StepGraph)
+    prefill_group = engine._prefill_group
+
+    def keyed_forward(params, cfg, tokens, positions, *args, **kw):
+        b, sq = tokens.shape
+        reqs = ctx["rows"] or engine.slot_req
+        toks, pos = tokens.tolist(), positions.tolist()
+        # a request by its prompt (both engines get the same prompts)
+        ids = [None if r is None else ctx["prompts"].setdefault(id(r), hash(tuple(r.prompt)))
+               for r in reqs]
+        ctx["keys"] = [None if ids[i] is None else (ids[i], pos[i][j], toks[i][j])
+                       for i in range(b) for j in range(sq)]
+        ctx["layer"] = 0
+        try:
+            return fwd(params, cfg, tokens, positions, *args, **kw)
+        finally:
+            ctx["keys"] = None
+
+    def keyed_route(router, x2, top_k):
+        topw, topi = route(router, x2, top_k)
+        keys, layer = ctx["keys"], ctx["layer"]
+        ctx["layer"] += 1
+        if keys is None:
+            return topw, topi
+        check(len(keys) == x2.shape[0], "keyed routing: rows and keys differ")
+        if mode == "record":
+            w, i = topw.cpu(), topi.cpu()
+            for r, key in enumerate(keys):
+                if key is not None:
+                    table[(layer, key)] = (w[r], i[r])
+            return topw, topi
+        return replay_rows(topw, topi, keys, layer, table, stats)
+
+    def rows_of(assignments):
+        ctx["rows"] = {row: req for row, _, req in assignments}
+        ctx["rows"] = [ctx["rows"].get(r) for r in range(engine.prefill_rows)]
+        try:
+            return prefill_group(assignments)
+        finally:
+            ctx["rows"] = None
+
+    def eager(fn, device, eager=False):
+        return graph_mod.StepGraph(fn, device, eager=True)
+
+    moe.route, engine._prefill_group = keyed_route, rows_of
+    engine_mod.forward_inner = spec_mod.forward_inner = keyed_forward
+    engine_mod.StepGraph = spec_mod.StepGraph = eager
+    try:
+        yield
+    finally:
+        moe.route = route
+        del engine._prefill_group
+        engine_mod.forward_inner = spec_mod.forward_inner = fwd
+        engine_mod.StepGraph, spec_mod.StepGraph = graphs
+
+
+def routed_twin(params, cfg, dev, path: str, bodies: list, engine_kw: dict,
+                twin_kw: dict) -> dict:
+    """A MoE spec engine against its non-spec twin with the routing replayed
+    (`keyed_routing`): the greedy requests in a fixed order through the twin
+    (recording each token's routing at every layer), then through a fresh
+    engine of the path's keywords (replaying it where the keys agree), both
+    eager. Every request must be equal, or first differ at a near tie of the
+    two tokens' logits (SPEC_TIE_ULPS) by one forward over the common prefix
+    with the twin's routing replayed too (`replayed_tie`): a routing tie is
+    no longer a pass. Prints how many replayed rows would have routed
+    otherwise."""
+    import torch
+
+    from eetq_tpu_torch.serve.engine import Engine
+
+    greedy = [i for i, body in enumerate(bodies) if "temperature" not in body]
+    sizes = {k: v for k, v in engine_kw.items() if k in ("max_batch", "max_len", "prompt_buckets")}
+    table, stats, outs = {}, dict(replayed=0, differed=0, missing=0), {}
+    t0 = time.perf_counter()
+    for name, kw, mode in (("twin", dict(sizes, **twin_kw), "record"), (path, engine_kw, "replay")):
+        eng = Engine(params, cfg, **kw)
+        with keyed_routing(eng, table, mode, stats):
+            uids = [eng.add_request(bodies[i]["prompt"], bodies[i]["max_new_tokens"])
+                    for i in greedy]
+            eng.run()
+        outs[name] = [eng.result(u) for u in uids]
+        del eng
+        torch.cuda.empty_cache()
+    ties = []
+    for i, got, want in zip(greedy, outs[path], outs["twin"]):
+        first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if first is None:
+            continue
+        ids = bodies[i]["prompt"] + want[:first]
+        tie = replayed_tie(params, cfg, dev, table, bodies[i]["prompt"], ids, got[first],
+                           want[first])
+        free = near_tie(params, cfg, dev, ids, got[first], want[first])
+        print(f"  {path} request {i} (routing replayed): token {first} is {got[first]}, the "
+              f"twin's {want[first]}; by one forward with the twin's routing replayed "
+              f"({tie['routing']}) the top three {tie['top_ids']} at {tie['top']}, the two "
+              f"tokens {tie['spec_logit']:.6f} / {tie['twin_logit']:.6f}: {tie['ulps']:.2f} bf16 "
+              f"ulps below the top (near tie: {tie['logit_tie']}; routing for itself: "
+              f"{free['ulps']:.2f} ulps)")
+        ties.append(dict(request=i, token=first, free_ulps=free["ulps"], **tie))
+    bad = [t["request"] for t in ties if not t["logit_tie"]]
+    check(not bad, f"{path}: requests {bad} differ from the twin with the routing replayed, not "
+                   f"at a near tie of the logits")
+    wall = time.perf_counter() - t0
+    print(f"  {path}: {len(greedy)} greedy requests against the twin {twin_kw} with the routing "
+          f"replayed ({len(table)} keyed routings recorded; {stats['replayed']} rows replayed, "
+          f"{stats['differed']} of them would have routed otherwise): "
+          f"{len(greedy) - len(ties)} equal, {len(ties)} part at a near tie of the logits "
+          f"({wall:.1f} s, eager)")
+    return dict(requests=len(greedy), equal=not ties, near_ties=ties, routing=stats,
+                keyed=len(table), replayed=True, engine=str(twin_kw), wall_s=wall)
 
 
 def text_tokenizer(vocab_size: int, seed: int):
@@ -2720,36 +2959,18 @@ def text_server_path(params, cfg, dev, gen) -> dict:
 def near_tie(params, cfg, dev, ids: list[int], spec_tok: int, twin_tok: int) -> dict:
     """The next-token logits after `ids` by one forward on the kernel path:
     a near tie of spec_tok and twin_tok when each is at most SPEC_TIE_ULPS
-    bf16 ulps of the largest |logit| below the top logit. On a MoE model
-    also when the last token's routing is near a tie at some layer: its
-    second and third router logits within MODEL_TOL of the largest |router
-    logit| there (a flip of the top-2 experts between two arithmetics moves
-    the logits far past any ulp bound, as the routing replay of the plain
-    checks shows)."""
+    bf16 ulps of the largest |logit| below the top logit."""
     import math
 
     import torch
 
     from eetq_tpu_torch.models.transformer import forward_inner, init_caches
-    from eetq_tpu_torch.modules import moe
 
     toks = torch.tensor([ids], device=dev)
-    route, margins = moe.route, []
-
-    def recorded(router, x2, top_k):
-        logits = x2[-1:].float() @ router.weight.to(x2.dtype).float()
-        top = logits[0].topk(top_k + 1).values
-        margins.append(float((top[top_k - 1] - top[top_k]) / logits.abs().max()))
-        return route(router, x2, top_k)
-
-    moe.route = recorded
-    try:
-        with torch.inference_mode():
-            caches = init_caches(cfg, 1, len(ids), device=dev)
-            lg, _ = forward_inner(params, cfg, toks, torch.arange(len(ids), device=dev)[None],
-                                  caches, 0, last_only=True)
-    finally:
-        moe.route = route
+    with torch.inference_mode():
+        caches = init_caches(cfg, 1, len(ids), device=dev)
+        lg, _ = forward_inner(params, cfg, toks, torch.arange(len(ids), device=dev)[None],
+                              caches, 0, last_only=True)
     row = lg[0, -1].float()
     top = row.topk(3)
     largest = float(row.abs().max())
@@ -2757,15 +2978,10 @@ def near_tie(params, cfg, dev, ids: list[int], spec_tok: int, twin_tok: int) -> 
     below = max(float(top.values[0] - row[spec_tok]), float(top.values[0] - row[twin_tok]))
     rank = lambda t: int((row > row[t]).sum()) + 1  # noqa: E731
     logit_tie = below <= SPEC_TIE_ULPS * ulp
-    route_margin = min(margins) if margins else None
-    route_tie = route_margin is not None and route_margin <= MODEL_TOL
     return dict(top_ids=[int(t) for t in top.indices], top=[float(v) for v in top.values],
                 spec_logit=float(row[spec_tok]), twin_logit=float(row[twin_tok]),
                 spec_rank=rank(spec_tok), twin_rank=rank(twin_tok), below=below,
-                largest=largest, ulps=below / ulp, logit_tie=logit_tie,
-                route_margin=route_margin,
-                route_layer=margins.index(route_margin) if margins else None,
-                route_tie=route_tie, ok=logit_tie or route_tie)
+                largest=largest, ulps=below / ulp, logit_tie=logit_tie, ok=logit_tie)
 
 
 def spec_paths(params, cfg, dev, gen) -> dict:
@@ -4662,6 +4878,497 @@ def tooling_phase(dev) -> dict:
     out["tp_ranks"] = tp_ranks_path(dense, cfg, dev, gen)
     return dict(out, paths=paths, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
+# The sharded phase: tensor and expert parallelism over SHARDED_TP ranks that
+# this script spawns (`eetq_tpu_torch/dist/launch.py`), each a process
+# holding its shard: NCCL on cuda:rank where the machine has a card for each
+# rank, else gloo with both ranks on cuda:0. A gloo collective on a CUDA
+# tensor is staged through the host, so the ranks' steps run eagerly, and
+# their times model no NVLink deployment.
+SHARDED_TP = 2
+SHARDED_SPEC_K = 7
+SHARDED_MIXTRAL_LAYERS = 2
+SHARDED_MIXTRAL_NEW = 16
+SHARDED_TIMEOUT_S = 600
+_TP2 = ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode")
+PATH_KERNELS.update({"tp2_generate": _TP2, "tp2_server": _TP2, "tp2_spec_server": _TP2,
+                     "mixtral_ep2": ("w8a16_expert_gemv", "w8a16_grouped_gemm") + _TP2})
+
+
+def _server_requests(cfg, gen, dev) -> list:
+    """server_path's mix: SERVE_REQUESTS requests of SERVE_LENGTHS prompts and
+    SERVE_BUDGETS budgets, requests 3 and 8 sampled; (prompt, budget, keywords)."""
+    import torch
+
+    lengths = [SERVE_LENGTHS[i] for i in torch.randint(
+        0, len(SERVE_LENGTHS), (SERVE_REQUESTS,), generator=gen, device=dev).tolist()]
+    budgets = [SERVE_BUDGETS[i] for i in torch.randint(
+        0, len(SERVE_BUDGETS), (SERVE_REQUESTS,), generator=gen, device=dev).tolist()]
+    return [(torch.randint(0, cfg.vocab_size, (p,), generator=gen, device=dev).tolist(), b,
+             dict(temperature=0.8, top_k=40) if i in (3, 8) else {})
+            for i, (p, b) in enumerate(zip(lengths, budgets))]
+
+
+def _rank_counts():
+    """This rank's launch and collective counters, both set to 0."""
+    from eetq_tpu_torch.dist.sharding import reset_collective_counts
+    from eetq_tpu_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    reset_collective_counts()
+
+
+def _rank_read():
+    import torch
+
+    from eetq_tpu_torch.dist.sharding import collective_counts
+    from eetq_tpu_torch.kernels import launch_counts
+
+    torch.cuda.synchronize()
+    return launch_counts(), collective_counts()
+
+
+def _rank_engine(model, requests: list, **kw) -> dict:
+    """The requests through Engine(model, max_batch=8, max_len=2048, **kw),
+    counted and timed on this rank."""
+    import torch
+
+    from eetq_tpu_torch.serve.engine import Engine
+
+    eng = Engine(model, max_batch=8, max_len=2048, **kw)
+    uids = [eng.add_request(p, n, **k) for p, n, k in requests]
+    _rank_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    counts, coll = _rank_read()
+    wall = time.perf_counter() - t0
+    out = dict(outputs=[eng.result(u) for u in uids], counts=counts, collectives=coll,
+               wall_s=wall, kv=str(eng.kv_dtype), a8=eng.a8_prefill, window=eng.decode_window,
+               spec_rounds=eng.spec_rounds, spec_tokens=eng.spec_tokens)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_llama(mesh, path: str, prompt, ref_tokens, requests: list) -> dict:
+    """A rank of tp2_generate, tp2_server and tp2_spec_server:
+    `from_quantized(path).shard(mesh)`, then (teacher-forced on the tp = 1
+    run's tokens) the prefill's and every decode step's logits and the
+    collectives of one forward; then, counted from 0, the prefill and
+    len(ref_tokens) greedy tokens, timed; then the server's requests through
+    the sharded engine and through its spec twin (k = SHARDED_SPEC_K)."""
+    import torch
+
+    from eetq_tpu_torch.dist.sharding import make_forward_fn
+    from eetq_tpu_torch.models.auto import AutoEETQForCausalLM
+    from eetq_tpu_torch.utils.profiling import count_collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    t0 = time.perf_counter()
+    full = AutoEETQForCausalLM.from_quantized(path, device=dev)
+    model = full.shard(mesh=mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out = dict(backend=mesh.backend, device=str(dev), load_s=time.perf_counter() - t0,
+               shard_gb=sum(b.numel() * b.element_size() for b in model.params.buffers()) / 1e9,
+               o_proj_scales=tuple(model.params.layers[0].o_proj.scales.shape))
+    p, n = prompt.shape[1], ref_tokens.shape[1]
+    toks = prompt.to(dev)
+    pos = torch.arange(p, device=dev)[None]
+    fwd = make_forward_fn(model)
+
+    def step(tok, j, caches):
+        lg, _ = fwd(model.params, tok.view(1, 1), torch.full((1, 1), p + j, device=dev), caches,
+                    p + j)
+        return lg[0, -1]
+
+    with torch.inference_mode():
+        caches = model.init_caches(1, p + n)
+        got = {}
+        out["prefill_collectives"] = count_collectives(lambda: got.setdefault(
+            "lg", fwd(model.params, toks, pos, caches, 0, last_only=True)[0]))
+        out["prefill_logits"] = got["lg"][0, -1].float().cpu()
+        ref = ref_tokens.to(dev)
+        tf = [step(ref[:, j], j, caches).float().cpu() for j in range(n - 1)]
+        out["decode_logits"] = torch.stack(tf)
+        caches = model.init_caches(1, p + n)
+        _rank_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = fwd(model.params, toks, pos, caches, 0, last_only=True)
+        tok = torch.argmax(lg[0, -1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gen = [tok]
+        for j in range(n - 1):
+            tok = torch.argmax(step(tok, j, caches))
+            gen.append(tok)
+        counts, coll = _rank_read()
+        t2 = time.perf_counter()
+    out.update(tokens=torch.stack(gen).cpu().tolist(), counts=counts, collectives=coll,
+               prefill_ms=1e3 * (t1 - t0), decode_ms=1e3 * (t2 - t1) / (n - 1))
+    del caches
+    out["server"] = _rank_engine(model, requests)
+    out["spec_server"] = _rank_engine(model, requests, spec_ngram=SHARDED_SPEC_K)
+    return out
+
+
+def _int_sums(q) -> tuple:
+    """(sum, sum of squares) of an integer tensor, exact in int64."""
+    import torch
+
+    v = q.to("cpu", dtype=torch.int64)
+    return int(v.sum()), int((v * v).sum())
+
+
+def _ep_model(cfg, seeds, dev, layers_only: bool = False):
+    """MIXTRAL cut to SHARDED_MIXTRAL_LAYERS, drawn from `seeds` on dev:
+    (the embedding, final norm and dense lm_head with no layer, the dense
+    layers as a generator drawing each when taken)."""
+    import torch
+
+    from eetq_tpu_torch.models.init import random_dense_layers, random_dense_params
+
+    stub = random_dense_params(dataclasses.replace(cfg, num_layers=0),
+                               torch.Generator(device=dev).manual_seed(seeds[1]))
+    return stub, random_dense_layers(cfg, torch.Generator(device=dev).manual_seed(seeds[0]))
+
+
+def _rank_mixtral(mesh, cfg, seeds, prompt, n: int) -> dict:
+    """A rank of mixtral_ep2: `shard_model(quantize=True)` over the dense
+    layers drawn one at a time from the seeds (E / tp experts kept), the
+    shard's integer sums and scales, then, counted from 0 and with every
+    routing recorded, the prefill and n greedy tokens."""
+    import torch
+
+    from eetq_tpu_torch.dist.sharding import make_forward_fn, shard_model
+    from eetq_tpu_torch.layout.tiling import unpack_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    t0 = time.perf_counter()
+    stub, layers = _ep_model(cfg, seeds, dev)
+    model = shard_model(stub, cfg, mesh, quantize=True, layers=layers)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    shard = {}
+    for i, lp in enumerate(model.params.layers):
+        for name, lin in (("qkv", lp.qkv), ("o_proj", lp.o_proj), ("gateup", lp.moe.gateup),
+                          ("down", lp.moe.down)):
+            shard[f"{i}.{name}"] = (_int_sums(unpack_weights(lin.packed)), lin.scales.cpu())
+    p = prompt.shape[1]
+    log = []
+    fwd = make_forward_fn(model)
+    with torch.inference_mode():  # a first forward, untimed: the library's one-time settings
+        fwd(model.params, prompt.to(dev), torch.arange(p, device=dev)[None],
+            model.init_caches(1, p), 0, last_only=True)
+    with routing("record", log), torch.inference_mode():
+        caches = model.init_caches(1, p + n)
+        _rank_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = fwd(model.params, prompt.to(dev), torch.arange(p, device=dev)[None], caches, 0,
+                    last_only=True)
+        logits = [lg[0, -1].float()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = [torch.argmax(logits[-1])]
+        for j in range(n - 1):
+            lg, _ = fwd(model.params, toks[-1].view(1, 1),
+                        torch.full((1, 1), p + j, device=dev), caches, p + j)
+            logits.append(lg[0, -1].float())
+            toks.append(torch.argmax(logits[-1]))
+        counts, coll = _rank_read()
+        t2 = time.perf_counter()
+    return dict(shard=shard, build_s=build_s, counts=counts, collectives=coll,
+                logits=torch.stack(logits).cpu(), tokens=torch.stack(toks).cpu().tolist(),
+                routes=[(w.cpu(), i.cpu()) for w, i in log], prefill_ms=1e3 * (t1 - t0),
+                decode_ms=1e3 * (t2 - t1) / (n - 1), backend=mesh.backend,
+                local_experts=model.params.layers[0].moe.num_local_experts)
+
+
+def _sum_counts(results: list, key: str = "counts") -> dict:
+    out = {}
+    for r in results:
+        for k, v in r[key].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _logit_tie(row, a: int, b: int) -> bool:
+    """a and b both within SPEC_TIE_ULPS bf16 ulps (of the largest |logit|)
+    of the top of `row`."""
+    import math
+
+    ulp = 2.0 ** (math.floor(math.log2(float(row.abs().max()))) - 7)
+    return float(row.max() - min(row[a], row[b])) <= SPEC_TIE_ULPS * ulp
+
+
+def _sharded_llama(dev, work: str, backend: str) -> dict:
+    """tp2_generate, tp2_server and tp2_spec_server (sharded_phase)."""
+    import torch
+
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.models.auto import AutoEETQForCausalLM, EETQCausalLM
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.init import random_dense_params
+    from eetq_tpu_torch.models.transformer import forward_inner, init_caches
+    from eetq_tpu_torch.serve.engine import Engine
+
+    cfg = PRESETS[MODEL]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    art = os.path.join(work, "llama2-7b-tp2")
+    t0 = time.perf_counter()
+    EETQCausalLM(cfg, random_dense_params(cfg, gen)).quantize(art, tp=SHARDED_TP)
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = AutoEETQForCausalLM.from_quantized(art, device=dev)  # the tp = 1 run of the artifact
+    check(twin.tp == SHARDED_TP, f"the artifact records tp {twin.tp}")
+    params = twin.params
+    print(f"  {MODEL} W8A16 built dense, quantized with tp={SHARDED_TP}, saved and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _, p, n = REQUESTS[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=gen, device=dev)
+    with torch.inference_mode():  # the tp = 1 run: prefill, then greedy steps
+        caches = init_caches(cfg, 1, p + n, device=dev)
+        lg, _ = forward_inner(params, cfg, prompt, torch.arange(p, device=dev)[None], caches, 0,
+                              last_only=True)
+        ref = [lg[0, -1].float()]
+        toks = [torch.argmax(ref[-1])]
+        for j in range(n - 1):
+            lg, _ = forward_inner(params, cfg, toks[-1].view(1, 1),
+                                  torch.full((1, 1), p + j, device=dev), caches, p + j)
+            ref.append(lg[0, -1].float())
+            toks.append(torch.argmax(ref[-1]))
+        del caches
+    ref_tokens = torch.stack(toks).view(1, n)
+    requests = _server_requests(cfg, gen, dev)
+    greedy = [i for i, (_, _, kw) in enumerate(requests) if not kw]
+    te = Engine(params, cfg, max_batch=8, max_len=2048, kv_dtype=torch.bfloat16, a8_prefill=False)
+    uids = {i: te.add_request(requests[i][0], requests[i][1]) for i in greedy}
+    te.run()
+    twin_out = {i: te.result(u) for i, u in uids.items()}
+    del te
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with RankPool(SHARDED_TP, f"file://{os.path.join(work, 'rdv-llama')}", backend=backend,
+                  timeout_s=SHARDED_TIMEOUT_S) as pool:
+        res = pool.run(_rank_llama, art, prompt.cpu(), ref_tokens.cpu(), requests)
+    ranks_s = time.perf_counter() - t0
+    r0 = res[0]
+    print(f"  ranks: {r0['backend']} on {[r['device'] for r in res]}, each loaded and sharded "
+          f"the artifact in {r0['load_s']:.1f} s ({r0['shard_gb']:.2f} GB a shard; o_proj "
+          f"scales {r0['o_proj_scales']}: per-channel); {ranks_s:.1f} s in the ranks")
+    check(r0["o_proj_scales"] == (cfg.hidden_size,), "a rank's o_proj is not per-channel")
+    for r in res[1:]:
+        check(torch.equal(r["prefill_logits"], r0["prefill_logits"])
+              and torch.equal(r["decode_logits"], r0["decode_logits"])
+              and r["tokens"] == r0["tokens"]
+              and r["server"]["outputs"] == r0["server"]["outputs"]
+              and r["spec_server"]["outputs"] == r0["spec_server"]["outputs"],
+              "the ranks' logits or tokens differ")
+    paths = {}
+    # tp2_generate: logits against the tp = 1 run, tokens equal or a near tie
+    refs = torch.stack(ref).cpu()
+    pre = check_logits("tp2_generate prefill (tp=1 run)", r0["prefill_logits"], refs[0])
+    dec_err = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(r0["decode_logits"], refs[1:]))
+    print(f"  tp2_generate teacher-forced decode logits vs the tp=1 run: at most {dec_err:.4e} "
+          f"of the largest logit over {n - 1} steps (tol {MODEL_TOL})")
+    check(dec_err <= MODEL_TOL, f"tp2_generate decode logits differ by {dec_err:.3e}")
+    want = ref_tokens[0].tolist()
+    first = next((j for j, (a, b) in enumerate(zip(r0["tokens"], want)) if a != b), None)
+    if first is not None:
+        rows = (refs[first], r0["prefill_logits"] if first == 0 else r0["decode_logits"][first - 1])
+        tie = all(_logit_tie(row, r0["tokens"][first], want[first]) for row in rows)
+        print(f"  tp2_generate: token {first} is {r0['tokens'][first]}, the tp=1 run's "
+              f"{want[first]} (near tie: {tie})")
+        check(tie, f"tp2_generate tokens differ from the tp=1 run at {first}, not at a near tie")
+    per_fwd = {k: v for k, v in r0["prefill_collectives"].items()}
+    want_coll = {"all_reduce_count": 2 * cfg.num_layers, "all_gather_count": 1,
+                 "all_reduce": 2 * cfg.num_layers * p * cfg.hidden_size * 2,
+                 "all_gather": cfg.vocab_size // SHARDED_TP * 2}
+    print(f"  tp2_generate: one prefill forward's collectives on a rank {per_fwd} "
+          f"(want {want_coll}); the greedy run's {r0['collectives']} over {n} forwards")
+    check(per_fwd == want_coll, "tp2_generate: collectives differ from count_collectives' model")
+    check(r0["collectives"]["all_reduce_count"] == 2 * cfg.num_layers * n
+          and r0["collectives"]["all_gather_count"] == n, "tp2_generate: collectives a step")
+    counts = _sum_counts(res)
+    check_launches("tp2_generate", counts)
+    print(f"  tp2_generate b=1 p={p} n={n} over {r0['backend']}: prefill {r0['prefill_ms']:.2f} "
+          f"ms, decode {r0['decode_ms']:.3f} ms/step (eager; tokens "
+          f"{'equal to' if first is None else 'parting at a near tie from'} the tp=1 run's)")
+    paths["tp2_generate"] = dict(counts=counts, prefill=pre, decode_rel_err=dec_err,
+                                 first_difference=first, collectives_per_forward=per_fwd,
+                                 prefill_ms=r0["prefill_ms"], decode_ms_per_step=r0["decode_ms"],
+                                 backend=r0["backend"])
+    # the engines: greedy requests against the one-card twin and each other
+    for path, key in (("tp2_server", "server"), ("tp2_spec_server", "spec_server")):
+        run = r0[key]
+        counts = _sum_counts([r[key] for r in res])
+        check_launches(path, counts)
+        check(run["kv"] == "torch.bfloat16" and not run["a8"],
+              f"{path}: the sharded engine took kv {run['kv']}, a8 {run['a8']}")
+        base = (twin_out if path == "tp2_server"
+                else {i: r0["server"]["outputs"][i] for i in greedy})
+        ties = []
+        for i in greedy:
+            got, want_i = run["outputs"][i], base[i]
+            check(len(got) == requests[i][1], f"{path} request {i}: {len(got)} tokens")
+            j = next((j for j, (a, b) in enumerate(zip(got, want_i)) if a != b), None)
+            if j is None:
+                continue
+            tie = near_tie(params, cfg, dev, requests[i][0] + want_i[:j], got[j], want_i[j])
+            print(f"  {path} request {i}: token {j} is {got[j]}, the twin's {want_i[j]}; "
+                  f"{tie['ulps']:.2f} bf16 ulps below the top (near tie: {tie['logit_tie']})")
+            check(tie["logit_tie"], f"{path}: request {i} differs from its twin at {j}, not at "
+                                    f"a near tie")
+            ties.append(dict(request=i, token=j, ulps=tie["ulps"]))
+        tokens = sum(b for _, b, _ in requests)
+        print(f"  {path} over {r0['backend']}: {len(requests)} requests, {tokens} tokens in "
+              f"{run['wall_s']:.2f} s = {tokens / run['wall_s']:.2f} tok/s (eager windows of "
+              f"{run['window']}); greedy against "
+              f"{'the one-card engine' if path == 'tp2_server' else 'tp2_server'}: "
+              f"{len(greedy) - len(ties)} equal, {len(ties)} near ties"
+              + (f"; {run['spec_rounds']} rounds committed {run['spec_tokens']} tokens"
+                 if run["spec_rounds"] else ""))
+        paths[path] = dict(counts=counts, wall_s=run["wall_s"], tok_s=tokens / run["wall_s"],
+                           near_ties=ties, collectives=run["collectives"],
+                           spec_rounds=run["spec_rounds"], spec_tokens=run["spec_tokens"])
+    del params, twin
+    return paths
+
+
+def _sharded_mixtral(dev, work: str, backend: str) -> dict:
+    """mixtral_ep2 (sharded_phase)."""
+    import torch
+
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.dist.sharding import split_qkv_columns, split_rows
+    from eetq_tpu_torch.layout.tiling import unpack_weights
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.transformer import (LayerParams, ModelParams, forward_inner,
+                                                   init_caches)
+    from eetq_tpu_torch.modules.linear import quantize_linear
+    from eetq_tpu_torch.modules.moe import quantize_moe
+
+    tp, n = SHARDED_TP, SHARDED_MIXTRAL_NEW
+    cfg = dataclasses.replace(PRESETS[MIXTRAL], num_layers=SHARDED_MIXTRAL_LAYERS)
+    seeds = (SEED + 50, SEED + 51)
+    _, p, _ = REQUESTS[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, p),
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 52),
+                           device=dev)
+    t0 = time.perf_counter()
+    with RankPool(tp, f"file://{os.path.join(work, 'rdv-mixtral')}", backend=backend,
+                  timeout_s=SHARDED_TIMEOUT_S) as pool:
+        res = pool.run(_rank_mixtral, cfg, seeds, prompt.cpu(), n)
+    ranks_s = time.perf_counter() - t0
+    r0 = res[0]
+    # the one-card model holding the same per-shard integers: qkv per
+    # channel, o_proj group-wise at K / tp (each rank's rows quantized on
+    # their own), the banks per expert, the lm_head dense
+    stub, layers = _ep_model(cfg, seeds, dev)
+    one = []
+    for lp in layers:
+        k = lp.o_proj.weight.shape[0]
+        one.append(LayerParams(lp.input_norm, quantize_linear(lp.qkv.weight),
+                               quantize_linear(lp.o_proj.weight, group_size=k // tp),
+                               lp.post_norm, moe=quantize_moe(lp.moe)))
+        del lp
+    params = ModelParams(stub.embed, one, stub.final_norm, stub.lm_head)
+    el = cfg.num_experts // tp
+    for r, rr in enumerate(res):
+        check(rr["local_experts"] == el, f"rank {r} holds {rr['local_experts']} experts")
+        for i, lp in enumerate(params.layers):
+            want = {"qkv": (split_qkv_columns(unpack_weights(lp.qkv.packed), cfg, tp)[r],
+                            split_qkv_columns(lp.qkv.scales, cfg, tp)[r]),
+                    "o_proj": (split_rows(unpack_weights(lp.o_proj.packed), tp)[r],
+                               lp.o_proj.scales[r]),
+                    "gateup": (unpack_weights(lp.moe.gateup.packed)[r * el:(r + 1) * el],
+                               lp.moe.gateup.scales[r * el:(r + 1) * el]),
+                    "down": (unpack_weights(lp.moe.down.packed)[r * el:(r + 1) * el],
+                             lp.moe.down.scales[r * el:(r + 1) * el])}
+            for name, (q, sc) in want.items():
+                sums, scales = rr["shard"][f"{i}.{name}"]
+                check(sums == _int_sums(q) and torch.equal(scales, sc.cpu()),
+                      f"mixtral_ep2: rank {r}'s layer {i} {name} is not the one-card model's slice")
+    for r in res[1:]:
+        check(torch.equal(r["logits"], r0["logits"]) and r["tokens"] == r0["tokens"]
+              and all(torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
+                      for a, b in zip(r["routes"], r0["routes"])),
+              "mixtral_ep2: the ranks' logits, tokens or routings differ")
+    log = [(w.to(dev), i.to(dev)) for w, i in r0["routes"]]
+
+    def one_card():
+        with torch.inference_mode():
+            caches = init_caches(cfg, 1, p + n, device=dev)
+            lg, _ = forward_inner(params, cfg, prompt, torch.arange(p, device=dev)[None], caches,
+                                  0, last_only=True)
+            out = [lg[0, -1].float()]
+            for j in range(n - 1):
+                tok = torch.tensor([[r0["tokens"][j]]], device=dev)
+                lg, _ = forward_inner(params, cfg, tok, torch.full((1, 1), p + j, device=dev),
+                                      caches, p + j)
+                out.append(lg[0, -1].float())
+        return torch.stack(out).cpu()
+
+    with routing("replay", log):
+        want = one_card()
+    differ = routing_differences(one_card, log)
+    err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(r0["logits"], want))
+    print(f"  mixtral_ep2: {cfg.num_layers} layers (cut from 32; the EP code is the same in every "
+          f"layer), {el} experts a rank; prefill and {n - 1} decode steps against the one-card "
+          f"model of the same per-shard integers with rank 0's routing replayed: at most "
+          f"{err:.4e} of the largest logit (tol {MODEL_TOL}, no near-tie pass); "
+          f"{differ['differ']} of {differ['routings']} routings differ when not replayed")
+    check(bool(torch.isfinite(r0["logits"]).all()), "mixtral_ep2 logits are not finite")
+    check(err <= MODEL_TOL, f"mixtral_ep2 logits differ by {err:.3e}")
+    want_coll = {"all_reduce_count": 2 * cfg.num_layers * n, "all_gather_count": n}
+    check(all(r0["collectives"][k] == v for k, v in want_coll.items()),
+          f"mixtral_ep2: collectives {r0['collectives']}, want {want_coll}")
+    counts = _sum_counts(res)
+    check_launches("mixtral_ep2", counts)
+    print(f"  mixtral_ep2 b=1 p={p} n={n} over {r0['backend']}: prefill {r0['prefill_ms']:.2f} "
+          f"ms, decode {r0['decode_ms']:.3f} ms/step (eager); built in {r0['build_s']:.1f} s; "
+          f"{ranks_s:.1f} s in the ranks")
+    return {"mixtral_ep2": dict(counts=counts, max_rel_err=err, routing=differ,
+                                prefill_ms=r0["prefill_ms"], decode_ms_per_step=r0["decode_ms"],
+                                layers=cfg.num_layers, reduced="num_layers 32 -> 2",
+                                backend=r0["backend"])}
+
+
+def sharded_phase(dev) -> dict:
+    """tp2_generate, tp2_server, tp2_spec_server and mixtral_ep2 over
+    SHARDED_TP ranks (module docstring, 11.)."""
+    import tempfile
+
+    import torch
+
+    from eetq_tpu_torch.dist.multihost import choose_backend
+
+    t0 = time.perf_counter()
+    backend = choose_backend(SHARDED_TP)
+    cards = torch.cuda.device_count()
+    print(f"  sharded: {SHARDED_TP} ranks over {backend} on {cards} card(s)"
+          + ("; the ranks share cuda:0 and gloo stages every collective through the host: the "
+             "steps run eagerly, and these times model no NVLink deployment"
+             if backend == "gloo" else ""))
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        paths = _sharded_llama(dev, work, backend)
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(_sharded_mixtral(dev, work, backend))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"  sharded phase: {seconds:.1f} s")
+    return dict(paths=paths, backend=backend, cards=cards, seconds=seconds)
+
 
 def main() -> int:
     import argparse
@@ -4743,6 +5450,7 @@ def _main(args, phases) -> int:
         "mixtral": lambda: mixtral_phase(dev, profile=args.profile),
         "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
         "families": lambda: families_phase(dev),
+        "sharded": lambda: sharded_phase(dev),
     }
     done = {}
     for phase in PHASES:
@@ -4770,13 +5478,14 @@ def _main(args, phases) -> int:
                            tooling=done.get("tooling"),
                            int4=done.get("int4"), mixtral=done.get("mixtral"),
                            mixtral_int4=done.get("mixtral_int4"), families=done.get("families"),
+                           sharded=done.get("sharded"),
                            seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     if len(done) < len(PHASES):
         print(f"partial run ({','.join(done)}): every check of these phases passed")
         return 0
     paths = {}
     for phase in ("llama", "checkpoint", "lora", "tooling", "int4", "mixtral", "mixtral_int4",
-                  "families"):
+                  "families", "sharded"):
         paths.update(done[phase]["paths"])
     kern = done["kernels"]
     kernels = [

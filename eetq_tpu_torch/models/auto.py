@@ -6,8 +6,9 @@ checkpoint directory, or from_torch over a live HuggingFace model.
 Generation is the port's own (`serve/generate.py`). Every entry point that
 places parameters takes `device`, the card when None. `quantize(tp=N)` is
 the offline tensor-parallel reshard (`surgery/tp_reshard.py`): the artifact
-serves on one card and records tp in its quant config. Not ported: the hub
-download of `resolve_checkpoint` and `shard()` (ROADMAP queue 1 item 9).
+serves on one card and records tp in its quant config; `shard()` slices it
+into a rank's shard for runtime tensor parallelism (`dist/sharding.py`).
+Not ported: the hub download of `resolve_checkpoint`.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from eetq_tpu_torch.modules.linear import QuantLinear
 SUPPORTED_MODEL_TYPES = (
     "llama", "mistral", "mixtral", "gemma", "baichuan", "qwen2", "chatglm"
 )
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 9: tensor parallelism)"
 
 
 @dataclasses.dataclass
@@ -101,7 +101,22 @@ class EETQCausalLM:
         return init_caches(self.cfg, batch, max_len, device=device, dtype=dtype)
 
     def shard(self, mesh=None, tp: int | None = None, dp: int = 1):
-        raise NotImplementedError(f"shard() {_NOT_PORTED}")
+        """This rank's shard for runtime tensor parallelism
+        (`eetq_tpu/models/auto.py:116-133`) over `mesh`, or over
+        `dist.make_mesh(tp, dp)` of the initialised process group. A
+        quantized model (say, from a `quantize(tp=N)` checkpoint) is sliced
+        without requantization (`shard_quantized`: bit-exact to the stored
+        integers); a dense one is split and each shard quantized on its own
+        (`shard_model`). Returns a `dist.sharding.ShardedModel`."""
+        from eetq_tpu_torch.dist.sharding import make_mesh, shard_model
+
+        if mesh is None:
+            mesh = make_mesh(tp=tp, dp=dp)
+        if self.quantized:
+            from eetq_tpu_torch.surgery.tp_reshard import shard_quantized
+
+            return shard_quantized(self.params, self.cfg, mesh)
+        return shard_model(self.params, self.cfg, mesh, quantize=True)
 
 
 def resolve_checkpoint(path: str) -> str:

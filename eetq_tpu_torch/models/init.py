@@ -59,11 +59,19 @@ def _embed_and_head(cfg: ModelConfig, gen: torch.Generator):
     return embed, lm_head
 
 
+def random_dense_layers(cfg: ModelConfig, generator: torch.Generator):
+    """The layers of `random_dense_params`, each drawn as the caller takes
+    it: a model whose bf16 layers would not fit at once is consumed layer
+    by layer (`dist.sharding.shard_model(layers=...)`)."""
+    for _ in range(cfg.num_layers):
+        yield _dense_layer(cfg, generator)
+
+
 def random_dense_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
     """Unquantized bf16 model with fused qkv / gateup linears (stacked expert
     banks and a router on MoE layers), made on the generator's device. Linear
     weights ~ N(0, 1/K), embedding ~ N(0, 0.02^2), norms 1."""
-    layers = [_dense_layer(cfg, generator) for _ in range(cfg.num_layers)]
+    layers = list(random_dense_layers(cfg, generator))
     embed, lm_head = _embed_and_head(cfg, generator)
     final_norm = torch.ones(cfg.hidden_size, dtype=torch.float32, device=generator.device)
     return ModelParams(embed, layers, final_norm, lm_head)

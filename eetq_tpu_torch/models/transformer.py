@@ -28,7 +28,12 @@ prefill path with caches=None is differentiable end to end (LoRA
 finetuning: the adapters' tensors set to requires_grad_()), through the
 quantized linears' and the flash-attention's autograd Functions; the
 decode, verify, W8A8 and fused-MLP kernels have no backward and raise
-under grad. Tensor parallelism is not ported.
+under grad. Under tensor parallelism (`mesh`, `dist/sharding.py`) the
+parameters are a rank's shard: local heads (:64-65), ALiBi slopes sliced to
+them (:136-140), an all-reduce of the row-parallel partials after o_proj,
+after down and after the MoE block (:154, :158-170, :199), the fused MLP
+without its residual, added after the all-reduce (:181-189), and the vocab
+all-gather of the lm_head's logits (:256-257); a tied head stays replicated.
 """
 
 from __future__ import annotations
@@ -102,6 +107,7 @@ def decoder_layer(
     verify: bool = False,
     slopes: torch.Tensor | None = None,
     lora_idx: torch.Tensor | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """One decoder layer on x [B, S, H]. The RMSNorms before qkv and gate/up
     are handed to the linear as a prenorm (fused into the GEMV kernel in the
@@ -111,9 +117,13 @@ def decoder_layer(
     neither. verify: the S > 1 tokens sit at per-row offsets and attend
     causally over the cache (`modules.attention.attention`). slopes: the
     ALiBi slopes of an ALiBi model, whose q and k take no rope. lora_idx
-    [B]: each row's adapter where the layer's adapters are banks."""
+    [B]: each row's adapter where the layer's adapters are banks. mesh: p is
+    this rank's shard (local heads; slopes already the local heads'), and
+    the row-parallel partials are all-reduced."""
     b, s, _ = x.shape
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = 1 if mesh is None else mesh.tp
+    hq, hkv, d = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
+    reduce = (lambda t: t) if mesh is None else mesh.all_reduce_  # noqa: E731
 
     residual = x
     if p.qkv_lora is None:
@@ -132,29 +142,31 @@ def decoder_layer(
                             use_kernels=use_kernels, verify=verify, slopes=slopes)
     o = linear_apply(p.o_proj, attn.reshape(b, s, hq * d), lora=p.o_lora, lora_idx=lora_idx,
                      use_kernel=use_kernels, a8=a8)
-    x = residual + o
+    x = residual + reduce(o)
 
     residual = x
     gamma2 = _gamma(p.post_norm, cfg)
     if p.moe is not None:
         y = rmsnorm(x, gamma2, eps=cfg.rms_eps)
         out = moe_apply(p.moe, y, cfg.num_experts_per_tok, activation=cfg.activation,
-                        use_kernel=use_kernels)
-        return residual + out, cache
+                        use_kernel=use_kernels, mesh=mesh)
+        return residual + reduce(out), cache
     if fused_mlp is None:
         fused_mlp = _fused_mlp_enabled()
     if not a8 and fused_mlp and can_fuse_mlp(p.gateup, p.down, b * s):
-        # the kernel adds the residual, so its output is the layer's
+        # the kernel adds the residual, so its output is the layer's; under
+        # tensor parallelism the partial is all-reduced first
         out = fused_mlp_op(p.gateup, p.down, x, gamma2, cfg.rms_eps,
-                           activation=cfg.activation, residual=residual,
+                           activation=cfg.activation,
+                           residual=residual if mesh is None else None,
                            use_kernel=use_kernels)
-        return out, cache
+        return (out if mesh is None else residual + reduce(out)), cache
     gateup = linear_apply(p.gateup, x, prenorm=(gamma2, cfg.rms_eps),
                           use_kernel=use_kernels, a8=a8)
     gate, up = torch.chunk(gateup, 2, dim=-1)
     h_mlp = (ACTIVATIONS[cfg.activation](gate.float()) * up.float()).to(x.dtype)
     down = linear_apply(p.down, h_mlp, use_kernel=use_kernels, a8=a8)
-    return residual + down, cache
+    return residual + reduce(down), cache
 
 
 # the f32 copy of one vocabulary chunk of a tied head's table
@@ -187,6 +199,7 @@ def forward_inner(
     last_pos: torch.Tensor | None = None,
     verify: bool = False,
     lora_idx: torch.Tensor | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, list[KVCache] | None]:
     """Logits [B, S, V] f32 (or [B, 1, V] with last_only, which runs the
     lm_head on the last position only, or with last_pos [B], each row's
@@ -196,12 +209,20 @@ def forward_inner(
     JAX package). verify=True runs the verify step of speculative decoding:
     tokens [B, S] at positions offset .. offset + S - 1, offset [B] (the
     m = B S rows pick the GEMV, the fused MLP or the GEMM as any call
-    does). lora_idx [B]: each row's adapter of a model with LoRA banks."""
+    does). lora_idx [B]: each row's adapter of a model with LoRA banks.
+    mesh (`dist.sharding.Mesh`): params are this rank's shard and the
+    caches hold its kv heads; the logits are the whole vocabulary's, equal
+    on every rank."""
     x = params.embed[tokens].to(torch.bfloat16)
     if cfg.embedding_multiplier is not None:
         x = (x.float() * cfg.embedding_multiplier).to(x.dtype)
     cos_sin = cos_sin_cache(cfg.max_position, cfg.rot_dim, base=cfg.rope_theta, device=x.device)
     slopes = alibi_slopes_cache(cfg.num_heads, x.device) if cfg.alibi else None
+    if mesh is not None and mesh.tp == 1:
+        mesh = None  # one rank: the plain forward
+    if slopes is not None and mesh is not None:  # the rank's contiguous heads
+        hq = cfg.num_heads // mesh.tp
+        slopes = slopes[mesh.rank * hq:(mesh.rank + 1) * hq]
     positions = positions.clamp(max=cfg.max_position - 1)
     b, s = tokens.shape
     verify = verify and s > 1
@@ -213,7 +234,7 @@ def forward_inner(
         cache_i = caches[i] if caches is not None else None
         x, _ = decoder_layer(layer, cfg, x, positions, cos_sin, cache_i, offset,
                              use_kernels=use_kernels, a8=a8, fused_mlp=fused_mlp,
-                             verify=verify, slopes=slopes, lora_idx=lora_idx)
+                             verify=verify, slopes=slopes, lora_idx=lora_idx, mesh=mesh)
 
     if last_only:
         x = x[:, -1:, :]
@@ -222,6 +243,8 @@ def forward_inner(
     x = rmsnorm(x, _gamma(params.final_norm, cfg), eps=cfg.rms_eps)
     if params.lm_head is not None:
         logits = linear_apply(params.lm_head, x, use_kernel=use_kernels)
+        if mesh is not None:  # column-parallel over the vocabulary
+            logits = mesh.all_gather_last(logits)
     else:
         logits = _tied_head(x, params.embed)
     return logits.float(), caches

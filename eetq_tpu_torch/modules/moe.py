@@ -22,7 +22,19 @@ a value back to the host (no `.item()`, `nonzero`, boolean indexing or
 scan's kernel path runs each expert's slice of the bank through the dense
 kernels (`ops/linear.py::w8a16_matmul`: the GEMV up to MAX_DECODE_M tokens,
 the GEMM above), where JAX calls its expert kernel with one id; the same
-function. Expert parallelism is not ported.
+function.
+
+Expert parallelism (`mesh`, `eetq_tpu/modules/moe.py:129-160, 216-300`):
+a rank's banks hold its E / tp experts, and `moe_apply` returns the rank's
+partial combine, which the decoder all-reduces. A selection of another
+rank's expert parks on local expert 0 with zero weight, so the kernels see
+local ids only: the grouped GEMM does so in JAX too, and the masked scan's
+coefficients over the local experts are the slice JAX takes at the rank's
+offset. The decode shapes take the expert gather with parked selections
+(JAX runs its masked scan there under EP): the same two products a token,
+summed in f32 in the same order, while the gather streams only the selected
+local experts' bytes. The grouped GEMM runs under EP only where top_k is
+below the local expert count, as in JAX.
 
 The JAX package's A/B knobs (`eetq_tpu/modules/moe.py:113-119, 238-263`)
 take the same branches here: `EETQ_MOE_NO_GATHER=1` sends the decode
@@ -65,6 +77,13 @@ class MoEMLP(nn.Module):
     @property
     def num_experts(self) -> int:
         return self.router.weight.shape[-1]
+
+    @property
+    def num_local_experts(self) -> int:
+        """The experts of the banks: E, or E / tp on a rank under expert
+        parallelism."""
+        bank = self.gateup
+        return (bank.qweight if isinstance(bank, QuantLinear) else bank.weight).shape[0]
 
 
 def _quantize_bank(lin: DenseLinear, bits: int = 8, group_size: int | None = None) -> QuantLinear:
@@ -171,7 +190,7 @@ def moe_grouped_combine(
     and skip the padding blocks. Returns [T, H] f32."""
     t, h = x2.shape
     top_k = topi.shape[-1]
-    e = moe.num_experts
+    e = moe.num_local_experts
     n_sel = t * top_k
     bm = _grouped_bm(n_sel, e)
     nb = n_sel // bm + e
@@ -195,22 +214,32 @@ def moe_apply(
     top_k: int,
     activation: str = "silu",
     use_kernel: bool = True,
+    mesh=None,
 ) -> torch.Tensor:
     """Routed MLP forward. x [B, S, H] (already normed) -> [B, S, H].
     use_kernel=False runs the masked scan with the plain products (the
     reference the kernel regimes are checked against). The A/B knobs
-    (module docstring) are read here, on every call."""
+    (module docstring) are read here, on every call. mesh: the banks are
+    this rank's experts, and the result its partial sum (module
+    docstring)."""
     b, s, h = x.shape
     t = b * s
     x2 = x.reshape(t, h)
     quantized = isinstance(moe.gateup, QuantLinear)
     topw, topi = route(moe.router, x2, top_k)
-    e = moe.num_experts
+    e = moe.num_local_experts
     n_sel = t * top_k
+    ep = mesh is not None and e != moe.num_experts
+    if ep:  # another rank's selections park on local expert 0 with zero weight
+        off = mesh.rank * e
+        local = (topi >= off) & (topi < off + e)
+        topi = torch.where(local, topi - off, 0)
+        topw = torch.where(local, topw, 0.0)
 
     no_gather = os.environ.get("EETQ_MOE_NO_GATHER", "0") == "1"
     no_grouped = os.environ.get("EETQ_MOE_NO_GROUPED", "0") == "1"
-    if quantized and use_kernel and n_sel > MAX_DECODE_M and not (no_grouped or no_gather):
+    if (quantized and use_kernel and n_sel > MAX_DECODE_M and not (no_grouped or no_gather)
+            and (not ep or top_k < e)):
         out2 = moe_grouped_combine(moe, x2, topw, topi, activation)
         return out2.to(x.dtype).reshape(b, s, h)
     if quantized and use_kernel and n_sel <= min(MAX_DECODE_M, e) and not no_gather:

@@ -1,7 +1,8 @@
-"""Continuous-batching serving engine (slot-based), single-device, over a
-dense or a paged KV cache.
+"""Continuous-batching serving engine (slot-based) over a dense or a paged
+KV cache, on one device or on the ranks of a sharded model.
 
-Port of `eetq_tpu/serve/engine.py::Engine` with its local backend.
+Port of `eetq_tpu/serve/engine.py::Engine` with its local and its sharded
+backend.
 Requests arrive at any time; each scheduler step admits queued requests
 into free slots (one grouped prefill of up to `prefill_rows` prompts,
 right-padded to a length bucket, its KV rows inserted into the slots and
@@ -82,7 +83,17 @@ request's adapter; the decode and spec programs read the slots' ids from a
 device tensor kept at one address beside the static state, which admission
 writes in place, so the captured graphs never read a rebound tensor.
 
-Later work, which raises NotImplementedError here: a sharded model.
+The sharded backend (engine.py:234-416, 664-680): `Engine(model)` with a
+`dist.sharding.ShardedModel` and no cfg runs the same scheduler in SPMD on
+every rank of the model's mesh. Each rank holds its shard and the KV cache
+of its kv heads; its forwards all-reduce and gather (`dist/sharding.py`),
+so every rank sees the same whole-vocabulary logits and, given the same
+requests in the same order and the same seed, samples the same tokens and
+keeps the same host state (the contract of engine.py:263-271). Its defaults
+are a bf16 cache and W8A16 prefill on any device, and it refuses what the
+JAX package refuses there: a8 prefill, an int8 cache, banked LoRA, a paged
+cache and prefill chunks. Its decode and spec windows run eagerly: a
+collective staged through the host cannot be captured into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -94,6 +105,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from eetq_tpu_torch.dist.sharding import ShardedModel, cache_spec
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.models.transformer import ModelParams, forward_inner, init_caches
 from eetq_tpu_torch.modules.linear import QuantLinear
@@ -156,8 +168,24 @@ class Engine:
         max_chain: int = 8,
         spec_ngram: int | None = None,
     ):
+        self.mesh = None
         if cfg is None:
-            raise NotImplementedError("a sharded model has no engine backend in the port yet")
+            # a sharded model (its cfg comes with it): the refusals and
+            # defaults of JAX's sharded backend
+            if not isinstance(params, ShardedModel):
+                raise TypeError("Engine takes (params, cfg), or a dist.sharding.ShardedModel")
+            if a8_prefill:
+                raise ValueError("a8_prefill is not supported for sharded models yet")
+            if kv_dtype is not None and kv_dtype != torch.bfloat16:
+                raise ValueError("int8 KV is not supported for sharded models yet "
+                                 "(pass kv_dtype=torch.bfloat16 or omit it)")
+            if paged_blocks is not None:
+                raise ValueError("paged KV is local-backend only for now")
+            if prefill_chunk is not None:
+                raise ValueError("prefill_chunk is local-backend only")
+            a8_prefill, kv_dtype = False, torch.bfloat16
+            self.mesh = params.mesh
+            params, cfg = params.params, params.cfg
         if spec_ngram is not None and not 1 <= spec_ngram <= 7:
             raise ValueError("spec_ngram must be in [1, 7] (the k + 1-token verify must stay "
                              "in the m <= 8 decode regime)")
@@ -186,12 +214,16 @@ class Engine:
                              f"{self.prefill_rows}")
         self.params = params
         self.cfg = cfg
+        # the caches hold this rank's kv heads under a mesh
+        self._cache_cfg = cfg if self.mesh is None else cache_spec(cfg, self.mesh)
         # LoRA banks on layer 0 (adapters with a leading [n_adapters] axis):
         # requests pick theirs by add_request(lora_id=...)
         first = params.layers[0] if params.layers else None
         bank = None if first is None else next(
             (ad for ad in (first.qkv_lora, first.o_lora) if ad is not None and ad.banked), None)
         self._lora_banked = bank is not None
+        if self._lora_banked and self.mesh is not None:
+            raise ValueError("banked LoRA serving is local-backend only for now")
         self._n_adapters = bank.lora_a.shape[0] if bank is not None else 0
         self.lora_ids = np.zeros((max_batch,), np.int64)
         # the slots' ids as the programs read them: one buffer, written in place
@@ -234,7 +266,8 @@ class Engine:
             self._free_blocks = list(range(paged_blocks - 1, 0, -1))
             self._slot_blocks: list[list[int]] = [[] for _ in range(max_batch)]
         else:
-            self.caches = init_caches(cfg, max_batch, self._kv_len, self.device, kv_dtype)
+            self.caches = init_caches(self._cache_cfg, max_batch, self._kv_len, self.device,
+                                      kv_dtype)
         self._scratch = None  # reused prefill scratch caches
         self._scratch_len = 0
         # prompts whose bucket is larger than and a multiple of this prefill
@@ -403,7 +436,7 @@ class Engine:
         if self._scratch is not None and self._scratch_len >= need:
             return
         size = max(self.buckets) if need <= max(self.buckets) else self.max_len
-        self._scratch = init_caches(self.cfg, self.prefill_rows, size, self.device,
+        self._scratch = init_caches(self._cache_cfg, self.prefill_rows, size, self.device,
                                     self.kv_dtype)
         self._scratch_len = size
 
@@ -477,6 +510,7 @@ class Engine:
             self.params, self.cfg, tokens, positions, self._scratch, 0, a8=self.a8_prefill,
             last_pos=torch.as_tensor(lens - 1, device=dev),
             lora_idx=torch.as_tensor(lids, device=dev) if self._lora_banked else None,
+            mesh=self.mesh,
         )
         first = sample_rows(logits[:, -1, :], torch.as_tensor(temps, device=dev),
                             torch.as_tensor(topks, device=dev),
@@ -598,13 +632,14 @@ class Engine:
             tok, lens, topks = self._state
             cap = self.topk_cap if sample else 0
             # the step holds what it reads, not the engine (no reference cycle)
-            params, cfg, caches, temps, rng, lora = (self.params, self.cfg, self.caches,
-                                                     self._temps, self._rng, self._lora_ids)
+            params, cfg, caches, temps, rng, lora, mesh = (
+                self.params, self.cfg, self.caches, self._temps, self._rng, self._lora_ids,
+                self.mesh)
 
             def run():
                 for j in range(window):
                     logits, _ = forward_inner(params, cfg, tok[:, None], lens[:, None], caches,
-                                              lens, lora_idx=lora)
+                                              lens, lora_idx=lora, mesh=mesh)
                     logits = logits[:, -1, :]
                     nxt = (sample_rows(logits, temps, topks, cap, rng) if sample
                            else torch.argmax(logits, dim=-1))
@@ -612,7 +647,8 @@ class Engine:
                     tok.copy_(nxt)
                     lens.add_(1)
 
-            self._programs[key] = StepGraph(torch.inference_mode()(run), self.device), out
+            self._programs[key] = StepGraph(torch.inference_mode()(run), self.device,
+                                            eager=mesh is not None), out
         return self._programs[key]
 
     def _spec_window(self, window: int, sample: bool) -> bool:
@@ -629,7 +665,8 @@ class Engine:
             self._spec_programs[key] = NgramWindow(
                 self.params, self.cfg, self.caches, self.max_batch,
                 self.max_len + window + 2 * k + 2, window, k, self.device, sampled=sample,
-                topk_cap=self.topk_cap if sample else 0, lora_ids=self._lora_ids)
+                topk_cap=self.topk_cap if sample else 0, lora_ids=self._lora_ids,
+                mesh=self.mesh)
         return self._spec_programs[key]
 
     def _spec_decode(self, active: list[int], window: int, temps: np.ndarray,

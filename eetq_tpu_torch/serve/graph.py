@@ -14,7 +14,9 @@ weights) and writes its results into them in place, advancing its carry
 (next token, lengths, the sampler's counter). A replay then does what a
 call would have done.
 
-- CPU tensors: every call runs the function eagerly (the plain path).
+- CPU tensors: every call runs the function eagerly (the plain path), and
+  so does a graph made with eager=True (a sharded model's step, whose
+  collectives are staged through the host: `dist/sharding.py`).
 - The card: the first call runs it eagerly on a side stream, as a real step
   and as the warm-up: it loads the kernels' library, makes their one-time
   settings, sizes their scratch (`kernels/_build.py::scratch`) and builds
@@ -47,9 +49,10 @@ class StepGraph:
     """A step function, run eagerly on the CPU and replayed from a CUDA
     graph on the card (module docstring)."""
 
-    def __init__(self, fn: Callable[[], None], device: torch.device | str):
+    def __init__(self, fn: Callable[[], None], device: torch.device | str, eager: bool = False):
         self.fn = fn
         self.device = torch.device(device)
+        self.eager = eager or self.device.type != "cuda"
         self.graph: torch.cuda.CUDAGraph | None = None
         self.counts: dict[str, int] = {}  # the launches of one replay
         self.calls = 0
@@ -62,7 +65,7 @@ class StepGraph:
         return self.graph is not None
 
     def __call__(self) -> None:
-        if self.device.type != "cuda":
+        if self.eager:
             self.fn()
         elif self.calls == 0:
             self._warm()
@@ -75,8 +78,8 @@ class StepGraph:
 
     def prepare(self) -> None:
         """Warm and capture on the card without replaying: the warm-up runs
-        one real step, the capture none. Nothing on the CPU."""
-        if self.device.type != "cuda":
+        one real step, the capture none. Nothing when eager."""
+        if self.eager:
             return
         if self.calls == 0:
             self._warm()

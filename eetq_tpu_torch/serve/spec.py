@@ -57,14 +57,16 @@ from eetq_tpu_torch.serve.graph import StepGraph
 from eetq_tpu_torch.serve.sampling import row_keys, sample_pos, sample_pos_rows
 
 
-def _verify_forward(params, cfg, tokens, start, caches, fused_mlp=None, lora_idx=None):
+def _verify_forward(params, cfg, tokens, start, caches, fused_mlp=None, lora_idx=None,
+                    mesh=None):
     """tokens [B, S] at per-row positions start .. start + S - 1 (start
-    [B]); lora_idx [B] each row's adapter of a model with LoRA banks.
-    Returns (logits [B, S, V], caches)."""
+    [B]); lora_idx [B] each row's adapter of a model with LoRA banks; mesh:
+    params are a rank's shard (`dist/sharding.py`). Returns (logits [B, S,
+    V], caches)."""
     s = tokens.shape[1]
     positions = start[:, None] + torch.arange(s, device=start.device)
     return forward_inner(params, cfg, tokens, positions, caches, start, verify=True,
-                         fused_mlp=fused_mlp, lora_idx=lora_idx)
+                         fused_mlp=fused_mlp, lora_idx=lora_idx, mesh=mesh)
 
 
 def _ngram_match(hist: torch.Tensor, valid: torch.Tensor, last: torch.Tensor,
@@ -380,12 +382,17 @@ class NgramWindow:
     leaves it to the model). `accepted` counts the drafts accepted by rows
     still short of their window. lora_ids [batch]: each slot's adapter of a
     model with LoRA banks, a tensor the caller keeps at one address and
-    writes in place (the replayed round reads it there, `spec.py:529-540`)."""
+    writes in place (the replayed round reads it there, `spec.py:529-540`).
+    mesh: params are a rank's shard and the verify forward all-reduces
+    (`make_spec_window_fn`, `eetq_tpu/dist/sharding.py:356-423`); every
+    rank holds the same row state, so their loops agree round for round.
+    Its rounds run eagerly (a collective staged through the host cannot be
+    captured)."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig, caches, batch: int,
                  hist_len: int, window: int, k: int, device, sampled: bool = False,
                  topk_cap: int = 0, fused_mlp: bool | None = None,
-                 lora_ids: torch.Tensor | None = None):
+                 lora_ids: torch.Tensor | None = None, mesh=None):
         dev = torch.device(device)
         i64 = dict(dtype=torch.int64, device=dev)
         self.window, self.k = window, k
@@ -415,7 +422,7 @@ class NgramWindow:
             drafts = _ngram_match(hist, valid, last, k)
             t_in = torch.cat([last[:, None], drafts], dim=1)
             logits, _ = _verify_forward(params, cfg, t_in, lengths + m, caches, fused_mlp,
-                                        lora_ids)
+                                        lora_ids, mesh)
             if sampled:
                 g = sample_pos_rows(logits, (emit0 + m)[:, None] + ar, keys, temps, topks,
                                     topk_cap)
@@ -433,7 +440,7 @@ class NgramWindow:
             rounds.add_(1)
             pending.copy_((m < window).any())
 
-        self.graph = StepGraph(torch.inference_mode()(round_), dev)
+        self.graph = StepGraph(torch.inference_mode()(round_), dev, eager=mesh is not None)
 
     def load(self, hist, valid, last, lengths, emit0=None, keys=None, temps=None,
              topks=None) -> None:

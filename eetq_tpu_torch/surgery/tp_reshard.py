@@ -15,17 +15,17 @@ mode here:
    run directly on one card, and which splits back into the ranks' shards
    without requantization (`split_quant_rows`).
 
-`shard_quantized` (placing the shards on a mesh of cards) is ROADMAP.md
-queue 1 item 9.
+`shard_quantized` slices such a model into a rank's shard for runtime
+tensor parallelism (`dist/sharding.py`), without requantizing.
 """
 
 from __future__ import annotations
 
 from eetq_tpu_torch.dist.sharding import split_gateup_columns, split_qkv_columns
-from eetq_tpu_torch.layout.tiling import pack_weights, unpack_weights
+from eetq_tpu_torch.layout.tiling import PackedWeight, pack_weights, unpack_weights
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.models.transformer import LayerParams, ModelParams
-from eetq_tpu_torch.modules.linear import QuantLinear, quantize_linear
+from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear, quantize_linear
 
 
 def quantize_params_tp(params: ModelParams, cfg: ModelConfig, tp: int,
@@ -40,8 +40,8 @@ def quantize_params_tp(params: ModelParams, cfg: ModelConfig, tp: int,
     the result shares the embedding and the norms with `params`."""
     if any(lp.moe is not None for lp in params.layers):
         raise NotImplementedError(
-            "MoE layers are not supported by the offline tp reshard; quantize with tp=1 "
-            "(expert parallelism is ROADMAP.md queue 1 item 9)")
+            "MoE layers are not supported by the offline tp reshard; quantize with tp=1, "
+            "or shard the dense model with dist.sharding.shard_model (expert parallelism)")
     if cfg.num_heads % tp or cfg.num_kv_heads % tp or cfg.intermediate_size % tp:
         raise ValueError(
             f"model dims (heads={cfg.num_heads}/{cfg.num_kv_heads}, "
@@ -115,6 +115,45 @@ def split_quant_rows(ql: QuantLinear, tp: int) -> list[QuantLinear]:
 
 
 def shard_quantized(params: ModelParams, cfg: ModelConfig, mesh=None):
-    """Place a tp-quantized model's shards on a mesh of cards: not ported."""
-    raise NotImplementedError("shard_quantized is not ported yet (ROADMAP.md queue 1 item 9: "
-                              "tensor parallelism across cards)")
+    """This rank's shard of an already quantized model (say, loaded from a
+    `quantize(save_dir, tp=N)` checkpoint), sliced without requantization
+    (`eetq_tpu/surgery/tp_reshard.py:164-`): bit-exact to the stored
+    integers. Where the checkpoint's tp equals the mesh's, each rank's
+    o_proj and down group is one row of scales, that is per-channel scales.
+    A quantized lm_head splits over the vocabulary with its scales, a dense
+    one as it is; a tied head stays replicated. LoRA adapters are not
+    carried into the shard. mesh: `dist.make_mesh()` when None. MoE layers
+    raise, as in the JAX package."""
+    from eetq_tpu_torch.dist.sharding import ShardedModel, make_mesh, split_vocab
+
+    if any(lp.moe is not None for lp in params.layers):
+        raise NotImplementedError(
+            "shard_quantized doesn't support MoE layers yet; shard the dense model with "
+            "dist.sharding.shard_model(quantize=True) (EP)")
+    mesh = make_mesh() if mesh is None else mesh
+    tp, r, dev = mesh.tp, mesh.rank, mesh.device
+
+    def on(ql: QuantLinear) -> QuantLinear:
+        p = ql.packed
+        return QuantLinear(PackedWeight(p.data.to(dev), p.k, p.n, p.bits), ql.scales.to(dev),
+                           None if ql.bias is None else ql.bias.to(dev))
+
+    layers = []
+    for lp in params.layers:
+        layers.append(LayerParams(
+            lp.input_norm.to(dev),
+            on(_split_quant_columns_grouped(lp.qkv, cfg, tp, "qkv")[r]),
+            on(split_quant_rows(lp.o_proj, tp)[r]),
+            lp.post_norm.to(dev),
+            gateup=on(_split_quant_columns_grouped(lp.gateup, cfg, tp, "gateup")[r]),
+            down=on(split_quant_rows(lp.down, tp)[r])))
+    head = params.lm_head
+    if isinstance(head, QuantLinear):
+        q = unpack_weights(head.packed)
+        bias = None if head.bias is None else split_vocab(head.bias, tp)[r].to(dev)
+        head = QuantLinear(pack_weights(split_vocab(q, tp)[r].to(dev).contiguous(), bits=head.bits),
+                           split_vocab(head.scales, tp)[r].to(dev).contiguous(), bias)
+    elif head is not None:
+        head = DenseLinear(split_vocab(head.weight, tp)[r].to(dev).contiguous())
+    local = ModelParams(params.embed.to(dev), layers, params.final_norm.to(dev), head)
+    return ShardedModel(cfg=cfg, mesh=mesh, params=local)

@@ -18,9 +18,11 @@ Port of `eetq_tpu/utils/profiling.py` in the port's idiom:
   models of a decode step under tensor and pipeline parallelism, on the
   card's NVLink in place of the TPU's ICI.
 - `trace(path)`: a `torch.profiler` trace of the card, as a Chrome trace.
-
-Not ported: `count_collectives` (a walk over a jaxpr); its counterpart
-needs the port's process groups (ROADMAP.md queue 1 item 9).
+- `count_collectives(fn, *args)`: the collectives one call of fn makes on
+  this rank, and their bytes. JAX walks the traced program's jaxpr; the
+  port runs the call once and reads the mesh's counters
+  (`dist/sharding.py`), so the model's "2 all-reduces a layer + 1 gather"
+  is checked against what ran.
 """
 
 from __future__ import annotations
@@ -221,6 +223,18 @@ def profile_w8a16_matmul(m: int, k: int, n: int, bits: int = 8, iters: int = 200
 
 
 # ---- multi-card scaling estimates (the JAX package's napkin models) ----
+
+
+def count_collectives(fn: Callable, *args) -> dict[str, int]:
+    """Run fn(*args) once and return the collectives it made on this rank:
+    {op: bytes of their inputs, op + "_count": calls}, op "all_reduce"
+    (JAX's psum) or "all_gather" (`eetq_tpu/utils/profiling.py:179-214`)."""
+    from eetq_tpu_torch.dist.sharding import collective_counts
+
+    before = collective_counts()
+    fn(*args)
+    after = collective_counts()
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
 
 
 @dataclasses.dataclass

@@ -21,7 +21,7 @@
 - A BF16 checkpoint, which JAX's loader reads (importing JAX teaches numpy
   ml_dtypes' bfloat16), loads bit-equal to JAX's, dense and quantized.
 - The refusals: a plain checkpoint, an unsupported model_type, `tp > 1`
-  with a group size, `shard()`, an F8 tensor, a hub id, and `device=None`
+  with a group size, an F8 tensor, a hub id, and `device=None`
   without a card.
 - `models/safetensors_io.py` against the `safetensors` library: files the
   library wrote (numpy and torch) read equal, files the port wrote load in
@@ -47,6 +47,7 @@ from eetq_tpu.models import quantize_params as jax_quantize_params
 from eetq_tpu.models import random_dense_params as jax_random_dense_params
 from eetq_tpu.models.auto import AutoEETQForCausalLM as JaxAuto
 from eetq_tpu.modules.linear import QuantLinear as JaxQuantLinear
+from eetq_tpu_torch.dist.sharding import ShardedModel, make_mesh
 from eetq_tpu_torch.layout.tiling import unpack_weights
 from eetq_tpu_torch.models import hf
 from eetq_tpu_torch.models import safetensors_io as sio
@@ -411,8 +412,9 @@ def test_tp_and_shard_are_not_ported(hf_dirs, tmp_path):
     with pytest.raises(ValueError, match="either tp or group_size"):
         model.quantize(tp=2, group_size=64)
     assert not model.quantized
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        model.shard()
+    one = model.shard(mesh=make_mesh(device="cpu"))  # ported: a dense model, quantized per shard
+    assert isinstance(one, ShardedModel) and isinstance(one.params.layers[0].qkv, QuantLinear)
+    assert not model.quantized
     model.quantize(save_dir=str(tmp_path / "q"), bits=4, group_size=64, quantize_lm_head=True)
     assert model.quantized and isinstance(model.params.lm_head, QuantLinear)
     with open(tmp_path / "q" / "quant_config.json") as f:

@@ -152,7 +152,7 @@ def test_overflow_and_unported_options_rejected(params):
         assert Engine(params, CFG, max_batch=2, max_len=64, **kw).prefill_chunk == 8
     with pytest.raises(ValueError):  # a chunk of no token
         Engine(params, CFG, max_batch=2, max_len=64, prefill_chunk=0)
-    with pytest.raises(NotImplementedError):  # a sharded model (no cfg)
+    with pytest.raises(TypeError, match="ShardedModel"):  # no cfg: a sharded model only
         Engine(params)
     with pytest.raises(ValueError):
         Engine(params, CFG, max_batch=3, prefill_rows=2)

@@ -2256,3 +2256,102 @@ def test_native_quantizer_against_the_card(dev, dtype, bits, group):
     q, s = host_symmetric_quantize(w.cpu(), bits=bits, group_size=group)
     qd, sd = symmetric_quantize(w, bits=bits, group_size=group)
     assert torch.equal(q, qd.cpu()) and torch.equal(s, sd.cpu())
+
+
+# ---- tensor parallelism across ranks (dist/): two gloo ranks on cuda:0 ----
+
+# llama2-7b's widths at 2 layers
+SHARDED_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_layers=2,
+                   num_heads=32, num_kv_heads=32, head_dim=128, max_position=4096,
+                   model_type="llama")
+
+
+def test_sharded_forward_on_the_card(dev, tmp_path):
+    """Two ranks on cuda:0 over gloo, each drawing the same 2-layer
+    llama2-7b-width model from the seed and keeping its shard
+    (`shard_model(quantize=True)`): prefill and two teacher-forced decode
+    steps against the plain path of the one-card model of the same integers
+    (`quantize_params_tp(tp=2)`: o_proj and down group-wise at K / 2), within
+    5e-2 of the largest logit; the ranks' logits identical; each rank
+    launched the GEMM, the GEMV and both attention kernels, and no
+    group-wise GEMV or GEMM (its row shards are per-channel)."""
+    import dataclasses
+
+    import numpy as np
+
+    import torch_sharding_tasks as tasks
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.kernels import _build
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.init import random_dense_layers, random_dense_params
+    from eetq_tpu_torch.models.transformer import ModelParams, forward_inner, init_caches
+    from eetq_tpu_torch.surgery.tp_reshard import quantize_params_tp
+
+    _build.build()  # once, before the ranks load it
+    cfg = ModelConfig(**SHARDED_CFG)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (1, 96))
+    steps = rng.integers(0, cfg.vocab_size, (1, 2))
+    with RankPool(2, f"file://{tmp_path}/store", backend="gloo", timeout_s=600) as pool:
+        pool.run(tasks.build_random, cfg, 7)
+        got = pool.run(tasks.forward, tokens, steps)
+    stub = random_dense_params(dataclasses.replace(cfg, num_layers=0),
+                               torch.Generator(device=dev).manual_seed(8))
+    layers = list(random_dense_layers(cfg, torch.Generator(device=dev).manual_seed(7)))
+    one = quantize_params_tp(ModelParams(stub.embed, layers, stub.final_norm, stub.lm_head),
+                             cfg, 2)
+    with torch.inference_mode():
+        caches = init_caches(cfg, 1, 99, device=dev)
+        lg, _ = forward_inner(one, cfg, torch.as_tensor(tokens, device=dev),
+                              torch.arange(96, device=dev)[None], caches, 0, use_kernels=False)
+        want = [lg[0].float().cpu().numpy()]
+        for j in range(2):
+            lg, _ = forward_inner(one, cfg, torch.as_tensor(steps[:, j:j + 1], device=dev),
+                                  torch.full((1, 1), 96 + j, device=dev), caches, 96 + j,
+                                  use_kernels=False)
+            want.append(lg[0, -1].float().cpu().numpy())
+    np.testing.assert_array_equal(got[0]["prefill"], got[1]["prefill"])
+    np.testing.assert_array_equal(got[0]["decode"], got[1]["decode"])
+    for have, ref in zip([got[0]["prefill"][0]] + list(got[0]["decode"][:, 0]), want):
+        err = np.abs(have - ref).max()
+        assert err <= 5e-2 * np.abs(ref).max(), err
+    for r in got:
+        counts = r["launches"]
+        assert all(counts[k] for k in ("w8a16_gemm", "w8a16_gemv", "flash_attention_fwd",
+                                       "flash_decode")), counts
+        assert not counts["w8a16_gemv[group]"] and not counts["w8a16_gemm[group]"], counts
+        assert r["counts"] == {"all_reduce": 2 * 2 * 96 * 4096 * 2, "all_reduce_count": 4,
+                               "all_gather": 96 * 16000 * 2, "all_gather_count": 1}
+
+
+def test_sharded_engine_on_the_card(dev, tmp_path):
+    """The sharded engine on two ranks of cuda:0 (bf16 cache, W8A16 prefill,
+    eager windows), plain and speculative (k = 7): every rank commits the
+    same tokens, greedy and sampled, each request its budget of in-range
+    ids. (Against the one-card engine: chip_smoke.py's tp2_server.)"""
+    import torch_sharding_tasks as tasks
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.kernels import _build
+    from eetq_tpu_torch.models.config import ModelConfig
+
+    _build.build()
+    cfg = ModelConfig(**SHARDED_CFG)
+    requests = [([7, 8, 9] * 20, 12, {}), (list(range(100, 400)), 8, {}),
+                ([5] * 33, 10, dict(temperature=0.8, top_k=20))]
+    with RankPool(2, f"file://{tmp_path}/store", backend="gloo", timeout_s=600) as pool:
+        pool.run(tasks.build_random, cfg, 3)
+        plain = pool.run(tasks.serve, requests, dict(max_batch=4, max_len=512))
+        spec = pool.run(tasks.serve, requests[:2], dict(max_batch=4, max_len=512, spec_ngram=7))
+    assert plain[0] == plain[1] and spec[0] == spec[1]
+    assert [len(o) for o in plain[0]] == [12, 8, 10]
+    assert all(0 <= t < cfg.vocab_size for o in plain[0] for t in o)
+
+
+def test_a_failing_rank_fails_on_the_card(dev, tmp_path):
+    """A rank that raises on the card fails the call, with its traceback."""
+    import torch_sharding_tasks as tasks
+    from eetq_tpu_torch.dist.launch import RankPool
+
+    pool = RankPool(2, f"file://{tmp_path}/store", backend="gloo", timeout_s=120)
+    with pytest.raises(RuntimeError, match="(?s)failed:.*boom"):
+        pool.run(tasks.fail, "boom")

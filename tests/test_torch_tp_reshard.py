@@ -5,7 +5,8 @@ on the CPU, on the same numpy weights: `quantize_params_tp` at tp 1, 2 and
 functions give JAX's shards, the tp artifact's forward logits stay within
 5e-2 of the largest of JAX's forward of its artifact, a tp = 2 checkpoint
 written by either package loads in the other bit-equal, and every refusal
-holds (MoE, dims tp does not divide, tp with a group size, the mesh)."""
+holds (MoE, dims tp does not divide, tp with a group size); over a mesh
+of one rank, shard_quantized and shard() give the whole quantized model."""
 
 import dataclasses
 import json
@@ -24,7 +25,7 @@ from eetq_tpu.models.hf import load_quantized as jax_load_quantized
 from eetq_tpu.models.hf import save_quantized as jax_save_quantized
 from eetq_tpu.models.transformer import forward as jax_forward
 from eetq_tpu.surgery import tp_reshard as jax_tp
-from eetq_tpu_torch.dist import split_gateup_columns, split_qkv_columns, split_rows
+from eetq_tpu_torch.dist import make_mesh, split_gateup_columns, split_qkv_columns, split_rows
 from eetq_tpu_torch.layout.tiling import unpack_weights
 from eetq_tpu_torch.models.auto import EETQCausalLM
 from eetq_tpu_torch.models.config import PRESETS, ModelConfig
@@ -197,10 +198,22 @@ def test_refusals(dense):
         split_rows(pp.layers[0].down.weight, 3)
     with pytest.raises(ValueError, match="not divisible"):
         split_gateup_columns(pp.layers[0].gateup.weight, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tp_reshard.shard_quantized(pp, CFG)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        EETQCausalLM(CFG, pp).shard()
+    # shard_quantized and shard() are ported (tests/test_torch_sharding.py):
+    # over a mesh of one rank, the shard is the whole quantized model
+    one = make_mesh(device="cpu")
+    art = tp_reshard.quantize_params_tp(pp, CFG, 2)
+    shard = tp_reshard.shard_quantized(art, CFG, one)
+    for lt, la in zip(shard.params.layers, art.layers):
+        for name in PROJ:
+            assert torch.equal(unpack_weights(getattr(lt, name).packed),
+                               unpack_weights(getattr(la, name).packed))
+    shard = EETQCausalLM(CFG, pp).shard(mesh=one)
+    want = quantize_params(pp)
+    for lt, lw in zip(shard.params.layers, want.layers):
+        for name in PROJ:
+            assert torch.equal(unpack_weights(getattr(lt, name).packed),
+                               unpack_weights(getattr(lw, name).packed))
+            assert torch.equal(getattr(lt, name).scales, getattr(lw, name).scales)
     moe_cfg = PRESETS["toy-moe"]
     moe = random_dense_params(moe_cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="MoE"):
