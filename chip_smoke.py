@@ -319,7 +319,12 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    parting at a near tie; the file removed after) and tp_ranks (layer 0 at
    tp 2, 4, 8 int8 and 2 int4: each rank's shard through the kernels one
    rank at a time at m = 1 and 1024, the row shards' partials summed in f32,
-   against the merged layer within MODEL_TOL).
+   against the merged layer within MODEL_TOL). It also launches each
+   flash-decode entry point (dense and paged, bf16 and int8) 64 times at an
+   8-slot step's shape, each into its own NaN-filled `out` buffer, under
+   `torch.profiler`: every buffer written, equal to the first and to the
+   plain version, the launch counter 64; the profiler's kernel events are
+   printed beside it (a lost event and a skipped launch told apart).
 
 11. Sharded (the `sharded` phase, last): tensor and expert parallelism over
    SHARDED_TP = 2 ranks that the script spawns (`eetq_tpu_torch/dist/
@@ -329,13 +334,15 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    every collective through the host, so the ranks' steps run eagerly and
    their times model no NVLink deployment). Each rank's launch and
    collective counters go back to the parent, which sums them per path.
-   - tp2_generate: llama2-7b W8A16 built dense from the seed and saved by
-     `quantize(save_dir, tp=2)`; each rank runs `from_quantized(dir)
+   - tp2_generate: llama2-7b W8A16 cut to SHARDED_LLAMA_LAYERS = 8 layers
+     (the run's time limit; the split is the same in every layer), built
+     dense from the seed and saved by `quantize(save_dir, tp=2)`; each rank
+     runs `from_quantized(dir)
      .shard(mesh)` (o_proj and down per-channel on a rank); b=1, p=1024:
      prefill logits and 49 teacher-forced decode steps within MODEL_TOL of
      the largest logit of the tp = 1 run of the same artifact, 50 greedy
      tokens equal to it or parting at a near tie (SPEC_TIE_ULPS), the ranks
-     identical, one forward's collectives 64 all-reduces and one vocab
+     identical, one forward's collectives 2 L all-reduces and one vocab
      gather with their bytes (`count_collectives`); prefill ms and ms/step.
    - tp2_server: `Engine(sharded)` on both ranks (bf16 KV, W8A16 prefill,
      windows of 8, eager) over server's mix of 12 requests (2 sampled):
@@ -354,6 +361,28 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    replay (`routed_twin`): both engines eager, routing keyed by (prompt,
    position, token) recorded in the twin and replayed in the spec engine;
    equal, or a near tie of the logits only.
+12. Pipeline (the `pipeline` phase, last): pipeline parallelism and
+   sequence-parallel long-context prefill over ranks the script spawns, as
+   the sharded phase's (gloo on cuda:0 with one card). Each path is
+   compared with the one-card twin holding the same integers, run by
+   `prefill` and `decode_loop`: last-token logits within MODEL_TOL of the
+   largest, tokens equal or parting at a near tie (SPEC_TIE_ULPS), the
+   ranks identical, every exchange and collective of a rank counted as the
+   schedule predicts; the ranks' launch counts summed per path.
+   - pp2_generate: llama2-7b W8A16 at full width and depth, 16 layers a
+     stage (`shard_model_pp(quantize=True)`, each rank drawing its stage
+     layer by layer from the seed), b=2 in 2 microbatches, p=1024: pp_prefill
+     and pp_decode_loop timed (prefill ms, ms a decode tick), then the main
+     path, pp_generate of 50 greedy tokens.
+   - pp2tp2_generate: the same model cut to PP_TP_LAYERS = 4 layers on 4
+     ranks (pp 2 x tp 2), 16 tokens; each rank's integers equal to the
+     twin's slice (qkv and gate|up per channel, o_proj and down group-wise at
+     K / 2); 2 model-axis all-reduces a layer a unit and no vocab gather.
+   - long_generate: mistral-7b W8A16 (window 4096) replicated on 2 ranks,
+     b=1, p=8192: long_prefill timed (its logits, and its gathered caches
+     over the prompt against the twin's within MODEL_TOL of a layer's largest
+     value), then the main path, generate_long of 50 greedy tokens; 2 p
+     ppermutes a layer, 1 logits gather and 2 L K/V gathers.
 
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, the first request's
@@ -364,8 +393,8 @@ layer on every decode and engine step), the host's launch calls (a graph
 replay is one) and the idle share go to the output and to
 `chip_smoke.json`. `--phases`
 runs a subset of
-`kernels,moe_layer,llama,checkpoint,lora,tooling,int4,mixtral,mixtral_int4,families,sharded`
-(for debugging: a partial run checks what it runs and prints no result
+`kernels,moe_layer,llama,checkpoint,lora,tooling,int4,mixtral,mixtral_int4,families,sharded,`
+`pipeline` (for debugging: a partial run checks what it runs and prints no result
 line).
 
 Prints one JSON line of per-kernel results (the attention kernels'
@@ -986,7 +1015,7 @@ PATH_IDLE.update({
        for path in ("eval_ppl", "lora_train")},
 })
 PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "lora", "tooling", "int4", "mixtral",
-          "mixtral_int4", "families", "sharded")
+          "mixtral_int4", "families", "sharded", "pipeline")
 
 
 class CheckFailed(Exception):
@@ -4683,6 +4712,94 @@ def profiling_path(dev) -> dict:
                 trace_kernel_events=len(kernels))
 
 
+# Every flash-decode launch writes its output: DECODE_WRITTEN_CALLS launches
+# of each entry point, dense and paged, bf16 and int8, at the 8-slot engine
+# step's shape, each into a buffer of its own filled with NaN beforehand;
+# the profiler's kernel events are counted beside the wrappers' counters
+# (ROADMAP.md queue 3: a lost event and a skipped launch look alike to a
+# trace, not to the buffers)
+DECODE_WRITTEN_CALLS = 64
+
+
+def decode_written_path(dev) -> dict:
+    """DECODE_WRITTEN_CALLS launches of each flash-decode entry point under
+    torch.profiler, each into its own NaN-filled `out`: every buffer must be
+    written, bit-equal to the first and within TOL of the plain version,
+    and the launch counter must read the count of calls; the profiler's
+    kernel events are printed beside it, and not checked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eetq_tpu_torch.kernels.flash_decode import (
+        flash_decode,
+        flash_decode_int8,
+        flash_decode_int8_ref,
+        flash_decode_ref,
+        paged_flash_decode,
+        paged_flash_decode_int8,
+        paged_flash_decode_int8_ref,
+        paged_flash_decode_ref,
+    )
+    from eetq_tpu_torch.kernels.w8a8 import quantize_activations
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    (b, lmax), (hq, hkv, d, bs) = max(DECODE_REGIMES), (32, 32, 128, 256)
+    lengths = torch.tensor(ENGINE_LENGTHS, dtype=torch.int32, device=dev)
+    q = torch.randn(b, 1, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, hkv, lmax, d, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    (k8, ks), (v8, vs) = quantize_activations(k), quantize_activations(v)
+    nb = lmax // bs
+    perm = torch.randperm(b * nb, generator=gen, device=dev)
+    table = perm.reshape(b, nb).to(torch.int32).contiguous()
+
+    def pool(t):  # the dense rows' blocks at the table's pool blocks
+        blocks = t.reshape(b, hkv, nb, bs, *t.shape[3:]).transpose(1, 2).reshape(
+            b * nb, hkv, bs, *t.shape[3:])
+        out = torch.empty_like(blocks)
+        out[perm] = blocks
+        return out.contiguous()
+
+    pk, pv, pk8, pv8, pks, pvs = (pool(t) for t in (k, v, k8, v8, ks, vs))
+    cases = {
+        "flash_decode": (lambda o: flash_decode(q, k, v, lengths, out=o),
+                         lambda: flash_decode_ref(q, k, v, lengths)),
+        "flash_decode_int8": (lambda o: flash_decode_int8(q, k8, v8, ks, vs, lengths, out=o),
+                              lambda: flash_decode_int8_ref(q, k8, v8, ks, vs, lengths)),
+        "paged_flash_decode": (lambda o: paged_flash_decode(q, pk, pv, table, lengths, out=o),
+                               lambda: paged_flash_decode_ref(q, pk, pv, table, lengths)),
+        "paged_flash_decode_int8": (
+            lambda o: paged_flash_decode_int8(q, pk8, pv8, pks, pvs, table, lengths, out=o),
+            lambda: paged_flash_decode_int8_ref(q, pk8, pv8, pks, pvs, table, lengths)),
+    }
+    n, rows = DECODE_WRITTEN_CALLS, {}
+    for name, (kernel, plain) in cases.items():
+        ref = plain()
+        outs = [torch.full_like(ref, float("nan")) for _ in range(n)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for o in outs:
+                kernel(o)
+            torch.cuda.synchronize()
+        calls = launch_counts()[name]
+        events = sum(ev.device_type == torch.autograd.DeviceType.CUDA
+                     and "flash_decode" in ev.name for ev in prof.events())
+        unwritten = sum(bool(torch.isnan(o.float()).any()) for o in outs)
+        differ = sum(not torch.equal(o, outs[0]) for o in outs)
+        err, scale = compare(outs[0], ref)
+        print(f"  {name}: {n} launches into NaN-filled buffers: {n - unwritten} written, "
+              f"{differ} differing from the first, max |err| {err:.3e} of {scale:.3e}; launch "
+              f"counter {calls}, profiler kernel events {events}")
+        check(not unwritten, f"{name}: {unwritten} of {n} launches left their buffer unwritten")
+        check(not differ and calls == n, f"{name}: {differ} buffers differ, counter {calls}")
+        check(err <= TOL * scale, f"{name} differs from its plain version by {err:.3e}")
+        rows[name] = dict(calls=n, written=n - unwritten, counter=calls, profiler_events=events,
+                          max_abs_err=err)
+    return rows
+
+
 def autotune_path(base, cfg, dev, gen) -> dict:
     """The measured autotune on llama2-7b's projections into the run's
     fresh cache file (`main`): every winner re-read against the rule in
@@ -4846,7 +4963,8 @@ def tooling_phase(dev) -> dict:
     from eetq_tpu_torch.serve.generate import prefill
     from eetq_tpu_torch.surgery.tp_reshard import quantize_params_tp
 
-    out = dict(native=native_path(dev), profiling=profiling_path(dev))
+    out = dict(native=native_path(dev), profiling=profiling_path(dev),
+               decode_written=decode_written_path(dev))
     cfg = PRESETS[MODEL]
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
     dense = random_dense_params(cfg, gen)
@@ -4887,6 +5005,11 @@ def tooling_phase(dev) -> dict:
 SHARDED_TP = 2
 SHARDED_SPEC_K = 7
 SHARDED_MIXTRAL_LAYERS = 2
+# tp2_generate and its engines run llama2-7b cut to this depth: every
+# collective is staged through the host and every step is eager, and at
+# full depth the two eager engines alone took about a minute (the split and
+# its collectives are the same in every layer)
+SHARDED_LLAMA_LAYERS = 8
 SHARDED_MIXTRAL_NEW = 16
 SHARDED_TIMEOUT_S = 600
 _TP2 = ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode")
@@ -5117,7 +5240,7 @@ def _sharded_llama(dev, work: str, backend: str) -> dict:
     from eetq_tpu_torch.models.transformer import forward_inner, init_caches
     from eetq_tpu_torch.serve.engine import Engine
 
-    cfg = PRESETS[MODEL]
+    cfg = dataclasses.replace(PRESETS[MODEL], num_layers=SHARDED_LLAMA_LAYERS)
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     art = os.path.join(work, "llama2-7b-tp2")
     t0 = time.perf_counter()
@@ -5127,7 +5250,8 @@ def _sharded_llama(dev, work: str, backend: str) -> dict:
     twin = AutoEETQForCausalLM.from_quantized(art, device=dev)  # the tp = 1 run of the artifact
     check(twin.tp == SHARDED_TP, f"the artifact records tp {twin.tp}")
     params = twin.params
-    print(f"  {MODEL} W8A16 built dense, quantized with tp={SHARDED_TP}, saved and loaded in "
+    print(f"  {MODEL} W8A16 cut to {cfg.num_layers} layers of {PRESETS[MODEL].num_layers}, built "
+          f"dense, quantized with tp={SHARDED_TP}, saved and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
     _, p, n = REQUESTS[0]
     prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=gen, device=dev)
@@ -5201,7 +5325,9 @@ def _sharded_llama(dev, work: str, backend: str) -> dict:
     print(f"  tp2_generate b=1 p={p} n={n} over {r0['backend']}: prefill {r0['prefill_ms']:.2f} "
           f"ms, decode {r0['decode_ms']:.3f} ms/step (eager; tokens "
           f"{'equal to' if first is None else 'parting at a near tie from'} the tp=1 run's)")
-    paths["tp2_generate"] = dict(counts=counts, prefill=pre, decode_rel_err=dec_err,
+    paths["tp2_generate"] = dict(reduced=f"num_layers {PRESETS[MODEL].num_layers} -> "
+                                         f"{cfg.num_layers}",
+                                 counts=counts, prefill=pre, decode_rel_err=dec_err,
                                  first_difference=first, collectives_per_forward=per_fwd,
                                  prefill_ms=r0["prefill_ms"], decode_ms_per_step=r0["decode_ms"],
                                  backend=r0["backend"])
@@ -5370,6 +5496,483 @@ def sharded_phase(dev) -> dict:
     return dict(paths=paths, backend=backend, cards=cards, seconds=seconds)
 
 
+# The pipeline phase: pipeline parallelism (`eetq_tpu_torch/dist/
+# pipeline.py`) and sequence-parallel long-context prefill
+# (`dist/long_context.py`) over ranks this script spawns, as the sharded
+# phase's: NCCL on cuda:rank where the machine has a card for each rank, else
+# gloo with every rank on cuda:0 (every exchange then goes through the host,
+# and the times model no NVLink deployment).
+PP_STAGES, PP_BATCH, PP_MICRO, PP_NEW = 2, 2, 2, 50
+PP_TP, PP_TP_LAYERS, PP_TP_NEW = 2, 4, 16
+LONG_PRESET, LONG_SP, LONG_PROMPT, LONG_NEW = "mistral-7b", 2, 8192, 50
+PP_WARMUP, LONG_WARMUP = 64, 256  # an untimed first call of each rank, this many tokens
+PIPELINE_TIMEOUT_S = 600
+_PP = ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode")
+# long_generate: the prefill's projections on the GEMM and its attention
+# ring attention (no kernel, as in the JAX package), then decode_loop under
+# mistral's window
+PATH_KERNELS.update({"pp2_generate": _PP, "pp2tp2_generate": _PP,
+                     "long_generate": ("w8a16_gemm", "w8a16_gemv", "flash_decode",
+                                       "flash_decode[window]")})
+
+
+def _seeded_layers(cfg, seeds, dev):
+    """(the embedding, final norm and dense lm_head drawn from seeds[1] with
+    no layer; the dense layers drawn from seeds[0], each as it is taken)."""
+    import torch
+
+    from eetq_tpu_torch.models.init import random_dense_layers, random_dense_params
+
+    stub = random_dense_params(dataclasses.replace(cfg, num_layers=0),
+                               torch.Generator(device=dev).manual_seed(seeds[1]))
+    return stub, random_dense_layers(cfg, torch.Generator(device=dev).manual_seed(seeds[0]))
+
+
+def _seeded_twin(cfg, seeds, dev, tp: int = 1):
+    """The one-card W8A16 model of `_seeded_layers` holding a tp-way
+    stage's integers: qkv and gate|up per channel, o_proj and down per
+    channel (tp = 1) or group-wise at K / tp (each rank's rows quantized on
+    their own); the lm_head dense."""
+    from eetq_tpu_torch.models.transformer import LayerParams, ModelParams
+    from eetq_tpu_torch.modules.linear import quantize_linear
+
+    stub, layers = _seeded_layers(cfg, seeds, dev)
+    out = []
+    for lp in layers:
+        def rows(w):
+            return quantize_linear(w, group_size=None if tp == 1 else w.shape[0] // tp)
+
+        out.append(LayerParams(lp.input_norm, quantize_linear(lp.qkv.weight), rows(lp.o_proj.weight),
+                               lp.post_norm, quantize_linear(lp.gateup.weight), rows(lp.down.weight)))
+        del lp
+    return ModelParams(stub.embed, out, stub.final_norm, stub.lm_head)
+
+
+@contextlib.contextmanager
+def _exchange_ms(stats: dict):
+    """Adds to stats[op] the host ms spent in each `Mesh` exchange and
+    collective (ppermute, all_gather, all_reduce_) inside the block, each
+    timed from a synchronised start to a synchronised end: the split of a
+    rank's time between its exchanges (with the wait for its peers to reach
+    them) and its own work. The syncs change the run's timing, so the paths
+    read their times from a run without them and the split from a run of
+    its own."""
+    import torch
+
+    from eetq_tpu_torch.dist.sharding import Mesh
+
+    names = ("ppermute", "all_gather", "all_reduce_")
+    orig = {n: getattr(Mesh, n) for n in names}
+
+    def timed(name):
+        def call(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](self, *args, **kw)
+            torch.cuda.synchronize()
+            stats[name] = stats.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+        return call
+
+    for n in names:
+        setattr(Mesh, n, timed(n))
+    try:
+        yield stats
+    finally:
+        for n in names:
+            setattr(Mesh, n, orig[n])
+
+
+def _dev_int_sums(q) -> tuple:
+    """(sum, sum of squares) of an integer tensor, exact in int64 on its device."""
+    import torch
+
+    v = q.to(torch.int64)
+    return int(v.sum()), int((v * v).sum())
+
+
+def _rank_pp(mesh, cfg, seeds, prompt, n: int, pp: int, tp: int) -> dict:
+    """A rank of pp2_generate / pp2tp2_generate: its stage of `_seeded_layers`
+    (shard_model_pp(quantize=True), layer by layer); an untimed first
+    pp_prefill; then pp_prefill (timed, its logits) and pp_decode_loop from
+    its argmax (timed), each with its collectives (`_pp_run`), and the same
+    again under `_exchange_ms` for the split of its time; then, counted from
+    0, the main path: pp_generate of the prompt."""
+    import torch
+
+    from eetq_tpu_torch.dist.pipeline import (
+        init_pp_caches,
+        make_pp_mesh,
+        pp_generate,
+        pp_prefill,
+        shard_model_pp,
+    )
+    from eetq_tpu_torch.layout.tiling import unpack_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    pmesh = make_pp_mesh(pp, tp, device=mesh.device)
+    dev = pmesh.device
+    stub, layers = _seeded_layers(cfg, seeds, dev)
+    model = shard_model_pp(stub, cfg, pmesh, quantize=True, layers=layers)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    shard = {}
+    if tp > 1:  # the integers of each linear, against the twin's slices
+        for j, lp in enumerate(model.params.layers):
+            for name in ("qkv", "o_proj", "gateup", "down"):
+                lin = getattr(lp, name)
+                shard[f"{j}.{name}"] = (_dev_int_sums(unpack_weights(lin.packed)),
+                                        lin.scales.cpu())
+    b, p = prompt.shape
+    toks, m = prompt.to(dev), PP_MICRO
+    with torch.inference_mode():
+        pp_prefill(model, toks[:, :PP_WARMUP], init_pp_caches(model, b, PP_WARMUP), m)
+        run = _pp_run(model, toks, n)
+        split = {"prefill": {}, "decode": {}}
+        run_split = _pp_run(model, toks, n, split)
+        _rank_counts()
+        t0 = time.perf_counter()
+        gen = pp_generate(model, toks, n, microbatches=m)
+        counts, coll = _rank_read()
+        t1 = time.perf_counter()
+    ticks = (n - 1) * m + pp - 1
+    return dict(backend=pmesh.backend, device=str(dev), stage=pmesh.pp_rank,
+                shard_index=pmesh.tp_rank, build_s=build_s, shard=shard, logits=run["logits"],
+                tokens=gen.cpu(), decode_tokens=run["tokens"], pre_collectives=run["pre"],
+                dec_collectives=run["dec"], prefill_ms=run["prefill_ms"],
+                tick_ms=run["decode_ms"] / ticks, ticks=ticks, generate_ms=1e3 * (t1 - t0),
+                counts=counts, collectives=coll, exchange_ms=split,
+                split_ms=(run_split["prefill_ms"], run_split["decode_ms"]),
+                stage_gb=sum(t.numel() * t.element_size() for t in model.params.buffers()) / 1e9)
+
+
+def _pp_run(model, toks, n: int, split: dict | None = None) -> dict:
+    """pp_prefill of toks into fresh caches, then pp_decode_loop of n
+    tokens from its argmax, each timed (host clock, synchronised) with its
+    collectives; with `split`, under `_exchange_ms` into split["prefill"]
+    and split["decode"]."""
+    import torch
+
+    from eetq_tpu_torch.dist.pipeline import init_pp_caches, pp_decode_loop, pp_prefill
+    from eetq_tpu_torch.utils.profiling import count_collectives
+
+    b, p = toks.shape
+    caches, got, out = init_pp_caches(model, b, p + n), {}, {}
+    steps = (("pre", "prefill", lambda: pp_prefill(model, toks, caches, PP_MICRO)),
+             ("dec", "decode", lambda: pp_decode_loop(
+                 model, torch.argmax(got["pre"][0], dim=-1), p, caches, n,
+                 microbatches=PP_MICRO)))
+    for key, name, fn in steps:
+        timer = _exchange_ms(split[name]) if split is not None else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer:
+            out[key] = count_collectives(lambda: got.setdefault(key, fn()))
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+    out.update(logits=got["pre"][0].float().cpu(), tokens=got["dec"][0].cpu())
+    del caches, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ms(stats: dict) -> str:
+    return ", ".join(f"{k.rstrip('_')} {v:.1f}" for k, v in sorted(stats.items())) or "none"
+
+
+def _first_difference(got, want) -> int | None:
+    return next((j for j, (a, c) in enumerate(zip(got, want)) if a != c), None)
+
+
+def _tokens_or_tie(path: str, params, cfg, dev, prompt, got, want) -> list:
+    """Each row's tokens `got` against the twin's `want` (both [B, n]):
+    equal, or parting first at a near tie (`near_tie`, judged by the
+    twin's forward after the twin's tokens). Returns the ties."""
+    ties = []
+    for r in range(want.shape[0]):
+        g, w = got[r].tolist(), want[r].tolist()
+        j = _first_difference(g, w)
+        if j is None:
+            continue
+        tie = near_tie(params, cfg, dev, prompt[r].tolist() + w[:j], g[j], w[j])
+        print(f"  {path} row {r}: token {j} is {g[j]}, the one-card model's {w[j]}; "
+              f"{tie['ulps']:.2f} bf16 ulps below the top (near tie: {tie['logit_tie']})")
+        check(tie["logit_tie"], f"{path}: row {r} differs from the one-card model at {j}, not at "
+                                f"a near tie")
+        ties.append(dict(row=r, token=j, ulps=tie["ulps"]))
+    return ties
+
+
+def _pp_path(dev, work: str, backend: str, path: str, cfg, seeds, n: int, pp: int, tp: int) -> dict:
+    """pp2_generate (tp 1) or pp2tp2_generate (pipeline_phase)."""
+    import torch
+
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.dist.sharding import split_gateup_columns, split_qkv_columns, split_rows
+    from eetq_tpu_torch.layout.tiling import unpack_weights
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    b, m, p, h = PP_BATCH, PP_MICRO, REQUESTS[0][1], cfg.hidden_size
+    prompt = torch.randint(0, cfg.vocab_size, (b, p), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seeds[0] + 2))
+    t0 = time.perf_counter()
+    twin = _seeded_twin(cfg, seeds, dev, tp)
+    with torch.inference_mode():
+        caches = init_caches(cfg, b, p + n, device=dev)
+        lg, caches = prefill(twin, cfg, prompt, caches)
+        ref_logits = lg.float().cpu()
+        ref_tokens, _ = decode_loop(twin, cfg, torch.argmax(lg, dim=-1), p, caches, n)
+        ref_tokens = ref_tokens.cpu()
+        del caches
+    twin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with RankPool(pp * tp, f"file://{os.path.join(work, 'rdv-' + path)}", backend=backend,
+                  timeout_s=PIPELINE_TIMEOUT_S) as pool:
+        res = pool.run(_rank_pp, cfg, seeds, prompt.cpu(), n, pp, tp)
+    ranks_s = time.perf_counter() - t0
+    r0, lps = res[0], cfg.num_layers // pp
+    check([(r["stage"], r["shard_index"]) for r in res] == [(i // tp, i % tp) for i in range(pp * tp)],
+          f"{path}: the ranks' places on the mesh")
+    for r in res[1:]:
+        check(torch.equal(r["logits"], r0["logits"]) and torch.equal(r["tokens"], r0["tokens"]),
+              f"{path}: the ranks' logits or tokens differ")
+    check(torch.equal(r0["tokens"], r0["decode_tokens"]),
+          f"{path}: pp_generate's tokens differ from pp_prefill and pp_decode_loop's")
+    if tp > 1:  # each rank's integers are the twin's slice
+        for r in res:
+            for j in range(lps):
+                lp = twin.layers[r["stage"] * lps + j]
+                t = r["shard_index"]
+                want = {"qkv": (split_qkv_columns(unpack_weights(lp.qkv.packed), cfg, tp)[t],
+                                split_qkv_columns(lp.qkv.scales, cfg, tp)[t]),
+                        "gateup": (split_gateup_columns(unpack_weights(lp.gateup.packed), tp)[t],
+                                   split_gateup_columns(lp.gateup.scales, tp)[t]),
+                        "o_proj": (split_rows(unpack_weights(lp.o_proj.packed), tp)[t],
+                                   lp.o_proj.scales[t]),
+                        "down": (split_rows(unpack_weights(lp.down.packed), tp)[t],
+                                 lp.down.scales[t])}
+                for name, (q, sc) in want.items():
+                    sums, scales = r["shard"][f"{j}.{name}"]
+                    check(sums == _dev_int_sums(q) and torch.equal(scales, sc.cpu()),
+                          f"{path}: rank {res.index(r)}'s layer {j} {name} is not the twin's slice")
+    pre = check_logits(f"{path} prefill (one-card twin)", r0["logits"], ref_logits)
+    bit_equal = torch.equal(r0["logits"], ref_logits)
+    ties = _tokens_or_tie(path, twin, cfg, dev, prompt, r0["tokens"], ref_tokens)
+    # the schedule's exchanges on a rank: a ppermute a tick in prefill, two a
+    # tick (activations, token) in decode; the logits' and the tokens' sum
+    # over pipe; under tp, 2 model-axis all-reduces a layer a unit, no gather
+    units_pre, units_dec, ticks = m, (n - 1) * m, (n - 1) * m + pp - 1
+    mbs = b // m
+    ar_pre = 2 * lps * units_pre if tp > 1 else 0
+    ar_dec = 2 * lps * units_dec if tp > 1 else 0
+    want_pre = {"ppermute_count": m + pp - 1, "ppermute": (m + pp - 1) * mbs * p * h * 2,
+                "all_reduce_count": 1 + ar_pre,
+                "all_reduce": b * cfg.vocab_size * 4 + ar_pre * mbs * p * h * 2}
+    want_dec = {"ppermute_count": 2 * ticks, "ppermute": ticks * (mbs * h * 2 + mbs * 4),
+                "all_reduce_count": 1 + ar_dec,
+                "all_reduce": m * mbs * (n - 1) * 4 + ar_dec * mbs * h * 2}
+    print(f"  {path}: a rank's exchanges in prefill {r0['pre_collectives']} (want {want_pre}); "
+          f"in the decode ring's {ticks} ticks {r0['dec_collectives']} (want {want_dec})")
+    for i, r in enumerate(res):
+        print(f"  {path} rank {i} (stage {r['stage']}), a run of its own under synchronised "
+              f"timers: host ms inside exchanges (with the wait for peers) in prefill "
+              f"{_ms(r['exchange_ms']['prefill'])} of {r['split_ms'][0]:.2f}, in decode "
+              f"{_ms(r['exchange_ms']['decode'])} of {r['split_ms'][1]:.1f}")
+    for r in res:
+        check(r["pre_collectives"] == want_pre and r["dec_collectives"] == want_dec,
+              f"{path}: the exchanges differ from the schedule's")
+        check(r["collectives"] == {k: want_pre[k] + want_dec[k] for k in want_pre},
+              f"{path}: pp_generate's exchanges {r['collectives']}")
+    counts = _sum_counts(res)
+    check_launches(path, counts)
+    gb = max(r["stage_gb"] for r in res)
+    print(f"  {path}: {cfg.num_layers} layers, pp={pp} x tp={tp} ranks over {r0['backend']} on "
+          f"{sorted(set(r['device'] for r in res))}, {lps} layers a stage ({gb:.2f} GB a rank); "
+          f"b={b} in {m} microbatches, p={p}, {n} greedy tokens: prefill {r0['prefill_ms']:.2f} "
+          f"ms, decode {r0['tick_ms']:.3f} ms a tick ({ticks} ticks, eager), pp_generate "
+          f"{r0['generate_ms']:.1f} ms; the one-card twin's prefill logits bit-equal: "
+          f"{bit_equal}; tokens {'equal to' if not ties else 'parting at near ties from'} the "
+          f"twin's; built in {r0['build_s']:.1f} s, twin {twin_s:.1f} s, {ranks_s:.1f} s in the "
+          f"ranks")
+    del twin
+    return dict(counts=counts, prefill=pre, logits_bit_equal=bit_equal, near_ties=ties,
+                prefill_ms=r0["prefill_ms"], tick_ms=r0["tick_ms"], ticks=ticks,
+                generate_ms=r0["generate_ms"], exchanges_prefill=r0["pre_collectives"],
+                exchanges_decode=r0["dec_collectives"], backend=r0["backend"], pp=pp, tp=tp,
+                exchange_ms=[dict(r["exchange_ms"], run_ms=r["split_ms"]) for r in res],
+                layers=cfg.num_layers, stage_gb=gb)
+
+
+def _rank_long(mesh, cfg, seeds, prompt, n: int, caches_path: str) -> dict:
+    """A rank of long_generate: the whole W8A16 model (`_seeded_twin`,
+    replicated); an untimed first long_prefill; then long_prefill of the
+    prompt (timed, its logits and exchanges; rank 0 writes the caches' first
+    p positions to caches_path, every rank their digest); then, counted from
+    0, the main path: generate_long of the prompt (timed); then long_prefill
+    again under `_exchange_ms` for the split of its time."""
+    import torch
+
+    from eetq_tpu_torch.dist.long_context import generate_long, long_prefill
+    from eetq_tpu_torch.utils.profiling import count_collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    t0 = time.perf_counter()
+    params = _seeded_twin(cfg, seeds, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    toks, p, got = prompt.to(dev), prompt.shape[1], {}
+    long_prefill(params, cfg, toks[:, :LONG_WARMUP], mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coll = count_collectives(lambda: got.setdefault("out", long_prefill(
+        params, cfg, toks, mesh, max_len=p + n)))
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    logits, caches = got.pop("out")
+    digest = [float(t[:, :, :p].double().sum()) for c in caches for t in (c.k, c.v)]
+    if mesh.tp_rank == 0:
+        torch.save([(c.k[:, :, :p].cpu(), c.v[:, :, :p].cpu()) for c in caches], caches_path)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del caches
+    torch.cuda.empty_cache()
+    _rank_counts()
+    t0 = time.perf_counter()
+    out = generate_long(params, cfg, toks, n, mesh)
+    counts, coll_gen = _rank_read()
+    gen_ms = 1e3 * (time.perf_counter() - t0)
+    exchange = {}
+    t0 = time.perf_counter()
+    with _exchange_ms(exchange):
+        long_prefill(params, cfg, toks, mesh, max_len=p + n)
+    torch.cuda.synchronize()
+    split_ms = 1e3 * (time.perf_counter() - t0)
+    return dict(backend=mesh.backend, device=str(dev), build_s=build_s, logits=logits.float().cpu(),
+                digest=digest, tokens=out.cpu(), prefill_ms=prefill_ms, prefill_collectives=coll,
+                exchange_ms=exchange, split_ms=split_ms, generate_ms=gen_ms, counts=counts,
+                collectives=coll_gen, peak_gb=peak)
+
+
+def _long_path(dev, work: str, backend: str) -> dict:
+    """long_generate (pipeline_phase)."""
+    import torch
+
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import decode_loop, prefill
+
+    path, cfg, sp = "long_generate", PRESETS[LONG_PRESET], LONG_SP
+    seeds, p, n = (SEED + 70, SEED + 71), LONG_PROMPT, LONG_NEW
+    prompt = torch.randint(0, cfg.vocab_size, (1, p), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 72))
+    t0 = time.perf_counter()
+    twin = _seeded_twin(cfg, seeds, dev)
+    with torch.inference_mode():
+        caches = init_caches(cfg, 1, p + n, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, caches = prefill(twin, cfg, prompt, caches)
+        torch.cuda.synchronize()
+        twin_prefill_ms = 1e3 * (time.perf_counter() - t1)
+        ref_logits = lg.float().cpu()
+        ref_tokens, _ = decode_loop(twin, cfg, torch.argmax(lg, dim=-1), p, caches, n)
+        ref_tokens = ref_tokens.cpu()
+    twin_s = time.perf_counter() - t0
+    caches_path = os.path.join(work, "long_caches.pt")
+    t0 = time.perf_counter()
+    with RankPool(sp, f"file://{os.path.join(work, 'rdv-long')}", backend=backend,
+                  timeout_s=PIPELINE_TIMEOUT_S) as pool:
+        res = pool.run(_rank_long, cfg, seeds, prompt.cpu(), n, caches_path)
+    ranks_s = time.perf_counter() - t0
+    r0 = res[0]
+    for r in res[1:]:
+        check(torch.equal(r["logits"], r0["logits"]) and torch.equal(r["tokens"], r0["tokens"])
+              and r["digest"] == r0["digest"], f"{path}: the ranks' logits, tokens or caches differ")
+    pre = check_logits(f"{path} prefill (one-card twin)", r0["logits"], ref_logits)
+    worst = 0.0
+    for i, (k, v) in enumerate(torch.load(caches_path, mmap=True)):
+        for got, want in ((k, caches[i].k[:, :, :p]), (v, caches[i].v[:, :, :p])):
+            err = ((got.to(dev).float() - want.float()).abs().max() / want.float().abs().max()).item()
+            worst = max(worst, err)
+    print(f"  {path}: the gathered caches' k and v over the first {p} positions against the "
+          f"one-card prefill's: at most {worst:.4e} of a layer's largest |value| (tol {MODEL_TOL})")
+    check(worst <= MODEL_TOL, f"{path}: the gathered caches differ by {worst:.3e}")
+    del caches
+    ties = _tokens_or_tie(path, twin, cfg, dev, prompt, r0["tokens"], ref_tokens)
+    # 2 p ppermutes a layer (k and v at each of the p steps), one gather of
+    # the ranks' last logits, 2 L K/V gathers
+    chunk = 1 * (p // sp) * cfg.num_kv_heads * cfg.head_dim * 2
+    layers = cfg.num_layers
+    want = {"ppermute_count": 2 * sp * layers, "ppermute": 2 * sp * layers * chunk,
+            "all_gather_count": 1 + 2 * layers,
+            "all_gather": cfg.vocab_size * 4 + 2 * layers * chunk}
+    print(f"  {path}: a rank's exchanges in long_prefill {r0['prefill_collectives']} (want {want})")
+    for i, r in enumerate(res):
+        print(f"  {path} rank {i}, a long_prefill of its own under synchronised timers: host ms "
+              f"inside exchanges (with the wait for peers) {_ms(r['exchange_ms'])} of "
+              f"{r['split_ms']:.1f}")
+    for r in res:
+        check(r["prefill_collectives"] == want and r["collectives"] == want,
+              f"{path}: the exchanges differ from the ring's")
+    counts = _sum_counts(res)
+    check_launches(path, counts)
+    print(f"  {path}: {LONG_PRESET} W8A16 ({layers} layers, window {cfg.sliding_window}) "
+          f"replicated on {sp} ranks over {r0['backend']}, b=1 p={p}: long_prefill "
+          f"{r0['prefill_ms']:.1f} ms (the one-card prefill {twin_prefill_ms:.1f} ms), "
+          f"generate_long of {n} tokens {r0['generate_ms']:.1f} ms; tokens "
+          f"{'equal to' if not ties else 'parting at near ties from'} the one-card model's; "
+          f"peak {max(r['peak_gb'] for r in res):.1f} GB a rank; built in {r0['build_s']:.1f} s, "
+          f"twin {twin_s:.1f} s, {ranks_s:.1f} s in the ranks")
+    del twin
+    return {path: dict(counts=counts, prefill=pre, caches_max_rel_err=worst, near_ties=ties,
+                       prefill_ms=r0["prefill_ms"], twin_prefill_ms=twin_prefill_ms,
+                       generate_ms=r0["generate_ms"], exchanges=r0["prefill_collectives"],
+                       exchange_ms=[dict(r["exchange_ms"], run_ms=r["split_ms"]) for r in res],
+                       backend=r0["backend"], sp=sp, prompt=p)}
+
+
+def pipeline_phase(dev) -> dict:
+    """pp2_generate, pp2tp2_generate and long_generate over ranks (module
+    docstring, 12.)."""
+    import tempfile
+
+    import torch
+
+    from eetq_tpu_torch.dist.multihost import choose_backend
+    from eetq_tpu_torch.models.config import PRESETS
+
+    t0 = time.perf_counter()
+    cfg = PRESETS[MODEL]
+    backend = choose_backend(PP_STAGES * PP_TP)
+    cards = torch.cuda.device_count()
+    print(f"  pipeline: ranks over {backend} on {cards} card(s)"
+          + ("; the ranks share cuda:0 and gloo stages every exchange through the host: these "
+             "times model no NVLink deployment" if backend == "gloo" else ""))
+    work = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    try:
+        paths = {"pp2_generate": _pp_path(dev, work, choose_backend(PP_STAGES), "pp2_generate",
+                                          cfg, (SEED + 60, SEED + 61), PP_NEW, PP_STAGES, 1)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(cfg, num_layers=PP_TP_LAYERS)
+        paths["pp2tp2_generate"] = _pp_path(dev, work, backend, "pp2tp2_generate", cut,
+                                            (SEED + 65, SEED + 66), PP_TP_NEW, PP_STAGES, PP_TP)
+        paths["pp2tp2_generate"]["reduced"] = f"num_layers {cfg.num_layers} -> {PP_TP_LAYERS}"
+        print(f"  pp2tp2_generate: {MODEL} cut to {PP_TP_LAYERS} layers of {cfg.num_layers} (the "
+              "stage and split code is the same in every layer)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(_long_path(dev, work, choose_backend(LONG_SP)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"  pipeline phase: {seconds:.1f} s")
+    return dict(paths=paths, backend=backend, cards=cards, seconds=seconds)
+
+
 def main() -> int:
     import argparse
 
@@ -5451,6 +6054,7 @@ def _main(args, phases) -> int:
         "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
         "families": lambda: families_phase(dev),
         "sharded": lambda: sharded_phase(dev),
+        "pipeline": lambda: pipeline_phase(dev),
     }
     done = {}
     for phase in PHASES:
@@ -5478,14 +6082,14 @@ def _main(args, phases) -> int:
                            tooling=done.get("tooling"),
                            int4=done.get("int4"), mixtral=done.get("mixtral"),
                            mixtral_int4=done.get("mixtral_int4"), families=done.get("families"),
-                           sharded=done.get("sharded"),
+                           sharded=done.get("sharded"), pipeline=done.get("pipeline"),
                            seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     if len(done) < len(PHASES):
         print(f"partial run ({','.join(done)}): every check of these phases passed")
         return 0
     paths = {}
     for phase in ("llama", "checkpoint", "lora", "tooling", "int4", "mixtral", "mixtral_int4",
-                  "families", "sharded"):
+                  "families", "sharded", "pipeline"):
         paths.update(done[phase]["paths"])
     kern = done["kernels"]
     kernels = [

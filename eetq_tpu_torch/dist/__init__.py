@@ -1,10 +1,22 @@
 """Port of `eetq_tpu.dist`: tensor and expert parallelism across
-`torch.distributed` ranks (`sharding.py`), joining the ranks
-(`multihost.py`) and spawning them on one machine (`launch.py`). Data
-parallelism, pipeline parallelism, ring attention and long-context prefill
-are ROADMAP.md queue 1 item 9."""
+`torch.distributed` ranks (`sharding.py`), pipeline parallelism
+(`pipeline.py`), ring attention and sequence-parallel long-context prefill
+(`ring_attention.py`, `long_context.py`), joining the ranks (`multihost.py`)
+and spawning them on one machine (`launch.py`). Data parallelism (dp > 1,
+the hybrid mesh) is ROADMAP.md queue 1 item 3."""
 
 from eetq_tpu_torch.dist import multihost
+from eetq_tpu_torch.dist.long_context import generate_long, long_prefill
+from eetq_tpu_torch.dist.pipeline import (
+    PipelinedModel,
+    init_pp_caches,
+    make_pp_mesh,
+    pp_decode_loop,
+    pp_generate,
+    pp_prefill,
+    shard_model_pp,
+)
+from eetq_tpu_torch.dist.ring_attention import ring_attention, ring_attention_sharded
 from eetq_tpu_torch.dist.sharding import (
     Mesh,
     ShardedModel,
@@ -17,6 +29,17 @@ from eetq_tpu_torch.dist.sharding import (
 
 __all__ = [
     "multihost",
+    "generate_long",
+    "long_prefill",
+    "make_pp_mesh",
+    "PipelinedModel",
+    "init_pp_caches",
+    "pp_decode_loop",
+    "pp_generate",
+    "pp_prefill",
+    "shard_model_pp",
+    "ring_attention",
+    "ring_attention_sharded",
     "Mesh",
     "make_mesh",
     "ShardedModel",

@@ -13,8 +13,9 @@ shard of the model:
 Unlike the JAX version, a world of more than one rank that cannot meet
 raises: a rank never goes on alone as a single process. The backend is
 NCCL when every rank has a card of its own, else gloo (ranks that share one
-card, or the CPU); the choice is logged on every rank. `make_hybrid_mesh`
-(dp over hosts) is not ported: ROADMAP.md queue 1 item 9.
+card, or the CPU); the choice is logged on every rank. A pipeline's mesh is
+`dist.pipeline.make_pp_mesh(pp, tp)`. `make_hybrid_mesh` (dp over hosts) is
+not ported: ROADMAP.md queue 1 item 3.
 """
 
 from __future__ import annotations

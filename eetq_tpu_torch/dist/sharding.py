@@ -2,8 +2,8 @@
 
 Port of `eetq_tpu/dist/sharding.py`. Each rank is one process that holds its
 shard of the model and runs the port's kernels on it; where the JAX package
-calls `psum` or `all_gather` inside `shard_map`, the rank calls its mesh's
-`all_reduce_` or `all_gather_last`:
+calls `psum`, `all_gather` or `ppermute` inside `shard_map`, the rank
+calls its mesh's `all_reduce_`, `all_gather` or `ppermute` on that axis:
 
 - qkv and gate|up are column-parallel (Megatron grouping: a rank holds its
   q heads with their kv heads, and its gate slice with its up slice);
@@ -22,14 +22,19 @@ column shards own whole output channels, so their scales are the slices of
 the global ones; a row shard's scales cover its own K rows, which equals
 group-wise quantization with group = K / tp (`surgery/tp_reshard.py`).
 
-The mesh (`make_mesh`) is tp ranks of one data-parallel row: dp > 1 and the
-hybrid mesh are ROADMAP.md queue 1 item 9. Its backend is the process
-group's: NCCL on `cuda:rank` when every rank has a card, gloo where ranks
-share one card or run on the CPU (a gloo collective on a CUDA tensor is
-staged through the host here, so a sharded step cannot be captured into a
-CUDA graph and runs eagerly). Every collective counts its calls and the
-bytes of its input (`collective_counts`; `utils/profiling.py::
-count_collectives` reads them), under torch's names.
+The mesh (`make_mesh`) is tp ranks of one data-parallel row, or pp stages
+of tp ranks (`make_mesh(pp=)`, `dist/pipeline.py::make_pp_mesh`), laid out
+as JAX's (data, pipe, model) mesh with `model` innermost; each axis has its
+process group, and `Mesh.tp_rank` is a rank's index on the model axis (its
+shard). dp > 1 and the hybrid mesh are ROADMAP.md queue 1 item 3. Its
+backend is the process group's: NCCL on `cuda:rank` when every rank has a
+card, gloo where ranks share one card or run on the CPU (a gloo collective
+or exchange on a CUDA tensor is staged through the host here, so a sharded
+step cannot be captured into a CUDA graph and runs eagerly). Every
+collective counts its calls and the bytes of its input
+(`collective_counts`; `utils/profiling.py::count_collectives` reads them):
+"all_reduce" (JAX's psum), "all_gather" and "ppermute" (`Mesh.ppermute`,
+the neighbour exchange of the pipeline and of ring attention).
 """
 
 from __future__ import annotations
@@ -45,14 +50,17 @@ from eetq_tpu_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 _DP_NOT_PORTED = ("dp > 1 (data parallelism and the hybrid mesh) is not ported yet: "
-                  "ROADMAP.md queue 1 item 9")
+                  "ROADMAP.md queue 1 item 3 (make_hybrid_mesh, the data axis)")
+
+MODEL_AXIS, PIPE_AXIS = "model", "pipe"
 
 _COUNTS: dict[str, int] = {}
 
 
 def collective_counts() -> dict[str, int]:
     """{op: bytes, op + "_count": calls} of this process's collectives since
-    the last reset (op "all_reduce" or "all_gather"; bytes of the inputs)."""
+    the last reset (op "all_reduce", "all_gather" or "ppermute"; bytes of
+    the inputs)."""
     return dict(_COUNTS)
 
 
@@ -67,66 +75,167 @@ def _count(op: str, x: torch.Tensor) -> None:
 
 @dataclasses.dataclass
 class Mesh:
-    """tp ranks of one data-parallel row over the default process group:
-    this rank's index, its device and the group's backend."""
+    """This rank's place in a (data, pipe, model) mesh of the process group,
+    laid out as JAX's `devices.reshape(dp, pp, tp)` with `model` innermost:
+    global rank = (d pp + p) tp + t. It holds the axis sizes (dp = 1), this
+    rank's global index, its device, the backend and a process group for
+    each axis of more than one rank (None: the default group, where the
+    axis spans the world). `make_mesh(tp)` is the mesh of tp ranks, pp 1."""
 
     tp: int
     rank: int
     device: torch.device
     backend: str | None = None
+    pp: int = 1
+    model_group: object = None  # dist.ProcessGroup of this rank's model axis
+    pipe_group: object = None  # ... and of its pipe axis
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's index on the model axis (its tensor-parallel shard)."""
+        return self.rank % self.tp
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's index on the pipe axis (its stage)."""
+        return self.rank // self.tp % self.pp
+
+    def axis_size(self, axis: str) -> int:
+        return {MODEL_AXIS: self.tp, PIPE_AXIS: self.pp}[axis]
+
+    def axis_index(self, axis: str) -> int:
+        return {MODEL_AXIS: self.tp_rank, PIPE_AXIS: self.pp_rank}[axis]
+
+    def _group(self, axis: str):
+        return {MODEL_AXIS: self.model_group, PIPE_AXIS: self.pipe_group}[axis]
+
+    def global_rank(self, axis: str, index: int) -> int:
+        """The global rank at `index` on `axis`, this rank's other indices kept."""
+        step = 1 if axis == MODEL_AXIS else self.tp
+        return self.rank + (index - self.axis_index(axis)) * step
 
     def _staged(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.is_cuda
 
-    def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of x over the ranks, in x's dtype (bf16 partials summed in
-        bf16, as the JAX psum), in place where x is contiguous; returns it."""
-        if self.tp == 1:
+    def all_reduce_(self, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+        """The sum of x over the ranks of `axis` (the model axis: JAX's psum
+        over `model`), in x's dtype (bf16 partials summed in bf16, as the JAX
+        psum), in place where x is contiguous; returns it."""
+        if self.axis_size(axis) == 1:
             return x
         x = x.contiguous()
         _count("all_reduce", x)
+        group = self._group(axis)
         if self._staged(x):
             host = x.cpu()
-            dist.all_reduce(host)
+            dist.all_reduce(host, group=group)
             x.copy_(host)
         else:
-            dist.all_reduce(x)
+            dist.all_reduce(x, group=group)
         return x
 
-    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' x [..., n] side by side on the last axis: [..., tp n]
-        (`jax.lax.all_gather(x, axis=-1, tiled=True)`)."""
-        if self.tp == 1:
-            return x
+    def all_gather(self, x: torch.Tensor, dim: int, axis: str = MODEL_AXIS,
+                   tiled: bool = True) -> torch.Tensor:
+        """The ranks' x along `axis`, in index order: side by side on `dim`
+        (tiled, `jax.lax.all_gather(x, axis, axis=dim, tiled=True)`) or
+        stacked on a new `dim` (tiled=False)."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return x if tiled else x.unsqueeze(dim)
         _count("all_gather", x)
         src = (x.cpu() if self._staged(x) else x).contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.tp)]
-        dist.all_gather(parts, src)
-        return torch.cat(parts, dim=-1).to(x.device)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=self._group(axis))
+        return (torch.cat if tiled else torch.stack)(parts, dim=dim).to(x.device)
+
+    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """The model axis' x [..., n] side by side on the last axis:
+        [..., tp n] (`jax.lax.all_gather(x, axis=-1, tiled=True)`)."""
+        return self.all_gather(x, -1)
+
+    def ppermute(self, x, axis: str, perm):
+        """`jax.lax.ppermute` along `axis`: x (a tensor, or a tuple of them)
+        goes from each source index to its target in `perm`, a list of
+        (source, target) pairs; returns what this rank received (zeros where
+        no pair targets it), in x's structure. Every receive and send of the
+        call is posted before any is waited on (`dist.batch_isend_irecv`),
+        so a ring does not deadlock; under gloo CUDA tensors go through the
+        host, under NCCL device to device. Counted once for each tensor, with
+        its bytes, as JAX binds one ppermute a leaf."""
+        xs = (x,) if isinstance(x, torch.Tensor) else tuple(x)
+        n, me = self.axis_size(axis), self.axis_index(axis)
+        srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+        if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+                or not all(0 <= i < n for i in srcs + dsts)):
+            raise ValueError(f"ppermute: {perm} is not a permutation of {n} indices")
+        for t in xs:
+            _count("ppermute", t)
+        src = next((s for s, d in perm if d == me), None)
+        dst = next((d for s, d in perm if s == me), None)
+        if src == me:  # a one-rank ring: this rank is its own neighbour
+            out = [t.clone() for t in xs]
+        else:
+            staged = self._staged(xs[0])
+            sends = [(t.cpu() if staged else t).contiguous() for t in xs]
+            recvs = [torch.empty_like(t) for t in sends] if src is not None else []
+            group, ops = self._group(axis), []
+            for i, (t, r) in enumerate(zip(sends, recvs or [None] * len(sends))):
+                if r is not None:
+                    ops.append(dist.P2POp(dist.irecv, r, self.global_rank(axis, src), group,
+                                          tag=i))
+                if dst is not None:
+                    ops.append(dist.P2POp(dist.isend, t, self.global_rank(axis, dst), group,
+                                          tag=i))
+            for work in (dist.batch_isend_irecv(ops) if ops else []):
+                work.wait()
+            out = ([r.to(t.device) for r, t in zip(recvs, xs)] if recvs
+                   else [torch.zeros_like(t) for t in xs])
+        return out[0] if isinstance(x, torch.Tensor) else tuple(out)
 
 
-def make_mesh(tp: int | None = None, dp: int = 1, device: torch.device | str | None = None) -> Mesh:
+def make_mesh(tp: int | None = None, dp: int = 1, device: torch.device | str | None = None,
+              pp: int = 1) -> Mesh:
     """This rank's mesh over the initialised process group
     (`dist.multihost.initialize`), or a mesh of one rank where there is
-    none. tp defaults to the world size and must equal it. device: this
-    rank's, by default `cuda:rank` over the machine's cards (ranks share a
-    card where there are fewer cards than ranks); the CPU where asked."""
+    none: pp stages of tp ranks (`dist/pipeline.py::make_pp_mesh`), model
+    innermost. tp defaults to the world size over pp, and pp tp must equal
+    the world size. Every rank makes every axis group, in one order
+    (`dist.new_group` is collective over the world, even for the groups a
+    rank is not in); an axis of one rank has none, one that spans the world
+    the default group. device: this rank's, by default `cuda:rank` over the
+    machine's cards (ranks share a card where there are fewer cards than
+    ranks); the CPU where asked."""
     if dp != 1:
         raise NotImplementedError(_DP_NOT_PORTED)
     up = dist.is_available() and dist.is_initialized()
     world, rank = (dist.get_world_size(), dist.get_rank()) if up else (1, 0)
-    tp = world if tp is None else int(tp)
-    if tp != world:
+    tp = world // pp if tp is None else int(tp)
+    if pp == 1 and tp != world:
         raise ValueError(f"tp={tp} must equal the world size {world} (dp = 1)")
+    if pp * tp != world:
+        raise ValueError(f"pp={pp} x tp={tp} must equal the world size {world} (dp = 1)")
+
+    def axis_group(members: list[list[int]]):
+        mine = None
+        for ranks in members:
+            if 1 < len(ranks) < world:
+                group = dist.new_group(ranks)
+                mine = group if rank in ranks else mine
+        return mine
+
+    model_group = axis_group([[p * tp + t for t in range(tp)] for p in range(pp)])
+    pipe_group = axis_group([[p * tp + t for p in range(pp)] for t in range(tp)])
     if device is None:
         device = torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
     device = torch.device(device)
     backend = dist.get_backend() if up else None
     if backend == "nccl":
         torch.cuda.set_device(device)
-    log.info("mesh: rank %d of tp %d on %s, collectives over %s", rank, tp, device,
-             backend or "none")
-    return Mesh(tp=tp, rank=rank, device=device, backend=backend)
+    mesh = Mesh(tp=tp, rank=rank, device=device, backend=backend, pp=pp,
+                model_group=model_group, pipe_group=pipe_group)
+    log.info("mesh: rank %d (stage %d of pp %d, shard %d of tp %d) on %s, collectives over %s",
+             rank, mesh.pp_rank, pp, mesh.tp_rank, tp, device, backend or "none")
+    return mesh
 
 
 # ---- column and row splits (the runtime counterparts of the reference's
@@ -206,23 +315,18 @@ def cache_spec(cfg: ModelConfig, mesh: Mesh) -> ModelConfig:
                                num_kv_heads=cfg.num_kv_heads // mesh.tp)
 
 
-def shard_model(dense_params, cfg: ModelConfig, mesh: Mesh, quantize: bool = True,
-                bits: int = 8, layers=None) -> ShardedModel:
-    """This rank's shard of a dense model: split, then (quantize=True) each
-    shard quantized on its own, per output channel, and placed on the mesh's
-    device (`eetq_tpu/dist/sharding.py:119-331`). Layer by layer: `layers`,
-    an iterable of dense LayerParams consumed one at a time, takes the place
-    of dense_params.layers (a model whose bf16 layers would not fit at once
-    is drawn layer by layer from its seed); a rank keeps only its shard.
-
-    Refuses what the JAX package refuses: a row-parallel bias (o_proj,
-    down), heads, the vocabulary or the experts not divisible by tp. LoRA
-    adapters are not carried into the shard, as in the JAX package."""
-    from eetq_tpu_torch.models.transformer import LayerParams, ModelParams
+def shard_layer(lp, cfg: ModelConfig, mesh: Mesh, quantize: bool = True, bits: int = 8):
+    """This rank's shard of one dense layer (LayerParams) on the mesh's
+    device: qkv and gate|up split by columns, o_proj and down by rows, the
+    experts E / tp a rank, each shard quantized on its own where quantize
+    (`shard_model`, `dist/pipeline.py::shard_model_pp`). Refuses a
+    row-parallel bias, heads or experts not divisible by tp, and a
+    quantized layer."""
+    from eetq_tpu_torch.models.transformer import LayerParams
     from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear, quantize_linear
     from eetq_tpu_torch.modules.moe import MoEMLP, _quantize_bank
 
-    tp, r, dev = mesh.tp, mesh.rank, mesh.device
+    tp, r, dev = mesh.tp, mesh.tp_rank, mesh.device
 
     def mine(shards: list[torch.Tensor]) -> torch.Tensor:
         return shards[r].to(dev).contiguous()
@@ -244,25 +348,42 @@ def shard_model(dense_params, cfg: ModelConfig, mesh: Mesh, quantize: bool = Tru
 
         return MoEMLP(DenseLinear(moe.router.weight.to(dev)), bank(moe.gateup), bank(moe.down))
 
+    if isinstance(lp.qkv, QuantLinear):
+        raise ValueError("shard_model takes a dense model; shard a quantized one with "
+                         "surgery.tp_reshard.shard_quantized")
+    if lp.o_proj.bias is not None or (lp.down is not None and lp.down.bias is not None):
+        raise NotImplementedError("row-parallel bias sharding not supported")
+    qkv_b = None if lp.qkv.bias is None else mine(split_qkv_columns(lp.qkv.bias, cfg, tp))
+    qkv = linear(mine(split_qkv_columns(lp.qkv.weight, cfg, tp)), qkv_b)
+    o = linear(mine(split_rows(lp.o_proj.weight, tp)))
+    mlp = {}
+    if lp.moe is not None:
+        mlp["moe"] = moe_shard(lp.moe)
+    else:
+        gu_b = None if lp.gateup.bias is None else mine(split_gateup_columns(lp.gateup.bias, tp))
+        mlp["gateup"] = linear(mine(split_gateup_columns(lp.gateup.weight, tp)), gu_b)
+        mlp["down"] = linear(mine(split_rows(lp.down.weight, tp)))
+    return LayerParams(lp.input_norm.to(dev), qkv, o, lp.post_norm.to(dev), **mlp)
+
+
+def shard_model(dense_params, cfg: ModelConfig, mesh: Mesh, quantize: bool = True,
+                bits: int = 8, layers=None) -> ShardedModel:
+    """This rank's shard of a dense model: split, then (quantize=True) each
+    shard quantized on its own, per output channel, and placed on the mesh's
+    device (`eetq_tpu/dist/sharding.py:119-331`). Layer by layer: `layers`,
+    an iterable of dense LayerParams consumed one at a time, takes the place
+    of dense_params.layers (a model whose bf16 layers would not fit at once
+    is drawn layer by layer from its seed); a rank keeps only its shard.
+
+    Refuses what the JAX package refuses: a row-parallel bias (o_proj,
+    down), heads, the vocabulary or the experts not divisible by tp. LoRA
+    adapters are not carried into the shard, as in the JAX package."""
+    from eetq_tpu_torch.models.transformer import ModelParams
+    from eetq_tpu_torch.modules.linear import DenseLinear, QuantLinear
+
     out = []
     for lp in (dense_params.layers if layers is None else layers):
-        if isinstance(lp.qkv, QuantLinear):
-            raise ValueError("shard_model takes a dense model; shard a quantized one with "
-                             "surgery.tp_reshard.shard_quantized")
-        if lp.o_proj.bias is not None or (lp.down is not None and lp.down.bias is not None):
-            raise NotImplementedError("row-parallel bias sharding not supported")
-        qkv_b = None if lp.qkv.bias is None else mine(split_qkv_columns(lp.qkv.bias, cfg, tp))
-        qkv = linear(mine(split_qkv_columns(lp.qkv.weight, cfg, tp)), qkv_b)
-        o = linear(mine(split_rows(lp.o_proj.weight, tp)))
-        mlp = {}
-        if lp.moe is not None:
-            mlp["moe"] = moe_shard(lp.moe)
-        else:
-            gu_b = (None if lp.gateup.bias is None
-                    else mine(split_gateup_columns(lp.gateup.bias, tp)))
-            mlp["gateup"] = linear(mine(split_gateup_columns(lp.gateup.weight, tp)), gu_b)
-            mlp["down"] = linear(mine(split_rows(lp.down.weight, tp)))
-        out.append(LayerParams(lp.input_norm.to(dev), qkv, o, lp.post_norm.to(dev), **mlp))
+        out.append(shard_layer(lp, cfg, mesh, quantize, bits))
         del lp
 
     lm_head = dense_params.lm_head
@@ -270,7 +391,9 @@ def shard_model(dense_params, cfg: ModelConfig, mesh: Mesh, quantize: bool = Tru
         if isinstance(lm_head, QuantLinear):
             raise ValueError("shard_model keeps the lm_head dense; shard a quantized head with "
                              "surgery.tp_reshard.shard_quantized")
-        lm_head = DenseLinear(mine(split_vocab(lm_head.weight, tp)))
+        lm_head = DenseLinear(split_vocab(lm_head.weight, mesh.tp)[mesh.tp_rank].to(mesh.device)
+                              .contiguous())
+    dev = mesh.device
     params = ModelParams(dense_params.embed.to(dev), out, dense_params.final_norm.to(dev),
                          lm_head)
     return ShardedModel(cfg=cfg, mesh=mesh, params=params)

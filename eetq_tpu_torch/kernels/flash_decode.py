@@ -123,15 +123,26 @@ def _check(q, k_cache, v_cache, lengths, window, slopes, cache_dtype, batch_axis
         raise NotImplementedError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
 
 
-def _launch_args(q, hkv, max_len):
+def _launch_args(q, hkv, max_len, out=None):
     """(out, partials, counters, chunk) of one launch over a cache of
     `max_len` keys a row: the plan of (q heads of a group) x S query rows a
-    kv head, whose chunks are those of any S."""
+    kv head, whose chunks are those of any S. out: the caller's buffer for
+    the output (contiguous bf16 of q's shape on its device), else a new
+    one."""
     b, s, hq, d = q.shape
     plan = decode_plan(b, hkv, hq // hkv * s, max_len, d)
     partials, counters = _build.scratch("decode", q.device, plan.floats, plan.counters)
-    out = torch.empty((b, s, hq, d), dtype=torch.bfloat16, device=q.device)
+    if out is None:
+        out = torch.empty((b, s, hq, d), dtype=torch.bfloat16, device=q.device)
+    elif (out.shape != q.shape or out.dtype != torch.bfloat16 or not out.is_contiguous()
+          or out.device != q.device or out.data_ptr() % 16):
+        raise TypeError("out must be contiguous 16-byte aligned bf16 of q's shape on its device")
     return out, partials, counters, plan.chunk
+
+
+def _into(out: torch.Tensor | None, result: torch.Tensor) -> torch.Tensor:
+    """The plain version's result, copied into the caller's `out` if given."""
+    return result if out is None else out.copy_(result)
 
 
 def flash_decode(
@@ -142,10 +153,13 @@ def flash_decode(
     scale: float | None = None,
     window: int | None = None,
     slopes: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q [B, S, Hq, D] bf16; k/v cache [B, Hkv, L, D] bf16; lengths [B]
     int32 valid entries per row (S <= length <= L), query token i at
-    position length - S + i; a sliding `window`, ALiBi `slopes` [Hq] f32.
+    position length - S + i; a sliding `window`, ALiBi `slopes` [Hq] f32;
+    `out`, a buffer of the output's shape to write (a new tensor where none
+    is given).
     Returns [B, S, Hq, D]."""
     _build.refuse_grad("flash_decode", q, k_cache, v_cache, slopes)
     b, s, hq, d = q.shape
@@ -153,9 +167,9 @@ def flash_decode(
     if scale is None:
         scale = d ** -0.5
     if not q.is_cuda:
-        return flash_decode_ref(q, k_cache, v_cache, lengths, scale, window, slopes)
+        return _into(out, flash_decode_ref(q, k_cache, v_cache, lengths, scale, window, slopes))
     _check(q, k_cache, v_cache, lengths, window, slopes, torch.bfloat16)
-    out, partials, counters, chunk = _launch_args(q, hkv, l)
+    out, partials, counters, chunk = _launch_args(q, hkv, l, out)
     _build.launch(
         "eetq_flash_decode", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), partials, counters, b, s, hq, hkv, l, d, chunk,
@@ -190,6 +204,7 @@ def flash_decode_int8(
     scale: float | None = None,
     window: int | None = None,
     slopes: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q [B, S, Hq, D] bf16; k/v cache [B, Hkv, L, D] int8 with f32 scales
     k_scale/v_scale [B, Hkv, L]; lengths [B] int32 (S <= length <= L), as
@@ -200,14 +215,14 @@ def flash_decode_int8(
     if scale is None:
         scale = d ** -0.5
     if not q.is_cuda:
-        return flash_decode_int8_ref(q, k_cache, v_cache, k_scale, v_scale, lengths, scale,
-                                     window, slopes)
+        return _into(out, flash_decode_int8_ref(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                                                scale, window, slopes))
     _check(q, k_cache, v_cache, lengths, window, slopes, torch.int8)
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if (t.dtype != torch.float32 or t.shape != k_cache.shape[:3] or not t.is_contiguous()
                 or t.device != q.device):
             raise TypeError(f"{name} must be contiguous f32 [B, Hkv, L] on q's device")
-    out, partials, counters, chunk = _launch_args(q, hkv, l)
+    out, partials, counters, chunk = _launch_args(q, hkv, l, out)
     _build.launch(
         "eetq_flash_decode_int8", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials,
@@ -267,6 +282,7 @@ def paged_flash_decode(
     scale: float | None = None,
     window: int | None = None,
     slopes: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q [B, S, Hq, D] bf16; k/v pools [NB, Hkv, BS, D] bf16; table
     [B, max_blocks] int32, entry (b, i) the pool block of keys [i * BS,
@@ -279,10 +295,11 @@ def paged_flash_decode(
     if scale is None:
         scale = d ** -0.5
     if not q.is_cuda:
-        return paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale, window, slopes)
+        return _into(out, paged_flash_decode_ref(q, k_pool, v_pool, table, lengths, scale,
+                                                 window, slopes))
     _check_paged(q, k_pool, v_pool, table, lengths, window, slopes, torch.bfloat16)
     max_blocks = table.shape[1]
-    out, partials, counters, chunk = _launch_args(q, hkv, max_blocks * bs)
+    out, partials, counters, chunk = _launch_args(q, hkv, max_blocks * bs, out)
     _build.launch(
         "eetq_paged_flash_decode", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(), partials, counters, b, s, hq,
@@ -304,6 +321,7 @@ def paged_flash_decode_int8(
     scale: float | None = None,
     window: int | None = None,
     slopes: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """:func:`paged_flash_decode` over int8 pools [NB, Hkv, BS, D] with f32
     scale pools k_scale/v_scale [NB, Hkv, BS]."""
@@ -313,15 +331,15 @@ def paged_flash_decode_int8(
     if scale is None:
         scale = d ** -0.5
     if not q.is_cuda:
-        return paged_flash_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                                           scale, window, slopes)
+        return _into(out, paged_flash_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, table,
+                                                      lengths, scale, window, slopes))
     _check_paged(q, k_pool, v_pool, table, lengths, window, slopes, torch.int8)
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if (t.dtype != torch.float32 or t.shape != k_pool.shape[:3] or not t.is_contiguous()
                 or t.device != q.device):
             raise TypeError(f"{name} must be contiguous f32 [NB, Hkv, BS] on q's device")
     max_blocks = table.shape[1]
-    out, partials, counters, chunk = _launch_args(q, hkv, max_blocks * bs)
+    out, partials, counters, chunk = _launch_args(q, hkv, max_blocks * bs, out)
     _build.launch(
         "eetq_paged_flash_decode_int8", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(), lengths.data_ptr(),

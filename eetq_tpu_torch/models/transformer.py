@@ -222,7 +222,7 @@ def forward_inner(
         mesh = None  # one rank: the plain forward
     if slopes is not None and mesh is not None:  # the rank's contiguous heads
         hq = cfg.num_heads // mesh.tp
-        slopes = slopes[mesh.rank * hq:(mesh.rank + 1) * hq]
+        slopes = slopes[mesh.tp_rank * hq:(mesh.tp_rank + 1) * hq]
     positions = positions.clamp(max=cfg.max_position - 1)
     b, s = tokens.shape
     verify = verify and s > 1

@@ -231,7 +231,7 @@ def moe_apply(
     n_sel = t * top_k
     ep = mesh is not None and e != moe.num_experts
     if ep:  # another rank's selections park on local expert 0 with zero weight
-        off = mesh.rank * e
+        off = mesh.tp_rank * e
         local = (topi >= off) & (topi < off + e)
         topi = torch.where(local, topi - off, 0)
         topw = torch.where(local, topw, 0.0)

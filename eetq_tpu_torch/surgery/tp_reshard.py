@@ -131,7 +131,7 @@ def shard_quantized(params: ModelParams, cfg: ModelConfig, mesh=None):
             "shard_quantized doesn't support MoE layers yet; shard the dense model with "
             "dist.sharding.shard_model(quantize=True) (EP)")
     mesh = make_mesh() if mesh is None else mesh
-    tp, r, dev = mesh.tp, mesh.rank, mesh.device
+    tp, r, dev = mesh.tp, mesh.tp_rank, mesh.device
 
     def on(ql: QuantLinear) -> QuantLinear:
         p = ql.packed

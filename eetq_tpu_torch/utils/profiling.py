@@ -228,7 +228,10 @@ def profile_w8a16_matmul(m: int, k: int, n: int, bits: int = 8, iters: int = 200
 def count_collectives(fn: Callable, *args) -> dict[str, int]:
     """Run fn(*args) once and return the collectives it made on this rank:
     {op: bytes of their inputs, op + "_count": calls}, op "all_reduce"
-    (JAX's psum) or "all_gather" (`eetq_tpu/utils/profiling.py:179-214`)."""
+    (JAX's psum), "all_gather" or "ppermute", one a tensor exchanged
+    (`eetq_tpu/utils/profiling.py:179-214`). The port counts calls as they
+    happen: a loop's collectives count once an iteration, where the JAX
+    package counts a `scan` body once in its jaxpr."""
     from eetq_tpu_torch.dist.sharding import collective_counts
 
     before = collective_counts()

@@ -464,12 +464,13 @@ def _decode_calls(g, dev, mode, b, hq, hkv, d, lengths, l=2048, bs=256):
     if not paged:
         kernel, ref = ((flash_decode_int8, flash_decode_int8_ref) if int8
                        else (flash_decode, flash_decode_ref))
-        return (lambda: kernel(q, *caches, lengths)), (lambda: ref(q, *caches, lengths))
+        return (lambda **kw: kernel(q, *caches, lengths, **kw)), (lambda: ref(q, *caches, lengths))
     table = torch.randperm(shape[0], generator=g, device=dev)[:b * (l // bs)].reshape(
         b, l // bs).to(torch.int32).contiguous()
     kernel, ref = ((paged_flash_decode_int8, paged_flash_decode_int8_ref) if int8
                    else (paged_flash_decode, paged_flash_decode_ref))
-    return (lambda: kernel(q, *caches, table, lengths)), (lambda: ref(q, *caches, table, lengths))
+    return ((lambda **kw: kernel(q, *caches, table, lengths, **kw)),
+            (lambda: ref(q, *caches, table, lengths)))
 
 
 DECODE_MODES = ["dense", "dense_int8", "paged", "paged_int8"]
@@ -593,7 +594,9 @@ def test_paged_flash_decode_idle_rows_beside_live_rows(dev):
 @pytest.mark.parametrize("mode", DECODE_MODES)
 def test_flash_decode_is_one_launch(dev, mode):
     """One kernel launch per call (torch.profiler), with rows whose chunks
-    merge across blocks: the merge runs in the same launch."""
+    merge across blocks: the merge runs in the same launch; and each of 32
+    launches into its own NaN-filled `out` writes the whole of it, bit-equal
+    to a launch of its own (a skipped launch would leave NaN)."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -605,6 +608,19 @@ def test_flash_decode_is_one_launch(dev, mode):
         torch.cuda.synchronize()
     names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 1 and "flash_decode" in names[0], names
+    # ... and every launch writes its output, seen in the buffers rather than
+    # in a trace: 32 launches, each into its own NaN-filled buffer
+    ref = kernel()
+    outs = [torch.full_like(ref, float("nan")) for _ in range(32)]
+    name = {"dense": "flash_decode", "dense_int8": "flash_decode_int8",
+            "paged": "paged_flash_decode", "paged_int8": "paged_flash_decode_int8"}[mode]
+    before = KERNELS[name].launches
+    for o in outs:
+        assert kernel(out=o) is o
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches - before == len(outs)
+    for o in outs:
+        assert torch.equal(o, ref)
 
 
 def test_paged_flash_decode_idle_rows_in_the_trash_block(dev):
@@ -2355,3 +2371,115 @@ def test_a_failing_rank_fails_on_the_card(dev, tmp_path):
     pool = RankPool(2, f"file://{tmp_path}/store", backend="gloo", timeout_s=120)
     with pytest.raises(RuntimeError, match="(?s)failed:.*boom"):
         pool.run(tasks.fail, "boom")
+
+
+def _near_tie(row, a: int, b: int, ulps: int = 8) -> bool:
+    """a and b both within `ulps` bf16 ulps (of the largest |logit|) of the
+    top of `row`."""
+    import math
+
+    ulp = 2.0 ** (math.floor(math.log2(float(row.abs().max()))) - 7)
+    return float(row.max() - min(row[a], row[b])) <= ulps * ulp
+
+
+def test_pp_generate_on_the_card(dev, tmp_path):
+    """pp_generate over two stages of one layer each on cuda:0 (gloo ranks;
+    a 2-layer llama2-7b-width W8A16 model drawn from the seed, b = 2 in two
+    microbatches): the ranks' tokens identical; each token the one-card
+    model's argmax after the same tokens, or within 8 bf16 ulps of it (the
+    stages' GEMMs and GEMVs run at mb rows where the one-card path runs b);
+    each rank launched the GEMM, the GEMV and both attention kernels."""
+    import numpy as np
+
+    import torch_pipeline_tasks as tasks
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.kernels import _build
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.transformer import forward_inner, init_caches
+
+    _build.build()
+    cfg = ModelConfig(**SHARDED_CFG)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 96))
+    n = 8
+    with RankPool(2, f"file://{tmp_path}/store", backend="gloo", timeout_s=600) as pool:
+        pool.run(tasks.pp_build_random, 2, 1, cfg, 11)
+        got = pool.run(tasks.pp_generate_task, prompt, n, 2)
+    np.testing.assert_array_equal(got[0]["tokens"], got[1]["tokens"])
+    toks = torch.as_tensor(got[0]["tokens"], device=dev)
+    one = tasks.seeded_model(cfg, 11, dev)
+    with torch.inference_mode():
+        caches = init_caches(cfg, 2, 96 + n, device=dev)
+        lg, _ = forward_inner(one, cfg, torch.as_tensor(prompt, device=dev),
+                              torch.arange(96, device=dev).expand(2, 96), caches, 0,
+                              last_only=True)
+        for j in range(n):
+            for r in range(2):
+                want = int(torch.argmax(lg[r, -1]))
+                assert want == int(toks[r, j]) or _near_tie(lg[r, -1].float(), want,
+                                                            int(toks[r, j])), (j, r)
+            if j < n - 1:
+                lg, _ = forward_inner(one, cfg, toks[:, j:j + 1],
+                                      torch.full((2, 1), 96 + j, device=dev), caches, 96 + j)
+    for r in got:
+        assert all(r["launches"][k] for k in ("w8a16_gemm", "w8a16_gemv", "flash_attention_fwd",
+                                              "flash_decode")), r["launches"]
+
+
+@pytest.mark.parametrize("window,alibi", [(None, False), (24, False), (None, True)])
+def test_ring_attention_on_the_card(dev, tmp_path, window, alibi):
+    """ring_attention_sharded over two gloo ranks on cuda:0 (GQA 8/2, 2 x 64
+    tokens, plain, a window of 24 and ALiBi) against the one-rank plain
+    attention on the card, within 3e-2; the ranks identical; no kernel is
+    launched (the statistics are plain torch, as in the JAX package)."""
+    import numpy as np
+
+    import torch_pipeline_tasks as tasks
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.kernels.flash_attention import attention_reference, causal_mask
+    from eetq_tpu_torch.ops.alibi import alibi_slopes
+
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal((2, 128, h, 64)).astype(np.float32) for h in (8, 2, 2))
+    slopes = np.asarray(alibi_slopes(8), np.float32) if alibi else None
+    with RankPool(2, f"file://{tmp_path}/store", backend="gloo", timeout_s=600) as pool:
+        got = pool.run(tasks.ring, q, k, v, True, slopes, window)
+    np.testing.assert_array_equal(got[0]["out"], got[1]["out"])
+    t = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, k, v)]
+    want = attention_reference(*t, causal_mask(128, window, 128, dev), 64 ** -0.5,
+                               slopes=None if slopes is None else torch.from_numpy(slopes).to(dev))
+    np.testing.assert_allclose(got[0]["out"], want.float().cpu().numpy(), atol=3e-2, rtol=3e-2)
+    for r in got:
+        assert not any(r["launches"].values()), r["launches"]
+        assert r["counts"]["ppermute_count"] == 4, r["counts"]
+
+
+def test_long_prefill_on_the_card(dev, tmp_path):
+    """long_prefill over two gloo ranks on cuda:0 (the 2-layer
+    llama2-7b-width W8A16 model, b = 1, 512 tokens) against the one-card
+    prefill (the flash-attention kernel) within 5e-2 of the largest logit;
+    the ranks identical; each rank's projections on the W8A16 GEMM and no
+    flash-attention launch (ring attention), 2 p ppermutes a layer."""
+    import numpy as np
+
+    import torch_pipeline_tasks as tasks
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.kernels import _build
+    from eetq_tpu_torch.models.config import ModelConfig
+    from eetq_tpu_torch.models.transformer import init_caches
+    from eetq_tpu_torch.serve.generate import prefill
+
+    _build.build()
+    cfg = ModelConfig(**SHARDED_CFG)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 512))
+    with RankPool(2, f"file://{tmp_path}/store", backend="gloo", timeout_s=600) as pool:
+        got = pool.run(tasks.long_prefill_random, cfg, 13, tokens)
+    np.testing.assert_array_equal(got[0]["logits"], got[1]["logits"])
+    one = tasks.seeded_model(cfg, 13, dev)
+    want, _ = prefill(one, cfg, torch.as_tensor(tokens, device=dev),
+                      init_caches(cfg, 1, 512, device=dev))
+    want = want.float().cpu().numpy()
+    assert np.abs(got[0]["logits"] - want).max() <= 5e-2 * np.abs(want).max()
+    for r in got:
+        assert r["launches"]["w8a16_gemm"] == 4 * cfg.num_layers, r["launches"]
+        assert not r["launches"]["flash_attention_fwd"], r["launches"]
+        assert r["counts"]["ppermute_count"] == 2 * 2 * cfg.num_layers, r["counts"]
