@@ -357,6 +357,23 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      one-card model's slice (qkv per channel, o_proj group-wise at K / 2,
      the banks per expert), prefill and 15 decode steps against that model
      with rank 0's routing replayed, within MODEL_TOL, no near-tie pass.
+   - dp2tp2_generate: the tp2 artifact on 4 ranks, dp 2 x tp 2
+     (`make_mesh(tp=2, dp=2)`; each data shard's ranks hold the same
+     shards), b = 2 (one seeded 1024-token prompt a data shard) through
+     `make_forward_fn`: prefill logits and 49 teacher-forced decode steps
+     of each row within MODEL_TOL of the tp = 1 run of the same artifact at
+     b = 2, 50 greedy tokens equal or parting at a near tie, the two ranks
+     of a data shard identical, one prefill forward's collectives those of
+     tp2_generate (2 L all-reduces of 1 p H 2 bytes, one vocab gather), and
+     one data-axis gather, of the tokens, at the end of the run.
+   - dp2tp2_server: `EngineServer` on rank 0 over `Engine(sharded)` on the
+     4 ranks (max_batch 8, 4 slots a data shard; the other ranks
+     `serve.api.follow`), the 12 requests over HTTP from 4 threads: greedy
+     requests equal to the one-card engine's or a near tie, every rank's
+     outputs identical, admission rounds of at most 2 requests; served tok/s.
+   - dp2tp2_spec_server: `Engine(sharded, spec_ngram=7)` on the same ranks
+     driven directly: greedy requests equal to dp2tp2_server's or a near tie;
+     its rounds (the most over the data shards) and tokens a round.
    The Mixtral spec engine (5.) is held to its twin by the same kind of
    replay (`routed_twin`): both engines eager, routing keyed by (prompt,
    position, token) recorded in the twin and replayed in the spec engine;
@@ -378,6 +395,10 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      ranks (pp 2 x tp 2), 16 tokens; each rank's integers equal to the
      twin's slice (qkv and gate|up per channel, o_proj and down group-wise at
      K / 2); 2 model-axis all-reduces a layer a unit and no vocab gather.
+   - pp2dp2_generate: the model cut to PP_DP_LAYERS = 8 layers on 4 ranks
+     (`make_pp_mesh(pp=2, dp=2)`: two pipelines of 2 stages, 4 layers a
+     stage), b = 4 (2 rows a data shard) in 2 microbatches, 16 tokens; the
+     logits and tokens gathered over `data` once each.
    - long_generate: mistral-7b W8A16 (window 4096) replicated on 2 ranks,
      b=1, p=8192: long_prefill timed (its logits, and its gathered caches
      over the prompt against the twin's within MODEL_TOL of a layer's largest
@@ -5012,9 +5033,15 @@ SHARDED_MIXTRAL_LAYERS = 2
 SHARDED_LLAMA_LAYERS = 8
 SHARDED_MIXTRAL_NEW = 16
 SHARDED_TIMEOUT_S = 600
+# the dp paths: dp 2 x tp 2 ranks of the same artifact, the server's
+# heartbeat while idle
+SHARDED_DP = 2
+SHARDED_HEARTBEAT_S = 1.0
 _TP2 = ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode")
 PATH_KERNELS.update({"tp2_generate": _TP2, "tp2_server": _TP2, "tp2_spec_server": _TP2,
-                     "mixtral_ep2": ("w8a16_expert_gemv", "w8a16_grouped_gemm") + _TP2})
+                     "mixtral_ep2": ("w8a16_expert_gemv", "w8a16_grouped_gemm") + _TP2,
+                     "dp2tp2_generate": _TP2, "dp2tp2_server": _TP2,
+                     "dp2tp2_spec_server": _TP2})
 
 
 def _server_requests(cfg, gen, dev) -> list:
@@ -5136,6 +5163,310 @@ def _rank_llama(mesh, path: str, prompt, ref_tokens, requests: list) -> dict:
     out["server"] = _rank_engine(model, requests)
     out["spec_server"] = _rank_engine(model, requests, spec_ngram=SHARDED_SPEC_K)
     return out
+
+
+def _rounds(eng) -> list:
+    """The engine's admission rounds, each its count of requests, as they run."""
+    eng.rounds = []
+    group = eng._prefill_group
+
+    def counted(assignments):
+        eng.rounds.append(len(assignments))
+        return group(assignments)
+
+    eng._prefill_group = counted
+    return eng.rounds
+
+
+def _rank_http(mesh, model, bodies: list) -> dict:
+    """dp2tp2_server on this rank: `EngineServer` over Engine(model) on rank
+    0, the bodies posted from SERVE_THREADS threads (each answer by body),
+    and `serve.api.follow` elsewhere; counted from 0 on every rank."""
+    import torch
+
+    from eetq_tpu_torch.serve.api import EngineServer, follow
+    from eetq_tpu_torch.serve.engine import Engine
+
+    eng = Engine(model, max_batch=8, max_len=2048)
+    rounds = _rounds(eng)
+    out = dict(kv=str(eng.kv_dtype), a8=eng.a8_prefill, window=eng.decode_window)
+    _rank_counts()
+    if mesh.rank != 0:
+        out["follow"] = follow(eng)
+    else:
+        srv = EngineServer(eng, port=0, heartbeat_s=SHARDED_HEARTBEAT_S)
+        srv.start()
+        answers, errors = {}, []
+
+        def worker(idx):
+            for i in idx:
+                try:
+                    answers[i] = _post(srv.port, bodies[i])
+                except Exception as e:  # reported by the parent, fails the run
+                    errors.append(f"request {i}: {e!r}")
+                    return
+
+        threads = [threading.Thread(target=worker, args=(range(j, len(bodies), SERVE_THREADS),))
+                   for j in range(SERVE_THREADS)]
+        t0 = time.perf_counter()
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(SERVE_TIMEOUT_S)
+            out["wall_s"] = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+        out.update(answers=[answers.get(i) for i in range(len(bodies))], errors=errors)
+    counts, coll = _rank_read()
+    out.update(counts=counts, collectives=coll, rounds=list(rounds),
+               outputs={u: list(r.out_tokens) for u, r in eng.requests.items()})
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_dp(mesh, path: str, prompts, ref_tokens, bodies: list, requests: list) -> dict:
+    """A rank of dp2tp2_generate, dp2tp2_server and dp2tp2_spec_server: its
+    shard of the tp2 artifact on the dp x tp mesh; then (teacher-forced on
+    the tp = 1 run's tokens) its data shard's prefill and decode logits and
+    the collectives of one prefill forward; then, counted from 0, the
+    prefill and len(ref_tokens) greedy tokens of its row, gathered over
+    `data` at the end; then the server (`_rank_http`) and the spec engine
+    driven directly (`_rank_engine`)."""
+    import torch
+
+    from eetq_tpu_torch.dist.sharding import make_forward_fn, make_mesh
+    from eetq_tpu_torch.models.auto import AutoEETQForCausalLM
+    from eetq_tpu_torch.utils.profiling import count_collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dpm = make_mesh(tp=SHARDED_TP, dp=SHARDED_DP, device=mesh.device)
+    dev = dpm.device
+    t0 = time.perf_counter()
+    full = AutoEETQForCausalLM.from_quantized(path, device=dev)
+    model = full.shard(mesh=dpm)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out = dict(backend=dpm.backend, device=str(dev), load_s=time.perf_counter() - t0,
+               place=(dpm.dp_rank, dpm.tp_rank))
+    (b, p), n = prompts.shape, ref_tokens.shape[1]
+    rows = dpm.data_rows(b)
+    toks = prompts.to(dev)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    fwd = make_forward_fn(model)
+
+    def step(col, j, caches):  # col [B]: the global batch's tokens, this shard's rows read
+        lg, _ = fwd(model.params, col.view(b, 1), torch.full((b, 1), p + j, device=dev), caches,
+                    p + j)
+        return lg[:, -1]
+
+    with torch.inference_mode():
+        caches = model.init_caches(b, p + n)
+        got = {}
+        out["prefill_collectives"] = count_collectives(lambda: got.setdefault(
+            "lg", fwd(model.params, toks, pos, caches, 0, last_only=True)[0]))
+        out["prefill_logits"] = got["lg"][:, -1].float().cpu()
+        ref = ref_tokens.to(dev)
+        out["decode_logits"] = torch.stack([step(ref[:, j], j, caches).float().cpu()
+                                            for j in range(n - 1)])
+        caches = model.init_caches(b, p + n)
+        _rank_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = fwd(model.params, toks, pos, caches, 0, last_only=True)
+        col = torch.zeros(b, dtype=torch.int64, device=dev)
+        col[rows] = torch.argmax(lg[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gen = [col[rows].clone()]
+        for j in range(n - 1):
+            col[rows] = torch.argmax(step(col, j, caches), dim=-1)
+            gen.append(col[rows].clone())
+        tokens = dpm.gather_rows(torch.stack(gen, dim=1))  # the run's one fetch
+        counts, coll = _rank_read()
+        t2 = time.perf_counter()
+    out.update(tokens=tokens.cpu(), counts=counts, collectives=coll, prefill_ms=1e3 * (t1 - t0),
+               decode_ms=1e3 * (t2 - t1) / (n - 1))
+    del caches
+    out["server"] = _rank_http(dpm, model, bodies)
+    eng_out = _rank_engine(model, requests, spec_ngram=SHARDED_SPEC_K)
+    out["spec_server"] = eng_out
+    return out
+
+
+def _dp_llama(dev, work: str, backend: str, art: str, cfg, params, prompt, gen, requests: list,
+              twin_out: dict) -> dict:
+    """dp2tp2_generate, dp2tp2_server and dp2tp2_spec_server (sharded_phase),
+    over the tp2 artifact, its tp = 1 twin `params`, tp2_generate's prompt
+    (row 0) and the server's requests and the twin engine's outputs."""
+    import torch
+
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.models.config import PRESETS
+    from eetq_tpu_torch.models.transformer import forward_inner, init_caches
+
+    _, p, n = REQUESTS[0]
+    b, world = SHARDED_DP, SHARDED_DP * SHARDED_TP
+    prompts = torch.cat([prompt, torch.randint(0, cfg.vocab_size, (1, p), generator=gen,
+                                               device=dev)])
+    with torch.inference_mode():  # the tp = 1 run at b = 2
+        caches = init_caches(cfg, b, p + n, device=dev)
+        lg, _ = forward_inner(params, cfg, prompts, torch.arange(p, device=dev).expand(b, p),
+                              caches, 0, last_only=True)
+        ref = [lg[:, -1].float()]
+        toks = [torch.argmax(ref[-1], dim=-1)]
+        for j in range(n - 1):
+            lg, _ = forward_inner(params, cfg, toks[-1][:, None],
+                                  torch.full((b, 1), p + j, device=dev), caches, p + j)
+            ref.append(lg[:, -1].float())
+            toks.append(torch.argmax(ref[-1], dim=-1))
+        del caches
+    ref_tokens, refs = torch.stack(toks, dim=1), torch.stack(ref).cpu()  # [b, n], [n, b, V]
+    bodies = [dict({"prompt": pr, "max_new_tokens": nb, "stream": i % 5 == 1}, **kw)
+              for i, (pr, nb, kw) in enumerate(requests)]
+    greedy = [i for i, (_, _, kw) in enumerate(requests) if not kw]
+    t0 = time.perf_counter()
+    with RankPool(world, f"file://{os.path.join(work, 'rdv-dp')}", backend=backend,
+                  timeout_s=SHARDED_TIMEOUT_S) as pool:
+        res = pool.run(_rank_dp, art, prompts.cpu(), ref_tokens.cpu(), bodies, requests)
+    ranks_s = time.perf_counter() - t0
+    r0, paths = res[0], {}
+    check([r["place"] for r in res] == [(i // SHARDED_TP, i % SHARDED_TP) for i in range(world)],
+          "dp2tp2: the ranks' places on the mesh")
+    print(f"  dp2tp2: {world} ranks (dp {SHARDED_DP} x tp {SHARDED_TP}) over {r0['backend']} on "
+          f"{sorted(set(r['device'] for r in res))}, each loaded and sharded the artifact in "
+          f"{max(r['load_s'] for r in res):.1f} s at most; {ranks_s:.1f} s in the ranks")
+    for r in res:
+        mate = res[r["place"][0] * SHARDED_TP]
+        check(torch.equal(r["prefill_logits"], mate["prefill_logits"])
+              and torch.equal(r["decode_logits"], mate["decode_logits"]),
+              "dp2tp2_generate: the ranks of a data shard differ")
+        check(torch.equal(r["tokens"], r0["tokens"])
+              and r["server"]["outputs"] == r0["server"]["outputs"]
+              and r["spec_server"]["outputs"] == r0["spec_server"]["outputs"],
+              "dp2tp2: the ranks' tokens or outputs differ")
+    # dp2tp2_generate: each data shard's row against the tp = 1 run at b = 2
+    pre = [check_logits(f"dp2tp2_generate row {d} prefill (tp=1 run)",
+                        res[d * SHARDED_TP]["prefill_logits"][0], refs[0, d])
+           for d in range(SHARDED_DP)]
+    dec_err = max(((a - c).abs().max() / c.abs().max()).item()
+                  for d in range(SHARDED_DP)
+                  for a, c in zip(res[d * SHARDED_TP]["decode_logits"][:, 0], refs[1:, d]))
+    print(f"  dp2tp2_generate teacher-forced decode logits vs the tp=1 run: at most "
+          f"{dec_err:.4e} of the largest logit over {n - 1} steps and {b} rows (tol {MODEL_TOL})")
+    check(dec_err <= MODEL_TOL, f"dp2tp2_generate decode logits differ by {dec_err:.3e}")
+    ties = []
+    for d in range(b):
+        got_d, want = r0["tokens"][d].tolist(), ref_tokens[d].tolist()
+        j = _first_difference(got_d, want)
+        if j is None:
+            continue
+        rr = res[d * SHARDED_TP]
+        rows = (refs[j, d], rr["prefill_logits"][0] if j == 0 else rr["decode_logits"][j - 1, 0])
+        tie = all(_logit_tie(row, got_d[j], want[j]) for row in rows)
+        print(f"  dp2tp2_generate row {d}: token {j} is {got_d[j]}, the tp=1 run's {want[j]} "
+              f"(near tie: {tie})")
+        check(tie, f"dp2tp2_generate row {d} differs from the tp=1 run at {j}, not at a near tie")
+        ties.append(dict(row=d, token=j))
+    h, v, layers = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
+    want_coll = {"all_reduce_count": 2 * layers, "all_reduce": 2 * layers * p * h * 2,
+                 "all_gather_count": 1, "all_gather": v // SHARDED_TP * 2}
+    want_run = {"all_reduce_count": 2 * layers * n, "all_gather_count": n + 1,
+                "all_reduce": 2 * layers * (p + n - 1) * h * 2,
+                "all_gather": n * v // SHARDED_TP * 2 + n * 8}
+    print(f"  dp2tp2_generate: one prefill forward's collectives on a rank "
+          f"{r0['prefill_collectives']} (want {want_coll}); the greedy run's {r0['collectives']} "
+          f"(want {want_run}: the model axis' a forward, and one data-axis gather of the tokens)")
+    for r in res:
+        check(r["prefill_collectives"] == want_coll and r["collectives"] == want_run,
+              "dp2tp2_generate: collectives differ from the prediction")
+    counts = _sum_counts(res)
+    check_launches("dp2tp2_generate", counts)
+    print(f"  dp2tp2_generate b={b} (one row a data shard) p={p} n={n} over {r0['backend']}: "
+          f"prefill {r0['prefill_ms']:.2f} ms, decode {r0['decode_ms']:.3f} ms/step (eager; "
+          f"tokens {'equal to' if not ties else 'parting at a near tie from'} the tp=1 run's)")
+    paths["dp2tp2_generate"] = dict(
+        reduced=f"num_layers {PRESETS[MODEL].num_layers} -> {layers}", counts=counts,
+        prefill=pre, decode_rel_err=dec_err, near_ties=ties,
+        collectives_per_forward=r0["prefill_collectives"], collectives=r0["collectives"],
+        prefill_ms=r0["prefill_ms"], decode_ms_per_step=r0["decode_ms"], backend=r0["backend"])
+    # dp2tp2_server: the answers by body on rank 0, against the one-card engine
+    srv = r0["server"]
+    check(not srv["errors"] and all(a is not None for a in srv["answers"]),
+          f"dp2tp2_server: HTTP requests failed: {srv['errors']}")
+    check(srv["kv"] == "torch.bfloat16" and not srv["a8"],
+          f"dp2tp2_server: the sharded engine took kv {srv['kv']}, a8 {srv['a8']}")
+    answers = srv["answers"]
+    rounds = srv["rounds"]
+    check(max(rounds) <= SHARDED_DP and sum(rounds) == len(requests),
+          f"dp2tp2_server: admission rounds {rounds}")
+    check(sorted(map(tuple, srv["outputs"].values())) == sorted(map(tuple, answers)),
+          "dp2tp2_server: the engine's outputs are not the answers")
+    for r in res[1:]:
+        check(r["server"]["rounds"] == rounds and r["server"]["follow"]["steps"] > 0,
+              f"dp2tp2_server: rank {res.index(r)} followed {r['server'].get('follow')}")
+    srv_ties = []
+    for i, (pr, nb, _) in enumerate(requests):
+        check(len(answers[i]) == nb, f"dp2tp2_server request {i}: {len(answers[i])} tokens")
+        if i not in greedy:
+            continue
+        j = _first_difference(answers[i], twin_out[i])
+        if j is None:
+            continue
+        tie = near_tie(params, cfg, dev, pr + twin_out[i][:j], answers[i][j], twin_out[i][j])
+        print(f"  dp2tp2_server request {i}: token {j} is {answers[i][j]}, the one-card "
+              f"engine's {twin_out[i][j]}; {tie['ulps']:.2f} bf16 ulps below the top (near tie: "
+              f"{tie['logit_tie']})")
+        check(tie["logit_tie"], f"dp2tp2_server: request {i} differs from the one-card engine "
+                                f"at {j}, not at a near tie")
+        srv_ties.append(dict(request=i, token=j, ulps=tie["ulps"]))
+    counts = _sum_counts([r["server"] for r in res])
+    check_launches("dp2tp2_server", counts)
+    tokens = sum(nb for _, nb, _ in requests)
+    print(f"  dp2tp2_server over {r0['backend']}: rank 0's EngineServer, {world - 1} ranks "
+          f"following ({res[1]['server']['follow']['steps']} steps, "
+          f"{res[1]['server']['follow']['idle']} heartbeats); {len(requests)} requests over HTTP "
+          f"from {SERVE_THREADS} threads in {len(rounds)} admission rounds {rounds}; {tokens} "
+          f"tokens in {srv['wall_s']:.2f} s = {tokens / srv['wall_s']:.2f} tok/s (eager windows "
+          f"of {srv['window']}); greedy against the one-card engine: "
+          f"{len(greedy) - len(srv_ties)} equal, {len(srv_ties)} near ties")
+    paths["dp2tp2_server"] = dict(counts=counts, wall_s=srv["wall_s"],
+                                  tok_s=tokens / srv["wall_s"], rounds=rounds,
+                                  near_ties=srv_ties, collectives=srv["collectives"],
+                                  follow=res[1]["server"]["follow"])
+    # dp2tp2_spec_server: against dp2tp2_server's answers
+    run = r0["spec_server"]
+    spec_ties = []
+    for i in greedy:
+        got_i, want = run["outputs"][i], answers[i]
+        check(len(got_i) == requests[i][1], f"dp2tp2_spec_server request {i}: {len(got_i)} tokens")
+        j = _first_difference(got_i, want)
+        if j is None:
+            continue
+        tie = near_tie(params, cfg, dev, requests[i][0] + want[:j], got_i[j], want[j])
+        print(f"  dp2tp2_spec_server request {i}: token {j} is {got_i[j]}, dp2tp2_server's "
+              f"{want[j]}; {tie['ulps']:.2f} bf16 ulps below the top (near tie: "
+              f"{tie['logit_tie']})")
+        check(tie["logit_tie"], f"dp2tp2_spec_server: request {i} differs from dp2tp2_server at "
+                                f"{j}, not at a near tie")
+        spec_ties.append(dict(request=i, token=j, ulps=tie["ulps"]))
+    counts = _sum_counts([r["spec_server"] for r in res])
+    check_launches("dp2tp2_spec_server", counts)
+    check(run["spec_rounds"] > 0, "dp2tp2_spec_server ran no speculative round")
+    print(f"  dp2tp2_spec_server over {r0['backend']}: {len(requests)} requests, {tokens} tokens "
+          f"in {run['wall_s']:.2f} s = {tokens / run['wall_s']:.2f} tok/s; {run['spec_rounds']} "
+          f"rounds (the most over the data shards) committed {run['spec_tokens']} tokens "
+          f"({run['spec_tokens'] / run['spec_rounds']:.2f} a round, k = {SHARDED_SPEC_K}); "
+          f"greedy against dp2tp2_server: {len(greedy) - len(spec_ties)} equal, "
+          f"{len(spec_ties)} near ties")
+    paths["dp2tp2_spec_server"] = dict(counts=counts, wall_s=run["wall_s"],
+                                       tok_s=tokens / run["wall_s"], near_ties=spec_ties,
+                                       spec_rounds=run["spec_rounds"],
+                                       spec_tokens=run["spec_tokens"])
+    return paths
 
 
 def _int_sums(q) -> tuple:
@@ -5364,6 +5695,10 @@ def _sharded_llama(dev, work: str, backend: str) -> dict:
         paths[path] = dict(counts=counts, wall_s=run["wall_s"], tok_s=tokens / run["wall_s"],
                            near_ties=ties, collectives=run["collectives"],
                            spec_rounds=run["spec_rounds"], spec_tokens=run["spec_tokens"])
+    t0 = time.perf_counter()
+    paths.update(_dp_llama(dev, work, backend, art, cfg, params, prompt, gen, requests,
+                           twin_out))
+    print(f"  dp2tp2 paths: {time.perf_counter() - t0:.1f} s")
     del params, twin
     return paths
 
@@ -5469,7 +5804,8 @@ def _sharded_mixtral(dev, work: str, backend: str) -> dict:
 
 def sharded_phase(dev) -> dict:
     """tp2_generate, tp2_server, tp2_spec_server and mixtral_ep2 over
-    SHARDED_TP ranks (module docstring, 11.)."""
+    SHARDED_TP ranks, and the dp2tp2 paths over SHARDED_DP x SHARDED_TP
+    (module docstring, 11.)."""
     import tempfile
 
     import torch
@@ -5504,6 +5840,7 @@ def sharded_phase(dev) -> dict:
 # and the times model no NVLink deployment).
 PP_STAGES, PP_BATCH, PP_MICRO, PP_NEW = 2, 2, 2, 50
 PP_TP, PP_TP_LAYERS, PP_TP_NEW = 2, 4, 16
+PP_DP, PP_DP_LAYERS, PP_DP_NEW = 2, 8, 16  # pp2dp2_generate: b = PP_BATCH a data shard
 LONG_PRESET, LONG_SP, LONG_PROMPT, LONG_NEW = "mistral-7b", 2, 8192, 50
 PP_WARMUP, LONG_WARMUP = 64, 256  # an untimed first call of each rank, this many tokens
 PIPELINE_TIMEOUT_S = 600
@@ -5511,7 +5848,7 @@ _PP = ("w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", "flash_decode")
 # long_generate: the prefill's projections on the GEMM and its attention
 # ring attention (no kernel, as in the JAX package), then decode_loop under
 # mistral's window
-PATH_KERNELS.update({"pp2_generate": _PP, "pp2tp2_generate": _PP,
+PATH_KERNELS.update({"pp2_generate": _PP, "pp2tp2_generate": _PP, "pp2dp2_generate": _PP,
                      "long_generate": ("w8a16_gemm", "w8a16_gemv", "flash_decode",
                                        "flash_decode[window]")})
 
@@ -5591,8 +5928,9 @@ def _dev_int_sums(q) -> tuple:
     return int(v.sum()), int((v * v).sum())
 
 
-def _rank_pp(mesh, cfg, seeds, prompt, n: int, pp: int, tp: int) -> dict:
-    """A rank of pp2_generate / pp2tp2_generate: its stage of `_seeded_layers`
+def _rank_pp(mesh, cfg, seeds, prompt, n: int, pp: int, tp: int, dp: int = 1) -> dict:
+    """A rank of pp2_generate / pp2tp2_generate / pp2dp2_generate (the prompt
+    the global batch, a data shard's rows its own): its stage of `_seeded_layers`
     (shard_model_pp(quantize=True), layer by layer); an untimed first
     pp_prefill; then pp_prefill (timed, its logits) and pp_decode_loop from
     its argmax (timed), each with its collectives (`_pp_run`), and the same
@@ -5611,7 +5949,7 @@ def _rank_pp(mesh, cfg, seeds, prompt, n: int, pp: int, tp: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    pmesh = make_pp_mesh(pp, tp, device=mesh.device)
+    pmesh = make_pp_mesh(pp, tp, dp, device=mesh.device)
     dev = pmesh.device
     stub, layers = _seeded_layers(cfg, seeds, dev)
     model = shard_model_pp(stub, cfg, pmesh, quantize=True, layers=layers)
@@ -5638,7 +5976,8 @@ def _rank_pp(mesh, cfg, seeds, prompt, n: int, pp: int, tp: int) -> dict:
         t1 = time.perf_counter()
     ticks = (n - 1) * m + pp - 1
     return dict(backend=pmesh.backend, device=str(dev), stage=pmesh.pp_rank,
-                shard_index=pmesh.tp_rank, build_s=build_s, shard=shard, logits=run["logits"],
+                shard_index=pmesh.tp_rank, data_index=pmesh.dp_rank, build_s=build_s, shard=shard,
+                logits=run["logits"],
                 tokens=gen.cpu(), decode_tokens=run["tokens"], pre_collectives=run["pre"],
                 dec_collectives=run["dec"], prefill_ms=run["prefill_ms"],
                 tick_ms=run["decode_ms"] / ticks, ticks=ticks, generate_ms=1e3 * (t1 - t0),
@@ -5704,8 +6043,10 @@ def _tokens_or_tie(path: str, params, cfg, dev, prompt, got, want) -> list:
     return ties
 
 
-def _pp_path(dev, work: str, backend: str, path: str, cfg, seeds, n: int, pp: int, tp: int) -> dict:
-    """pp2_generate (tp 1) or pp2tp2_generate (pipeline_phase)."""
+def _pp_path(dev, work: str, backend: str, path: str, cfg, seeds, n: int, pp: int, tp: int,
+             dp: int = 1) -> dict:
+    """pp2_generate (tp 1), pp2tp2_generate or pp2dp2_generate (dp 2, b =
+    PP_BATCH a data shard) (pipeline_phase)."""
     import torch
 
     from eetq_tpu_torch.dist.launch import RankPool
@@ -5714,7 +6055,7 @@ def _pp_path(dev, work: str, backend: str, path: str, cfg, seeds, n: int, pp: in
     from eetq_tpu_torch.models.transformer import init_caches
     from eetq_tpu_torch.serve.generate import decode_loop, prefill
 
-    b, m, p, h = PP_BATCH, PP_MICRO, REQUESTS[0][1], cfg.hidden_size
+    b, m, p, h = PP_BATCH * dp, PP_MICRO, REQUESTS[0][1], cfg.hidden_size
     prompt = torch.randint(0, cfg.vocab_size, (b, p), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(seeds[0] + 2))
     t0 = time.perf_counter()
@@ -5728,12 +6069,13 @@ def _pp_path(dev, work: str, backend: str, path: str, cfg, seeds, n: int, pp: in
         del caches
     twin_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with RankPool(pp * tp, f"file://{os.path.join(work, 'rdv-' + path)}", backend=backend,
+    with RankPool(dp * pp * tp, f"file://{os.path.join(work, 'rdv-' + path)}", backend=backend,
                   timeout_s=PIPELINE_TIMEOUT_S) as pool:
-        res = pool.run(_rank_pp, cfg, seeds, prompt.cpu(), n, pp, tp)
+        res = pool.run(_rank_pp, cfg, seeds, prompt.cpu(), n, pp, tp, dp)
     ranks_s = time.perf_counter() - t0
     r0, lps = res[0], cfg.num_layers // pp
-    check([(r["stage"], r["shard_index"]) for r in res] == [(i // tp, i % tp) for i in range(pp * tp)],
+    check([(r["data_index"], r["stage"], r["shard_index"]) for r in res]
+          == [(i // (pp * tp), i // tp % pp, i % tp) for i in range(dp * pp * tp)],
           f"{path}: the ranks' places on the mesh")
     for r in res[1:]:
         check(torch.equal(r["logits"], r0["logits"]) and torch.equal(r["tokens"], r0["tokens"]),
@@ -5762,17 +6104,23 @@ def _pp_path(dev, work: str, backend: str, path: str, cfg, seeds, n: int, pp: in
     ties = _tokens_or_tie(path, twin, cfg, dev, prompt, r0["tokens"], ref_tokens)
     # the schedule's exchanges on a rank: a ppermute a tick in prefill, two a
     # tick (activations, token) in decode; the logits' and the tokens' sum
-    # over pipe; under tp, 2 model-axis all-reduces a layer a unit, no gather
+    # over pipe; under tp, 2 model-axis all-reduces a layer a unit, no vocab
+    # gather; under dp, a data shard's b / dp rows, and one gather over
+    # `data` of the logits and one of the tokens
     units_pre, units_dec, ticks = m, (n - 1) * m, (n - 1) * m + pp - 1
-    mbs = b // m
+    bl = b // dp
+    mbs = bl // m
     ar_pre = 2 * lps * units_pre if tp > 1 else 0
     ar_dec = 2 * lps * units_dec if tp > 1 else 0
     want_pre = {"ppermute_count": m + pp - 1, "ppermute": (m + pp - 1) * mbs * p * h * 2,
                 "all_reduce_count": 1 + ar_pre,
-                "all_reduce": b * cfg.vocab_size * 4 + ar_pre * mbs * p * h * 2}
+                "all_reduce": bl * cfg.vocab_size * 4 + ar_pre * mbs * p * h * 2}
     want_dec = {"ppermute_count": 2 * ticks, "ppermute": ticks * (mbs * h * 2 + mbs * 4),
                 "all_reduce_count": 1 + ar_dec,
                 "all_reduce": m * mbs * (n - 1) * 4 + ar_dec * mbs * h * 2}
+    if dp > 1:
+        want_pre.update(all_gather_count=1, all_gather=bl * cfg.vocab_size * 4)
+        want_dec.update(all_gather_count=1, all_gather=bl * n * 8)
     print(f"  {path}: a rank's exchanges in prefill {r0['pre_collectives']} (want {want_pre}); "
           f"in the decode ring's {ticks} ticks {r0['dec_collectives']} (want {want_dec})")
     for i, r in enumerate(res):
@@ -5788,7 +6136,8 @@ def _pp_path(dev, work: str, backend: str, path: str, cfg, seeds, n: int, pp: in
     counts = _sum_counts(res)
     check_launches(path, counts)
     gb = max(r["stage_gb"] for r in res)
-    print(f"  {path}: {cfg.num_layers} layers, pp={pp} x tp={tp} ranks over {r0['backend']} on "
+    print(f"  {path}: {cfg.num_layers} layers, dp={dp} x pp={pp} x tp={tp} ranks over "
+          f"{r0['backend']} on "
           f"{sorted(set(r['device'] for r in res))}, {lps} layers a stage ({gb:.2f} GB a rank); "
           f"b={b} in {m} microbatches, p={p}, {n} greedy tokens: prefill {r0['prefill_ms']:.2f} "
           f"ms, decode {r0['tick_ms']:.3f} ms a tick ({ticks} ticks, eager), pp_generate "
@@ -5800,7 +6149,7 @@ def _pp_path(dev, work: str, backend: str, path: str, cfg, seeds, n: int, pp: in
     return dict(counts=counts, prefill=pre, logits_bit_equal=bit_equal, near_ties=ties,
                 prefill_ms=r0["prefill_ms"], tick_ms=r0["tick_ms"], ticks=ticks,
                 generate_ms=r0["generate_ms"], exchanges_prefill=r0["pre_collectives"],
-                exchanges_decode=r0["dec_collectives"], backend=r0["backend"], pp=pp, tp=tp,
+                exchanges_decode=r0["dec_collectives"], backend=r0["backend"], pp=pp, tp=tp, dp=dp,
                 exchange_ms=[dict(r["exchange_ms"], run_ms=r["split_ms"]) for r in res],
                 layers=cfg.num_layers, stage_gb=gb)
 
@@ -5935,8 +6284,8 @@ def _long_path(dev, work: str, backend: str) -> dict:
 
 
 def pipeline_phase(dev) -> dict:
-    """pp2_generate, pp2tp2_generate and long_generate over ranks (module
-    docstring, 12.)."""
+    """pp2_generate, pp2tp2_generate, pp2dp2_generate and long_generate over
+    ranks (module docstring, 12.)."""
     import tempfile
 
     import torch
@@ -5963,6 +6312,14 @@ def pipeline_phase(dev) -> dict:
         paths["pp2tp2_generate"]["reduced"] = f"num_layers {cfg.num_layers} -> {PP_TP_LAYERS}"
         print(f"  pp2tp2_generate: {MODEL} cut to {PP_TP_LAYERS} layers of {cfg.num_layers} (the "
               "stage and split code is the same in every layer)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(cfg, num_layers=PP_DP_LAYERS)
+        paths["pp2dp2_generate"] = _pp_path(dev, work, choose_backend(PP_DP * PP_STAGES),
+                                            "pp2dp2_generate", cut, (SEED + 67, SEED + 68),
+                                            PP_DP_NEW, PP_STAGES, 1, PP_DP)
+        paths["pp2dp2_generate"]["reduced"] = f"num_layers {cfg.num_layers} -> {PP_DP_LAYERS}"
+        print(f"  pp2dp2_generate: {MODEL} cut to {PP_DP_LAYERS} layers of {cfg.num_layers}")
         gc.collect()
         torch.cuda.empty_cache()
         paths.update(_long_path(dev, work, choose_backend(LONG_SP)))

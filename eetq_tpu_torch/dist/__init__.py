@@ -1,9 +1,9 @@
 """Port of `eetq_tpu.dist`: tensor and expert parallelism across
 `torch.distributed` ranks (`sharding.py`), pipeline parallelism
 (`pipeline.py`), ring attention and sequence-parallel long-context prefill
-(`ring_attention.py`, `long_context.py`), joining the ranks (`multihost.py`)
-and spawning them on one machine (`launch.py`). Data parallelism (dp > 1,
-the hybrid mesh) is ROADMAP.md queue 1 item 3."""
+(`ring_attention.py`, `long_context.py`), data parallelism over a mesh's
+`data` axis (`make_mesh(tp, dp)`, `multihost.make_hybrid_mesh`), joining the
+ranks (`multihost.py`) and spawning them on one machine (`launch.py`)."""
 
 from eetq_tpu_torch.dist import multihost
 from eetq_tpu_torch.dist.long_context import generate_long, long_prefill

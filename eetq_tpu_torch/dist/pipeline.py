@@ -25,6 +25,10 @@ Schedules, as in the JAX package:
   It needs M >= pp: the token of unit u reaches stage 0 at tick u + pp, and
   the microbatch's next unit starts there at tick u + M.
 
+Under dp > 1 (`make_pp_mesh(pp, tp, dp)`) each data shard is a pipeline of
+its own over its rows of the batch (B / dp, then microbatched); the shards
+meet only to gather the logits and tokens over `data` at the end of a call.
+
 The embedding, the final norm and the dense lm_head are replicated on every
 stage (`shard_model_pp`): under pp x tp the head's logits need no vocab
 gather. The decode runs eagerly, tick by tick: a gloo exchange cannot be
@@ -38,7 +42,7 @@ import dataclasses
 import torch
 
 from eetq_tpu_torch.dist.sharding import (
-    _DP_NOT_PORTED,
+    DATA_AXIS,
     PIPE_AXIS,
     Mesh,
     make_mesh,
@@ -51,18 +55,16 @@ from eetq_tpu_torch.modules.linear import linear_apply
 from eetq_tpu_torch.ops.alibi import alibi_slopes_cache
 from eetq_tpu_torch.ops.rmsnorm import rmsnorm
 from eetq_tpu_torch.ops.rope import cos_sin_cache
-from eetq_tpu_torch.serve.sampling import rng_from, sample
+from eetq_tpu_torch.serve.sampling import fold_in, rng_from, sample
 
 
 def make_pp_mesh(pp: int, tp: int = 1, dp: int = 1,
                  device: torch.device | str | None = None) -> Mesh:
     """This rank's (data, pipe, model) mesh over the initialised process
     group, `model` innermost (`eetq_tpu/dist/pipeline.py:71-83`): the world
-    holds pp tp ranks, rank (p tp + t) being shard t of stage p. dp > 1 is
-    not ported."""
-    if dp != 1:
-        raise NotImplementedError(_DP_NOT_PORTED)
-    return make_mesh(tp=tp, pp=pp, device=device)
+    holds dp pp tp ranks, rank ((d pp + p) tp + t) being shard t of stage p
+    of data shard d."""
+    return make_mesh(tp=tp, dp=dp, pp=pp, device=device)
 
 
 @dataclasses.dataclass(eq=False)
@@ -126,13 +128,15 @@ def shard_model_pp(dense_params: ModelParams, cfg: ModelConfig, mesh: Mesh,
 
 def init_pp_caches(model: PipelinedModel, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> list[KVCache]:
-    """This stage's caches: one for each of its Lps layers (global layer
-    p Lps + j), holding the model axis' Hkv / tp kv heads, on the rank's
-    device (`eetq_tpu/dist/pipeline.py:260-279`)."""
+    """This stage's caches of a global batch: one for each of its Lps
+    layers (global layer p Lps + j), holding its data shard's batch / dp rows
+    of the model axis' Hkv / tp kv heads, on the rank's device
+    (`eetq_tpu/dist/pipeline.py:260-279`, spec (pipe, data, model))."""
     cfg, tp = model.cfg, model.tp
     if cfg.num_kv_heads % tp:
         raise ValueError(f"kv heads {cfg.num_kv_heads} not divisible by tp={tp}")
-    return [init_kv_cache(batch, max_len, cfg.num_kv_heads // tp, cfg.head_dim,
+    rows = model.mesh.data_rows(batch)
+    return [init_kv_cache(rows.stop - rows.start, max_len, cfg.num_kv_heads // tp, cfg.head_dim,
                           model.mesh.device, dtype)
             for _ in range(model.layers_per_stage)]
 
@@ -181,24 +185,30 @@ def _embed(model: PipelinedModel, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _check_pp_batch(b: int, m: int) -> None:
-    """The batch must divide into microbatches, with JAX's message
-    (`eetq_tpu/dist/pipeline.py:470-483`; the data axis is 1 here)."""
-    if b % m:
-        raise ValueError(f"per-shard batch {b} (global {b} / dp 1) not divisible by "
+def _check_pp_batch(model: PipelinedModel, b: int, m: int) -> None:
+    """The per-shard batch must divide into microbatches, with JAX's
+    messages (`eetq_tpu/dist/pipeline.py:470-483`): the global batch b over
+    dp data shards first, then each shard's b / dp rows over m."""
+    dp = model.mesh.dp
+    if b % dp:
+        raise ValueError(f"batch {b} not divisible by data shards {dp}")
+    if (b // dp) % m:
+        raise ValueError(f"per-shard batch {b // dp} (global {b} / dp {dp}) not divisible by "
                          f"microbatches {m}")
 
 
 @torch.inference_mode()
 def pp_prefill(model: PipelinedModel, tokens: torch.Tensor, caches: list[KVCache],
                microbatches: int = 1):
-    """GPipe-microbatched prefill of tokens [B, S] (module docstring); B
-    must divide by microbatches. Returns (last-token logits [B, V] f32, the
-    same on every rank; this stage's caches, written in place)."""
-    _check_pp_batch(tokens.shape[0], microbatches)
+    """GPipe-microbatched prefill of tokens [B, S] (module docstring), a data
+    shard its B / dp rows into its caches (`init_pp_caches`); B / dp must
+    divide by microbatches. Returns (last-token logits [B, V] f32, every
+    shard's rows gathered over `data`, the same on every rank; this stage's
+    caches, written in place)."""
+    _check_pp_batch(model, tokens.shape[0], microbatches)
     cfg, mesh, pp = model.cfg, model.mesh, model.pp
     dev = mesh.device
-    tokens = tokens.to(dev)
+    tokens = tokens[mesh.data_rows(tokens.shape[0])].to(dev)
     b, s = tokens.shape
     m, p = microbatches, mesh.pp_rank
     mbs = b // m
@@ -218,8 +228,9 @@ def pp_prefill(model: PipelinedModel, tokens: torch.Tensor, caches: list[KVCache
             x_out = torch.zeros_like(x_recv)
         if perm:
             x_recv = mesh.ppermute(x_out, PIPE_AXIS, perm)
-    # only the last stage wrote logits: the sum shares them with every stage
-    return mesh.all_reduce_(logits, PIPE_AXIS), caches
+    # only the last stage wrote logits: the sum shares them with every
+    # stage, the gather with every data shard
+    return mesh.gather_rows(mesh.all_reduce_(logits, PIPE_AXIS)), caches
 
 
 def _generator(generator: torch.Generator | None) -> torch.Generator:
@@ -235,26 +246,30 @@ def pp_decode_loop(model: PipelinedModel, first_token: torch.Tensor, start_pos: 
                    generator: torch.Generator | None = None):
     """The token-ring decode (module docstring; `eetq_tpu/dist/pipeline.py:
     491-643`): first_token [B] at position start_pos, num_steps tokens in
-    all. Returns (tokens [B, num_steps] int64, first_token included, the
-    same on every rank; this stage's caches, advanced in place).
-    microbatches defaults to pp and must be >= pp and divide B. Sampling
+    all, a data shard its B / dp rows. Returns (tokens [B, num_steps] int64,
+    first_token included, every shard's rows gathered over `data`, the same
+    on every rank; this stage's caches, advanced in place). microbatches
+    defaults to pp and must be >= pp and divide B / dp. Sampling
     (temperature > 0) draws on the last stage from one stream per
     microbatch (`serve/sampling.py`), seeded from `generator` (a generator
-    seeded 0 when None); every rank must pass alike seeded generators."""
+    seeded 0 when None) and folded by the data shard's index, as JAX folds
+    `axis_index(DATA_AXIS)` into its key (:579-586), so that the shards do
+    not draw the same noise; every rank must pass alike seeded generators."""
     cfg, mesh, pp = model.cfg, model.mesh, model.pp
     m = microbatches if microbatches is not None else pp
-    _check_pp_batch(first_token.shape[0], m)
+    _check_pp_batch(model, first_token.shape[0], m)
     if m < pp:
         raise ValueError(f"microbatches {m} must be >= pp {pp}")
     dev = mesh.device
-    first_token = first_token.to(dev)
+    first_token = first_token[mesh.data_rows(first_token.shape[0])].to(dev)
     b, h, p = first_token.shape[0], cfg.hidden_size, mesh.pp_rank
     mbs, steps = b // m, num_steps - 1
     is_first, is_last = p == 0, p == pp - 1
     rngs = None
     if temperature > 0:
         gen = _generator(generator)
-        rngs = [rng_from(gen, dev) for _ in range(m)]
+        data = mesh.axis_index(DATA_AXIS)
+        rngs = [fold_in(rng_from(gen, dev), data) for _ in range(m)]
     perm = [(i, (i + 1) % pp) for i in range(pp)]
     token_buf = first_token.to(torch.int32).reshape(m, mbs).clone()
     x_recv = torch.zeros((mbs, 1, h), dtype=torch.bfloat16, device=dev)
@@ -283,7 +298,7 @@ def pp_decode_loop(model: PipelinedModel, first_token: torch.Tensor, start_pos: 
     out_buf = mesh.all_reduce_(out_buf, PIPE_AXIS)  # only the last stage wrote
     toks = torch.cat([first_token.long()[:, None], out_buf.reshape(b, -1)[:, :steps].long()],
                      dim=1)
-    return toks, caches
+    return mesh.gather_rows(toks), caches
 
 
 def pp_generate(model: PipelinedModel, prompt: torch.Tensor, max_new_tokens: int,

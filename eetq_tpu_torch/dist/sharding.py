@@ -22,15 +22,21 @@ column shards own whole output channels, so their scales are the slices of
 the global ones; a row shard's scales cover its own K rows, which equals
 group-wise quantization with group = K / tp (`surgery/tp_reshard.py`).
 
-The mesh (`make_mesh`) is tp ranks of one data-parallel row, or pp stages
-of tp ranks (`make_mesh(pp=)`, `dist/pipeline.py::make_pp_mesh`), laid out
-as JAX's (data, pipe, model) mesh with `model` innermost; each axis has its
-process group, and `Mesh.tp_rank` is a rank's index on the model axis (its
-shard). dp > 1 and the hybrid mesh are ROADMAP.md queue 1 item 3. Its
-backend is the process group's: NCCL on `cuda:rank` when every rank has a
-card, gloo where ranks share one card or run on the CPU (a gloo collective
-or exchange on a CUDA tensor is staged through the host here, so a sharded
-step cannot be captured into a CUDA graph and runs eagerly). Every
+The mesh (`make_mesh(tp, dp, pp=)`, `dist/pipeline.py::make_pp_mesh`,
+`dist/multihost.py::make_hybrid_mesh`) is dp data shards of pp stages of tp
+ranks, laid out as JAX's (data, pipe, model) mesh with `model` innermost;
+each axis has its process group, and `Mesh.tp_rank` is a rank's index on
+the model axis (its shard). A data shard's ranks hold the same weights and
+run their own rows of the batch: rows [d B / dp, (d + 1) B / dp) of a global
+batch B (`Mesh.data_rows`), their KV caches B / dp rows
+(`ShardedModel.init_caches`); the collectives of a forward stay on the model
+axis, and what every rank needs of the other shards' rows is gathered over
+`data` outside the forward (`Mesh.gather_rows`, JAX's `process_allgather`
+of a data-sharded result). Its backend is the process group's: NCCL on
+`cuda:rank` when every rank has a card, gloo where ranks share one card or
+run on the CPU (a gloo collective or exchange on a CUDA tensor is staged
+through the host here, so a sharded step cannot be captured into a CUDA
+graph and runs eagerly). Every
 collective counts its calls and the bytes of its input
 (`collective_counts`; `utils/profiling.py::count_collectives` reads them):
 "all_reduce" (JAX's psum), "all_gather" and "ppermute" (`Mesh.ppermute`,
@@ -49,10 +55,7 @@ from eetq_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
-_DP_NOT_PORTED = ("dp > 1 (data parallelism and the hybrid mesh) is not ported yet: "
-                  "ROADMAP.md queue 1 item 3 (make_hybrid_mesh, the data axis)")
-
-MODEL_AXIS, PIPE_AXIS = "model", "pipe"
+DATA_AXIS, MODEL_AXIS, PIPE_AXIS = "data", "model", "pipe"
 
 _COUNTS: dict[str, int] = {}
 
@@ -77,10 +80,10 @@ def _count(op: str, x: torch.Tensor) -> None:
 class Mesh:
     """This rank's place in a (data, pipe, model) mesh of the process group,
     laid out as JAX's `devices.reshape(dp, pp, tp)` with `model` innermost:
-    global rank = (d pp + p) tp + t. It holds the axis sizes (dp = 1), this
-    rank's global index, its device, the backend and a process group for
-    each axis of more than one rank (None: the default group, where the
-    axis spans the world). `make_mesh(tp)` is the mesh of tp ranks, pp 1."""
+    global rank = (d pp + p) tp + t. It holds the axis sizes, this rank's
+    global index, its device, the backend and a process group for each axis
+    of more than one rank (None: the default group, where the axis spans the
+    world). `make_mesh(tp)` is the mesh of tp ranks, dp = pp = 1."""
 
     tp: int
     rank: int
@@ -88,7 +91,9 @@ class Mesh:
     backend: str | None = None
     pp: int = 1
     model_group: object = None  # dist.ProcessGroup of this rank's model axis
-    pipe_group: object = None  # ... and of its pipe axis
+    pipe_group: object = None  # ... of its pipe axis
+    dp: int = 1
+    data_group: object = None  # ... and of its data axis
 
     @property
     def tp_rank(self) -> int:
@@ -100,38 +105,62 @@ class Mesh:
         """This rank's index on the pipe axis (its stage)."""
         return self.rank // self.tp % self.pp
 
+    @property
+    def dp_rank(self) -> int:
+        """This rank's index on the data axis (its rows of the batch)."""
+        return self.rank // (self.tp * self.pp)
+
     def axis_size(self, axis: str) -> int:
-        return {MODEL_AXIS: self.tp, PIPE_AXIS: self.pp}[axis]
+        return {MODEL_AXIS: self.tp, PIPE_AXIS: self.pp, DATA_AXIS: self.dp}[axis]
 
     def axis_index(self, axis: str) -> int:
-        return {MODEL_AXIS: self.tp_rank, PIPE_AXIS: self.pp_rank}[axis]
+        return {MODEL_AXIS: self.tp_rank, PIPE_AXIS: self.pp_rank, DATA_AXIS: self.dp_rank}[axis]
 
     def _group(self, axis: str):
-        return {MODEL_AXIS: self.model_group, PIPE_AXIS: self.pipe_group}[axis]
+        return {MODEL_AXIS: self.model_group, PIPE_AXIS: self.pipe_group,
+                DATA_AXIS: self.data_group}[axis]
 
     def global_rank(self, axis: str, index: int) -> int:
         """The global rank at `index` on `axis`, this rank's other indices kept."""
-        step = 1 if axis == MODEL_AXIS else self.tp
+        step = {MODEL_AXIS: 1, PIPE_AXIS: self.tp, DATA_AXIS: self.tp * self.pp}[axis]
         return self.rank + (index - self.axis_index(axis)) * step
+
+    def data_rows(self, batch: int) -> slice:
+        """This data shard's rows of a global batch: [d b, (d + 1) b), b =
+        batch / dp. Raises where dp does not divide the batch (JAX's
+        sharding of a batch over `data` refuses it too)."""
+        if batch % self.dp:
+            raise ValueError(f"batch {batch} not divisible by data shards {self.dp}")
+        b = batch // self.dp
+        return slice(self.dp_rank * b, (self.dp_rank + 1) * b)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The data shards' x side by side on dim 0, in shard order: a
+        data-sharded result made whole on every rank (JAX's
+        `process_allgather(x, tiled=True)`); counted as an all_gather."""
+        return self.all_gather(x, 0, DATA_AXIS)
 
     def _staged(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.is_cuda
 
-    def all_reduce_(self, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
-        """The sum of x over the ranks of `axis` (the model axis: JAX's psum
-        over `model`), in x's dtype (bf16 partials summed in bf16, as the JAX
-        psum), in place where x is contiguous; returns it."""
+    def all_reduce_(self, x: torch.Tensor, axis: str = MODEL_AXIS,
+                    op: str = "sum") -> torch.Tensor:
+        """The sum (op "sum"; or the "max") of x over the ranks of `axis`
+        (the model axis: JAX's psum over `model`), in x's dtype (bf16
+        partials summed in bf16, as the JAX psum), in place where x is
+        contiguous; returns it."""
         if self.axis_size(axis) == 1:
             return x
         x = x.contiguous()
         _count("all_reduce", x)
         group = self._group(axis)
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         if self._staged(x):
             host = x.cpu()
-            dist.all_reduce(host, group=group)
+            dist.all_reduce(host, op=red, group=group)
             x.copy_(host)
         else:
-            dist.all_reduce(x, group=group)
+            dist.all_reduce(x, op=red, group=group)
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int, axis: str = MODEL_AXIS,
@@ -197,23 +226,24 @@ def make_mesh(tp: int | None = None, dp: int = 1, device: torch.device | str | N
               pp: int = 1) -> Mesh:
     """This rank's mesh over the initialised process group
     (`dist.multihost.initialize`), or a mesh of one rank where there is
-    none: pp stages of tp ranks (`dist/pipeline.py::make_pp_mesh`), model
-    innermost. tp defaults to the world size over pp, and pp tp must equal
-    the world size. Every rank makes every axis group, in one order
-    (`dist.new_group` is collective over the world, even for the groups a
-    rank is not in); an axis of one rank has none, one that spans the world
-    the default group. device: this rank's, by default `cuda:rank` over the
-    machine's cards (ranks share a card where there are fewer cards than
-    ranks); the CPU where asked."""
-    if dp != 1:
-        raise NotImplementedError(_DP_NOT_PORTED)
+    none: dp data shards of pp stages of tp ranks
+    (`eetq_tpu/dist/sharding.py:52-60`, `dist/pipeline.py::make_pp_mesh`),
+    model innermost. tp defaults to the world size over dp pp, and dp pp tp
+    must equal the world size. Every rank makes every axis group, in one
+    order (model, pipe, data; `dist.new_group` is collective over the world,
+    even for the groups a rank is not in); an axis of one rank has none, one
+    that spans the world the default group. device: this rank's, by default
+    `cuda:rank` over the machine's cards (ranks share a card where there are
+    fewer cards than ranks); the CPU where asked."""
     up = dist.is_available() and dist.is_initialized()
     world, rank = (dist.get_world_size(), dist.get_rank()) if up else (1, 0)
-    tp = world // pp if tp is None else int(tp)
-    if pp == 1 and tp != world:
-        raise ValueError(f"tp={tp} must equal the world size {world} (dp = 1)")
-    if pp * tp != world:
-        raise ValueError(f"pp={pp} x tp={tp} must equal the world size {world} (dp = 1)")
+    dp, pp = int(dp), int(pp)
+    tp = world // (dp * pp) if tp is None else int(tp)
+    if min(dp, pp, tp) < 1 or dp * pp * tp != world:
+        raise ValueError(f"dp={dp} x pp={pp} x tp={tp} must equal the world size {world}")
+
+    def at(d: int, p: int, t: int) -> int:
+        return (d * pp + p) * tp + t
 
     def axis_group(members: list[list[int]]):
         mine = None
@@ -223,8 +253,12 @@ def make_mesh(tp: int | None = None, dp: int = 1, device: torch.device | str | N
                 mine = group if rank in ranks else mine
         return mine
 
-    model_group = axis_group([[p * tp + t for t in range(tp)] for p in range(pp)])
-    pipe_group = axis_group([[p * tp + t for p in range(pp)] for t in range(tp)])
+    model_group = axis_group([[at(d, p, t) for t in range(tp)]
+                              for d in range(dp) for p in range(pp)])
+    pipe_group = axis_group([[at(d, p, t) for p in range(pp)]
+                             for d in range(dp) for t in range(tp)])
+    data_group = axis_group([[at(d, p, t) for d in range(dp)]
+                             for p in range(pp) for t in range(tp)])
     if device is None:
         device = torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
     device = torch.device(device)
@@ -232,9 +266,10 @@ def make_mesh(tp: int | None = None, dp: int = 1, device: torch.device | str | N
     if backend == "nccl":
         torch.cuda.set_device(device)
     mesh = Mesh(tp=tp, rank=rank, device=device, backend=backend, pp=pp,
-                model_group=model_group, pipe_group=pipe_group)
-    log.info("mesh: rank %d (stage %d of pp %d, shard %d of tp %d) on %s, collectives over %s",
-             rank, mesh.pp_rank, pp, mesh.tp_rank, tp, device, backend or "none")
+                model_group=model_group, pipe_group=pipe_group, dp=dp, data_group=data_group)
+    log.info("mesh: rank %d (data shard %d of dp %d, stage %d of pp %d, shard %d of tp %d) on "
+             "%s, collectives over %s", rank, mesh.dp_rank, dp, mesh.pp_rank, pp, mesh.tp_rank,
+             tp, device, backend or "none")
     return mesh
 
 
@@ -298,11 +333,13 @@ class ShardedModel:
         return self.mesh.tp
 
     def init_caches(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16):
-        """This rank's KV caches: its kv heads, on its device."""
+        """This rank's KV caches of a global batch: its data shard's batch / dp
+        rows of its kv heads, on its device (JAX's cache spec (data, model))."""
         from eetq_tpu_torch.models.transformer import init_caches
 
-        return init_caches(cache_spec(self.cfg, self.mesh), batch, max_len, self.mesh.device,
-                           dtype)
+        rows = self.mesh.data_rows(batch)
+        return init_caches(cache_spec(self.cfg, self.mesh), rows.stop - rows.start, max_len,
+                           self.mesh.device, dtype)
 
 
 def cache_spec(cfg: ModelConfig, mesh: Mesh) -> ModelConfig:
@@ -401,16 +438,29 @@ def shard_model(dense_params, cfg: ModelConfig, mesh: Mesh, quantize: bool = Tru
 
 def make_forward_fn(model: ShardedModel):
     """fwd(params, tokens, positions, caches, offset, **kw) -> (logits,
-    caches): the sharded decoder with its collectives, logits [B, S, V] f32
-    of the whole vocabulary, equal on every rank
-    (`eetq_tpu/dist/sharding.py:426-476`). offset is an int or [B], each
-    row's cache position (JAX's per_row_offset); kw are `forward_inner`'s
-    (last_pos [B]: each row's position gathered before the lm_head, so the
-    head and its vocab gather see one row a sequence, JAX's last_pos)."""
+    caches): the sharded decoder with its collectives
+    (`eetq_tpu/dist/sharding.py:426-476`). tokens and positions [B, S] are
+    the global batch, given alike to every rank; a data shard runs its rows
+    (`Mesh.data_rows`) over its caches (`ShardedModel.init_caches`), and its
+    logits [B / dp, S, V] f32 are those rows' over the whole vocabulary,
+    equal on the shard's ranks (`Mesh.gather_rows` gathers all B). offset is
+    an int or [B], each row's cache position (JAX's per_row_offset); kw are
+    `forward_inner`'s, a [B] tensor among them (last_pos: each row's position
+    gathered before the lm_head, so the head and its vocab gather see one
+    row a sequence, JAX's last_pos) cut to the shard's rows too."""
     from eetq_tpu_torch.models.transformer import forward_inner
 
+    mesh = model.mesh
+
     def fwd(params, tokens, positions, caches, offset, **kw):
+        rows = mesh.data_rows(tokens.shape[0])
+        if mesh.dp > 1:
+            tokens, positions = tokens[rows], positions[rows]
+            if isinstance(offset, torch.Tensor) and offset.dim():
+                offset = offset[rows]
+            kw = {k: v[rows] if isinstance(v, torch.Tensor) and v.dim() else v
+                  for k, v in kw.items()}
         return forward_inner(params, model.cfg, tokens, positions, caches, offset,
-                             mesh=model.mesh, **kw)
+                             mesh=mesh, **kw)
 
     return fwd

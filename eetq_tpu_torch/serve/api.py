@@ -28,6 +28,21 @@ stream), so all engine access (admission, stepping, polling) serializes
 under one condition variable. The scheduler thread steps the engine while
 it has work and sleeps otherwise; request handlers enqueue under the lock
 and wait on the condition for their tokens.
+
+Over the ranks of a sharded engine (`Engine(model)` of a
+`dist.sharding.ShardedModel` in a world of more than one rank), rank 0 runs
+this server and every other rank runs `follow(engine)`, which serves no
+HTTP. Each rank's engine must see the same requests in the same order
+before the same steps (the contract of the sharded engine), so rank 0
+records each admission's arguments when a handler adds it (a text prompt
+encoded first) and, before each `engine.step()`, broadcasts the admissions
+made since the last step with the command "step" over a gloo control group
+(`dist.multihost.control_group`, gloo whatever the data backend); the
+followers add the same requests, check that their uids are rank 0's, and
+step. While idle, rank 0 sends "idle" every `heartbeat_s` seconds, so that
+no follower waits past the process group's timeout
+(`multihost.DEFAULT_TIMEOUT_S`); `shutdown()` sends "stop", and each
+`follow` returns.
 """
 
 from __future__ import annotations
@@ -37,9 +52,46 @@ import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import torch.distributed as dist
+
 from eetq_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+# a broadcast's commands to the followers
+STEP, IDLE, STOP = "step", "idle", "stop"
+HEARTBEAT_S = 30.0
+
+
+def _over_ranks(engine) -> bool:
+    """Whether the engine is a sharded one in a world of more than one rank."""
+    return (getattr(engine, "mesh", None) is not None and dist.is_available()
+            and dist.is_initialized() and dist.get_world_size() > 1)
+
+
+def follow(engine) -> dict:
+    """A follower rank's loop beside rank 0's `EngineServer` over the same
+    sharded engine (module docstring): receive each broadcast, add its
+    admissions in order (their uids must be rank 0's), and step on "step";
+    return on "stop". Returns {"steps": n, "idle": heartbeats received}."""
+    from eetq_tpu_torch.dist.multihost import control_group
+
+    if not _over_ranks(engine) or dist.get_rank() == 0:
+        raise ValueError("follow(engine) runs on the ranks other than 0 of a sharded engine")
+    group, seen = control_group(), {STEP: 0, IDLE: 0}
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0, group=group)
+        cmd, admissions = msg[0]
+        for uid, prompt, kwargs in admissions:
+            got = engine.add_request(prompt, **kwargs)
+            if got != uid:
+                raise RuntimeError(f"rank {dist.get_rank()}: admission {got}, rank 0's {uid}")
+        if cmd == STOP:
+            return {"steps": seen[STEP], "idle": seen[IDLE]}
+        seen[cmd] += 1
+        if cmd == STEP:
+            engine.step()
 
 
 def _stream_delta(prev_text: str, text: str, done: bool):
@@ -76,9 +128,20 @@ class EngineServer:
     """
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 8000, detokenize=None,
-                 tokenizer=None):
+                 tokenizer=None, heartbeat_s: float = HEARTBEAT_S):
         self.engine = engine
         self.tokenizer = tokenizer
+        # over ranks: the control group, and the admissions not yet broadcast
+        self._ranks = _over_ranks(engine)
+        if self._ranks:
+            from eetq_tpu_torch.dist.multihost import control_group
+
+            if dist.get_rank() != 0:
+                raise ValueError("EngineServer runs on rank 0 of a sharded engine; the other "
+                                 "ranks call serve.api.follow(engine)")
+            self._group = control_group()
+        self.heartbeat_s = float(heartbeat_s)
+        self._pending: list = []
         if detokenize is None and tokenizer is not None:
             detokenize = tokenizer.decode
         self.detokenize = detokenize
@@ -138,7 +201,7 @@ class EngineServer:
                 stream = bool(req.get("stream", False))
                 try:
                     with outer.cond:
-                        uid = outer.engine.add_request(prompt, **kwargs)
+                        uid = outer._admit(prompt, kwargs)
                         outer.cond.notify_all()  # wake the scheduler
                 except ValueError as e:  # over max_len, bad top_k or lora_id, ...
                     return self._json(400, {"error": str(e)})
@@ -206,14 +269,33 @@ class EngineServer:
 
     # ---- scheduler ----
 
+    def _admit(self, prompt, kwargs: dict) -> int:
+        """Add a request to the engine (under the lock); over ranks, record
+        its arguments for the next broadcast."""
+        uid = self.engine.add_request(prompt, **kwargs)
+        if self._ranks:
+            self._pending.append((uid, list(self.engine.requests[uid].prompt), dict(kwargs)))
+        return uid
+
+    def _broadcast(self, cmd: str) -> None:
+        """Send the followers `cmd` and the admissions since the last send."""
+        dist.broadcast_object_list([(cmd, self._pending)], src=0, group=self._group)
+        self._pending = []
+
     def _schedule(self) -> None:
         while True:
             with self.cond:
                 self.cond.wait_for(
-                    lambda: self._stop or self.engine.has_work
+                    lambda: self._stop or self.engine.has_work,
+                    timeout=self.heartbeat_s if self._ranks else None,
                 )
+                if self._ranks:
+                    self._broadcast(STOP if self._stop
+                                    else STEP if self.engine.has_work else IDLE)
                 if self._stop:
                     return
+                if not self.engine.has_work:  # a heartbeat
+                    continue
                 self.engine.step()  # commits tokens -> wake pollers
                 self.cond.notify_all()
 
@@ -238,9 +320,10 @@ class EngineServer:
             self.shutdown()
 
     def shutdown(self) -> None:
+        """Stop serving; over ranks the followers' `follow` returns."""
         with self.cond:
             self._stop = True
             self.cond.notify_all()
         self._httpd.shutdown()
         if self._sched is not None:
-            self._sched.join(timeout=10)
+            self._sched.join(timeout=10 + (self.heartbeat_s if self._ranks else 0))

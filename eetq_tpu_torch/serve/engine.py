@@ -86,14 +86,25 @@ writes in place, so the captured graphs never read a rebound tensor.
 The sharded backend (engine.py:234-416, 664-680): `Engine(model)` with a
 `dist.sharding.ShardedModel` and no cfg runs the same scheduler in SPMD on
 every rank of the model's mesh. Each rank holds its shard and the KV cache
-of its kv heads; its forwards all-reduce and gather (`dist/sharding.py`),
-so every rank sees the same whole-vocabulary logits and, given the same
-requests in the same order and the same seed, samples the same tokens and
-keeps the same host state (the contract of engine.py:263-271). Its defaults
-are a bf16 cache and W8A16 prefill on any device, and it refuses what the
-JAX package refuses there: a8 prefill, an int8 cache, banked LoRA, a paged
-cache and prefill chunks. Its decode and spec windows run eagerly: a
-collective staged through the host cannot be captured into a CUDA graph.
+of its kv heads; its forwards all-reduce and gather over the model axis
+(`dist/sharding.py`). Under dp > 1 the slots are sharded over `data`: a
+rank holds the max_batch / dp slots of its data shard (`_rows`), an
+admission round takes up to dp requests, scratch row i going only into a
+slot of shard i (`_slots_for_row`), each shard prefilling and inserting its
+own row, and the decode and spec windows run on the shard's own rows; at
+each host fetch the shards' sampled tokens are gathered over `data`, so
+every rank keeps the same host state over all max_batch slots (the
+contract of engine.py:263-271). A data shard that admitted nothing or has
+no busy slot still takes part in every gather of the step. Spec windows
+may run different numbers of rounds in different shards; `spec_rounds`
+adds the most of them. Its sampler is positional (`serve/sampling.py`:
+each token drawn from (seed, request uid, emission index)), so a sampled
+request's tokens depend on neither its slot nor the mesh, and equal the
+spec windows' draws. Its defaults are a bf16 cache and W8A16 prefill on any
+device, and it refuses what the JAX package refuses there: a8 prefill, an
+int8 cache, banked LoRA, a paged cache and prefill chunks. Its decode and
+spec windows run eagerly: a collective staged through the host cannot be
+captured into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -105,13 +116,13 @@ from collections import deque
 import numpy as np
 import torch
 
-from eetq_tpu_torch.dist.sharding import ShardedModel, cache_spec
+from eetq_tpu_torch.dist.sharding import DATA_AXIS, ShardedModel, cache_spec
 from eetq_tpu_torch.models.config import ModelConfig
 from eetq_tpu_torch.models.transformer import ModelParams, forward_inner, init_caches
 from eetq_tpu_torch.modules.linear import QuantLinear
 from eetq_tpu_torch.modules.paged import init_paged_kv_cache, paged_insert_dense, paged_insert_rows
 from eetq_tpu_torch.serve.graph import StepGraph
-from eetq_tpu_torch.serve.sampling import row_keys, rng_state, sample_rows
+from eetq_tpu_torch.serve.sampling import row_keys, rng_state, sample_pos_rows, sample_rows
 from eetq_tpu_torch.serve.spec import NgramWindow
 from eetq_tpu_torch.utils.logging import get_logger
 
@@ -208,10 +219,22 @@ class Engine:
         # between host fetches; step()'s chaining rules)
         self.max_chain = max(1, int(max_chain))
         self.a8_prefill = bool(a8_prefill)
-        self.prefill_rows = 1 if prefill_rows is None else max(1, min(prefill_rows, max_batch))
+        # under a mesh the admission rows are fixed at dp, one a data shard
+        self.dp = 1 if self.mesh is None else self.mesh.dp
+        if self.mesh is not None:
+            self.prefill_rows = self.dp
+        else:
+            self.prefill_rows = 1 if prefill_rows is None else max(1, min(prefill_rows,
+                                                                          max_batch))
         if max_batch % self.prefill_rows:
-            raise ValueError(f"max_batch {max_batch} must divide by prefill_rows "
+            raise ValueError(f"max_batch {max_batch} must divide by "
+                             f"{'dp' if self.mesh is not None else 'prefill_rows'} "
                              f"{self.prefill_rows}")
+        # this rank's slots (its data shard's) and scratch rows
+        bl, d = max_batch // self.dp, 0 if self.mesh is None else self.mesh.dp_rank
+        self._rows = slice(d * bl, (d + 1) * bl)
+        lr = self.prefill_rows // self.dp
+        self._scratch_rows = range(d * lr, (d + 1) * lr)
         self.params = params
         self.cfg = cfg
         # the caches hold this rank's kv heads under a mesh
@@ -227,7 +250,7 @@ class Engine:
         self._n_adapters = bank.lora_a.shape[0] if bank is not None else 0
         self.lora_ids = np.zeros((max_batch,), np.int64)
         # the slots' ids as the programs read them: one buffer, written in place
-        self._lora_ids = (torch.zeros((max_batch,), dtype=torch.int64, device=self.device)
+        self._lora_ids = (torch.zeros((bl,), dtype=torch.int64, device=self.device)
                           if self._lora_banked else None)
         self.max_batch = max_batch
         self.max_len = min(max_len, cfg.max_position)
@@ -266,8 +289,7 @@ class Engine:
             self._free_blocks = list(range(paged_blocks - 1, 0, -1))
             self._slot_blocks: list[list[int]] = [[] for _ in range(max_batch)]
         else:
-            self.caches = init_caches(self._cache_cfg, max_batch, self._kv_len, self.device,
-                                      kv_dtype)
+            self.caches = init_caches(self._cache_cfg, bl, self._kv_len, self.device, kv_dtype)
         self._scratch = None  # reused prefill scratch caches
         self._scratch_len = 0
         # prompts whose bucket is larger than and a multiple of this prefill
@@ -277,10 +299,12 @@ class Engine:
         self._chunking: tuple | None = None
         self.topk_cap = int(topk_cap)
         self._rng = rng_state(seed, self.device)
-        # the decode programs' static inputs: next token, length and top-k of
-        # every slot (one upload a step), and the temperatures
-        self._state = torch.zeros((3, max_batch), dtype=torch.int64, device=self.device)
-        self._temps = torch.zeros((max_batch,), dtype=torch.float32, device=self.device)
+        # the decode programs' static inputs: next token, length, top-k and,
+        # for the positional sampler of a mesh, the request's key and the
+        # emission index of every slot of the rank (one upload a step), and
+        # the temperatures
+        self._state = torch.zeros((5, bl), dtype=torch.int64, device=self.device)
+        self._temps = torch.zeros((bl,), dtype=torch.float32, device=self.device)
         self._programs: dict[tuple[int, bool], tuple[StepGraph, torch.Tensor]] = {}
         # the speculative windows' programs, by (window, sampled); their
         # sampler keys each request's draws by (seed, uid) and emission index
@@ -399,8 +423,9 @@ class Engine:
         for window in sorted({1, self.decode_window}):
             if self._spec_window(window, sample):
                 prog = self._spec_program(window, sample)
-                prog.load(np.zeros(prog.hist.shape, np.int64), np.full(self.max_batch, 2),
-                          np.zeros(self.max_batch, np.int64), np.ones(self.max_batch, np.int64))
+                bl = prog.hist.shape[0]
+                prog.load(np.zeros(prog.hist.shape, np.int64), np.full(bl, 2),
+                          np.zeros(bl, np.int64), np.ones(bl, np.int64))
                 prog.graph.prepare()
             else:
                 self._program(window, sample)[0].prepare()
@@ -423,6 +448,25 @@ class Engine:
                 return i
         return None
 
+    def _slots_for_row(self, row: int) -> range:
+        """The slots scratch row `row` may go into: under a mesh its own data
+        shard's (engine.py:337-341, each shard inserts its own row), else
+        any."""
+        if self.mesh is None:
+            return range(self.max_batch)
+        size = self.max_batch // self.dp
+        return range(row * size, (row + 1) * size)
+
+    def _keys(self, uids) -> torch.Tensor:
+        """The positional sampler's key of each request uid (the spec
+        windows' keys too)."""
+        return row_keys(self._spec_seed, torch.as_tensor(np.asarray(uids, np.int64)))
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data shard's rows of a result, side by side (a fetch's
+        gather over `data`); x itself where dp = 1."""
+        return x if self.dp == 1 else self.mesh.gather_rows(x)
+
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
             if n <= b:
@@ -436,7 +480,7 @@ class Engine:
         if self._scratch is not None and self._scratch_len >= need:
             return
         size = max(self.buckets) if need <= max(self.buckets) else self.max_len
-        self._scratch = init_caches(self._cache_cfg, self.prefill_rows, size, self.device,
+        self._scratch = init_caches(self._cache_cfg, len(self._scratch_rows), size, self.device,
                                     self.kv_dtype)
         self._scratch_len = size
 
@@ -465,7 +509,7 @@ class Engine:
         """The slot's adapter id, on the host and in the programs' buffer."""
         self.lora_ids[slot] = lora_id
         if self._lora_banked:
-            self._lora_ids.copy_(torch.from_numpy(self.lora_ids))
+            self._lora_ids.copy_(torch.from_numpy(self.lora_ids[self._rows]))
 
     def _sync_tables(self) -> None:
         """Bring the device table up to date: one copy for all layers."""
@@ -481,7 +525,9 @@ class Engine:
         first tokens. assignments: (scratch_row, slot, request). A paged
         engine grants each request's blocks and syncs the table first, then
         scatters every scratch row, cut into blocks, into the pool (rows pad
-        their block list with the trash block)."""
+        their block list with the trash block). Under dp > 1 a rank runs its
+        data shard's scratch row (none where that row is empty), inserts it
+        into its own slot, and the first tokens are gathered over `data`."""
         rows = self.prefill_rows
         bucket = max(self._bucket_for(len(r.prompt)) for _, _, r in assignments)
         toks = np.zeros((rows, bucket), np.int64)
@@ -504,17 +550,33 @@ class Engine:
                 self._alloc_blocks(slot, len(req.prompt))
             self._sync_tables()
         dev = self.device
-        tokens = torch.as_tensor(toks, device=dev)
-        positions = torch.arange(bucket, device=dev).expand(rows, bucket)
-        logits, _ = forward_inner(
-            self.params, self.cfg, tokens, positions, self._scratch, 0, a8=self.a8_prefill,
-            last_pos=torch.as_tensor(lens - 1, device=dev),
-            lora_idx=torch.as_tensor(lids, device=dev) if self._lora_banked else None,
-            mesh=self.mesh,
-        )
-        first = sample_rows(logits[:, -1, :], torch.as_tensor(temps, device=dev),
-                            torch.as_tensor(topks, device=dev),
-                            self.topk_cap if temps.any() else 0, self._rng)
+        mine = self._scratch_rows
+        local = [(row - mine.start, slot - self._rows.start, req)
+                 for row, slot, req in assignments if row in mine]
+        sl = slice(mine.start, mine.stop)
+        if not local:  # this data shard admits nothing: it joins the gather
+            first = torch.zeros((len(mine),), dtype=torch.int64, device=dev)
+        else:
+            tokens = torch.as_tensor(toks[sl], device=dev)
+            positions = torch.arange(bucket, device=dev).expand(len(mine), bucket)
+            logits, _ = forward_inner(
+                self.params, self.cfg, tokens, positions, self._scratch, 0, a8=self.a8_prefill,
+                last_pos=torch.as_tensor(lens[sl] - 1, device=dev),
+                lora_idx=torch.as_tensor(lids[sl], device=dev) if self._lora_banked else None,
+                mesh=self.mesh,
+            )
+            temps_t = torch.as_tensor(temps[sl], device=dev)
+            topks_t = torch.as_tensor(topks[sl], device=dev)
+            cap = self.topk_cap if temps.any() else 0
+            if self.mesh is None:
+                first = sample_rows(logits[:, -1, :], temps_t, topks_t, cap, self._rng)
+            else:  # emission 0 of each request, by its key
+                uids = np.zeros((rows,), np.int64)
+                for row, _, req in assignments:
+                    uids[row] = req.uid
+                first = sample_pos_rows(logits[:, -1:, :], torch.zeros_like(topks_t)[:, None],
+                                        self._keys(uids[sl]).to(dev), temps_t, topks_t,
+                                        cap)[:, 0]
         if self.paged:
             nb = min(-(-upto // self.paged_bs), self._max_seq_blocks)
             blocks_np = np.zeros((rows, nb), np.int64)
@@ -524,11 +586,10 @@ class Engine:
             blocks = torch.as_tensor(blocks_np, device=dev)
             for pool, small in zip(self.caches, self._scratch):
                 paged_insert_rows(pool, small, blocks)
-        else:
-            self._insert_scratch(
-                torch.as_tensor([row for row, _, _ in assignments], device=dev),
-                torch.as_tensor([slot for _, slot, _ in assignments], device=dev), upto)
-        first_np = first.cpu().numpy()  # the admission's one host fetch
+        elif local:
+            self._insert_scratch(torch.as_tensor([row for row, _, _ in local], device=dev),
+                                 torch.as_tensor([slot for _, slot, _ in local], device=dev), upto)
+        first_np = self._gather(first).cpu().numpy()  # the admission's one host fetch
         for row, slot, req in assignments:
             self._set_lora(slot, req.lora_id)
             self.slot_req[slot] = req
@@ -590,7 +651,7 @@ class Engine:
             for pool, small in zip(self.caches, self._scratch):
                 paged_insert_dense(pool, small, 0, blocks, len(blocks))
         else:
-            self._insert_scratch(0, slot, min(bucket, self.max_len))
+            self._insert_scratch(0, slot - self._rows.start, min(bucket, self.max_len))
         tok = int(first[0])  # the chunked prefill's one host fetch
         self._set_lora(slot, req.lora_id)
         self.lengths[slot] = n
@@ -621,15 +682,17 @@ class Engine:
                 self._release_blocks(slot)
 
     def _program(self, window: int, sample: bool) -> tuple[StepGraph, torch.Tensor]:
-        """The decode program of `window` lock-step steps over all slots
-        (`_decode_multi`, engine.py:198-238), and its output buffer [B,
-        window]. Each step runs the forward at every slot's length, samples
-        (argmax unless `sample`), and advances the static token and length
-        rows in place: the carry of the next window of a chain."""
+        """The decode program of `window` lock-step steps over the rank's
+        slots (`_decode_multi`, engine.py:198-238), and its output buffer
+        [B / dp, window]. Each step runs the forward at every slot's length,
+        samples (argmax unless `sample`; under a mesh the positional sampler
+        at each slot's emission index), and advances the static token,
+        length and emission rows in place: the carry of the next window of a
+        chain."""
         key = (window, sample)
         if key not in self._programs:
-            out = torch.zeros((self.max_batch, window), dtype=torch.int64, device=self.device)
-            tok, lens, topks = self._state
+            tok, lens, topks, keys, emit = self._state
+            out = torch.zeros((tok.shape[0], window), dtype=torch.int64, device=self.device)
             cap = self.topk_cap if sample else 0
             # the step holds what it reads, not the engine (no reference cycle)
             params, cfg, caches, temps, rng, lora, mesh = (
@@ -640,12 +703,17 @@ class Engine:
                 for j in range(window):
                     logits, _ = forward_inner(params, cfg, tok[:, None], lens[:, None], caches,
                                               lens, lora_idx=lora, mesh=mesh)
-                    logits = logits[:, -1, :]
-                    nxt = (sample_rows(logits, temps, topks, cap, rng) if sample
-                           else torch.argmax(logits, dim=-1))
+                    if not sample:
+                        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+                    elif mesh is None:
+                        nxt = sample_rows(logits[:, -1, :], temps, topks, cap, rng)
+                    else:
+                        nxt = sample_pos_rows(logits[:, -1:, :], emit[:, None], keys, temps,
+                                              topks, cap)[:, 0]
                     out[:, j] = nxt
                     tok.copy_(nxt)
                     lens.add_(1)
+                    emit.add_(1)
 
             self._programs[key] = StepGraph(torch.inference_mode()(run), self.device,
                                             eager=mesh is not None), out
@@ -663,7 +731,7 @@ class Engine:
         if key not in self._spec_programs:
             k = self.spec_ngram
             self._spec_programs[key] = NgramWindow(
-                self.params, self.cfg, self.caches, self.max_batch,
+                self.params, self.cfg, self.caches, self.max_batch // self.dp,
                 self.max_len + window + 2 * k + 2, window, k, self.device, sampled=sample,
                 topk_cap=self.topk_cap if sample else 0, lora_ids=self._lora_ids,
                 mesh=self.mesh)
@@ -673,8 +741,11 @@ class Engine:
                      topks: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """One speculative window over all slots. The history each row's
         drafts match is its committed prompt and output, rebuilt on the host
-        and uploaded with the window's inputs. Returns (tokens [max_batch,
-        window], counts [max_batch]), the window's host fetch."""
+        and uploaded with the window's inputs (a rank's own rows). Returns
+        (tokens [max_batch, window], counts [max_batch]), the window's host
+        fetch, gathered over `data`; the window's rounds are the most any
+        data shard ran (`make_spec_window_fn` declares them replicated,
+        `eetq_tpu/dist/sharding.py:419-420`, where the shards may differ)."""
         k = self.spec_ngram
         sample = bool(temps.any())
         if self.paged:
@@ -685,7 +756,7 @@ class Engine:
                 self._alloc_blocks(i, int(self.lengths[i]) + window + k + 1)
             self._sync_tables()
         prog = self._spec_program(window, sample)
-        hist = np.zeros(prog.hist.shape, np.int64)
+        hist = np.zeros((self.max_batch, prog.hist.shape[1]), np.int64)
         valid = np.full((self.max_batch,), 2, np.int64)
         uids = np.zeros((self.max_batch,), np.int64)
         emit0 = np.zeros((self.max_batch,), np.int64)
@@ -698,29 +769,39 @@ class Engine:
             emit0[i] = len(req.out_tokens)
         sample_args = ()
         if sample:
-            keys = row_keys(self._spec_seed, torch.as_tensor(uids))
-            sample_args = (emit0, keys, temps, topks)
-        prog.load(hist, valid, self.next_token, np.maximum(self.lengths, 1), *sample_args)
+            sample_args = (emit0, self._keys(uids), temps, topks)
+        r = self._rows
+        prog.load(hist[r], valid[r], self.next_token[r], np.maximum(self.lengths, 1)[r],
+                  *(a[r] for a in sample_args))
         out, counts, rounds = prog.run()
+        if self.dp > 1:  # the shards may have run different numbers of rounds
+            rounds = int(self.mesh.all_reduce_(torch.tensor([rounds], device=self.device),
+                                               DATA_AXIS, op="max").item())
         self.spec_rounds += rounds
-        return out.cpu().numpy(), counts.cpu().numpy()
+        return self._gather(out).cpu().numpy(), self._gather(counts).cpu().numpy()
 
     def _decode(self, window: int, chain: int, temps: np.ndarray, topks: np.ndarray) -> np.ndarray:
-        """`chain` windows of `window` lock-step steps over all slots, each
-        slot's current token at position lengths (inactive slots at 1, never
-        committed). Returns the sampled tokens [max_batch, window * chain],
-        the chain's one host fetch."""
+        """`chain` windows of `window` lock-step steps over the rank's slots,
+        each slot's current token at position lengths (inactive slots at 1,
+        never committed). Returns the sampled tokens [max_batch, window *
+        chain], the chain's one host fetch (gathered over `data`)."""
         sample = bool(temps.any())
-        state = np.stack([self.next_token, np.maximum(self.lengths, 1), topks])
-        self._state.copy_(torch.from_numpy(state.astype(np.int64)))
+        keys = np.zeros((self.max_batch,), np.int64)
+        emit = np.zeros((self.max_batch,), np.int64)
+        if sample and self.mesh is not None:
+            for i, req in enumerate(self.slot_req):
+                if req is not None:
+                    keys[i], emit[i] = int(self._keys([req.uid])[0]), len(req.out_tokens)
+        state = np.stack([self.next_token, np.maximum(self.lengths, 1), topks, keys, emit])
+        self._state.copy_(torch.from_numpy(state[:, self._rows].astype(np.int64)))
         if sample:
-            self._temps.copy_(torch.from_numpy(temps))
+            self._temps.copy_(torch.from_numpy(temps[self._rows]))
         program, out = self._program(window, sample)
         parts = []
         for _ in range(chain):
             program()
             parts.append(out if chain == 1 else out.clone())
-        return (parts[0] if chain == 1 else torch.cat(parts, dim=1)).cpu().numpy()
+        return self._gather(parts[0] if chain == 1 else torch.cat(parts, dim=1)).cpu().numpy()
 
     def step(self) -> None:
         """One scheduler step: advance a chunked prefill in flight by one
@@ -736,12 +817,15 @@ class Engine:
                 self._start_chunked(slot, self.queue.popleft())
         elif self.queue:
             assignments = []
-            for row in range(self.prefill_rows):
-                slot = self._free_slot()
+            for row in range(self.prefill_rows):  # under dp: scratch row i -> shard i
                 # a chunk-eligible prompt stays at the head for the next
                 # step's chunked path, never in a grouped admission
-                if not self.queue or slot is None or self._chunk_eligible(self.queue[0]):
+                if not self.queue or self._chunk_eligible(self.queue[0]):
                     break
+                slot = next((i for i in self._slots_for_row(row) if self.slot_req[i] is None),
+                            None)
+                if slot is None:
+                    continue
                 req = self.queue.popleft()
                 assignments.append((row, slot, req))
                 self.slot_req[slot] = req  # reserve

@@ -50,6 +50,13 @@ def rng_from(generator: torch.Generator | None, device: torch.device | str) -> t
     return rng_state(seed, device)
 
 
+def fold_in(rng: torch.Tensor, data: int) -> torch.Tensor:
+    """A stream of its own for each value of `data` (`jax.random.fold_in`):
+    (a hash of (seed, data), 0)."""
+    seed = _hash32(_hash32(rng[0:1]) ^ (data & _M32))
+    return torch.cat([seed, torch.zeros_like(rng[1:2])])
+
+
 def gumbel(rng: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """Standard Gumbel noise of `shape` (f32) from the stream `rng`, whose
     counter advances by one."""

@@ -57,8 +57,8 @@ def test_one_rank_mesh_is_the_plain_model(tree):
 def test_refusals_match_jax(tree):
     """What JAX refuses, the port refuses with the same exception: a
     row-parallel bias, heads or experts that tp does not divide, MoE in
-    shard_quantized; and dp > 1 (naming ROADMAP), a tp that is not the
-    world size, and a quantized lm_head in shard_model."""
+    shard_quantized; and a dp or a tp whose mesh is not the world size (one
+    rank here), and a quantized lm_head in shard_model."""
     cfg = PRESETS["toy"]
     two = Mesh(tp=2, rank=0, device=torch.device("cpu"))
     params = params_from_numpy(tree, device="cpu")
@@ -83,7 +83,7 @@ def test_refusals_match_jax(tree):
         tp_reshard.shard_quantized(quantize_params(moe), moe_cfg, two)
     with pytest.raises(NotImplementedError, match="MoE"):
         jax_tp.shard_quantized(jmoe, jmoe_cfg, jax_make_mesh(tp=1, dp=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="world size 1"):  # dp tp must be the world
         make_mesh(dp=2, device="cpu")
     with pytest.raises(ValueError, match="world size 1"):
         make_mesh(tp=2, device="cpu")

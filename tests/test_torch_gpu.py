@@ -2363,6 +2363,67 @@ def test_sharded_engine_on_the_card(dev, tmp_path):
     assert all(0 <= t < cfg.vocab_size for o in plain[0] for t in o)
 
 
+def test_dp_engine_on_the_card(dev, tmp_path):
+    """The engine under dp 2 x tp 2 on four ranks of cuda:0 (gloo; a 2-layer
+    llama2-7b-width W8A16 model drawn from the seed), plain and speculative
+    (k = 7): every rank commits the same tokens, greedy and sampled, each
+    request its budget of in-range ids; admissions take up to 2 requests a
+    round; the spec engine's greedy requests equal the plain engine's or
+    part where the plain path's verify and decode GEMMs round apart (at
+    most one request)."""
+    import torch_dp_tasks as tasks
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.kernels import _build
+    from eetq_tpu_torch.models.config import ModelConfig
+
+    _build.build()
+    cfg = ModelConfig(**SHARDED_CFG)
+    requests = [([7, 8, 9] * 20, 12, {}), (list(range(100, 400)), 8, {}),
+                ([5] * 33, 10, dict(temperature=0.8, top_k=20)), ([3, 1, 4, 1, 5] * 9, 9, {})]
+    kw = dict(max_batch=4, max_len=512)
+    with RankPool(4, f"file://{tmp_path}/store", backend="gloo", timeout_s=600) as pool:
+        pool.run(tasks.build_random_dp, 2, 2, cfg, 3)
+        plain = pool.run(tasks.dp_serve, requests, kw)
+        spec = pool.run(tasks.dp_serve, requests, dict(kw, spec_ngram=7))
+    for runs in (plain, spec):
+        assert all(r["outputs"] == runs[0]["outputs"] for r in runs)
+        assert all(r["rounds"] == [2, 2] for r in runs), [r["rounds"] for r in runs]
+    outs = plain[0]["outputs"]
+    assert [len(o) for o in outs] == [12, 8, 10, 9]
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
+    greedy = [i for i, (_, _, k) in enumerate(requests) if not k]
+    assert sum(spec[0]["outputs"][i] != outs[i] for i in greedy) <= 1
+    assert spec[0]["spec_rounds"] > 0
+
+
+def test_server_over_ranks_on_the_card(dev, tmp_path):
+    """EngineServer on rank 0 of four ranks of cuda:0 (dp 2 x tp 2, gloo),
+    the others following: every answer, plain or streamed, and every rank's
+    outputs equal the same engine driven directly; the followers see
+    heartbeats through an idle gap, and shutdown() returns every rank."""
+    import torch_dp_tasks as tasks
+    from eetq_tpu_torch.dist.launch import RankPool
+    from eetq_tpu_torch.kernels import _build
+    from eetq_tpu_torch.models.config import ModelConfig
+
+    _build.build()
+    cfg = ModelConfig(**SHARDED_CFG)
+    prompts = [[7, 8, 9] * 20, list(range(100, 400)), [5] * 33, [3, 1, 4, 1, 5] * 9]
+    budgets = [12, 8, 10, 9]
+    bodies = [{"prompt": p, "max_new_tokens": n, "stream": i % 2 == 1}
+              for i, (p, n) in enumerate(zip(prompts, budgets))]
+    kw = dict(max_batch=4, max_len=512)
+    with RankPool(4, f"file://{tmp_path}/store", backend="gloo", timeout_s=600) as pool:
+        pool.run(tasks.build_random_dp, 2, 2, cfg, 3)
+        got = pool.run(tasks.serve_http, 2, 2, bodies, 0.5, 2.0, kw)
+        direct = pool.run(tasks.dp_serve, [(p, n, {}) for p, n in zip(prompts, budgets)], kw)
+    want = direct[0]["outputs"]
+    assert all(d["outputs"] == want for d in direct)
+    assert [a["tokens"] for a in got[0]["answers"]] == want
+    assert all(r["outputs"] == got[0]["outputs"] for r in got)
+    assert all(r["follow"]["idle"] >= 2 for r in got[1:]), [r["follow"] for r in got[1:]]
+
+
 def test_a_failing_rank_fails_on_the_card(dev, tmp_path):
     """A rank that raises on the card fails the call, with its traceback."""
     import torch_sharding_tasks as tasks

@@ -263,7 +263,8 @@ def test_pp_refusals_match_jax(model):
     """What JAX refuses (`tests/test_pipeline.py:176-195`), the port refuses
     with the same exception and message: fewer microbatches than stages, a
     batch the microbatches do not divide, a layer count pp does not divide,
-    MoE layers and a row-parallel bias; and dp > 1."""
+    MoE layers and a row-parallel bias; and a dp pp tp mesh that is not the
+    world (one rank here)."""
     jp, tree = model
     jmesh = jax_make_pp_mesh(pp=2, tp=1, dp=1)
     jmodel = jax_shard_model_pp(jp, JCFG, jmesh, quantize=True)
@@ -307,5 +308,5 @@ def test_pp_refusals_match_jax(model):
          lambda: shard_model_pp(biased, CFG, mesh))
     from eetq_tpu_torch.dist.pipeline import make_pp_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="world size 1"):  # dp pp tp must be the world
         make_pp_mesh(2, 1, dp=2, device="cpu")
