@@ -198,9 +198,10 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    (mixtral_spec_server: at k = 3 a b=1 verify's 8 expert selections stay
    in the gather regime): one 8-slot verify round against the plain path
    with the routing replayed, greedy requests equal to its non-spec twin's
-   with the routing replayed across both engines (`routed_twin`, 11.),
-   or parting at a near tie of the tokens' logits, rounds and drafts a round
-   printed. The fused MLP
+   with the routing replayed across both engines (`routed_twin`, 11.; on
+   the model's first MIXTRAL_SPEC_TWIN_LAYERS = 8 layers, both engines
+   eager), or parting at a near tie of the tokens' logits, rounds and
+   drafts a round printed. The fused MLP
    must not launch on any. Top-2 routing is
    discontinuous, so each check of the logits replays the kernel path's
    routing in the plain path (a wrapper of `modules.moe.route` records
@@ -231,8 +232,9 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    int8 KV and fused MLP) and an engine behind the server (mistral paged bf16
    with a request of 4400 + 64 tokens and a step check over a 4465-key row;
    qwen2 and baichuan-13b dense int8; chatglm3 a paged int8 pool; gemma-7b a
-   paged bf16 pool), greedy
-   tokens equal to a window-1 twin's. mistral_chunked: the 4608-token
+   paged bf16 pool), greedy tokens equal to a window-1 twin's; each family
+   cut to FAMILY_LAYERS = 8 layers for the run's time limit.
+   mistral_chunked: the 4608-token
    prompt through `prefill_chunked(chunk=512)` (nine chunks, the later ones
    under the window), logits within MODEL_TOL of the unchunked prefill's,
    then 50 greedy tokens. chatglm3-6b at the reference's k = 7 (a verify of
@@ -261,7 +263,7 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    Each directory is deleted after its model.
 
 9. LoRA (the `lora` phase, after 8): llama2-7b W8A16 with an int8 lm_head
-   at full width and depth. eval_ppl (`serve/eval.py`, while the bf16 model
+   at full width, cut to LORA_LAYERS = 16 layers. eval_ppl (`serve/eval.py`, while the bf16 model
    the W8A16 one is quantized from is still held): `delta_ppl` over 4
    seeded windows of 2048 tokens (random weights: PPL and ΔPPL printed,
    unbounded), the W8A16 kernel path's mean NLL within EVAL_NLL_TOL nats of
@@ -281,7 +283,8 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    `kernels/flash_attention.py::FlashAttention`): twin 0's adapters cloned,
    b = 1 x 1024 seeded tokens, next-token cross-entropy, every adapter
    tensor's gradient finite, nonzero and within TRAIN_TOL of the plain
-   path's at full depth, only the GEMM and the flash-attention launched; ms
+   path's at the phase's depth, only the GEMM and the flash-attention
+   launched; ms
    a forward + backward (the forward and the backward apart), training
    tokens/s, peak GB, the backward's device ms on the attention and on the
    linears (CUDA events around each call of their backward), and
@@ -334,7 +337,7 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    every collective through the host, so the ranks' steps run eagerly and
    their times model no NVLink deployment). Each rank's launch and
    collective counters go back to the parent, which sums them per path.
-   - tp2_generate: llama2-7b W8A16 cut to SHARDED_LLAMA_LAYERS = 8 layers
+   - tp2_generate: llama2-7b W8A16 cut to SHARDED_LLAMA_LAYERS = 2 layers
      (the run's time limit; the split is the same in every layer), built
      dense from the seed and saved by `quantize(save_dir, tp=2)`; each rank
      runs `from_quantized(dir)
@@ -386,8 +389,8 @@ Run from the repository root, on a machine with one CUDA card (an H100):
    largest, tokens equal or parting at a near tie (SPEC_TIE_ULPS), the
    ranks identical, every exchange and collective of a rank counted as the
    schedule predicts; the ranks' launch counts summed per path.
-   - pp2_generate: llama2-7b W8A16 at full width and depth, 16 layers a
-     stage (`shard_model_pp(quantize=True)`, each rank drawing its stage
+   - pp2_generate: llama2-7b W8A16 at full width cut to PP_LAYERS = 8
+     layers, 4 a stage (`shard_model_pp(quantize=True)`, each rank drawing its stage
      layer by layer from the seed), b=2 in 2 microbatches, p=1024: pp_prefill
      and pp_decode_loop timed (prefill ms, ms a decode tick), then the main
      path, pp_generate of 50 greedy tokens.
@@ -395,15 +398,31 @@ Run from the repository root, on a machine with one CUDA card (an H100):
      ranks (pp 2 x tp 2), 16 tokens; each rank's integers equal to the
      twin's slice (qkv and gate|up per channel, o_proj and down group-wise at
      K / 2); 2 model-axis all-reduces a layer a unit and no vocab gather.
-   - pp2dp2_generate: the model cut to PP_DP_LAYERS = 8 layers on 4 ranks
-     (`make_pp_mesh(pp=2, dp=2)`: two pipelines of 2 stages, 4 layers a
+   - pp2dp2_generate: the model cut to PP_DP_LAYERS = 4 layers on 4 ranks
+     (`make_pp_mesh(pp=2, dp=2)`: two pipelines of 2 stages, 2 layers a
      stage), b = 4 (2 rows a data shard) in 2 microbatches, 16 tokens; the
      logits and tokens gathered over `data` once each.
-   - long_generate: mistral-7b W8A16 (window 4096) replicated on 2 ranks,
+   - long_generate: mistral-7b W8A16 (window 4096) cut to LONG_LAYERS = 8
+     layers, replicated on 2 ranks,
      b=1, p=8192: long_prefill timed (its logits, and its gathered caches
      over the prompt against the twin's within MODEL_TOL of a layer's largest
      value), then the main path, generate_long of 50 greedy tokens; 2 p
      ppermutes a layer, 1 logits gather and 2 L K/V gathers.
+13. Presets (the `presets` phase, after 7; PRESET_MODELS): the five
+   presets of `models/config.py` that no other phase runs, each at full
+   width and depth, built one layer at a time and freed before the next,
+   through a b=1 decode path (p = 1024, 50 greedy tokens) and an engine
+   behind the server, checked as the families in 7: llama2-13b (40 heads of
+   MHA, `bench.py`'s int8 KV + fused MLP at K = 5120; dense int8 engine,
+   W8A8 admission), llama3-8b (a 128,256-token int8 lm_head, rope_theta
+   500,000, group 4; bf16 KV; a paged bf16 pool), baichuan-7b (model_type
+   baichuan with rope and no ALiBi, a 125,696-token lm_head; int8 KV + fused
+   MLP; dense int8), tinyllama-1.1b (head dim 64 at group 8; bf16 KV; a
+   paged int8 pool) and, last, llama2-70b at W4A16 g = 128 throughout (80
+   layers, 64 q heads over 8, 36 GB; the int4 GEMV and the group-wise GEMM
+   at K = 28672 and N = 57344; int8 KV, unfused MLP; a paged int8 pool of 8
+   slots, W4A8 admission). Each path launches its base kernels and no
+   other: none of these shapes is an attention variant.
 
 With `--profile`, each llama2-7b path, the paged engine and the Mixtral
 paths are also run under `torch.profiler` (one prefill, the first request's
@@ -414,8 +433,8 @@ layer on every decode and engine step), the host's launch calls (a graph
 replay is one) and the idle share go to the output and to
 `chip_smoke.json`. `--phases`
 runs a subset of
-`kernels,moe_layer,llama,checkpoint,lora,tooling,int4,mixtral,mixtral_int4,families,sharded,`
-`pipeline` (for debugging: a partial run checks what it runs and prints no result
+`kernels,moe_layer,llama,checkpoint,lora,tooling,int4,mixtral,mixtral_int4,families,presets,`
+`sharded,pipeline` (for debugging: a partial run checks what it runs and prints no result
 line).
 
 Prints one JSON line of per-kernel results (the attention kernels'
@@ -679,6 +698,11 @@ MIXTRAL_SPEC_K = 3
 # replayed) after admissions of this budget: past the tokens each slot takes
 # before the last admission and its spec window, short enough to finish fast
 MIXTRAL_SPEC_STEP_BUDGET = 40
+# ... and held against its non-spec twin (`routed_twin`: both engines eager,
+# the routing replayed) on the model's first this many layers, the same
+# weights: at all 32 the two eager engines took 27.0 s, which the presets
+# phase needed (the spec window and the routing are the same in every layer)
+MIXTRAL_SPEC_TWIN_LAYERS = 8
 # Speculative decoding on MODEL: k drafts a round (a verify is m = k + 1 = 8
 # rows at b=1), the draft model's layers (the target's first ones), and the
 # prompt's period (a seeded sequence of this many tokens, tiled)
@@ -728,6 +752,10 @@ EPILOGUE_KERNELS = ("w8a16_gemv", "w4a16_gemv", "w8a16_gemm", "w4a16_gemm", "w8a
 # LORA_ALPHA / r = 1: a unit-variance input's side path is about 64
 # LORA_B_STD = 0.32 against the projection's unit variance (about 0.1 GB)
 LORA_ADAPTERS, LORA_RANK, LORA_ALPHA, LORA_B_STD = 4, 16, 16.0, 0.005
+# The LoRA phase's depth: the side path, the bank's gather and the autograd
+# Functions are the same in every layer; it ran at full depth (32 layers,
+# 74.3-84.5 s for the phase) until the presets phase needed the run's time
+LORA_LAYERS = 16
 LORA_PREFILL = (4, 1024)  # lora_prefill: batch (one row an adapter), prompt tokens
 LORA_SPEC_K = 3
 LORA_MERGE_ID = 2
@@ -974,26 +1002,36 @@ FAMILIES = {
         twin=dict(kv_dtype="bf16", decode_window=1)),
 }
 FAMILY_NEW_TOKENS = 50
+# The families' depth: their variants, widths, prompts and engines are the
+# presets', and each layer runs the same kernels; they ran at full depth
+# (28-40 layers, 113.4-116.7 s for the phase) until the presets phase
+# needed the run's time
+FAMILY_LAYERS = 8
 
 
-def _family_paths() -> dict:
-    """PATH_KERNELS of the families' paths: their decode kernel, prefill
-    attention and their variants (a family path launches nothing else)."""
+def _family_paths(table: dict) -> dict:
+    """PATH_KERNELS of the paths of `table` (FAMILIES, PRESET_MODELS): their
+    linear kernels at the model's bits, decode kernel, prefill attention
+    and their variants (such a path launches nothing else)."""
     paths = {}
-    for f in FAMILIES.values():
+    for f in table.values():
         paged = "paged_blocks" in f["engine"]
         dec = "flash_decode_int8" if f["kv"] == "int8" else "flash_decode"
         srv = ("paged_flash_decode" if paged else "flash_decode") + (
             "_int8" if f["engine"].get("kv_dtype", "int8" if not paged else "bf16") == "int8"
             else "")
-        v = f["variant"]
+        v = f.get("variant")
+        w = "w4a16" if f.get("bits") == 4 else "w8a16"
+        variants = ((f"flash_attention_fwd[{v}]", f"{dec}[{v}]") if v else ())
         paths[f"{f['tag']}_decode"] = (
-            "w8a16_gemv", "w8a16_gemm", "flash_attention_fwd", dec, f"flash_attention_fwd[{v}]",
-            f"{dec}[{v}]") + (("fused_mlp_gemv",) if f["fused"] else ())
-        prefill = "w8a8_gemm" if f["engine"].get("a8_prefill", True) else "w8a16_gemm"
+            f"{w}_gemv", f"{w}_gemm", "flash_attention_fwd", dec) + variants + (
+            ("fused_mlp_gemv_i4" if f.get("bits") == 4 else "fused_mlp_gemv",)
+            if f["fused"] else ())
+        prefill = ((w.replace("16", "8") if f["engine"].get("a8_prefill", True) else w)
+                   + "_gemm")
         paths[f"{f['tag']}_{'paged_' if paged else ''}server"] = (
-            "w8a16_gemv", prefill, "flash_attention_fwd", srv, f"flash_attention_fwd[{v}]",
-            f"{srv}[{v}]")
+            f"{w}_gemv", prefill, "flash_attention_fwd", srv) + (
+            (f"flash_attention_fwd[{v}]", f"{srv}[{v}]") if v else ())
         if "chunk" in f:  # chunked prefill, then the decode path's decode
             paths[f"{f['tag']}_chunked"] = paths[f"{f['tag']}_decode"]
         if "spec" in f:  # b=1 verifies of k + 1 tokens on the GEMV; an 8-slot one on the GEMM
@@ -1005,7 +1043,55 @@ def _family_paths() -> dict:
     return paths
 
 
-PATH_KERNELS.update(_family_paths())
+PATH_KERNELS.update(_family_paths(FAMILIES))
+
+# The presets phase: the five presets of `models/config.py` that no other
+# phase runs, each at full width and depth (W8A16 per-channel with an int8
+# lm_head; llama2-70b W4A16 with INT4_GROUP-row scale groups throughout,
+# the lm_head as int4_generate takes it), through a b=1 decode path and an
+# engine behind the server as in the families phase. None of them runs an
+# attention variant: their groups (1, 4, 8) and head dims (64, 128) are the
+# kernels' plain instances, so each path launches its base kernels and no
+# other. llama2-70b comes last, every earlier model freed.
+PRESET_MODELS = {
+    # the JAX bench's second cell: bench.py's int8 KV + fused MLP (K =
+    # 5120), 40 heads of MHA; the dense int8 default engine (W8A8 admission)
+    "llama2-13b": dict(tag="llama13b", kv="int8", fused=True, prompt=1024,
+                       engine={}, twin=dict(decode_window=1)),
+    # a 128,256-token int8 lm_head, rope_theta 500,000, group 4 at I =
+    # 14336; the generate form (bf16 KV, unfused MLP); a paged bf16 pool
+    "llama3-8b": dict(
+        tag="llama3", kv="bf16", fused=False, prompt=1024,
+        engine=dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE),
+        twin=dict(kv_dtype="bf16", decode_window=1)),
+    # model_type "baichuan" without ALiBi (rope, MHA 32/32), a 125,696-token
+    # int8 lm_head; int8 KV + fused MLP; the dense int8 default engine
+    "baichuan-7b": dict(tag="baichuan7", kv="int8", fused=True, prompt=1024,
+                        engine={}, twin=dict(decode_window=1)),
+    # head dim 64 at group 8 (32/4) over 22 layers; bf16 KV; a paged int8
+    # pool (max_position 2048: the engine's max_len)
+    "tinyllama-1.1b": dict(
+        tag="tinyllama", kv="bf16", fused=False, prompt=1024,
+        engine=dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE,
+                    kv_dtype="int8"),
+        twin=dict(kv_dtype="int8", decode_window=1)),
+    # 80 layers, 64 q heads over 8, W4A16 g = 128: the int4 GEMV and the
+    # group-wise GEMM at K = 8192 (N = 10240, 8192, 57344) and K = 28672 (N =
+    # 8192); int8 KV, unfused MLP (the fused int4 MLP takes per-channel
+    # scales only); a paged int8 pool of 8 slots, W4A8 admission. The plain
+    # group-wise products hold [rows, groups, N] (f64 under W4A8): at 1024
+    # rows of gate|up 15 GB (30 GB) beside the 36 GB model, so the checks
+    # against the plain path run at full width and depth on a 128-token
+    # prompt and a 120-token admission (its 128 bucket); the paths
+    # themselves run at p = 1024 and the mix's 17-1024
+    "llama2-70b": dict(
+        tag="llama70b", kv="int8", fused=False, prompt=1024, bits=4,
+        group=INT4_GROUP, check_prompt=128, admission_prompt=120,
+        engine=dict(paged_blocks=PAGED_BLOCKS, paged_block_size=PAGED_BLOCK_SIZE,
+                    kv_dtype="int8"),
+        twin=dict(kv_dtype="int8", decode_window=1)),
+}
+PATH_KERNELS.update(_family_paths(PRESET_MODELS))
 
 # The checkpoint phase: llama2-7b at full width and depth saved at the
 # default shard size (two shards and an index) and loaded back; a dense
@@ -1036,7 +1122,7 @@ PATH_IDLE.update({
        for path in ("eval_ppl", "lora_train")},
 })
 PHASES = ("kernels", "moe_layer", "llama", "checkpoint", "lora", "tooling", "int4", "mixtral",
-          "mixtral_int4", "families", "sharded", "pipeline")
+          "mixtral_int4", "families", "presets", "sharded", "pipeline")
 
 
 class CheckFailed(Exception):
@@ -2307,12 +2393,17 @@ def graph_against_eager(params, cfg, dev, prompt, n: int, kv, fused) -> dict:
     return dict(tokens=n, equal=equal, wrapper_launches_per_step=launches)
 
 
-def generate_paths(params, cfg, dev, gen, configs: dict, requests=REQUESTS) -> dict:
+def generate_paths(params, cfg, dev, gen, configs: dict, requests=REQUESTS,
+                   check_prompt: int | None = None) -> dict:
     """Each path of `configs` ({path: (KV dtype, fused MLP)}), e.g. the
     generate path (bf16 KV, unfused MLP) and bench.py's decode
     configuration (int8 KV, fused MLP), checked against the plain path and
     driven through the same `requests` ((batch, prompt tokens, new tokens),
-    the first of them checked and timed), and timed side by side."""
+    the first of them checked and timed), and timed side by side.
+    check_prompt: the check against the plain path runs on the first this
+    many tokens of the first request's prompt (the plain group-wise product
+    holds a [rows, groups, N] f32 tensor: at llama2-70b's gate|up and 1024
+    rows, 15 GB beside the model)."""
     import torch
 
     from eetq_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -2323,6 +2414,7 @@ def generate_paths(params, cfg, dev, gen, configs: dict, requests=REQUESTS) -> d
     prompts = [torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=dev)
                for b, p, _ in requests]
     (_, p1, n1), prompt1 = requests[0], prompts[0]
+    cp = check_prompt or p1
     out = {}
     for path, (kv, fused) in configs.items():
         print(f"  -- {path}: {kv} KV, fused MLP {fused}")
@@ -2332,11 +2424,11 @@ def generate_paths(params, cfg, dev, gen, configs: dict, requests=REQUESTS) -> d
         logits, first, routes, step_counts = {}, {}, [], {}
 
         def check_run(use, kv=kv, fused=fused):
-            caches = init_caches(cfg, 1, p1 + n1, device=dev, dtype=kv)
-            lp, caches = prefill(params, cfg, prompt1, caches, use_kernels=use)
+            caches = init_caches(cfg, 1, cp + n1, device=dev, dtype=kv)
+            lp, caches = prefill(params, cfg, prompt1[:, :cp], caches, use_kernels=use)
             tok = first.get(True, torch.argmax(lp, -1))
             reset_launch_counts()
-            ld, _ = decode_step(params, cfg, tok[:, None], p1, caches, use_kernels=use,
+            ld, _ = decode_step(params, cfg, tok[:, None], cp, caches, use_kernels=use,
                                 fused_mlp=fused)
             if use:
                 step_counts.update(launch_counts())
@@ -2345,8 +2437,13 @@ def generate_paths(params, cfg, dev, gen, configs: dict, requests=REQUESTS) -> d
         for use in (True, False):
             with routing("record" if use else "replay", routes):
                 logits[use], first[use] = check_run(use)
-        checks = {name: check_logits(f"{path} {name}", logits[True][i], logits[False][i])
+        at = "" if cp == p1 else f" at p={cp}"
+        checks = {name: check_logits(f"{path} {name}{at}", logits[True][i], logits[False][i])
                   for i, name in enumerate(("prefill", "decode"))}
+        checks["check_prompt"] = cp
+        if cp != p1:  # the first token of the full prompt, for the check below
+            lp, _ = prefill(params, cfg, prompt1, init_caches(cfg, 1, p1, device=dev, dtype=kv))
+            first[True] = torch.argmax(lp, -1)
         # GEMV launches of one b=1 decode step, as before the tensor-core GEMV:
         # qkv and o per layer, the MLP's two projections (the fused MLP or a MoE
         # layer's expert gathers: one wrapper call each), and the lm_head
@@ -2493,7 +2590,9 @@ def engine_step_check(eng, cfg, dev, gen, path: str, prompts=STEP_PROMPTS,
 def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | None = None,
                 twin_kw: dict | None = None, long: tuple = (),
                 step_prompts: tuple = STEP_PROMPTS, admission: bool = True,
-                step_budget: int | None = None) -> dict:
+                step_budget: int | None = None,
+                admission_prompt: int = ADMISSION_PROMPT,
+                twin_layers: int | None = None) -> dict:
     """The engine behind its HTTP server: with its accelerator defaults
     (window 8, chained; max_batch 8, max_len 2048), or with `engine_kw` (a
     paged pool, another max_len and prompt buckets). twin_kw: the greedy
@@ -2506,7 +2605,9 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
     model's twin runs with the routing replayed (`routed_twin`);
     step_budget: the budget of the step check's requests, which a dense
     engine runs too where it is given (a paged engine's default:
-    STEP_BUDGET)."""
+    STEP_BUDGET); admission_prompt: the tokens of the checked admission
+    (its bucket the rows of the plain forward); twin_layers: a MoE model's
+    twin check runs on its first this many layers (the same weights)."""
     import torch
 
     from eetq_tpu_torch.models.transformer import forward_inner, init_caches
@@ -2549,7 +2650,7 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
 
     # one admission's forward, with kernels and with the plain versions: a
     # prompt right-padded to its bucket, as _prefill_group runs it
-    n = ADMISSION_PROMPT
+    n = admission_prompt
     bucket = eng._bucket_for(n)
     toks = torch.zeros(1, bucket, dtype=torch.long, device=dev)
     toks[0, :n] = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev)
@@ -2649,7 +2750,14 @@ def server_path(params, cfg, dev, gen, path: str = "server", engine_kw: dict | N
               f"({toks / max(rounds, 1):.2f} a round, k = {spec})")
     twin = None
     if twin_kw is not None and cfg.num_experts:
-        twin = routed_twin(params, cfg, dev, path, bodies, engine_kw, twin_kw)
+        cut, tcfg = params, cfg
+        if twin_layers:
+            from eetq_tpu_torch.models.transformer import ModelParams
+
+            cut = ModelParams(params.embed, list(params.layers[:twin_layers]), params.final_norm,
+                              params.lm_head)
+            tcfg = dataclasses.replace(cfg, num_layers=twin_layers)
+        twin = routed_twin(cut, tcfg, dev, path, bodies, engine_kw, twin_kw)
     elif twin_kw is not None:
         # the same kernels, the same chunks of the key range, rows that do not
         # see each other: the same greedy tokens at any window and chain, and
@@ -3637,7 +3745,8 @@ def mixtral_phase(dev, int4: bool = False, profile: bool = False) -> dict:
         # requests against its non-spec twin
         paths["mixtral_spec_server"] = server_path(
             params, cfg, dev, gen, "mixtral_spec_server", dict(spec_ngram=MIXTRAL_SPEC_K),
-            twin_kw={}, admission=False, step_budget=MIXTRAL_SPEC_STEP_BUDGET)
+            twin_kw={}, admission=False, step_budget=MIXTRAL_SPEC_STEP_BUDGET,
+            twin_layers=MIXTRAL_SPEC_TWIN_LAYERS)
     prof = profile_paths(params, cfg, dev, gen, configs, {srv_path: engine_kw}) if profile else None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t = paths[gen_path]["timing"]
@@ -3666,12 +3775,14 @@ def unit_gain_norms(params, cfg) -> None:
         params.final_norm.zero_()
 
 
-def families_phase(dev) -> dict:
-    """Each of FAMILIES at full width and depth (random W8A16 weights, an
-    int8 lm_head, built one layer at a time from SEED), through its b=1
-    decode path (prefill and one decode step against the plain path,
-    decode_loop bit-equal to eager steps, timed) and its engine behind the
-    server; each model is freed before the next is built."""
+def families_phase(dev, table: dict = FAMILIES, layers: int | None = None) -> dict:
+    """Each model of `table` (FAMILIES, or PRESET_MODELS) at full width and
+    depth, or cut to `layers` (random W8A16 weights, an int8 lm_head, or
+    W4A16 group-wise throughout where the entry has bits 4, built one layer
+    at a time from SEED), through its b=1 decode path (prefill and one
+    decode step against the plain path, decode_loop bit-equal to eager
+    steps, timed) and its engine behind the server; each model is freed
+    before the next is built."""
     import torch
 
     from eetq_tpu_torch.models.config import PRESETS
@@ -3679,23 +3790,34 @@ def families_phase(dev) -> dict:
 
     dtypes = {"bf16": torch.bfloat16, "int8": torch.int8}
     out = dict(paths={}, models={})
-    for preset, f in FAMILIES.items():
+    for preset, f in table.items():
         cfg = PRESETS[preset]
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
         t0 = time.perf_counter()
-        params = random_quantized_params(cfg, gen, quantize_lm_head=True)
+        bits = f.get("bits", 8)
+        params = random_quantized_params(cfg, gen, quantize_lm_head=True, bits=bits,
+                                         group_size=f.get("group"))
         unit_gain_norms(params, cfg)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         gb = sum(b.numel() * b.element_size() for b in params.buffers()) / 1e9
-        head = ("an int8 lm_head" if params.lm_head is not None else
+        card_gb = torch.cuda.memory_allocated() / 1e9
+        build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        quant = "W8A16" if bits == 8 else f"W4A16 g={f['group']}"
+        head = (f"an int{params.lm_head.bits} lm_head" if params.lm_head is not None else
                 f"a tied head: the bf16 table {tuple(params.embed.shape)} through _tied_head")
         if cfg.rmsnorm_unit_offset:
             head += "; unit-offset norms stored at 0: gain 1"
-        print(f"  {preset} W8A16 built layer by layer in {build_s:.1f} s, {gb:.2f} GB on the "
-              f"card (GQA {cfg.num_heads}/{cfg.num_kv_heads}, head dim {cfg.head_dim}, window "
-              f"{cfg.sliding_window}, ALiBi {cfg.alibi}, {cfg.activation}; {head})")
+        print(f"  {preset} {quant} built layer by layer in {build_s:.1f} s, {gb:.2f} GB of "
+              f"weights, {card_gb:.2f} GB on the card ({held_gb:.2f} GB held before, build peak "
+              f"{build_peak_gb:.2f} GB; {cfg.num_layers} layers, GQA {cfg.num_heads}/"
+              f"{cfg.num_kv_heads}, head dim {cfg.head_dim}, vocabulary {cfg.vocab_size}, rope "
+              f"theta {cfg.rope_theta:g}, window {cfg.sliding_window}, ALiBi {cfg.alibi}, "
+              f"{cfg.activation}; {head})")
         tied = None
         if params.lm_head is None:
             # the tied head's device time at a decode step's rows (b=1) and an
@@ -3716,10 +3838,12 @@ def families_phase(dev) -> dict:
         dec, srv = (f"{f['tag']}_decode",
                     f"{f['tag']}_{'paged_' if 'paged_blocks' in kw else ''}server")
         paths = generate_paths(params, cfg, dev, gen, {dec: (dtypes[f["kv"]], f["fused"])},
-                               requests=((1, f["prompt"], FAMILY_NEW_TOKENS),))
+                               requests=((1, f["prompt"], FAMILY_NEW_TOKENS),),
+                               check_prompt=f.get("check_prompt"))
         paths[srv] = server_path(params, cfg, dev, gen, srv, kw, twin_kw=twin,
                                  long=f.get("long", ()),
-                                 step_prompts=f.get("step_prompts", STEP_PROMPTS))
+                                 step_prompts=f.get("step_prompts", STEP_PROMPTS),
+                                 admission_prompt=f.get("admission_prompt", ADMISSION_PROMPT))
         if "chunk" in f:
             paths[f"{f['tag']}_chunked"] = chunked_prefill_path(
                 params, cfg, dev, gen, f"{f['tag']}_chunked", 1, f["prompt"], f["chunk"],
@@ -3735,10 +3859,14 @@ def families_phase(dev) -> dict:
         print(f"  {preset}: prefill {t['prefill_ms']:.2f} ms (b=1 p={f['prompt']}), decode "
               f"{t['decode_ms_per_step']:.3f} ms/step ({t['replay_ms_per_step']:.3f} a replayed "
               f"step), {f['kv']} KV{', fused MLP' if f['fused'] else ''}; {srv} served "
-              f"{paths[srv]['served_tok_s']:.2f} tok/s")
+              f"{paths[srv]['served_tok_s']:.2f} tok/s; {cfg.num_layers} of "
+              f"{PRESETS[preset].num_layers} layers, {time.perf_counter() - t0:.1f} s")
         out["paths"].update(paths)
-        out["models"][preset] = dict(build_s=build_s, weight_gb=gb, tied_head_ms=tied,
-                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out["models"][preset] = dict(build_s=build_s, weight_gb=gb, card_gb=card_gb,
+                                     build_peak_gb=build_peak_gb, tied_head_ms=tied,
+                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                     layers=cfg.num_layers,
+                                     seconds=time.perf_counter() - t0)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4434,7 +4562,7 @@ def lora_train_path(twin, cfg, dev, gen) -> dict:
     requires_grad_(); one seeded batch of TRAIN_TOKENS tokens, next-token
     cross-entropy over the f32 logits, `forward_inner` (caches=None) and
     `torch.autograd.grad`. Every adapter tensor's gradient finite, nonzero and
-    within TRAIN_TOL of the plain path's (use_kernels=False, full depth, on
+    within TRAIN_TOL of the plain path's (use_kernels=False, every layer, on
     the card); the step timed (median of 3 after a warm-up; the forward and
     the backward by CUDA events), its peak memory, and in one more step the
     backward's device time on the attention and on the linears
@@ -4517,7 +4645,7 @@ def lora_train_path(twin, cfg, dev, gen) -> dict:
                backward_attention_ms=split["attention"], backward_linears_ms=split["linears"],
                sgd_lr=lr, sgd_losses=losses, adapter_tensors=len(leaves))
     print(f"  lora_train b=1 x {TRAIN_TOKENS}: {len(leaves)} adapter tensors of {cfg.num_layers} "
-          f"layers, gradients within {worst:.3e} of the plain path's at full depth (tol "
+          f"layers, gradients within {worst:.3e} of the plain path's (tol "
           f"{TRAIN_TOL}); loss {losses[0]:.4f}")
     print(f"  lora_train: {step_ms:.2f} ms a forward + backward, {fwd_ms:.2f} ms of device time "
           f"from the start to the loss, {bwd_ms:.2f} from the loss to the gradients (medians of 3 "
@@ -4535,7 +4663,7 @@ def lora_train_path(twin, cfg, dev, gen) -> dict:
 
 
 def lora_phase(dev) -> dict:
-    """MODEL W8A16 at full width and depth: perplexity of the bf16 model and
+    """MODEL W8A16 at full width cut to LORA_LAYERS: perplexity of the bf16 model and
     the W8A16 one, the epilogue's entry point, then multi-adapter LoRA (a
     bank of LORA_ADAPTERS, `surgery.stack_adapters`): prefill, a training
     step of one adapter, three servers, the side path's cost a decode step
@@ -4546,7 +4674,8 @@ def lora_phase(dev) -> dict:
     from eetq_tpu_torch.models.init import quantize_params, random_dense_params
     from eetq_tpu_torch.serve.generate import greedy_generate
 
-    cfg = PRESETS[MODEL]
+    cfg = dataclasses.replace(PRESETS[MODEL], num_layers=LORA_LAYERS)
+    print(f"  {MODEL} cut to {LORA_LAYERS} layers of {PRESETS[MODEL].num_layers}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     dense = random_dense_params(cfg, gen)
     base = quantize_params(dense, quantize_lm_head=True)
@@ -5029,8 +5158,10 @@ SHARDED_MIXTRAL_LAYERS = 2
 # tp2_generate and its engines run llama2-7b cut to this depth: every
 # collective is staged through the host and every step is eager, and at
 # full depth the two eager engines alone took about a minute (the split and
-# its collectives are the same in every layer)
-SHARDED_LLAMA_LAYERS = 8
+# its collectives are the same in every layer); 8 layers until the presets
+# phase needed the run's time (4 layers: 22.7 s in the tp2 ranks, 33.3 s in
+# the dp2tp2 ranks)
+SHARDED_LLAMA_LAYERS = 2
 SHARDED_MIXTRAL_NEW = 16
 SHARDED_TIMEOUT_S = 600
 # the dp paths: dp 2 x tp 2 ranks of the same artifact, the server's
@@ -5839,8 +5970,13 @@ def sharded_phase(dev) -> dict:
 # gloo with every rank on cuda:0 (every exchange then goes through the host,
 # and the times model no NVLink deployment).
 PP_STAGES, PP_BATCH, PP_MICRO, PP_NEW = 2, 2, 2, 50
+# pp2_generate's, long_generate's and pp2dp2_generate's depths: the stage,
+# the ring and the chunk exchange are the same in every layer; the first two
+# ran at full depth (32) and pp2dp2_generate at 8 until the presets phase
+# needed the run's time
+PP_LAYERS, LONG_LAYERS = 8, 8
 PP_TP, PP_TP_LAYERS, PP_TP_NEW = 2, 4, 16
-PP_DP, PP_DP_LAYERS, PP_DP_NEW = 2, 8, 16  # pp2dp2_generate: b = PP_BATCH a data shard
+PP_DP, PP_DP_LAYERS, PP_DP_NEW = 2, 4, 16  # pp2dp2_generate: b = PP_BATCH a data shard
 LONG_PRESET, LONG_SP, LONG_PROMPT, LONG_NEW = "mistral-7b", 2, 8192, 50
 PP_WARMUP, LONG_WARMUP = 64, 256  # an untimed first call of each rank, this many tokens
 PIPELINE_TIMEOUT_S = 600
@@ -6213,7 +6349,8 @@ def _long_path(dev, work: str, backend: str) -> dict:
     from eetq_tpu_torch.models.transformer import init_caches
     from eetq_tpu_torch.serve.generate import decode_loop, prefill
 
-    path, cfg, sp = "long_generate", PRESETS[LONG_PRESET], LONG_SP
+    path, sp = "long_generate", LONG_SP
+    cfg = dataclasses.replace(PRESETS[LONG_PRESET], num_layers=LONG_LAYERS)
     seeds, p, n = (SEED + 70, SEED + 71), LONG_PROMPT, LONG_NEW
     prompt = torch.randint(0, cfg.vocab_size, (1, p), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(SEED + 72))
@@ -6280,7 +6417,8 @@ def _long_path(dev, work: str, backend: str) -> dict:
                        prefill_ms=r0["prefill_ms"], twin_prefill_ms=twin_prefill_ms,
                        generate_ms=r0["generate_ms"], exchanges=r0["prefill_collectives"],
                        exchange_ms=[dict(r["exchange_ms"], run_ms=r["split_ms"]) for r in res],
-                       backend=r0["backend"], sp=sp, prompt=p)}
+                       backend=r0["backend"], sp=sp, prompt=p,
+                       reduced=f"num_layers {PRESETS[LONG_PRESET].num_layers} -> {LONG_LAYERS}")}
 
 
 def pipeline_phase(dev) -> dict:
@@ -6302,8 +6440,10 @@ def pipeline_phase(dev) -> dict:
              "times model no NVLink deployment" if backend == "gloo" else ""))
     work = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
     try:
+        cut = dataclasses.replace(cfg, num_layers=PP_LAYERS)
         paths = {"pp2_generate": _pp_path(dev, work, choose_backend(PP_STAGES), "pp2_generate",
-                                          cfg, (SEED + 60, SEED + 61), PP_NEW, PP_STAGES, 1)}
+                                          cut, (SEED + 60, SEED + 61), PP_NEW, PP_STAGES, 1)}
+        paths["pp2_generate"]["reduced"] = f"num_layers {cfg.num_layers} -> {PP_LAYERS}"
         gc.collect()
         torch.cuda.empty_cache()
         cut = dataclasses.replace(cfg, num_layers=PP_TP_LAYERS)
@@ -6409,7 +6549,8 @@ def _main(args, phases) -> int:
         "int4": lambda: int4_phase(dev, args.profile),
         "mixtral": lambda: mixtral_phase(dev, profile=args.profile),
         "mixtral_int4": lambda: mixtral_phase(dev, int4=True, profile=args.profile),
-        "families": lambda: families_phase(dev),
+        "families": lambda: families_phase(dev, layers=FAMILY_LAYERS),
+        "presets": lambda: families_phase(dev, PRESET_MODELS),
         "sharded": lambda: sharded_phase(dev),
         "pipeline": lambda: pipeline_phase(dev),
     }
@@ -6439,6 +6580,7 @@ def _main(args, phases) -> int:
                            tooling=done.get("tooling"),
                            int4=done.get("int4"), mixtral=done.get("mixtral"),
                            mixtral_int4=done.get("mixtral_int4"), families=done.get("families"),
+                           presets=done.get("presets"),
                            sharded=done.get("sharded"), pipeline=done.get("pipeline"),
                            seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     if len(done) < len(PHASES):
@@ -6446,7 +6588,7 @@ def _main(args, phases) -> int:
         return 0
     paths = {}
     for phase in ("llama", "checkpoint", "lora", "tooling", "int4", "mixtral", "mixtral_int4",
-                  "families", "sharded", "pipeline"):
+                  "families", "presets", "sharded", "pipeline"):
         paths.update(done[phase]["paths"])
     kern = done["kernels"]
     kernels = [

@@ -102,3 +102,30 @@ def test_unit_gain_norms_zeroes_only_unit_offset_norms():
         chip_smoke.unit_gain_norms(params, cfg)
         norms = [params.final_norm, params.layers[0].input_norm, params.layers[0].post_norm]
         assert all(torch.equal(n, torch.full_like(n, 0.0 if offset else 1.0)) for n in norms)
+
+
+def test_preset_paths_name_their_models_kernels():
+    """The presets phase's paths (PRESET_MODELS): each preset of
+    `models/config.py` that no other phase builds, its linear kernels at its
+    bits (llama2-70b's int4 GEMV, GEMM and W4A8 admission), its decode
+    kernel by KV dtype, its engine's by pool and KV dtype, and no attention
+    variant: the checks of `check_launches` then hold every other kernel at
+    0."""
+    from eetq_tpu_torch.models.config import PRESETS
+
+    others = set(chip_smoke.FAMILIES) | {chip_smoke.MODEL, chip_smoke.MIXTRAL, "toy", "toy-moe"}
+    assert set(chip_smoke.PRESET_MODELS) == set(PRESETS) - others
+    assert list(chip_smoke.PRESET_MODELS)[-1] == "llama2-70b"  # the largest, last
+    paths = chip_smoke._family_paths(chip_smoke.PRESET_MODELS)
+    assert paths["llama70b_decode"] == ("w4a16_gemv", "w4a16_gemm", "flash_attention_fwd",
+                                        "flash_decode_int8")
+    assert paths["llama70b_paged_server"] == ("w4a16_gemv", "w4a8_gemm", "flash_attention_fwd",
+                                              "paged_flash_decode_int8")
+    assert paths["llama13b_decode"][-1] == "fused_mlp_gemv"
+    assert paths["llama3_paged_server"][-1] == "paged_flash_decode"
+    assert paths["tinyllama_paged_server"][-1] == "paged_flash_decode_int8"
+    assert set(paths["baichuan7_server"]) == set(chip_smoke.PATH_KERNELS["server"])
+    assert len(paths) == 2 * len(chip_smoke.PRESET_MODELS)
+    assert not any("[" in k for kernels in paths.values() for k in kernels)
+    assert all(chip_smoke.PATH_KERNELS[p] == k for p, k in paths.items())
+    assert "presets" in chip_smoke.PHASES

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from eetq_tpu_torch.kernels import KERNELS
-from eetq_tpu_torch.kernels.autotune import GEMV_BLOCK_N, gemv_splits, sm_count
+from eetq_tpu_torch.kernels.autotune import GEMV_BLOCK_N, gemv_split_floor, gemv_splits, sm_count
 from eetq_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from eetq_tpu_torch.kernels.flash_decode import (
     flash_decode,
@@ -2544,3 +2544,100 @@ def test_long_prefill_on_the_card(dev, tmp_path):
         assert r["launches"]["w8a16_gemm"] == 4 * cfg.num_layers, r["launches"]
         assert not r["launches"]["flash_attention_fwd"], r["launches"]
         assert r["counts"]["ppermute_count"] == 2 * 2 * cfg.num_layers, r["counts"]
+
+
+# The shapes of the presets that first run at full width in chip_smoke.py's
+# presets phase: llama2-70b's four layer shapes at int4 g = 128 (qkv, o_proj,
+# gate|up at K = 8192; down at K = 28672), llama3-8b's and baichuan-7b's int8
+# lm_heads (128,256 and 125,696 rows), the attention kernels at 64 q heads over
+# 8 (llama2-70b) and at 32 over 4 with head dim 64 (tinyllama-1.1b).
+LLAMA70B_SHAPES = [(8192, 10240), (8192, 8192), (8192, 57344), (28672, 8192)]
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", LLAMA70B_SHAPES)
+def test_int4_group_gemv_at_llama70b_shapes(dev, m, k, n):
+    """The int4 g = 128 GEMV (a b=1 decode step, an 8-slot engine step)
+    against its plain version, two launches bit-equal: at K = 28672 the K
+    split has the floor of 28672 rows of staged x and scale rows (the
+    scratch `gemv_scratch_size` gives it), summed in order."""
+    g = torch.Generator(device=dev).manual_seed(k + n + m)
+    q = torch.randint(-8, 8, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=4).data
+    splits = gemv_splits(data.shape[0], -(-n // GEMV_BLOCK_N), 1, 4, m, 128, sm_count(dev.index))
+    assert splits >= gemv_split_floor(data.shape[0], 4, m, 128)
+    if k == 28672:
+        assert splits > 1
+    scales = _scales(g, dev, k, n, 128)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    out = _twice(lambda: w4a16_gemv(x, data, scales, n))
+    assert out.shape == (m, n)
+    _close(out, w8a16_matmul_ref(x, q, scales))
+
+
+def _ref_in_rows(x, q, scales, rows: int = 128):
+    """w8a16_matmul_ref a block of rows at a time (its group-wise product
+    holds [rows, groups, N] in f32)."""
+    return torch.cat([w8a16_matmul_ref(x[i:i + rows], q, scales)
+                      for i in range(0, x.shape[0], rows)])
+
+
+@pytest.mark.parametrize("k,n", LLAMA70B_SHAPES)
+def test_int4_group_gemm_at_llama70b_shapes(dev, k, n):
+    """The group-wise int4 GEMM (its 256 x 64 tile) at a 1024-token prefill
+    of each llama2-70b layer shape, against its plain version; two launches
+    bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    q = torch.randint(-8, 8, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=4).data
+    scales = _scales(g, dev, k, n, 128)
+    x = torch.randn(1024, k, generator=g, device=dev).to(torch.bfloat16)
+    out = _twice(lambda: w4a16_gemm(x, data, scales, n))
+    assert out.shape == (1024, n)
+    _close(out, _ref_in_rows(x, q, scales))
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("n", [128256, 125696])
+def test_int8_lm_head_gemv_at_preset_vocabularies(dev, m, n):
+    """The int8 per-channel GEMV over llama3-8b's and baichuan-7b's heads
+    (K = 4096; 1002 and 982 column strips of 128), two launches
+    bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(n + m)
+    k = 4096
+    q = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    data = pack_weights(q, bits=8).data
+    scales = _scales(g, dev, k, n, None)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    out = _twice(lambda: w8a16_gemv(x, data, scales, n))
+    assert out.shape == (m, n)
+    _close(out, w8a16_matmul_ref(x, q, scales))
+
+
+PRESET_ATTENTION = [(64, 8, 128), (32, 4, 64)]  # (q heads, kv heads, head dim)
+
+
+@pytest.mark.parametrize("hq,hkv,d", PRESET_ATTENTION)
+def test_flash_attention_at_preset_heads(dev, hq, hkv, d):
+    """Prefill of a 1024-token prompt (the presets' b=1 paths) and of a
+    batch of two ragged prompts appended to cached keys."""
+    g = torch.Generator(device=dev).manual_seed(hq + d)
+    for b, sq, skv in ((1, 1024, 1024), (2, 300, 812)):
+        q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16)
+        kv = torch.randn(b, skv, 2 * hkv, d, generator=g, device=dev).to(torch.bfloat16)
+        k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+        out = _twice(lambda: flash_attention(q, k, v))
+        assert out.shape == q.shape
+        _close(out, flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("b,lengths", [(1, [1074]), (8, [1, 2048, 17, 1500, 300, 1024, 640, 2047])])
+@pytest.mark.parametrize("hq,hkv,d", PRESET_ATTENTION)
+def test_flash_decode_at_preset_heads(dev, mode, b, lengths, hq, hkv, d):
+    """The four flash-decode entry points at a b=1 step over 1074 keys and
+    an 8-slot step up to the engine's 2048, over a 2048-key cache (paged:
+    a permuted table of 256-key blocks); two launches bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(b + hq + d)
+    kernel, ref = _decode_calls(g, dev, mode, b, hq, hkv, d, lengths)
+    _close(_twice(kernel), ref())
