@@ -50,6 +50,7 @@ from __future__ import annotations
 import json
 import sys
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch.distributed as dist
@@ -199,9 +200,10 @@ class EngineServer:
                 except (KeyError, TypeError, ValueError) as e:
                     return self._json(400, {"error": f"bad request: {e}"})
                 stream = bool(req.get("stream", False))
+                received = time.monotonic_ns()  # in hand; the wait for the lock begins
                 try:
                     with outer.cond:
-                        uid = outer._admit(prompt, kwargs)
+                        uid = outer._admit(prompt, kwargs, received)
                         outer.cond.notify_all()  # wake the scheduler
                 except ValueError as e:  # over max_len, bad top_k or lora_id, ...
                     return self._json(400, {"error": str(e)})
@@ -269,10 +271,13 @@ class EngineServer:
 
     # ---- scheduler ----
 
-    def _admit(self, prompt, kwargs: dict) -> int:
-        """Add a request to the engine (under the lock); over ranks, record
-        its arguments for the next broadcast."""
+    def _admit(self, prompt, kwargs: dict, received: int | None = None) -> int:
+        """Add a request to the engine (under the lock), and give its trace
+        when the handler had it in hand (`time.monotonic_ns()`); over ranks,
+        record its arguments for the next broadcast."""
         uid = self.engine.add_request(prompt, **kwargs)
+        if received is not None:
+            self.engine.trace.receive(uid, received)
         if self._ranks:
             self._pending.append((uid, list(self.engine.requests[uid].prompt), dict(kwargs)))
         return uid

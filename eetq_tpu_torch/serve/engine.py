@@ -111,6 +111,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from collections import deque
 
 import numpy as np
@@ -124,6 +125,7 @@ from eetq_tpu_torch.modules.paged import init_paged_kv_cache, paged_insert_dense
 from eetq_tpu_torch.serve.graph import StepGraph
 from eetq_tpu_torch.serve.sampling import row_keys, rng_state, sample_pos_rows, sample_rows
 from eetq_tpu_torch.serve.spec import NgramWindow
+from eetq_tpu_torch.serve.tracing import Trace, register
 from eetq_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -158,6 +160,9 @@ class Engine:
         uid = eng.add_request([1, 2, 3], max_new_tokens=32)
         eng.run()                      # or step() incrementally
         tokens = eng.result(uid)
+
+    `eng.trace` is the serving trace (`serve/tracing.py`: request stamps,
+    steps and their phases).
     """
 
     def __init__(
@@ -318,6 +323,9 @@ class Engine:
         self.slot_req: list[Request | None] = [None] * max_batch
         self.lengths = np.zeros((max_batch,), np.int64)
         self.next_token = np.zeros((max_batch,), np.int64)
+        # the serving trace (serve/tracing.py): requests, steps, phases
+        self.trace = Trace()
+        register(self.trace)
         log.debug("engine: max_batch %d, max_len %d, kv %s, a8 prefill %s, paged blocks %s, "
                   "window %d, device %s", max_batch, self.max_len, kv_dtype, self.a8_prefill,
                   paged_blocks, self.decode_window, self.device)
@@ -334,6 +342,7 @@ class Engine:
         lora_id: int = 0,
         on_token=None,
     ) -> int:
+        added = time.monotonic_ns()  # the trace's stamp
         prompt = [int(t) for t in np.asarray(prompt).ravel()]
         if not prompt:
             raise ValueError("empty prompt")
@@ -370,6 +379,7 @@ class Engine:
         )
         self.queue.append(r)
         self.requests[r.uid] = r
+        self.trace.add(r.uid, added)
         return r.uid
 
     def result(self, uid: int) -> list[int]:
@@ -530,6 +540,8 @@ class Engine:
         into its own slot, and the first tokens are gathered over `data`."""
         rows = self.prefill_rows
         bucket = max(self._bucket_for(len(r.prompt)) for _, _, r in assignments)
+        tr = self.trace
+        tr.begin_admission([req for _, _, req in assignments], bucket, rows)
         toks = np.zeros((rows, bucket), np.int64)
         lens = np.ones((rows,), np.int64)  # dummy rows: 1 token, discarded
         temps = np.zeros((rows,), np.float32)
@@ -589,7 +601,9 @@ class Engine:
         elif local:
             self._insert_scratch(torch.as_tensor([row for row, _, _ in local], device=dev),
                                  torch.as_tensor([slot for _, slot, _ in local], device=dev), upto)
+        tr.mark("launched")
         first_np = self._gather(first).cpu().numpy()  # the admission's one host fetch
+        tr.mark("fetched")
         for row, slot, req in assignments:
             self._set_lora(slot, req.lora_id)
             self.slot_req[slot] = req
@@ -597,6 +611,7 @@ class Engine:
             tok = int(first_np[row])
             self.next_token[slot] = tok
             self._commit(slot, tok)
+        tr.mark("committed")
 
     def _chunk_eligible(self, req: Request) -> bool:
         """Whether `req` prefills by chunks: prefill_chunk set, and its bucket
@@ -626,6 +641,7 @@ class Engine:
         sampler, hand scratch row 0 to the slot and activate it."""
         req, slot, toks, bucket, done, last_logits = self._chunking
         c, n, rows, dev = self.prefill_chunk, len(req.prompt), self.prefill_rows, self.device
+        self.trace.path("chunk")
         offset = done * c
         tokens = torch.as_tensor(toks[:, offset:offset + c], device=dev)
         positions = torch.arange(offset, offset + c, device=dev).expand(rows, c)
@@ -680,6 +696,7 @@ class Engine:
             self.lengths[slot] = 0
             if self.paged:
                 self._release_blocks(slot)
+            self.trace.finish(req.uid)
 
     def _program(self, window: int, sample: bool) -> tuple[StepGraph, torch.Tensor]:
         """The decode program of `window` lock-step steps over the rank's
@@ -748,6 +765,8 @@ class Engine:
         `eetq_tpu/dist/sharding.py:419-420`, where the shards may differ)."""
         k = self.spec_ngram
         sample = bool(temps.any())
+        tr = self.trace
+        tr.begin_decode(window, 1, self._busy(), spec=True)
         if self.paged:
             # the rounds write KV up to lengths + window - 1 + k for every
             # committed position: blocks for all of it, so no accepted
@@ -773,12 +792,16 @@ class Engine:
         r = self._rows
         prog.load(hist[r], valid[r], self.next_token[r], np.maximum(self.lengths, 1)[r],
                   *(a[r] for a in sample_args))
+        tr.mark("uploaded")
         out, counts, rounds = prog.run()
         if self.dp > 1:  # the shards may have run different numbers of rounds
             rounds = int(self.mesh.all_reduce_(torch.tensor([rounds], device=self.device),
                                                DATA_AXIS, op="max").item())
         self.spec_rounds += rounds
-        return self._gather(out).cpu().numpy(), self._gather(counts).cpu().numpy()
+        tr.mark("launched")
+        toks, counts = self._gather(out).cpu().numpy(), self._gather(counts).cpu().numpy()
+        tr.mark("fetched")
+        return toks, counts
 
     def _decode(self, window: int, chain: int, temps: np.ndarray, topks: np.ndarray) -> np.ndarray:
         """`chain` windows of `window` lock-step steps over the rank's slots,
@@ -786,6 +809,8 @@ class Engine:
         never committed). Returns the sampled tokens [max_batch, window *
         chain], the chain's one host fetch (gathered over `data`)."""
         sample = bool(temps.any())
+        tr = self.trace
+        tr.begin_decode(window, chain, self._busy())
         keys = np.zeros((self.max_batch,), np.int64)
         emit = np.zeros((self.max_batch,), np.int64)
         if sample and self.mesh is not None:
@@ -796,19 +821,39 @@ class Engine:
         self._state.copy_(torch.from_numpy(state[:, self._rows].astype(np.int64)))
         if sample:
             self._temps.copy_(torch.from_numpy(temps[self._rows]))
+        tr.mark("uploaded")
         program, out = self._program(window, sample)
         parts = []
         for _ in range(chain):
             program()
             parts.append(out if chain == 1 else out.clone())
-        return self._gather(parts[0] if chain == 1 else torch.cat(parts, dim=1)).cpu().numpy()
+        tr.mark("launched")
+        toks = self._gather(parts[0] if chain == 1 else torch.cat(parts, dim=1)).cpu().numpy()
+        tr.mark("fetched")
+        return toks
+
+    def _busy(self) -> tuple:
+        """(length, remaining budget) of each busy slot, in slot order: the
+        trace's record of a decode call as it begins."""
+        return tuple([(n, r.max_new_tokens - len(r.out_tokens))
+                      for n, r in zip(self.lengths.tolist(), self.slot_req)
+                      if n > 0 and r is not None])
 
     def step(self) -> None:
         """One scheduler step: advance a chunked prefill in flight by one
         chunk, or start one for a chunk-eligible queue head, or admit queued
         requests into free slots (one grouped prefill); then advance every
         active slot by a decode window, or a chain of them, in the same step
-        (engine.py:1293-1473)."""
+        (engine.py:1293-1473). Traced as one `tracing.Step`."""
+        self.trace.begin_step()
+        try:
+            self._advance()
+        finally:
+            self.trace.end_step()
+
+    def _advance(self) -> None:
+        """The work of one `step()`."""
+        tr = self.trace
         if self._chunking is not None:
             self._chunk_step()
         elif self.queue and self._chunk_eligible(self.queue[0]):
@@ -860,6 +905,7 @@ class Engine:
                     self.next_token[i] = tok
                     self.spec_tokens += 1
                     self._commit(i, tok)
+            tr.mark("committed")
             return
         chain = 1
         if (window > 1 and not self.queue and self._free_slot() is None
@@ -883,6 +929,7 @@ class Engine:
                 self.lengths[i] += 1
                 self.next_token[i] = tok
                 self._commit(i, tok)
+        tr.mark("committed")
 
     def run(self, max_steps: int | None = None) -> None:
         steps = 0
